@@ -1,0 +1,450 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch / CUDA port (``src/repro_torch``) on one
+NVIDIA GPU.
+
+    python3 chip_smoke.py          # from the root of a checkout
+
+Phases, each printing one JSON line; any failure exits non-zero at once:
+
+1. device   -- a CUDA device is required; prints nvidia-smi's name and power limit.
+2. build    -- compiles the CUDA kernels from src/repro_torch/csrc with nvcc.
+3. kernels  -- each kernel against its plain PyTorch version on the card at the
+               serve shapes (prefill B=8, S=1000, H=16, K=8, hd=128, causal;
+               decode B=8, T=1032, cur_len 1 / 777 / 1032), bf16 and fp32, with
+               the kernel's, the plain version's and the library call's
+               (F.scaled_dot_product_attention, a yardstick only) times and the
+               card's bound for the same work.
+4. slice    -- qwen3-0.6b at full width, 2 layers, fp32: the same weights on the
+               CPU (plain versions) and on the card (kernels), B=2, prompt 128,
+               4 decode steps; logits compared.
+5. serve    -- full qwen3-0.6b (28 layers, bf16, seeded random weights): 8
+               requests of 1000 prompt tokens, 32 greedy tokens each, through
+               the port's prefill and decode steps. Launch counts are zeroed
+               just before and read just after: 28 prefill-kernel and 28 x 31
+               decode-kernel launches.
+6. trace    -- torch.profiler over one prefill and over 4 decode steps: device
+               busy share and the kernels that take the device time.
+
+Then one {"kernels": [...]} line, the card's name and power limit, and last
+{"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+PREFILL = dict(b=8, s=1000, h=16, kh=8, hd=128)
+DECODE = dict(b=8, t=1032, h=16, kh=8, hd=128, cur_lens=(1, 777, 1032))
+SERVE = dict(batch=8, prompt=1000, gen=32)
+# kernel against plain: the tolerances of tests/test_kernels.py
+TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# whole slice, card against CPU, fp32: the tolerance of the reference's
+# test_prefill_decode_matches_forward
+SLICE_TOL = 2e-4
+L2_BYTES = 50 * 10**6
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def device_events(torch, prof) -> list:
+    """(name, microseconds) of every activity the device ran (kernels,
+    copies, fills) in a torch.profiler trace, as CUPTI timed it."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(ev.name, ev.time_range.elapsed_us()) for ev in prof.events()
+            if ev.device_type == cuda]
+
+
+def time_ms(torch, fn, args_list, iters: int) -> float:
+    """Mean device time of one call: the summed durations of the device
+    activities it launches, over ``iters`` calls that cycle through
+    ``args_list`` (copies of the inputs, together larger than L2, so that
+    each call reads its inputs from device memory). Host time between
+    launches is not counted."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args_list[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*args_list[i % len(args_list)])
+        torch.cuda.synchronize()
+    total_us = sum(us for _, us in device_events(torch, prof))
+    if total_us <= 0:
+        fail("the profiler saw no device activity")
+    return total_us / 1e3 / iters
+
+
+def host_us(torch, fn, args, iters: int = 200) -> float:
+    """Host time to enqueue one call (checks, allocation, launch), by the
+    host clock around ``iters`` calls, excluding the final synchronize."""
+    fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn(*args)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e6 / iters
+
+
+def input_copies(tensors) -> list:
+    """The inputs and enough clones of them to hold twice the L2 cache."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    n = max(2, math.ceil(2 * L2_BYTES / nbytes) + 1)
+    return [tuple(tensors)] + [tuple(t.clone() for t in tensors) for _ in range(n - 1)]
+
+
+def check_close(name: str, out, ref, tol: float) -> float:
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    bad = (diff > tol + tol * ref.float().abs()).sum().item()
+    if not math.isfinite(err) or bad:
+        fail(f"{name}: {bad} elements beyond rtol=atol={tol}, max abs err {err}")
+    return err
+
+
+def ptxas_summary(log: str) -> list:
+    """Registers and spill bytes of each compiled kernel instantiation, from
+    nvcc's ``-Xptxas -v`` output (empty when the library was already built)."""
+    rows = re.findall(r"Compiling entry function '\w*?\d([a-z_]+_kernel)I(\w+?)EEv\w*'.*?"
+                      r"(\d+) bytes spill stores.*?Used (\d+) registers", log, re.S)
+    return [dict(kernel=f"{name}<{args}>", spill_store_bytes=int(sp), registers=int(r))
+            for name, args, sp, r in rows]
+
+
+def phase_kernels(torch, F):
+    from repro_torch.kernels import decode_attn, flash_attention, ops
+    from repro_torch.kernels.ref import decode_attention_ref
+    from repro_torch.roofline.hw import bound_seconds
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = {"flash_attention": {}, "decode_attention": {}}
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    p = PREFILL
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        q = rand((p["b"], p["s"], p["h"], p["hd"]), dtype)
+        k = rand((p["b"], p["s"], p["kh"], p["hd"]), dtype)
+        v = rand((p["b"], p["s"], p["kh"], p["hd"]), dtype)
+        out = flash_attention.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        ref = ops.flash_attention_plain(q, k, v, causal=True)
+        err = check_close(f"flash_attention {dname}", out, ref, TOL[dname])
+        per_call = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        args = input_copies((q, k, v))
+        kernel = lambda a, b_, c: flash_attention.flash_attention(a, b_, c, causal=True)  # noqa: E731
+        ms = time_ms(torch, kernel, args, 20)
+        launch_us = host_us(torch, kernel, args[0], 20)
+        plain_ms = time_ms(torch, lambda a, b_, c: ops.flash_attention_plain(a, b_, c, causal=True),
+                           args, 3)
+        library_ms = time_ms(torch, lambda a, b_, c: F.scaled_dot_product_attention(
+            a.transpose(1, 2), b_.transpose(1, 2), c.transpose(1, 2), is_causal=True,
+            enable_gqa=True), args, 20)
+        pairs = p["s"] * (p["s"] + 1) // 2                   # causal (q, k) pairs
+        flops = 4 * p["b"] * p["h"] * p["hd"] * pairs
+        bound_s, bound_by = bound_seconds(flops, per_call, dname)
+        row = dict(kernel="flash_attention", dtype=dname, shape=p, causal=True,
+                   max_abs_err=err, tol=TOL[dname], ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound_s * 1e3, bound_by=bound_by,
+                   host_us_per_launch=launch_us, gflop=flops / 1e9, mbytes=per_call / 1e6)
+        results["flash_attention"][dname] = row
+        emit("kernels", **row)
+        del q, k, v, out, ref, args
+
+    d = DECODE
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        q = rand((d["b"], 1, d["h"], d["hd"]), dtype)
+        kc = rand((d["b"], d["t"], d["kh"], d["hd"]), dtype)
+        vc = rand((d["b"], d["t"], d["kh"], d["hd"]), dtype)
+        args = input_copies((q, kc, vc))
+        rows = []
+        for cur_len in d["cur_lens"]:
+            out = decode_attn.decode_attention(q, kc, vc, cur_len)
+            torch.cuda.synchronize()
+            ref = decode_attention_ref(q, kc, vc, cur_len)
+            err = check_close(f"decode_attention {dname} cur_len={cur_len}", out, ref,
+                              TOL[dname])
+            per_call = (2 * q.numel() + 2 * d["b"] * cur_len * d["kh"] * d["hd"]) \
+                * q.element_size()
+            kernel = lambda a, b_, c: decode_attn.decode_attention(a, b_, c, cur_len)  # noqa: E731
+            ms = time_ms(torch, kernel, args, 50)
+            launch_us = host_us(torch, kernel, args[0])
+            plain_ms = time_ms(torch, lambda a, b_, c: decode_attention_ref(a, b_, c, cur_len),
+                               args, 10)
+            library_ms = time_ms(torch, lambda a, b_, c: F.scaled_dot_product_attention(
+                a.transpose(1, 2), b_[:, :cur_len].transpose(1, 2),
+                c[:, :cur_len].transpose(1, 2), enable_gqa=True), args, 50)
+            flops = 4 * d["b"] * d["h"] * d["hd"] * cur_len
+            bound_s, bound_by = bound_seconds(flops, per_call, dname)
+            row = dict(kernel="decode_attention", dtype=dname,
+                       shape={k_: v_ for k_, v_ in d.items() if k_ != "cur_lens"},
+                       cur_len=cur_len, max_abs_err=err, tol=TOL[dname], ms=ms,
+                       plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound_s * 1e3, bound_by=bound_by,
+                       host_us_per_launch=launch_us, mflop=flops / 1e6,
+                       mbytes=per_call / 1e6)
+            rows.append(row)
+            emit("kernels", **row)
+        results["decode_attention"][dname] = rows
+        del q, kc, vc, args
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_slice(torch):
+    """Full width, 2 layers, fp32: CPU (plain versions) against the card
+    (kernels), the same weights and the same tokens."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attn, flash_attention
+    from repro_torch.models import build_model
+    from repro_torch.train.serve import build_decode_step, build_prefill_step
+
+    import numpy as np
+    cfg = dataclasses.replace(get_arch("qwen3-0.6b"), num_layers=2, dtype="float32")
+    b, prompt, steps = 2, 128, 4
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = build_model(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (b, prompt)))
+    max_len = prompt + steps + 1
+
+    flash_attention.flash_attention.launches = 0
+    decode_attn.decode_attention.launches = 0
+    errs = []
+    runs = {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("cuda", card, "cuda")):
+        prefill, decode = build_prefill_step(model), build_decode_step(model)
+        logits, cache = prefill(tokens.to(dev), max_len)
+        outs = [logits.cpu()]
+        for step in range(steps):
+            # both sides take the CPU's greedy token
+            tok = (runs["cpu"] if name == "cuda" else outs)[step].argmax(-1)
+            logits, cache = decode(cache, tok.to(dev))
+            outs.append(logits.cpu())
+        runs[name] = outs
+    for ref, out in zip(runs["cpu"], runs["cuda"]):
+        if out.shape != (b, cfg.padded_vocab) or not torch.isfinite(out).all():
+            fail(f"slice: logits of shape {tuple(out.shape)} or not finite")
+        errs.append(check_close("slice logits card vs cpu", out, ref, SLICE_TOL))
+    launches = (flash_attention.flash_attention.launches, decode_attn.decode_attention.launches)
+    if launches != (cfg.num_layers, cfg.num_layers * steps):
+        fail(f"slice: kernel launches {launches}, expected "
+             f"({cfg.num_layers}, {cfg.num_layers * steps})")
+    emit("slice", config="qwen3-0.6b full width, 2 layers, fp32", batch=b, prompt=prompt,
+         decode_steps=steps, max_abs_err_per_step=errs, tol=SLICE_TOL,
+         flash_launches=launches[0], decode_launches=launches[1])
+    del cpu, card
+    torch.cuda.empty_cache()
+
+
+def serve_once(torch, prefill, decode, tokens, max_len, gen):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(tokens, max_len)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    finite = torch.isfinite(logits).all()
+    tok = logits.argmax(-1)
+    out = [tok]
+    t0 = time.perf_counter()
+    for _ in range(gen - 1):
+        logits, cache = decode(cache, tok)
+        finite &= torch.isfinite(logits).all()
+        tok = logits.argmax(-1)
+        out.append(tok)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    return torch.stack(out, 1), bool(finite), t_prefill, t_decode, logits.shape
+
+
+def serve_bounds(cfg, params: int, b: int, prompt: int, gen: int):
+    """The card's least time for the serve run's prefill and for its mean
+    decode step, bf16: weight bytes read once, KV cache bytes written or
+    read once, and the matrix products' and attention's operations."""
+    from repro_torch.roofline.hw import bound_seconds
+    L, kh, h, hd = cfg.num_layers, cfg.num_kv_heads, cfg.num_heads, cfg.resolved_head_dim
+    n_head = cfg.padded_vocab * cfg.d_model          # tied embedding / head
+    n_body = params - n_head
+    weight_bytes = 2 * params
+    kv_bytes_per_pos = 2 * L * b * kh * hd * 2        # K and V, all layers, bf16
+    prefill_flops = (2 * n_body * b * prompt + 2 * n_head * b
+                     + L * 4 * b * h * hd * prompt * (prompt + 1) // 2)
+    prefill = bound_seconds(prefill_flops, weight_bytes + kv_bytes_per_pos * prompt,
+                            "bfloat16")
+    lens = range(prompt + 1, prompt + gen)             # attended lengths per step
+    steps = gen - 1
+    decode_flops = 2 * params * b + L * 4 * b * h * hd * sum(lens) / steps
+    decode_bytes = weight_bytes + kv_bytes_per_pos * sum(lens) / steps
+    return prefill, bound_seconds(decode_flops, decode_bytes, "bfloat16")
+
+
+def phase_serve(torch):
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attn, flash_attention
+    from repro_torch.models import build_model, param_count
+    from repro_torch.train.serve import build_decode_step, build_prefill_step
+
+    cfg = get_arch("qwen3-0.6b")
+    model = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    prefill, decode = build_prefill_step(model), build_decode_step(model)
+    b, prompt, gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (b, prompt))).cuda()
+    warm, *_ = serve_once(torch, prefill, decode, tokens, prompt + gen, gen)
+
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.flash_attention.launches = 0
+    decode_attn.decode_attention.launches = 0
+    seqs, finite, t_prefill, t_decode, shape = serve_once(
+        torch, prefill, decode, tokens, prompt + gen, gen)
+    launches = {"flash_attention": flash_attention.flash_attention.launches,
+                "decode_attention": decode_attn.decode_attention.launches}
+    expected = {"flash_attention": cfg.num_layers,
+                "decode_attention": cfg.num_layers * (gen - 1)}
+    if launches != expected:
+        fail(f"serve: kernel launches {launches}, expected {expected}")
+    if not finite or tuple(shape) != (b, cfg.padded_vocab):
+        fail(f"serve: logits not finite or of shape {tuple(shape)}")
+    if seqs.shape != (b, gen) or not ((seqs >= 0) & (seqs < cfg.padded_vocab)).all():
+        fail("serve: generated tokens out of range")
+    prefill_bound, decode_bound = serve_bounds(cfg, param_count(cfg), b, prompt, gen)
+    row = dict(config="qwen3-0.6b full (28 layers, bf16)", params=param_count(cfg),
+               batch=b, prompt=prompt, gen=gen, prefill_ms=t_prefill * 1e3,
+               prefill_bound_ms=prefill_bound[0] * 1e3, prefill_bound_by=prefill_bound[1],
+               decode_steps=gen - 1, decode_ms_per_step=t_decode * 1e3 / (gen - 1),
+               decode_step_bound_ms=decode_bound[0] * 1e3, decode_step_bound_by=decode_bound[1],
+               decode_tok_s=b * (gen - 1) / t_decode,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=launches, logits_finite=finite,
+               repeat_identical=bool((warm == seqs).all()),
+               first_sequence=seqs[0].tolist())
+    emit("serve", **row)
+    return model, prefill, decode, tokens, row
+
+
+def device_share(torch, fn):
+    """Profile ``fn``: wall ms (host clock, ending in a synchronize), the
+    device's busy ms (summed device activity, one stream) and its share of
+    the wall time, and the activities that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for name, us in device_events(torch, prof):
+        total, calls = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + us, calls + 1)
+    busy_ms = sum(total for total, _ in by_name.values()) / 1e3
+    if busy_ms <= 0:
+        fail("the profiler saw no device activity")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
+                device_activities=sum(calls for _, calls in by_name.values()),
+                top=[dict(name=n[:90], device_ms=t / 1e3, calls=c) for n, (t, c) in top])
+
+
+def phase_trace(torch, prefill, decode, tokens):
+    prompt, gen = SERVE["prompt"], SERVE["gen"]
+    state = {}
+
+    def run_prefill():
+        state["logits"], state["cache"] = prefill(tokens, prompt + gen)
+
+    def run_decode():
+        logits, cache = state["logits"], state["cache"]
+        for _ in range(4):
+            logits, cache = decode(cache, logits.argmax(-1))
+
+    emit("trace", part="prefill", **device_share(torch, run_prefill))
+    emit("trace", part="decode x4", **device_share(torch, run_decode))
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA GPU")
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False      # full fp32 comparisons
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    emit("device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+         name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
+
+    path, build_s, log = _build.build()
+    emit("build", seconds=build_s, library=str(path.relative_to(ROOT)),
+         sources=[str(s.relative_to(ROOT)) for s in _build._sources()],
+         ptxas=ptxas_summary(log))
+
+    kernels = phase_kernels(torch, F)
+    phase_slice(torch)
+    model, prefill, decode, tokens, serve = phase_serve(torch)
+    phase_trace(torch, prefill, decode, tokens)
+
+    fa = kernels["flash_attention"]["bfloat16"]
+    da = kernels["decode_attention"]["bfloat16"]
+    da_main = da[-1]                                  # cur_len 1032 = the cache length
+    line = [
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:25",
+             tpu_kernel="_flash_fwd_kernel (pl.pallas_call at flash_attention.py:80)",
+             launches=serve["launches"]["flash_attention"],
+             max_abs_err=fa["max_abs_err"], tol=fa["tol"], shape=fa["shape"],
+             dtype="bfloat16", ms=fa["ms"], plain_ms=fa["plain_ms"],
+             bound_ms=fa["bound_ms"], bound_by=fa["bound_by"], library_ms=fa["library_ms"]),
+        dict(name="decode_attention", route="cuda",
+             source="src/repro_torch/csrc/decode_attn.cu",
+             replaces="src/repro/kernels/decode_attn.py:24",
+             tpu_kernel="_decode_kernel (pl.pallas_call at decode_attn.py:71)",
+             launches=serve["launches"]["decode_attention"],
+             max_abs_err=max(r["max_abs_err"] for r in da), tol=da_main["tol"],
+             shape=da_main["shape"], cur_len=da_main["cur_len"], dtype="bfloat16",
+             ms=da_main["ms"], plain_ms=da_main["plain_ms"],
+             bound_ms=da_main["bound_ms"], bound_by=da_main["bound_by"],
+             library_ms=da_main["library_ms"]),
+    ]
+    print(json.dumps({"kernels": line}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,110 @@
+"""Architecture & shape registry (the port's own copy of ``repro.configs``).
+
+Configs are pure data. The port keeps its own copy so that it never imports
+the JAX package; only the configs the port can build are registered.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from dataclasses import dataclass
+from typing import Dict
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    """One architecture. All sizes are the *full* production config. Only
+    the fields the dense slice reads are kept; each later slice adds the
+    fields of the families it ports."""
+
+    name: str
+    family: str  # only "dense" builds; the others name their ROADMAP item
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // num_heads
+    # --- MLP / norm flavor ---
+    mlp_type: str = "swiglu"  # swiglu | geglu | sq_relu | gelu
+    use_qk_norm: bool = False
+    tie_embeddings: bool = False
+    rope_theta: float = 10_000.0
+    # --- numerics ---
+    dtype: str = "bfloat16"
+    source: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // self.num_heads if self.num_heads else 0
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded to a multiple of 256 (Megatron-style)."""
+        return _round_up(self.vocab_size, 256)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+    requires_sub_quadratic: bool = False
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode",
+                             requires_sub_quadratic=True),
+}
+
+_REGISTRY: Dict[str, ArchConfig] = {}
+
+# Config modules ported so far (the JAX registry holds eleven).
+_MODULES = ("qwen3_0_6b",)
+
+
+def register(cfg: ArchConfig) -> ArchConfig:
+    if cfg.name in _REGISTRY:
+        raise ValueError(f"duplicate arch {cfg.name}")
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def _load_all() -> None:
+    for mod in _MODULES:
+        importlib.import_module(f"repro_torch.configs.{mod}")
+
+
+def get_arch(name: str) -> ArchConfig:
+    if not _REGISTRY:
+        _load_all()
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}") from None
+
+
+def reduce_for_smoke(cfg: ArchConfig) -> ArchConfig:
+    """Shrink a production config to a CPU-smoke-testable size, by the rules
+    of ``repro.configs.reduce_for_smoke`` for the dense family."""
+    if cfg.num_kv_heads == 1:
+        kv_heads = 1
+    elif cfg.num_kv_heads < cfg.num_heads:
+        kv_heads = min(cfg.num_kv_heads, 2)
+    else:
+        kv_heads = 4
+    return dataclasses.replace(
+        cfg, name=cfg.name + "-smoke", num_layers=min(cfg.num_layers, 2),
+        d_model=64, num_heads=4, num_kv_heads=kv_heads, head_dim=16,
+        d_ff=128, vocab_size=256)

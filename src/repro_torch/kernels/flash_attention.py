@@ -1,0 +1,74 @@
+"""Prefill attention forward: the wrapper of the CUDA kernel in
+``csrc/flash_attention.cu`` (port of the Pallas kernel
+``repro/kernels/flash_attention.py``).
+
+The kernel reads q (B, Sq, H, hd) and k, v (B, Skv, K, hd) through their
+strides, maps q head h to kv head h // (H/K) without repeating kv heads, and
+masks ragged lengths. Forward only: serving needs no gradient.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+HEAD_DIMS = (16, 32, 64, 128)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_operands(kernel: str, **tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a 4-d CUDA tensor on the first one's
+    device and of its dtype (float32 or bfloat16), with head_dim (the last
+    axis) contiguous and every stride and the data pointer 16-byte aligned:
+    the kernels load 16 bytes at a time along head_dim."""
+    first = next(iter(tensors.values()))
+    for name, t in tensors.items():
+        where = f"{kernel} kernel: {name}"
+        if not t.is_cuda:
+            raise ValueError(f"{where} is on {t.device}, not CUDA")
+        if t.device != first.device:
+            raise ValueError(f"{where} is on {t.device}, not {first.device}")
+        if t.dim() != 4:
+            raise ValueError(f"{where} must be 4-d, got {tuple(t.shape)}")
+        if t.dtype not in DTYPES or t.dtype != first.dtype:
+            raise ValueError(f"{where} dtype {t.dtype}; need all float32 or all bfloat16")
+        per16 = 16 // t.element_size()
+        if t.stride(-1) != 1 or any(s % per16 for s in t.stride()[:-1]) \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{where}: strides {t.stride()} must be 1 on head_dim "
+                             f"and 16-byte aligned elsewhere, as the data pointer")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k, v: (B, Skv, K, hd) with K dividing H, on CUDA.
+    Returns (B, Sq, H, hd) in q's dtype. Position i of q attends to kv
+    positions <= i when ``causal`` (no offset), as blockwise_attention."""
+    check_operands("flash_attention", q=q, k=k, v=v)
+    b, sq, h, hd = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
+        raise ValueError(f"flash_attention kernel: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if h % kh or hd not in HEAD_DIMS or min(b, sq, skv) < 1 or b * h > 65535:
+        raise ValueError(f"flash_attention kernel: unsupported H={h}, K={kh}, "
+                         f"hd={hd}, B={b}, Sq={sq}, Skv={skv}")
+    o = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        err = lib.repro_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            DTYPES[q.dtype], b, sq, skv, h, kh, hd,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            int(causal), 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0

@@ -1,0 +1,42 @@
+"""Dispatch for the kernels, the counterpart of ``repro.kernels.ops``.
+
+A tensor on the CPU goes to the plain PyTorch version, the function the
+kernel stands in for at its call site: ``flash_attention_plain`` here and
+``ref.decode_attention_ref``. A CUDA tensor goes to the CUDA
+kernel, which raises on what it does not take: there is no fallback from
+the card to a plain version. Each kernel wrapper counts its launches in
+``<wrapper>.launches`` (``kernels.flash_attention.flash_attention`` and
+``kernels.decode_attn.decode_attention``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import decode_attn as _dec
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels.ref import decode_attention_ref
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool = True) -> torch.Tensor:
+    """blockwise_attention over head-repeated k/v: the reference's prefill
+    call site (``self_attention_prefill``)."""
+    from repro_torch.models.attention import blockwise_attention, repeat_kv
+    h = q.shape[2]
+    return blockwise_attention(q, repeat_kv(k, h), repeat_kv(v, h), causal=causal)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k, v: (B, Skv, K, hd). Returns (B, Sq, H, hd)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal)
+    return _fa.flash_attention(q, k, v, causal=causal)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     cur_len: int) -> torch.Tensor:
+    """q: (B, 1, H, hd); caches (B, T, K, hd); cur_len a host int."""
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k_cache, v_cache, cur_len)
+    return _dec.decode_attention(q, k_cache, v_cache, cur_len)

@@ -1,0 +1,196 @@
+"""The dense decoder-only LM (port of ``_build_decoder_lm`` in
+``repro.models.transformer``): ``init``, ``forward``, ``prefill``,
+``decode_step`` and ``cache_specs``.
+
+Parameters mirror the reference's tree (``embed.w``, ``blocks[i].ln1``,
+``blocks[i].attn.wq``, ..., ``final_norm``) with one module per layer
+instead of arrays stacked on a leading layer axis. The reference's
+``scan_layers`` is a Python loop over ``self.blocks`` here, and its
+``constrain`` / ``unshard_layer_params`` sharding hooks are identities on
+one device, so they are left out.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from repro_torch.configs import ArchConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (embed_init, embed_lookup, mlp_apply,
+                                       mlp_init, rms_norm, unembed)
+
+# Families the port cannot build yet, with the ROADMAP §1 item that ports them.
+_NOT_PORTED = {
+    "moe": "ROADMAP §1 item 11 (models/moe.py)",
+    "vlm": "ROADMAP §1 item 11 (the VLM patch path)",
+    "encdec": "ROADMAP §1 item 11 (_build_encdec)",
+    "ssm": "ROADMAP §1 item 10 (models/mamba2.py, _build_ssm_lm)",
+    "hybrid": "ROADMAP §1 item 10 (_build_hybrid_lm)",
+}
+
+
+def torch_dtype(cfg: ArchConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def resolve_device(device=None) -> torch.device:
+    """Entry points run on CUDA unless the caller names another device; with
+    no device and no GPU they raise instead of falling back to the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                               "plain PyTorch path on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class Block(nn.Module):
+    """RMSNorm -> GQA self-attention -> residual -> RMSNorm -> MLP -> residual."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        self.cfg = cfg
+        self.ln1 = _param((d,), dtype, device)
+        self.attn = attn.attn_init(cfg, dtype, device)
+        self.ln2 = _param((d,), dtype, device)
+        mlp = {"w_up": _param((d, cfg.d_ff), dtype, device),
+               "w_down": _param((cfg.d_ff, d), dtype, device)}
+        if cfg.mlp_type in ("swiglu", "geglu"):
+            mlp["w_gate"] = _param((d, cfg.d_ff), dtype, device)
+        self.mlp = nn.ParameterDict(mlp)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        self.ln1.zero_()
+        self.ln2.zero_()
+        attn.init_attn(self.attn, self.cfg, generator)
+        mlp_init(generator, self.mlp, self.cfg.d_model, self.cfg.d_ff)
+
+    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
+        return x + mlp_apply(self.mlp, rms_norm(x, self.ln2), self.cfg.mlp_type)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + attn.self_attention(self.attn, self.cfg, rms_norm(x, self.ln1))
+        return self._mlp(x)
+
+    def prefill(self, x, k_cache, v_cache) -> torch.Tensor:
+        x = x + attn.self_attention_prefill(self.attn, self.cfg,
+                                            rms_norm(x, self.ln1), k_cache, v_cache)
+        return self._mlp(x)
+
+    def decode(self, x, k_cache, v_cache, index: int) -> torch.Tensor:
+        x = x + attn.self_attention_decode(self.attn, self.cfg, rms_norm(x, self.ln1),
+                                           k_cache, v_cache, index)
+        return self._mlp(x)
+
+
+class DecoderLM(nn.Module):
+    """Dense decoder LM over the padded vocabulary, tied or untied head."""
+
+    def __init__(self, cfg: ArchConfig, device=None, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet: "
+                f"{_NOT_PORTED.get(cfg.family, 'not on the ROADMAP')}")
+        device = torch.device(device) if device is not None else resolve_device()
+        dtype = dtype or torch_dtype(cfg)
+        self.cfg = cfg
+        v, d = cfg.padded_vocab, cfg.d_model
+        self.embed = nn.ParameterDict({"w": _param((v, d), dtype, device)})
+        self.blocks = nn.ModuleList(Block(cfg, dtype, device)
+                                    for _ in range(cfg.num_layers))
+        self.final_norm = _param((d,), dtype, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.ParameterDict({"w": _param((v, d), dtype, device)})
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed["w"].device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.embed["w"].dtype
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "DecoderLM":
+        """Random weights from ``generator`` with the reference's
+        distributions (N(0, 0.02) embeddings, fan-in scaled projections,
+        zero norms). Returns self."""
+        cfg = self.cfg
+        self.embed["w"].copy_(embed_init(generator, cfg.padded_vocab, cfg.d_model,
+                                         torch.float32))
+        for blk in self.blocks:
+            blk.init(generator)
+        self.final_norm.zero_()
+        if not cfg.tie_embeddings:
+            self.lm_head["w"].copy_(embed_init(generator, cfg.padded_vocab,
+                                               cfg.d_model, torch.float32))
+        return self
+
+    def _head(self) -> torch.Tensor:
+        return self.embed["w"] if self.cfg.tie_embeddings else self.lm_head["w"]
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (B, S) -> fp32 logits (B, S, padded_vocab), causal."""
+        x = embed_lookup(self.embed["w"], tokens)
+        for blk in self.blocks:
+            x = blk(x)
+        return unembed(self._head(), rms_norm(x, self.final_norm))
+
+    def cache_specs(self, batch: int, max_len: int) -> Dict:
+        """Shapes and dtypes of the decode cache, as meta tensors; ``index``
+        is a host int."""
+        kv = torch.empty((self.cfg.num_layers, batch, max_len, self.cfg.num_kv_heads,
+                          self.cfg.resolved_head_dim), dtype=self.dtype, device="meta")
+        return {"k": kv, "v": kv, "index": 0}
+
+    def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Dict]:
+        """Causal pass over the prompts. Returns the last position's fp32
+        logits (B, V) and a cache {"k", "v": (L, B, max_len, K, hd),
+        "index": S} whose positions >= S are zero."""
+        b, s = tokens.shape
+        max_len = s if max_len is None else max_len
+        if s > max_len:
+            raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
+        spec = self.cache_specs(b, max_len)["k"]
+        cache = {"k": torch.zeros(spec.shape, dtype=spec.dtype, device=self.device),
+                 "v": torch.zeros(spec.shape, dtype=spec.dtype, device=self.device)}
+        x = embed_lookup(self.embed["w"], tokens)
+        for i, blk in enumerate(self.blocks):
+            x = blk.prefill(x, cache["k"][i], cache["v"][i])
+        logits = unembed(self._head(), rms_norm(x[:, -1], self.final_norm))
+        cache["index"] = s
+        return logits, cache
+
+    def decode_step(self, cache: Dict, token: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+        """One greedy step: token (B,) at position cache["index"]. Updates
+        the cache in place and returns (fp32 logits (B, V), cache)."""
+        index = int(cache["index"])
+        x = embed_lookup(self.embed["w"], token[:, None])           # (B, 1, D)
+        for i, blk in enumerate(self.blocks):
+            x = blk.decode(x, cache["k"][i], cache["v"][i], index)
+        logits = unembed(self._head(), rms_norm(x[:, 0], self.final_norm))
+        cache["index"] = index + 1
+        return logits, cache
+
+
+def build_model(cfg: ArchConfig, device=None) -> DecoderLM:
+    """An uninitialised model on ``device`` (CUDA by default; raises when
+    there is none). Call ``.init(generator)`` or load weights with
+    ``repro_torch.bridge.params_from_numpy``."""
+    return DecoderLM(cfg, device=device)
+
+
+def param_count(cfg: ArchConfig) -> int:
+    model = DecoderLM(cfg, device="meta")
+    return sum(p.numel() for p in model.parameters())
