@@ -6,24 +6,33 @@ NVIDIA GPU.
 
 Phases, each printing one JSON line; any failure exits non-zero at once:
 
-1. device   -- a CUDA device is required; prints nvidia-smi's name and power limit.
-2. build    -- compiles the CUDA kernels from src/repro_torch/csrc with nvcc.
-3. kernels  -- each kernel against its plain PyTorch version on the card at the
-               serve shapes (prefill B=8, S=1000, H=16, K=8, hd=128, causal;
-               decode B=8, T=1032, cur_len 1 / 777 / 1032), bf16 and fp32, with
-               the kernel's, the plain version's and the library call's
-               (F.scaled_dot_product_attention, a yardstick only) times and the
-               card's bound for the same work.
-4. slice    -- qwen3-0.6b at full width, 2 layers, fp32: the same weights on the
-               CPU (plain versions) and on the card (kernels), B=2, prompt 128,
-               4 decode steps; logits compared.
-5. serve    -- full qwen3-0.6b (28 layers, bf16, seeded random weights): 8
-               requests of 1000 prompt tokens, 32 greedy tokens each, through
-               the port's prefill and decode steps. Launch counts are zeroed
-               just before and read just after: 28 prefill-kernel and 28 x 31
-               decode-kernel launches.
-6. trace    -- torch.profiler over one prefill and over 4 decode steps: device
-               busy share and the kernels that take the device time.
+1. device    -- a CUDA device is required; prints nvidia-smi's name and power limit.
+2. build     -- compiles the CUDA kernels from src/repro_torch/csrc with nvcc.
+3. kernels   -- each kernel against its plain PyTorch version on the card at the
+                serve shapes (prefill B=8, S=1000, H=16, K=8, hd=128, causal;
+                decode B=8, T=1032, cur_len 1 / 777 / 1032; SSD B=8, S=1000
+                (ragged last chunk) and 1024, H=80, P=64, N=128, chunk 256),
+                bf16 and fp32, with the kernel's, the plain version's and (for
+                attention) the library call's times (F.scaled_dot_product_attention,
+                a yardstick only) and the card's bound for the same work.
+4. slice     -- qwen3-0.6b at full width, 2 layers, fp32: the same weights on the
+                CPU (plain versions) and on the card (kernels), B=2, prompt 128,
+                4 decode steps; logits compared.
+5. serve     -- full qwen3-0.6b (28 layers, bf16, seeded random weights): 8
+                requests of 1000 prompt tokens, 32 greedy tokens each, through
+                the port's prefill and decode steps. Launch counts are zeroed
+                just before and read just after: 28 prefill-kernel and 28 x 31
+                decode-kernel launches, no SSD launch.
+6. trace     -- torch.profiler over one prefill and over 4 decode steps: device
+                busy share and the kernels that take the device time.
+7. slice_ssm -- mamba2-2.7b at full width, 2 layers, fp32, CPU against card:
+                B=2, prompt 600 (3 chunks, the last ragged), 4 decode steps;
+                logits at every step and the final decode state compared; 2
+                SSD launches.
+8. serve_ssm -- full mamba2-2.7b (64 layers, bf16, seeded random weights), the
+                same 8 x 1000 prompts and 32 greedy tokens: 64 SSD launches, no
+                attention-kernel launch.
+9. trace     -- the same profile for mamba2-2.7b.
 
 Then one {"kernels": [...]} line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
@@ -44,7 +53,12 @@ sys.path.insert(0, str(ROOT / "src"))
 
 PREFILL = dict(b=8, s=1000, h=16, kh=8, hd=128)
 DECODE = dict(b=8, t=1032, h=16, kh=8, hd=128, cur_lens=(1, 777, 1032))
+SSD = dict(b=8, h=80, p=64, n=128, chunk=256, seqs=(1000, 1024))
 SERVE = dict(batch=8, prompt=1000, gen=32)
+SSM_SLICE = dict(batch=2, prompt=600, steps=4)
+# the SSD kernel's chunk states and decay against the plain version: the
+# state tolerance of tests/test_kernels.py
+STATE_TOL = 1e-3
 # kernel against plain: the tolerances of tests/test_kernels.py
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # whole slice, card against CPU, fp32: the tolerance of the reference's
@@ -263,6 +277,21 @@ def phase_slice(torch):
     torch.cuda.empty_cache()
 
 
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from repro_torch.kernels import decode_attn, flash_attention, ssd
+    flash_attention.flash_attention.launches = 0
+    decode_attn.decode_attention.launches = 0
+    ssd.ssd_intra_chunk.launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels import decode_attn, flash_attention, ssd
+    return {"flash_attention": flash_attention.flash_attention.launches,
+            "decode_attention": decode_attn.decode_attention.launches,
+            "ssd": ssd.ssd_intra_chunk.launches}
+
+
 def serve_once(torch, prefill, decode, tokens, max_len, gen):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -308,7 +337,6 @@ def phase_serve(torch):
     import numpy as np
 
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import decode_attn, flash_attention
     from repro_torch.models import build_model, param_count
     from repro_torch.train.serve import build_decode_step, build_prefill_step
 
@@ -321,14 +349,12 @@ def phase_serve(torch):
     warm, *_ = serve_once(torch, prefill, decode, tokens, prompt + gen, gen)
 
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.flash_attention.launches = 0
-    decode_attn.decode_attention.launches = 0
+    reset_launches()
     seqs, finite, t_prefill, t_decode, shape = serve_once(
         torch, prefill, decode, tokens, prompt + gen, gen)
-    launches = {"flash_attention": flash_attention.flash_attention.launches,
-                "decode_attention": decode_attn.decode_attention.launches}
+    launches = read_launches()
     expected = {"flash_attention": cfg.num_layers,
-                "decode_attention": cfg.num_layers * (gen - 1)}
+                "decode_attention": cfg.num_layers * (gen - 1), "ssd": 0}
     if launches != expected:
         fail(f"serve: kernel launches {launches}, expected {expected}")
     if not finite or tuple(shape) != (b, cfg.padded_vocab):
@@ -374,7 +400,7 @@ def device_share(torch, fn):
                 top=[dict(name=n[:90], device_ms=t / 1e3, calls=c) for n, (t, c) in top])
 
 
-def phase_trace(torch, prefill, decode, tokens):
+def phase_trace(torch, prefill, decode, tokens, model: str):
     prompt, gen = SERVE["prompt"], SERVE["gen"]
     state = {}
 
@@ -386,8 +412,198 @@ def phase_trace(torch, prefill, decode, tokens):
         for _ in range(4):
             logits, cache = decode(cache, logits.argmax(-1))
 
-    emit("trace", part="prefill", **device_share(torch, run_prefill))
-    emit("trace", part="decode x4", **device_share(torch, run_decode))
+    emit("trace", model=model, part="prefill", **device_share(torch, run_prefill))
+    emit("trace", model=model, part="decode x4", **device_share(torch, run_decode))
+
+
+def ssd_work(b: int, s: int, h: int, p: int, n: int, lc: int, itemsize: int) -> tuple:
+    """(operations, bytes) of the SSD chunk kernel's function as the TPU
+    kernel defines it: the causal work on the valid rows (C.B^T scores once
+    per chunk, the weighted sum into y per head, the end state per head), and
+    each input read once and each output written once (x, dt, a, B, C in;
+    y_intra in x's dtype, chunk states and decay in fp32 out)."""
+    nc = -(-s // lc)
+    ops = 0
+    for c in range(nc):
+        rows = min(lc, s - c * lc)
+        pairs = rows * (rows + 1) // 2
+        ops += b * (2 * pairs * n + h * (2 * pairs * p + 2 * rows * n * p))
+    nbytes = (2 * b * s * h * p * itemsize + b * s * h * 4 + h * 4
+              + 2 * b * s * n * itemsize + b * nc * h * n * p * 4 + b * nc * h * 4)
+    return ops, nbytes
+
+
+def phase_ssd_kernel(torch) -> dict:
+    """The SSD kernel against its plain versions at the serve shape (S=1000:
+    four chunks, the last ragged) and at S=1024, bf16 and fp32."""
+    from repro_torch.kernels import ops, ssd
+    from repro_torch.kernels.ref import ssd_intra_chunk_ref, ssd_ref
+    from repro_torch.roofline.hw import PEAK_FLOPS, bound_seconds
+
+    k = SSD
+    b, h, p, n, lc = k["b"], k["h"], k["p"], k["n"], k["chunk"]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = {}
+    for s in k["seqs"]:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            # the distributions of tests/test_kernels.py
+            x = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
+            dt = 0.001 + 0.099 * torch.rand((b, s, h), generator=gen, device="cuda")
+            a = -(0.5 + 1.5 * torch.rand((h,), generator=gen, device="cuda"))
+            bm = torch.randn((b, s, n), generator=gen, device="cuda").to(dtype)
+            cm = torch.randn((b, s, n), generator=gen, device="cuda").to(dtype)
+            args = (x, dt, a, bm, cm)
+            name = f"ssd {dname} S={s}"
+            got = ssd.ssd_intra_chunk(*args, chunk=lc)
+            torch.cuda.synchronize()
+            want = ssd_intra_chunk_ref(*args, chunk=lc)
+            intra_err = check_close(f"{name} y_intra", got[0], want[0], TOL[dname])
+            states_err = check_close(f"{name} chunk states", got[1], want[1], STATE_TOL)
+            decay_err = check_close(f"{name} chunk decay", got[2], want[2], STATE_TOL)
+            del got, want
+            y, final = ops.ssd(*args, chunk=lc)
+            y_ref, final_ref = ssd_ref(*args, chunk=lc)
+            y_err = check_close(f"{name} y vs ssd_chunked", y, y_ref, TOL[dname])
+            final_err = check_close(f"{name} final state vs ssd_chunked", final, final_ref,
+                                    STATE_TOL)
+            del y, final, y_ref, final_ref
+            copies = input_copies(args)
+            kernel = lambda *t: ssd.ssd_intra_chunk(*t, chunk=lc)  # noqa: E731
+            ms = time_ms(torch, kernel, copies, 20)
+            launch_us = host_us(torch, kernel, copies[0], 50)
+            plain_ms = time_ms(torch, lambda *t: ssd_intra_chunk_ref(*t, chunk=lc), copies, 3)
+            ssd_ms = time_ms(torch, lambda *t: ops.ssd(*t, chunk=lc), copies, 10)
+            chunked_ms = time_ms(torch, lambda *t: ssd_ref(*t, chunk=lc), copies, 3)
+            flops, nbytes = ssd_work(b, s, h, p, n, lc, x.element_size())
+            bound_s, bound_by = bound_seconds(flops, nbytes, dname)
+            row = dict(kernel="ssd", dtype=dname, shape=dict(b=b, s=s, h=h, p=p, n=n, chunk=lc),
+                       ragged=s % lc != 0, max_abs_err=y_err, tol=TOL[dname],
+                       y_intra_err=intra_err, states_err=states_err, decay_err=decay_err,
+                       final_state_err=final_err, state_tol=STATE_TOL,
+                       ms=ms, plain_ms=plain_ms, plain="ssd_intra_chunk_ref",
+                       ssd_ms=ssd_ms, ssd_chunked_ms=chunked_ms, library_ms=None,
+                       library_note="no single PyTorch call computes the SSD chunk",
+                       bound_ms=bound_s * 1e3, bound_by=bound_by,
+                       fp32_core_floor_ms=flops / PEAK_FLOPS["float32"] * 1e3,
+                       host_us_per_launch=launch_us, gflop=flops / 1e9,
+                       mbytes=nbytes / 1e6)
+            rows[(s, dname)] = row
+            emit("kernels", **row)
+            del x, dt, a, bm, cm, args, copies
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase_slice_ssm(torch):
+    """mamba2-2.7b at full width, 2 layers, fp32: CPU (plain versions)
+    against the card (the SSD kernel), the same weights and tokens; logits
+    at every step and the final decode state compared."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.train.serve import build_decode_step, build_prefill_step
+
+    cfg = dataclasses.replace(get_arch("mamba2-2.7b"), num_layers=2, dtype="float32")
+    b, prompt, steps = SSM_SLICE["batch"], SSM_SLICE["prompt"], SSM_SLICE["steps"]
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = build_model(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (b, prompt)))
+
+    reset_launches()
+    runs, states = {}, {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("cuda", card, "cuda")):
+        prefill, decode = build_prefill_step(model), build_decode_step(model)
+        logits, cache = prefill(tokens.to(dev))
+        outs = [logits.cpu()]
+        for step in range(steps):
+            tok = (runs["cpu"] if name == "cuda" else outs)[step].argmax(-1)
+            logits, cache = decode(cache, tok.to(dev))
+            outs.append(logits.cpu())
+        runs[name] = outs
+        states[name] = {k: v.cpu() for k, v in cache["mamba"].items()}
+    launches = read_launches()
+    errs = []
+    for ref, out in zip(runs["cpu"], runs["cuda"]):
+        if out.shape != (b, cfg.padded_vocab) or not torch.isfinite(out).all():
+            fail(f"slice_ssm: logits of shape {tuple(out.shape)} or not finite")
+        errs.append(check_close("slice_ssm logits card vs cpu", out, ref, SLICE_TOL))
+    state_errs = {k: check_close(f"slice_ssm final {k} card vs cpu", states["cuda"][k],
+                                 states["cpu"][k], SLICE_TOL) for k in states["cpu"]}
+    expected = {"flash_attention": 0, "decode_attention": 0, "ssd": cfg.num_layers}
+    if launches != expected:
+        fail(f"slice_ssm: kernel launches {launches}, expected {expected}")
+    emit("slice_ssm", config="mamba2-2.7b full width, 2 layers, fp32", batch=b,
+         prompt=prompt, chunks=-(-prompt // cfg.ssm_chunk), decode_steps=steps,
+         max_abs_err_per_step=errs, final_state_err=state_errs, tol=SLICE_TOL,
+         launches=launches)
+    del cpu, card
+    torch.cuda.empty_cache()
+
+
+def ssm_serve_bounds(cfg, params: int, b: int, prompt: int):
+    """The card's least time for the mamba2 serve run's prefill and for one
+    decode step, bf16: weight bytes read once; the decode state (SSD state
+    fp32, conv windows bf16) written once by prefill, read and written once
+    by a decode step; the matrix products' and the SSD's operations."""
+    from repro_torch.roofline.hw import bound_seconds
+    L, h, n, p = cfg.num_layers, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+    n_head = cfg.padded_vocab * cfg.d_model          # the embedding, also the head
+    n_body = params - n_head
+    weight_bytes = 2 * params
+    state_bytes = L * b * (h * n * p * 4 + (cfg.ssm_conv_kernel - 1)
+                           * (cfg.ssm_inner + 2 * n) * 2)
+    ssd_flops, _ = ssd_work(b, prompt, h, p, n, min(cfg.ssm_chunk, prompt), 2)
+    prefill_flops = 2 * n_body * b * prompt + 2 * n_head * b + L * ssd_flops
+    prefill = bound_seconds(prefill_flops, weight_bytes + state_bytes, "bfloat16")
+    decode_flops = 2 * params * b + L * b * h * n * p * 4
+    decode = bound_seconds(decode_flops, weight_bytes + 2 * state_bytes, "bfloat16")
+    return prefill, decode
+
+
+def phase_serve_ssm(torch):
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model, param_count
+    from repro_torch.train.serve import build_decode_step, build_prefill_step
+
+    cfg = get_arch("mamba2-2.7b")
+    model = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    prefill, decode = build_prefill_step(model), build_decode_step(model)
+    b, prompt, gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (b, prompt))).cuda()
+    warm, *_ = serve_once(torch, prefill, decode, tokens, prompt + gen, gen)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    seqs, finite, t_prefill, t_decode, shape = serve_once(
+        torch, prefill, decode, tokens, prompt + gen, gen)
+    launches = read_launches()
+    expected = {"flash_attention": 0, "decode_attention": 0, "ssd": cfg.num_layers}
+    if launches != expected:
+        fail(f"serve_ssm: kernel launches {launches}, expected {expected}")
+    if not finite or tuple(shape) != (b, cfg.padded_vocab):
+        fail(f"serve_ssm: logits not finite or of shape {tuple(shape)}")
+    if seqs.shape != (b, gen) or not ((seqs >= 0) & (seqs < cfg.padded_vocab)).all():
+        fail("serve_ssm: generated tokens out of range")
+    params = param_count(cfg)
+    prefill_bound, decode_bound = ssm_serve_bounds(cfg, params, b, prompt)
+    row = dict(config="mamba2-2.7b full (64 layers, bf16)", params=params,
+               batch=b, prompt=prompt, gen=gen, prefill_ms=t_prefill * 1e3,
+               prefill_bound_ms=prefill_bound[0] * 1e3, prefill_bound_by=prefill_bound[1],
+               decode_steps=gen - 1, decode_ms_per_step=t_decode * 1e3 / (gen - 1),
+               decode_step_bound_ms=decode_bound[0] * 1e3, decode_step_bound_by=decode_bound[1],
+               decode_tok_s=b * (gen - 1) / t_decode,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=launches, logits_finite=finite,
+               repeat_identical=bool((warm == seqs).all()),
+               first_sequence=seqs[0].tolist())
+    emit("serve_ssm", **row)
+    return model, prefill, decode, tokens, row
 
 
 def main() -> int:
@@ -411,13 +627,20 @@ def main() -> int:
          ptxas=ptxas_summary(log))
 
     kernels = phase_kernels(torch, F)
+    ssd_rows = phase_ssd_kernel(torch)
     phase_slice(torch)
     model, prefill, decode, tokens, serve = phase_serve(torch)
-    phase_trace(torch, prefill, decode, tokens)
+    phase_trace(torch, prefill, decode, tokens, "qwen3-0.6b")
+    del model, prefill, decode
+    torch.cuda.empty_cache()
+    phase_slice_ssm(torch)
+    model, prefill, decode, tokens, serve_ssm = phase_serve_ssm(torch)
+    phase_trace(torch, prefill, decode, tokens, "mamba2-2.7b")
 
     fa = kernels["flash_attention"]["bfloat16"]
     da = kernels["decode_attention"]["bfloat16"]
     da_main = da[-1]                                  # cur_len 1032 = the cache length
+    ssd_main = ssd_rows[(SERVE["prompt"], "bfloat16")]  # the serve run's shape
     line = [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
@@ -437,6 +660,15 @@ def main() -> int:
              ms=da_main["ms"], plain_ms=da_main["plain_ms"],
              bound_ms=da_main["bound_ms"], bound_by=da_main["bound_by"],
              library_ms=da_main["library_ms"]),
+        dict(name="ssd", route="cuda", source="src/repro_torch/csrc/ssd.cu",
+             replaces="src/repro/kernels/ssd.py:24",
+             tpu_kernel="_ssd_chunk_kernel (pl.pallas_call at ssd.py:76)",
+             launches=serve_ssm["launches"]["ssd"],
+             max_abs_err=ssd_main["max_abs_err"], tol=ssd_main["tol"],
+             shape=ssd_main["shape"], dtype="bfloat16", ms=ssd_main["ms"],
+             plain_ms=ssd_main["plain_ms"], bound_ms=ssd_main["bound_ms"],
+             bound_by=ssd_main["bound_by"], library_ms=None,
+             library_note=ssd_main["library_note"]),
     ]
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)

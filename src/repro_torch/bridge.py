@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ArchConfig
-from repro_torch.models.transformer import DecoderLM
+from repro_torch.models.transformer import build_model
 
 
 def _leaf(tree: Mapping, path) -> np.ndarray:
@@ -33,11 +33,15 @@ def _count_leaves(tree) -> int:
 
 @torch.no_grad()
 def params_from_numpy(tree: Mapping, cfg: ArchConfig, device=None,
-                      dtype: Optional[torch.dtype] = None) -> DecoderLM:
-    """A ``DecoderLM`` on ``device`` (CUDA by default) holding the
-    reference's weights, cast to ``dtype`` (the config's by default). bf16
-    arrays (``ml_dtypes``) are widened to fp32 on the way, which is exact."""
-    model = DecoderLM(cfg, device=device, dtype=dtype)
+                      dtype: Optional[torch.dtype] = None) -> torch.nn.Module:
+    """The port's model for ``cfg.family`` (``DecoderLM`` or ``MambaLM``) on
+    ``device`` (CUDA by default) holding the reference's weights, cast to
+    each parameter's dtype: ``dtype`` (the config's by default), except the
+    leaves the model keeps in fp32 whatever its dtype (the Mamba2 block's
+    ``a_log``, ``d_skip``, ``dt_bias``), which the reference keeps in fp32
+    too. bf16 arrays (``ml_dtypes``) are widened to fp32 on the way, which
+    is exact."""
+    model = build_model(cfg, device=device, dtype=dtype)
     used = set()
     for name, param in model.named_parameters():
         parts = name.split(".")

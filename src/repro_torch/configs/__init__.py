@@ -18,11 +18,11 @@ def _round_up(x: int, m: int) -> int:
 @dataclass(frozen=True)
 class ArchConfig:
     """One architecture. All sizes are the *full* production config. Only
-    the fields the dense slice reads are kept; each later slice adds the
+    the fields the ported families read are kept; each later slice adds the
     fields of the families it ports."""
 
     name: str
-    family: str  # only "dense" builds; the others name their ROADMAP item
+    family: str  # "dense" and "ssm" build; the others name their ROADMAP item
     num_layers: int
     d_model: int
     num_heads: int
@@ -35,8 +35,16 @@ class ArchConfig:
     use_qk_norm: bool = False
     tie_embeddings: bool = False
     rope_theta: float = 10_000.0
+    # --- SSM (Mamba2 / SSD) ---
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv_kernel: int = 4
+    ssm_chunk: int = 256
     # --- numerics ---
     dtype: str = "bfloat16"
+    # --- capability flags ---
+    sub_quadratic: bool = False  # can run long_500k
     source: str = ""
 
     @property
@@ -49,6 +57,14 @@ class ArchConfig:
     def padded_vocab(self) -> int:
         """Vocab padded to a multiple of 256 (Megatron-style)."""
         return _round_up(self.vocab_size, 256)
+
+    @property
+    def ssm_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.ssm_inner // self.ssm_head_dim if self.ssm_state else 0
 
 
 @dataclass(frozen=True)
@@ -71,7 +87,7 @@ SHAPES: Dict[str, ShapeConfig] = {
 _REGISTRY: Dict[str, ArchConfig] = {}
 
 # Config modules ported so far (the JAX registry holds eleven).
-_MODULES = ("qwen3_0_6b",)
+_MODULES = ("qwen3_0_6b", "mamba2_2_7b")
 
 
 def register(cfg: ArchConfig) -> ArchConfig:
@@ -97,14 +113,17 @@ def get_arch(name: str) -> ArchConfig:
 
 def reduce_for_smoke(cfg: ArchConfig) -> ArchConfig:
     """Shrink a production config to a CPU-smoke-testable size, by the rules
-    of ``repro.configs.reduce_for_smoke`` for the dense family."""
+    of ``repro.configs.reduce_for_smoke`` for the dense and SSM families."""
     if cfg.num_kv_heads == 1:
         kv_heads = 1
     elif cfg.num_kv_heads < cfg.num_heads:
         kv_heads = min(cfg.num_kv_heads, 2)
     else:
         kv_heads = 4
-    return dataclasses.replace(
-        cfg, name=cfg.name + "-smoke", num_layers=min(cfg.num_layers, 2),
+    changes = dict(
+        name=cfg.name + "-smoke", num_layers=min(cfg.num_layers, 2),
         d_model=64, num_heads=4, num_kv_heads=kv_heads, head_dim=16,
-        d_ff=128, vocab_size=256)
+        d_ff=128 if cfg.d_ff else 0, vocab_size=256)
+    if cfg.ssm_state:
+        changes.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=8)
+    return dataclasses.replace(cfg, **changes)

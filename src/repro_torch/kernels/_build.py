@@ -33,6 +33,7 @@ SIGNATURES = {
     + [_c_int, _c_float, _c_ptr],
     "repro_decode_attention": [_c_ptr] * 4 + [_c_int] * 6 + [_c_i64] * 8
     + [_c_float, _c_ptr],
+    "repro_ssd_chunk": [_c_ptr] * 8 + [_c_int] * 7 + [_c_ptr],
 }
 
 

@@ -1,20 +1,25 @@
 """Dispatch for the kernels, the counterpart of ``repro.kernels.ops``.
 
 A tensor on the CPU goes to the plain PyTorch version, the function the
-kernel stands in for at its call site: ``flash_attention_plain`` here and
-``ref.decode_attention_ref``. A CUDA tensor goes to the CUDA
-kernel, which raises on what it does not take: there is no fallback from
-the card to a plain version. Each kernel wrapper counts its launches in
-``<wrapper>.launches`` (``kernels.flash_attention.flash_attention`` and
-``kernels.decode_attn.decode_attention``).
+kernel stands in for at its call site: ``flash_attention_plain`` here,
+``ref.decode_attention_ref`` and ``ref.ssd_ref`` (``ssd_chunked``). A CUDA
+tensor goes to the CUDA kernel, which raises on what it does not take:
+there is no fallback from the card to a plain version. Each kernel wrapper
+counts its launches in ``<wrapper>.launches``
+(``kernels.flash_attention.flash_attention``,
+``kernels.decode_attn.decode_attention`` and
+``kernels.ssd.ssd_intra_chunk``).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import decode_attn as _dec
 from repro_torch.kernels import flash_attention as _fa
-from repro_torch.kernels.ref import decode_attention_ref
+from repro_torch.kernels import ssd as _ssd
+from repro_torch.kernels.ref import decode_attention_ref, ssd_ref
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -40,3 +45,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, cur_len)
     return _dec.decode_attention(q, k_cache, v_cache, cur_len)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
+        c_mat: torch.Tensor, *, chunk: int, initial_state: Optional[torch.Tensor] = None):
+    """x: (B, S, H, P); dt: (B, S, H); a: (H,); b/c: (B, S, N). Returns
+    (y (B, S, H, P) in x's dtype, final_state (B, H, N, P) fp32)."""
+    if x.device.type == "cpu":
+        return ssd_ref(x, dt, a, b_mat, c_mat, chunk=chunk, initial_state=initial_state)
+    return _ssd.ssd(x, dt, a, b_mat, c_mat, chunk=chunk, initial_state=initial_state)

@@ -1,0 +1,117 @@
+"""Mamba2 SSD: the wrapper of the CUDA kernel in ``csrc/ssd.cu`` (port of
+the Pallas kernel ``repro/kernels/ssd.py``) and the full SSD around it.
+
+``ssd_intra_chunk`` launches the kernel: per chunk and head, the causal
+intra-chunk output, the chunk's end state and the chunk decay. ``ssd`` adds
+the inter-chunk part in plain PyTorch, as the reference's ``ssd()`` does in
+plain JAX: a scan over the chunk states and ``y_inter = C . S_prev *
+exp(cs)``. A ragged last chunk is masked in the kernel, not padded.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import DTYPES
+
+HEAD_DIMS = (16, 32, 64, 128)   # P the kernel is built for
+MAX_CHUNK = 256
+
+
+def check_operands(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                   b_mat: torch.Tensor, c_mat: torch.Tensor, chunk: int) -> None:
+    """Raise unless the operands are what the kernel takes: contiguous CUDA
+    tensors on one device, 16-byte aligned; x (B, S, H, P) and b/c (B, S, N)
+    all float32 or all bfloat16; dt (B, S, H) and a (H,) float32;
+    P in ``HEAD_DIMS``, N a multiple of 8, 1 <= chunk."""
+    where = "ssd kernel"
+    tensors = {"x": x, "dt": dt, "a": a, "b_mat": b_mat, "c_mat": c_mat}
+    for name, t in tensors.items():
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"{where}: {name} is on {t.device}; all must be on "
+                             f"one CUDA device")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{where}: {name} must be contiguous and 16-byte aligned")
+    if x.dim() != 4 or b_mat.dim() != 3:
+        raise ValueError(f"{where}: x {tuple(x.shape)} must be (B, S, H, P), "
+                         f"b_mat {tuple(b_mat.shape)} (B, S, N)")
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    if (tuple(dt.shape) != (bsz, s, h) or tuple(a.shape) != (h,)
+            or tuple(b_mat.shape) != (bsz, s, n) or c_mat.shape != b_mat.shape):
+        raise ValueError(f"{where}: shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
+                         f"a {tuple(a.shape)}, b {tuple(b_mat.shape)}, c {tuple(c_mat.shape)}")
+    if x.dtype not in DTYPES or b_mat.dtype != x.dtype or c_mat.dtype != x.dtype:
+        raise ValueError(f"{where}: x, b_mat, c_mat dtypes {x.dtype}, {b_mat.dtype}, "
+                         f"{c_mat.dtype}; need all float32 or all bfloat16")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32:
+        raise ValueError(f"{where}: dt and a must be float32, got {dt.dtype}, {a.dtype}")
+    if p not in HEAD_DIMS or n % 8 or n < 8 or chunk < 1 or min(bsz, s, h) < 1:
+        raise ValueError(f"{where}: unsupported P={p}, N={n}, chunk={chunk}, "
+                         f"B={bsz}, S={s}, H={h}")
+
+
+def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                    b_mat: torch.Tensor, c_mat: torch.Tensor, *, chunk: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (B, S, H, P); dt: (B, S, H) post-softplus; a: (H,) negative;
+    b/c: (B, S, N), on CUDA. Chunks of min(chunk, S) positions, the last
+    one ragged when S does not divide. Returns fp32 (y_intra (B, S, H, P),
+    chunk_states (B, NC, H, N, P), chunk_decay (B, NC, H))."""
+    check_operands(x, dt, a, b_mat, c_mat, chunk)
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    lc = min(chunk, s)
+    if lc > MAX_CHUNK:
+        raise ValueError(f"ssd kernel: chunk {lc} > {MAX_CHUNK}")
+    nc = -(-s // lc)
+    if bsz * nc > 2**31 - 1 or h > 65535 or -(-n // 64) > 65535:
+        raise ValueError(f"ssd kernel: grid too large for B={bsz}, NC={nc}, H={h}, N={n}")
+    y = torch.empty((bsz, s, h, p), dtype=torch.float32, device=x.device)
+    states = torch.empty((bsz, nc, h, n, p), dtype=torch.float32, device=x.device)
+    decay = torch.empty((bsz, nc, h), dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.repro_ssd_chunk(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
+            y.data_ptr(), states.data_ptr(), decay.data_ptr(),
+            DTYPES[x.dtype], bsz, s, h, p, n, lc,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "ssd")
+    ssd_intra_chunk.launches += 1
+    return y, states, decay
+
+
+ssd_intra_chunk.launches = 0
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
+        c_mat: torch.Tensor, *, chunk: int, initial_state: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full SSD: the CUDA intra-chunk kernel plus the inter-chunk combine in
+    plain PyTorch. Same result as ``models.mamba2.ssd_chunked``: (y (B, S, H,
+    P) in x's dtype, final_state (B, H, N, P) fp32)."""
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    y_intra, chunk_states, chunk_decay = ssd_intra_chunk(x, dt, a, b_mat, c_mat,
+                                                         chunk=chunk)
+    lc = min(chunk, s)
+    nc = chunk_states.shape[1]
+    pad = nc * lc - s
+    state = (torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+             if initial_state is None else initial_state)
+    prev = []                                   # state entering each chunk
+    for ci in range(nc):
+        prev.append(state)
+        state = chunk_decay[:, ci, :, None, None] * state + chunk_states[:, ci]
+    prev = torch.stack(prev, dim=1)             # (B, NC, H, N, P)
+    # y_inter = C_i . S_prev * exp(cs_i), cs recomputed in fp32 (zero-padded)
+    da = F.pad(dt.float() * a.float(), (0, 0, 0, pad)).reshape(bsz, nc, lc, h)
+    cs = torch.cumsum(da, dim=2)
+    cm = F.pad(c_mat.float(), (0, 0, 0, pad)).reshape(bsz, nc, lc, n)
+    y_inter = torch.einsum("bcin,bchnp->bcihp", cm, prev) * torch.exp(cs)[..., None]
+    y = y_intra + y_inter.reshape(bsz, nc * lc, h, p)[:, :s]
+    return y.to(x.dtype), state

@@ -1,3 +1,4 @@
-from repro_torch.models.transformer import DecoderLM, build_model, param_count
+from repro_torch.models.transformer import (DecoderLM, MambaLM, build_model,
+                                            param_count)
 
-__all__ = ["DecoderLM", "build_model", "param_count"]
+__all__ = ["DecoderLM", "MambaLM", "build_model", "param_count"]

@@ -1,6 +1,6 @@
-"""The dense decoder-only LM (port of ``_build_decoder_lm`` in
-``repro.models.transformer``): ``init``, ``forward``, ``prefill``,
-``decode_step`` and ``cache_specs``.
+"""The dense decoder-only LM and the pure SSM (Mamba2) LM (ports of
+``_build_decoder_lm`` and ``_build_ssm_lm`` in ``repro.models.transformer``):
+``init``, ``forward``, ``prefill``, ``decode_step`` and ``cache_specs``.
 
 Parameters mirror the reference's tree (``embed.w``, ``blocks[i].ln1``,
 ``blocks[i].attn.wq``, ..., ``final_norm``) with one module per layer
@@ -18,6 +18,7 @@ import torch.nn as nn
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2
 from repro_torch.models.layers import (embed_init, embed_lookup, mlp_apply,
                                        mlp_init, rms_norm, unembed)
 
@@ -26,7 +27,6 @@ _NOT_PORTED = {
     "moe": "ROADMAP §1 item 11 (models/moe.py)",
     "vlm": "ROADMAP §1 item 11 (the VLM patch path)",
     "encdec": "ROADMAP §1 item 11 (_build_encdec)",
-    "ssm": "ROADMAP §1 item 10 (models/mamba2.py, _build_ssm_lm)",
     "hybrid": "ROADMAP §1 item 10 (_build_hybrid_lm)",
 }
 
@@ -97,10 +97,6 @@ class DecoderLM(nn.Module):
 
     def __init__(self, cfg: ArchConfig, device=None, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet: "
-                f"{_NOT_PORTED.get(cfg.family, 'not on the ROADMAP')}")
         device = torch.device(device) if device is not None else resolve_device()
         dtype = dtype or torch_dtype(cfg)
         self.cfg = cfg
@@ -184,13 +180,138 @@ class DecoderLM(nn.Module):
         return logits, cache
 
 
-def build_model(cfg: ArchConfig, device=None) -> DecoderLM:
-    """An uninitialised model on ``device`` (CUDA by default; raises when
-    there is none). Call ``.init(generator)`` or load weights with
-    ``repro_torch.bridge.params_from_numpy``."""
-    return DecoderLM(cfg, device=device)
+class MambaBlock(nn.Module):
+    """RMSNorm -> Mamba2 mixer -> residual (no MLP). ``a_log``, ``d_skip``
+    and ``dt_bias`` are fp32 whatever the model dtype, as in the reference."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = _param((cfg.d_model,), dtype, device)
+        self.mamba = nn.ParameterDict({
+            name: _param(shape, torch.float32 if name in mamba2.FP32_LEAVES else dtype,
+                         device)
+            for name, shape in mamba2.mamba_shapes(cfg).items()})
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        self.ln1.zero_()
+        mamba2.mamba_init(self.mamba, self.cfg, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + mamba2.mamba_apply(self.mamba, self.cfg, rms_norm(x, self.ln1))
+
+    def prefill(self, x: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+        out, state = mamba2.mamba_prefill(self.mamba, self.cfg, rms_norm(x, self.ln1))
+        return x + out, state
+
+    def decode(self, x: torch.Tensor, state: Dict) -> torch.Tensor:
+        out, _ = mamba2.mamba_decode(self.mamba, self.cfg, rms_norm(x, self.ln1), state)
+        return x + out
+
+
+class MambaLM(nn.Module):
+    """Pure SSM (Mamba2) LM. The head is the embedding table whatever
+    ``tie_embeddings`` says, as in the reference (``_build_ssm_lm``), so
+    there is no ``lm_head``. The decode cache is the per-layer conv windows
+    and SSD state; ``max_len`` is accepted and ignored."""
+
+    def __init__(self, cfg: ArchConfig, device=None, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        device = torch.device(device) if device is not None else resolve_device()
+        dtype = dtype or torch_dtype(cfg)
+        self.cfg = cfg
+        self.embed = nn.ParameterDict({"w": _param((cfg.padded_vocab, cfg.d_model),
+                                                   dtype, device)})
+        self.blocks = nn.ModuleList(MambaBlock(cfg, dtype, device)
+                                    for _ in range(cfg.num_layers))
+        self.final_norm = _param((cfg.d_model,), dtype, device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed["w"].device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.embed["w"].dtype
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "MambaLM":
+        """Random weights from ``generator`` with the reference's
+        distributions. Returns self."""
+        cfg = self.cfg
+        self.embed["w"].copy_(embed_init(generator, cfg.padded_vocab, cfg.d_model,
+                                         torch.float32))
+        for blk in self.blocks:
+            blk.init(generator)
+        self.final_norm.zero_()
+        return self
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        return unembed(self.embed["w"], rms_norm(x, self.final_norm))
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (B, S) -> fp32 logits (B, S, padded_vocab), causal."""
+        x = embed_lookup(self.embed["w"], tokens)
+        for blk in self.blocks:
+            x = blk(x)
+        return self._logits(x)
+
+    def cache_specs(self, batch: int, max_len: int) -> Dict:
+        """Shapes and dtypes of the decode cache, as meta tensors stacked on
+        a leading layer axis; ``index`` is a host int. The state does not
+        grow with ``max_len``."""
+        per_layer = mamba2.mamba_state_specs(self.cfg, batch)
+        return {"mamba": {name: torch.empty((self.cfg.num_layers,) + t.shape,
+                                            dtype=t.dtype, device="meta")
+                          for name, t in per_layer.items()},
+                "index": 0}
+
+    def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Dict]:
+        """Causal pass over the prompts. Returns the last position's fp32
+        logits (B, V) and the cache {"mamba": {"conv_x", "conv_b", "conv_c":
+        (L, B, k-1, C) in the activation dtype, "ssm": (L, B, H, N, P) fp32},
+        "index": S}."""
+        b, s = tokens.shape
+        specs = self.cache_specs(b, s)["mamba"]
+        states = {name: torch.empty(t.shape, device=self.device,
+                                    dtype=torch.float32 if name == "ssm" else self.dtype)
+                  for name, t in specs.items()}
+        x = embed_lookup(self.embed["w"], tokens)
+        for i, blk in enumerate(self.blocks):
+            x, state = blk.prefill(x)
+            for name, t in state.items():
+                states[name][i].copy_(t)
+        return self._logits(x[:, -1]), {"mamba": states, "index": s}
+
+    def decode_step(self, cache: Dict, token: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+        """One greedy step: token (B,). Updates the cache in place and
+        returns (fp32 logits (B, V), cache)."""
+        x = embed_lookup(self.embed["w"], token[:, None])           # (B, 1, D)
+        states = cache["mamba"]
+        for i, blk in enumerate(self.blocks):
+            x = blk.decode(x, {name: t[i] for name, t in states.items()})
+        cache["index"] = int(cache["index"]) + 1
+        return self._logits(x[:, 0]), cache
+
+
+_MODELS = {"dense": DecoderLM, "ssm": MambaLM}
+
+
+def build_model(cfg: ArchConfig, device=None, dtype: Optional[torch.dtype] = None):
+    """An uninitialised model of ``cfg.family`` on ``device`` (CUDA by
+    default; raises when there is none), in ``dtype`` (the config's by
+    default). Call ``.init(generator)`` or load weights with
+    ``repro_torch.bridge.params_from_numpy``. A family not ported yet
+    raises, naming its ROADMAP item."""
+    if cfg.family not in _MODELS:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet: "
+            f"{_NOT_PORTED.get(cfg.family, 'not on the ROADMAP')}")
+    return _MODELS[cfg.family](cfg, device=device, dtype=dtype)
 
 
 def param_count(cfg: ArchConfig) -> int:
-    model = DecoderLM(cfg, device="meta")
+    model = build_model(cfg, device="meta")
     return sum(p.numel() for p in model.parameters())

@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import decode_attn, flash_attention, ops
-from repro_torch.kernels.ref import decode_attention_ref
+from repro_torch.kernels import decode_attn, flash_attention, ops, ssd
+from repro_torch.kernels.ref import decode_attention_ref, ssd_intra_chunk_ref, ssd_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -74,3 +74,65 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         decode_attn.decode_attention(q, kc, kc, 9)       # cur_len > T
     with pytest.raises(ValueError):
         decode_attn.decode_attention(q.half(), kc.half(), kc.half(), 4)
+
+
+def _ssd_args(seed, b, s, h, p, n, dtype, device):
+    """x, dt (post-softplus), a (< 0), B, C: the distributions of
+    tests/test_kernels.py; x, B, C in ``dtype``, dt and a fp32."""
+    rng = np.random.default_rng(seed)
+    arrs = (rng.normal(size=(b, s, h, p)), rng.uniform(0.001, 0.1, size=(b, s, h)),
+            -rng.uniform(0.5, 2.0, size=(h,)), rng.normal(size=(b, s, n)),
+            rng.normal(size=(b, s, n)))
+    return [torch.from_numpy(np.asarray(v, np.float32)).to(device).to(
+        torch.float32 if i in (1, 2) else dtype) for i, v in enumerate(arrs)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 64, 8, 16, 32, 16), (1, 128, 8, 32, 64, 32), (2, 48, 16, 16, 16, 16),
+    (2, 50, 16, 16, 16, 16), (2, 7, 4, 16, 16, 16), (1, 200, 20, 128, 32, 64),
+    (1, 300, 80, 64, 128, 256)])
+def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, chunk, dtype):
+    """The kernel's three outputs against ``ssd_intra_chunk_ref`` (fp32 at
+    2e-5: the same inputs, another summation order; states at 1e-3 as
+    tests/test_kernels.py), then the full ``ops.ssd`` against
+    ``ssd_chunked`` (y at the dtype's tolerance). Ragged S (50, 7, 200, 300),
+    heads not a multiple of the 16-head tile (20), P 16 to 128."""
+    args = _ssd_args(2, b, s, h, p, n, dtype, cuda)
+    before = ssd.ssd_intra_chunk.launches
+    y_intra, states, decay = ssd.ssd_intra_chunk(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.ssd_intra_chunk.launches == before + 1
+    want = ssd_intra_chunk_ref(*args, chunk=chunk)
+    for got, ref, tol in zip((y_intra, states, decay), want, (2e-5, 1e-3, 2e-5)):
+        assert got.shape == ref.shape and got.dtype == torch.float32
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=tol, atol=tol)
+    y, final = ops.ssd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.ssd_intra_chunk.launches == before + 2
+    y_ref, final_ref = ssd_ref(*args, chunk=chunk)
+    assert y.dtype == dtype
+    np.testing.assert_allclose(y.float().cpu().numpy(), y_ref.float().cpu().numpy(),
+                               **_tol(dtype))
+    np.testing.assert_allclose(final.cpu().numpy(), final_ref.cpu().numpy(),
+                               rtol=1e-3, atol=1e-3)
+
+
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
+    x, dt, a, bm, cm = _ssd_args(3, 1, 16, 4, 16, 16, torch.float32, cuda)
+    before = ssd.ssd_intra_chunk.launches
+    with pytest.raises(ValueError):                             # chunk > 256
+        ssd.ssd_intra_chunk(*_ssd_args(4, 1, 520, 4, 16, 16, torch.float32, cuda), chunk=512)
+    with pytest.raises(ValueError):
+        ssd.ssd_intra_chunk(x[..., :8].contiguous(), dt, a, bm, cm, chunk=8)   # P = 8
+    with pytest.raises(ValueError):
+        ssd.ssd_intra_chunk(x, dt.bfloat16(), a, bm, cm, chunk=8)  # dt not fp32
+    with pytest.raises(ValueError):
+        ssd.ssd_intra_chunk(x, dt, a, bm.bfloat16(), cm, chunk=8)  # mixed dtypes
+    with pytest.raises(ValueError):
+        ssd.ssd_intra_chunk(x.transpose(1, 2).contiguous().transpose(1, 2), dt, a, bm, cm,
+                            chunk=8)                                # strided
+    with pytest.raises(ValueError):
+        ssd.ssd_intra_chunk(x, dt, a, bm[..., :12].contiguous(), cm[..., :12].contiguous(),
+                            chunk=8)                                # N % 8 != 0
+    assert ssd.ssd_intra_chunk.launches == before

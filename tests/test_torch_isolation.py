@@ -30,6 +30,8 @@ def test_port_runs_without_jax_in_sys_modules():
         "from repro_torch.launch.serve import main\n"
         "main(['--device', 'cpu', '--smoke', '--batch', '2', '--prompt-len', '6', "
         "'--gen', '3'])\n"
+        "main(['--arch', 'mamba2-2.7b', '--device', 'cpu', '--smoke', '--batch', '2', "
+        "'--prompt-len', '11', '--gen', '4'])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "print('ISOLATED')\n")
@@ -38,6 +40,7 @@ def test_port_runs_without_jax_in_sys_modules():
                           text=True, env=env, cwd=ROOT, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "ISOLATED" in proc.stdout and "decoded 3 tokens/seq" in proc.stdout
+    assert "prefill: 2x11" in proc.stdout and "decoded 4 tokens/seq" in proc.stdout
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -57,7 +60,7 @@ def test_no_library_attention_or_compile_in_the_port():
 def test_kernel_sources_ship_with_the_package():
     from repro_torch.kernels import _build
     names = {p.name for p in _build._sources()}
-    assert names == {"flash_attention.cu", "decode_attn.cu"}
+    assert names == {"flash_attention.cu", "decode_attn.cu", "ssd.cu"}
     assert _build.BUILD_DIR.relative_to(ROOT).parts[0] == "build"   # git-ignored
     assert _build.library_path().name.startswith("librepro_torch_kernels_")
 
