@@ -4,37 +4,49 @@ NVIDIA GPU.
 
     python3 chip_smoke.py          # from the root of a checkout
 
-Phases, each printing one JSON line; any failure exits non-zero at once:
+Phases, each printing one JSON line; any failure exits non-zero at once. The
+slices and the serve runs come before any phase that opens torch.profiler:
 
 1. device    -- a CUDA device is required; prints nvidia-smi's name and power limit.
-2. build     -- compiles the CUDA kernels from src/repro_torch/csrc with nvcc.
-3. kernels   -- each kernel against its plain PyTorch version on the card at the
-                serve shapes (prefill B=8, S=1000, H=16, K=8, hd=128, causal;
-                decode B=8, T=1032, cur_len 1 / 777 / 1032; SSD B=8, S=1000
-                (ragged last chunk) and 1024, H=80, P=64, N=128, chunk 256),
-                bf16 and fp32, with the kernel's, the plain version's and (for
-                attention) the library call's times (F.scaled_dot_product_attention,
-                a yardstick only) and the card's bound for the same work.
-4. slice     -- qwen3-0.6b at full width, 2 layers, fp32: the same weights on the
+2. build     -- compiles the CUDA kernels from src/repro_torch/csrc with nvcc;
+                registers and spills of every kernel, and the HGMMA (wgmma)
+                instructions in the bf16 flash kernel's SASS (cuobjdump), which
+                must be there.
+3. slice     -- qwen3-0.6b at full width, 2 layers, fp32: the same weights on the
                 CPU (plain versions) and on the card (kernels), B=2, prompt 128,
                 4 decode steps; logits compared.
-5. serve     -- full qwen3-0.6b (28 layers, bf16, seeded random weights): 8
+4. serve     -- full qwen3-0.6b (28 layers, bf16, seeded random weights): 8
                 requests of 1000 prompt tokens, 32 greedy tokens each, through
                 the port's prefill and decode steps. Launch counts are zeroed
                 just before and read just after: 28 prefill-kernel and 28 x 31
                 decode-kernel launches, no SSD launch.
-6. trace     -- torch.profiler over one prefill and over 4 decode steps: device
-                busy share and the kernels that take the device time.
-7. slice_ssm -- mamba2-2.7b at full width, 2 layers, fp32, CPU against card:
+5. slice_ssm -- mamba2-2.7b at full width, 2 layers, fp32, CPU against card:
                 B=2, prompt 600 (3 chunks, the last ragged), 4 decode steps;
                 logits at every step and the final decode state compared; 2
                 SSD launches.
-8. serve_ssm -- full mamba2-2.7b (64 layers, bf16, seeded random weights), the
+6. serve_ssm -- full mamba2-2.7b (64 layers, bf16, seeded random weights), the
                 same 8 x 1000 prompts and 32 greedy tokens: 64 SSD launches, no
                 attention-kernel launch.
-9. trace     -- the same profile for mamba2-2.7b.
+7. kernels   -- each kernel against its plain PyTorch version on the card at the
+                serve shapes (prefill B=8, S=1000, H=16, K=8, hd=128, causal, with
+                the wrapper's route: wgmma for bf16, fp32 for fp32; decode B=8,
+                T=1032, cur_len 1 / 129 / 777 / 1032 with the planned n_split;
+                SSD B=8, S=1000 (ragged last chunk) and 1024, H=80, P=64, N=128,
+                chunk 256), bf16 and fp32, with the kernel's, the plain
+                version's and (for attention) the library call's times
+                (F.scaled_dot_product_attention, a yardstick only), the card's
+                bound for the same work and the wrapper's host time per launch.
+                Times are CUPTI device times from torch.profiler; where no
+                profiler session sees device activity, CUDA events time the
+                calls instead. Each kernel is also timed by events
+                (``event_ms``), a check of that fallback.
+8. trace     -- torch.profiler over one prefill and over 4 decode steps of each
+                model: device busy share and the kernels that take the device time.
+9. serve     -- qwen3-0.6b served again, as in 4, now after the profiler
+                sessions (``after_profiler``: true).
 
-Then one {"kernels": [...]} line, the card's name and power limit, and last
+Then a ``timing`` line (kernel timings taken by CUPTI and by CUDA events),
+one {"kernels": [...]} line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -52,7 +64,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PREFILL = dict(b=8, s=1000, h=16, kh=8, hd=128)
-DECODE = dict(b=8, t=1032, h=16, kh=8, hd=128, cur_lens=(1, 777, 1032))
+DECODE = dict(b=8, t=1032, h=16, kh=8, hd=128, cur_lens=(1, 129, 777, 1032))
 SSD = dict(b=8, h=80, p=64, n=128, chunk=256, seqs=(1000, 1024))
 SERVE = dict(batch=8, prompt=1000, gen=32)
 SSM_SLICE = dict(batch=2, prompt=600, steps=4)
@@ -61,10 +73,15 @@ SSM_SLICE = dict(batch=2, prompt=600, steps=4)
 STATE_TOL = 1e-3
 # kernel against plain: the tolerances of tests/test_kernels.py
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# the flash wrapper's route by dtype: bf16 on the tensor cores, fp32 on the
+# CUDA cores
+EXPECTED_ROUTE = {"bfloat16": "wgmma", "float32": "fp32"}
 # whole slice, card against CPU, fp32: the tolerance of the reference's
 # test_prefill_decode_matches_forward
 SLICE_TOL = 2e-4
 L2_BYTES = 50 * 10**6
+PROFILER_SESSIONS = [0]     # torch.profiler sessions opened so far in this process
+TIMING = {"cupti": 0, "cuda_events": 0}     # kernel timings taken by each method
 
 
 def emit(phase: str, **fields) -> None:
@@ -91,23 +108,85 @@ def device_events(torch, prof) -> list:
             if ev.device_type == cuda]
 
 
+def timing_since(before: dict) -> list:
+    """The methods that timed calls since the ``TIMING`` snapshot ``before``."""
+    return [m for m in TIMING if TIMING[m] > before[m]]
+
+
+def profiled(torch, fn, tries: int = 2):
+    """Run ``fn`` under torch.profiler and return the trace's device
+    activities; a session that saw none (CUPTI now and then delivers no
+    activity records) is opened again, up to ``tries`` sessions. An empty
+    list means that every session saw none."""
+    from torch.profiler import ProfilerActivity, profile
+    events = []
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        PROFILER_SESSIONS[0] += 1
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = device_events(torch, prof)
+        if events:
+            break
+        print("chip_smoke: a profiler session saw no device activity", file=sys.stderr,
+              flush=True)
+    return events
+
+
+def event_ms(torch, fn, args_list, iters: int) -> float:
+    """Mean device time of one call by CUDA events around ``iters`` calls,
+    for when the profiler sees no device activity. A spin kernel ahead of
+    the calls keeps the device busy while the host enqueues them, so the
+    calls run back to back and the host's launch cost stays out of the
+    time; the spin is lengthened (at most twice) until the start event is
+    still pending when the host has enqueued the last call. Where it never
+    is, the time returned includes host gaps: an upper bound."""
+    fn(*args_list[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(*args_list[i % len(args_list)])
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(2e9 * (2 * host_s + 1e-3))       # >= 2x the host's time at up to 2 GHz
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(cycles)
+        start.record()
+        for i in range(iters):
+            fn(*args_list[i % len(args_list)])
+        end.record()
+        overlapped = not start.query()
+        end.synchronize()
+        if overlapped:
+            break
+        cycles *= 4
+    else:
+        print("chip_smoke: event timing includes host gaps", file=sys.stderr, flush=True)
+    return start.elapsed_time(end) / iters
+
+
 def time_ms(torch, fn, args_list, iters: int) -> float:
     """Mean device time of one call: the summed durations of the device
     activities it launches, over ``iters`` calls that cycle through
     ``args_list`` (copies of the inputs, together larger than L2, so that
     each call reads its inputs from device memory). Host time between
-    launches is not counted."""
-    from torch.profiler import ProfilerActivity, profile
+    launches is not counted. Where the profiler sees no device activity,
+    CUDA events time the calls instead (``event_ms``); ``TIMING`` counts
+    the timings taken each way."""
     fn(*args_list[0])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for i in range(iters):
             fn(*args_list[i % len(args_list)])
-        torch.cuda.synchronize()
-    total_us = sum(us for _, us in device_events(torch, prof))
-    if total_us <= 0:
-        fail("the profiler saw no device activity")
-    return total_us / 1e3 / iters
+
+    total_us = sum(us for _, us in profiled(torch, run))
+    if total_us > 0:
+        TIMING["cupti"] += 1
+        return total_us / 1e3 / iters
+    TIMING["cuda_events"] += 1
+    return event_ms(torch, fn, args_list, iters)
 
 
 def host_us(torch, fn, args, iters: int = 200) -> float:
@@ -139,13 +218,61 @@ def check_close(name: str, out, ref, tol: float) -> float:
     return err
 
 
+def demangle(names: list) -> list:
+    """Short kernel names (``decode_split_kernel<__nv_bfloat16, 128, 2>``)
+    by c++filt where the toolchain has it, else the mangled names."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, check=True, timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return names
+    short = []
+    for name, full in zip(names, out):
+        m = re.search(r"(\w+_kernel(?:<[^>]*>)?)\(", full)
+        short.append(m.group(1) if m else name)
+    return short
+
+
 def ptxas_summary(log: str) -> list:
-    """Registers and spill bytes of each compiled kernel instantiation, from
-    nvcc's ``-Xptxas -v`` output (empty when the library was already built)."""
-    rows = re.findall(r"Compiling entry function '\w*?\d([a-z_]+_kernel)I(\w+?)EEv\w*'.*?"
-                      r"(\d+) bytes spill stores.*?Used (\d+) registers", log, re.S)
-    return [dict(kernel=f"{name}<{args}>", spill_store_bytes=int(sp), registers=int(r))
-            for name, args, sp, r in rows]
+    """Registers and spill bytes of every kernel in the library, from nvcc's
+    ``-Xptxas -v`` output (kept beside the library by the build)."""
+    rows = re.findall(r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores.*?"
+                      r"Used (\d+) registers", log, re.S)
+    names = demangle([name for name, _, _ in rows])
+    return [dict(kernel=name, spill_store_bytes=int(sp), registers=int(r))
+            for name, (_, sp, r) in zip(names, rows)]
+
+
+def cuobjdump() -> str:
+    """The toolkit's cuobjdump: beside the nvcc that builds the kernels,
+    else the copy in Triton's package."""
+    from repro_torch.kernels import _build
+    path = Path(_build.nvcc()).parent / "cuobjdump"
+    if path.exists():
+        return str(path)
+    try:
+        import triton
+    except ImportError:
+        fail("cuobjdump not found beside nvcc and no triton package")
+    path = Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump"
+    if not path.exists():
+        fail("cuobjdump not found beside nvcc nor in triton's package")
+    return str(path)
+
+
+def sass_hgmma(library: Path) -> dict:
+    """HGMMA (wgmma) instructions in the SASS of each instantiation of the
+    bf16 flash kernel; fails unless every one has some."""
+    sass = subprocess.run([cuobjdump(), "-sass", str(library)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts = {}
+    for block in sass.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0].strip()
+        if "flash_wgmma_kernel" in name:
+            counts[name] = block.count("HGMMA")
+    if len(counts) != 4 or not all(counts.values()):
+        fail(f"HGMMA missing from the bf16 flash kernel's SASS: {counts}")
+    return dict(zip(demangle(list(counts)), counts.values()))
 
 
 def phase_kernels(torch, F):
@@ -165,14 +292,22 @@ def phase_kernels(torch, F):
         q = rand((p["b"], p["s"], p["h"], p["hd"]), dtype)
         k = rand((p["b"], p["s"], p["kh"], p["hd"]), dtype)
         v = rand((p["b"], p["s"], p["kh"], p["hd"]), dtype)
+        routed = dict(flash_attention.flash_attention.routes)
         out = flash_attention.flash_attention(q, k, v, causal=True)
         torch.cuda.synchronize()
+        route = [r for r, n in flash_attention.flash_attention.routes.items()
+                 if n != routed[r]]
+        if route != [EXPECTED_ROUTE[dname]]:
+            fail(f"flash_attention {dname}: went by route {route}, "
+                 f"expected {EXPECTED_ROUTE[dname]}")
         ref = ops.flash_attention_plain(q, k, v, causal=True)
         err = check_close(f"flash_attention {dname}", out, ref, TOL[dname])
         per_call = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         args = input_copies((q, k, v))
+        before = dict(TIMING)
         kernel = lambda a, b_, c: flash_attention.flash_attention(a, b_, c, causal=True)  # noqa: E731
         ms = time_ms(torch, kernel, args, 20)
+        ev_ms = event_ms(torch, kernel, args, 20)
         launch_us = host_us(torch, kernel, args[0], 20)
         plain_ms = time_ms(torch, lambda a, b_, c: ops.flash_attention_plain(a, b_, c, causal=True),
                            args, 3)
@@ -182,10 +317,12 @@ def phase_kernels(torch, F):
         pairs = p["s"] * (p["s"] + 1) // 2                   # causal (q, k) pairs
         flops = 4 * p["b"] * p["h"] * p["hd"] * pairs
         bound_s, bound_by = bound_seconds(flops, per_call, dname)
-        row = dict(kernel="flash_attention", dtype=dname, shape=p, causal=True,
-                   max_abs_err=err, tol=TOL[dname], ms=ms, plain_ms=plain_ms,
+        row = dict(kernel="flash_attention", dtype=dname, route=route[0], shape=p,
+                   causal=True, max_abs_err=err, tol=TOL[dname], ms=ms, event_ms=ev_ms,
+                   plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_s * 1e3, bound_by=bound_by,
-                   host_us_per_launch=launch_us, gflop=flops / 1e9, mbytes=per_call / 1e6)
+                   host_us_per_launch=launch_us, gflop=flops / 1e9, mbytes=per_call / 1e6,
+                   timing=timing_since(before))
         results["flash_attention"][dname] = row
         emit("kernels", **row)
         del q, k, v, out, ref, args
@@ -201,13 +338,16 @@ def phase_kernels(torch, F):
         for cur_len in d["cur_lens"]:
             out = decode_attn.decode_attention(q, kc, vc, cur_len)
             torch.cuda.synchronize()
+            n_split, rows_per_split = decode_attn.decode_attention.last_split
             ref = decode_attention_ref(q, kc, vc, cur_len)
             err = check_close(f"decode_attention {dname} cur_len={cur_len}", out, ref,
                               TOL[dname])
             per_call = (2 * q.numel() + 2 * d["b"] * cur_len * d["kh"] * d["hd"]) \
                 * q.element_size()
+            before = dict(TIMING)
             kernel = lambda a, b_, c: decode_attn.decode_attention(a, b_, c, cur_len)  # noqa: E731
             ms = time_ms(torch, kernel, args, 50)
+            ev_ms = event_ms(torch, kernel, args, 50)
             launch_us = host_us(torch, kernel, args[0])
             plain_ms = time_ms(torch, lambda a, b_, c: decode_attention_ref(a, b_, c, cur_len),
                                args, 10)
@@ -218,11 +358,12 @@ def phase_kernels(torch, F):
             bound_s, bound_by = bound_seconds(flops, per_call, dname)
             row = dict(kernel="decode_attention", dtype=dname,
                        shape={k_: v_ for k_, v_ in d.items() if k_ != "cur_lens"},
-                       cur_len=cur_len, max_abs_err=err, tol=TOL[dname], ms=ms,
+                       cur_len=cur_len, n_split=n_split, rows_per_split=rows_per_split,
+                       max_abs_err=err, tol=TOL[dname], ms=ms, event_ms=ev_ms,
                        plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=bound_s * 1e3, bound_by=bound_by,
                        host_us_per_launch=launch_us, mflop=flops / 1e6,
-                       mbytes=per_call / 1e6)
+                       mbytes=per_call / 1e6, timing=timing_since(before))
             rows.append(row)
             emit("kernels", **row)
         results["decode_attention"][dname] = rows
@@ -333,7 +474,10 @@ def serve_bounds(cfg, params: int, b: int, prompt: int, gen: int):
     return prefill, bound_seconds(decode_flops, decode_bytes, "bfloat16")
 
 
-def phase_serve(torch):
+def phase_serve(torch, served=None):
+    """Full qwen3-0.6b: build it, warm up and serve once; or, given
+    ``served`` (what an earlier call returned), serve the same model again,
+    as after the profiler phases."""
     import numpy as np
 
     from repro_torch.configs import get_arch
@@ -341,12 +485,15 @@ def phase_serve(torch):
     from repro_torch.train.serve import build_decode_step, build_prefill_step
 
     cfg = get_arch("qwen3-0.6b")
-    model = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
-    prefill, decode = build_prefill_step(model), build_decode_step(model)
     b, prompt, gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
-    tokens = torch.from_numpy(
-        np.random.default_rng(0).integers(0, cfg.vocab_size, (b, prompt))).cuda()
-    warm, *_ = serve_once(torch, prefill, decode, tokens, prompt + gen, gen)
+    if served is None:
+        model = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+        prefill, decode = build_prefill_step(model), build_decode_step(model)
+        tokens = torch.from_numpy(
+            np.random.default_rng(0).integers(0, cfg.vocab_size, (b, prompt))).cuda()
+        warm, *_ = serve_once(torch, prefill, decode, tokens, prompt + gen, gen)
+        served = (model, prefill, decode, tokens, warm)
+    model, prefill, decode, tokens, warm = served
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -371,29 +518,38 @@ def phase_serve(torch):
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                launches=launches, logits_finite=finite,
                repeat_identical=bool((warm == seqs).all()),
+               after_profiler=PROFILER_SESSIONS[0] > 0,
+               profiler_sessions_before=PROFILER_SESSIONS[0],
                first_sequence=seqs[0].tolist())
     emit("serve", **row)
-    return model, prefill, decode, tokens, row
+    return served, row
 
 
 def device_share(torch, fn):
     """Profile ``fn``: wall ms (host clock, ending in a synchronize), the
     device's busy ms (summed device activity, one stream) and its share of
-    the wall time, and the activities that take the most device time."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    the wall time, and the activities that take the most device time. Where
+    no profiler session saw device activity, the device numbers are null
+    (not measured)."""
+    wall = []
+
+    def run():
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        wall.append((time.perf_counter() - t0) * 1e3)
+
+    events = profiled(torch, run)
+    wall_ms = wall[-1]
+    if not events:
+        return dict(wall_ms=wall_ms, device_busy_ms=None, device_busy_share=None,
+                    device_activities=None, top=[],
+                    note="not measured: no profiler session saw device activity")
     by_name = {}
-    for name, us in device_events(torch, prof):
+    for name, us in events:
         total, calls = by_name.get(name, (0.0, 0))
         by_name[name] = (total + us, calls + 1)
     busy_ms = sum(total for total, _ in by_name.values()) / 1e3
-    if busy_ms <= 0:
-        fail("the profiler saw no device activity")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
                 device_activities=sum(calls for _, calls in by_name.values()),
@@ -469,8 +625,10 @@ def phase_ssd_kernel(torch) -> dict:
                                     STATE_TOL)
             del y, final, y_ref, final_ref
             copies = input_copies(args)
+            before = dict(TIMING)
             kernel = lambda *t: ssd.ssd_intra_chunk(*t, chunk=lc)  # noqa: E731
             ms = time_ms(torch, kernel, copies, 20)
+            ev_ms = event_ms(torch, kernel, copies, 20)
             launch_us = host_us(torch, kernel, copies[0], 50)
             plain_ms = time_ms(torch, lambda *t: ssd_intra_chunk_ref(*t, chunk=lc), copies, 3)
             ssd_ms = time_ms(torch, lambda *t: ops.ssd(*t, chunk=lc), copies, 10)
@@ -481,13 +639,13 @@ def phase_ssd_kernel(torch) -> dict:
                        ragged=s % lc != 0, max_abs_err=y_err, tol=TOL[dname],
                        y_intra_err=intra_err, states_err=states_err, decay_err=decay_err,
                        final_state_err=final_err, state_tol=STATE_TOL,
-                       ms=ms, plain_ms=plain_ms, plain="ssd_intra_chunk_ref",
+                       ms=ms, event_ms=ev_ms, plain_ms=plain_ms, plain="ssd_intra_chunk_ref",
                        ssd_ms=ssd_ms, ssd_chunked_ms=chunked_ms, library_ms=None,
                        library_note="no single PyTorch call computes the SSD chunk",
                        bound_ms=bound_s * 1e3, bound_by=bound_by,
                        fp32_core_floor_ms=flops / PEAK_FLOPS["float32"] * 1e3,
                        host_us_per_launch=launch_us, gflop=flops / 1e9,
-                       mbytes=nbytes / 1e6)
+                       mbytes=nbytes / 1e6, timing=timing_since(before))
             rows[(s, dname)] = row
             emit("kernels", **row)
             del x, dt, a, bm, cm, args, copies
@@ -624,52 +782,65 @@ def main() -> int:
     path, build_s, log = _build.build()
     emit("build", seconds=build_s, library=str(path.relative_to(ROOT)),
          sources=[str(s.relative_to(ROOT)) for s in _build._sources()],
-         ptxas=ptxas_summary(log))
+         ptxas=ptxas_summary(log), sass_hgmma=sass_hgmma(path))
 
+    # the slices and both serve runs come before any torch.profiler session
+    phase_slice(torch)
+    served, serve = phase_serve(torch)
+    phase_slice_ssm(torch)
+    ssm_model, ssm_prefill, ssm_decode, ssm_tokens, serve_ssm = phase_serve_ssm(torch)
     kernels = phase_kernels(torch, F)
     ssd_rows = phase_ssd_kernel(torch)
-    phase_slice(torch)
-    model, prefill, decode, tokens, serve = phase_serve(torch)
+    _, prefill, decode, tokens, _ = served
     phase_trace(torch, prefill, decode, tokens, "qwen3-0.6b")
-    del model, prefill, decode
+    phase_trace(torch, ssm_prefill, ssm_decode, ssm_tokens, "mamba2-2.7b")
+    del ssm_model, ssm_prefill, ssm_decode
     torch.cuda.empty_cache()
-    phase_slice_ssm(torch)
-    model, prefill, decode, tokens, serve_ssm = phase_serve_ssm(torch)
-    phase_trace(torch, prefill, decode, tokens, "mamba2-2.7b")
+    phase_serve(torch, served)                        # the same serve, after the profiler
 
     fa = kernels["flash_attention"]["bfloat16"]
     da = kernels["decode_attention"]["bfloat16"]
     da_main = da[-1]                                  # cur_len 1032 = the cache length
     ssd_main = ssd_rows[(SERVE["prompt"], "bfloat16")]  # the serve run's shape
     line = [
-        dict(name="flash_attention", route="cuda",
-             source="src/repro_torch/csrc/flash_attention.cu",
+        dict(name="flash_attention", route="cuda", dispatch=fa["route"],
+             source="src/repro_torch/csrc/flash_attention_wgmma.cu",
+             fp32_source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:25",
              tpu_kernel="_flash_fwd_kernel (pl.pallas_call at flash_attention.py:80)",
+             design="redesigned for Hopper: bf16 Q.K^T and P.V on wgmma with P kept in "
+                    "registers; TMA loads by a producer warp into a 3-stage swizzled ring; two "
+                    "consumer warpgroups in ping-pong; fp32 inputs on the CUDA-core kernel",
              launches=serve["launches"]["flash_attention"],
              max_abs_err=fa["max_abs_err"], tol=fa["tol"], shape=fa["shape"],
              dtype="bfloat16", ms=fa["ms"], plain_ms=fa["plain_ms"],
-             bound_ms=fa["bound_ms"], bound_by=fa["bound_by"], library_ms=fa["library_ms"]),
+             bound_ms=fa["bound_ms"], bound_by=fa["bound_by"], library_ms=fa["library_ms"],
+             timing=fa["timing"]),
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attn.cu",
              replaces="src/repro/kernels/decode_attn.py:24",
              tpu_kernel="_decode_kernel (pl.pallas_call at decode_attn.py:71)",
+             design="redesigned for Hopper: split over the cache, grid (K, B, n_split), "
+                    "partials merged by a second grid in the same call",
+             n_split=da_main["n_split"], rows_per_split=da_main["rows_per_split"],
              launches=serve["launches"]["decode_attention"],
              max_abs_err=max(r["max_abs_err"] for r in da), tol=da_main["tol"],
              shape=da_main["shape"], cur_len=da_main["cur_len"], dtype="bfloat16",
              ms=da_main["ms"], plain_ms=da_main["plain_ms"],
              bound_ms=da_main["bound_ms"], bound_by=da_main["bound_by"],
-             library_ms=da_main["library_ms"]),
+             library_ms=da_main["library_ms"], timing=da_main["timing"]),
         dict(name="ssd", route="cuda", source="src/repro_torch/csrc/ssd.cu",
              replaces="src/repro/kernels/ssd.py:24",
              tpu_kernel="_ssd_chunk_kernel (pl.pallas_call at ssd.py:76)",
+             design="as first ported: fp32 CUDA cores, intra-chunk and state grids",
              launches=serve_ssm["launches"]["ssd"],
              max_abs_err=ssd_main["max_abs_err"], tol=ssd_main["tol"],
              shape=ssd_main["shape"], dtype="bfloat16", ms=ssd_main["ms"],
              plain_ms=ssd_main["plain_ms"], bound_ms=ssd_main["bound_ms"],
              bound_by=ssd_main["bound_by"], library_ms=None,
-             library_note=ssd_main["library_note"]),
+             library_note=ssd_main["library_note"], timing=ssd_main["timing"]),
     ]
+    emit("timing", kernel_timings=TIMING, profiler_sessions=PROFILER_SESSIONS[0])
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

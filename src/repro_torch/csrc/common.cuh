@@ -1,5 +1,6 @@
 // Helpers shared by the attention kernels: 16-byte vector loads that widen
-// to fp32, and the store back to the tensor's type.
+// to fp32 (at once, or later from the raw 16 bytes), and the store back to
+// the tensor's type.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -16,24 +17,29 @@ struct Vec16;
 template <>
 struct Vec16<float> {
   static constexpr int N = 4;
-  __device__ __forceinline__ static void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
+  __device__ __forceinline__ static void widen(const uint4& raw, float* out) {
+    const float4 v = *reinterpret_cast<const float4*>(&raw);
     out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  }
+  __device__ __forceinline__ static void load(const float* p, float* out) {
+    widen(*reinterpret_cast<const uint4*>(p), out);
   }
 };
 
 template <>
 struct Vec16<__nv_bfloat16> {
   static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+  __device__ __forceinline__ static void widen(const uint4& raw, float* out) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float2 f = __bfloat1622float2(h[i]);
       out[2 * i] = f.x;
       out[2 * i + 1] = f.y;
     }
+  }
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
+    widen(*reinterpret_cast<const uint4*>(p), out);
   }
 };
 

@@ -1,5 +1,5 @@
 // GQA decode attention (one query token against the KV cache) for Hopper
-// (sm_90a).
+// (sm_90a), split over the cache.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/decode_attn.py
 // (_decode_kernel, launched by decode_attention), which the reference model
@@ -9,18 +9,28 @@
 // throughout, output acc / max(l, 1e-30).
 //
 // What bounds it: bytes. Each layer reads K and V for cur_len positions;
-// at B=8, K=8, hd=128, bf16 and cur_len=1032 that is 33.8 MB, 10 us at
+// at B=8, K=8, hd=128, bf16 and cur_len=1032 that is 33.9 MB, 0.0101 ms at
 // 3.35 TB/s, against only 34 MFLOP.
 //
-// What this design does about it: every cache byte is read once, with
-// 16-byte vector loads, by one block per (batch, kv head) that serves all
-// G = H/K query heads of that kv head (no repeated kv heads, as the TPU
-// kernel's (K, G) contraction). A group of hd*size/16 lanes splits one
-// cache row; the 8 warps interleave positions and keep U rows of K and V
-// in flight per lane before using them. Each lane group keeps its own
-// online-softmax state, merged at the end by shuffles within the warp and
-// through shared memory across warps. At B=8, K=8 this is only 64 blocks
-// for 132 SMs: splitting T over more blocks (split-K) is later work.
+// What this design does about it: the whole card reads the cache. The
+// grid is (K, B, n_split): a block reads rows_per_split consecutive
+// positions of one (batch, kv head), every cache byte once, with 16-byte
+// vector loads, and serves all G = H/K query heads of that kv head (no
+// repeated kv heads, as the TPU kernel's (K, G) contraction). The caller
+// plans n_split for about two blocks per SM (kernels/decode_attn.py::
+// plan_splits): at B=8, K=8 one block per (batch, kv head) would fill 64 of
+// 132 SMs. Inside a block, a group of hd*size/16 lanes splits one cache
+// row; the 8 warps interleave positions, and each lane keeps U rows of K
+// and V in flight as raw 16-byte vectors before widening them, so each SM
+// has enough loads outstanding to stream at the memory's rate. Each lane
+// group keeps its own online-softmax state, merged by shuffles within the
+// warp and through shared memory across warps. A block then writes its
+// partial (m, l, acc[G][hd]) in fp32 to scratch, and a second small grid in
+// the same call merges the n_split partials with the same max-rescale
+// algebra and writes o. The merge is a second grid because blocks run in
+// no order and cannot wait for each other; it reads 1 KB per (batch, head)
+// at the serve shape. With n_split == 1 the first grid writes o itself and
+// the merge is not launched.
 
 #include "common.cuh"
 
@@ -30,20 +40,29 @@ namespace {
 constexpr int DWARPS = 8;
 constexpr int DT = DWARPS * 32;
 
+// The block's geometry; kernels/decode_attn.py::rows_per_step mirrors STEP.
+template <typename T, int HD, int G>
+struct DecodeShape {
+  static constexpr int VEC = Vec16<T>::N;               // elements per 16-byte load
+  static constexpr int LPR = HD / VEC;                  // lanes per cache row
+  static constexpr int RPW = 32 / LPR;                  // rows per warp per load
+  static constexpr int U = G <= 4 ? 4 : 2;              // rows in flight per lane
+  static constexpr int STEP = DWARPS * RPW * U;         // positions per block step
+  static_assert(LPR >= 1 && LPR <= 32, "head_dim does not fit one warp");
+};
+
 template <typename T, int HD, int G>
 __global__ void __launch_bounds__(DT)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-              const T* __restrict__ vc, T* __restrict__ o,
-              int H, int K, int cur_len,
-              long long q_sb, long long q_sh,
-              long long k_sb, long long k_st, long long k_sh,
-              long long v_sb, long long v_st, long long v_sh,
-              float scale) {
-  constexpr int VEC = Vec16<T>::N;          // elements per 16-byte load
-  constexpr int LPR = HD / VEC;             // lanes per cache row
-  constexpr int RPW = 32 / LPR;             // rows per warp per step
-  constexpr int U = G >= 4 ? 2 : 4;         // rows in flight per lane
-  static_assert(LPR >= 1 && LPR <= 32, "head_dim does not fit one warp");
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+                    const T* __restrict__ vc, T* __restrict__ o,
+                    float* __restrict__ part_acc, float* __restrict__ part_ml,
+                    int H, int K, int cur_len, int rows_per_split,
+                    long long q_sb, long long q_sh,
+                    long long k_sb, long long k_st, long long k_sh,
+                    long long v_sb, long long v_st, long long v_sh,
+                    float scale) {
+  using S = DecodeShape<T, HD, G>;
+  constexpr int VEC = S::VEC, LPR = S::LPR, RPW = S::RPW, U = S::U;
 
   __shared__ float sm_acc[DWARPS][G][HD];
   __shared__ float sm_m[DWARPS][G];
@@ -51,11 +70,15 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
+  const int split = blockIdx.z;
+  const int n_split = gridDim.z;
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
-  const int rg = lane / LPR;                // row within the warp step
+  const int rg = lane / LPR;                // row within the warp's load
   const int cl = lane % LPR;                // chunk of head_dim
   const int d0 = cl * VEC;
+  const int start = split * rows_per_split;
+  const int end = min(cur_len, start + rows_per_split);
 
   float qf[G][VEC];
 #pragma unroll
@@ -76,30 +99,31 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 
   const T* kb = kc + b * k_sb + kvh * k_sh + d0;
   const T* vb = vc + b * v_sb + kvh * v_sh + d0;
-  constexpr int STEP = DWARPS * RPW * U;    // positions per block iteration
 
-  for (int base = 0; base < cur_len; base += STEP) {
-    float kf[U][VEC], vf[U][VEC];
+  for (int base = start; base < end; base += S::STEP) {
+    uint4 kr[U], vr[U];                     // raw rows in flight
     bool valid[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int pos = base + (u * DWARPS + warp) * RPW + rg;
-      valid[u] = pos < cur_len;
+      valid[u] = pos < end;
       if (valid[u]) {
-        Vec16<T>::load(kb + pos * k_st, kf[u]);
-        Vec16<T>::load(vb + pos * v_st, vf[u]);
+        kr[u] = *reinterpret_cast<const uint4*>(kb + pos * k_st);
+        vr[u] = *reinterpret_cast<const uint4*>(vb + pos * v_st);
       } else {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) kf[u][e] = vf[u][e] = 0.f;
+        kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
       }
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
+      float kf[VEC], vf[VEC];
+      Vec16<T>::widen(kr[u], kf);
+      Vec16<T>::widen(vr[u], vf);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float s = 0.f;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) s = fmaf(qf[g][e], kf[u][e], s);
+        for (int e = 0; e < VEC; ++e) s = fmaf(qf[g][e], kf[e], s);
 #pragma unroll
         for (int off = LPR / 2; off > 0; off >>= 1)   // within the row's lanes
           s += __shfl_xor_sync(0xffffffffu, s, off);
@@ -109,7 +133,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
           const float p = expf(s - m_new);
           l[g] = l[g] * corr + p;
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(acc[g][e], corr, p * vf[u][e]);
+          for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(acc[g][e], corr, p * vf[e]);
           m[g] = m_new;
         }
       }
@@ -148,7 +172,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
   __syncthreads();
 
-  // merge the warps; o is contiguous (B, 1, H, HD)
+  // merge the warps; then o (contiguous (B, 1, H, HD)) or this split's
+  // partial, record ((b*K + kvh)*n_split + split)*G + g
   for (int idx = threadIdx.x; idx < G * HD; idx += DT) {
     const int g = idx / HD;
     const int d = idx % HD;
@@ -162,46 +187,89 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       lsum += sm_l[w][g] * c;
       a += sm_acc[w][g][d] * c;
     }
-    o[((long long)b * H + kvh * G + g) * HD + d] = from_float<T>(a / fmaxf(lsum, 1e-30f));
+    if (n_split == 1) {
+      o[((long long)b * H + kvh * G + g) * HD + d] = from_float<T>(a / fmaxf(lsum, 1e-30f));
+    } else {
+      const long long rec = ((long long)(b * K + kvh) * n_split + split) * G + g;
+      part_acc[rec * HD + d] = a;
+      if (d == 0) {
+        part_ml[2 * rec] = mx;
+        part_ml[2 * rec + 1] = lsum;
+      }
+    }
   }
+}
+
+// One block per (batch, q head), one thread per head_dim element: merge
+// the n_split partials of its kv head's group member.
+template <typename T, int HD>
+__global__ void __launch_bounds__(HD)
+decode_merge_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+                    T* __restrict__ o, int H, int G, int n_split) {
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int K = H / G;
+  const int d = threadIdx.x;
+  const long long rec0 = (long long)(b * K + h / G) * n_split * G + h % G;
+  float mx = kNegInf;
+  for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, part_ml[2 * (rec0 + s * G)]);
+  float lsum = 0.f, a = 0.f;
+  for (int s = 0; s < n_split; ++s) {
+    const long long rec = rec0 + s * G;
+    const float c = expf(part_ml[2 * rec] - mx);
+    lsum += part_ml[2 * rec + 1] * c;
+    a += part_acc[rec * HD + d] * c;
+  }
+  o[(long long)bh * HD + d] = from_float<T>(a / fmaxf(lsum, 1e-30f));
 }
 
 template <typename T, int HD, int G>
 cudaError_t launch_decode(const void* q, const void* k, const void* v, void* o,
-                          int B, int H, int K, int cur_len,
+                          float* part, int B, int H, int K, int cur_len,
+                          int n_split, int rows_per_split,
                           const long long* qs, const long long* ks,
                           const long long* vs, float scale, cudaStream_t st) {
-  decode_kernel<T, HD, G><<<dim3(K, B), DT, 0, st>>>(
+  float* part_acc = part;
+  float* part_ml = part + (long long)B * K * n_split * G * HD;
+  decode_split_kernel<T, HD, G><<<dim3(K, B, n_split), DT, 0, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, K, cur_len,
+      static_cast<const T*>(v), static_cast<T*>(o), part_acc, part_ml,
+      H, K, cur_len, rows_per_split,
       qs[0], qs[1], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return err;
+  decode_merge_kernel<T, HD><<<B * H, HD, 0, st>>>(part_acc, part_ml, static_cast<T*>(o),
+                                                   H, G, n_split);
   return cudaGetLastError();
 }
 
 template <typename T, int HD>
 cudaError_t dispatch_g(int G, const void* q, const void* k, const void* v,
-                       void* o, int B, int H, int K, int cur_len,
-                       const long long* qs, const long long* ks,
-                       const long long* vs, float scale, cudaStream_t st) {
+                       void* o, float* part, int B, int H, int K, int cur_len,
+                       int n_split, int rows, const long long* qs,
+                       const long long* ks, const long long* vs, float scale,
+                       cudaStream_t st) {
   switch (G) {
-    case 1: return launch_decode<T, HD, 1>(q, k, v, o, B, H, K, cur_len, qs, ks, vs, scale, st);
-    case 2: return launch_decode<T, HD, 2>(q, k, v, o, B, H, K, cur_len, qs, ks, vs, scale, st);
-    case 4: return launch_decode<T, HD, 4>(q, k, v, o, B, H, K, cur_len, qs, ks, vs, scale, st);
-    case 8: return launch_decode<T, HD, 8>(q, k, v, o, B, H, K, cur_len, qs, ks, vs, scale, st);
+    case 1: return launch_decode<T, HD, 1>(q, k, v, o, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
+    case 2: return launch_decode<T, HD, 2>(q, k, v, o, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
+    case 4: return launch_decode<T, HD, 4>(q, k, v, o, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
+    case 8: return launch_decode<T, HD, 8>(q, k, v, o, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
 cudaError_t dispatch_hd(int hd, int G, const void* q, const void* k,
-                        const void* v, void* o, int B, int H, int K,
-                        int cur_len, const long long* qs, const long long* ks,
-                        const long long* vs, float scale, cudaStream_t st) {
+                        const void* v, void* o, float* part, int B, int H, int K,
+                        int cur_len, int n_split, int rows, const long long* qs,
+                        const long long* ks, const long long* vs, float scale,
+                        cudaStream_t st) {
   switch (hd) {
-    case 16: return dispatch_g<T, 16>(G, q, k, v, o, B, H, K, cur_len, qs, ks, vs, scale, st);
-    case 32: return dispatch_g<T, 32>(G, q, k, v, o, B, H, K, cur_len, qs, ks, vs, scale, st);
-    case 64: return dispatch_g<T, 64>(G, q, k, v, o, B, H, K, cur_len, qs, ks, vs, scale, st);
-    case 128: return dispatch_g<T, 128>(G, q, k, v, o, B, H, K, cur_len, qs, ks, vs, scale, st);
+    case 16: return dispatch_g<T, 16>(G, q, k, v, o, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
+    case 32: return dispatch_g<T, 32>(G, q, k, v, o, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
+    case 64: return dispatch_g<T, 64>(G, q, k, v, o, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
+    case 128: return dispatch_g<T, 128>(G, q, k, v, o, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -212,11 +280,14 @@ cudaError_t dispatch_hd(int hd, int G, const void* q, const void* k,
 // dtype: 0 = float32, 1 = bfloat16. q is (B, 1, H, hd) with strides
 // (q_sb, q_sh) for batch and head; the caches are (B, T, K, hd) with
 // strides for batch, position and kv head; head_dim has stride 1. o is a
-// contiguous (B, 1, H, hd) buffer. 1 <= cur_len <= T is checked by the
-// caller. Returns cudaGetLastError() after launch.
+// contiguous (B, 1, H, hd) buffer. The cache's first cur_len positions are
+// read in n_split splits of rows_per_split (the last one shorter), none
+// empty; with n_split > 1, part is fp32 scratch of B*K*n_split*G*(hd + 2)
+// floats, else unused. 1 <= cur_len <= T is checked by the caller. Returns
+// cudaGetLastError() after the launches.
 extern "C" int repro_decode_attention(
-    const void* q, const void* k, const void* v, void* o, int dtype,
-    int B, int H, int K, int hd, int cur_len,
+    const void* q, const void* k, const void* v, void* o, void* part, int dtype,
+    int B, int H, int K, int hd, int cur_len, int n_split, int rows_per_split,
     long long q_sb, long long q_sh,
     long long k_sb, long long k_st, long long k_sh,
     long long v_sb, long long v_st, long long v_sh,
@@ -225,12 +296,14 @@ extern "C" int repro_decode_attention(
   const long long ks[3] = {k_sb, k_st, k_sh};
   const long long vs[3] = {v_sb, v_st, v_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(part);
   const int G = H / K;
   if (dtype == 0)
-    return (int)repro::dispatch_hd<float>(hd, G, q, k, v, o, B, H, K, cur_len,
-                                          qs, ks, vs, scale, st);
+    return (int)repro::dispatch_hd<float>(hd, G, q, k, v, o, p, B, H, K, cur_len, n_split,
+                                          rows_per_split, qs, ks, vs, scale, st);
   if (dtype == 1)
-    return (int)repro::dispatch_hd<__nv_bfloat16>(hd, G, q, k, v, o, B, H, K,
-                                                  cur_len, qs, ks, vs, scale, st);
+    return (int)repro::dispatch_hd<__nv_bfloat16>(hd, G, q, k, v, o, p, B, H, K, cur_len,
+                                                  n_split, rows_per_split, qs, ks, vs,
+                                                  scale, st);
   return (int)cudaErrorInvalidValue;
 }

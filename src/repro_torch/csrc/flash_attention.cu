@@ -1,16 +1,19 @@
-// Prefill (causal or full) attention forward for Hopper (sm_90a).
+// Prefill (causal or full) attention forward for Hopper (sm_90a), fp32.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
-// (_flash_fwd_kernel, launched by flash_attention_fwd), which the reference
-// model computes with models/attention.py::blockwise_attention at the
-// prefill call site. Same math: online softmax over kv tiles with fp32
-// accumulators, masked scores set to -1e30 (not -inf), kv tiles above the
-// causal diagonal skipped, output acc / max(l, 1e-30).
+// (_flash_fwd_kernel, launched by flash_attention_fwd) for fp32 inputs; bf16
+// inputs go to the tensor-core kernel in flash_attention_wgmma.cu. Same
+// math: online softmax over kv tiles with fp32 accumulators, masked scores
+// set to -1e30 (not -inf), kv tiles above the causal diagonal skipped,
+// output acc / max(l, 1e-30).
+//
+// Why fp32 stays on the CUDA cores: the tensor cores take fp32 operands
+// only as TF32, which keeps about three decimal digits; the fp32 slice
+// checks hold the card against the CPU at 2e-4, which TF32 could not meet.
 //
 // What bounds it: operations. At the serve shapes (B=8, S=1000, H=16, K=8,
-// hd=128, bf16) one layer needs 4*B*H*hd*S(S+1)/2 = 32.8 GFLOP against
-// 33 MB of q/k/v/o, so the card's bound is 33 us (989 TFLOP/s bf16
-// tensor cores) and the bytes' only 10 us.
+// hd=128) one layer needs 4*B*H*hd*S(S+1)/2 = 32.8 GFLOP; on the fp32 CUDA
+// cores (67 TFLOP/s) that is a 0.49 ms floor.
 //
 // What this design does about it: it keeps every intermediate out of device
 // memory (one 64-row q tile, the current 64-row k/v tiles and the 64x64
@@ -19,10 +22,8 @@
 // strides in the (B, S, H, hd) layout, with no transpose copy and no
 // repeated kv heads (q head h reads kv head h / (H/K), jnp.repeat's
 // mapping), and masks the ragged edge so any length works. The products
-// run on the fp32 CUDA cores, register-tiled (4x8 scores and 4x(hd/8)
-// outputs per thread, 16-byte shared-memory loads); it does not use the
-// tensor cores (wgmma, TMA), so it sits far above its bound: that is later
-// work.
+// are register-tiled (4x8 scores and 4x(hd/8) outputs per thread, 16-byte
+// shared-memory loads).
 
 #include <atomic>
 
@@ -47,19 +48,19 @@ struct FlashSmem {
 };
 
 // Copy `nrows` rows of HD elements (row i at base + i*row_stride) into
-// shared memory as fp32 times `mul`; rows >= `valid` are zero.
-template <typename T, int HD>
+// shared memory times `mul`; rows >= `valid` are zero.
+template <int HD>
 __device__ __forceinline__ void load_tile(float* dst, int dst_stride,
-                                          const T* base, long long row_stride,
+                                          const float* base, long long row_stride,
                                           int nrows, int valid, float mul) {
-  constexpr int N = Vec16<T>::N;
+  constexpr int N = Vec16<float>::N;
   constexpr int CHUNKS = HD / N;
   for (int idx = threadIdx.x; idx < nrows * CHUNKS; idx += NT) {
     const int r = idx / CHUNKS;
     const int c = (idx % CHUNKS) * N;
     float buf[N];
     if (r < valid) {
-      Vec16<T>::load(base + r * row_stride + c, buf);
+      Vec16<float>::load(base + r * row_stride + c, buf);
     } else {
 #pragma unroll
       for (int e = 0; e < N; ++e) buf[e] = 0.f;
@@ -70,10 +71,10 @@ __device__ __forceinline__ void load_tile(float* dst, int dst_stride,
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  int H, int G, int Sq, int Skv,
                  long long q_sb, long long q_ss, long long q_sh,
                  long long k_sb, long long k_ss, long long k_sh,
@@ -99,11 +100,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = bh % H;
   const int kvh = h / G;
 
-  const T* qb = q + b * q_sb + (long long)q0 * q_ss + h * q_sh;
-  const T* kb = k + b * k_sb + kvh * k_sh;
-  const T* vb = v + b * v_sb + kvh * v_sh;
+  const float* qb = q + b * q_sb + (long long)q0 * q_ss + h * q_sh;
+  const float* kb = k + b * k_sb + kvh * k_sh;
+  const float* vb = v + b * v_sb + kvh * v_sh;
 
-  load_tile<T, HD>(sQ, S::QS, qb, q_ss, BQ, min(BQ, Sq - q0), scale);
+  load_tile<HD>(sQ, S::QS, qb, q_ss, BQ, min(BQ, Sq - q0), scale);
 
   float m[4], l[4], acc[4][NC];
 #pragma unroll
@@ -120,9 +121,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int kv0 = t * BK;
     __syncthreads();                         // previous tile fully consumed
-    load_tile<T, HD>(sK, S::KS, kb + (long long)kv0 * k_ss, k_ss, BK,
+    load_tile<HD>(sK, S::KS, kb + (long long)kv0 * k_ss, k_ss, BK,
                      min(BK, Skv - kv0), 1.f);
-    load_tile<T, HD>(sV, S::VS, vb + (long long)kv0 * v_ss, v_ss, BK,
+    load_tile<HD>(sV, S::VS, vb + (long long)kv0 * v_ss, v_ss, BK,
                      min(BK, Skv - kv0), 1.f);
     __syncthreads();
 
@@ -223,23 +224,23 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q0 + 4 * ty + i;
     if (qpos >= Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* orow = o + (((long long)b * Sq + qpos) * H + h) * HD;
+    float* orow = o + (((long long)b * Sq + qpos) * H + h) * HD;
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll
       for (int e = 0; e < VEC; ++e)
-        orow[VEC * tx + 8 * VEC * jj + e] = from_float<T>(acc[i][jj * VEC + e] * inv);
+        orow[VEC * tx + 8 * VEC * jj + e] = acc[i][jj * VEC + e] * inv;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
                          int B, int Sq, int Skv, int H, int K,
                          const long long* qs, const long long* ks,
                          const long long* vs, int causal, float scale,
                          cudaStream_t stream) {
   using S = FlashSmem<HD>;
-  auto kernel = flash_fwd_kernel<T, HD>;
+  auto kernel = flash_fwd_kernel<HD>;
   // above 48 KB of shared memory only after opting in, once per device
   // and instantiation rather than on every launch
   static std::atomic<bool> opted_in[kMaxDevices];
@@ -255,36 +256,21 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
   }
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   kernel<<<grid, NT, S::bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, H / K, Sq, Skv,
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), H, H / K, Sq, Skv,
       qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
       causal, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                        void* o, int B, int Sq, int Skv, int H, int K,
-                        const long long* qs, const long long* ks,
-                        const long long* vs, int causal, float scale,
-                        cudaStream_t st) {
-  switch (hd) {
-    case 16: return launch_flash<T, 16>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
-    case 32: return launch_flash<T, 32>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
-    case 64: return launch_flash<T, 64>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
-    case 128: return launch_flash<T, 128>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 }  // namespace repro
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements, for the
-// (batch, seq, head) axes; the head_dim axis must have stride 1. o is a
+// fp32 q (B, Sq, H, hd), k/v (B, Skv, K, hd). Strides are in elements, for
+// the (batch, seq, head) axes; the head_dim axis must have stride 1. o is a
 // contiguous (B, Sq, H, hd) buffer. Returns cudaGetLastError() after launch.
-extern "C" int repro_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype,
+extern "C" int repro_flash_attention_fp32(
+    const void* q, const void* k, const void* v, void* o,
     int B, int Sq, int Skv, int H, int K, int hd,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
@@ -294,11 +280,11 @@ extern "C" int repro_flash_attention_fwd(
   const long long ks[3] = {k_sb, k_ss, k_sh};
   const long long vs[3] = {v_sb, v_ss, v_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)repro::dispatch_hd<float>(hd, q, k, v, o, B, Sq, Skv, H, K,
-                                          qs, ks, vs, causal, scale, st);
-  if (dtype == 1)
-    return (int)repro::dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, Sq, Skv, H, K,
-                                                  qs, ks, vs, causal, scale, st);
-  return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 16: return (int)repro::launch_flash<16>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
+    case 32: return (int)repro::launch_flash<32>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
+    case 64: return (int)repro::launch_flash<64>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
+    case 128: return (int)repro::launch_flash<128>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -29,9 +29,11 @@ _c_ptr, _c_int, _c_i64, _c_float = (ctypes.c_void_p, ctypes.c_int,
                                     ctypes.c_int64, ctypes.c_float)
 # C signatures of the exported functions (each returns a cudaError_t).
 SIGNATURES = {
-    "repro_flash_attention_fwd": [_c_ptr] * 4 + [_c_int] * 7 + [_c_i64] * 9
+    "repro_flash_attention_wgmma": [_c_ptr] * 4 + [_c_int] * 6 + [_c_i64] * 9
     + [_c_int, _c_float, _c_ptr],
-    "repro_decode_attention": [_c_ptr] * 4 + [_c_int] * 6 + [_c_i64] * 8
+    "repro_flash_attention_fp32": [_c_ptr] * 4 + [_c_int] * 6 + [_c_i64] * 9
+    + [_c_int, _c_float, _c_ptr],
+    "repro_decode_attention": [_c_ptr] * 5 + [_c_int] * 8 + [_c_i64] * 8
     + [_c_float, _c_ptr],
     "repro_ssd_chunk": [_c_ptr] * 8 + [_c_int] * 7 + [_c_ptr],
 }
@@ -67,10 +69,12 @@ def library_path() -> Path:
 
 def build() -> tuple:
     """Compile and link the kernels if the library for these sources is not
-    built yet. Returns (path, seconds spent, compiler log)."""
+    built yet. Returns (path, seconds spent, compiler log); the log is kept
+    beside the library, so a library built earlier returns its log too."""
     out = library_path()
+    log_path = out.with_suffix(".log")
     if out.exists():
-        return out, 0.0, ""
+        return out, 0.0, log_path.read_text() if log_path.exists() else ""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     exe = nvcc()
@@ -96,8 +100,12 @@ def build() -> tuple:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        text = "\n".join(log)
+        staged_log = Path(tmp) / log_path.name
+        staged_log.write_text(text)
+        os.replace(staged_log, log_path)
         os.replace(staged, out)        # atomic: a reader never sees half a file
-    return out, time.perf_counter() - t0, "\n".join(log)
+    return out, time.perf_counter() - t0, text
 
 
 @functools.cache

@@ -1,10 +1,12 @@
-"""Prefill attention forward: the wrapper of the CUDA kernel in
-``csrc/flash_attention.cu`` (port of the Pallas kernel
-``repro/kernels/flash_attention.py``).
+"""Prefill attention forward: the wrapper of the CUDA kernels that port the
+Pallas kernel ``repro/kernels/flash_attention.py``. bf16 goes to the
+tensor-core kernel in ``csrc/flash_attention_wgmma.cu`` (route ``wgmma``),
+fp32 to the CUDA-core kernel in ``csrc/flash_attention.cu`` (route
+``fp32``).
 
-The kernel reads q (B, Sq, H, hd) and k, v (B, Skv, K, hd) through their
-strides, maps q head h to kv head h // (H/K) without repeating kv heads, and
-masks ragged lengths. Forward only: serving needs no gradient.
+Both kernels read q (B, Sq, H, hd) and k, v (B, Skv, K, hd) through their
+strides, map q head h to kv head h // (H/K) without repeating kv heads, and
+mask ragged lengths. Forward only: serving needs no gradient.
 """
 from __future__ import annotations
 
@@ -16,6 +18,10 @@ from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {torch.bfloat16: ("wgmma", "repro_flash_attention_wgmma"),
+          torch.float32: ("fp32", "repro_flash_attention_fp32")}
+WGMMA_BQ = 128      # q rows per block of the wgmma kernel
+MAX_GRID_Y = 65535
 
 
 def check_operands(kernel: str, **tensors: torch.Tensor) -> None:
@@ -45,30 +51,38 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q: (B, Sq, H, hd); k, v: (B, Skv, K, hd) with K dividing H, on CUDA.
     Returns (B, Sq, H, hd) in q's dtype. Position i of q attends to kv
-    positions <= i when ``causal`` (no offset), as blockwise_attention."""
+    positions <= i when ``causal`` (no offset), as blockwise_attention.
+    bf16 runs on the tensor cores, fp32 on the CUDA cores; there is no
+    fallback from one to the other."""
     check_operands("flash_attention", q=q, k=k, v=v)
     b, sq, h, hd = q.shape
     skv, kh = k.shape[1], k.shape[2]
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
         raise ValueError(f"flash_attention kernel: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if h % kh or hd not in HEAD_DIMS or min(b, sq, skv) < 1 or b * h > 65535:
-        raise ValueError(f"flash_attention kernel: unsupported H={h}, K={kh}, "
+    route, entry = ROUTES[q.dtype]
+    # grid: (ceil(Sq/64), B*H) for fp32, (B*H, ceil(Sq/128)) for wgmma
+    grid_ok = (b * h <= MAX_GRID_Y if route == "fp32"
+               else b * h < 2**31 and -(-sq // WGMMA_BQ) <= MAX_GRID_Y)
+    if h % kh or hd not in HEAD_DIMS or min(b, sq, skv) < 1 or not grid_ok:
+        raise ValueError(f"flash_attention kernel ({route}): unsupported H={h}, K={kh}, "
                          f"hd={hd}, B={b}, Sq={sq}, Skv={skv}")
     o = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
     lib = _build.library()
     with torch.cuda.device(q.device):
-        err = lib.repro_flash_attention_fwd(
+        err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            DTYPES[q.dtype], b, sq, skv, h, kh, hd,
+            b, sq, skv, h, kh, hd,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             int(causal), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_attention")
+    _build.check(err, f"flash_attention ({route})")
     flash_attention.launches += 1
+    flash_attention.routes[route] += 1
     return o
 
 
 flash_attention.launches = 0
+flash_attention.routes = {"wgmma": 0, "fp32": 0}

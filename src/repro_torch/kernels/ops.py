@@ -8,7 +8,8 @@ there is no fallback from the card to a plain version. Each kernel wrapper
 counts its launches in ``<wrapper>.launches``
 (``kernels.flash_attention.flash_attention``,
 ``kernels.decode_attn.decode_attention`` and
-``kernels.ssd.ssd_intra_chunk``).
+``kernels.ssd.ssd_intra_chunk``); the flash wrapper also counts them by
+route in ``flash_attention.routes`` (``wgmma`` for bf16, ``fp32``).
 """
 from __future__ import annotations
 

@@ -37,13 +37,70 @@ def test_flash_kernel_matches_plain(cuda, b, s, h, kh, hd, causal, dtype):
     q = _rand(g, (b, s, h, hd), dtype, cuda)
     k = _rand(g, (b, s, kh, hd), dtype, cuda)
     v = _rand(g, (b, s, kh, hd), dtype, cuda)
+    route = "wgmma" if dtype == torch.bfloat16 else "fp32"
     before = flash_attention.flash_attention.launches
+    routed = flash_attention.flash_attention.routes[route]
     out = ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention.flash_attention.launches == before + 1
+    assert flash_attention.flash_attention.routes[route] == routed + 1
     ref = ops.flash_attention_plain(q, k, v, causal=causal)
     np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
                                **_tol(dtype))
+
+
+def _wgmma_case(cuda, q, k, v, causal):
+    """One bf16 call on the tensor-core route against the plain version."""
+    routes = flash_attention.flash_attention.routes
+    before = dict(routes)
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert routes["wgmma"] == before["wgmma"] + 1 and routes["fp32"] == before["fp32"]
+    ref = ops.flash_attention_plain(q, k, v, causal=causal)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               **_tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1, 63, 100, 129, 1000])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_wgmma_matches_plain(cuda, hd, s, causal, group):
+    """Every head_dim and swizzle width, lengths below, at and across the
+    64-row warpgroup, 128-row block and kv-tile edges, G q heads per kv
+    head."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    kh = 2
+    q = _rand(g, (1, s, kh * group, hd), torch.bfloat16, cuda)
+    k = _rand(g, (1, s, kh, hd), torch.bfloat16, cuda)
+    v = _rand(g, (1, s, kh, hd), torch.bfloat16, cuda)
+    _wgmma_case(cuda, q, k, v, causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,sq,skv,h,kh,hd", [(2, 200, 200, 8, 2, 128), (1, 100, 300, 4, 2, 64),
+                                              (2, 300, 77, 4, 1, 32), (1, 129, 129, 2, 2, 16)])
+def test_flash_wgmma_strided_views(cuda, b, sq, skv, h, kh, hd, causal):
+    """q, k, v as 16-byte aligned views of one fused (B, S, H+2K, hd)
+    projection, as a fused qkv product would give them; and Sq != Skv."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    qkv = _rand(g, (b, max(sq, skv), h + 2 * kh, hd), torch.bfloat16, cuda)
+    q, k, v = qkv[:, :sq, :h], qkv[:, :skv, h:h + kh], qkv[:, :skv, h + kh:]
+    assert not q.is_contiguous() and not k.is_contiguous()
+    _wgmma_case(cuda, q, k, v, causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wgmma_head_major_views(cuda, causal):
+    """q, k, v as transposes of (B, heads, S, hd) tensors: the head stride
+    exceeds the position stride, which the tensor maps take as they are."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = _rand(g, (2, 4, 300, 64), torch.bfloat16, cuda).transpose(1, 2)
+    k = _rand(g, (2, 2, 300, 64), torch.bfloat16, cuda).transpose(1, 2)
+    v = _rand(g, (2, 2, 300, 64), torch.bfloat16, cuda).transpose(1, 2)
+    assert q.stride(2) > q.stride(1)
+    _wgmma_case(cuda, q, k, v, causal)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -62,6 +119,54 @@ def test_decode_kernel_matches_plain(cuda, b, h, kh, hd, cur_len, dtype):
     ref = decode_attention_ref(q, kc, vc, cur_len)
     np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
                                **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("cur_len", [1, 63, 128, 129, 777, 1032])
+def test_decode_split_matches_plain(cuda, cur_len, group, dtype):
+    """The serve run's cache length, cur_len at and across split and block
+    step boundaries; B=8, K=8 as qwen3-0.6b, so the planned splits are the
+    serve run's."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    b, t, kh, hd = 8, 1032, 8, 128
+    q = _rand(g, (b, 1, kh * group, hd), dtype, cuda)
+    kc = _rand(g, (b, t, kh, hd), dtype, cuda)
+    vc = _rand(g, (b, t, kh, hd), dtype, cuda)
+    before = decode_attn.decode_attention.launches
+    out = ops.decode_attention(q, kc, vc, cur_len)
+    torch.cuda.synchronize()
+    assert decode_attn.decode_attention.launches == before + 1
+    n_split, rows = decode_attn.decode_attention.last_split
+    sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    step = decode_attn.rows_per_step(hd, q.element_size(), group)
+    assert (n_split, rows) == decode_attn.plan_splits(cur_len, b, kh, sm, step)
+    ref = decode_attention_ref(q, kc, vc, cur_len)
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               **_tol(dtype))
+
+
+def test_flash_wgmma_refuses_what_it_does_not_take(cuda):
+    """The tensor-core route refuses, and never falls back to the fp32
+    kernel or the plain version."""
+    routes = flash_attention.flash_attention.routes
+    before = dict(routes)
+    q = torch.zeros(1, 8, 4, 24, device=cuda, dtype=torch.bfloat16)   # head_dim 24
+    with pytest.raises(ValueError, match="wgmma"):
+        flash_attention.flash_attention(q, q, q)
+    # more 128-row q tiles than the grid's second axis holds (a stride-0 view)
+    big = torch.zeros(1, 1, 2, 16, device=cuda, dtype=torch.bfloat16).expand(
+        1, 128 * 65535 + 1, 2, 16)
+    with pytest.raises(ValueError, match="wgmma"):
+        flash_attention.flash_attention(big, big[:, :8], big[:, :8])
+    q = torch.zeros(1, 8, 4, 16, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                                     # mixed dtypes
+        flash_attention.flash_attention(q, q.float(), q.float())
+    with pytest.raises(ValueError):                                     # fp16
+        flash_attention.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):                                     # misaligned view
+        flash_attention.flash_attention(q[..., 1:9], q[..., 1:9], q[..., 1:9])
+    assert routes == before
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
