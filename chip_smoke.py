@@ -10,8 +10,8 @@ slices and the serve runs come before any phase that opens torch.profiler:
 1. device    -- a CUDA device is required; prints nvidia-smi's name and power limit.
 2. build     -- compiles the CUDA kernels from src/repro_torch/csrc with nvcc;
                 registers and spills of every kernel, and the HGMMA (wgmma)
-                instructions in the bf16 flash kernel's SASS (cuobjdump), which
-                must be there.
+                instructions in the SASS (cuobjdump) of the bf16 flash and SSD
+                kernels, which must be there.
 3. slice     -- qwen3-0.6b at full width, 2 layers, fp32: the same weights on the
                 CPU (plain versions) and on the card (kernels), B=2, prompt 128,
                 4 decode steps; logits compared.
@@ -23,17 +23,20 @@ slices and the serve runs come before any phase that opens torch.profiler:
 5. slice_ssm -- mamba2-2.7b at full width, 2 layers, fp32, CPU against card:
                 B=2, prompt 600 (3 chunks, the last ragged), 4 decode steps;
                 logits at every step and the final decode state compared; 2
-                SSD launches.
+                SSD launches, both on the fp32 route.
 6. serve_ssm -- full mamba2-2.7b (64 layers, bf16, seeded random weights), the
-                same 8 x 1000 prompts and 32 greedy tokens: 64 SSD launches, no
-                attention-kernel launch.
+                same 8 x 1000 prompts and 32 greedy tokens: 64 SSD launches, all
+                on the wgmma route, no attention-kernel launch.
 7. kernels   -- each kernel against its plain PyTorch version on the card at the
                 serve shapes (prefill B=8, S=1000, H=16, K=8, hd=128, causal, with
                 the wrapper's route: wgmma for bf16, fp32 for fp32; decode B=8,
                 T=1032, cur_len 1 / 129 / 777 / 1032 with the planned n_split;
                 SSD B=8, S=1000 (ragged last chunk) and 1024, H=80, P=64, N=128,
-                chunk 256), bf16 and fp32, with the kernel's, the plain
-                version's and (for attention) the library call's times
+                chunk 256: the full ops.ssd against ssd_chunked, bf16 on the
+                wgmma route, once more with an initial state, and fp32, whose
+                intra-chunk kernel is also held to its three outputs), with the
+                kernel's, the plain version's and (for attention) the library
+                call's times
                 (F.scaled_dot_product_attention, a yardstick only), the card's
                 bound for the same work and the wrapper's host time per launch.
                 Times are CUPTI device times from torch.profiler; where no
@@ -260,19 +263,26 @@ def cuobjdump() -> str:
     return str(path)
 
 
+# tensor-core kernels and their instantiations in the library
+WGMMA_KERNELS = {"flash_wgmma_kernel": 4, "ssd_wgmma_kernel": 7}
+
+
 def sass_hgmma(library: Path) -> dict:
     """HGMMA (wgmma) instructions in the SASS of each instantiation of the
-    bf16 flash kernel; fails unless every one has some."""
+    bf16 flash and SSD kernels; fails unless every one has some."""
     sass = subprocess.run([cuobjdump(), "-sass", str(library)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     counts = {}
-    for block in sass.split("Function : ")[1:]:
-        name = block.split("\n", 1)[0].strip()
-        if "flash_wgmma_kernel" in name:
-            counts[name] = block.count("HGMMA")
-    if len(counts) != 4 or not all(counts.values()):
-        fail(f"HGMMA missing from the bf16 flash kernel's SASS: {counts}")
-    return dict(zip(demangle(list(counts)), counts.values()))
+    for kernel, instances in WGMMA_KERNELS.items():
+        found = {}
+        for block in sass.split("Function : ")[1:]:
+            name = block.split("\n", 1)[0].strip()
+            if kernel in name:
+                found[name] = block.count("HGMMA")
+        if len(found) != instances or not all(found.values()):
+            fail(f"HGMMA missing from the SASS of {kernel}: {found}")
+        counts.update(zip(demangle(list(found)), found.values()))
+    return counts
 
 
 def phase_kernels(torch, F):
@@ -419,18 +429,21 @@ def phase_slice(torch):
 
 
 def reset_launches() -> None:
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch count, and the SSD's counts by
+    route, to 0."""
     from repro_torch.kernels import decode_attn, flash_attention, ssd
     flash_attention.flash_attention.launches = 0
     decode_attn.decode_attention.launches = 0
-    ssd.ssd_intra_chunk.launches = 0
+    ssd.ssd.launches = 0
+    ssd.ssd.routes = dict.fromkeys(ssd.ssd.routes, 0)
 
 
 def read_launches() -> dict:
     from repro_torch.kernels import decode_attn, flash_attention, ssd
     return {"flash_attention": flash_attention.flash_attention.launches,
             "decode_attention": decode_attn.decode_attention.launches,
-            "ssd": ssd.ssd_intra_chunk.launches}
+            "ssd": ssd.ssd.launches, "ssd_routes": dict(ssd.ssd.routes)}
+
 
 
 def serve_once(torch, prefill, decode, tokens, max_len, gen):
@@ -501,7 +514,8 @@ def phase_serve(torch, served=None):
         torch, prefill, decode, tokens, prompt + gen, gen)
     launches = read_launches()
     expected = {"flash_attention": cfg.num_layers,
-                "decode_attention": cfg.num_layers * (gen - 1), "ssd": 0}
+                "decode_attention": cfg.num_layers * (gen - 1), "ssd": 0,
+                "ssd_routes": {"wgmma": 0, "fp32": 0}}
     if launches != expected:
         fail(f"serve: kernel launches {launches}, expected {expected}")
     if not finite or tuple(shape) != (b, cfg.padded_vocab):
@@ -589,12 +603,34 @@ def ssd_work(b: int, s: int, h: int, p: int, n: int, lc: int, itemsize: int) -> 
     return ops, nbytes
 
 
+def ssd_full_work(b: int, s: int, h: int, p: int, n: int, lc: int, itemsize: int) -> tuple:
+    """(operations, bytes) of the full SSD (``ops.ssd``): the TPU kernel's
+    causal work (``ssd_work``) plus the inter-chunk term C . S_prev on every
+    row per head; x, dt, a, B and C read once, y (x's dtype) and the final
+    state (fp32) written once."""
+    ops, _ = ssd_work(b, s, h, p, n, lc, itemsize)
+    ops += 2 * b * s * h * n * p
+    nbytes = (2 * b * s * h * p * itemsize + b * s * h * 4 + h * 4 + 2 * b * s * n * itemsize
+              + b * h * n * p * 4)
+    return ops, nbytes
+
+
+# The previous design's full bf16 ops.ssd (the CUDA-core chunk kernel of
+# ssd.cu in bf16 plus the plain combine), device ms per call at the serve
+# shape by sequence length: the ``ssd_ms`` that chip_smoke.py printed at
+# commit 811c7eb on an H100 80GB HBM3 with a 700.00 W power limit. Not
+# measured by this run: that code is gone.
+SSD_BEFORE_MS = {1000: 2.414251599999998, 1024: 2.403853499999999}
+
+
 def phase_ssd_kernel(torch) -> dict:
-    """The SSD kernel against its plain versions at the serve shape (S=1000:
-    four chunks, the last ragged) and at S=1024, bf16 and fp32."""
+    """The full SSD (``ops.ssd``) against ``ssd_chunked`` at the serve shape
+    (S=1000: the last 256-row chunk ragged) and at S=1024: bf16 on the
+    tensor-core route (also with an initial state), fp32 on the CUDA-core
+    route, whose intra-chunk kernel is also held to its three outputs."""
     from repro_torch.kernels import ops, ssd
     from repro_torch.kernels.ref import ssd_intra_chunk_ref, ssd_ref
-    from repro_torch.roofline.hw import PEAK_FLOPS, bound_seconds
+    from repro_torch.roofline.hw import bound_seconds
 
     k = SSD
     b, h, p, n, lc = k["b"], k["h"], k["p"], k["n"], k["chunk"]
@@ -611,39 +647,65 @@ def phase_ssd_kernel(torch) -> dict:
             cm = torch.randn((b, s, n), generator=gen, device="cuda").to(dtype)
             args = (x, dt, a, bm, cm)
             name = f"ssd {dname} S={s}"
-            got = ssd.ssd_intra_chunk(*args, chunk=lc)
-            torch.cuda.synchronize()
-            want = ssd_intra_chunk_ref(*args, chunk=lc)
-            intra_err = check_close(f"{name} y_intra", got[0], want[0], TOL[dname])
-            states_err = check_close(f"{name} chunk states", got[1], want[1], STATE_TOL)
-            decay_err = check_close(f"{name} chunk decay", got[2], want[2], STATE_TOL)
-            del got, want
+            extra = {}
+            if dtype == torch.float32:            # the CUDA-core kernel's own outputs
+                got = ssd.ssd_intra_chunk(*args, chunk=lc)
+                torch.cuda.synchronize()
+                want = ssd_intra_chunk_ref(*args, chunk=lc)
+                extra = dict(
+                    y_intra_err=check_close(f"{name} y_intra", got[0], want[0], TOL[dname]),
+                    states_err=check_close(f"{name} chunk states", got[1], want[1], STATE_TOL),
+                    decay_err=check_close(f"{name} chunk decay", got[2], want[2], STATE_TOL))
+                del got, want
+            routed = dict(ssd.ssd.routes)
             y, final = ops.ssd(*args, chunk=lc)
+            torch.cuda.synchronize()
+            route = [r for r, c in ssd.ssd.routes.items() if c != routed[r]]
+            if route != [EXPECTED_ROUTE[dname]]:
+                fail(f"{name}: went by route {route}, expected {EXPECTED_ROUTE[dname]}")
             y_ref, final_ref = ssd_ref(*args, chunk=lc)
+            if y.shape != x.shape or y.dtype != dtype or final.shape != (b, h, n, p):
+                fail(f"{name}: y {tuple(y.shape)} {y.dtype}, final {tuple(final.shape)}")
             y_err = check_close(f"{name} y vs ssd_chunked", y, y_ref, TOL[dname])
             final_err = check_close(f"{name} final state vs ssd_chunked", final, final_ref,
                                     STATE_TOL)
+            if dtype == torch.bfloat16:           # a carried-in state
+                init = torch.randn((b, h, n, p), generator=gen, device="cuda")
+                y, final = ops.ssd(*args, chunk=lc, initial_state=init)
+                y_ref, final_ref = ssd_ref(*args, chunk=lc, initial_state=init)
+                extra = dict(
+                    initial_state_y_err=check_close(f"{name} y with initial state", y, y_ref,
+                                                    TOL[dname]),
+                    initial_state_final_err=check_close(
+                        f"{name} final state with initial state", final, final_ref, STATE_TOL))
+                del init
             del y, final, y_ref, final_ref
             copies = input_copies(args)
             before = dict(TIMING)
-            kernel = lambda *t: ssd.ssd_intra_chunk(*t, chunk=lc)  # noqa: E731
+            kernel = lambda *t: ops.ssd(*t, chunk=lc)  # noqa: E731
             ms = time_ms(torch, kernel, copies, 20)
             ev_ms = event_ms(torch, kernel, copies, 20)
             launch_us = host_us(torch, kernel, copies[0], 50)
-            plain_ms = time_ms(torch, lambda *t: ssd_intra_chunk_ref(*t, chunk=lc), copies, 3)
-            ssd_ms = time_ms(torch, lambda *t: ops.ssd(*t, chunk=lc), copies, 10)
-            chunked_ms = time_ms(torch, lambda *t: ssd_ref(*t, chunk=lc), copies, 3)
-            flops, nbytes = ssd_work(b, s, h, p, n, lc, x.element_size())
+            plain_ms = time_ms(torch, lambda *t: ssd_ref(*t, chunk=lc), copies, 3)
+            if dtype == torch.float32:
+                extra["intra_kernel_ms"] = time_ms(
+                    torch, lambda *t: ssd.ssd_intra_chunk(*t, chunk=lc), copies, 10)
+            flops, nbytes = ssd_full_work(b, s, h, p, n, lc, x.element_size())
             bound_s, bound_by = bound_seconds(flops, nbytes, dname)
-            row = dict(kernel="ssd", dtype=dname, shape=dict(b=b, s=s, h=h, p=p, n=n, chunk=lc),
-                       ragged=s % lc != 0, max_abs_err=y_err, tol=TOL[dname],
-                       y_intra_err=intra_err, states_err=states_err, decay_err=decay_err,
-                       final_state_err=final_err, state_tol=STATE_TOL,
-                       ms=ms, event_ms=ev_ms, plain_ms=plain_ms, plain="ssd_intra_chunk_ref",
-                       ssd_ms=ssd_ms, ssd_chunked_ms=chunked_ms, library_ms=None,
-                       library_note="no single PyTorch call computes the SSD chunk",
+            tpu_flops, tpu_bytes = ssd_work(b, s, h, p, n, lc, x.element_size())
+            tpu_bound_s, tpu_bound_by = bound_seconds(tpu_flops, tpu_bytes, dname)
+            row = dict(kernel="ssd", dtype=dname, route=route[0],
+                       shape=dict(b=b, s=s, h=h, p=p, n=n, chunk=lc), ragged=s % lc != 0,
+                       max_abs_err=y_err, tol=TOL[dname], final_state_err=final_err,
+                       state_tol=STATE_TOL, **extra, ms=ms, event_ms=ev_ms,
+                       plain_ms=plain_ms, plain="ssd_chunked",
+                       before_ms=SSD_BEFORE_MS[s] if dtype == torch.bfloat16 else None,
+                       before_note="the previous design's ops.ssd, from SSD_BEFORE_MS: "
+                                   "not measured in this run",
+                       library_ms=None,
+                       library_note="no single PyTorch call computes the SSD",
                        bound_ms=bound_s * 1e3, bound_by=bound_by,
-                       fp32_core_floor_ms=flops / PEAK_FLOPS["float32"] * 1e3,
+                       tpu_kernel_bound_ms=tpu_bound_s * 1e3, tpu_kernel_bound_by=tpu_bound_by,
                        host_us_per_launch=launch_us, gflop=flops / 1e9,
                        mbytes=nbytes / 1e6, timing=timing_since(before))
             rows[(s, dname)] = row
@@ -690,7 +752,8 @@ def phase_slice_ssm(torch):
         errs.append(check_close("slice_ssm logits card vs cpu", out, ref, SLICE_TOL))
     state_errs = {k: check_close(f"slice_ssm final {k} card vs cpu", states["cuda"][k],
                                  states["cpu"][k], SLICE_TOL) for k in states["cpu"]}
-    expected = {"flash_attention": 0, "decode_attention": 0, "ssd": cfg.num_layers}
+    expected = {"flash_attention": 0, "decode_attention": 0, "ssd": cfg.num_layers,
+                "ssd_routes": {"wgmma": 0, "fp32": cfg.num_layers}}
     if launches != expected:
         fail(f"slice_ssm: kernel launches {launches}, expected {expected}")
     emit("slice_ssm", config="mamba2-2.7b full width, 2 layers, fp32", batch=b,
@@ -713,7 +776,7 @@ def ssm_serve_bounds(cfg, params: int, b: int, prompt: int):
     weight_bytes = 2 * params
     state_bytes = L * b * (h * n * p * 4 + (cfg.ssm_conv_kernel - 1)
                            * (cfg.ssm_inner + 2 * n) * 2)
-    ssd_flops, _ = ssd_work(b, prompt, h, p, n, min(cfg.ssm_chunk, prompt), 2)
+    ssd_flops, _ = ssd_full_work(b, prompt, h, p, n, min(cfg.ssm_chunk, prompt), 2)
     prefill_flops = 2 * n_body * b * prompt + 2 * n_head * b + L * ssd_flops
     prefill = bound_seconds(prefill_flops, weight_bytes + state_bytes, "bfloat16")
     decode_flops = 2 * params * b + L * b * h * n * p * 4
@@ -741,7 +804,8 @@ def phase_serve_ssm(torch):
     seqs, finite, t_prefill, t_decode, shape = serve_once(
         torch, prefill, decode, tokens, prompt + gen, gen)
     launches = read_launches()
-    expected = {"flash_attention": 0, "decode_attention": 0, "ssd": cfg.num_layers}
+    expected = {"flash_attention": 0, "decode_attention": 0, "ssd": cfg.num_layers,
+                "ssd_routes": {"wgmma": cfg.num_layers, "fp32": 0}}
     if launches != expected:
         fail(f"serve_ssm: kernel launches {launches}, expected {expected}")
     if not finite or tuple(shape) != (b, cfg.padded_vocab):
@@ -829,12 +893,20 @@ def main() -> int:
              ms=da_main["ms"], plain_ms=da_main["plain_ms"],
              bound_ms=da_main["bound_ms"], bound_by=da_main["bound_by"],
              library_ms=da_main["library_ms"], timing=da_main["timing"]),
-        dict(name="ssd", route="cuda", source="src/repro_torch/csrc/ssd.cu",
+        dict(name="ssd", route="cuda", dispatch=ssd_main["route"],
+             source="src/repro_torch/csrc/ssd_wgmma.cu",
+             fp32_source="src/repro_torch/csrc/ssd.cu",
              replaces="src/repro/kernels/ssd.py:24",
-             tpu_kernel="_ssd_chunk_kernel (pl.pallas_call at ssd.py:76)",
-             design="as first ported: fp32 CUDA cores, intra-chunk and state grids",
+             tpu_kernel="_ssd_chunk_kernel (pl.pallas_call at ssd.py:76) and the plain "
+                        "inter-chunk combine of ssd() (ssd.py:128-154)",
+             design="redesigned for Hopper: the whole SSD in one launch, a block per (batch, "
+                    "2 heads) walking 64-row steps with the state in registers; scores, "
+                    "inter and intra terms and the state update on wgmma, weighted operands "
+                    "split into bf16 high and low parts; TMA issued by one thread; y written "
+                    "once in bf16; fp32 inputs on the CUDA-core kernel plus a plain combine",
              launches=serve_ssm["launches"]["ssd"],
              max_abs_err=ssd_main["max_abs_err"], tol=ssd_main["tol"],
+             final_state_err=ssd_main["final_state_err"], state_tol=STATE_TOL,
              shape=ssd_main["shape"], dtype="bfloat16", ms=ssd_main["ms"],
              plain_ms=ssd_main["plain_ms"], bound_ms=ssd_main["bound_ms"],
              bound_by=ssd_main["bound_by"], library_ms=None,

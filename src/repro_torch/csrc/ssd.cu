@@ -1,4 +1,4 @@
-// Mamba2 SSD intra-chunk block for Hopper (sm_90a).
+// Mamba2 SSD intra-chunk block for Hopper (sm_90a), fp32 inputs.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ssd.py
 // (_ssd_chunk_kernel, launched by ssd_intra_chunk), which stands where the
@@ -13,12 +13,14 @@
 // Rows past the sequence end are read as zero (dt = 0 there), which equals
 // the reference's zero padding of the last chunk; they are never written.
 //
-// What bounds it: bytes. At the serve shape (B=8, S=1000, H=80, P=64,
-// N=128, Lc=256, bf16) the TPU kernel's inputs and outputs (x, dt, B, C,
-// y_intra in x's dtype, states, decay) are ~250 MB against ~22 GFLOP of
-// causal work: 0.075 ms at 3.35 TB/s, 0.022 ms at 989 TFLOP/s. This kernel
-// computes in fp32 on the CUDA cores (67 TFLOP/s, a 0.33 ms floor) and
-// writes y_intra in fp32, so it sits well above that bound.
+// It serves fp32 inputs, whose checks (2e-5 against the plain version)
+// need full fp32 products: bf16 inputs go to the tensor-core kernel in
+// ssd_wgmma.cu, which computes the whole SSD.
+//
+// What bounds it: at the serve shape (B=8, S=1000, H=80, P=64, N=128,
+// Lc=256) the TPU kernel's inputs and outputs (x, dt, B, C, y_intra,
+// states, decay) are ~420 MB in fp32 against ~22 GFLOP of causal work:
+// 0.125 ms at 3.35 TB/s; the fp32 CUDA cores (67 TFLOP/s) floor it at 0.33 ms.
 //
 // What the design does about it: two grids in one launch call.
 //  * ssd_intra_kernel, one block per (batch*chunk, 16-head tile, 64-row
@@ -33,8 +35,7 @@
 //    the chunk's end state B^T (w x) with w_j = dt_j exp(cs_last - cs_j),
 //    and the chunk decay.
 // Each input is read once per block from device memory or L2, every
-// intermediate (scores, decay weights, cumsum) stays on chip. No tensor
-// cores (wgmma) yet: that is later work.
+// intermediate (scores, decay weights, cumsum) stays on chip.
 
 #include <atomic>
 
@@ -55,20 +56,19 @@ constexpr int MAX_LC = 256;      // the wrapper refuses longer chunks
 constexpr int kMaxDevices = 64;  // devices whose shared-memory opt-in is cached
 
 // Copy rows r < nrows of `ncols` elements (row r at src + r*row_stride)
-// into shared memory as fp32; rows >= valid_rows and columns >= valid_cols
-// are zero. ncols and valid_cols are multiples of the 16-byte vector.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, int dst_stride, const T* src,
+// into shared memory; rows >= valid_rows and columns >= valid_cols are
+// zero. ncols and valid_cols are multiples of the 16-byte vector.
+__device__ __forceinline__ void stage(float* dst, int dst_stride, const float* src,
                                       long long row_stride, int nrows, int valid_rows,
                                       int ncols, int valid_cols) {
-  constexpr int V = Vec16<T>::N;
+  constexpr int V = Vec16<float>::N;
   const int chunks = ncols / V;
   for (int idx = threadIdx.x; idx < nrows * chunks; idx += NT) {
     const int r = idx / chunks;
     const int c = (idx % chunks) * V;
     float buf[V];
     if (r < valid_rows && c < valid_cols) {
-      Vec16<T>::load(src + r * row_stride + c, buf);
+      Vec16<float>::load(src + r * row_stride + c, buf);
     } else {
 #pragma unroll
       for (int e = 0; e < V; ++e) buf[e] = 0.f;
@@ -132,11 +132,11 @@ struct IntraSmem {
   }
 };
 
-template <typename T, int P>
+template <int P>
 __global__ void __launch_bounds__(NT)
-ssd_intra_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                 const float* __restrict__ a, const T* __restrict__ bm,
-                 const T* __restrict__ cm, float* __restrict__ y,
+ssd_intra_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                 const float* __restrict__ a, const float* __restrict__ bm,
+                 const float* __restrict__ cm, float* __restrict__ y,
                  int S, int H, int N, int lc, int nc) {
   using Sm = IntraSmem<P>;
   constexpr int VEC = P >= 64 ? 4 : P / 16;   // output columns per vector
@@ -178,8 +178,8 @@ ssd_intra_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 
   // phase A: scores S[i][j] = C_{i0+i} . B_j for j < jend, once for all heads
-  const T* cb = cm + (row0 + i0) * N;
-  const T* bb = bm + row0 * N;
+  const float* cb = cm + (row0 + i0) * N;
+  const float* bb = bm + row0 * N;
   const int njt = (jend + BJ - 1) / BJ;
   for (int jt = 0; jt < njt; ++jt) {
     const int j0 = jt * BJ;
@@ -190,8 +190,8 @@ ssd_intra_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
     for (int n0 = 0; n0 < N; n0 += KN) {
       __syncthreads();                        // previous tiles consumed
-      stage<T>(sC, KN + 4, cb + n0, N, BI, rows, KN, N - n0);
-      stage<T>(sB, KN + 4, bb + (long long)j0 * N + n0, N, BJ, len - j0, KN, N - n0);
+      stage(sC, KN + 4, cb + n0, N, BI, rows, KN, N - n0);
+      stage(sB, KN + 4, bb + (long long)j0 * N + n0, N, BJ, len - j0, KN, N - n0);
       __syncthreads();
 #pragma unroll
       for (int d = 0; d < KN; d += 4) {
@@ -235,7 +235,7 @@ ssd_intra_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
     for (int jt = 0; jt < njt2; ++jt) {
       const int j0 = jt * BJ2;
-      stage<T>(sX, P, x + ((row0 + j0) * H + h) * P, (long long)H * P, BJ2,
+      stage(sX, P, x + ((row0 + j0) * H + h) * P, (long long)H * P, BJ2,
                len - j0, P, P);
       for (int e = tid; e < BI * BJ2; e += NT) {
         const int i = e / BJ2;
@@ -294,10 +294,10 @@ ssd_intra_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-template <typename T, int P>
+template <int P>
 __global__ void __launch_bounds__(NT)
-ssd_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                 const float* __restrict__ a, const T* __restrict__ bm,
+ssd_state_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                 const float* __restrict__ a, const float* __restrict__ bm,
                  float* __restrict__ states, float* __restrict__ decay,
                  int S, int H, int N, int lc, int nc) {
   constexpr int VEC = P >= 64 ? 4 : P / 16;
@@ -334,8 +334,8 @@ ssd_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   for (int j0 = 0; j0 < len; j0 += BJS) {
     const int valid = min(BJS, len - j0);
     __syncthreads();
-    stage<T>(sB, BN + 4, bm + (row0 + j0) * N + n0, N, BJS, valid, BN, N - n0);
-    stage<T>(sX, P, x + ((row0 + j0) * H + h) * P, (long long)H * P, BJS, valid, P, P);
+    stage(sB, BN + 4, bm + (row0 + j0) * N + n0, N, BJS, valid, BN, N - n0);
+    stage(sX, P, x + ((row0 + j0) * H + h) * P, (long long)H * P, BJS, valid, P, P);
     __syncthreads();
     // x_j *= w_j = dt_j exp(cs_last - cs_j)
     for (int e = tid; e < valid * P; e += NT) {
@@ -373,12 +373,12 @@ ssd_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-template <typename T, int P>
-cudaError_t launch_ssd(const void* x, const float* dt, const float* a, const void* bm,
-                       const void* cm, float* y, float* states, float* decay,
+template <int P>
+cudaError_t launch_ssd(const float* x, const float* dt, const float* a, const float* bm,
+                       const float* cm, float* y, float* states, float* decay,
                        int B, int S, int H, int N, int lc, cudaStream_t stream) {
   using Sm = IntraSmem<P>;
-  auto intra = ssd_intra_kernel<T, P>;
+  auto intra = ssd_intra_kernel<P>;
   // above 48 KB of shared memory only after opting in, once per device and
   // instantiation, for the largest chunk the wrapper accepts
   static std::atomic<bool> opted_in[kMaxDevices];
@@ -393,55 +393,43 @@ cudaError_t launch_ssd(const void* x, const float* dt, const float* a, const voi
     opted_in[dev].store(true, std::memory_order_release);
   }
   const int nc = (S + lc - 1) / lc;
-  const T* xt = static_cast<const T*>(x);
-  const T* bt = static_cast<const T*>(bm);
   const dim3 grid_y(B * nc, (H + HT - 1) / HT, (lc + BI - 1) / BI);
-  intra<<<grid_y, NT, Sm::bytes(lc), stream>>>(
-      xt, dt, a, bt, static_cast<const T*>(cm), y, S, H, N, lc, nc);
+  intra<<<grid_y, NT, Sm::bytes(lc), stream>>>(x, dt, a, bm, cm, y, S, H, N, lc, nc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_s(B * nc, H, (N + BN - 1) / BN);
-  ssd_state_kernel<T, P><<<grid_s, NT, 0, stream>>>(xt, dt, a, bt, states, decay,
-                                                    S, H, N, lc, nc);
+  ssd_state_kernel<P><<<grid_s, NT, 0, stream>>>(x, dt, a, bm, states, decay,
+                                                 S, H, N, lc, nc);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_p(int P, const void* x, const float* dt, const float* a,
-                       const void* bm, const void* cm, float* y, float* st, float* dec,
-                       int B, int S, int H, int N, int lc, cudaStream_t s) {
-  switch (P) {
-    case 16: return launch_ssd<T, 16>(x, dt, a, bm, cm, y, st, dec, B, S, H, N, lc, s);
-    case 32: return launch_ssd<T, 32>(x, dt, a, bm, cm, y, st, dec, B, S, H, N, lc, s);
-    case 64: return launch_ssd<T, 64>(x, dt, a, bm, cm, y, st, dec, B, S, H, N, lc, s);
-    case 128: return launch_ssd<T, 128>(x, dt, a, bm, cm, y, st, dec, B, S, H, N, lc, s);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 }  // namespace repro
 
-// dtype (of x, B and C): 0 = float32, 1 = bfloat16; dt and a are float32.
-// All tensors contiguous: x (B, S, H, P), dt (B, S, H), a (H,), B and C
-// (B, S, N); outputs y (B, S, H, P), states (B, NC, H, N, P) and decay
-// (B, NC, H), all float32, with NC = ceil(S / lc). 1 <= lc <= 256, N % 8 == 0,
+// fp32 throughout, all tensors contiguous: x (B, S, H, P), dt (B, S, H),
+// a (H,), B and C (B, S, N); outputs y (B, S, H, P), states (B, NC, H, N, P)
+// and decay (B, NC, H), with NC = ceil(S / lc). 1 <= lc <= 256, N % 8 == 0,
 // P in {16, 32, 64, 128}. Returns cudaGetLastError() after both launches.
 extern "C" int repro_ssd_chunk(const void* x, const void* dt, const void* a,
                                const void* bm, const void* cm, void* y, void* states,
-                               void* decay, int dtype, int B, int S, int H, int P,
-                               int N, int lc, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+                               void* decay, int B, int S, int H, int P, int N, int lc,
+                               void* stream) {
+  using repro::launch_ssd;
+  const float* xf = static_cast<const float*>(x);
   const float* dtf = static_cast<const float*>(dt);
   const float* af = static_cast<const float*>(a);
+  const float* bf = static_cast<const float*>(bm);
+  const float* cf = static_cast<const float*>(cm);
   float* yf = static_cast<float*>(y);
   float* sf = static_cast<float*>(states);
   float* df = static_cast<float*>(decay);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (lc < 1 || lc > repro::MAX_LC || N % 8 != 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return (int)repro::dispatch_p<float>(P, x, dtf, af, bm, cm, yf, sf, df, B, S, H, N, lc, st);
-  if (dtype == 1)
-    return (int)repro::dispatch_p<__nv_bfloat16>(P, x, dtf, af, bm, cm, yf, sf, df,
-                                                 B, S, H, N, lc, st);
-  return (int)cudaErrorInvalidValue;
+  switch (P) {
+    case 16: return (int)launch_ssd<16>(xf, dtf, af, bf, cf, yf, sf, df, B, S, H, N, lc, st);
+    case 32: return (int)launch_ssd<32>(xf, dtf, af, bf, cf, yf, sf, df, B, S, H, N, lc, st);
+    case 64: return (int)launch_ssd<64>(xf, dtf, af, bf, cf, yf, sf, df, B, S, H, N, lc, st);
+    case 128: return (int)launch_ssd<128>(xf, dtf, af, bf, cf, yf, sf, df, B, S, H, N, lc, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -35,7 +35,8 @@ SIGNATURES = {
     + [_c_int, _c_float, _c_ptr],
     "repro_decode_attention": [_c_ptr] * 5 + [_c_int] * 8 + [_c_i64] * 8
     + [_c_float, _c_ptr],
-    "repro_ssd_chunk": [_c_ptr] * 8 + [_c_int] * 7 + [_c_ptr],
+    "repro_ssd_chunk": [_c_ptr] * 8 + [_c_int] * 6 + [_c_ptr],
+    "repro_ssd_wgmma": [_c_ptr] * 8 + [_c_int] * 5 + [_c_ptr],
 }
 
 

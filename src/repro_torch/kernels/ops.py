@@ -7,9 +7,9 @@ tensor goes to the CUDA kernel, which raises on what it does not take:
 there is no fallback from the card to a plain version. Each kernel wrapper
 counts its launches in ``<wrapper>.launches``
 (``kernels.flash_attention.flash_attention``,
-``kernels.decode_attn.decode_attention`` and
-``kernels.ssd.ssd_intra_chunk``); the flash wrapper also counts them by
-route in ``flash_attention.routes`` (``wgmma`` for bf16, ``fp32``).
+``kernels.decode_attn.decode_attention`` and ``kernels.ssd.ssd``, whatever
+the route); the flash and SSD wrappers also count them by route in
+``<wrapper>.routes`` (``wgmma`` for bf16, ``fp32``).
 """
 from __future__ import annotations
 

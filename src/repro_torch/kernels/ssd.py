@@ -1,11 +1,16 @@
-"""Mamba2 SSD: the wrapper of the CUDA kernel in ``csrc/ssd.cu`` (port of
-the Pallas kernel ``repro/kernels/ssd.py``) and the full SSD around it.
+"""Mamba2 SSD: the wrappers of the CUDA kernels that port the Pallas kernel
+``repro/kernels/ssd.py`` and the plain combine around it.
 
-``ssd_intra_chunk`` launches the kernel: per chunk and head, the causal
-intra-chunk output, the chunk's end state and the chunk decay. ``ssd`` adds
-the inter-chunk part in plain PyTorch, as the reference's ``ssd()`` does in
-plain JAX: a scan over the chunk states and ``y_inter = C . S_prev *
-exp(cs)``. A ragged last chunk is masked in the kernel, not padded.
+``ssd`` (the full SSD, what ``ops.ssd`` calls on the card) dispatches by
+dtype. bf16 goes to the tensor-core kernel in ``csrc/ssd_wgmma.cu`` (route
+``wgmma``), which computes the whole SSD in one launch: intra-chunk term,
+inter-chunk term and state, y written once in bf16. fp32 goes to
+``ssd_intra_chunk`` (route ``fp32``), the CUDA-core kernel in
+``csrc/ssd.cu`` (per chunk and head the causal intra-chunk output, the
+chunk's end state and the chunk decay; a ragged last chunk is masked, not
+padded), and the inter-chunk part in plain PyTorch, as the reference's
+``ssd()`` does in plain JAX: a scan over the chunk states and ``y_inter =
+C . S_prev * exp(cs)``. There is no fallback from one route to the other.
 """
 from __future__ import annotations
 
@@ -17,8 +22,12 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import DTYPES
 
-HEAD_DIMS = (16, 32, 64, 128)   # P the kernel is built for
-MAX_CHUNK = 256
+HEAD_DIMS = (16, 32, 64, 128)   # P the kernels are built for
+MAX_CHUNK = 256                 # of the fp32 kernel
+# the tensor-core kernel keeps the state (N padded to 64-row tiles, by P)
+# in registers: N up to 128, and up to 64 at P = 128
+MAX_STATE_WGMMA = 128
+MAX_STATE_ELEMS_WGMMA = 8192
 
 
 def check_operands(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -58,10 +67,13 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                     b_mat: torch.Tensor, c_mat: torch.Tensor, *, chunk: int
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, H, P); dt: (B, S, H) post-softplus; a: (H,) negative;
-    b/c: (B, S, N), on CUDA. Chunks of min(chunk, S) positions, the last
-    one ragged when S does not divide. Returns fp32 (y_intra (B, S, H, P),
-    chunk_states (B, NC, H, N, P), chunk_decay (B, NC, H))."""
+    b/c: (B, S, N), fp32 on CUDA. Chunks of min(chunk, S) positions, the
+    last one ragged when S does not divide. Returns fp32 (y_intra (B, S, H,
+    P), chunk_states (B, NC, H, N, P), chunk_decay (B, NC, H))."""
     check_operands(x, dt, a, b_mat, c_mat, chunk)
+    if x.dtype != torch.float32:
+        raise ValueError(f"ssd kernel (fp32): x is {x.dtype}; bf16 takes the wgmma route "
+                         f"of ssd()")
     bsz, s, h, p = x.shape
     n = b_mat.shape[-1]
     lc = min(chunk, s)
@@ -77,8 +89,7 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     with torch.cuda.device(x.device):
         err = lib.repro_ssd_chunk(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
-            y.data_ptr(), states.data_ptr(), decay.data_ptr(),
-            DTYPES[x.dtype], bsz, s, h, p, n, lc,
+            y.data_ptr(), states.data_ptr(), decay.data_ptr(), bsz, s, h, p, n, lc,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "ssd")
     ssd_intra_chunk.launches += 1
@@ -88,12 +99,38 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 ssd_intra_chunk.launches = 0
 
 
-def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
-        c_mat: torch.Tensor, *, chunk: int, initial_state: Optional[torch.Tensor] = None
-        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full SSD: the CUDA intra-chunk kernel plus the inter-chunk combine in
-    plain PyTorch. Same result as ``models.mamba2.ssd_chunked``: (y (B, S, H,
-    P) in x's dtype, final_state (B, H, N, P) fp32)."""
+def _ssd_wgmma(x, dt, a, b_mat, c_mat, chunk, initial_state):
+    """The bf16 route: one launch of the tensor-core kernel."""
+    check_operands(x, dt, a, b_mat, c_mat, chunk)
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    n_pad = -(-n // 64) * 64
+    if n > MAX_STATE_WGMMA or n_pad * p > MAX_STATE_ELEMS_WGMMA or bsz * -(-h // 2) >= 2**31:
+        raise ValueError(f"ssd kernel (wgmma): unsupported N={n} at P={p} (the state, N "
+                         f"padded to {n_pad} by P, must hold <= {MAX_STATE_ELEMS_WGMMA} "
+                         f"values), B={bsz}, H={h}")
+    if initial_state is not None:
+        if (tuple(initial_state.shape) != (bsz, h, n, p)
+                or initial_state.dtype != torch.float32 or initial_state.device != x.device
+                or not initial_state.is_contiguous() or initial_state.data_ptr() % 16):
+            raise ValueError(f"ssd kernel (wgmma): initial_state must be a contiguous fp32 "
+                             f"(B, H, N, P) = {(bsz, h, n, p)} tensor on {x.device}")
+    y = torch.empty((bsz, s, h, p), dtype=torch.bfloat16, device=x.device)
+    final = torch.empty((bsz, h, n, p), dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.repro_ssd_wgmma(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
+            None if initial_state is None else initial_state.data_ptr(),
+            y.data_ptr(), final.data_ptr(), bsz, s, h, p, n,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "ssd (wgmma)")
+    return y, final
+
+
+def _ssd_fp32(x, dt, a, b_mat, c_mat, chunk, initial_state):
+    """The fp32 route: the intra-chunk kernel (which checks the operands)
+    plus the inter-chunk combine in plain PyTorch."""
     bsz, s, h, p = x.shape
     n = b_mat.shape[-1]
     y_intra, chunk_states, chunk_decay = ssd_intra_chunk(x, dt, a, b_mat, c_mat,
@@ -115,3 +152,25 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
     y_inter = torch.einsum("bcin,bchnp->bcihp", cm, prev) * torch.exp(cs)[..., None]
     y = y_intra + y_inter.reshape(bsz, nc * lc, h, p)[:, :s]
     return y.to(x.dtype), state
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
+        c_mat: torch.Tensor, *, chunk: int, initial_state: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full SSD on CUDA tensors, the same result as
+    ``models.mamba2.ssd_chunked``: (y (B, S, H, P) in x's dtype, final_state
+    (B, H, N, P) fp32). bf16 runs on the tensor cores in one launch (which
+    walks 64-row tiles whatever ``chunk``: the function does not depend on
+    it); fp32 on the CUDA-core kernel plus the plain combine. Counts every
+    call in ``ssd.launches`` and by route in ``ssd.routes``."""
+    if x.dtype == torch.bfloat16:
+        route, out = "wgmma", _ssd_wgmma(x, dt, a, b_mat, c_mat, chunk, initial_state)
+    else:
+        route, out = "fp32", _ssd_fp32(x, dt, a, b_mat, c_mat, chunk, initial_state)
+    ssd.launches += 1
+    ssd.routes[route] += 1
+    return out
+
+
+ssd.launches = 0
+ssd.routes = {"wgmma": 0, "fp32": 0}

@@ -192,35 +192,88 @@ def _ssd_args(seed, b, s, h, p, n, dtype, device):
         torch.float32 if i in (1, 2) else dtype) for i, v in enumerate(arrs)]
 
 
+def _ssd_case(args, chunk, initial_state=None):
+    """One ``ops.ssd`` call on the card against ``ssd_chunked``: y at the
+    dtype's tolerance, the final state at 1e-3 (tests/test_kernels.py); one
+    launch, on the dtype's route (``wgmma`` for bf16, ``fp32``)."""
+    dtype = args[0].dtype
+    route = "wgmma" if dtype == torch.bfloat16 else "fp32"
+    launches, routes = ssd.ssd.launches, dict(ssd.ssd.routes)
+    y, final = ops.ssd(*args, chunk=chunk, initial_state=initial_state)
+    torch.cuda.synchronize()
+    assert ssd.ssd.launches == launches + 1
+    assert ssd.ssd.routes == {**routes, route: routes[route] + 1}
+    y_ref, final_ref = ssd_ref(*args, chunk=chunk, initial_state=initial_state)
+    assert y.shape == y_ref.shape and y.dtype == dtype and final.dtype == torch.float32
+    np.testing.assert_allclose(y.float().cpu().numpy(), y_ref.float().cpu().numpy(),
+                               **_tol(dtype))
+    np.testing.assert_allclose(final.cpu().numpy(), final_ref.cpu().numpy(),
+                               rtol=1e-3, atol=1e-3)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,p,n,chunk", [
     (2, 64, 8, 16, 32, 16), (1, 128, 8, 32, 64, 32), (2, 48, 16, 16, 16, 16),
     (2, 50, 16, 16, 16, 16), (2, 7, 4, 16, 16, 16), (1, 200, 20, 128, 32, 64),
     (1, 300, 80, 64, 128, 256)])
 def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, chunk, dtype):
-    """The kernel's three outputs against ``ssd_intra_chunk_ref`` (fp32 at
-    2e-5: the same inputs, another summation order; states at 1e-3 as
-    tests/test_kernels.py), then the full ``ops.ssd`` against
-    ``ssd_chunked`` (y at the dtype's tolerance). Ragged S (50, 7, 200, 300),
-    heads not a multiple of the 16-head tile (20), P 16 to 128."""
+    """fp32: the CUDA-core kernel's three outputs against
+    ``ssd_intra_chunk_ref`` (2e-5: the same inputs, another summation order;
+    states at 1e-3 as tests/test_kernels.py), then the full ``ops.ssd``.
+    bf16: the full ``ops.ssd`` on the tensor-core route, which writes no
+    intra-chunk term of its own, y at 2e-2 and the final state at 1e-3
+    against ``ssd_chunked``. Ragged S (50, 7, 200, 300), heads not a
+    multiple of the fp32 kernel's 16-head tile (20), P 16 to 128."""
     args = _ssd_args(2, b, s, h, p, n, dtype, cuda)
-    before = ssd.ssd_intra_chunk.launches
-    y_intra, states, decay = ssd.ssd_intra_chunk(*args, chunk=chunk)
-    torch.cuda.synchronize()
-    assert ssd.ssd_intra_chunk.launches == before + 1
-    want = ssd_intra_chunk_ref(*args, chunk=chunk)
-    for got, ref, tol in zip((y_intra, states, decay), want, (2e-5, 1e-3, 2e-5)):
-        assert got.shape == ref.shape and got.dtype == torch.float32
-        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=tol, atol=tol)
-    y, final = ops.ssd(*args, chunk=chunk)
-    torch.cuda.synchronize()
-    assert ssd.ssd_intra_chunk.launches == before + 2
-    y_ref, final_ref = ssd_ref(*args, chunk=chunk)
-    assert y.dtype == dtype
-    np.testing.assert_allclose(y.float().cpu().numpy(), y_ref.float().cpu().numpy(),
-                               **_tol(dtype))
-    np.testing.assert_allclose(final.cpu().numpy(), final_ref.cpu().numpy(),
-                               rtol=1e-3, atol=1e-3)
+    if dtype == torch.float32:
+        before = ssd.ssd_intra_chunk.launches
+        y_intra, states, decay = ssd.ssd_intra_chunk(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        assert ssd.ssd_intra_chunk.launches == before + 1
+        want = ssd_intra_chunk_ref(*args, chunk=chunk)
+        for got, ref, tol in zip((y_intra, states, decay), want, (2e-5, 1e-3, 2e-5)):
+            assert got.shape == ref.shape and got.dtype == torch.float32
+            np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=tol, atol=tol)
+    _ssd_case(args, chunk)
+
+
+@pytest.mark.parametrize("initial", [False, True])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 300, 5, 64, 128, 256), (1, 1000, 3, 128, 64, 256), (3, 65, 1, 32, 40, 32),
+    (1, 129, 2, 16, 128, 128)])
+def test_ssd_wgmma_matches_plain(cuda, b, s, h, p, n, chunk, initial):
+    """The tensor-core route with a carried-in state or none: an odd head
+    count (the last block's second warpgroup has no head), N padded to the
+    64-row state tile (40), the largest state at P = 128 (N = 64), S across
+    the 64-row step."""
+    args = _ssd_args(5, b, s, h, p, n, torch.bfloat16, cuda)
+    init = None
+    if initial:
+        init = torch.from_numpy(np.random.default_rng(6).normal(
+            size=(b, h, n, p)).astype(np.float32)).to(cuda)
+    _ssd_case(args, chunk, init)
+
+
+def test_ssd_wgmma_refuses_what_it_does_not_take(cuda):
+    """The tensor-core route refuses states that do not fit its registers
+    and malformed initial states; the fp32 kernel refuses bf16; neither
+    falls back."""
+    launches, routes = ssd.ssd.launches, dict(ssd.ssd.routes)
+    intra = ssd.ssd_intra_chunk.launches
+    with pytest.raises(ValueError, match="wgmma"):               # N > 128
+        ssd.ssd(*_ssd_args(7, 1, 16, 2, 16, 136, torch.bfloat16, cuda), chunk=8)
+    with pytest.raises(ValueError, match="wgmma"):               # N > 64 at P = 128
+        ssd.ssd(*_ssd_args(7, 1, 16, 2, 128, 72, torch.bfloat16, cuda), chunk=8)
+    args = _ssd_args(7, 1, 16, 2, 16, 16, torch.bfloat16, cuda)
+    for init in (torch.zeros(1, 2, 16, 16, device=cuda, dtype=torch.bfloat16),   # dtype
+                 torch.zeros(1, 2, 8, 16, device=cuda),                          # shape
+                 torch.zeros(1, 2, 16, 16)):                                     # device
+        with pytest.raises(ValueError, match="initial_state"):
+            ssd.ssd(*args, chunk=8, initial_state=init)
+    with pytest.raises(ValueError, match="fp32"):                # bf16 into the fp32 kernel
+        ssd.ssd_intra_chunk(*args, chunk=8)
+    assert ssd.ssd.launches == launches and ssd.ssd.routes == routes
+    assert ssd.ssd_intra_chunk.launches == intra
 
 
 def test_ssd_kernel_refuses_what_it_does_not_take(cuda):

@@ -60,7 +60,8 @@ def test_no_library_attention_or_compile_in_the_port():
 def test_kernel_sources_ship_with_the_package():
     from repro_torch.kernels import _build
     names = {p.name for p in _build._sources()}
-    assert names == {"flash_attention.cu", "flash_attention_wgmma.cu", "decode_attn.cu", "ssd.cu"}
+    assert names == {"flash_attention.cu", "flash_attention_wgmma.cu", "decode_attn.cu",
+                     "ssd.cu", "ssd_wgmma.cu"}
     assert _build.BUILD_DIR.relative_to(ROOT).parts[0] == "build"   # git-ignored
     assert _build.library_path().name.startswith("librepro_torch_kernels_")
 
