@@ -27,9 +27,30 @@ slices and the serve runs come before any phase that opens torch.profiler:
 6. serve_ssm -- full mamba2-2.7b (64 layers, bf16, seeded random weights), the
                 same 8 x 1000 prompts and 32 greedy tokens: 64 SSD launches, all
                 on the wgmma route, no attention-kernel launch.
-7. kernels   -- each kernel against its plain PyTorch version on the card at the
+7. train_grad -- the flash kernel under autograd (FlashAttention) against the
+                plain blockwise_attention under autograd: output, dq, dk, dv at
+                the training shape (bf16, B=8, S=1024, H=16, K=8, hd=128) and at
+                a small fp32 shape. Then DecoderLM.loss of qwen3-0.6b at full
+                width, 2 layers, fp32: loss, every gradient and one AdamW step
+                on the card against the same port on the CPU from the same
+                weights; every attention projection's gradient finite and not 0.
+8. train     -- the slice: full qwen3-0.6b (28 layers, bf16) trained by the
+                port's SimCluster, dp=4 simulated workers on the one card, 8 x
+                1024 tokens a step: 2 steps, a software failure of worker 2,
+                recover() with the stream policy, 2 more steps. Requires recovery
+                from the neighbour with no rollback, the optimizer vector after
+                recovery bitwise equal to a host copy taken before the failure,
+                finite losses, and, with the counts zeroed just before, 28 x 4
+                flash launches (all wgmma) and no decode or SSD launch. Prints
+                the step split (device by CUDA events, host checkpoint by the
+                host clock), tokens/s, the step's bound, peak device memory, peak
+                host RSS and recover()'s wall time beside its simulated time;
+                then one more device step under torch.profiler (the script's
+                first profiler session): busy share and the largest kernels.
+9. kernels   -- each kernel against its plain PyTorch version on the card at the
                 serve shapes (prefill B=8, S=1000, H=16, K=8, hd=128, causal, with
-                the wrapper's route: wgmma for bf16, fp32 for fp32; decode B=8,
+                the wrapper's route: wgmma for bf16, fp32 for fp32; bf16 also at
+                the training step's S=1024; decode B=8,
                 T=1032, cur_len 1 / 129 / 777 / 1032 with the planned n_split;
                 SSD B=8, S=1000 (ragged last chunk) and 1024, H=80, P=64, N=128,
                 chunk 256: the full ops.ssd against ssd_chunked, bf16 on the
@@ -43,9 +64,9 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 profiler session sees device activity, CUDA events time the
                 calls instead. Each kernel is also timed by events
                 (``event_ms``), a check of that fallback.
-8. trace     -- torch.profiler over one prefill and over 4 decode steps of each
+10. trace    -- torch.profiler over one prefill and over 4 decode steps of each
                 model: device busy share and the kernels that take the device time.
-9. serve     -- qwen3-0.6b served again, as in 4, now after the profiler
+11. serve    -- qwen3-0.6b served again, as in 4, now after the profiler
                 sessions (``after_profiler``: true).
 
 Then a ``timing`` line (kernel timings taken by CUPTI and by CUDA events),
@@ -82,6 +103,17 @@ EXPECTED_ROUTE = {"bfloat16": "wgmma", "float32": "fp32"}
 # whole slice, card against CPU, fp32: the tolerance of the reference's
 # test_prefill_decode_matches_forward
 SLICE_TOL = 2e-4
+# the training slice (ISSUE's cell): qwen3-0.6b, dp=4 simulated workers,
+# 8 x 1024 tokens a step, 2 steps, a failure of worker 2, 2 more steps
+TRAIN = dict(dp=4, global_batch=8, seq_len=1024, steps_before=2, steps_after=2,
+             failed=2)
+# flash gradients, kernel under autograd against the plain version: bf16 at
+# the training shape, fp32 (TF32 off) at a small one
+GRAD = dict(bf16=dict(b=8, s=1024, h=16, kh=8, hd=128, tol=2e-2),
+            fp32=dict(b=2, s=200, h=4, kh=2, hd=64, tol=1e-4))
+# DecoderLM.loss at full width, 2 layers, fp32, card against CPU: 1 x 576
+# tokens (a 512-position xent chunk and a ragged one of 64)
+LOSS = dict(batch=1, seq=576, tol=2e-4)
 L2_BYTES = 50 * 10**6
 PROFILER_SESSIONS = [0]     # torch.profiler sessions opened so far in this process
 TIMING = {"cupti": 0, "cuda_events": 0}     # kernel timings taken by each method
@@ -296,8 +328,11 @@ def phase_kernels(torch, F):
     def rand(shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    p = PREFILL
-    for dtype in (torch.bfloat16, torch.float32):
+    # the serve shape in both dtypes, and the training step's (S=1024) in bf16
+    for key, dtype, p in (("bfloat16", torch.bfloat16, PREFILL),
+                          ("float32", torch.float32, PREFILL),
+                          ("bfloat16_train", torch.bfloat16,
+                           dict(PREFILL, s=TRAIN["seq_len"]))):
         dname = str(dtype).split(".")[-1]
         q = rand((p["b"], p["s"], p["h"], p["hd"]), dtype)
         k = rand((p["b"], p["s"], p["kh"], p["hd"]), dtype)
@@ -333,7 +368,7 @@ def phase_kernels(torch, F):
                    library_ms=library_ms, bound_ms=bound_s * 1e3, bound_by=bound_by,
                    host_us_per_launch=launch_us, gflop=flops / 1e9, mbytes=per_call / 1e6,
                    timing=timing_since(before))
-        results["flash_attention"][dname] = row
+        results["flash_attention"][key] = row
         emit("kernels", **row)
         del q, k, v, out, ref, args
 
@@ -429,10 +464,12 @@ def phase_slice(torch):
 
 
 def reset_launches() -> None:
-    """Set every kernel wrapper's launch count, and the SSD's counts by
-    route, to 0."""
+    """Set every kernel wrapper's launch count, and the flash and SSD
+    counts by route, to 0."""
     from repro_torch.kernels import decode_attn, flash_attention, ssd
     flash_attention.flash_attention.launches = 0
+    flash_attention.flash_attention.routes = dict.fromkeys(
+        flash_attention.flash_attention.routes, 0)
     decode_attn.decode_attention.launches = 0
     ssd.ssd.launches = 0
     ssd.ssd.routes = dict.fromkeys(ssd.ssd.routes, 0)
@@ -539,12 +576,13 @@ def phase_serve(torch, served=None):
     return served, row
 
 
-def device_share(torch, fn):
+def device_share(torch, fn, top: int = 6, classify=None):
     """Profile ``fn``: wall ms (host clock, ending in a synchronize), the
     device's busy ms (summed device activity, one stream) and its share of
-    the wall time, and the activities that take the most device time. Where
-    no profiler session saw device activity, the device numbers are null
-    (not measured)."""
+    the wall time, and the activities that take the most device time; with
+    ``classify`` (activity name -> group), device ms and calls by group too.
+    Where no profiler session saw device activity, the device numbers are
+    null (not measured)."""
     wall = []
 
     def run():
@@ -564,10 +602,29 @@ def device_share(torch, fn):
         total, calls = by_name.get(name, (0.0, 0))
         by_name[name] = (total + us, calls + 1)
     busy_ms = sum(total for total, _ in by_name.values()) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
-                device_activities=sum(calls for _, calls in by_name.values()),
-                top=[dict(name=n[:90], device_ms=t / 1e3, calls=c) for n, (t, c) in top])
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    out = dict(wall_ms=wall_ms, device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
+               device_activities=sum(calls for _, calls in by_name.values()),
+               top=[dict(name=n[:90], device_ms=t / 1e3, calls=c) for n, (t, c) in ranked])
+    if classify is not None:
+        groups = {}
+        for name, (us, calls) in by_name.items():
+            g = groups.setdefault(classify(name), [0.0, 0])
+            g[0] += us / 1e3
+            g[1] += calls
+        out["groups"] = {g: dict(device_ms=ms, calls=c) for g, (ms, c) in
+                         sorted(groups.items(), key=lambda kv: -kv[1][0])}
+    return out
+
+
+def train_kernel_group(name: str) -> str:
+    """The group of a device activity of the training step, by its name."""
+    if "flash_wgmma_kernel" in name or "flash_fwd_kernel" in name:
+        return "flash kernel (ours)"
+    if "gemm" in name or "nvjet" in name:
+        fp32 = any(tag in name for tag in ("f32f32_f32f32", "sgemm", "ffma"))
+        return "fp32 matmul (CUDA cores)" if fp32 else "bf16 matmul (tensor cores)"
+    return "elementwise, reductions, copies"
 
 
 def phase_trace(torch, prefill, decode, tokens, model: str):
@@ -764,6 +821,238 @@ def phase_slice_ssm(torch):
     torch.cuda.empty_cache()
 
 
+def phase_train_grad(torch):
+    """The flash kernel under autograd against the plain version under
+    autograd; then the loss, gradients and one AdamW step of a full-width
+    2-layer fp32 qwen3-0.6b on the card against the same port on the CPU."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, cast_params
+    from repro_torch.train.state import grad_tree, param_tree
+    from repro_torch.tree import keystr, tree_flatten_with_path
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    flash = {}
+    for dname, g in GRAD.items():
+        dtype = torch.bfloat16 if dname == "bf16" else torch.float32
+        shapes = ((g["b"], g["s"], g["h"], g["hd"]), (g["b"], g["s"], g["kh"], g["hd"]),
+                  (g["b"], g["s"], g["kh"], g["hd"]))
+        q, k, v = (torch.randn(sh, generator=gen, device="cuda").to(dtype) for sh in shapes)
+        grad_out = torch.randn(shapes[0], generator=gen, device="cuda").to(dtype)
+        runs = {}
+        for name, fn in (("kernel", lambda a, b_, c: ops.flash_attention(a, b_, c)),
+                         ("plain", lambda a, b_, c: ops.flash_attention_plain(a, b_, c))):
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            routed = dict(fa.flash_attention.routes)
+            out = fn(*leaves)
+            out.backward(grad_out)
+            torch.cuda.synchronize()
+            runs[name] = [out.detach()] + [t.grad for t in leaves]
+            if name == "kernel" and fa.flash_attention.routes == routed:
+                fail(f"train_grad flash {dname}: the kernel did not run")
+        errs = {part: check_close(f"train_grad flash {dname} {part}", got, want, g["tol"])
+                for part, got, want in zip(("out", "dq", "dk", "dv"), runs["kernel"],
+                                           runs["plain"])}
+        flash[dname] = dict(shape={k_: v_ for k_, v_ in g.items() if k_ != "tol"},
+                            tol=g["tol"], max_abs_err=errs)
+        del q, k, v, grad_out, runs
+
+    cfg = dataclasses.replace(get_arch("qwen3-0.6b"), num_layers=2, dtype="float32")
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = build_model(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (LOSS["batch"], LOSS["seq"] + 1)))
+    hp = AdamWConfig(warmup_steps=2, total_steps=100)
+    results = {}
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        model.requires_grad_(True)
+        dev = model.device
+        loss, _ = model.loss({"tokens": tokens.to(dev)})
+        loss.backward()
+        grads = {keystr(p): t for p, t in tree_flatten_with_path(_host_tree(grad_tree(model)))}
+        params = param_tree(model)
+        opt = adamw_init(params)
+        adamw_update(grad_tree(model), opt, torch.tensor(3, dtype=torch.int32, device=dev), hp,
+                     torch.tensor(1e-3, device=dev))
+        cast_params(opt["master"], params)
+        after = {keystr(p): t for p, t in tree_flatten_with_path(
+            _host_tree({"opt": opt, "params": params}))}
+        results[name] = (loss.detach().cpu(), grads, after)
+    loss_err = check_close("train_grad loss card vs cpu", results["cuda"][0],
+                           results["cpu"][0], LOSS["tol"])
+    grad_err = {k: check_close(f"train_grad grad {k} card vs cpu", results["cuda"][1][k], ref,
+                               LOSS["tol"]) for k, ref in results["cpu"][1].items()}
+    adamw_err = max(check_close(f"train_grad adamw {k} card vs cpu", results["cuda"][2][k], ref,
+                                LOSS["tol"]) for k, ref in results["cpu"][2].items())
+    for k, g in results["cuda"][1].items():
+        if "|attn|" in k and (not torch.isfinite(g).all() or not (g != 0).any()):
+            fail(f"train_grad: attention gradient {k} is not finite or is all 0")
+    emit("train_grad", flash=flash, config="qwen3-0.6b full width, 2 layers, fp32",
+         tokens=list(tokens.shape), loss=float(results["cuda"][0]), loss_err=loss_err,
+         grad_leaves=len(grad_err), grad_max_abs_err=max(grad_err.values()),
+         attn_grad_err={k: v for k, v in grad_err.items() if "|attn|" in k},
+         adamw_max_abs_err=adamw_err, tol=LOSS["tol"])
+    del cpu, card, results
+    torch.cuda.empty_cache()
+
+
+def _host_tree(tree):
+    """A tree of the port's tensors as CPU fp32 tensors (Stacked leaves
+    stacked), for comparing two runs leaf by leaf."""
+    import torch
+
+    from repro_torch.tree import Stacked, tree_map
+    return tree_map(lambda t: torch.stack([x.detach().float().cpu() for x in t.layers])
+                    if isinstance(t, Stacked) else t.detach().float().cpu(), tree)
+
+
+def train_bound(cfg, params: int, tokens: int, b: int, s: int):
+    """The card's least time for one training step, bf16: 6 operations per
+    parameter and token (forward 2, backward 4; the tied head's product
+    counts once, through the embedding's parameters), and causal attention's
+    products, forward (Q.K^T and P.V) and backward (4 products, twice the
+    forward's operations). Recomputation in the backward is the
+    implementation's, not the step's, and is not counted. Bytes (weights,
+    optimizer state read and written once) bound it far less."""
+    from repro_torch.roofline.hw import bound_seconds
+    pairs = s * (s + 1) // 2
+    attn_fwd = 4 * b * cfg.num_heads * cfg.resolved_head_dim * pairs
+    flops = 6 * params * tokens + 3 * cfg.num_layers * attn_fwd
+    nbytes = params * (2 + 2 + 2 + 3 * 4 * 2)     # params, grads read, params written, opt r/w
+    return bound_seconds(flops, nbytes, "bfloat16"), flops, attn_fwd
+
+
+def peak_rss_gb() -> float:
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def phase_train(torch):
+    """Full qwen3-0.6b trained through the port's SimCluster with a
+    failure and a stream recovery in the middle."""
+    import gc
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import param_count
+    from repro_torch.roofline.hw import HOST_LINK_BW
+    from repro_torch.runtime.cluster import ClusterConfig, SimCluster
+    from repro_torch.runtime.recovery import _flatten_opt
+
+    t = TRAIN
+    cfg = get_arch("qwen3-0.6b")
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    clu = SimCluster(cfg, ClusterConfig(dp=t["dp"], global_batch=t["global_batch"],
+                                        seq_len=t["seq_len"], ckpt_dir=ckpt_dir),
+                     clock=time.perf_counter)
+    setup_s = time.perf_counter() - t0
+
+    # the step's parts as SimCluster.step records them (device by CUDA
+    # events, host by the clock); a part missing from a step fails the phase
+    span_keys = {"compute_ms", "device_ms", "flatten_ms", "shard_ms", "fabric_ms", "step_ms"}
+    spans = []
+
+    def step():
+        loss = clu.step()
+        sp = dict(clu.last_step_timing)
+        if set(sp) != span_keys or any(v is None for v in sp.values()):
+            fail(f"train: step timing {sp}, expected every one of {sorted(span_keys)}")
+        spans.append(dict(sp, loss=loss))
+
+    reset_launches()
+    for _ in range(t["steps_before"]):
+        step()
+    before, _ = _flatten_opt(clu.state["opt"])
+    clu.inject_failure([t["failed"]])
+    t0 = time.perf_counter()
+    rep = clu.recover()
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t0
+    after, _ = _flatten_opt(clu.state["opt"])
+    bitwise = bool(np.array_equal(before, after))
+    vec_len = len(after)
+    del before, after
+    for _ in range(t["steps_after"]):
+        step()
+    launches = read_launches()
+    flash_routes = dict(fa.flash_attention.routes)
+    steps = t["steps_before"] + t["steps_after"]
+    losses = [sp["loss"] for sp in spans]
+    if rep.recovered_from != "neighbor" or rep.rolled_back_iterations != 0:
+        fail(f"train: recovered from {rep.recovered_from} with "
+             f"{rep.rolled_back_iterations} iterations rolled back")
+    if not bitwise:
+        fail("train: the optimizer vector after recovery differs from the copy before the failure")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train: losses {losses}")
+    expected = {"flash_attention": cfg.num_layers * steps, "decode_attention": 0, "ssd": 0,
+                "ssd_routes": {"wgmma": 0, "fp32": 0}}
+    if launches != expected or flash_routes.get("wgmma") != cfg.num_layers * steps:
+        fail(f"train: kernel launches {launches}, flash routes {flash_routes}, "
+             f"expected {expected} all on wgmma")
+    if clu.iteration != steps:
+        fail(f"train: {clu.iteration} iterations after the run, expected {steps}")
+
+    # where the device step's time goes: one more step under torch.profiler,
+    # after the measured run (the first profiler session of the script)
+    batch = clu._assemble_batch()
+    trace = device_share(torch, lambda: clu._step(clu.state, batch), top=12,
+                         classify=train_kernel_group)
+    params = param_count(cfg)
+    tokens = t["global_batch"] * t["seq_len"]
+    (bound_s, bound_by), flops, attn_fwd = train_bound(cfg, params, tokens, t["global_batch"],
+                                                       t["seq_len"])
+    later = spans[1:]                             # the steps after the first
+
+    def median(key):
+        return float(np.median([sp[key] for sp in later]))
+
+    step_ms = median("step_ms")
+    host_ms = float(np.median([sp["step_ms"] - sp["compute_ms"] for sp in later]))
+    row = dict(config=f"qwen3-0.6b full ({cfg.num_layers} layers, bf16, tied head)",
+               params=params, dp=t["dp"], global_batch=t["global_batch"], seq_len=t["seq_len"],
+               tokens_per_step=tokens, steps=steps, losses=losses,
+               step_ms=step_ms, step_ms_first=spans[0]["step_ms"],
+               device_ms=median("device_ms"), step_call_ms=median("compute_ms"),
+               host_ckpt_ms=host_ms, flatten_d2h_ms=median("flatten_ms"),
+               flatten_d2h_bound_ms=vec_len * 4 / HOST_LINK_BW * 1e3,
+               shard_chunk_crc_ms=median("shard_ms"),
+               fabric_run_ms=median("fabric_ms"),
+               tokens_per_s=tokens / (step_ms / 1e3),
+               bound_ms=bound_s * 1e3, bound_by=bound_by, bound_tflop=flops / 1e12,
+               attention_fwd_gflop_per_layer=attn_fwd / 1e9,
+               opt_vector_gb=vec_len * 4 / 1e9,
+               peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               peak_host_rss_gb=peak_rss_gb(), setup_s=setup_s,
+               recovered_from=rep.recovered_from, rolled_back=rep.rolled_back_iterations,
+               opt_vector_bitwise_equal=bitwise, recover_wall_s=recover_s,
+               recover_simulated_s=rep.total_time,
+               recover_simulated_timeline=rep.timeline,
+               recover_note="recover_simulated_s is simulated fabric time, not measured",
+               state_bytes_streamed=rep.state_bytes_streamed, chunks=rep.chunks_total,
+               launches=launches, flash_routes=flash_routes, spans=spans,
+               device_step_trace=trace)
+    emit("train", **row)
+    for w in clu.workers:
+        w.engine.close()
+    del clu
+    gc.collect()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return row
+
+
 def ssm_serve_bounds(cfg, params: int, b: int, prompt: int):
     """The card's least time for the mamba2 serve run's prefill and for one
     decode step, bf16: weight bytes read once; the decode state (SSD state
@@ -853,6 +1142,8 @@ def main() -> int:
     served, serve = phase_serve(torch)
     phase_slice_ssm(torch)
     ssm_model, ssm_prefill, ssm_decode, ssm_tokens, serve_ssm = phase_serve_ssm(torch)
+    phase_train_grad(torch)
+    train = phase_train(torch)
     kernels = phase_kernels(torch, F)
     ssd_rows = phase_ssd_kernel(torch)
     _, prefill, decode, tokens, _ = served
@@ -863,6 +1154,7 @@ def main() -> int:
     phase_serve(torch, served)                        # the same serve, after the profiler
 
     fa = kernels["flash_attention"]["bfloat16"]
+    fa_train = kernels["flash_attention"]["bfloat16_train"]
     da = kernels["decode_attention"]["bfloat16"]
     da_main = da[-1]                                  # cur_len 1032 = the cache length
     ssd_main = ssd_rows[(SERVE["prompt"], "bfloat16")]  # the serve run's shape
@@ -876,10 +1168,15 @@ def main() -> int:
                     "registers; TMA loads by a producer warp into a 3-stage swizzled ring; two "
                     "consumer warpgroups in ping-pong; fp32 inputs on the CUDA-core kernel",
              launches=serve["launches"]["flash_attention"],
+             train_launches=train["launches"]["flash_attention"],
              max_abs_err=fa["max_abs_err"], tol=fa["tol"], shape=fa["shape"],
              dtype="bfloat16", ms=fa["ms"], plain_ms=fa["plain_ms"],
              bound_ms=fa["bound_ms"], bound_by=fa["bound_by"], library_ms=fa["library_ms"],
-             timing=fa["timing"]),
+             timing=fa["timing"],
+             train_shape={k_: fa_train[k_] for k_ in ("shape", "max_abs_err", "ms",
+                                                      "plain_ms", "bound_ms", "bound_by",
+                                                      "library_ms")},
+             backward="plain blockwise_attention recompute (FlashAttention), no kernel"),
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attn.cu",
              replaces="src/repro/kernels/decode_attn.py:24",
@@ -888,6 +1185,7 @@ def main() -> int:
                     "partials merged by a second grid in the same call",
              n_split=da_main["n_split"], rows_per_split=da_main["rows_per_split"],
              launches=serve["launches"]["decode_attention"],
+             train_launches=train["launches"]["decode_attention"],
              max_abs_err=max(r["max_abs_err"] for r in da), tol=da_main["tol"],
              shape=da_main["shape"], cur_len=da_main["cur_len"], dtype="bfloat16",
              ms=da_main["ms"], plain_ms=da_main["plain_ms"],
@@ -905,6 +1203,7 @@ def main() -> int:
                     "split into bf16 high and low parts; TMA issued by one thread; y written "
                     "once in bf16; fp32 inputs on the CUDA-core kernel plus a plain combine",
              launches=serve_ssm["launches"]["ssd"],
+             train_launches=train["launches"]["ssd"],
              max_abs_err=ssd_main["max_abs_err"], tol=ssd_main["tol"],
              final_state_err=ssd_main["final_state_err"], state_tol=STATE_TOL,
              shape=ssd_main["shape"], dtype="bfloat16", ms=ssd_main["ms"],

@@ -6,7 +6,11 @@ fp32 to the CUDA-core kernel in ``csrc/flash_attention.cu`` (route
 
 Both kernels read q (B, Sq, H, hd) and k, v (B, Skv, K, hd) through their
 strides, map q head h to kv head h // (H/K) without repeating kv heads, and
-mask ragged lengths. Forward only: serving needs no gradient.
+mask ragged lengths. ``FlashAttention`` puts the kernel under autograd
+for training: its backward recomputes through the plain
+``blockwise_attention`` on head-repeated k and v, as the reference's
+custom VJP (``_bwd``, repro/kernels/flash_attention.py:108) does; the TPU
+code has no backward kernel to port.
 """
 from __future__ import annotations
 
@@ -86,3 +90,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.routes = {"wgmma": 0, "fp32": 0}
+
+
+class FlashAttention(torch.autograd.Function):
+    """Prefill attention with a gradient: the forward is the kernel (its
+    plain version for CPU tensors) and saves q, k and v; the backward
+    recomputes the attention with the plain ``blockwise_attention`` over
+    head-repeated k and v and differentiates that. Only the
+    forward launches a kernel, so ``flash_attention.launches`` counts
+    forward launches."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        if q.device.type == "cpu":
+            from repro_torch.kernels.ops import flash_attention_plain
+            return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        from repro_torch.models.attention import blockwise_attention, repeat_kv
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+            h = q.shape[2]
+            out = blockwise_attention(q, repeat_kv(k, h), repeat_kv(v, h),
+                                      causal=ctx.causal)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad_out)
+        return dq, dk, dv, None

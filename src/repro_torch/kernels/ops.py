@@ -4,7 +4,9 @@ A tensor on the CPU goes to the plain PyTorch version, the function the
 kernel stands in for at its call site: ``flash_attention_plain`` here,
 ``ref.decode_attention_ref`` and ``ref.ssd_ref`` (``ssd_chunked``). A CUDA
 tensor goes to the CUDA kernel, which raises on what it does not take:
-there is no fallback from the card to a plain version. Each kernel wrapper
+there is no fallback from the card to a plain version. Prefill attention
+runs under ``kernels.flash_attention.FlashAttention``, which makes that
+choice and gives the kernel a gradient. Each kernel wrapper
 counts its launches in ``<wrapper>.launches``
 (``kernels.flash_attention.flash_attention``,
 ``kernels.decode_attn.decode_attention`` and ``kernels.ssd.ssd``, whatever
@@ -25,8 +27,8 @@ from repro_torch.kernels.ref import decode_attention_ref, ssd_ref
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True) -> torch.Tensor:
-    """blockwise_attention over head-repeated k/v: the reference's prefill
-    call site (``self_attention_prefill``)."""
+    """blockwise_attention over head-repeated k/v: the reference's call
+    sites (``self_attention`` and ``self_attention_prefill``)."""
     from repro_torch.models.attention import blockwise_attention, repeat_kv
     h = q.shape[2]
     return blockwise_attention(q, repeat_kv(k, h), repeat_kv(v, h), causal=causal)
@@ -34,10 +36,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """q: (B, Sq, H, hd); k, v: (B, Skv, K, hd). Returns (B, Sq, H, hd)."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
-    return _fa.flash_attention(q, k, v, causal=causal)
+    """q: (B, Sq, H, hd); k, v: (B, Skv, K, hd). Returns (B, Sq, H, hd).
+    ``FlashAttention`` runs the kernel on CUDA and the plain version on
+    the CPU; its backward recomputes through the plain version."""
+    return _fa.FlashAttention.apply(q, k, v, causal)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

@@ -158,6 +158,8 @@ def _project_qkv(p: Mapping, cfg, x: torch.Tensor, positions: torch.Tensor, *,
 
 def self_attention(p: Mapping, cfg, x: torch.Tensor, *, causal: bool = True,
                    rope: bool = True) -> torch.Tensor:
+    """The training and ``forward`` call site: differentiable on both
+    routes (``ops.flash_attention``)."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, cfg, x, positions, rope=rope)

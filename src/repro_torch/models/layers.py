@@ -1,5 +1,5 @@
-"""Shared layers: norms, RoPE, MLP flavors, embeddings (port of
-``repro.models.layers``).
+"""Shared layers: norms, RoPE, MLP flavors, embeddings, the chunked
+cross-entropy and the gradient barrier (port of ``repro.models.layers``).
 
 Plain functions on tensors; weights keep the JAX layout (``x @ w`` with
 ``w`` of shape (in, out), embeddings (V, D)). Compute runs in the tensor's
@@ -102,3 +102,81 @@ def unembed(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     else:
         logits = x2.float() @ w.float().t()
     return logits.reshape(*lead, w.shape[0])
+
+
+class _GradBarrier(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype)
+
+
+def bf16_grad_barrier(x: torch.Tensor) -> torch.Tensor:
+    """Identity whose cotangent is cast to ``x``'s dtype: keeps the backward
+    residual stream in bf16 where the fp32 logits would push fp32
+    cotangents through every layer (the reference's custom VJP)."""
+    return _GradBarrier.apply(x)
+
+
+class _ChunkedXent(torch.autograd.Function):
+    """Summed cross-entropy of ``x @ w.T`` against ``labels``, one chunk of
+    the sequence at a time; the backward recomputes each chunk's logits
+    (the reference's ``jax.checkpoint`` on the scan body), so no (B, S, V)
+    buffer is ever held."""
+
+    @staticmethod
+    def forward(ctx, x, w, labels, chunk: int):
+        ctx.save_for_backward(x, w, labels)
+        ctx.chunk = chunk
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lo in range(0, x.shape[1], chunk):
+            logits = unembed(w, x[:, lo:lo + chunk])
+            lab = logits.gather(-1, labels[:, lo:lo + chunk, None])[..., 0]
+            total = total + (torch.logsumexp(logits, dim=-1) - lab).sum()
+        return total
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, labels = ctx.saved_tensors
+        chunk = ctx.chunk
+        dx = torch.empty_like(x)
+        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+        for lo in range(0, x.shape[1], chunk):
+            x_k = x[:, lo:lo + chunk]
+            # d(sum of lse - label logit)/d logits = softmax - one-hot
+            logits = unembed(w, x_k)
+            probs = logits.sub_(torch.logsumexp(logits, dim=-1, keepdim=True)).exp_()
+            probs.scatter_add_(-1, labels[:, lo:lo + chunk, None],
+                               torch.full(probs.shape[:-1] + (1,), -1.0, device=x.device))
+            # bf16 operands with fp32 accumulation where w is bf16, as the
+            # forward's product
+            d_logits = (probs * g).reshape(-1, w.shape[0]).to(w.dtype)
+            dx[:, lo:lo + chunk] = (d_logits @ w).reshape(x_k.shape)
+            dw += _mm_fp32(d_logits.t(), x_k.reshape(-1, x.shape[-1]).to(w.dtype))
+        return dx, dw.to(w.dtype), None, None
+
+
+def _mm_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with fp32 accumulation and output: one ``mm`` with
+    ``out_dtype`` on CUDA, upcast operands on the CPU (as ``unembed``)."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def chunked_xent(w: torch.Tensor, x: torch.Tensor, labels: torch.Tensor, *,
+                 chunk: int = 512) -> torch.Tensor:
+    """Mean next-token cross-entropy of the head ``w`` (V, D) over the
+    final hidden states ``x`` (B, S, D) against ``labels`` (B, S), computed
+    ``chunk`` positions at a time (the last chunk may be short) and never
+    holding the (B, S, V) logits: the live logits are (B, chunk, V), in the
+    forward and again in the backward, which recomputes them. Port of the
+    reference's ``chunked_xent``."""
+    b, s, _ = x.shape
+    x = bf16_grad_barrier(x)
+    total = _ChunkedXent.apply(x, w, labels, min(chunk, s))
+    return total / (b * s)

@@ -1,6 +1,12 @@
 """The dense decoder-only LM and the pure SSM (Mamba2) LM (ports of
 ``_build_decoder_lm`` and ``_build_ssm_lm`` in ``repro.models.transformer``):
-``init``, ``forward``, ``prefill``, ``decode_step`` and ``cache_specs``.
+``init``, ``forward``, ``prefill``, ``decode_step`` and ``cache_specs``, and
+``loss`` for the dense LM.
+
+Parameters are built frozen (``requires_grad=False``), which serving needs;
+``model.requires_grad_(True)`` makes them trainable (``train.state.init_state``
+does so) and changes nothing that serving computes under
+``torch.inference_mode``.
 
 Parameters mirror the reference's tree (``embed.w``, ``blocks[i].ln1``,
 ``blocks[i].attn.wq``, ..., ``final_norm``) with one module per layer
@@ -19,8 +25,8 @@ import torch.nn as nn
 from repro_torch.configs import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
-from repro_torch.models.layers import (embed_init, embed_lookup, mlp_apply,
-                                       mlp_init, rms_norm, unembed)
+from repro_torch.models.layers import (chunked_xent, embed_init, embed_lookup,
+                                       mlp_apply, mlp_init, rms_norm, unembed)
 
 # Families the port cannot build yet, with the ROADMAP §1 item that ports them.
 _NOT_PORTED = {
@@ -141,6 +147,22 @@ class DecoderLM(nn.Module):
         for blk in self.blocks:
             x = blk(x)
         return unembed(self._head(), rms_norm(x, self.final_norm))
+
+    def loss(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
+        """Next-token loss of ``batch["tokens"]`` (B, S+1): the first S
+        tokens in, the last S as labels, the tied (or untied) head through
+        ``chunked_xent``. Returns (total, {"xent", "aux"}) with total = xent +
+        0.01 * aux, as the reference; aux (the MoE balance loss) is 0 for a
+        dense model."""
+        tokens = batch["tokens"].long()
+        inp, labels = tokens[:, :-1], tokens[:, 1:]
+        x = embed_lookup(self.embed["w"], inp)
+        for blk in self.blocks:
+            x = blk(x)
+        x = rms_norm(x, self.final_norm)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        xent = chunked_xent(self._head(), x, labels)
+        return xent + 0.01 * aux, {"xent": xent, "aux": aux}
 
     def cache_specs(self, batch: int, max_len: int) -> Dict:
         """Shapes and dtypes of the decode cache, as meta tensors; ``index``

@@ -1,5 +1,6 @@
-"""The port stands alone: it never imports jax or the JAX package, and it
-calls no library attention kernel and no torch.compile."""
+"""The port stands alone: it never imports jax or the JAX package (serving,
+training with failover and every public name), and it calls no library
+attention kernel and no torch.compile."""
 import ast
 import os
 import subprocess
@@ -32,6 +33,10 @@ def test_port_runs_without_jax_in_sys_modules():
         "'--gen', '3'])\n"
         "main(['--arch', 'mamba2-2.7b', '--device', 'cpu', '--smoke', '--batch', '2', "
         "'--prompt-len', '11', '--gen', '4'])\n"
+        "from repro_torch.launch import train\n"
+        "train.main(['--device', 'cpu', '--smoke', '--steps', '4', '--inject-failure', '2'])\n"
+        "for name in repro_torch.__all__:\n"
+        "    getattr(repro_torch, name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "print('ISOLATED')\n")
@@ -41,6 +46,8 @@ def test_port_runs_without_jax_in_sys_modules():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "ISOLATED" in proc.stdout and "decoded 3 tokens/seq" in proc.stdout
     assert "prefill: 2x11" in proc.stdout and "decoded 4 tokens/seq" in proc.stdout
+    assert "recovered from neighbor (stream policy)" in proc.stdout
+    assert "done: 4 iterations" in proc.stdout
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -72,3 +79,19 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc()
+
+
+def test_simlint_rules_hold_in_the_port():
+    """simlint's determinism rules (SIM001-SIM007) are scoped to
+    ``src/repro/``: run its engine on every file of the port as if it lived
+    at the same place in the reference, which the port's layout mirrors.
+    SIM008 pins the reference's public API and is left out."""
+    sys.path.insert(0, str(ROOT))
+    from tools.simlint import default_rules, lint_text
+    rules = [r for r in default_rules() if r.code != "SIM008"]
+    found = []
+    for path in sorted(PORT.rglob("*.py")):
+        rel = "src/repro/" + path.relative_to(PORT).as_posix()
+        found += [f"{path.relative_to(ROOT)}:{f.line}: {f.code} {f.message}"
+                  for f in lint_text(path.read_text(), rel, rules)]
+    assert not found, "\n".join(found)
