@@ -29,12 +29,34 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 on the wgmma route, no attention-kernel launch.
 7. train_grad -- the flash kernel under autograd (FlashAttention) against the
                 plain blockwise_attention under autograd: output, dq, dk, dv at
-                the training shape (bf16, B=8, S=1024, H=16, K=8, hd=128) and at
-                a small fp32 shape. Then DecoderLM.loss of qwen3-0.6b at full
+                the training shape (bf16, B=8, S=1024, H=16, K=8, hd=128), at
+                a small fp32 shape and at the scenario corpus's fp32 shapes
+                (B=8 and 16, S=16, H=4, K=2, hd=16). Then DecoderLM.loss of qwen3-0.6b at full
                 width, 2 layers, fp32: loss, every gradient and one AdamW step
                 on the card against the same port on the CPU from the same
                 weights; every attention projection's gradient finite and not 0.
-8. train     -- the slice: full qwen3-0.6b (28 layers, bf16) trained by the
+8. scenarios -- the port's adversarial scenario fleet (runtime/scenarios.py).
+                First all 15 corpus scenarios at the reference's scale (qwen3
+                reduced, fp32, seq 16), each built and replayed as run_scenario
+                does, on the card and again on the CPU: the two verdicts must be
+                equal field for field and every step's loss equal within the
+                fp32 slice tolerance, with the counts zeroed just before the
+                card runs every flash launch on the fp32 route and no decode or
+                SSD launch. Then the events of
+                clean_software_failure (a software failure of worker 1 before
+                step 5, 10 steps) replayed by the port's _Runner on full
+                qwen3-0.6b (28 layers, bf16, dp=4 simulated workers, 8 x 1024
+                tokens a step) with the scenario's fabric and reliability values:
+                10 steps, one recovery from the neighbour, 0 rollbacks, 1
+                detection within one heartbeat of the analytic bound, finite
+                losses, 28 x 10 flash launches all on wgmma. Prints the verdict
+                beside the fields in which it differs from the reference-scale
+                pin, the step split, tokens/s (by the median step and by the
+                replay's whole window), the steps and host RSS before and after
+                the recovery, recover()'s wall time beside its
+                simulated time, peak memory and host RSS, and this run's FCR
+                beside the measured host checkpoint share of the step.
+9. train     -- the slice: full qwen3-0.6b (28 layers, bf16) trained by the
                 port's SimCluster, dp=4 simulated workers on the one card, 8 x
                 1024 tokens a step: 2 steps, a software failure of worker 2,
                 recover() with the stream policy, 2 more steps. Requires recovery
@@ -47,7 +69,7 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 host RSS and recover()'s wall time beside its simulated time;
                 then one more device step under torch.profiler (the script's
                 first profiler session): busy share and the largest kernels.
-9. kernels   -- each kernel against its plain PyTorch version on the card at the
+10. kernels  -- each kernel against its plain PyTorch version on the card at the
                 serve shapes (prefill B=8, S=1000, H=16, K=8, hd=128, causal, with
                 the wrapper's route: wgmma for bf16, fp32 for fp32; bf16 also at
                 the training step's S=1024; decode B=8,
@@ -64,9 +86,9 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 profiler session sees device activity, CUDA events time the
                 calls instead. Each kernel is also timed by events
                 (``event_ms``), a check of that fallback.
-10. trace    -- torch.profiler over one prefill and over 4 decode steps of each
+11. trace    -- torch.profiler over one prefill and over 4 decode steps of each
                 model: device busy share and the kernels that take the device time.
-11. serve    -- qwen3-0.6b served again, as in 4, now after the profiler
+12. serve    -- qwen3-0.6b served again, as in 4, now after the profiler
                 sessions (``after_profiler``: true).
 
 Then a ``timing`` line (kernel timings taken by CUPTI and by CUDA events),
@@ -108,9 +130,12 @@ SLICE_TOL = 2e-4
 TRAIN = dict(dp=4, global_batch=8, seq_len=1024, steps_before=2, steps_after=2,
              failed=2)
 # flash gradients, kernel under autograd against the plain version: bf16 at
-# the training shape, fp32 (TF32 off) at a small one
+# the training shape, fp32 (TF32 off) at a small one and at the scenario
+# corpus's two shapes (the reduced qwen3-0.6b, global batch 8 and 16)
 GRAD = dict(bf16=dict(b=8, s=1024, h=16, kh=8, hd=128, tol=2e-2),
-            fp32=dict(b=2, s=200, h=4, kh=2, hd=64, tol=1e-4))
+            fp32=dict(b=2, s=200, h=4, kh=2, hd=64, tol=1e-4),
+            fp32_corpus_b8=dict(b=8, s=16, h=4, kh=2, hd=16, tol=1e-4),
+            fp32_corpus_b16=dict(b=16, s=16, h=4, kh=2, hd=16, tol=1e-4))
 # DecoderLM.loss at full width, 2 layers, fp32, card against CPU: 1 x 576
 # tokens (a 512-position xent chunk and a ragged one of 64)
 LOSS = dict(batch=1, seq=576, tol=2e-4)
@@ -932,6 +957,13 @@ def peak_rss_gb() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
 
 
+def host_rss_gb() -> float:
+    """The process's resident host memory now (Linux)."""
+    import os
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e9
+
+
 def phase_train(torch):
     """Full qwen3-0.6b trained through the port's SimCluster with a
     failure and a stream recovery in the middle."""
@@ -952,6 +984,7 @@ def phase_train(torch):
     ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
+    rss_start = host_rss_gb()
     t0 = time.perf_counter()
     clu = SimCluster(cfg, ClusterConfig(dp=t["dp"], global_batch=t["global_batch"],
                                         seq_len=t["seq_len"], ckpt_dir=ckpt_dir),
@@ -1034,7 +1067,8 @@ def phase_train(torch):
                attention_fwd_gflop_per_layer=attn_fwd / 1e9,
                opt_vector_gb=vec_len * 4 / 1e9,
                peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-               peak_host_rss_gb=peak_rss_gb(), setup_s=setup_s,
+               peak_host_rss_gb=peak_rss_gb(), host_rss_at_start_gb=rss_start,
+               setup_s=setup_s,
                recovered_from=rep.recovered_from, rolled_back=rep.rolled_back_iterations,
                opt_vector_bitwise_equal=bitwise, recover_wall_s=recover_s,
                recover_simulated_s=rep.total_time,
@@ -1048,6 +1082,221 @@ def phase_train(torch):
         w.engine.close()
     del clu
     gc.collect()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return row
+
+
+# the full-width replay of the fleet's baseline scenario: its events (a
+# software failure of worker 1 before step 5, 10 steps) on full qwen3-0.6b,
+# dp=4 simulated workers, 8 x 1024 tokens a step
+REPLAY = dict(scenario="clean_software_failure", global_batch=8, seq_len=1024)
+# a verdict field that may differ from the reference-scale pin at full width,
+# and why: the shard's size, or the simulated fabric time it takes
+SCALE_FIELDS = {"state_bytes_streamed": "bytes", "chunks_reused": "bytes",
+                "chunks_rebalanced": "bytes", "rebalances": "bytes",
+                "exposed_seconds": "sim time", "recovery_total_s": "sim time",
+                "stream_seconds": "sim time"}
+
+
+def phase_scenarios(torch):
+    """The adversarial scenario fleet of the port: the whole corpus at the
+    reference's scale on the card and on the CPU (verdicts equal), then one
+    scenario's events replayed at full qwen3-0.6b width on the card."""
+    import ctypes
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.fcr import fcr, is_free
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.roofline.hw import PEAK_FLOPS
+    from repro_torch.runtime.cluster import SimCluster
+    from repro_torch.runtime.scenarios import _cluster_kwargs, _Runner, build_cluster, corpus
+
+    # ---- 1. the corpus at the reference's scale: card, then CPU ---- #
+    # each scenario as run_scenario replays it, keeping the cluster so that
+    # its losses, which the card computes, are held to the CPU's as well
+    def replay(sc, root, device):
+        clu = build_cluster(sc, root / sc.name, device=device)
+        verdict = _Runner(sc, clu).run()
+        losses = torch.tensor(clu.loss_history, dtype=torch.float64)
+        for w in clu.workers:
+            w.engine.close()
+        return verdict, losses
+
+    scs = corpus()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_scenarios_"))
+    card, cpu, secs = {}, {}, {}
+    reset_launches()
+    for sc in scs:
+        t0 = time.perf_counter()
+        card[sc.name] = replay(sc, tmp / "cuda", "cuda")
+        secs[sc.name] = [time.perf_counter() - t0]
+    launches = read_launches()
+    routes = dict(fa.flash_attention.routes)
+    for sc in scs:
+        t0 = time.perf_counter()
+        cpu[sc.name] = replay(sc, tmp / "cpu", "cpu")
+        secs[sc.name].append(time.perf_counter() - t0)
+    shutil.rmtree(tmp, ignore_errors=True)
+    loss_err = {}
+    for sc in scs:
+        (v, losses), (v_cpu, losses_cpu) = card[sc.name], cpu[sc.name]
+        if len(losses) != len(losses_cpu) or not torch.isfinite(losses).all():
+            fail(f"scenarios: {sc.name} losses on the card {losses.tolist()}, "
+                 f"on the CPU {losses_cpu.tolist()}")
+        loss_err[sc.name] = check_close(f"scenarios: {sc.name} losses card vs cpu", losses,
+                                        losses_cpu, SLICE_TOL)
+        emit("scenario", name=sc.name, dp=sc.dp, steps=sc.steps, card_s=secs[sc.name][0],
+             cpu_s=secs[sc.name][1], recoveries=v.recoveries, rollbacks=v.rollbacks,
+             detection_latency_s=v.detection_latency_s,
+             equal_to_cpu=v.pinned() == v_cpu.pinned(), losses=len(losses),
+             loss_max_abs_err=loss_err[sc.name], loss_tol=SLICE_TOL)
+    differ = [n for n in card if card[n][0].pinned() != cpu[n][0].pinned()]
+    if differ:
+        fail(f"scenarios: verdicts on the card differ from the CPU's for {differ}")
+    if (launches["flash_attention"] == 0 or routes.get("fp32") != launches["flash_attention"]
+            or launches["decode_attention"] or launches["ssd"]):
+        fail(f"scenarios: corpus kernel launches {launches}, flash routes {routes}, "
+             "expected flash launches all on fp32 and no decode or SSD launch")
+    corpus_row = dict(scenarios=len(scs), card_s=sum(x[0] for x in secs.values()),
+                      cpu_s=sum(x[1] for x in secs.values()), launches=launches,
+                      flash_routes=routes, verdicts_equal=True,
+                      loss_max_abs_err=max(loss_err.values()), loss_tol=SLICE_TOL)
+
+    # ---- 2. one scenario's events at full width ---- #
+    sc = next(s for s in scs if s.name == REPLAY["scenario"])
+    cfg = get_arch("qwen3-0.6b")
+    ckpt_dir = ROOT / "build" / "chip_smoke_replay_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # wired as build_cluster wires a scenario's cluster, at full width
+    clu = SimCluster(cfg, device="cuda", clock=time.perf_counter,
+                     **_cluster_kwargs(sc, ckpt_dir, global_batch=REPLAY["global_batch"],
+                                       seq_len=REPLAY["seq_len"]))
+    setup_s = time.perf_counter() - t0
+    span_keys = {"compute_ms", "device_ms", "flatten_ms", "shard_ms", "fabric_ms", "step_ms"}
+    spans, reports = [], []
+
+    def step():
+        loss = SimCluster.step(clu)
+        sp = dict(clu.last_step_timing)
+        if set(sp) != span_keys or any(v is None for v in sp.values()):
+            fail(f"scenarios: step timing {sp}, expected every one of {sorted(span_keys)}")
+        spans.append(dict(sp, loss=loss, host_rss_gb=host_rss_gb()))
+        return loss
+
+    def recover(*args, **kw):
+        t0 = time.perf_counter()
+        rep = SimCluster.recover(clu, *args, **kw)
+        torch.cuda.synchronize()
+        reports.append((rep, time.perf_counter() - t0, len(spans)))
+        return rep
+
+    clu.step, clu.recover = step, recover        # the runner calls these
+    reset_launches()
+    t0 = time.perf_counter()
+    verdict = _Runner(sc, clu).run()
+    replay_s = time.perf_counter() - t0
+    launches = read_launches()
+    routes = dict(fa.flash_attention.routes)
+    losses = [sp["loss"] for sp in spans]
+    rel = sc.reliability
+    analytic = rel.heartbeat_period + rel.scan_period + rel.notify_latency
+    if (verdict.steps_completed != sc.steps or verdict.recoveries != 1
+            or verdict.rollbacks != 0 or verdict.detections != 1 or len(reports) != 1
+            or reports[0][0].recovered_from != "neighbor"):
+        fail(f"scenarios: full-width verdict {verdict.pinned()}, reports "
+             f"{[r[0].recovered_from for r in reports]}; expected {sc.steps} steps, one "
+             "recovery from the neighbour, 0 rollbacks and 1 detection")
+    if (verdict.detection_latency_s is None
+            or abs(verdict.detection_latency_s - analytic) > rel.heartbeat_period + 1e-9):
+        fail(f"scenarios: detection latency {verdict.detection_latency_s} s, analytic "
+             f"{analytic} s, allowed one heartbeat ({rel.heartbeat_period} s)")
+    if len(losses) != sc.steps or not all(math.isfinite(x) for x in losses):
+        fail(f"scenarios: full-width losses {losses}")
+    expected = {"flash_attention": cfg.num_layers * sc.steps, "decode_attention": 0,
+                "ssd": 0, "ssd_routes": {"wgmma": 0, "fp32": 0}}
+    if launches != expected or routes.get("wgmma") != cfg.num_layers * sc.steps:
+        fail(f"scenarios: full-width kernel launches {launches}, flash routes {routes}, "
+             f"expected {expected} all on wgmma")
+
+    pin = card[sc.name][0].pinned()
+    got = verdict.pinned()
+    differs = {k: dict(full_width=got[k], reference_scale=pin[k], why=SCALE_FIELDS[k])
+               for k in got if k in SCALE_FIELDS and got[k] != pin[k]}
+    unexplained = [k for k in got if k not in SCALE_FIELDS and got[k] != pin[k]]
+    if unexplained:
+        fail(f"scenarios: full-width verdict differs from the pin in {unexplained}")
+    later = spans[1:]
+
+    def median(key):
+        return float(np.median([sp[key] for sp in later]))
+
+    step_ms = median("step_ms")
+    tokens = REPLAY["global_batch"] * REPLAY["seq_len"]
+    host_share = float(np.median([(sp["step_ms"] - sp["compute_ms"]) / sp["step_ms"]
+                                  for sp in later]))
+    b_worker = REPLAY["global_batch"] / sc.dp
+    fcr_value = fcr(REPLAY["seq_len"], b_worker, sc.link_bw, PEAK_FLOPS["bfloat16"])
+    rep, recover_s, recovered_after = reports[0]
+
+    # the steps before the recovery and after it: the spilled checkpoint
+    # chunks pile up on the host until the recovery resets the streams
+    def regime(part):
+        return dict(steps=len(part), step_ms=[sp["step_ms"] for sp in part],
+                    step_ms_median=float(np.median([sp["step_ms"] for sp in part])),
+                    host_rss_gb=[sp["host_rss_gb"] for sp in part])
+    row = dict(corpus=corpus_row,
+               replay=dict(scenario=sc.name, events=[[e.at_step, e.action, e.kwargs()]
+                                                     for e in sc.events],
+                           config=f"qwen3-0.6b full ({cfg.num_layers} layers, bf16)",
+                           dp=sc.dp, global_batch=REPLAY["global_batch"],
+                           seq_len=REPLAY["seq_len"], link_bw=sc.link_bw, dcn_bw=sc.dcn_bw,
+                           verdict=got, differs_from_pin=differs,
+                           detection_latency_s=verdict.detection_latency_s,
+                           detection_analytic_s=analytic,
+                           losses=losses, step_ms=step_ms, step_ms_first=spans[0]["step_ms"],
+                           tokens_per_s=tokens / (step_ms / 1e3),
+                           window_ms_per_step=replay_s * 1e3 / sc.steps,
+                           tokens_per_s_window=tokens * sc.steps / replay_s,
+                           regimes=dict(before_recovery=regime(later[:recovered_after - 1]),
+                                        after_recovery=regime(spans[recovered_after:])),
+                           split_ms=dict(device=median("device_ms"),
+                                         step_call=median("compute_ms"),
+                                         flatten=median("flatten_ms"),
+                                         shard_chunk_crc=median("shard_ms"),
+                                         fabric=median("fabric_ms")),
+                           host_ckpt_share=host_share,
+                           recover_wall_s=recover_s, recover_simulated_s=rep.total_time,
+                           recovered_from=rep.recovered_from,
+                           exposed_seconds_simulated=verdict.exposed_seconds,
+                           note="recover_simulated_s, exposed_seconds_simulated and the "
+                                "verdict's times are simulated fabric time, not measured",
+                           peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                           peak_host_rss_gb=peak_rss_gb(), setup_s=setup_s,
+                           replay_s=replay_s, launches=launches, flash_routes=routes,
+                           fcr=dict(s=REPLAY["seq_len"], b=b_worker, v=sc.link_bw,
+                                    c=PEAK_FLOPS["bfloat16"], value=fcr_value,
+                                    free=is_free(REPLAY["seq_len"], b_worker, sc.link_bw,
+                                                 PEAK_FLOPS["bfloat16"]),
+                                    measured_host_ckpt_share=host_share),
+                           spans=spans))
+    for w in clu.workers:
+        w.engine.close()
+    del clu, w, step, recover, reports, rep
+    gc.collect()
+    # hand the freed host heap back to the OS before train builds its
+    # cluster: the replay's backlog of exposed checkpoint chunks leaves
+    # tens of GB of freed but resident heap behind
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+    row["replay"]["host_rss_after_free_gb"] = host_rss_gb()
+    emit("scenarios", **row)
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     return row
@@ -1143,6 +1392,7 @@ def main() -> int:
     phase_slice_ssm(torch)
     ssm_model, ssm_prefill, ssm_decode, ssm_tokens, serve_ssm = phase_serve_ssm(torch)
     phase_train_grad(torch)
+    scenarios = phase_scenarios(torch)
     train = phase_train(torch)
     kernels = phase_kernels(torch, F)
     ssd_rows = phase_ssd_kernel(torch)
@@ -1169,6 +1419,9 @@ def main() -> int:
                     "consumer warpgroups in ping-pong; fp32 inputs on the CUDA-core kernel",
              launches=serve["launches"]["flash_attention"],
              train_launches=train["launches"]["flash_attention"],
+             scenario_launches=dict(
+                 corpus=scenarios["corpus"]["launches"]["flash_attention"],
+                 full_width=scenarios["replay"]["launches"]["flash_attention"]),
              max_abs_err=fa["max_abs_err"], tol=fa["tol"], shape=fa["shape"],
              dtype="bfloat16", ms=fa["ms"], plain_ms=fa["plain_ms"],
              bound_ms=fa["bound_ms"], bound_by=fa["bound_by"], library_ms=fa["library_ms"],
@@ -1186,6 +1439,7 @@ def main() -> int:
              n_split=da_main["n_split"], rows_per_split=da_main["rows_per_split"],
              launches=serve["launches"]["decode_attention"],
              train_launches=train["launches"]["decode_attention"],
+             scenario_launches=scenarios["replay"]["launches"]["decode_attention"],
              max_abs_err=max(r["max_abs_err"] for r in da), tol=da_main["tol"],
              shape=da_main["shape"], cur_len=da_main["cur_len"], dtype="bfloat16",
              ms=da_main["ms"], plain_ms=da_main["plain_ms"],
@@ -1204,6 +1458,7 @@ def main() -> int:
                     "once in bf16; fp32 inputs on the CUDA-core kernel plus a plain combine",
              launches=serve_ssm["launches"]["ssd"],
              train_launches=train["launches"]["ssd"],
+             scenario_launches=scenarios["replay"]["launches"]["ssd"],
              max_abs_err=ssd_main["max_abs_err"], tol=ssd_main["tol"],
              final_state_err=ssd_main["final_state_err"], state_tol=STATE_TOL,
              shape=ssd_main["shape"], dtype="bfloat16", ms=ssd_main["ms"],

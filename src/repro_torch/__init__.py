@@ -10,12 +10,16 @@ decode) with two hand-written CUDA kernels:
     model = build_model(get_arch("qwen3-0.6b"))          # on CUDA
 
 Slice 5 trains the dense decoder with failover through the port's
-simulated cluster; the public names of ``repro`` ported so far are exported
-here, lazily (``Scenario`` and ``run_scenario`` are not ported yet):
+simulated cluster, and slice 6 replays the reference's adversarial scenario
+fleet on it; all 21 public names of ``repro`` are exported here, lazily:
 
     from repro_torch import SimCluster, ClusterConfig, FaultScript
     clu = SimCluster(get_arch("qwen3-0.6b"), ClusterConfig(seq_len=1024))
     clu.run(2); clu.inject_failure([2]); clu.recover(); clu.run(2)
+
+    from repro_torch import Scenario, run_scenario
+    from repro_torch.runtime.scenarios import ev
+    run_scenario(Scenario("one_failure", events=(ev(5, "fail", wids=[1]),)))
 
 Importing this package builds nothing: the kernels are compiled with
 ``nvcc`` at their first launch (``repro_torch.kernels._build``), and
@@ -43,6 +47,8 @@ __all__ = [
     "TrafficPlan",
     "compile_traffic_plan",
     "ReliabilityConfig",
+    "Scenario",
+    "run_scenario",
 ]
 
 _EXPORTS = {
@@ -65,6 +71,8 @@ _EXPORTS = {
     "TrafficPlan": "repro_torch.core.plan",
     "compile_traffic_plan": "repro_torch.core.plan",
     "ReliabilityConfig": "repro_torch.runtime.reliability",
+    "Scenario": "repro_torch.runtime.scenarios",
+    "run_scenario": "repro_torch.runtime.scenarios",
 }
 
 

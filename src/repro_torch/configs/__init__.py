@@ -86,8 +86,11 @@ SHAPES: Dict[str, ShapeConfig] = {
 
 _REGISTRY: Dict[str, ArchConfig] = {}
 
-# Config modules ported so far (the JAX registry holds eleven).
-_MODULES = ("qwen3_0_6b", "mamba2_2_7b")
+# Config modules ported so far: the dense ones and mamba2 (the JAX registry
+# loads twelve modules; the MoE, hybrid, enc-dec and VLM ones wait for their
+# families, ROADMAP items 10 and 11).
+_MODULES = ("deepseek_67b", "qwen3_0_6b", "nemotron_4_15b", "gemma_2b",
+            "mamba2_2_7b", "paper_workloads")
 
 
 def register(cfg: ArchConfig) -> ArchConfig:

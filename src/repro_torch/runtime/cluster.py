@@ -168,8 +168,10 @@ class SimCluster:
         self.hp = cc.hp
         self.device = resolve_device(device)
         self.model = build_model(cfg, device=self.device)
-        self.state = init_state(
-            self.model, torch.Generator(device=self.device).manual_seed(seed))
+        # weights drawn on the host and copied over: one seed gives the same
+        # weights, and so the same run, on every device (a CUDA generator
+        # draws other numbers from the same seed)
+        self.state = init_state(self.model, torch.Generator().manual_seed(seed))
         self.iteration = 0
         rc = reliability if reliability is not None else ReliabilityConfig()
         self.reliability_config = rc

@@ -258,7 +258,7 @@ def test_cluster_without_device_raises_without_cuda(monkeypatch):
 def test_public_names_mirror_the_reference():
     import repro
     import repro_torch
-    assert set(repro_torch.__all__) == set(repro.__all__) - {"Scenario", "run_scenario"}
+    assert repro_torch.__all__ == repro.__all__ and len(repro_torch.__all__) == 21
     for name in repro_torch.__all__:
         assert getattr(repro_torch, name).__name__ == getattr(repro, name).__name__
 

@@ -1,6 +1,6 @@
 """The port stands alone: it never imports jax or the JAX package (serving,
-training with failover and every public name), and it calls no library
-attention kernel and no torch.compile."""
+training with failover, a scenario of the fleet, an example and every public
+name), and it calls no library attention kernel and no torch.compile."""
 import ast
 import os
 import subprocess
@@ -35,6 +35,12 @@ def test_port_runs_without_jax_in_sys_modules():
         "'--prompt-len', '11', '--gen', '4'])\n"
         "from repro_torch.launch import train\n"
         "train.main(['--device', 'cpu', '--smoke', '--steps', '4', '--inject-failure', '2'])\n"
+        "import tempfile\n"
+        "from repro_torch.runtime.scenarios import corpus\n"
+        "v = repro_torch.run_scenario(corpus()[0], tempfile.mkdtemp(), device='cpu')\n"
+        "print('scenario', v.name, v.recoveries, v.rollbacks, v.detections)\n"
+        "from repro_torch.examples import elastic_rescale\n"
+        "elastic_rescale.main(['--device', 'cpu'])\n"
         "for name in repro_torch.__all__:\n"
         "    getattr(repro_torch, name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -48,6 +54,8 @@ def test_port_runs_without_jax_in_sys_modules():
     assert "prefill: 2x11" in proc.stdout and "decoded 4 tokens/seq" in proc.stdout
     assert "recovered from neighbor (stream policy)" in proc.stdout
     assert "done: 4 iterations" in proc.stdout
+    assert "scenario clean_software_failure 1 0 1" in proc.stdout
+    assert "exact-cover data partition preserved after rescale — OK" in proc.stdout
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

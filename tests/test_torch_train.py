@@ -2,8 +2,9 @@
 of qwen3-0.6b in fp32 on the CPU: the tree order and key paths, the chunked
 cross-entropy and the gradient barrier, the flash kernel's autograd
 function (plain route), ``DecoderLM.loss`` and its gradients, AdamW and the
-schedule, and the flattened optimizer vector. The same numpy inputs go
-through both packages; tolerances are stated per test."""
+schedule, and the flattened optimizer vector; and ``DecoderLM.loss`` in
+bf16. The same numpy inputs go through both packages; tolerances are stated
+per test."""
 import dataclasses
 import types
 
@@ -38,6 +39,10 @@ from repro_torch.train.state import grad_tree, param_tree
 LOSS_TOL = dict(rtol=2e-4, atol=2e-4)    # the serving slice's fp32 tolerance
 XENT_TOL = dict(rtol=1e-5, atol=1e-5)
 OPT_TOL = dict(rtol=1e-6, atol=1e-6)
+# bf16: the tolerance of the reference's own bf16 kernel tests
+# (tests/test_kernels.py::_tol), there on O(1) values, here taken relative to
+# each gradient leaf's largest magnitude
+BF16_TOL = 2e-2
 
 
 def _cfgs():
@@ -190,6 +195,51 @@ def test_loss_and_every_gradient_match_jax(bridged):
         np.testing.assert_allclose(got, np.asarray(want), err_msg=tree.keystr(path),
                                    **LOSS_TOL)
     model.zero_grad(set_to_none=True)
+
+
+def _bf16_grads(seq: int):
+    """Loss and gradients of qwen3-0.6b at smoke size from the same
+    bf16-valued weights: JAX in bf16, the port in bf16 and JAX in fp32 (the
+    exact gradient of those weights, to within fp32)."""
+    jcfg, tcfg = _cfgs()
+    jb = j_build_model(dataclasses.replace(jcfg, dtype="bfloat16"))
+    params = j_init_state(jb, jax.random.key(0))["params"]
+    tokens = np.random.default_rng(5).integers(0, 256, (3, seq))
+    batch = {"tokens": jnp.asarray(tokens, jnp.int32)}
+    out = {}
+    for name, model, p in (
+            ("jax", jb, params),
+            ("fp32", j_build_model(jcfg), jax.tree.map(lambda a: a.astype(jnp.float32), params))):
+        (jl, _), jg = jax.value_and_grad(lambda q: model.loss(q, batch), has_aux=True)(p)
+        out[name] = (float(jl), [np.asarray(g, np.float32) for g in jax.tree.leaves(jg)])
+    model = params_from_numpy(jax.tree.map(np.asarray, params),
+                              dataclasses.replace(tcfg, dtype="bfloat16"), device="cpu")
+    model.requires_grad_(True)
+    loss, _ = model.loss({"tokens": torch.from_numpy(tokens)})
+    loss.backward()
+    flat = tree.tree_flatten_with_path(tree.tree_map(tree.to_numpy, grad_tree(model)))
+    out["port"] = (loss.item(), [np.asarray(g, np.float32) for _, g in flat])
+    return out, [tree.keystr(path) for path, _ in flat]
+
+
+@pytest.mark.parametrize("seq", [17, 64])
+def test_bf16_loss_and_every_gradient_match_jax(seq):
+    """The bf16 training path against JAX's: the loss and all 13 gradients
+    within the bf16 tolerance, and no drift: the port's gradients are no
+    further from the fp32 gradient of the same weights than 1.5x the
+    reference's own bf16 gradients are. (The port rounds the head's
+    d_logits to bf16 before its products, JAX's CPU transpose keeps them
+    fp32; this shows the rounding costs nothing measurable.)"""
+    out, names = _bf16_grads(seq)
+    (jl, jg), (pl, pg), (_, fg) = out["jax"], out["port"], out["fp32"]
+    assert len(names) == len(jg) == len(fg) == 13
+    np.testing.assert_allclose(pl, jl, rtol=BF16_TOL, atol=BF16_TOL)
+    for name, got, want, exact in zip(names, pg, jg, fg):
+        np.testing.assert_allclose(got, want, rtol=BF16_TOL,
+                                   atol=BF16_TOL * np.abs(want).max(), err_msg=name)
+        err_port = np.linalg.norm(got - exact) / np.linalg.norm(exact)
+        err_jax = np.linalg.norm(want - exact) / np.linalg.norm(exact)
+        assert err_port <= 1.5 * err_jax, (name, err_port, err_jax)
 
 
 def test_loss_is_differentiable_only_once_trainable():
