@@ -27,6 +27,11 @@ slices and the serve runs come before any phase that opens torch.profiler:
 6. serve_ssm -- full mamba2-2.7b (64 layers, bf16, seeded random weights), the
                 same 8 x 1000 prompts and 32 greedy tokens: 64 SSD launches, all
                 on the wgmma route, no attention-kernel launch.
+6b. serve_hybrid -- full zamba2-7b (81 Mamba2 layers, the shared attention block
+                after 13 of them, head_dim 112, bf16, random weights drawn on the
+                card from a seed), the same requests: 13 flash launches on wgmma
+                at head_dim 112, 13 x 31 decode launches, 81 SSD launches on
+                wgmma; prefill and decode times beside their bounds. Freed after.
 7. train_grad -- the flash kernel under autograd (FlashAttention) against the
                 plain blockwise_attention under autograd: output, dq, dk, dv at
                 the training shape (bf16, B=8, S=1024, H=16, K=8, hd=128), at
@@ -35,6 +40,11 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 width, 2 layers, fp32: loss, every gradient and one AdamW step
                 on the card against the same port on the CPU from the same
                 weights; every attention projection's gradient finite and not 0.
+                The SSD under autograd (SSD: kernel forward, ssd_chunked recompute
+                backward) against autograd through ssd_chunked, bf16 and fp32: y,
+                the final state and the gradients of x, dt, a, B and C. The smoke
+                zamba2-7b at head_dim 112, 2 layers, fp32: loss and every gradient
+                (the shared block's included) card vs CPU.
 8. scenarios -- the port's adversarial scenario fleet (runtime/scenarios.py).
                 First all 15 corpus scenarios at the reference's scale (qwen3
                 reduced, fp32, seq 16), each built and replayed as run_scenario
@@ -56,6 +66,14 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 the recovery, recover()'s wall time beside its
                 simulated time, peak memory and host RSS, and this run's FCR
                 beside the measured host checkpoint share of the step.
+8b. train_ssm -- mamba2-2.7b at full width cut to 8 of 64 layers, bf16, trained
+                by SimCluster as train below (dp=4, 8 x 1024 tokens, 2 steps, a
+                failure of worker 2, recover(), 2 steps): a neighbour recovery,
+                0 rollbacks, the opt vector bitwise equal across recover(), 8
+                SSD launches a step all on wgmma, finite losses, and the first
+                step's batch scoring lower after the run; the step split, tokens/s
+                and bound as train. Placed after the replay's heap trim and before
+                the first profiler session; trims the heap again after.
 9. train     -- the slice: full qwen3-0.6b (28 layers, bf16) trained by the
                 port's SimCluster, dp=4 simulated workers on the one card, 8 x
                 1024 tokens a step: 2 steps, a software failure of worker 2,
@@ -70,7 +88,9 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 then one more device step under torch.profiler (the script's
                 first profiler session): busy share and the largest kernels.
 10. kernels  -- each kernel against its plain PyTorch version on the card at the
-                serve shapes (prefill B=8, S=1000, H=16, K=8, hd=128, causal, with
+                serve shapes, zamba2-7b's at head_dim 112 too (prefill B=8,
+                S=1000, H=K=32; decode T=1032, cur_len 1032; its SSD, 112 heads,
+                N 64, bf16) (prefill B=8, S=1000, H=16, K=8, hd=128, causal, with
                 the wrapper's route: wgmma for bf16, fp32 for fp32; bf16 also at
                 the training step's S=1024; decode B=8,
                 T=1032, cur_len 1 / 129 / 777 / 1032 with the planned n_split;
@@ -112,6 +132,11 @@ sys.path.insert(0, str(ROOT / "src"))
 PREFILL = dict(b=8, s=1000, h=16, kh=8, hd=128)
 DECODE = dict(b=8, t=1032, h=16, kh=8, hd=128, cur_lens=(1, 129, 777, 1032))
 SSD = dict(b=8, h=80, p=64, n=128, chunk=256, seqs=(1000, 1024))
+# zamba2-7b's serve shapes: MHA of 32 heads at head_dim 112 (the hd-128
+# instantiations, zero-padded), and its SSD (112 heads, N 64)
+PREFILL_HD112 = dict(b=8, s=1000, h=32, kh=32, hd=112)
+DECODE_HD112 = dict(b=8, t=1032, h=32, kh=32, hd=112, cur_lens=(1032,))
+SSD_HYBRID = dict(b=8, h=112, p=64, n=64, chunk=256, seqs=(1000,))
 SERVE = dict(batch=8, prompt=1000, gen=32)
 SSM_SLICE = dict(batch=2, prompt=600, steps=4)
 # the SSD kernel's chunk states and decay against the plain version: the
@@ -139,7 +164,20 @@ GRAD = dict(bf16=dict(b=8, s=1024, h=16, kh=8, hd=128, tol=2e-2),
 # DecoderLM.loss at full width, 2 layers, fp32, card against CPU: 1 x 576
 # tokens (a 512-position xent chunk and a ragged one of 64)
 LOSS = dict(batch=1, seq=576, tol=2e-4)
+# the SSD under autograd (SSD.apply: kernel forward, plain recompute
+# backward) against autograd through ssd_chunked, a small shape per route
+SSD_GRAD = dict(bf16=dict(b=2, s=300, h=4, p=64, n=128, chunk=256, tol=2e-2),
+                fp32=dict(b=2, s=200, h=4, p=64, n=64, chunk=64, tol=1e-4))
+# the hybrid's loss and gradients, card against CPU: the smoke zamba2-7b at
+# head_dim 112, 2 layers (one shared-block application), fp32
+HYBRID_LOSS = dict(batch=2, seq=64, tol=2e-4)
+# the SSM training cell: mamba2-2.7b at full width cut to 8 of 64 layers (the
+# host copies of the full 32.4 GB opt state would not fit the host), dp=4
+# simulated workers, 8 x 1024 tokens a step, 2 steps, a failure, 2 steps
+TRAIN_SSM = dict(layers=8, dp=4, global_batch=8, seq_len=1024, steps_before=2,
+                 steps_after=2, failed=2)
 L2_BYTES = 50 * 10**6
+T_START = time.perf_counter()
 PROFILER_SESSIONS = [0]     # torch.profiler sessions opened so far in this process
 TIMING = {"cupti": 0, "cuda_events": 0}     # kernel timings taken by each method
 
@@ -321,7 +359,7 @@ def cuobjdump() -> str:
 
 
 # tensor-core kernels and their instantiations in the library
-WGMMA_KERNELS = {"flash_wgmma_kernel": 4, "ssd_wgmma_kernel": 7}
+WGMMA_KERNELS = {"flash_wgmma_kernel": 5, "ssd_wgmma_kernel": 7}
 
 
 def sass_hgmma(library: Path) -> dict:
@@ -353,11 +391,14 @@ def phase_kernels(torch, F):
     def rand(shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    # the serve shape in both dtypes, and the training step's (S=1024) in bf16
+    # the serve shape in both dtypes, the training step's (S=1024) in bf16,
+    # and zamba2-7b's serve shape (hd 112) in both dtypes
     for key, dtype, p in (("bfloat16", torch.bfloat16, PREFILL),
                           ("float32", torch.float32, PREFILL),
                           ("bfloat16_train", torch.bfloat16,
-                           dict(PREFILL, s=TRAIN["seq_len"]))):
+                           dict(PREFILL, s=TRAIN["seq_len"])),
+                          ("bfloat16_hd112", torch.bfloat16, PREFILL_HD112),
+                          ("float32_hd112", torch.float32, PREFILL_HD112)):
         dname = str(dtype).split(".")[-1]
         q = rand((p["b"], p["s"], p["h"], p["hd"]), dtype)
         k = rand((p["b"], p["s"], p["kh"], p["hd"]), dtype)
@@ -397,8 +438,9 @@ def phase_kernels(torch, F):
         emit("kernels", **row)
         del q, k, v, out, ref, args
 
-    d = DECODE
-    for dtype in (torch.bfloat16, torch.float32):
+    for suffix, d, dtype in (("", DECODE, torch.bfloat16), ("", DECODE, torch.float32),
+                             ("_hd112", DECODE_HD112, torch.bfloat16),
+                             ("_hd112", DECODE_HD112, torch.float32)):
         dname = str(dtype).split(".")[-1]
         q = rand((d["b"], 1, d["h"], d["hd"]), dtype)
         kc = rand((d["b"], d["t"], d["kh"], d["hd"]), dtype)
@@ -436,7 +478,7 @@ def phase_kernels(torch, F):
                        mbytes=per_call / 1e6, timing=timing_since(before))
             rows.append(row)
             emit("kernels", **row)
-        results["decode_attention"][dname] = rows
+        results["decode_attention"][dname + suffix] = rows
         del q, kc, vc, args
     torch.cuda.empty_cache()
     return results
@@ -706,94 +748,97 @@ SSD_BEFORE_MS = {1000: 2.414251599999998, 1024: 2.403853499999999}
 
 
 def phase_ssd_kernel(torch) -> dict:
-    """The full SSD (``ops.ssd``) against ``ssd_chunked`` at the serve shape
-    (S=1000: the last 256-row chunk ragged) and at S=1024: bf16 on the
+    """The full SSD (``ops.ssd``) against ``ssd_chunked`` at mamba2's serve
+    shape (S=1000: the last 256-row chunk ragged) and at S=1024: bf16 on the
     tensor-core route (also with an initial state), fp32 on the CUDA-core
-    route, whose intra-chunk kernel is also held to its three outputs."""
+    route, whose intra-chunk kernel is also held to its three outputs; and
+    bf16 at zamba2-7b's serve shape (112 heads, N 64)."""
     from repro_torch.kernels import ops, ssd
     from repro_torch.kernels.ref import ssd_intra_chunk_ref, ssd_ref
     from repro_torch.roofline.hw import bound_seconds
 
-    k = SSD
-    b, h, p, n, lc = k["b"], k["h"], k["p"], k["n"], k["chunk"]
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
-    for s in k["seqs"]:
-        for dtype in (torch.bfloat16, torch.float32):
-            dname = str(dtype).split(".")[-1]
-            # the distributions of tests/test_kernels.py
-            x = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
-            dt = 0.001 + 0.099 * torch.rand((b, s, h), generator=gen, device="cuda")
-            a = -(0.5 + 1.5 * torch.rand((h,), generator=gen, device="cuda"))
-            bm = torch.randn((b, s, n), generator=gen, device="cuda").to(dtype)
-            cm = torch.randn((b, s, n), generator=gen, device="cuda").to(dtype)
-            args = (x, dt, a, bm, cm)
-            name = f"ssd {dname} S={s}"
-            extra = {}
-            if dtype == torch.float32:            # the CUDA-core kernel's own outputs
-                got = ssd.ssd_intra_chunk(*args, chunk=lc)
-                torch.cuda.synchronize()
-                want = ssd_intra_chunk_ref(*args, chunk=lc)
-                extra = dict(
-                    y_intra_err=check_close(f"{name} y_intra", got[0], want[0], TOL[dname]),
-                    states_err=check_close(f"{name} chunk states", got[1], want[1], STATE_TOL),
-                    decay_err=check_close(f"{name} chunk decay", got[2], want[2], STATE_TOL))
-                del got, want
-            routed = dict(ssd.ssd.routes)
-            y, final = ops.ssd(*args, chunk=lc)
+    cases = [("mamba2-2.7b", SSD, s, dtype) for s in SSD["seqs"]
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases += [("zamba2-7b", SSD_HYBRID, s, torch.bfloat16) for s in SSD_HYBRID["seqs"]]
+    for model, k, s, dtype in cases:
+        b, h, p, n, lc = k["b"], k["h"], k["p"], k["n"], k["chunk"]
+        dname = str(dtype).split(".")[-1]
+        # the distributions of tests/test_kernels.py
+        x = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
+        dt = 0.001 + 0.099 * torch.rand((b, s, h), generator=gen, device="cuda")
+        a = -(0.5 + 1.5 * torch.rand((h,), generator=gen, device="cuda"))
+        bm = torch.randn((b, s, n), generator=gen, device="cuda").to(dtype)
+        cm = torch.randn((b, s, n), generator=gen, device="cuda").to(dtype)
+        args = (x, dt, a, bm, cm)
+        name = f"ssd {model} {dname} S={s}"
+        extra = {}
+        if dtype == torch.float32:            # the CUDA-core kernel's own outputs
+            got = ssd.ssd_intra_chunk(*args, chunk=lc)
             torch.cuda.synchronize()
-            route = [r for r, c in ssd.ssd.routes.items() if c != routed[r]]
-            if route != [EXPECTED_ROUTE[dname]]:
-                fail(f"{name}: went by route {route}, expected {EXPECTED_ROUTE[dname]}")
-            y_ref, final_ref = ssd_ref(*args, chunk=lc)
-            if y.shape != x.shape or y.dtype != dtype or final.shape != (b, h, n, p):
-                fail(f"{name}: y {tuple(y.shape)} {y.dtype}, final {tuple(final.shape)}")
-            y_err = check_close(f"{name} y vs ssd_chunked", y, y_ref, TOL[dname])
-            final_err = check_close(f"{name} final state vs ssd_chunked", final, final_ref,
-                                    STATE_TOL)
-            if dtype == torch.bfloat16:           # a carried-in state
-                init = torch.randn((b, h, n, p), generator=gen, device="cuda")
-                y, final = ops.ssd(*args, chunk=lc, initial_state=init)
-                y_ref, final_ref = ssd_ref(*args, chunk=lc, initial_state=init)
-                extra = dict(
-                    initial_state_y_err=check_close(f"{name} y with initial state", y, y_ref,
-                                                    TOL[dname]),
-                    initial_state_final_err=check_close(
-                        f"{name} final state with initial state", final, final_ref, STATE_TOL))
-                del init
-            del y, final, y_ref, final_ref
-            copies = input_copies(args)
-            before = dict(TIMING)
-            kernel = lambda *t: ops.ssd(*t, chunk=lc)  # noqa: E731
-            ms = time_ms(torch, kernel, copies, 20)
-            ev_ms = event_ms(torch, kernel, copies, 20)
-            launch_us = host_us(torch, kernel, copies[0], 50)
-            plain_ms = time_ms(torch, lambda *t: ssd_ref(*t, chunk=lc), copies, 3)
-            if dtype == torch.float32:
-                extra["intra_kernel_ms"] = time_ms(
-                    torch, lambda *t: ssd.ssd_intra_chunk(*t, chunk=lc), copies, 10)
-            flops, nbytes = ssd_full_work(b, s, h, p, n, lc, x.element_size())
-            bound_s, bound_by = bound_seconds(flops, nbytes, dname)
-            tpu_flops, tpu_bytes = ssd_work(b, s, h, p, n, lc, x.element_size())
-            tpu_bound_s, tpu_bound_by = bound_seconds(tpu_flops, tpu_bytes, dname)
-            row = dict(kernel="ssd", dtype=dname, route=route[0],
-                       shape=dict(b=b, s=s, h=h, p=p, n=n, chunk=lc), ragged=s % lc != 0,
-                       max_abs_err=y_err, tol=TOL[dname], final_state_err=final_err,
-                       state_tol=STATE_TOL, **extra, ms=ms, event_ms=ev_ms,
-                       plain_ms=plain_ms, plain="ssd_chunked",
-                       before_ms=SSD_BEFORE_MS[s] if dtype == torch.bfloat16 else None,
-                       before_note="the previous design's ops.ssd, from SSD_BEFORE_MS: "
-                                   "not measured in this run",
-                       library_ms=None,
-                       library_note="no single PyTorch call computes the SSD",
-                       bound_ms=bound_s * 1e3, bound_by=bound_by,
-                       tpu_kernel_bound_ms=tpu_bound_s * 1e3, tpu_kernel_bound_by=tpu_bound_by,
-                       host_us_per_launch=launch_us, gflop=flops / 1e9,
-                       mbytes=nbytes / 1e6, timing=timing_since(before))
-            rows[(s, dname)] = row
-            emit("kernels", **row)
-            del x, dt, a, bm, cm, args, copies
-            torch.cuda.empty_cache()
+            want = ssd_intra_chunk_ref(*args, chunk=lc)
+            extra = dict(
+                y_intra_err=check_close(f"{name} y_intra", got[0], want[0], TOL[dname]),
+                states_err=check_close(f"{name} chunk states", got[1], want[1], STATE_TOL),
+                decay_err=check_close(f"{name} chunk decay", got[2], want[2], STATE_TOL))
+            del got, want
+        routed = dict(ssd.ssd.routes)
+        y, final = ops.ssd(*args, chunk=lc)
+        torch.cuda.synchronize()
+        route = [r for r, c in ssd.ssd.routes.items() if c != routed[r]]
+        if route != [EXPECTED_ROUTE[dname]]:
+            fail(f"{name}: went by route {route}, expected {EXPECTED_ROUTE[dname]}")
+        y_ref, final_ref = ssd_ref(*args, chunk=lc)
+        if y.shape != x.shape or y.dtype != dtype or final.shape != (b, h, n, p):
+            fail(f"{name}: y {tuple(y.shape)} {y.dtype}, final {tuple(final.shape)}")
+        y_err = check_close(f"{name} y vs ssd_chunked", y, y_ref, TOL[dname])
+        final_err = check_close(f"{name} final state vs ssd_chunked", final, final_ref,
+                                STATE_TOL)
+        if dtype == torch.bfloat16:           # a carried-in state
+            init = torch.randn((b, h, n, p), generator=gen, device="cuda")
+            y, final = ops.ssd(*args, chunk=lc, initial_state=init)
+            y_ref, final_ref = ssd_ref(*args, chunk=lc, initial_state=init)
+            extra = dict(
+                initial_state_y_err=check_close(f"{name} y with initial state", y, y_ref,
+                                                TOL[dname]),
+                initial_state_final_err=check_close(
+                    f"{name} final state with initial state", final, final_ref, STATE_TOL))
+            del init
+        del y, final, y_ref, final_ref
+        copies = input_copies(args)
+        before = dict(TIMING)
+        kernel = lambda *t: ops.ssd(*t, chunk=lc)  # noqa: E731
+        ms = time_ms(torch, kernel, copies, 20)
+        ev_ms = event_ms(torch, kernel, copies, 20)
+        launch_us = host_us(torch, kernel, copies[0], 50)
+        plain_ms = time_ms(torch, lambda *t: ssd_ref(*t, chunk=lc), copies, 3)
+        if dtype == torch.float32:
+            extra["intra_kernel_ms"] = time_ms(
+                torch, lambda *t: ssd.ssd_intra_chunk(*t, chunk=lc), copies, 10)
+        flops, nbytes = ssd_full_work(b, s, h, p, n, lc, x.element_size())
+        bound_s, bound_by = bound_seconds(flops, nbytes, dname)
+        tpu_flops, tpu_bytes = ssd_work(b, s, h, p, n, lc, x.element_size())
+        tpu_bound_s, tpu_bound_by = bound_seconds(tpu_flops, tpu_bytes, dname)
+        row = dict(kernel="ssd", model=model, dtype=dname, route=route[0],
+                   shape=dict(b=b, s=s, h=h, p=p, n=n, chunk=lc), ragged=s % lc != 0,
+                   max_abs_err=y_err, tol=TOL[dname], final_state_err=final_err,
+                   state_tol=STATE_TOL, **extra, ms=ms, event_ms=ev_ms,
+                   plain_ms=plain_ms, plain="ssd_chunked",
+                   before_ms=(SSD_BEFORE_MS[s] if dtype == torch.bfloat16
+                              and model == "mamba2-2.7b" else None),
+                   before_note="the previous design's ops.ssd, from SSD_BEFORE_MS: "
+                               "not measured in this run",
+                   library_ms=None,
+                   library_note="no single PyTorch call computes the SSD",
+                   bound_ms=bound_s * 1e3, bound_by=bound_by,
+                   tpu_kernel_bound_ms=tpu_bound_s * 1e3, tpu_kernel_bound_by=tpu_bound_by,
+                   host_us_per_launch=launch_us, gflop=flops / 1e9,
+                   mbytes=nbytes / 1e6, timing=timing_since(before))
+        rows[(model, s, dname)] = row
+        emit("kernels", **row)
+        del x, dt, a, bm, cm, args, copies
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -917,13 +962,105 @@ def phase_train_grad(torch):
     for k, g in results["cuda"][1].items():
         if "|attn|" in k and (not torch.isfinite(g).all() or not (g != 0).any()):
             fail(f"train_grad: attention gradient {k} is not finite or is all 0")
+    del cpu, card
     emit("train_grad", flash=flash, config="qwen3-0.6b full width, 2 layers, fp32",
          tokens=list(tokens.shape), loss=float(results["cuda"][0]), loss_err=loss_err,
          grad_leaves=len(grad_err), grad_max_abs_err=max(grad_err.values()),
          attn_grad_err={k: v for k, v in grad_err.items() if "|attn|" in k},
-         adamw_max_abs_err=adamw_err, tol=LOSS["tol"])
-    del cpu, card, results
+         adamw_max_abs_err=adamw_err, tol=LOSS["tol"], ssd=ssd_grads(torch),
+         hybrid=hybrid_loss_grads(torch))
+    del results
     torch.cuda.empty_cache()
+
+
+def ssd_grads(torch) -> dict:
+    """``SSD.apply`` on the card (the kernel forward, the ``ssd_chunked``
+    recompute backward) against autograd through the plain ``ssd_chunked``,
+    one small shape per route: y, the final state and the gradients of x,
+    dt, a, B and C, with a cotangent on both outputs."""
+    from repro_torch.kernels import ssd
+    from repro_torch.kernels.ref import ssd_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for dname, g in SSD_GRAD.items():
+        dtype = torch.bfloat16 if dname == "bf16" else torch.float32
+        b, s, h, p, n, lc = (g[k] for k in ("b", "s", "h", "p", "n", "chunk"))
+        args = (torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype),
+                0.001 + 0.099 * torch.rand((b, s, h), generator=gen, device="cuda"),
+                -(0.5 + 1.5 * torch.rand((h,), generator=gen, device="cuda")),
+                torch.randn((b, s, n), generator=gen, device="cuda").to(dtype),
+                torch.randn((b, s, n), generator=gen, device="cuda").to(dtype))
+        gy = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
+        gf = torch.randn((b, h, n, p), generator=gen, device="cuda")
+        runs = {}
+        for name, fn in (("kernel", lambda *t: ssd.SSD.apply(*t, lc, None)),
+                         ("plain", lambda *t: ssd_ref(*t, chunk=lc))):
+            leaves = [t.detach().clone().requires_grad_() for t in args]
+            routed = dict(ssd.ssd.routes)
+            y, final = fn(*leaves)
+            if name == "kernel" and (y.grad_fn is None or ssd.ssd.routes == routed):
+                fail(f"train_grad ssd {dname}: the kernel did not run under autograd")
+            torch.autograd.backward((y, final), (gy, gf))
+            torch.cuda.synchronize()
+            runs[name] = [y.detach(), final.detach()] + [t.grad for t in leaves]
+        errs = {part: check_close(f"train_grad ssd {dname} {part}", got, want,
+                                  STATE_TOL if part == "final" else g["tol"])
+                for part, got, want in zip(("y", "final", "dx", "ddt", "da", "db", "dc"),
+                                           runs["kernel"], runs["plain"])}
+        out[dname] = dict(shape={k: v for k, v in g.items() if k != "tol"}, tol=g["tol"],
+                          final_tol=STATE_TOL, max_abs_err=errs)
+    return out
+
+
+def hybrid_loss_grads(torch) -> dict:
+    """The hybrid's loss and every gradient on the card (the fp32 flash
+    kernel at head_dim 112 and the SSD's fp32 route, both under autograd)
+    against the same port on the CPU from the same weights: the smoke
+    zamba2-7b at head_dim 112, 2 layers, fp32."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch, reduce_for_smoke
+    from repro_torch.models import build_model
+    from repro_torch.train.state import grad_tree
+    from repro_torch.tree import keystr, tree_flatten_with_path
+
+    cfg = dataclasses.replace(reduce_for_smoke(get_arch("zamba2-7b")), head_dim=112,
+                              num_layers=2, dtype="float32")
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(1))
+    card = build_model(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (HYBRID_LOSS["batch"], HYBRID_LOSS["seq"] + 1)))
+    results = {}
+    reset_launches()
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        model.requires_grad_(True)
+        loss, _ = model.loss({"tokens": tokens.to(model.device)})
+        loss.backward()
+        results[name] = (loss.detach().cpu(), {
+            keystr(p): t for p, t in tree_flatten_with_path(_host_tree(grad_tree(model)))})
+    launches = read_launches()
+    expected = {"flash_attention": 1, "decode_attention": 0, "ssd": cfg.num_layers,
+                "ssd_routes": {"wgmma": 0, "fp32": cfg.num_layers}}
+    if launches != expected:
+        fail(f"train_grad hybrid: kernel launches {launches}, expected {expected}")
+    tol = HYBRID_LOSS["tol"]
+    loss_err = check_close("train_grad hybrid loss card vs cpu", results["cuda"][0],
+                           results["cpu"][0], tol)
+    grad_err = {k: check_close(f"train_grad hybrid grad {k} card vs cpu",
+                               results["cuda"][1][k], ref, tol)
+                for k, ref in results["cpu"][1].items()}
+    for k, g in results["cuda"][1].items():
+        if k.startswith("shared_attn|attn|") and not (g != 0).any():
+            fail(f"train_grad hybrid: shared attention gradient {k} is all 0")
+    return dict(config="zamba2-7b smoke at head_dim 112, 2 layers, fp32",
+                tokens=list(tokens.shape), loss=float(results["cuda"][0]),
+                loss_err=loss_err, grad_leaves=len(grad_err),
+                grad_max_abs_err=max(grad_err.values()),
+                shared_attn_grad_err={k: v for k, v in grad_err.items()
+                                      if k.startswith("shared_attn")},
+                launches=launches, tol=tol)
 
 
 def _host_tree(tree):
@@ -964,24 +1101,24 @@ def host_rss_gb() -> float:
         return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e9
 
 
-def phase_train(torch):
-    """Full qwen3-0.6b trained through the port's SimCluster with a
-    failure and a stream recovery in the middle."""
-    import gc
+def train_through_a_failure(torch, phase: str, cfg, t: dict, ckpt_name: str) -> dict:
+    """Train ``cfg`` through the port's SimCluster on the card (``t``: dp,
+    global batch, sequence length, steps before and after, the failed
+    worker): steps, a software failure, ``recover()`` with the stream
+    policy, steps. The launch counts are zeroed just before the first step
+    and read just after the last. Fails the phase unless the recovery came
+    from the neighbour with no rollback, the optimizer vector after it is
+    bitwise equal to a host copy taken before the failure, every step
+    recorded its parts and every loss is finite."""
     import shutil
 
     import numpy as np
 
-    from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import param_count
-    from repro_torch.roofline.hw import HOST_LINK_BW
     from repro_torch.runtime.cluster import ClusterConfig, SimCluster
     from repro_torch.runtime.recovery import _flatten_opt
 
-    t = TRAIN
-    cfg = get_arch("qwen3-0.6b")
-    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    ckpt_dir = ROOT / "build" / ckpt_name
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
     rss_start = host_rss_gb()
@@ -1000,8 +1137,8 @@ def phase_train(torch):
         loss = clu.step()
         sp = dict(clu.last_step_timing)
         if set(sp) != span_keys or any(v is None for v in sp.values()):
-            fail(f"train: step timing {sp}, expected every one of {sorted(span_keys)}")
-        spans.append(dict(sp, loss=loss))
+            fail(f"{phase}: step timing {sp}, expected every one of {sorted(span_keys)}")
+        spans.append(dict(sp, loss=loss, host_rss_gb=host_rss_gb()))
 
     reset_launches()
     for _ in range(t["steps_before"]):
@@ -1023,67 +1160,115 @@ def phase_train(torch):
     steps = t["steps_before"] + t["steps_after"]
     losses = [sp["loss"] for sp in spans]
     if rep.recovered_from != "neighbor" or rep.rolled_back_iterations != 0:
-        fail(f"train: recovered from {rep.recovered_from} with "
+        fail(f"{phase}: recovered from {rep.recovered_from} with "
              f"{rep.rolled_back_iterations} iterations rolled back")
     if not bitwise:
-        fail("train: the optimizer vector after recovery differs from the copy before the failure")
+        fail(f"{phase}: the optimizer vector after recovery differs from the copy before "
+             "the failure")
     if not all(math.isfinite(x) for x in losses):
-        fail(f"train: losses {losses}")
-    expected = {"flash_attention": cfg.num_layers * steps, "decode_attention": 0, "ssd": 0,
-                "ssd_routes": {"wgmma": 0, "fp32": 0}}
-    if launches != expected or flash_routes.get("wgmma") != cfg.num_layers * steps:
-        fail(f"train: kernel launches {launches}, flash routes {flash_routes}, "
-             f"expected {expected} all on wgmma")
+        fail(f"{phase}: losses {losses}")
     if clu.iteration != steps:
-        fail(f"train: {clu.iteration} iterations after the run, expected {steps}")
+        fail(f"{phase}: {clu.iteration} iterations after the run, expected {steps}")
+    return dict(clu=clu, ckpt_dir=ckpt_dir, spans=spans, rep=rep, recover_s=recover_s,
+                bitwise=bitwise, vec_len=vec_len, launches=launches,
+                flash_routes=flash_routes, steps=steps, losses=losses, setup_s=setup_s,
+                rss_start=rss_start)
 
-    # where the device step's time goes: one more step under torch.profiler,
-    # after the measured run (the first profiler session of the script)
-    batch = clu._assemble_batch()
-    trace = device_share(torch, lambda: clu._step(clu.state, batch), top=12,
-                         classify=train_kernel_group)
-    params = param_count(cfg)
-    tokens = t["global_batch"] * t["seq_len"]
-    (bound_s, bound_by), flops, attn_fwd = train_bound(cfg, params, tokens, t["global_batch"],
-                                                       t["seq_len"])
-    later = spans[1:]                             # the steps after the first
+
+def train_row(torch, run: dict, t: dict, params: int, bound: tuple, flops: float) -> dict:
+    """The fields a training phase prints: the step split (medians of the
+    steps after the first), tokens/s beside the bound, memory and the
+    recovery."""
+    import numpy as np
+
+    from repro_torch.roofline.hw import HOST_LINK_BW
+
+    spans, rep = run["spans"], run["rep"]
+    later = spans[1:]
 
     def median(key):
         return float(np.median([sp[key] for sp in later]))
 
     step_ms = median("step_ms")
-    host_ms = float(np.median([sp["step_ms"] - sp["compute_ms"] for sp in later]))
-    row = dict(config=f"qwen3-0.6b full ({cfg.num_layers} layers, bf16, tied head)",
-               params=params, dp=t["dp"], global_batch=t["global_batch"], seq_len=t["seq_len"],
-               tokens_per_step=tokens, steps=steps, losses=losses,
-               step_ms=step_ms, step_ms_first=spans[0]["step_ms"],
-               device_ms=median("device_ms"), step_call_ms=median("compute_ms"),
-               host_ckpt_ms=host_ms, flatten_d2h_ms=median("flatten_ms"),
-               flatten_d2h_bound_ms=vec_len * 4 / HOST_LINK_BW * 1e3,
-               shard_chunk_crc_ms=median("shard_ms"),
-               fabric_run_ms=median("fabric_ms"),
-               tokens_per_s=tokens / (step_ms / 1e3),
-               bound_ms=bound_s * 1e3, bound_by=bound_by, bound_tflop=flops / 1e12,
-               attention_fwd_gflop_per_layer=attn_fwd / 1e9,
-               opt_vector_gb=vec_len * 4 / 1e9,
-               peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-               peak_host_rss_gb=peak_rss_gb(), host_rss_at_start_gb=rss_start,
-               setup_s=setup_s,
-               recovered_from=rep.recovered_from, rolled_back=rep.rolled_back_iterations,
-               opt_vector_bitwise_equal=bitwise, recover_wall_s=recover_s,
-               recover_simulated_s=rep.total_time,
-               recover_simulated_timeline=rep.timeline,
-               recover_note="recover_simulated_s is simulated fabric time, not measured",
-               state_bytes_streamed=rep.state_bytes_streamed, chunks=rep.chunks_total,
-               launches=launches, flash_routes=flash_routes, spans=spans,
-               device_step_trace=trace)
-    emit("train", **row)
+    tokens = t["global_batch"] * t["seq_len"]
+    return dict(params=params, dp=t["dp"], global_batch=t["global_batch"],
+                seq_len=t["seq_len"], tokens_per_step=tokens, steps=run["steps"],
+                losses=run["losses"], step_ms=step_ms, step_ms_first=spans[0]["step_ms"],
+                device_ms=median("device_ms"), step_call_ms=median("compute_ms"),
+                host_ckpt_ms=float(np.median([sp["step_ms"] - sp["compute_ms"]
+                                              for sp in later])),
+                flatten_d2h_ms=median("flatten_ms"),
+                flatten_d2h_bound_ms=run["vec_len"] * 4 / HOST_LINK_BW * 1e3,
+                shard_chunk_crc_ms=median("shard_ms"), fabric_run_ms=median("fabric_ms"),
+                tokens_per_s=tokens / (step_ms / 1e3),
+                bound_ms=bound[0] * 1e3, bound_by=bound[1], bound_tflop=flops / 1e12,
+                opt_vector_gb=run["vec_len"] * 4 / 1e9,
+                peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                host_rss_at_start_gb=run["rss_start"],
+                host_rss_max_gb=max(sp["host_rss_gb"] for sp in spans),
+                process_peak_rss_gb=peak_rss_gb(),
+                host_rss_note="host_rss_max_gb: the largest RSS read after a step; "
+                              "process_peak_rss_gb includes earlier phases",
+                setup_s=run["setup_s"], recovered_from=rep.recovered_from,
+                rolled_back=rep.rolled_back_iterations,
+                opt_vector_bitwise_equal=run["bitwise"], recover_wall_s=run["recover_s"],
+                recover_simulated_s=rep.total_time,
+                recover_simulated_timeline=rep.timeline,
+                recover_note="recover_simulated_s is simulated fabric time, not measured",
+                state_bytes_streamed=rep.state_bytes_streamed, chunks=rep.chunks_total,
+                launches=run["launches"], flash_routes=run["flash_routes"], spans=spans)
+
+
+def close_cluster(torch, run: dict) -> float:
+    """Close the cluster's engines, free it and hand the freed host heap
+    back to the OS; returns the host RSS after."""
+    import ctypes
+    import gc
+    import shutil
+
+    clu = run.pop("clu")
     for w in clu.workers:
         w.engine.close()
     del clu
     gc.collect()
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+    shutil.rmtree(run["ckpt_dir"], ignore_errors=True)
     torch.cuda.empty_cache()
+    return host_rss_gb()
+
+
+def phase_train(torch):
+    """Full qwen3-0.6b trained through the port's SimCluster with a
+    failure and a stream recovery in the middle."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import param_count
+
+    t = TRAIN
+    cfg = get_arch("qwen3-0.6b")
+    run = train_through_a_failure(torch, "train", cfg, t, "chip_smoke_ckpt")
+    steps = run["steps"]
+    expected = {"flash_attention": cfg.num_layers * steps, "decode_attention": 0, "ssd": 0,
+                "ssd_routes": {"wgmma": 0, "fp32": 0}}
+    if (run["launches"] != expected
+            or run["flash_routes"].get("wgmma") != cfg.num_layers * steps):
+        fail(f"train: kernel launches {run['launches']}, flash routes {run['flash_routes']}, "
+             f"expected {expected} all on wgmma")
+
+    # where the device step's time goes: one more step under torch.profiler,
+    # after the measured run (the first profiler session of the script)
+    clu = run["clu"]
+    batch = clu._assemble_batch()
+    trace = device_share(torch, lambda: clu._step(clu.state, batch), top=12,
+                         classify=train_kernel_group)
+    del clu, batch
+    params = param_count(cfg)
+    bound, flops, attn_fwd = train_bound(cfg, params, t["global_batch"] * t["seq_len"],
+                                         t["global_batch"], t["seq_len"])
+    row = dict(config=f"qwen3-0.6b full ({cfg.num_layers} layers, bf16, tied head)",
+               **train_row(torch, run, t, params, bound, flops),
+               attention_fwd_gflop_per_layer=attn_fwd / 1e9, device_step_trace=trace)
+    row["host_rss_after_free_gb"] = close_cluster(torch, run)
+    emit("train", **row)
     return row
 
 
@@ -1366,6 +1551,158 @@ def phase_serve_ssm(torch):
     return model, prefill, decode, tokens, row
 
 
+def hybrid_serve_bounds(cfg, params: int, shared: int, b: int, prompt: int, gen: int):
+    """The card's least time for the hybrid serve run's prefill and for its
+    mean decode step, bf16. Operations: the matrix products of every
+    parameter but the embedding once a token, with the shared block's
+    counted once per application, the head's for the last position only,
+    the causal attention of each application and each layer's SSD (the
+    prefill; a decode step's state update and read-out). Bytes: the weights
+    read once, the shared block once more per further application (a decode
+    step), the KV cache written (prefill) or read up to the attended length
+    (decode), the SSD state fp32 and the conv windows bf16 written (prefill)
+    or read and written (decode)."""
+    from repro_torch.roofline.hw import bound_seconds
+    L, h, n, p = cfg.num_layers, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+    n_attn = sum(k == "mamba_attn" for k in cfg.layer_kinds())
+    kh, hq, hd = cfg.num_kv_heads, cfg.num_heads, cfg.resolved_head_dim
+    n_head = cfg.padded_vocab * cfg.d_model          # the embedding, also the head
+    n_eff = params - n_head + (n_attn - 1) * shared   # matmul parameters a token
+    weight_bytes = 2 * params
+    state_bytes = L * b * (h * n * p * 4 + (cfg.ssm_conv_kernel - 1)
+                           * (cfg.ssm_inner + 2 * n) * 2)
+    kv_bytes_per_pos = 2 * n_attn * b * kh * hd * 2
+    ssd_flops, _ = ssd_full_work(b, prompt, h, p, n, min(cfg.ssm_chunk, prompt), 2)
+    prefill_flops = (2 * n_eff * b * prompt + 2 * n_head * b + L * ssd_flops
+                     + n_attn * 4 * b * hq * hd * prompt * (prompt + 1) // 2)
+    prefill = bound_seconds(prefill_flops, weight_bytes + kv_bytes_per_pos * prompt
+                            + state_bytes, "bfloat16")
+    lens = range(prompt + 1, prompt + gen)             # attended lengths per step
+    steps = gen - 1
+    decode_flops = (2 * (n_eff + n_head) * b + L * b * h * n * p * 4
+                    + n_attn * 4 * b * hq * hd * sum(lens) / steps)
+    decode_bytes = (weight_bytes + 2 * (n_attn - 1) * shared + 2 * state_bytes
+                    + kv_bytes_per_pos * sum(lens) / steps)
+    return (prefill, prefill_flops, weight_bytes + kv_bytes_per_pos * prompt + state_bytes,
+            bound_seconds(decode_flops, decode_bytes, "bfloat16"), decode_bytes)
+
+
+def phase_serve_hybrid(torch):
+    """Full zamba2-7b (81 Mamba2 layers, the shared attention block after 13
+    of them, bf16), random weights drawn on the card from a seed: the same 8
+    x 1000 prompts and 32 greedy tokens. 13 flash launches on wgmma at head
+    dim 112, 13 x 31 decode launches, 81 SSD launches on wgmma."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model, param_count
+    from repro_torch.train.serve import build_decode_step, build_prefill_step
+
+    cfg = get_arch("zamba2-7b")
+    b, prompt, gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    t0 = time.perf_counter()
+    # drawn by a CUDA generator on the card: 6.6 B numbers drawn on the host
+    # would cost minutes of host time and a 26 GB fp32 copy
+    model = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prefill, decode = build_prefill_step(model), build_decode_step(model)
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (b, prompt))).cuda()
+    warm, *_ = serve_once(torch, prefill, decode, tokens, prompt + gen, gen)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    seqs, finite, t_prefill, t_decode, shape = serve_once(
+        torch, prefill, decode, tokens, prompt + gen, gen)
+    launches = read_launches()
+    flash_routes = dict(fa.flash_attention.routes)
+    n_attn = len(model.attn_layers)
+    expected = {"flash_attention": n_attn, "decode_attention": n_attn * (gen - 1),
+                "ssd": cfg.num_layers, "ssd_routes": {"wgmma": cfg.num_layers, "fp32": 0}}
+    if (launches != expected or flash_routes != {"wgmma": n_attn, "fp32": 0}
+            or cfg.resolved_head_dim != 112):
+        fail(f"serve_hybrid: kernel launches {launches}, flash routes {flash_routes}, "
+             f"head_dim {cfg.resolved_head_dim}; expected {expected}, flash all on wgmma "
+             f"at head_dim 112")
+    if not finite or tuple(shape) != (b, cfg.padded_vocab):
+        fail(f"serve_hybrid: logits not finite or of shape {tuple(shape)}")
+    if seqs.shape != (b, gen) or not ((seqs >= 0) & (seqs < cfg.padded_vocab)).all():
+        fail("serve_hybrid: generated tokens out of range")
+    params = param_count(cfg)
+    shared = sum(p.numel() for p in model.shared_attn.parameters())
+    prefill_bound, prefill_flops, prefill_bytes, decode_bound, decode_bytes = \
+        hybrid_serve_bounds(cfg, params, shared, b, prompt, gen)
+    row = dict(config=f"zamba2-7b full ({cfg.num_layers} layers, shared block after "
+                      f"{n_attn}, head_dim {cfg.resolved_head_dim}, bf16)",
+               params=params, shared_block_params=shared, batch=b, prompt=prompt, gen=gen,
+               init_s=init_s, prefill_ms=t_prefill * 1e3,
+               prefill_bound_ms=prefill_bound[0] * 1e3, prefill_bound_by=prefill_bound[1],
+               prefill_tflop=prefill_flops / 1e12, prefill_gbytes=prefill_bytes / 1e9,
+               decode_steps=gen - 1, decode_ms_per_step=t_decode * 1e3 / (gen - 1),
+               decode_step_bound_ms=decode_bound[0] * 1e3, decode_step_bound_by=decode_bound[1],
+               decode_step_gbytes=decode_bytes / 1e9,
+               decode_tok_s=b * (gen - 1) / t_decode,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=launches, flash_routes=flash_routes, logits_finite=finite,
+               repeat_identical=bool((warm == seqs).all()),
+               profiler_sessions_before=PROFILER_SESSIONS[0],
+               first_sequence=seqs[0].tolist())
+    emit("serve_hybrid", **row)
+    del model, prefill, decode
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_train_ssm(torch):
+    """mamba2-2.7b at full width, cut to 8 layers, trained by the port's
+    SimCluster with a failure and a stream recovery in the middle: the SSD
+    kernel under autograd on the main training path."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import param_count
+    from repro_torch.roofline.hw import bound_seconds
+
+    t = TRAIN_SSM
+    cfg = dataclasses.replace(get_arch("mamba2-2.7b"), num_layers=t["layers"])
+    run = train_through_a_failure(torch, "train_ssm", cfg, t, "chip_smoke_ssm_ckpt")
+    steps, losses = run["steps"], run["losses"]
+    expected = {"flash_attention": 0, "decode_attention": 0, "ssd": cfg.num_layers * steps,
+                "ssd_routes": {"wgmma": cfg.num_layers * steps, "fp32": 0}}
+    if run["launches"] != expected:
+        fail(f"train_ssm: kernel launches {run['launches']}, expected {expected}")
+    # the loss falls: the first step's batch (the same tokens, from the
+    # loaders) scored again after the run. Each step's own batch is new
+    # uniform random tokens, whose loss moves by batch noise more than by
+    # what 3 updates can learn about them.
+    clu = run["clu"]
+    batch0 = {"tokens": torch.from_numpy(np.concatenate(
+        [w.loader.get(0) for w in clu.workers[:clu.active_dp]], axis=0)).to(clu.device)}
+    with torch.no_grad():
+        first_batch_loss_after = float(clu.model.loss(batch0)[0])
+    del clu, batch0
+    if not first_batch_loss_after < losses[0]:
+        fail(f"train_ssm: the first batch's loss {losses[0]} before the run, "
+             f"{first_batch_loss_after} after it; expected it to fall")
+
+    params = param_count(cfg)
+    # 6 operations per parameter and token, and the SSD's own (forward once,
+    # backward twice the forward's)
+    ssd_flops, _ = ssd_full_work(t["global_batch"], t["seq_len"], cfg.ssm_heads,
+                                 cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk, 2)
+    flops = (6 * params * t["global_batch"] * t["seq_len"]
+             + 3 * cfg.num_layers * ssd_flops)
+    bound = bound_seconds(flops, params * (2 + 2 + 2 + 3 * 4 * 2), "bfloat16")
+    row = dict(config=f"mamba2-2.7b full width, {cfg.num_layers} of 64 layers, bf16",
+               **train_row(torch, run, t, params, bound, flops),
+               first_batch_loss_after=first_batch_loss_after)
+    row["host_rss_after_free_gb"] = close_cluster(torch, run)
+    emit("train_ssm", **row)
+    return row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1391,8 +1728,10 @@ def main() -> int:
     served, serve = phase_serve(torch)
     phase_slice_ssm(torch)
     ssm_model, ssm_prefill, ssm_decode, ssm_tokens, serve_ssm = phase_serve_ssm(torch)
+    serve_hybrid = phase_serve_hybrid(torch)
     phase_train_grad(torch)
     scenarios = phase_scenarios(torch)
+    train_ssm = phase_train_ssm(torch)
     train = phase_train(torch)
     kernels = phase_kernels(torch, F)
     ssd_rows = phase_ssd_kernel(torch)
@@ -1407,7 +1746,14 @@ def main() -> int:
     fa_train = kernels["flash_attention"]["bfloat16_train"]
     da = kernels["decode_attention"]["bfloat16"]
     da_main = da[-1]                                  # cur_len 1032 = the cache length
-    ssd_main = ssd_rows[(SERVE["prompt"], "bfloat16")]  # the serve run's shape
+    ssd_main = ssd_rows[("mamba2-2.7b", SERVE["prompt"], "bfloat16")]  # the serve run's shape
+    ssd_hyb = ssd_rows[("zamba2-7b", SERVE["prompt"], "bfloat16")]
+    keys = ("shape", "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+
+    def hd112(rows):
+        """The hd-112 rows (bf16, fp32) of one kernel for the kernels line."""
+        return {dname: {k_: row[k_] for k_ in keys} for dname, row in rows.items()}
     line = [
         dict(name="flash_attention", route="cuda", dispatch=fa["route"],
              source="src/repro_torch/csrc/flash_attention_wgmma.cu",
@@ -1429,6 +1775,10 @@ def main() -> int:
              train_shape={k_: fa_train[k_] for k_ in ("shape", "max_abs_err", "ms",
                                                       "plain_ms", "bound_ms", "bound_by",
                                                       "library_ms")},
+             hybrid_launches=serve_hybrid["launches"]["flash_attention"],
+             train_ssm_launches=train_ssm["launches"]["flash_attention"],
+             hd112=hd112({d: kernels["flash_attention"][f"{d}_hd112"]
+                          for d in ("bfloat16", "float32")}),
              backward="plain blockwise_attention recompute (FlashAttention), no kernel"),
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attn.cu",
@@ -1444,7 +1794,11 @@ def main() -> int:
              shape=da_main["shape"], cur_len=da_main["cur_len"], dtype="bfloat16",
              ms=da_main["ms"], plain_ms=da_main["plain_ms"],
              bound_ms=da_main["bound_ms"], bound_by=da_main["bound_by"],
-             library_ms=da_main["library_ms"], timing=da_main["timing"]),
+             library_ms=da_main["library_ms"], timing=da_main["timing"],
+             hybrid_launches=serve_hybrid["launches"]["decode_attention"],
+             train_ssm_launches=train_ssm["launches"]["decode_attention"],
+             hd112=hd112({d: kernels["decode_attention"][f"{d}_hd112"][-1]
+                          for d in ("bfloat16", "float32")})),
         dict(name="ssd", route="cuda", dispatch=ssd_main["route"],
              source="src/repro_torch/csrc/ssd_wgmma.cu",
              fp32_source="src/repro_torch/csrc/ssd.cu",
@@ -1464,9 +1818,14 @@ def main() -> int:
              shape=ssd_main["shape"], dtype="bfloat16", ms=ssd_main["ms"],
              plain_ms=ssd_main["plain_ms"], bound_ms=ssd_main["bound_ms"],
              bound_by=ssd_main["bound_by"], library_ms=None,
-             library_note=ssd_main["library_note"], timing=ssd_main["timing"]),
+             library_note=ssd_main["library_note"], timing=ssd_main["timing"],
+             hybrid_launches=serve_hybrid["launches"]["ssd"],
+             train_ssm_launches=train_ssm["launches"]["ssd"],
+             hybrid_shape={k_: ssd_hyb[k_] for k_ in keys},
+             backward="plain ssd_chunked recompute (SSD), no kernel"),
     ]
-    emit("timing", kernel_timings=TIMING, profiler_sessions=PROFILER_SESSIONS[0])
+    emit("timing", kernel_timings=TIMING, profiler_sessions=PROFILER_SESSIONS[0],
+         script_s=time.perf_counter() - T_START)
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

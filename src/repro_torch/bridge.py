@@ -34,7 +34,8 @@ def _count_leaves(tree) -> int:
 @torch.no_grad()
 def params_from_numpy(tree: Mapping, cfg: ArchConfig, device=None,
                       dtype: Optional[torch.dtype] = None) -> torch.nn.Module:
-    """The port's model for ``cfg.family`` (``DecoderLM`` or ``MambaLM``) on
+    """The port's model for ``cfg.family`` (``DecoderLM``, ``MambaLM`` or
+    ``HybridLM``, whose ``shared_attn`` leaves are not stacked) on
     ``device`` (CUDA by default) holding the reference's weights, cast to
     each parameter's dtype: ``dtype`` (the config's by default), except the
     leaves the model keeps in fp32 whatever its dtype (the Mamba2 block's

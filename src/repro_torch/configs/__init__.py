@@ -8,7 +8,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Tuple
 
 
 def _round_up(x: int, m: int) -> int:
@@ -22,7 +22,7 @@ class ArchConfig:
     fields of the families it ports."""
 
     name: str
-    family: str  # "dense" and "ssm" build; the others name their ROADMAP item
+    family: str  # "dense", "ssm" and "hybrid" build; the others name their ROADMAP item
     num_layers: int
     d_model: int
     num_heads: int
@@ -41,6 +41,8 @@ class ArchConfig:
     ssm_expand: int = 2
     ssm_conv_kernel: int = 4
     ssm_chunk: int = 256
+    # --- hybrid (Zamba2-style): one shared attention block every k layers ---
+    attn_every: int = 0
     # --- numerics ---
     dtype: str = "bfloat16"
     # --- capability flags ---
@@ -66,6 +68,18 @@ class ArchConfig:
     def ssm_heads(self) -> int:
         return self.ssm_inner // self.ssm_head_dim if self.ssm_state else 0
 
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Per-layer block kind for the decoder stack: a hybrid's layer i is
+        followed by the shared attention block when i % attn_every ==
+        attn_every - 1 (``mamba_attn``)."""
+        if self.family == "ssm":
+            return ("mamba",) * self.num_layers
+        if self.family == "hybrid":
+            k = self.attn_every
+            return tuple("mamba_attn" if i % k == k - 1 else "mamba"
+                         for i in range(self.num_layers))
+        return ("attn",) * self.num_layers
+
 
 @dataclass(frozen=True)
 class ShapeConfig:
@@ -86,11 +100,11 @@ SHAPES: Dict[str, ShapeConfig] = {
 
 _REGISTRY: Dict[str, ArchConfig] = {}
 
-# Config modules ported so far: the dense ones and mamba2 (the JAX registry
-# loads twelve modules; the MoE, hybrid, enc-dec and VLM ones wait for their
-# families, ROADMAP items 10 and 11).
+# Config modules ported so far: the dense ones, mamba2 and zamba2 (the JAX
+# registry loads twelve modules; the MoE, enc-dec and VLM ones wait for their
+# families, ROADMAP item 11).
 _MODULES = ("deepseek_67b", "qwen3_0_6b", "nemotron_4_15b", "gemma_2b",
-            "mamba2_2_7b", "paper_workloads")
+            "mamba2_2_7b", "zamba2_7b", "paper_workloads")
 
 
 def register(cfg: ArchConfig) -> ArchConfig:
@@ -116,7 +130,8 @@ def get_arch(name: str) -> ArchConfig:
 
 def reduce_for_smoke(cfg: ArchConfig) -> ArchConfig:
     """Shrink a production config to a CPU-smoke-testable size, by the rules
-    of ``repro.configs.reduce_for_smoke`` for the dense and SSM families."""
+    of ``repro.configs.reduce_for_smoke`` for the dense, SSM and hybrid
+    families: a hybrid keeps 4 layers and its attention cadence (every 2)."""
     if cfg.num_kv_heads == 1:
         kv_heads = 1
     elif cfg.num_kv_heads < cfg.num_heads:
@@ -124,9 +139,12 @@ def reduce_for_smoke(cfg: ArchConfig) -> ArchConfig:
     else:
         kv_heads = 4
     changes = dict(
-        name=cfg.name + "-smoke", num_layers=min(cfg.num_layers, 2),
+        name=cfg.name + "-smoke",
+        num_layers=min(cfg.num_layers, 4 if cfg.family == "hybrid" else 2),
         d_model=64, num_heads=4, num_kv_heads=kv_heads, head_dim=16,
         d_ff=128 if cfg.d_ff else 0, vocab_size=256)
     if cfg.ssm_state:
         changes.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=8)
+    if cfg.family == "hybrid":
+        changes.update(attn_every=2)
     return dataclasses.replace(cfg, **changes)

@@ -31,6 +31,11 @@
 // no order and cannot wait for each other; it reads 1 KB per (batch, head)
 // at the serve shape. With n_split == 1 the first grid writes o itself and
 // the merge is not launched.
+//
+// head_dim 112 (zamba2-7b's) runs the lane mapping of hd 128: 16 lanes a
+// bf16 row (32 in fp32), of which the last 2 (4) load nothing and hold
+// zeros, so the lane groups still tile the warp; only the first 112
+// columns of the partials and of o are written.
 
 #include "common.cuh"
 
@@ -51,7 +56,9 @@ struct DecodeShape {
   static_assert(LPR >= 1 && LPR <= 32, "head_dim does not fit one warp");
 };
 
-template <typename T, int HD, int G>
+// HD: the lane-mapping instantiation; HDV: the tensors' head_dim (HD, or
+// 112 on the 128 mapping)
+template <typename T, int HD, int G, int HDV>
 __global__ void __launch_bounds__(DT)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                     const T* __restrict__ vc, T* __restrict__ o,
@@ -77,13 +84,19 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int rg = lane / LPR;                // row within the warp's load
   const int cl = lane % LPR;                // chunk of head_dim
   const int d0 = cl * VEC;
+  const bool live = d0 < HDV;               // a lane past the row's end loads nothing
   const int start = split * rows_per_split;
   const int end = min(cur_len, start + rows_per_split);
 
   float qf[G][VEC];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    Vec16<T>::load(q + b * q_sb + (kvh * G + g) * q_sh + d0, qf[g]);
+    if (live) {
+      Vec16<T>::load(q + b * q_sb + (kvh * G + g) * q_sh + d0, qf[g]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) qf[g][e] = 0.f;
+    }
 #pragma unroll
     for (int e = 0; e < VEC; ++e) qf[g][e] *= scale;
   }
@@ -107,7 +120,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     for (int u = 0; u < U; ++u) {
       const int pos = base + (u * DWARPS + warp) * RPW + rg;
       valid[u] = pos < end;
-      if (valid[u]) {
+      if (valid[u] && live) {
         kr[u] = *reinterpret_cast<const uint4*>(kb + pos * k_st);
         vr[u] = *reinterpret_cast<const uint4*>(vb + pos * v_st);
       } else {
@@ -172,11 +185,11 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
   __syncthreads();
 
-  // merge the warps; then o (contiguous (B, 1, H, HD)) or this split's
+  // merge the warps; then o (contiguous (B, 1, H, HDV)) or this split's
   // partial, record ((b*K + kvh)*n_split + split)*G + g
-  for (int idx = threadIdx.x; idx < G * HD; idx += DT) {
-    const int g = idx / HD;
-    const int d = idx % HD;
+  for (int idx = threadIdx.x; idx < G * HDV; idx += DT) {
+    const int g = idx / HDV;
+    const int d = idx % HDV;
     float mx = kNegInf;
 #pragma unroll
     for (int w = 0; w < DWARPS; ++w) mx = fmaxf(mx, sm_m[w][g]);
@@ -188,10 +201,10 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       a += sm_acc[w][g][d] * c;
     }
     if (n_split == 1) {
-      o[((long long)b * H + kvh * G + g) * HD + d] = from_float<T>(a / fmaxf(lsum, 1e-30f));
+      o[((long long)b * H + kvh * G + g) * HDV + d] = from_float<T>(a / fmaxf(lsum, 1e-30f));
     } else {
       const long long rec = ((long long)(b * K + kvh) * n_split + split) * G + g;
-      part_acc[rec * HD + d] = a;
+      part_acc[rec * HDV + d] = a;
       if (d == 0) {
         part_ml[2 * rec] = mx;
         part_ml[2 * rec + 1] = lsum;
@@ -224,37 +237,37 @@ decode_merge_kernel(const float* __restrict__ part_acc, const float* __restrict_
   o[(long long)bh * HD + d] = from_float<T>(a / fmaxf(lsum, 1e-30f));
 }
 
-template <typename T, int HD, int G>
+template <typename T, int HD, int G, int HDV>
 cudaError_t launch_decode(const void* q, const void* k, const void* v, void* o,
                           float* part, int B, int H, int K, int cur_len,
                           int n_split, int rows_per_split,
                           const long long* qs, const long long* ks,
                           const long long* vs, float scale, cudaStream_t st) {
   float* part_acc = part;
-  float* part_ml = part + (long long)B * K * n_split * G * HD;
-  decode_split_kernel<T, HD, G><<<dim3(K, B, n_split), DT, 0, st>>>(
+  float* part_ml = part + (long long)B * K * n_split * G * HDV;
+  decode_split_kernel<T, HD, G, HDV><<<dim3(K, B, n_split), DT, 0, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), part_acc, part_ml,
       H, K, cur_len, rows_per_split,
       qs[0], qs[1], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
-  decode_merge_kernel<T, HD><<<B * H, HD, 0, st>>>(part_acc, part_ml, static_cast<T*>(o),
-                                                   H, G, n_split);
+  decode_merge_kernel<T, HDV><<<B * H, HDV, 0, st>>>(part_acc, part_ml, static_cast<T*>(o),
+                                                     H, G, n_split);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV = HD>
 cudaError_t dispatch_g(int G, const void* q, const void* k, const void* v,
                        void* o, float* part, int B, int H, int K, int cur_len,
                        int n_split, int rows, const long long* qs,
                        const long long* ks, const long long* vs, float scale,
                        cudaStream_t st) {
   switch (G) {
-    case 1: return launch_decode<T, HD, 1>(q, k, v, o, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
-    case 2: return launch_decode<T, HD, 2>(q, k, v, o, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
-    case 4: return launch_decode<T, HD, 4>(q, k, v, o, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
-    case 8: return launch_decode<T, HD, 8>(q, k, v, o, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
+    case 1: return launch_decode<T, HD, 1, HDV>(q, k, v, o, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
+    case 2: return launch_decode<T, HD, 2, HDV>(q, k, v, o, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
+    case 4: return launch_decode<T, HD, 4, HDV>(q, k, v, o, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
+    case 8: return launch_decode<T, HD, 8, HDV>(q, k, v, o, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -269,6 +282,7 @@ cudaError_t dispatch_hd(int hd, int G, const void* q, const void* k,
     case 16: return dispatch_g<T, 16>(G, q, k, v, o, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
     case 32: return dispatch_g<T, 32>(G, q, k, v, o, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
     case 64: return dispatch_g<T, 64>(G, q, k, v, o, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
+    case 112: return dispatch_g<T, 128, 112>(G, q, k, v, o, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
     case 128: return dispatch_g<T, 128>(G, q, k, v, o, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
     default: return cudaErrorInvalidValue;
   }

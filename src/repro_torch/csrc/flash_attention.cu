@@ -23,7 +23,9 @@
 // repeated kv heads (q head h reads kv head h / (H/K), jnp.repeat's
 // mapping), and masks the ragged edge so any length works. The products
 // are register-tiled (4x8 scores and 4x(hd/8) outputs per thread, 16-byte
-// shared-memory loads).
+// shared-memory loads). head_dim 112 runs the hd-128 layout with the loads
+// of columns 112-127 predicated off (zero in shared memory), the scores'
+// sum stopped at column 112 and those columns of the output not stored.
 
 #include <atomic>
 
@@ -47,9 +49,10 @@ struct FlashSmem {
   static constexpr size_t bytes = sizeof(float) * floats;
 };
 
-// Copy `nrows` rows of HD elements (row i at base + i*row_stride) into
-// shared memory times `mul`; rows >= `valid` are zero.
-template <int HD>
+// Copy `nrows` rows of HD elements (row i at base + i*row_stride, HDV of
+// them in memory) into shared memory times `mul`; rows >= `valid` and
+// columns >= HDV are zero.
+template <int HD, int HDV>
 __device__ __forceinline__ void load_tile(float* dst, int dst_stride,
                                           const float* base, long long row_stride,
                                           int nrows, int valid, float mul) {
@@ -59,7 +62,7 @@ __device__ __forceinline__ void load_tile(float* dst, int dst_stride,
     const int r = idx / CHUNKS;
     const int c = (idx % CHUNKS) * N;
     float buf[N];
-    if (r < valid) {
+    if (r < valid && c < HDV) {
       Vec16<float>::load(base + r * row_stride + c, buf);
     } else {
 #pragma unroll
@@ -71,7 +74,9 @@ __device__ __forceinline__ void load_tile(float* dst, int dst_stride,
   }
 }
 
-template <int HD>
+// HD: the layout instantiation; HDV: the tensors' head_dim (HD, or 112 in
+// the 128 layout)
+template <int HD, int HDV>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
@@ -104,7 +109,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + b * k_sb + kvh * k_sh;
   const float* vb = v + b * v_sb + kvh * v_sh;
 
-  load_tile<HD>(sQ, S::QS, qb, q_ss, BQ, min(BQ, Sq - q0), scale);
+  load_tile<HD, HDV>(sQ, S::QS, qb, q_ss, BQ, min(BQ, Sq - q0), scale);
 
   float m[4], l[4], acc[4][NC];
 #pragma unroll
@@ -121,10 +126,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int kv0 = t * BK;
     __syncthreads();                         // previous tile fully consumed
-    load_tile<HD>(sK, S::KS, kb + (long long)kv0 * k_ss, k_ss, BK,
-                     min(BK, Skv - kv0), 1.f);
-    load_tile<HD>(sV, S::VS, vb + (long long)kv0 * v_ss, v_ss, BK,
-                     min(BK, Skv - kv0), 1.f);
+    load_tile<HD, HDV>(sK, S::KS, kb + (long long)kv0 * k_ss, k_ss, BK,
+                       min(BK, Skv - kv0), 1.f);
+    load_tile<HD, HDV>(sV, S::VS, vb + (long long)kv0 * v_ss, v_ss, BK,
+                       min(BK, Skv - kv0), 1.f);
     __syncthreads();
 
     // scores: s[i][j] = q[4ty+i] . k[tx+8j]
@@ -134,7 +139,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
+    for (int d = 0; d < HDV; d += 4) {          // the zero columns add nothing
       float4 qv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -218,29 +223,31 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  // o is contiguous (B, Sq, H, HD)
+  // o is contiguous (B, Sq, H, HDV); columns from HDV on are not stored
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qpos = q0 + 4 * ty + i;
     if (qpos >= Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    float* orow = o + (((long long)b * Sq + qpos) * H + h) * HD;
+    float* orow = o + (((long long)b * Sq + qpos) * H + h) * HDV;
 #pragma unroll
-    for (int jj = 0; jj < NJ; ++jj)
+    for (int jj = 0; jj < NJ; ++jj) {
+      if (VEC * tx + 8 * VEC * jj >= HDV) continue;   // HDV is a multiple of VEC
 #pragma unroll
       for (int e = 0; e < VEC; ++e)
         orow[VEC * tx + 8 * VEC * jj + e] = acc[i][jj * VEC + e] * inv;
+    }
   }
 }
 
-template <int HD>
+template <int HD, int HDV = HD>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
                          int B, int Sq, int Skv, int H, int K,
                          const long long* qs, const long long* ks,
                          const long long* vs, int causal, float scale,
                          cudaStream_t stream) {
   using S = FlashSmem<HD>;
-  auto kernel = flash_fwd_kernel<HD>;
+  auto kernel = flash_fwd_kernel<HD, HDV>;
   // above 48 KB of shared memory only after opting in, once per device
   // and instantiation rather than on every launch
   static std::atomic<bool> opted_in[kMaxDevices];
@@ -284,6 +291,7 @@ extern "C" int repro_flash_attention_fp32(
     case 16: return (int)repro::launch_flash<16>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
     case 32: return (int)repro::launch_flash<32>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
     case 64: return (int)repro::launch_flash<64>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
+    case 112: return (int)repro::launch_flash<128, 112>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
     case 128: return (int)repro::launch_flash<128>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -57,6 +57,12 @@
 //    the diagonal or the ragged end are masked. The q tiles are launched
 //    longest first (reversed along the slowest grid axis), so the causal
 //    tail does not end on a few SMs.
+//  * head_dim 112 (zamba2-7b's) runs the hd-128 instantiation: the same
+//    tiles in shared memory, the tensor maps built with head_dim 112 and
+//    64-column boxes, so TMA zero-fills columns 112-127 of the second
+//    swizzle atom. Q.K^T stops at column 112 (7 k-steps of 16), P.V's
+//    columns 112-127 come out zero and are never stored. A third set of
+//    tile constants would buy at most the 1/8 of P.V spent on those zeros.
 //  * fp32 inputs keep the CUDA-core kernel in flash_attention.cu.
 
 #include <atomic>
@@ -151,7 +157,9 @@ __device__ __forceinline__ void online_softmax(float (&s)[BK / 2], uint32_t (&p)
   l1 = l1 * c1 + rs1;
 }
 
-template <int HD>
+// HD: the tile instantiation; HDV: the tensors' head_dim (HD, or 112 on the
+// 128 tiles, whose columns from 112 on are zero in shared memory)
+template <int HD, int HDV>
 __global__ void __launch_bounds__(NT, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
@@ -232,7 +240,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   auto issue_scores = [&](float (&s)[BK / 2], int t) {
     const uint32_t sKt = sK + (t % ST) * C::KV_BYTES;
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
+    for (int kk = 0; kk < HDV / 16; ++kk) {      // the zero columns add nothing
       const uint32_t atom = (kk * 16) / C::W;
       const uint32_t in_row = ((kk * 16) % C::W) * 2;
       const uint64_t da = smem_desc(sQ + atom * BQ * C::SW + wg * 64 * C::SW + in_row,
@@ -348,30 +356,31 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
-  // o is contiguous (B, Sq, H, HD)
-  bf16* ob = o + ((long long)b * Sq * H + h) * HD + col;
+  // o is contiguous (B, Sq, H, HDV); columns from HDV on are not stored
+  bf16* ob = o + ((long long)b * Sq * H + h) * HDV + col;
 #pragma unroll
-  for (int jj = 0; jj < HD / 8; ++jj) {
+  for (int jj = 0; jj < HDV / 8; ++jj) {
     if (row0 < Sq)
-      *reinterpret_cast<uint32_t*>(ob + (long long)row0 * H * HD + 8 * jj) =
+      *reinterpret_cast<uint32_t*>(ob + (long long)row0 * H * HDV + 8 * jj) =
           pack_bf16(acc[4 * jj] * inv0, acc[4 * jj + 1] * inv0);
     if (row0 + 8 < Sq)
-      *reinterpret_cast<uint32_t*>(ob + (long long)(row0 + 8) * H * HD + 8 * jj) =
+      *reinterpret_cast<uint32_t*>(ob + (long long)(row0 + 8) * H * HDV + 8 * jj) =
           pack_bf16(acc[4 * jj + 2] * inv1, acc[4 * jj + 3] * inv1);
   }
 }
 
-// A 4-d tensor map over a (B, S, heads, HD) bf16 tensor with element
+// A 4-d tensor map over a (B, S, heads, HDV) bf16 tensor with element
 // strides st = (batch, position, head), in any order, 16-byte multiples;
-// dims (HD, heads, S, B), boxes of W head_dim columns by `rows` positions,
-// swizzled as the wgmma descriptors expect, zero past the ends.
-template <int HD>
+// dims (HDV, heads, S, B), boxes of W head_dim columns by `rows` positions,
+// swizzled as the wgmma descriptors of the HD tiles expect, zero past the
+// ends (columns HDV..HD-1 too).
+template <int HD, int HDV>
 bool make_map(CUtensorMap* map, const void* base, int batch, int seq, int heads,
               const long long* st, int rows) {
   using C = Cfg<HD>;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {HD, (cuuint64_t)heads, (cuuint64_t)seq, (cuuint64_t)batch};
+  const cuuint64_t dims[4] = {HDV, (cuuint64_t)heads, (cuuint64_t)seq, (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
                                  (cuuint64_t)st[0] * 2};
   const cuuint32_t box[4] = {(cuuint32_t)C::W, 1, (cuuint32_t)rows, 1};
@@ -382,17 +391,18 @@ bool make_map(CUtensorMap* map, const void* base, int batch, int seq, int heads,
          == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int HD, int HDV = HD>
 cudaError_t launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
                                int B, int Sq, int Skv, int H, int K,
                                const long long* qs, const long long* ks,
                                const long long* vs, int causal, float scale,
                                cudaStream_t stream) {
   using C = Cfg<HD>;
-  auto kernel = flash_wgmma_kernel<HD>;
+  auto kernel = flash_wgmma_kernel<HD, HDV>;
   CUtensorMap tq, tk, tv;
-  if (!make_map<HD>(&tq, q, B, Sq, H, qs, BQ) || !make_map<HD>(&tk, k, B, Skv, K, ks, C::BK)
-      || !make_map<HD>(&tv, v, B, Skv, K, vs, C::BK))
+  if (!make_map<HD, HDV>(&tq, q, B, Sq, H, qs, BQ)
+      || !make_map<HD, HDV>(&tk, k, B, Skv, K, ks, C::BK)
+      || !make_map<HD, HDV>(&tv, v, B, Skv, K, vs, C::BK))
     return cudaErrorInvalidValue;
   // above 48 KB of shared memory only after opting in, once per device
   static std::atomic<bool> opted_in[kMaxDevices];
@@ -435,6 +445,7 @@ extern "C" int repro_flash_attention_wgmma(
     case 16: return (int)repro::launch_flash_wgmma<16>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
     case 32: return (int)repro::launch_flash_wgmma<32>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
     case 64: return (int)repro::launch_flash_wgmma<64>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
+    case 112: return (int)repro::launch_flash_wgmma<128, 112>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
     case 128: return (int)repro::launch_flash_wgmma<128>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }

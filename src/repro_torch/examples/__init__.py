@@ -7,5 +7,7 @@
                              then two failures with a transfer resumed from
                              partial chunks;
 * ``elastic_rescale``     -- gemma-2b at smoke scale loses a worker with no
-                             spare and shrinks its data-parallel degree.
+                             spare and shrinks its data-parallel degree;
+* ``serve_decode``        -- batched prefill and greedy decode of qwen3 (KV
+                             cache) and mamba2 (O(1) SSM state) at smoke scale.
 """

@@ -26,8 +26,10 @@ MAX_GRID_YZ = 65535
 def rows_per_step(hd: int, itemsize: int, group: int) -> int:
     """Cache positions one block reads per step of its loop: 8 warps, each
     lane group of hd*itemsize/16 lanes one row, U rows in flight per lane
-    (``DecodeShape::STEP`` in ``csrc/decode_attn.cu``)."""
-    lanes_per_row = hd * itemsize // 16
+    (``DecodeShape::STEP`` in ``csrc/decode_attn.cu``). hd 112 runs with
+    the lane mapping of hd 128 (its last lanes' loads masked), so it reads
+    the rows per step of hd 128."""
+    lanes_per_row = (128 if hd == 112 else hd) * itemsize // 16
     in_flight = 4 if group <= 4 else 2
     return 8 * (32 // lanes_per_row) * in_flight
 

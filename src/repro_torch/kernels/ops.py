@@ -5,8 +5,10 @@ kernel stands in for at its call site: ``flash_attention_plain`` here,
 ``ref.decode_attention_ref`` and ``ref.ssd_ref`` (``ssd_chunked``). A CUDA
 tensor goes to the CUDA kernel, which raises on what it does not take:
 there is no fallback from the card to a plain version. Prefill attention
-runs under ``kernels.flash_attention.FlashAttention``, which makes that
-choice and gives the kernel a gradient. Each kernel wrapper
+runs under ``kernels.flash_attention.FlashAttention`` and the SSD under
+``kernels.ssd.SSD``: each makes that choice and gives its kernel a gradient
+(the backward recomputes through the plain version); decode attention has
+none (serving only). Each kernel wrapper
 counts its launches in ``<wrapper>.launches``
 (``kernels.flash_attention.flash_attention``,
 ``kernels.decode_attn.decode_attention`` and ``kernels.ssd.ssd``, whatever
@@ -22,7 +24,7 @@ import torch
 from repro_torch.kernels import decode_attn as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ssd as _ssd
-from repro_torch.kernels.ref import decode_attention_ref, ssd_ref
+from repro_torch.kernels.ref import decode_attention_ref
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -53,7 +55,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
 def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
         c_mat: torch.Tensor, *, chunk: int, initial_state: Optional[torch.Tensor] = None):
     """x: (B, S, H, P); dt: (B, S, H); a: (H,); b/c: (B, S, N). Returns
-    (y (B, S, H, P) in x's dtype, final_state (B, H, N, P) fp32)."""
-    if x.device.type == "cpu":
-        return ssd_ref(x, dt, a, b_mat, c_mat, chunk=chunk, initial_state=initial_state)
-    return _ssd.ssd(x, dt, a, b_mat, c_mat, chunk=chunk, initial_state=initial_state)
+    (y (B, S, H, P) in x's dtype, final_state (B, H, N, P) fp32). ``SSD``
+    runs the kernel on CUDA and ``ssd_chunked`` on the CPU; its backward
+    recomputes through ``ssd_chunked``."""
+    return _ssd.SSD.apply(x, dt, a, b_mat, c_mat, chunk, initial_state)

@@ -11,6 +11,12 @@ chunk's end state and the chunk decay; a ragged last chunk is masked, not
 padded), and the inter-chunk part in plain PyTorch, as the reference's
 ``ssd()`` does in plain JAX: a scan over the chunk states and ``y_inter =
 C . S_prev * exp(cs)``. There is no fallback from one route to the other.
+
+``SSD`` puts the full SSD under autograd for training: the forward is
+``ssd`` on CUDA tensors and the plain ``ssd_chunked`` on CPU tensors; the
+backward recomputes through the plain ``ssd_chunked`` and differentiates
+it, as the reference's training does (it gives the Pallas SSD no VJP, and
+trains through ``ssd_chunked``).
 """
 from __future__ import annotations
 
@@ -174,3 +180,39 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
 
 ssd.launches = 0
 ssd.routes = {"wgmma": 0, "fp32": 0}
+
+
+class SSD(torch.autograd.Function):
+    """The full SSD with a gradient: ``SSD.apply(x, dt, a, b_mat, c_mat,
+    chunk, initial_state)`` returns (y, final_state) as ``ssd``. The
+    forward is the kernel (``ssd``) for CUDA tensors and the plain
+    ``ssd_chunked`` for CPU tensors, and saves its inputs; the backward
+    recomputes ``ssd_chunked`` from them and differentiates it, giving
+    gradients for x, dt, a, b_mat, c_mat and ``initial_state``. Either
+    output's gradient may be None (unused). Only the forward launches a
+    kernel, so ``ssd.launches`` and ``ssd.routes`` count forward calls."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_mat, c_mat, chunk: int, initial_state):
+        ctx.save_for_backward(x, dt, a, b_mat, c_mat, initial_state)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        if x.device.type == "cpu":
+            from repro_torch.kernels.ref import ssd_ref
+            return ssd_ref(x, dt, a, b_mat, c_mat, chunk=chunk, initial_state=initial_state)
+        return ssd(x, dt, a, b_mat, c_mat, chunk=chunk, initial_state=initial_state)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_final):
+        from repro_torch.models.mamba2 import ssd_chunked
+        needs = ctx.needs_input_grad[:5] + ctx.needs_input_grad[6:]
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_(need)
+                      for t, need in zip(ctx.saved_tensors, needs)]
+            outs = ssd_chunked(*leaves[:5], chunk=ctx.chunk, initial_state=leaves[5])
+            pairs = [(o, g) for o, g in zip(outs, (grad_y, grad_final)) if g is not None]
+            wrt = [t for t in leaves if t is not None and t.requires_grad]
+            grads = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                             [g for _, g in pairs], allow_unused=True))
+        out = [next(grads) if t is not None and t.requires_grad else None for t in leaves]
+        return (*out[:5], None, out[5])

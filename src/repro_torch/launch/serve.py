@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --batch 8 --prompt-len 1000 --gen 32           # full width, on CUDA
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
+        --batch 8 --prompt-len 1000 --gen 32           # the hybrid, 13.3 GB bf16
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke
 
 Weights are random, drawn from ``--seed``. Unlike the reference CLI, whose

@@ -5,6 +5,8 @@ its flags, on the port's ``SimCluster``.
         --steps 8 --inject-failure 4
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --steps 8 --dp 4 --seq-len 1024 --inject-failure 4    # full, on CUDA
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \\
+        --arch mamba2-2.7b --steps 6 --inject-failure 3      # or zamba2-7b
 
 Runs the full stack: controller-indexed data loading, the training step on
 the device with the instant checkpoint, the ckpt engine (instant + periodic

@@ -1,4 +1,4 @@
-from repro_torch.models.transformer import (DecoderLM, MambaLM, build_model,
+from repro_torch.models.transformer import (DecoderLM, HybridLM, MambaLM, build_model,
                                             param_count)
 
-__all__ = ["DecoderLM", "MambaLM", "build_model", "param_count"]
+__all__ = ["DecoderLM", "HybridLM", "MambaLM", "build_model", "param_count"]

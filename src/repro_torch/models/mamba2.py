@@ -81,10 +81,13 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         x_k, dt_k, b_k, c_k = xc[:, ci], dtc[:, ci], bc[:, ci], cc[:, ci]
         da = dt_k * af                                          # (B,Lc,H), <= 0
         cs = torch.cumsum(da, dim=1)                            # inclusive
-        # intra-chunk quadratic term; masked before use (exp of j > i overflows)
+        # intra-chunk quadratic term. The exponent is masked before exp, where
+        # the reference masks after it: for j > i it can pass fp32's range
+        # (a chunk of 256 at full width), and the gradient of the masked
+        # exp(+inf) is 0 * inf = NaN. The values are the same.
         cb = torch.einsum("bin,bjn->bij", c_k, b_k)             # (B,Lc,Lc)
-        decay = torch.exp(cs[:, :, None, :] - cs[:, None, :, :])  # (B,i,j,H)
-        att = torch.where(causal, cb[..., None] * decay * dt_k[:, None, :, :], 0.0)
+        seg = torch.where(causal, cs[:, :, None, :] - cs[:, None, :, :], -torch.inf)
+        att = cb[..., None] * torch.exp(seg) * dt_k[:, None, :, :]   # (B,i,j,H)
         y = torch.einsum("bijh,bjhp->bihp", att, x_k)
         # inter-chunk contribution from the carried state
         y = y + torch.einsum("bin,bhnp->bihp", c_k, state) * torch.exp(cs)[..., None]
@@ -178,7 +181,9 @@ def _ssd_inputs(p: Dict, cfg, xr, dt_raw):
 
 def mamba_apply(p: Dict, cfg, x: torch.Tensor) -> torch.Tensor:
     """Full-sequence forward. x: (B, S, D). The SSD runs through
-    ``kernels.ops.ssd``: the kernel on CUDA, ``ssd_chunked`` on the CPU."""
+    ``kernels.ops.ssd``: the kernel on CUDA, ``ssd_chunked`` on the CPU, and
+    under autograd the gradient of ``ssd_chunked`` on both (the training
+    call site: the reference trains through ``ssd_chunked``)."""
     z, xr, br, cr, dt_raw = _mamba_projections(p, x)
     xr = causal_conv(xr, p["conv_x"])
     br = causal_conv(br, p["conv_b"])

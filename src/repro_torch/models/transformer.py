@@ -1,7 +1,7 @@
-"""The dense decoder-only LM and the pure SSM (Mamba2) LM (ports of
-``_build_decoder_lm`` and ``_build_ssm_lm`` in ``repro.models.transformer``):
-``init``, ``forward``, ``prefill``, ``decode_step`` and ``cache_specs``, and
-``loss`` for the dense LM.
+"""The dense decoder-only LM, the pure SSM (Mamba2) LM and the hybrid
+(Zamba2) LM (ports of ``_build_decoder_lm``, ``_build_ssm_lm`` and
+``_build_hybrid_lm`` in ``repro.models.transformer``): ``init``,
+``forward``, ``loss``, ``prefill``, ``decode_step`` and ``cache_specs``.
 
 Parameters are built frozen (``requires_grad=False``), which serving needs;
 ``model.requires_grad_(True)`` makes them trainable (``train.state.init_state``
@@ -11,9 +11,10 @@ does so) and changes nothing that serving computes under
 Parameters mirror the reference's tree (``embed.w``, ``blocks[i].ln1``,
 ``blocks[i].attn.wq``, ..., ``final_norm``) with one module per layer
 instead of arrays stacked on a leading layer axis. The reference's
-``scan_layers`` is a Python loop over ``self.blocks`` here, and its
-``constrain`` / ``unshard_layer_params`` sharding hooks are identities on
-one device, so they are left out.
+``scan_layers`` (and the hybrid's ``lax.scan`` with ``lax.cond``) is a
+Python loop over ``self.blocks`` here, and its ``constrain`` /
+``unshard_layer_params`` sharding hooks are identities on one device, so
+they are left out.
 """
 from __future__ import annotations
 
@@ -33,7 +34,6 @@ _NOT_PORTED = {
     "moe": "ROADMAP §1 item 11 (models/moe.py)",
     "vlm": "ROADMAP §1 item 11 (the VLM patch path)",
     "encdec": "ROADMAP §1 item 11 (_build_encdec)",
-    "hybrid": "ROADMAP §1 item 10 (_build_hybrid_lm)",
 }
 
 
@@ -272,12 +272,26 @@ class MambaLM(nn.Module):
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         return unembed(self.embed["w"], rms_norm(x, self.final_norm))
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) -> fp32 logits (B, S, padded_vocab), causal."""
+    def _hidden(self, tokens: torch.Tensor) -> torch.Tensor:
         x = embed_lookup(self.embed["w"], tokens)
         for blk in self.blocks:
             x = blk(x)
-        return self._logits(x)
+        return x
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (B, S) -> fp32 logits (B, S, padded_vocab), causal."""
+        return self._logits(self._hidden(tokens))
+
+    def loss(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
+        """Next-token loss of ``batch["tokens"]`` (B, S+1): the first S
+        tokens in, the last S as labels, the embedding as the head through
+        ``chunked_xent``. Returns (total, {"xent", "aux"}) as
+        ``DecoderLM.loss``; aux is 0."""
+        tokens = batch["tokens"].long()
+        x = rms_norm(self._hidden(tokens[:, :-1]), self.final_norm)
+        xent = chunked_xent(self.embed["w"], x, tokens[:, 1:])
+        return xent, {"xent": xent,
+                      "aux": torch.zeros((), dtype=torch.float32, device=x.device)}
 
     def cache_specs(self, batch: int, max_len: int) -> Dict:
         """Shapes and dtypes of the decode cache, as meta tensors stacked on
@@ -289,6 +303,14 @@ class MambaLM(nn.Module):
                           for name, t in per_layer.items()},
                 "index": 0}
 
+    def _empty_states(self, specs: Dict) -> Dict[str, torch.Tensor]:
+        """Per-layer decode states of ``cache_specs(...)["mamba"]`` on the
+        model's device: the SSD state fp32, the conv windows in the
+        activation dtype."""
+        return {name: torch.empty(t.shape, device=self.device,
+                                  dtype=torch.float32 if name == "ssm" else self.dtype)
+                for name, t in specs.items()}
+
     def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict]:
         """Causal pass over the prompts. Returns the last position's fp32
@@ -296,10 +318,7 @@ class MambaLM(nn.Module):
         (L, B, k-1, C) in the activation dtype, "ssm": (L, B, H, N, P) fp32},
         "index": S}."""
         b, s = tokens.shape
-        specs = self.cache_specs(b, s)["mamba"]
-        states = {name: torch.empty(t.shape, device=self.device,
-                                    dtype=torch.float32 if name == "ssm" else self.dtype)
-                  for name, t in specs.items()}
+        states = self._empty_states(self.cache_specs(b, s)["mamba"])
         x = embed_lookup(self.embed["w"], tokens)
         for i, blk in enumerate(self.blocks):
             x, state = blk.prefill(x)
@@ -318,7 +337,89 @@ class MambaLM(nn.Module):
         return self._logits(x[:, 0]), cache
 
 
-_MODELS = {"dense": DecoderLM, "ssm": MambaLM}
+class SharedAttnBlock(Block):
+    """Zamba2's weight-shared attention + MLP block (``_shared_attn_block``):
+    the dense ``Block`` (RMSNorm, self-attention, RMSNorm, MLP, each with its
+    residual), one set of weights applied after every ``mamba_attn`` layer."""
+
+
+class HybridLM(MambaLM):
+    """Hybrid (Zamba2) LM: the Mamba2 stack of ``MambaLM`` with one
+    ``SharedAttnBlock`` (``shared_attn``) applied after each layer that
+    ``cfg.layer_kinds()`` marks ``mamba_attn``; its gradient accumulates over
+    those applications. The head is the embedding whatever
+    ``tie_embeddings`` says, as in the reference. The decode cache is
+    {"mamba": per-layer states (L, ...), "k", "v": (n_attn, B, max_len, K,
+    hd), "index"}."""
+
+    def __init__(self, cfg: ArchConfig, device=None, dtype: Optional[torch.dtype] = None):
+        super().__init__(cfg, device=device, dtype=dtype)
+        self.shared_attn = SharedAttnBlock(cfg, self.dtype, self.device)
+        self.attn_layers = tuple(i for i, k in enumerate(cfg.layer_kinds())
+                                 if k == "mamba_attn")
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "HybridLM":
+        super().init(generator)
+        self.shared_attn.init(generator)
+        return self
+
+    def _hidden(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = embed_lookup(self.embed["w"], tokens)
+        for i, blk in enumerate(self.blocks):
+            x = blk(x)
+            if i in self.attn_layers:
+                x = self.shared_attn(x)
+        return x
+
+    def cache_specs(self, batch: int, max_len: int) -> Dict:
+        """The Mamba2 states of ``MambaLM.cache_specs`` plus the shared
+        block's KV cache, one slot per application."""
+        kv = torch.empty((len(self.attn_layers), batch, max_len, self.cfg.num_kv_heads,
+                          self.cfg.resolved_head_dim), dtype=self.dtype, device="meta")
+        return {**super().cache_specs(batch, max_len), "k": kv, "v": kv}
+
+    def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Dict]:
+        """Causal pass over the prompts. Returns the last position's fp32
+        logits (B, V) and the cache of ``cache_specs``, whose KV positions
+        >= S are zero, with "index": S."""
+        b, s = tokens.shape
+        max_len = s if max_len is None else max_len
+        if s > max_len:
+            raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
+        specs = self.cache_specs(b, max_len)
+        states = self._empty_states(specs["mamba"])
+        cache = {"mamba": states,
+                 "k": torch.zeros(specs["k"].shape, dtype=self.dtype, device=self.device),
+                 "v": torch.zeros(specs["v"].shape, dtype=self.dtype, device=self.device)}
+        x = embed_lookup(self.embed["w"], tokens)
+        for i, blk in enumerate(self.blocks):
+            x, state = blk.prefill(x)
+            for name, t in state.items():
+                states[name][i].copy_(t)
+            if i in self.attn_layers:
+                a = self.attn_layers.index(i)
+                x = self.shared_attn.prefill(x, cache["k"][a], cache["v"][a])
+        cache["index"] = s
+        return self._logits(x[:, -1]), cache
+
+    def decode_step(self, cache: Dict, token: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+        """One greedy step: token (B,) at position cache["index"]. Updates
+        the cache in place and returns (fp32 logits (B, V), cache)."""
+        index = int(cache["index"])
+        x = embed_lookup(self.embed["w"], token[:, None])           # (B, 1, D)
+        states = cache["mamba"]
+        for i, blk in enumerate(self.blocks):
+            x = blk.decode(x, {name: t[i] for name, t in states.items()})
+            if i in self.attn_layers:
+                a = self.attn_layers.index(i)
+                x = self.shared_attn.decode(x, cache["k"][a], cache["v"][a], index)
+        cache["index"] = index + 1
+        return self._logits(x[:, 0]), cache
+
+
+_MODELS = {"dense": DecoderLM, "ssm": MambaLM, "hybrid": HybridLM}
 
 
 def build_model(cfg: ArchConfig, device=None, dtype: Optional[torch.dtype] = None):

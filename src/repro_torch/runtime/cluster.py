@@ -16,8 +16,9 @@ Failure semantics (paper §6.2, Table 3):
   * healthy workers perform lazy backup (DP rank 0 persists redundant state).
 
 Port of ``repro.runtime.cluster``: the simulation is the reference's, line
-for line; the step trains the port's model (``DecoderLM.loss``, the flash
-kernel under autograd on CUDA) with the port's AdamW on the cluster's device,
+for line; the step trains the port's model of any family it builds
+(``model.loss``: on CUDA the flash kernel, and for the SSM and the hybrid the
+SSD kernel, each under autograd) with the port's AdamW on the cluster's device,
 CUDA unless the caller names another (``device="cpu"``): with no device
 named and no GPU, the constructor raises. The training state stays on the
 device between steps; each step's instant checkpoint copies the optimizer

@@ -1,6 +1,7 @@
 """Serving step builders on one device: prefill and cached decode (port of
 ``repro.train.serve``), for any model with the serving interface below
-(``DecoderLM`` with its KV cache, ``MambaLM`` with its recurrent state).
+(``DecoderLM`` with its KV cache, ``MambaLM`` with its recurrent state,
+``HybridLM`` with both).
 
 PyTorch runs eagerly, so a step is the model's method under
 ``torch.inference_mode()``; there is no mesh, sharding plan or jit.

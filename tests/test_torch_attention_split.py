@@ -72,7 +72,8 @@ def test_plan_splits_refuses_nonsense():
 
 
 @pytest.mark.parametrize("hd,itemsize,group,rows", [
-    (128, 2, 2, 64), (128, 2, 8, 32), (128, 4, 1, 32), (16, 2, 4, 512), (64, 4, 4, 64)])
+    (128, 2, 2, 64), (128, 2, 8, 32), (128, 4, 1, 32), (16, 2, 4, 512), (64, 4, 4, 64),
+    (112, 2, 1, 64), (112, 4, 1, 32)])
 def test_rows_per_step_is_the_kernel_geometry(hd, itemsize, group, rows):
     assert tdec.rows_per_step(hd, itemsize, group) == rows
 

@@ -45,18 +45,20 @@ def _cluster_kw(tmp_path, dp, full_every, seed):
                 full_every=full_every, seed=seed)
 
 
-def _mk(tmp_path, dp=4, full_every=50, seed=0, fabric=None, recovery=None, clock=None):
+def _mk(tmp_path, dp=4, full_every=50, seed=0, fabric=None, recovery=None, clock=None,
+        arch="qwen3-0.6b"):
     """The port's cluster as tests/test_failover_integration.py builds the
     reference's (smoke qwen3-0.6b, fp32: bitwise-stable)."""
-    cfg = dataclasses.replace(reduce_for_smoke(get_arch("qwen3-0.6b")), dtype="float32")
+    cfg = dataclasses.replace(reduce_for_smoke(get_arch(arch)), dtype="float32")
     return SimCluster(cfg, cluster=ClusterConfig(hp=AdamWConfig(**HP),
                                                  **_cluster_kw(tmp_path, dp, full_every, seed)),
                       fabric=FabricConfig(**(fabric or {})), recovery=recovery, device="cpu",
                       clock=clock)
 
 
-def _mk_jax(tmp_path, fabric, dp=4, full_every=50, seed=0, recovery=None):
-    cfg = dataclasses.replace(j_reduce(j_get_arch("qwen3-0.6b")), dtype="float32")
+def _mk_jax(tmp_path, fabric, dp=4, full_every=50, seed=0, recovery=None,
+            arch="qwen3-0.6b"):
+    cfg = dataclasses.replace(j_reduce(j_get_arch(arch)), dtype="float32")
     return JSimCluster(cfg, cluster=JClusterConfig(hp=JAdamWConfig(**HP),
                                                    **_cluster_kw(tmp_path, dp, full_every, seed)),
                        fabric=JFabricConfig(**fabric), recovery=recovery)
@@ -87,6 +89,23 @@ def test_five_steps_track_jax(tmp_path):
                                j_flatten_opt(j.state["opt"])[0], **LOSS_TOL)
     assert t.iteration == j.iteration == 5 and int(t.state["step"]) == 5
     assert t.instant_hidden == j.instant_hidden and t.sim_time == j.sim_time
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
+def test_five_ssm_and_hybrid_steps_track_jax(tmp_path, arch):
+    """SSM and hybrid training through the SSD's autograd function: five
+    steps of the port's cluster track the reference's from the same state,
+    and a software failure then recovers bitwise from the neighbour."""
+    j, t = _pair(tmp_path, arch=arch)
+    jl, tl = j.run(5), t.run(5)
+    np.testing.assert_allclose(tl, jl, **LOSS_TOL)
+    np.testing.assert_allclose(_flatten_opt(t.state["opt"])[0],
+                               j_flatten_opt(j.state["opt"])[0], **LOSS_TOL)
+    before = _flatten_opt(t.state["opt"])[0]
+    t.inject_failure([2])
+    rep = t.recover()
+    assert rep.recovered_from == "neighbor" and rep.rolled_back_iterations == 0
+    np.testing.assert_array_equal(_flatten_opt(t.state["opt"])[0], before)
 
 
 # ---- the port's versions of tests/test_failover_integration.py:32-73 ---- #

@@ -31,7 +31,8 @@ def _rand(gen, shape, dtype, device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("b,s,h,kh,hd", [(2, 100, 4, 2, 16), (1, 129, 4, 4, 32),
-                                         (2, 64, 8, 1, 64), (1, 200, 16, 8, 128)])
+                                         (2, 64, 8, 1, 64), (1, 200, 16, 8, 128),
+                                         (2, 130, 4, 4, 112), (1, 70, 8, 2, 112)])
 def test_flash_kernel_matches_plain(cuda, b, s, h, kh, hd, causal, dtype):
     g = torch.Generator(device=cuda).manual_seed(0)
     q = _rand(g, (b, s, h, hd), dtype, cuda)
@@ -65,7 +66,7 @@ def _wgmma_case(cuda, q, k, v, causal):
 @pytest.mark.parametrize("group", [1, 2, 8])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("s", [1, 63, 100, 129, 1000])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128])
 def test_flash_wgmma_matches_plain(cuda, hd, s, causal, group):
     """Every head_dim and swizzle width, lengths below, at and across the
     64-row warpgroup, 128-row block and kv-tile edges, G q heads per kv
@@ -105,7 +106,8 @@ def test_flash_wgmma_head_major_views(cuda, causal):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cur_len", [1, 63, 128])
-@pytest.mark.parametrize("b,h,kh,hd", [(2, 4, 2, 16), (1, 8, 1, 64), (2, 16, 8, 128)])
+@pytest.mark.parametrize("b,h,kh,hd", [(2, 4, 2, 16), (1, 8, 1, 64), (2, 16, 8, 128),
+                                       (2, 8, 8, 112), (1, 8, 2, 112)])
 def test_decode_kernel_matches_plain(cuda, b, h, kh, hd, cur_len, dtype):
     g = torch.Generator(device=cuda).manual_seed(1)
     t = 128
@@ -141,6 +143,30 @@ def test_decode_split_matches_plain(cuda, cur_len, group, dtype):
     sm = torch.cuda.get_device_properties(cuda).multi_processor_count
     step = decode_attn.rows_per_step(hd, q.element_size(), group)
     assert (n_split, rows) == decode_attn.plan_splits(cur_len, b, kh, sm, step)
+    ref = decode_attention_ref(q, kc, vc, cur_len)
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cur_len", [1, 63, 64, 65, 1001, 1032])
+def test_decode_split_hd112_matches_plain(cuda, cur_len, dtype):
+    """zamba2-7b's decode shape (B=8, T=1032, 32 q and kv heads of 112):
+    the hd-128 lane mapping with its last lanes masked, split as the
+    planner says for the step of hd 128."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    b, t, h, hd = 8, 1032, 32, 112
+    q = _rand(g, (b, 1, h, hd), dtype, cuda)
+    kc = _rand(g, (b, t, h, hd), dtype, cuda)
+    vc = _rand(g, (b, t, h, hd), dtype, cuda)
+    out = ops.decode_attention(q, kc, vc, cur_len)
+    torch.cuda.synchronize()
+    sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    step = decode_attn.rows_per_step(hd, q.element_size(), 1)
+    assert step == decode_attn.rows_per_step(128, q.element_size(), 1)
+    assert decode_attn.decode_attention.last_split == decode_attn.plan_splits(
+        cur_len, b, h, sm, step)
+    assert out.shape == q.shape
     ref = decode_attention_ref(q, kc, vc, cur_len)
     np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
                                **_tol(dtype))
@@ -294,3 +320,48 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
         ssd.ssd_intra_chunk(x, dt, a, bm[..., :12].contiguous(), cm[..., :12].contiguous(),
                             chunk=8)                                # N % 8 != 0
     assert ssd.ssd_intra_chunk.launches == before
+
+
+@pytest.mark.parametrize("dtype,shape,chunk,tol", [
+    (torch.bfloat16, (2, 130, 4, 64, 64), 64, 2e-2),
+    (torch.float32, (2, 100, 4, 16, 32), 32, 1e-4)], ids=["bf16", "fp32"])
+def test_ssd_function_grads_match_plain(cuda, dtype, shape, chunk, tol):
+    """``SSD`` on the card (the kernel forward, the ``ssd_chunked``
+    recompute backward) against autograd through ``ssd_chunked``: y, the
+    final state and the gradients of x, dt, a, B and C."""
+    b, s, h, p, n = shape
+    args = _ssd_args(8, b, s, h, p, n, dtype, cuda)
+    g = np.random.default_rng(9)
+    gy = torch.from_numpy(g.normal(size=(b, s, h, p)).astype(np.float32)).to(cuda).to(dtype)
+    gf = torch.from_numpy(g.normal(size=(b, h, n, p)).astype(np.float32)).to(cuda)
+    runs = []
+    for fn in (lambda *t: ssd.SSD.apply(*t, chunk, None),
+               lambda *t: ssd_ref(*t, chunk=chunk)):
+        leaves = [t.clone().requires_grad_() for t in args]
+        launches = ssd.ssd.launches
+        y, final = fn(*leaves)
+        torch.autograd.backward((y, final), (gy, gf))
+        torch.cuda.synchronize()
+        runs.append(([y.detach(), final.detach()] + [t.grad for t in leaves],
+                     ssd.ssd.launches - launches))
+    (got, n_kernel), (want, n_plain) = runs
+    assert (n_kernel, n_plain) == (1, 0)
+    for name, a_, b_ in zip(("y", "final", "x", "dt", "a", "b", "c"), got, want):
+        assert a_.dtype == b_.dtype and a_.shape == b_.shape, name
+        np.testing.assert_allclose(a_.float().cpu().numpy(), b_.float().cpu().numpy(),
+                                   rtol=tol, atol=tol if name != "final" else 1e-3,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ops_ssd_has_a_gradient_on_the_card(cuda, dtype):
+    """An ``ops.ssd`` output whose inputs require grad carries a
+    ``grad_fn`` on CUDA (the ctypes kernel's own outputs have none), and
+    the gradient reaches x, dt, a, B and C."""
+    args = [t.requires_grad_() for t in _ssd_args(10, 1, 70, 2, 16, 16, dtype, cuda)]
+    y, final = ops.ssd(*args, chunk=32)
+    assert y.grad_fn is not None and final.grad_fn is not None
+    y.float().square().sum().backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in args)
+    with torch.no_grad():
+        assert ops.ssd(*args, chunk=32)[0].grad_fn is None

@@ -2,7 +2,8 @@
 the CPU: the dense configs (field for field, and ``param_count`` at full
 width from the shapes alone), the framework-free analytic modules
 (``core/analytic.py``, ``core/fcr.py``, ``razor_bytes_formula``) on seeded
-random inputs, the three examples and the train CLI on gemma-2b."""
+random inputs, the four examples and the train CLI on gemma-2b, mamba2-2.7b
+and zamba2-7b."""
 import dataclasses
 import os
 import subprocess
@@ -205,6 +206,20 @@ def test_train_with_failover_example_on_cpu():
     assert "training improved the loss through a failure — OK" in out
     assert "resumed: reused 4 partial chunks" in out and "rollback=0" in out
     assert "trained 5 more steps after double failure" in out
+
+
+def test_serve_decode_example_on_cpu():
+    out = _run("repro_torch.examples.serve_decode", "--device", "cpu")
+    assert "qwen3-0.6b: generated (4, 12) tokens" in out and "via KV cache" in out
+    assert "mamba2-2.7b: generated (4, 12) tokens" in out and "via SSM state" in out
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
+def test_train_cli_on_the_ssm_and_hybrid_smoke(arch):
+    out = _run("repro_torch.launch.train", "--arch", arch, "--device", "cpu",
+               "--smoke", "--steps", "6", "--inject-failure", "3")
+    assert "recovered from neighbor" in out and "rollback=0" in out
+    assert "done: 6 iterations" in out
 
 
 def test_train_cli_on_gemma_smoke():

@@ -150,7 +150,7 @@ def test_build_model_without_device_raises_without_cuda(monkeypatch):
         params_from_numpy({}, get_arch("qwen3-0.6b"))
 
 
-@pytest.mark.parametrize("family", ["moe", "hybrid", "encdec", "vlm"])
+@pytest.mark.parametrize("family", ["moe", "encdec", "vlm"])
 def test_unported_families_raise(family):
     cfg = dataclasses.replace(get_arch("qwen3-0.6b"), family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

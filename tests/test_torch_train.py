@@ -3,8 +3,10 @@ of qwen3-0.6b in fp32 on the CPU: the tree order and key paths, the chunked
 cross-entropy and the gradient barrier, the flash kernel's autograd
 function (plain route), ``DecoderLM.loss`` and its gradients, AdamW and the
 schedule, and the flattened optimizer vector; and ``DecoderLM.loss`` in
-bf16. The same numpy inputs go through both packages; tolerances are stated
-per test."""
+bf16. Then SSM training: the SSD's autograd function (plain route) against
+the gradient of the reference's ``ssd_chunked``, and ``MambaLM.loss`` with
+every gradient at the smoke size of mamba2-2.7b. The same numpy inputs go
+through both packages; tolerances are stated per test."""
 import dataclasses
 import types
 
@@ -20,6 +22,7 @@ from repro.configs import reduce_for_smoke as j_reduce
 from repro.kernels import ops as j_ops
 from repro.models import build_model as j_build_model
 from repro.models import layers as j_layers
+from repro.models import mamba2 as j_mamba2
 from repro.optim import AdamWConfig as JAdamWConfig
 from repro.optim import adamw_update as j_adamw_update
 from repro.optim import cosine_schedule as j_cosine_schedule
@@ -30,6 +33,8 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.ckpt import storage
 from repro_torch.configs import get_arch, reduce_for_smoke
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+from repro_torch.kernels import ssd as tssd
 from repro_torch.models import layers
 from repro_torch.models.attention import repeat_kv
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, cosine_schedule
@@ -250,6 +255,121 @@ def test_loss_is_differentiable_only_once_trainable():
     assert not model.loss(tokens)[0].requires_grad
     model.requires_grad_(True)
     assert model.loss(tokens)[0].requires_grad
+
+
+# ------------------------------ SSM training ----------------------------- #
+@pytest.mark.parametrize("initial", [False, True])
+@pytest.mark.parametrize("s,chunk", [(32, 8), (21, 8)])
+def test_ssd_function_grads_match_jax(s, chunk, initial):
+    """``SSD`` (the CPU route) against jax.grad of the reference's
+    ``ssd_chunked``: y, the final state and the gradients of x, dt, a, B, C
+    and the initial state, for a cotangent on both outputs; a ragged last
+    chunk included."""
+    rng = np.random.default_rng(s + initial)
+    b, h, p, n = 2, 3, 4, 8
+    arrs = [rng.normal(size=(b, s, h, p)), rng.uniform(0.001, 0.1, size=(b, s, h)),
+            -rng.uniform(0.5, 2.0, size=(h,)), rng.normal(size=(b, s, n)),
+            rng.normal(size=(b, s, n)), rng.normal(size=(b, h, n, p))]
+    arrs = [np.asarray(a, np.float32) for a in arrs]
+    gy = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    gf = rng.normal(size=(b, h, n, p)).astype(np.float32)
+    n_in = 6 if initial else 5
+
+    def jfn(*args):
+        y, final = j_mamba2.ssd_chunked(*args[:5], chunk=chunk,
+                                        initial_state=args[5] if initial else None)
+        return jnp.sum(y * gy) + jnp.sum(final * gf), (y, final)
+
+    (_, (jy, jfinal)), jgrads = jax.value_and_grad(jfn, argnums=tuple(range(n_in)),
+                                                   has_aux=True)(*map(jnp.asarray, arrs[:n_in]))
+    leaves = [torch.from_numpy(a.copy()).requires_grad_() for a in arrs[:n_in]]
+    y, final = ops.ssd(*leaves[:5], chunk=chunk, initial_state=leaves[5] if initial else None)
+    assert y.grad_fn is not None and final.grad_fn is not None
+    torch.autograd.backward((y, final), (torch.from_numpy(gy), torch.from_numpy(gf)))
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(jy), **LOSS_TOL)
+    np.testing.assert_allclose(final.detach().numpy(), np.asarray(jfinal), **LOSS_TOL)
+    for name, t, want in zip(("x", "dt", "a", "b", "c", "initial_state"), leaves, jgrads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(want), err_msg=name, **LOSS_TOL)
+
+
+def test_ssd_gradient_stays_finite_where_the_in_chunk_decay_overflows():
+    """A 256-position chunk whose decay passes fp32's range for j > i (a =
+    -16, dt 0.05: the exponent reaches 205), as at full width. The
+    reference's ``ssd_chunked`` masks after exp and its gradients of dt and a
+    are NaN there; the port's masks the exponent first, and its gradients
+    equal the reference's at a chunk of 16 (the same function, no
+    overflow)."""
+    rng = np.random.default_rng(0)
+    b, s, h, p, n = 1, 256, 2, 8, 8
+    x = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    dt = np.full((b, s, h), 0.05, np.float32)
+    a = np.array([-16.0, -1.0], np.float32)
+    bm, cm = (rng.normal(size=(b, s, n)).astype(np.float32) for _ in range(2))
+
+    def jgrad(chunk):
+        return jax.grad(lambda *t: j_mamba2.ssd_chunked(*t, bm, cm, chunk=chunk)[0].sum(),
+                        argnums=(0, 1, 2))(x, dt, a)
+
+    assert not np.isfinite(np.asarray(jgrad(256)[1])).all()      # the reference's NaN
+    leaves = [torch.from_numpy(t.copy()).requires_grad_() for t in (x, dt, a)]
+    ops.ssd(*leaves, torch.from_numpy(bm), torch.from_numpy(cm), chunk=256)[0].sum().backward()
+    for name, t, want in zip(("x", "dt", "a"), leaves, jgrad(16)):
+        assert torch.isfinite(t.grad).all(), name
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(want), err_msg=name,
+                                   rtol=2e-4, atol=2e-4 * np.abs(want).max())
+
+
+def test_ssd_function_with_an_unused_output_and_no_launch_on_the_cpu():
+    """Only y is used (as in ``mamba_apply``): the final state's gradient
+    arrives as None; inputs that need no gradient get none; nothing is
+    counted as a kernel launch on the CPU."""
+    before = (tssd.ssd.launches, dict(tssd.ssd.routes))
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(1, 10, 2, 4)).astype(np.float32)).requires_grad_()
+    dt = torch.full((1, 10, 2), 0.05)
+    a = torch.tensor([-1.0, -0.5], requires_grad=True)
+    bm = torch.from_numpy(rng.normal(size=(1, 10, 8)).astype(np.float32))
+    y, _ = tssd.SSD.apply(x, dt, a, bm, bm.clone(), 4, None)
+    y.square().sum().backward()
+    assert x.grad is not None and a.grad is not None and dt.grad is None
+    want = torch.autograd.grad(
+        tssd.SSD.apply(x, dt, a, bm, bm.clone(), 4, None)[0].square().sum(), x)[0]
+    torch.testing.assert_close(x.grad, want)
+    assert (tssd.ssd.launches, tssd.ssd.routes) == before
+
+
+def _ssm_cfgs():
+    jcfg = dataclasses.replace(j_reduce(j_get_arch("mamba2-2.7b")), dtype="float32")
+    tcfg = dataclasses.replace(reduce_for_smoke(get_arch("mamba2-2.7b")), dtype="float32")
+    return jcfg, tcfg
+
+
+@pytest.mark.parametrize("seq", [17, 40])
+def test_ssm_loss_and_every_gradient_match_jax(seq):
+    """``MambaLM.loss`` (the embedding as the head, through chunked_xent)
+    and all 2 + 2 x 14 gradients against jax.value_and_grad of the
+    reference's SSM loss; seq 40 spans five 8-position SSD chunks."""
+    jcfg, tcfg = _ssm_cfgs()
+    jmodel = j_build_model(jcfg)
+    params = jmodel.init(jax.random.key(2))
+    tokens = np.random.default_rng(seq).integers(0, 256, (3, seq + 1))
+    (jl, jaux), jgrads = jax.value_and_grad(
+        lambda p: jmodel.loss(p, {"tokens": jnp.asarray(tokens, jnp.int32)}),
+        has_aux=True)(params)
+    model = params_from_numpy(jax.tree.map(np.asarray, params), tcfg, device="cpu")
+    model.requires_grad_(True)
+    loss, aux = model.loss({"tokens": torch.from_numpy(tokens)})
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jl), **LOSS_TOL)
+    np.testing.assert_allclose(aux["xent"].item(), float(jaux["xent"]), **LOSS_TOL)
+    assert aux["aux"].item() == float(jaux["aux"]) == 0.0
+    port = tree.tree_flatten_with_path(tree.tree_map(tree.to_numpy, grad_tree(model)))
+    ref = jax.tree_util.tree_flatten_with_path(jgrads)[0]
+    assert len(port) == len(ref) == 2 + 14
+    for (path, got), (_, want) in zip(port, ref):
+        np.testing.assert_allclose(got, np.asarray(want), err_msg=tree.keystr(path),
+                                   **LOSS_TOL)
+        assert np.abs(got).max() > 0, tree.keystr(path)
 
 
 # ------------------------------ optimizer -------------------------------- #
