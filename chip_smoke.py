@@ -45,6 +45,29 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 the final state and the gradients of x, dt, a, B and C. The smoke
                 zamba2-7b at head_dim 112, 2 layers, fp32: loss and every gradient
                 (the shared block's included) card vs CPU.
+7b. train_mesh -- the sharded multi-rank train step (train.step.build_train_step)
+                as four gloo ranks sharing the card, each a spawned process
+                (file:// rendezvous in a temporary directory), all exited before
+                the next phase. (a) Full qwen3-0.6b, bf16, FSDP and the instant
+                backup, 8 x 1024 tokens a step (2 x 1024 a rank), 3 steps: each
+                rank's backup bit for bit its predecessor's new optimizer blocks,
+                the bytes the ring sent equal to the razor's unique bytes per
+                rank, the neighbour drill (after step 2 rank 1's optimizer blocks
+                are dropped and rebuilt from rank 2's backup; step 3 from there
+                equals the uninterrupted step 3 bit for bit on every rank), flash
+                launches in every rank (all wgmma; counts zeroed in each rank just
+                before its steps) and none of decode or SSD, and the first batch
+                scored again lower. Prints per step the median over ranks of the
+                step time and of its gradient reduce, param gathers and
+                neighbor_backup, the device memory per rank (and one step with
+                fsdp_params=False beside it) and each child's peak host RSS, all
+                labelled as gloo through the host on one shared card. (b) Full
+                width cut to 2 layers, fp32, 2 steps: the 4-rank step against
+                one rank of the same step over NCCL from the same weights and
+                batches: the losses and the master of step 1 (lr 0 under the
+                warmup) within 1e-5 relative, m (0.1 of the gradient) of every
+                step within the slice's 2e-4, each against its leaf's largest
+                magnitude; v and step 2's master are reported.
 8. scenarios -- the port's adversarial scenario fleet (runtime/scenarios.py).
                 First all 15 corpus scenarios at the reference's scale (qwen3
                 reduced, fp32, seq 16), each built and replayed as run_scenario
@@ -1284,6 +1307,416 @@ SCALE_FIELDS = {"state_bytes_streamed": "bytes", "chunks_reused": "bytes",
                 "stream_seconds": "sim time"}
 
 
+# the sharded multi-rank step (train.step.build_train_step), four gloo ranks
+# sharing the one card: (a) full qwen3-0.6b, bf16, FSDP and the instant
+# backup, 8 x 1024 tokens a step (2 x 1024 a rank), 3 steps, then the
+# neighbour drill, the first batch scored again and one step without FSDP for
+# its memory; (b) full width cut to 2 layers, fp32, 2 steps, against one rank
+# of the same step over NCCL from the same weights and batches. The children
+# are spawned (CUDA cannot fork) and meet through file:// in a temporary
+# directory.
+TRAIN_MESH = dict(arch="qwen3-0.6b", smoke=False, layers=None, dtype="bfloat16", world=4,
+                  global_batch=8, seq_len=1024, steps=3, seed=0, timeout_s=600)
+TRAIN_MESH_B = dict(arch="qwen3-0.6b", smoke=False, layers=2, dtype="float32", world=4,
+                    global_batch=8, seq_len=1024, steps=2, seed=0, timeout_s=300, tol=1e-5,
+                    grad_tol=2e-4)
+MESH_NOTE = ("gloo through the host on one shared card: the four ranks share one H100 and "
+             "every collective crosses the host; not the figure of a ring on NVLink")
+
+
+def run_children(name: str, jobs: list, timeout_s: float) -> None:
+    """Start ``jobs`` ((function, args) each) as spawned processes and wait
+    for all of them; a child that exits non-zero, or any still running at
+    the deadline, kills the others and fails the phase."""
+    import multiprocessing
+    from multiprocessing.connection import wait
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=fn, args=args) for fn, args in jobs]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout_s
+    try:
+        while any(p.exitcode is None for p in procs):
+            left = deadline - time.monotonic()
+            if left <= 0:
+                fail(f"{name}: ranks still running after {timeout_s} s")
+            wait([p.sentinel for p in procs if p.exitcode is None], timeout=min(left, 5.0))
+            bad = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+            if bad:
+                fail(f"{name}: a rank exited with {bad[0]}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+
+
+def _mesh_cfg(t: dict):
+    from repro_torch.configs import get_arch, reduce_for_smoke
+    cfg = get_arch(t["arch"])
+    cfg = reduce_for_smoke(cfg) if t["smoke"] else cfg
+    return dataclasses.replace(cfg, num_layers=t["layers"] or cfg.num_layers,
+                               dtype=t["dtype"])
+
+
+def _mesh_setup(rank: int, world: int, t: dict, rdv: str, backend: str, device: str):
+    """One rank's process group and mesh, the step with and without FSDP,
+    a maker of the sharded initial state (weights from a host generator
+    seeded with t["seed"], as SimCluster draws them) and this rank's rows of
+    t["steps"] global batches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.state import param_tree, shard_init_state
+    from repro_torch.train.step import build_train_step
+
+    torch.set_num_threads(2)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"file://{rdv}", rank=rank,
+                            world_size=world)
+    cfg = _mesh_cfg(t)
+    model = build_model(cfg, device="cpu")
+    model.init(torch.Generator().manual_seed(t["seed"]))
+    mesh = make_host_mesh(data=world, model=1)
+    shape = ShapeConfig("train_mesh", t["seq_len"], t["global_batch"], "train")
+    hp = AdamWConfig(warmup_steps=2, total_steps=100)          # SimCluster's
+    arts = {fsdp: build_train_step(model, mesh, hp, fsdp_params=fsdp, shape=shape,
+                                   clock=time.perf_counter) for fsdp in (True, False)}
+    rng = np.random.default_rng(t["seed"])
+    spec = arts[True].input_pspecs["tokens"]
+    local = [shd.local_block(torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (t["global_batch"], t["seq_len"] + 1), dtype=np.int32)),
+        spec, mesh).contiguous().to(device) for _ in range(t["steps"])]
+
+    def make_state(fsdp: bool):
+        return shard_init_state(param_tree(model), arts[fsdp].plan, mesh, device=device)
+
+    return cfg, mesh, arts, make_state, local
+
+
+def _digests(torch, tree, piece: int = 1 << 26) -> list:
+    """sha256 of the bytes of every present leaf of ``tree``, in order,
+    copied to the host ``piece`` bytes at a time."""
+    import hashlib
+
+    from repro_torch.tree import tree_flatten
+    out = []
+    for x in tree_flatten(tree, lambda v: v is None)[0]:
+        if x is None:
+            continue
+        h = hashlib.sha256()
+        for part in x.detach().contiguous().reshape(-1).view(torch.uint8).split(piece):
+            h.update(part.cpu().numpy().tobytes())
+        out.append(h.hexdigest())
+    return out
+
+
+def _same(torch, a, b) -> bool:
+    """Two trees bit for bit (None leaves where both have them)."""
+    from repro_torch.tree import tree_flatten
+    la, lb = (tree_flatten(x, lambda v: v is None)[0] for x in (a, b))
+    return len(la) == len(lb) and all(
+        x is None and y is None or x is not None and y is not None and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+def _timing_ms(art) -> dict:
+    """The last step's parts (the caller times the whole step itself)."""
+    return {f"{k}_ms": v * 1e3 for k, v in art.step_fn.last_timing.items() if k != "step"}
+
+
+def mesh_rank_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
+    """Part (a) on one rank; its record goes to tmp/a_<rank>.json."""
+    import resource
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.instant import neighbor_backup
+    from repro_torch.core.razor import razor_bytes_formula
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import param_count
+    from repro_torch.parallel.sharding import is_spec
+    from repro_torch.tree import tree_flatten, tree_map
+
+    cfg, mesh, arts, make_state, local = _mesh_setup(rank, world, t, f"{tmp}/rdv_a",
+                                                     "gloo", device)
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    clone = lambda tree: tree_map(lambda x: x.clone(), tree, is_leaf=lambda v: v is None)
+    art = arts[True]
+    state = make_state(True)
+    sync()
+    rss = {"setup": host_rss_gb()}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    records, backup, before_last = [], None, None
+    reset_launches()
+    for i, tokens in enumerate(local):
+        if i == len(local) - 1:       # for the drill: the state after step i and its backup
+            before_last = (clone(state), backup)
+        t0 = time.perf_counter()
+        state, metrics, backup = art.step_fn(state, {"tokens": tokens})
+        sync()
+        records.append(dict(step=i + 1, step_ms=(time.perf_counter() - t0) * 1e3,
+                            loss=float(metrics["loss"]), lr=float(metrics["lr"]),
+                            **_timing_ms(art)))
+    launches = read_launches()
+    flash_routes = dict(fa.flash_attention.routes)
+    peak_fsdp = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    rss["steps"] = host_rss_gb()
+
+    # (i) this rank's backup is its predecessor's new optimizer blocks, bit for bit
+    unique = tree_map(lambda ps, x: None if ps is None else x, art.backup_pspecs,
+                      state["opt"], is_leaf=is_spec)
+    every = [None] * world
+    dist.all_gather_object(every, (_digests(torch, unique), _digests(torch, backup)))
+    pred = (mesh.index("data") - 1) % world
+    backup_bitwise = bool(every[rank][1]) and every[rank][1] == every[pred][0]
+    # (ii) the bytes the ring sent
+    sent = sum(x.numel() * x.element_size()
+               for x in tree_flatten(backup, lambda v: v is None)[0] if x is not None)
+    # (iii) the neighbour drill: rank 1 loses its optimizer blocks after step
+    # n-1 and rebuilds them from rank 2's backup, sent back one hop; its FSDP
+    # param blocks are cast from the rebuilt master (a replicated param, the
+    # embedding, would come from any data peer). Step n from there must equal
+    # the uninterrupted step n on every rank, bit for bit.
+    restored, kept = before_last
+    returned = neighbor_backup(kept, art.backup_pspecs, mesh, shift=-1)
+    if mesh.index("data") == 1:
+        for dst, src in zip(tree_flatten(restored["opt"])[0],
+                            tree_flatten(returned, lambda v: v is None)[0]):
+            if src is not None:
+                dst.zero_()
+                dst.copy_(src)
+        for p, m in zip(tree_flatten(restored["params"])[0],
+                        tree_flatten(restored["opt"]["master"])[0]):
+            if p.shape == m.shape:
+                p.zero_()
+                p.copy_(m)
+    del returned, kept, before_last
+    drill_state, _, drill_backup = art.step_fn(restored, {"tokens": local[-1]})
+    drill_bitwise = _same(torch, drill_state, state) and _same(torch, drill_backup, backup)
+    del drill_state, drill_backup, restored, unique
+    rss["drill"] = host_rss_gb()
+    # (v) the first batch scored again: the loss a step on a copy reports
+    _, again, _ = art.step_fn(clone(state), {"tokens": local[0]})
+    first_batch_loss_after = float(again["loss"])
+    del state, backup
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    # fsdp_params=False once, for its device memory and step time
+    plain = arts[False]
+    state = make_state(False)
+    t0 = time.perf_counter()
+    state, metrics, _ = plain.step_fn(state, {"tokens": local[0]})
+    sync()
+    no_fsdp = dict(step_ms=(time.perf_counter() - t0) * 1e3, loss=float(metrics["loss"]),
+                   peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+                   **_timing_ms(plain))
+    rss["no_fsdp"] = host_rss_gb()
+    rec = dict(rank=rank, records=records, launches=launches, flash_routes=flash_routes,
+               peak_device_mem_gb=peak_fsdp, backup_bitwise=backup_bitwise,
+               ring_bytes_sent=sent, razor_bytes=art.razor.unique_bytes_per_device_ring,
+               formula_bytes=razor_bytes_formula(param_count(cfg), world),
+               drill_bitwise=drill_bitwise, first_batch_loss_after=first_batch_loss_after,
+               no_fsdp=no_fsdp, host_rss_gb=rss,
+               peak_host_rss_gb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9)
+    with open(f"{tmp}/a_{rank}.json", "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+def mesh_rank_b(rank: int, world: int, tmp: str, t: dict, device: str, backend: str) -> None:
+    """Part (b) on one rank of ``world``: t["steps"] FSDP steps. One rank
+    alone saves its loss, master, m and v after each step to
+    tmp/b1_step<i>.pt; rank 0 of the sharded run compares its joined ones
+    with them and writes the errors (relative to each leaf's largest
+    magnitude) to tmp/b.json."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.parallel.sharding import join_tree
+    from repro_torch.tree import keystr, tree_flatten_with_path
+
+    _, mesh, arts, make_state, local = _mesh_setup(rank, world, t, f"{tmp}/rdv_b{world}",
+                                                   backend, device)
+    art = arts[True]
+    state, out = make_state(True), []
+    for i, tokens in enumerate(local):
+        state, metrics, _ = art.step_fn(state, {"tokens": tokens})
+        opt = join_tree(state["opt"], art.plan.opt_pspecs, mesh)
+        if rank:
+            continue
+        flat = {f"{k}|{keystr(p)}": x for k in ("master", "m", "v")
+                for p, x in tree_flatten_with_path(opt[k])}
+        if world == 1:
+            torch.save({"loss": float(metrics["loss"]),
+                        "opt": {k: x.cpu() for k, x in flat.items()}}, f"{tmp}/b1_step{i}.pt")
+            continue
+        ref = torch.load(f"{tmp}/b1_step{i}.pt")
+        err, lr = {}, float(metrics["lr"])
+        for k, x in flat.items():
+            r = ref["opt"][k].to(x.device)
+            err[k] = float((x - r).abs().max() / r.abs().max().clamp_min(1e-30))
+        master_dmax = max(float((x - ref["opt"][k].to(x.device)).abs().max())
+                          for k, x in flat.items() if k.startswith("master|"))
+        out.append(dict(step=i + 1, loss=float(metrics["loss"]), single_loss=ref["loss"],
+                        lr=lr, err=err, master_max_abs_diff=master_dmax))
+        del ref
+    if rank == 0 and world > 1:
+        with open(f"{tmp}/b.json", "w") as f:
+            json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_train_mesh(torch, t: dict = TRAIN_MESH, tb: dict = TRAIN_MESH_B,
+                     device: str = "cuda", backend_b: str = "nccl") -> dict:
+    """The sharded multi-rank train step (parts (a) and (b) above)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    parent_rss = host_rss_gb()
+    try:
+        t0 = time.perf_counter()
+        run_children("train_mesh (a)", [(mesh_rank_a, (r, t["world"], tmp, t, device))
+                                        for r in range(t["world"])], t["timeout_s"])
+        recs = []
+        for r in range(t["world"]):
+            with open(f"{tmp}/a_{r}.json") as f:
+                recs.append(json.load(f))
+        a_s = time.perf_counter() - t0
+        row_a = dict(_train_mesh_row(recs, t, a_s, device), parent_host_rss_gb=parent_rss)
+        emit("train_mesh", **row_a)
+        t0 = time.perf_counter()
+        run_children("train_mesh (b), one rank", [(mesh_rank_b, (0, 1, tmp, tb, device,
+                                                                  backend_b))],
+                     tb["timeout_s"])
+        run_children("train_mesh (b), sharded",
+                     [(mesh_rank_b, (r, tb["world"], tmp, tb, device, "gloo"))
+                      for r in range(tb["world"])], tb["timeout_s"])
+        with open(f"{tmp}/b.json") as f:
+            steps_b = json.load(f)
+        b_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (b): the losses of every step and the master of the first (lr 0 under
+    # the warmup) within tb["tol"] of one NCCL rank, and m (0.1 of the
+    # gradient at step 1) within tb["grad_tol"], the training slice's fp32
+    # gradient tolerance (over 8,192 tokens the two reduction orders differed
+    # by up to 8.8e-6 of a leaf's largest gradient on an H100). v holds the same
+    # gradients squared and is reported. The later master is reported:
+    # AdamW moves every element by O(lr) whatever its gradient's size, so an
+    # element whose gradient is below the noise of the two reduction orders
+    # moves by a different O(lr).
+    tol, grad_tol = tb["tol"], tb["grad_tol"]
+    bad = []
+    for st in steps_b:
+        if abs(st["loss"] - st["single_loss"]) > tol * abs(st["single_loss"]):
+            bad.append(f"step {st['step']} loss {st['loss']} vs {st['single_loss']}")
+        for k, e in st["err"].items():
+            limit = (grad_tol if k.startswith("m|") else
+                     tol if k.startswith("master|") and st["step"] == 1 else None)
+            if limit is not None and e > limit:
+                bad.append(f"step {st['step']} {k}: {e} (limit {limit})")
+    if bad:
+        fail(f"train_mesh (b): sharded against one {backend_b} rank: " + "; ".join(bad))
+    row_b = dict(config=f"{_mesh_cfg(tb).name}, {tb['layers']} layers, fp32",
+                 sharded=f"{tb['world']} gloo ranks", against=f"one rank over {backend_b}",
+                 tol=tol, grad_tol=grad_tol, seconds=b_s,
+                 steps=[dict(step=st["step"], lr=st["lr"], loss=st["loss"],
+                             single_loss=st["single_loss"],
+                             loss_rel_err=abs(st["loss"] - st["single_loss"])
+                             / abs(st["single_loss"]),
+                             **{f"{part}_rel_err_max": max(e for k, e in st["err"].items()
+                                                           if k.startswith(part + "|"))
+                                for part in ("master", "m", "v")},
+                             master_max_abs_diff_over_lr=(st["master_max_abs_diff"] / st["lr"]
+                                                          if st["lr"] else 0.0))
+                        for st in steps_b],
+                 note="held: losses and the master of step 1 (lr 0) within tol; m (0.1 "
+                      "of the gradient) of every step within grad_tol, the fp32 gradient "
+                      "tolerance of the training slice; v (the gradients squared) and the "
+                      "later master are reported")
+    emit("train_mesh_world1", **row_b)
+    return row_a
+
+
+def _train_mesh_row(recs: list, t: dict, a_s: float, device: str) -> dict:
+    """Part (a)'s checks (each failing the run) and its printed fields."""
+    import numpy as np
+
+    cfg = _mesh_cfg(t)
+    steps = t["steps"]
+    losses = [r["loss"] for r in recs[0]["records"]]
+    flash = [r["launches"]["flash_attention"] for r in recs]
+    if device == "cuda" and (
+            min(flash) <= 0
+            or any(r["launches"]["decode_attention"] or r["launches"]["ssd"] for r in recs)
+            or any(v for r in recs for k, v in r["flash_routes"].items() if k != "wgmma")):
+        fail(f"train_mesh: kernel launches {[r['launches'] for r in recs]}, flash routes "
+             f"{[r['flash_routes'] for r in recs]}; expected flash launches in every rank, "
+             "all on wgmma, and no decode or SSD launch")
+    if not all(math.isfinite(x) for r in recs for x in (s["loss"] for s in r["records"])):
+        fail(f"train_mesh: losses {[[s['loss'] for s in r['records']] for r in recs]}")
+    if not all(r["backup_bitwise"] for r in recs):
+        fail("train_mesh: a rank's backup differs from its predecessor's new optimizer blocks")
+    if not all(r["ring_bytes_sent"] == r["razor_bytes"] for r in recs):
+        fail(f"train_mesh: ring bytes {[r['ring_bytes_sent'] for r in recs]} against the "
+             f"razor's {recs[0]['razor_bytes']}")
+    if not all(r["drill_bitwise"] for r in recs):
+        fail("train_mesh: the step after rebuilding rank 1 from its neighbour's backup "
+             "differs from the uninterrupted step")
+    if not recs[0]["first_batch_loss_after"] < losses[0]:
+        fail(f"train_mesh: the first batch's loss {losses[0]} before the run, "
+             f"{recs[0]['first_batch_loss_after']} after it; expected it to fall")
+
+    def per_step(key):
+        return [float(np.median([r["records"][i].get(key, 0.0) for r in recs]))
+                for i in range(steps)]
+
+    median_ms = float(np.median([s["step_ms"] for r in recs for s in r["records"][1:]]))
+
+    row = dict(config=f"{cfg.name}, {cfg.num_layers} layers, {cfg.dtype}", world=t["world"],
+               mesh="data=4, model=1", backend="gloo", device_note=MESH_NOTE,
+               fsdp_params=True, instant_ckpt=True, global_batch=t["global_batch"],
+               seq_len=t["seq_len"], tokens_per_rank=t["global_batch"] // t["world"]
+               * t["seq_len"], steps=steps, losses=losses,
+               step_ms=per_step("step_ms"), grad_reduce_ms=per_step("grad_reduce_ms"),
+               param_gather_ms=per_step("param_gather_ms"),
+               neighbor_backup_ms=per_step("backup_ms"),
+               median_step_ms=median_ms,
+               tokens_per_s=t["global_batch"] * t["seq_len"] / (median_ms / 1e3),
+               peak_device_mem_gb=[r["peak_device_mem_gb"] for r in recs],
+               no_fsdp=[r["no_fsdp"] for r in recs],
+               peak_host_rss_gb=[r["peak_host_rss_gb"] for r in recs],
+               host_rss_gb_rank0=recs[0]["host_rss_gb"],
+               host_rss_note="host_rss_gb_rank0: rank 0's resident host memory after its "
+                             "setup, 3 steps, the drill and the step without FSDP",
+               flash_launches=flash, flash_expected=2 * cfg.num_layers * steps,
+               flash_note="per rank: the forward and its recompute in the backward (FSDP "
+                          "recomputes each layer body, its gather included)",
+               backup_bitwise=True, ring_bytes_sent=recs[0]["ring_bytes_sent"],
+               razor_unique_bytes_per_device_ring=recs[0]["razor_bytes"],
+               formula_12phi_over_dp=recs[0]["formula_bytes"],
+               drill_bitwise=True, first_batch_loss_after=recs[0]["first_batch_loss_after"],
+               seconds=a_s)
+    return row
+
+
 def phase_scenarios(torch):
     """The adversarial scenario fleet of the port: the whole corpus at the
     reference's scale on the card and on the CPU (verdicts equal), then one
@@ -1730,6 +2163,7 @@ def main() -> int:
     ssm_model, ssm_prefill, ssm_decode, ssm_tokens, serve_ssm = phase_serve_ssm(torch)
     serve_hybrid = phase_serve_hybrid(torch)
     phase_train_grad(torch)
+    train_mesh = phase_train_mesh(torch)
     scenarios = phase_scenarios(torch)
     train_ssm = phase_train_ssm(torch)
     train = phase_train(torch)
@@ -1777,6 +2211,7 @@ def main() -> int:
                                                       "library_ms")},
              hybrid_launches=serve_hybrid["launches"]["flash_attention"],
              train_ssm_launches=train_ssm["launches"]["flash_attention"],
+             train_mesh_launches=train_mesh["flash_launches"],
              hd112=hd112({d: kernels["flash_attention"][f"{d}_hd112"]
                           for d in ("bfloat16", "float32")}),
              backward="plain blockwise_attention recompute (FlashAttention), no kernel"),

@@ -21,6 +21,11 @@ fleet on it; all 21 public names of ``repro`` are exported here, lazily:
     from repro_torch.runtime.scenarios import ev
     run_scenario(Scenario("one_failure", events=(ev(5, "fail", wids=[1]),)))
 
+Slice 8 ports the sharded multi-rank train step, one process a rank over
+``torch.distributed``: ``repro_torch.train.step.build_train_step`` on a
+``repro_torch.launch.mesh`` mesh (ZeRO-1, FSDP, the razor's plan and the
+in-step neighbour backup ring).
+
 Importing this package builds nothing: the kernels are compiled with
 ``nvcc`` at their first launch (``repro_torch.kernels._build``), and
 touching ``repro_torch.SimCluster`` is what imports the runtime.

@@ -1,0 +1,198 @@
+"""FSDP parameter storage: the layer bodies' gather (the FSDP half of
+``repro.models.modes``).
+
+Under FSDP a rank stores only its block of each "data"-sharded parameter
+(``parallel.sharding.param_pspecs(fsdp=True)``). The reference constrains a
+layer's parameters to their TP-only spec at the top of the layer body and
+lets XLA insert the all-gather there; eager PyTorch inserts nothing, so
+``unshard_layer_params`` is that all-gather, explicitly: a
+``torch.autograd.Function`` whose forward gathers the layer's sharded leaves
+into full tensors and whose backward reduce-scatters their gradients back
+onto the blocks (summed over the "data" ranks).
+
+``fsdp_unshard(layout)`` turns it on for the code it wraps; ``layout``
+(an ``FsdpLayout``, built by ``train.step.build_train_step``) says how each
+stored tensor becomes a full one. Outside it ``unshard_layer_params`` is the
+identity, so serving is unchanged.
+
+A layer whose stored leaves are whole layers of a stack sharded on its
+layer axis (L divisible by the data size: qwen3-0.6b's 28 layers over 4
+ranks give each rank 7 whole layers) is held by one rank, its *owner*; the
+other ranks store an empty placeholder, the gather is a broadcast from the
+owner and its backward a reduce onto the owner. A leaf sharded on a weight
+dim (a stack whose L does not divide, or an unstacked leaf) is all-gathered
+along that dim and reduce-scattered back.
+
+``run_layer`` calls one layer body from a model's layer loop. Under
+``fsdp_unshard`` with autograd recording, the body (its gather included) is
+recomputed in the backward (``torch.utils.checkpoint``), so a layer's full
+tensors exist only while its body runs, forward or backward; the reference's
+full remat around its scan body does the same. Elsewhere it is a plain call.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import math
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.tree import tree_flatten, tree_unflatten
+
+_FSDP = contextvars.ContextVar("repro_torch_fsdp_unshard", default=None)
+
+
+@dataclass(frozen=True)
+class Shard:
+    """How one stored tensor becomes its full tensor of ``shape``: by an
+    all-gather of the blocks along ``dim`` (``owner`` None), or as the
+    tensor that the rank at index ``owner`` of the axis holds whole."""
+    shape: Tuple[int, ...]
+    dim: Optional[int] = None
+    owner: Optional[int] = None
+
+
+class FsdpLayout:
+    """The stored tensors of one step that are shards (by ``id``), the mesh
+    and axis they are sharded over, and ``span(name)``, a context manager
+    that times the gathers ("param_gather") and the gradients' reduce
+    ("grad_reduce")."""
+
+    def __init__(self, mesh, axis: str = "data", span: Optional[Callable] = None):
+        self.mesh, self.axis = mesh, axis
+        self.span = span or (lambda name: contextlib.nullcontext())
+        self.shards: Dict[int, Shard] = {}
+        self._alive: List[torch.Tensor] = []      # keeps each registered id valid
+
+    def register(self, t: torch.Tensor, shard: Shard) -> torch.Tensor:
+        self.shards[id(t)] = shard
+        self._alive.append(t)
+        return t
+
+    # ------------------------------------------------------------------ #
+    def gather(self, shards: Sequence[Shard], stored: Sequence[torch.Tensor]
+               ) -> List[torch.Tensor]:
+        """The full tensors: one collective per (owner, dtype) group."""
+        out: List[Optional[torch.Tensor]] = [None] * len(stored)
+        for idx in _groups(shards, stored):
+            owner = shards[idx[0]].owner
+            if owner is not None:
+                mine = self.mesh.index(self.axis) == owner
+                sizes = [math.prod(shards[i].shape) for i in idx]
+                flat = (torch.cat([stored[i].reshape(-1) for i in idx]) if mine else
+                        stored[idx[0]].new_empty(sum(sizes)))
+                flat = self.mesh.broadcast(flat, self.axis, owner)
+                for i, piece in zip(idx, flat.split(sizes)):
+                    out[i] = piece.view(shards[i].shape)
+            else:
+                n = self.mesh.shape[self.axis]
+                sizes = [stored[i].numel() for i in idx]
+                flat = torch.cat([stored[i].reshape(-1) for i in idx])
+                every = self.mesh.all_gather(flat[None], self.axis, 0)      # (n, total)
+                for i, piece in zip(idx, every.split(sizes, dim=1)):
+                    blocks = piece.reshape((n,) + tuple(stored[i].shape)).unbind(0)
+                    out[i] = torch.cat(blocks, dim=shards[i].dim)
+        return out
+
+    def scatter(self, shards: Sequence[Shard], stored_shapes: Sequence[torch.Size],
+                grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The gradients of the stored tensors: the full gradients summed
+        over the axis's ranks, each rank's block (the owner's whole tensor,
+        an empty one elsewhere)."""
+        out: List[Optional[torch.Tensor]] = [None] * len(grads)
+        for idx in _groups(shards, grads):
+            owner = shards[idx[0]].owner
+            if owner is not None:
+                flat = torch.cat([grads[i].reshape(-1) for i in idx])
+                flat = self.mesh.reduce(flat, self.axis, owner)
+                mine = self.mesh.index(self.axis) == owner
+                for i, piece in zip(idx, flat.split([grads[i].numel() for i in idx])):
+                    out[i] = (piece.view(stored_shapes[i]) if mine else
+                              piece.new_zeros(stored_shapes[i]))
+            else:
+                n = self.mesh.shape[self.axis]
+                rows = [torch.cat([grads[i].chunk(n, dim=shards[i].dim)[k].reshape(-1)
+                                   for i in idx]) for k in range(n)]
+                mine = self.mesh.reduce_scatter(torch.stack(rows), self.axis, 0)[0]
+                for i, piece in zip(idx, mine.split([math.prod(stored_shapes[i]) for i in idx])):
+                    out[i] = piece.view(stored_shapes[i])
+        return out
+
+
+def _groups(shards: Sequence[Shard], tensors: Sequence[torch.Tensor]) -> List[List[int]]:
+    """Indices grouped by (owner, dtype), in first-seen order: one
+    collective each, the same order on every rank."""
+    groups: Dict[Tuple, List[int]] = {}
+    for i, (s, t) in enumerate(zip(shards, tensors)):
+        groups.setdefault((s.owner, t.dtype), []).append(i)
+    return list(groups.values())
+
+
+class _Unshard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, layout: FsdpLayout, shards: Tuple[Shard, ...], *stored):
+        ctx.layout, ctx.shards = layout, shards
+        ctx.stored_shapes = [t.shape for t in stored]
+        with layout.span("param_gather"):
+            return tuple(layout.gather(shards, stored))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with ctx.layout.span("grad_reduce"):
+            out = ctx.layout.scatter(ctx.shards, ctx.stored_shapes,
+                                     [g.contiguous() for g in grads])
+        return (None, None, *out)
+
+
+@contextlib.contextmanager
+def fsdp_unshard(layout: FsdpLayout):
+    """Within it, ``unshard_layer_params`` gathers the tensors that
+    ``layout`` registers as shards."""
+    tok = _FSDP.set(layout)
+    try:
+        yield layout
+    finally:
+        _FSDP.reset(tok)
+
+
+def unshard_layer_params(p: Any, cfg=None) -> Any:
+    """Applied at the top of every layer body: the tree ``p`` with each
+    registered shard replaced by its full tensor, in one autograd node for
+    the whole tree (one collective per owner and dtype; the backward
+    reduce-scatters once, after every use of the full tensors has added its
+    gradient). The identity outside ``fsdp_unshard``. ``cfg`` is the
+    reference's argument, which it needs to recompute the TP-only spec; the
+    layout carries what the port needs."""
+    layout = _FSDP.get()
+    if layout is None:
+        return p
+    leaves, treedef = tree_flatten(p)
+    idx = [i for i, t in enumerate(leaves)
+           if isinstance(t, torch.Tensor) and id(t) in layout.shards]
+    if not idx:
+        return p
+    full = _Unshard.apply(layout, tuple(layout.shards[id(leaves[i])] for i in idx),
+                          *(leaves[i] for i in idx))
+    leaves = list(leaves)
+    for i, t in zip(idx, full):
+        leaves[i] = t
+    return tree_unflatten(treedef, leaves)
+
+
+def run_layer(body: Callable, *args):
+    """``body(*args)``; under ``fsdp_unshard`` with autograd recording,
+    recomputed in the backward (the module docstring says why). The
+    recomputation runs in the autograd engine's thread, which does not see
+    this thread's context, so the layout goes with it."""
+    layout = _FSDP.get()
+    if layout is None or not torch.is_grad_enabled():
+        return body(*args)
+
+    def again(*a):
+        with fsdp_unshard(layout):
+            return body(*a)
+
+    return checkpoint(again, *args, use_reentrant=False)

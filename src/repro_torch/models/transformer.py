@@ -12,12 +12,17 @@ Parameters mirror the reference's tree (``embed.w``, ``blocks[i].ln1``,
 ``blocks[i].attn.wq``, ..., ``final_norm``) with one module per layer
 instead of arrays stacked on a leading layer axis. The reference's
 ``scan_layers`` (and the hybrid's ``lax.scan`` with ``lax.cond``) is a
-Python loop over ``self.blocks`` here, and its ``constrain`` /
-``unshard_layer_params`` sharding hooks are identities on one device, so
-they are left out.
+Python loop over ``self.blocks`` here. Each layer body starts, as the
+reference's does, with ``models.modes.unshard_layer_params``: the FSDP
+gather of the sharded training step (``train.step.build_train_step``), the
+identity outside it; ``constrain`` has no eager counterpart and is left out
+(``parallel.constraints``). The hybrid's shared block is gathered once per
+pass, before the layer loop, so its gradient is reduce-scattered once, after
+all its applications have added theirs.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -28,6 +33,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
 from repro_torch.models.layers import (chunked_xent, embed_init, embed_lookup,
                                        mlp_apply, mlp_init, rms_norm, unembed)
+from repro_torch.models.modes import run_layer, unshard_layer_params
 
 # Families the port cannot build yet, with the ROADMAP §1 item that ports them.
 _NOT_PORTED = {
@@ -83,9 +89,22 @@ class Block(nn.Module):
     def _mlp(self, x: torch.Tensor) -> torch.Tensor:
         return x + mlp_apply(self.mlp, rms_norm(x, self.ln2), self.cfg.mlp_type)
 
+    def layer_params(self) -> Dict:
+        """The layer's parameters as the reference's tree."""
+        return {"ln1": self.ln1, "attn": dict(self.attn.items()), "ln2": self.ln2,
+                "mlp": dict(self.mlp.items())}
+
+    def body(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
+        """The layer on the parameters ``p`` (full tensors)."""
+        x = x + attn.self_attention(p["attn"], self.cfg, rms_norm(x, p["ln1"]))
+        return x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"]), self.cfg.mlp_type)
+
+    def apply_layer(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
+        """The reference's ``_attn_block``: the FSDP gather, then the layer."""
+        return self.body(unshard_layer_params(p, self.cfg), x)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + attn.self_attention(self.attn, self.cfg, rms_norm(x, self.ln1))
-        return self._mlp(x)
+        return run_layer(self.apply_layer, self.layer_params(), x)
 
     def prefill(self, x, k_cache, v_cache) -> torch.Tensor:
         x = x + attn.self_attention_prefill(self.attn, self.cfg,
@@ -96,6 +115,22 @@ class Block(nn.Module):
         x = x + attn.self_attention_decode(self.attn, self.cfg, rms_norm(x, self.ln1),
                                            k_cache, v_cache, index)
         return self._mlp(x)
+
+
+def _input_specs(model, shape) -> Dict:
+    """The batch of a ``ShapeConfig`` as meta tensors (the reference's
+    ``input_specs``): train takes S+1 tokens, prefill S, decode one token
+    and the cache of ``cache_specs(B, S)``."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def tokens(*dims):
+        return torch.empty(dims, dtype=torch.int32, device="meta")
+
+    if shape.kind == "train":
+        return {"tokens": tokens(b, s + 1)}
+    if shape.kind == "prefill":
+        return {"tokens": tokens(b, s)}
+    return {"token": tokens(b), "cache": model.cache_specs(b, s)}
 
 
 class DecoderLM(nn.Module):
@@ -146,7 +181,7 @@ class DecoderLM(nn.Module):
         x = embed_lookup(self.embed["w"], tokens)
         for blk in self.blocks:
             x = blk(x)
-        return unembed(self._head(), rms_norm(x, self.final_norm))
+        return unembed(self._head(), rms_norm(x, unshard_layer_params(self.final_norm)))
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
         """Next-token loss of ``batch["tokens"]`` (B, S+1): the first S
@@ -159,10 +194,13 @@ class DecoderLM(nn.Module):
         x = embed_lookup(self.embed["w"], inp)
         for blk in self.blocks:
             x = blk(x)
-        x = rms_norm(x, self.final_norm)
+        x = rms_norm(x, unshard_layer_params(self.final_norm))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         xent = chunked_xent(self._head(), x, labels)
         return xent + 0.01 * aux, {"xent": xent, "aux": aux}
+
+    def input_specs(self, shape) -> Dict:
+        return _input_specs(self, shape)
 
     def cache_specs(self, batch: int, max_len: int) -> Dict:
         """Shapes and dtypes of the decode cache, as meta tensors; ``index``
@@ -220,8 +258,17 @@ class MambaBlock(nn.Module):
         self.ln1.zero_()
         mamba2.mamba_init(self.mamba, self.cfg, generator)
 
+    def layer_params(self) -> Dict:
+        """The layer's parameters as the reference's tree."""
+        return {"ln1": self.ln1, "mamba": dict(self.mamba.items())}
+
+    def apply_layer(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
+        """The reference's ``_mamba_block``: the FSDP gather, then the layer."""
+        p = unshard_layer_params(p, self.cfg)
+        return x + mamba2.mamba_apply(p["mamba"], self.cfg, rms_norm(x, p["ln1"]))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + mamba2.mamba_apply(self.mamba, self.cfg, rms_norm(x, self.ln1))
+        return run_layer(self.apply_layer, self.layer_params(), x)
 
     def prefill(self, x: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
         out, state = mamba2.mamba_prefill(self.mamba, self.cfg, rms_norm(x, self.ln1))
@@ -270,7 +317,7 @@ class MambaLM(nn.Module):
         return self
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        return unembed(self.embed["w"], rms_norm(x, self.final_norm))
+        return unembed(self.embed["w"], rms_norm(x, unshard_layer_params(self.final_norm)))
 
     def _hidden(self, tokens: torch.Tensor) -> torch.Tensor:
         x = embed_lookup(self.embed["w"], tokens)
@@ -288,10 +335,13 @@ class MambaLM(nn.Module):
         ``chunked_xent``. Returns (total, {"xent", "aux"}) as
         ``DecoderLM.loss``; aux is 0."""
         tokens = batch["tokens"].long()
-        x = rms_norm(self._hidden(tokens[:, :-1]), self.final_norm)
+        x = rms_norm(self._hidden(tokens[:, :-1]), unshard_layer_params(self.final_norm))
         xent = chunked_xent(self.embed["w"], x, tokens[:, 1:])
         return xent, {"xent": xent,
                       "aux": torch.zeros((), dtype=torch.float32, device=x.device)}
+
+    def input_specs(self, shape) -> Dict:
+        return _input_specs(self, shape)
 
     def cache_specs(self, batch: int, max_len: int) -> Dict:
         """Shapes and dtypes of the decode cache, as meta tensors stacked on
@@ -364,12 +414,21 @@ class HybridLM(MambaLM):
         self.shared_attn.init(generator)
         return self
 
+    def _mamba_attn_layer(self, blk: MambaBlock, shared: Dict, p: Dict,
+                          x: torch.Tensor) -> torch.Tensor:
+        """A ``mamba_attn`` layer: the Mamba2 layer, then the shared block on
+        its gathered parameters ``shared``."""
+        return self.shared_attn.body(shared, blk.apply_layer(p, x))
+
     def _hidden(self, tokens: torch.Tensor) -> torch.Tensor:
         x = embed_lookup(self.embed["w"], tokens)
+        shared = unshard_layer_params(self.shared_attn.layer_params(), self.cfg)
         for i, blk in enumerate(self.blocks):
-            x = blk(x)
             if i in self.attn_layers:
-                x = self.shared_attn(x)
+                x = run_layer(functools.partial(self._mamba_attn_layer, blk, shared),
+                              blk.layer_params(), x)
+            else:
+                x = blk(x)
         return x
 
     def cache_specs(self, batch: int, max_len: int) -> Dict:

@@ -11,7 +11,7 @@ no second copy of master, m and v is allocated.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -55,16 +55,21 @@ def global_norm(tree: PyTree) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(grads: PyTree, opt: Dict[str, PyTree], step: torch.Tensor,
-                 hp: AdamWConfig, lr: torch.Tensor) -> Tuple[PyTree, Dict[str, PyTree]]:
+                 hp: AdamWConfig, lr: torch.Tensor,
+                 gnorm: Optional[torch.Tensor] = None) -> Tuple[PyTree, Dict[str, PyTree]]:
     """One step on ``opt`` = {"master", "m", "v"}, in place. ``step`` is the
     step count before this update (0-d), ``lr`` this step's rate (0-d).
-    Returns (master, opt) as the reference does; the caller casts the
-    params (``cast_params``)."""
+    Gradients are clipped by ``gnorm``, the global norm; by default the norm
+    of ``grads``, which is the global norm only where ``grads`` is the whole
+    gradient (a sharded step passes the norm over every rank's shard,
+    ``train.step.build_train_step``). Returns (master, opt) as the reference
+    does; the caller casts the params (``cast_params``)."""
     g = [t.float() for t in tensors(grads)]
     master, m, v = (list(tensors(opt[k])) for k in ("master", "m", "v"))
     if not len(g) == len(master) == len(m) == len(v):
         raise ValueError("grads and optimizer state hold different numbers of tensors")
-    gnorm = _norm(g)
+    if gnorm is None:
+        gnorm = _norm(g)
     scale = torch.clamp(hp.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     t = (step + 1).to(torch.float32)
     bc1 = 1.0 - torch.pow(hp.b1, t)

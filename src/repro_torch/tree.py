@@ -16,7 +16,7 @@ anyway.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterator, List, Mapping, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -65,12 +65,15 @@ class _Leaf:
 _LEAF = _Leaf()
 
 
-def tree_flatten_with_path(tree: PyTree) -> List[Tuple[Tuple, Any]]:
-    """[(key path, leaf)] in jax.tree_util's order."""
+def tree_flatten_with_path(tree: PyTree, is_leaf: Optional[Callable] = None
+                           ) -> List[Tuple[Tuple, Any]]:
+    """[(key path, leaf)] in jax.tree_util's order; ``is_leaf`` (as in
+    ``jax.tree_util``) stops the walk at the nodes it accepts, ``None``
+    included."""
     out: List[Tuple[Tuple, Any]] = []
 
     def walk(node, path):
-        if not _is_node(node):
+        if not _is_node(node) or (is_leaf is not None and is_leaf(node)):
             out.append((path, node))
             return
         for key, child in _children(node):
@@ -80,11 +83,12 @@ def tree_flatten_with_path(tree: PyTree) -> List[Tuple[Tuple, Any]]:
     return out
 
 
-def tree_flatten(tree: PyTree) -> Tuple[List[Any], PyTree]:
+def tree_flatten(tree: PyTree, is_leaf: Optional[Callable] = None
+                 ) -> Tuple[List[Any], PyTree]:
     """(leaves, treedef): the treedef is the tree with every leaf replaced
     by a placeholder, for ``tree_unflatten``."""
     def strip(node):
-        if not _is_node(node):
+        if not _is_node(node) or (is_leaf is not None and is_leaf(node)):
             return _LEAF
         if node is None:
             return None
@@ -92,7 +96,7 @@ def tree_flatten(tree: PyTree) -> Tuple[List[Any], PyTree]:
             return {k: strip(node[k]) for k in sorted(node)}
         return type(node)(strip(c) for c in node)
 
-    return [leaf for _, leaf in tree_flatten_with_path(tree)], strip(tree)
+    return [leaf for _, leaf in tree_flatten_with_path(tree, is_leaf)], strip(tree)
 
 
 def tree_unflatten(treedef: PyTree, leaves: Sequence[Any]) -> PyTree:
@@ -117,16 +121,24 @@ def tree_leaves(tree: PyTree) -> List[Any]:
     return tree_flatten(tree)[0]
 
 
-def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
+def tree_map(fn: Callable, tree: PyTree, *rest: PyTree,
+             is_leaf: Optional[Callable] = None) -> PyTree:
     """``fn`` over the leaves of ``tree`` and the matching leaves of
-    ``rest`` (trees of the same structure)."""
-    leaves, treedef = tree_flatten(tree)
-    others = [tree_flatten(r) for r in rest]
+    ``rest`` (trees of the same structure), ``is_leaf`` as in
+    ``tree_flatten``."""
+    leaves, treedef = tree_flatten(tree, is_leaf)
+    others = [tree_flatten(r, is_leaf) for r in rest]
     for r_leaves, r_def in others:
         if r_def != treedef:
             raise ValueError("tree_map over trees of different structures")
     return tree_unflatten(treedef, [fn(*args) for args in
                                     zip(leaves, *(r for r, _ in others))])
+
+
+def tree_map_with_path(fn: Callable, tree: PyTree) -> PyTree:
+    """``fn(key path, leaf)`` over the leaves of ``tree``."""
+    flat = tree_flatten_with_path(tree)
+    return tree_unflatten(tree_flatten(tree)[1], [fn(path, leaf) for path, leaf in flat])
 
 
 def keystr(path: Tuple) -> str:
