@@ -32,6 +32,23 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 card from a seed), the same requests: 13 flash launches on wgmma
                 at head_dim 112, 13 x 31 decode launches, 81 SSD launches on
                 wgmma; prefill and decode times beside their bounds. Freed after.
+6c. slice_moe -- qwen2-moe-a2.7b at full width, 2 layers, fp32, CPU against card:
+                prefill of 1 x 576 tokens, 8 decode steps, the loss of 1 x 577
+                tokens with its balance term and every gradient, at 2e-4; first
+                the routing of every MoE call (top_e and the capacity verdicts,
+                exactly, and the smallest gap between a token's k-th and
+                (k+1)-th gate probability) is compared and printed; 4 flash and
+                16 decode launches.
+6d. serve_moe -- full qwen2-moe-a2.7b (24 layers, 60 routed experts padded to
+                64, top-4, the shared expert, MHA 16/16 at head_dim 128, bf16,
+                random weights drawn on the card from a seed), the same
+                requests served twice (the repeat must equal the warm-up, whose
+                routing gives the share of prefill assignments that capacity
+                dropped and the experts a decode step picks): 24 flash launches
+                on wgmma, 24 x 31 decode launches, no SSD launch; prefill and
+                decode times beside their bounds (prefill by routed assignments
+                and by the reference's dispatch slots, decode with every expert
+                read and with the experts picked). Freed after.
 7. train_grad -- the flash kernel under autograd (FlashAttention) against the
                 plain blockwise_attention under autograd: output, dq, dk, dv at
                 the training shape (bf16, B=8, S=1024, H=16, K=8, hd=128), at
@@ -113,7 +130,8 @@ slices and the serve runs come before any phase that opens torch.profiler:
 10. kernels  -- each kernel against its plain PyTorch version on the card at the
                 serve shapes, zamba2-7b's at head_dim 112 too (prefill B=8,
                 S=1000, H=K=32; decode T=1032, cur_len 1032; its SSD, 112 heads,
-                N 64, bf16) (prefill B=8, S=1000, H=16, K=8, hd=128, causal, with
+                N 64, bf16), qwen2-moe-a2.7b's in bf16 (prefill B=8, S=1000,
+                H=K=16, hd 128; decode T=1032, cur_len 1032) (prefill B=8, S=1000, H=16, K=8, hd=128, causal, with
                 the wrapper's route: wgmma for bf16, fp32 for fp32; bf16 also at
                 the training step's S=1024; decode B=8,
                 T=1032, cur_len 1 / 129 / 777 / 1032 with the planned n_split;
@@ -134,8 +152,10 @@ slices and the serve runs come before any phase that opens torch.profiler:
 12. serve    -- qwen3-0.6b served again, as in 4, now after the profiler
                 sessions (``after_profiler``: true).
 
-Then a ``timing`` line (kernel timings taken by CUPTI and by CUDA events),
-one {"kernels": [...]} line, the card's name and power limit, and last
+Then a ``timing`` line (kernel timings taken by CUPTI and by CUDA events, the
+host seconds of each phase),
+one {"kernels": [...]} line (each kernel's launches in every serve and training
+phase, ``moe_launches`` among them, and its rows at the other shapes), the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -160,6 +180,10 @@ SSD = dict(b=8, h=80, p=64, n=128, chunk=256, seqs=(1000, 1024))
 PREFILL_HD112 = dict(b=8, s=1000, h=32, kh=32, hd=112)
 DECODE_HD112 = dict(b=8, t=1032, h=32, kh=32, hd=112, cur_lens=(1032,))
 SSD_HYBRID = dict(b=8, h=112, p=64, n=64, chunk=256, seqs=(1000,))
+# qwen2-moe-a2.7b's serve shapes: MHA of 16 heads at head_dim 128 (group 1),
+# bf16
+PREFILL_MOE = dict(b=8, s=1000, h=16, kh=16, hd=128)
+DECODE_MOE = dict(b=8, t=1032, h=16, kh=16, hd=128, cur_lens=(1032,))
 SERVE = dict(batch=8, prompt=1000, gen=32)
 SSM_SLICE = dict(batch=2, prompt=600, steps=4)
 # the SSD kernel's chunk states and decay against the plain version: the
@@ -194,6 +218,11 @@ SSD_GRAD = dict(bf16=dict(b=2, s=300, h=4, p=64, n=128, chunk=256, tol=2e-2),
 # the hybrid's loss and gradients, card against CPU: the smoke zamba2-7b at
 # head_dim 112, 2 layers (one shared-block application), fp32
 HYBRID_LOSS = dict(batch=2, seq=64, tol=2e-4)
+# the MoE slice, card against CPU: qwen2-moe-a2.7b at full width cut to 2
+# layers (a CPU copy of 24 fp32 layers would be 60 GB; 2 layers with the head
+# and the embedding are 1.83 B parameters, 7.3 GB), fp32, the tokens of LOSS:
+# prefill of 1 x 576, 8 decode steps, the loss of 1 x 577 and every gradient
+MOE_SLICE = dict(layers=2, batch=LOSS["batch"], seq=LOSS["seq"], steps=8, tol=2e-4)
 # the SSM training cell: mamba2-2.7b at full width cut to 8 of 64 layers (the
 # host copies of the full 32.4 GB opt state would not fit the host), dp=4
 # simulated workers, 8 x 1024 tokens a step, 2 steps, a failure, 2 steps
@@ -203,6 +232,16 @@ L2_BYTES = 50 * 10**6
 T_START = time.perf_counter()
 PROFILER_SESSIONS = [0]     # torch.profiler sessions opened so far in this process
 TIMING = {"cupti": 0, "cuda_events": 0}     # kernel timings taken by each method
+PHASE_S: dict = {}          # host seconds of each phase, for the timing line
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, its host seconds added to ``PHASE_S[name]``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_S[name] = PHASE_S.get(name, 0.0) + time.perf_counter() - t0
 
 
 def emit(phase: str, **fields) -> None:
@@ -415,13 +454,15 @@ def phase_kernels(torch, F):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     # the serve shape in both dtypes, the training step's (S=1024) in bf16,
-    # and zamba2-7b's serve shape (hd 112) in both dtypes
+    # zamba2-7b's serve shape (hd 112) in both dtypes and qwen2-moe-a2.7b's
+    # (MHA at hd 128) in bf16
     for key, dtype, p in (("bfloat16", torch.bfloat16, PREFILL),
                           ("float32", torch.float32, PREFILL),
                           ("bfloat16_train", torch.bfloat16,
                            dict(PREFILL, s=TRAIN["seq_len"])),
                           ("bfloat16_hd112", torch.bfloat16, PREFILL_HD112),
-                          ("float32_hd112", torch.float32, PREFILL_HD112)):
+                          ("float32_hd112", torch.float32, PREFILL_HD112),
+                          ("bfloat16_moe", torch.bfloat16, PREFILL_MOE)):
         dname = str(dtype).split(".")[-1]
         q = rand((p["b"], p["s"], p["h"], p["hd"]), dtype)
         k = rand((p["b"], p["s"], p["kh"], p["hd"]), dtype)
@@ -463,7 +504,8 @@ def phase_kernels(torch, F):
 
     for suffix, d, dtype in (("", DECODE, torch.bfloat16), ("", DECODE, torch.float32),
                              ("_hd112", DECODE_HD112, torch.bfloat16),
-                             ("_hd112", DECODE_HD112, torch.float32)):
+                             ("_hd112", DECODE_HD112, torch.float32),
+                             ("_moe", DECODE_MOE, torch.bfloat16)):
         dname = str(dtype).split(".")[-1]
         q = rand((d["b"], 1, d["h"], d["hd"]), dtype)
         kc = rand((d["b"], d["t"], d["kh"], d["hd"]), dtype)
@@ -2088,6 +2130,263 @@ def phase_serve_hybrid(torch):
     return row
 
 
+def routing_compare(card_log: list, cpu_log: list, k: int) -> dict:
+    """The routing of the card's run against the CPU's, record by record
+    (one per MoE call: layer by layer, prefill, decode steps, loss): the
+    assignments whose expert differs (flips), the capacity verdicts that
+    differ, and, on the card's gate probabilities, the smallest gap between
+    a token's k-th and (k+1)-th expert over the real experts: how close the
+    closest token came to flipping."""
+    flips = valid_diff = 0
+    gap = math.inf
+    for a, b in zip(card_log, cpu_log):
+        flips += int((a["top_e"].cpu() != b["top_e"]).sum())
+        valid_diff += int((a["valid"].cpu() != b["valid"]).sum())
+        top = a["gate_probs"].float().topk(k + 1, dim=-1).values
+        gap = min(gap, float((top[..., k - 1] - top[..., k]).min()))
+    if len(card_log) != len(cpu_log):
+        fail(f"slice_moe: {len(card_log)} MoE calls on the card, {len(cpu_log)} on the CPU")
+    return dict(moe_calls=len(card_log), flipped_assignments=flips,
+                valid_differs=valid_diff, min_gate_gap=gap,
+                dropped_assignments=sum(int((~r["valid"]).sum()) for r in cpu_log),
+                assignments=sum(r["valid"].numel() for r in cpu_log))
+
+
+def phase_slice_moe(torch):
+    """qwen2-moe-a2.7b at full width, cut to 2 layers, fp32: the same
+    weights on the CPU (plain versions) and on the card (kernels). Prefill
+    of 1 x 576 tokens, 8 decode steps (both sides take the CPU's greedy
+    token), then the loss of 1 x 577 tokens and every gradient; the routing
+    of every MoE call compared first."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model, moe
+    from repro_torch.train.serve import build_decode_step, build_prefill_step
+    from repro_torch.train.state import grad_tree
+    from repro_torch.tree import keystr, tree_flatten_with_path
+
+    m = MOE_SLICE
+    cfg = dataclasses.replace(get_arch("qwen2-moe-a2.7b"), num_layers=m["layers"],
+                              dtype="float32")
+    t0 = time.perf_counter()
+    # drawn on the card (1.83 B numbers drawn on the host take ~15 s), then
+    # copied to the CPU
+    card = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    init_s = time.perf_counter() - t0
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (m["batch"], m["seq"] + 1)))
+    prompt = tokens[:, :m["seq"]]
+    reset_launches()
+    runs, logs = {}, {}
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        dev = model.device
+        prefill, decode = build_prefill_step(model), build_decode_step(model)
+        with moe.record_routing() as log:
+            logits, cache = prefill(prompt.to(dev), m["seq"] + m["steps"] + 1)
+            outs = [logits.cpu()]
+            for step in range(m["steps"]):
+                tok = (runs["cpu"] if name == "cuda" else outs)[step].argmax(-1)
+                logits, cache = decode(cache, tok.to(dev))
+                outs.append(logits.cpu())
+            del cache
+            model.requires_grad_(True)
+            loss, aux = model.loss({"tokens": tokens.to(dev)})
+            loss.backward()
+        runs[name] = outs
+        logs[name] = log
+        runs[name + "_loss"] = [loss.detach().cpu(), aux["xent"].detach().cpu(),
+                                aux["aux"].detach().cpu()]
+        runs[name + "_grads"] = {keystr(p): t for p, t in
+                                 tree_flatten_with_path(_host_tree(grad_tree(model)))}
+    launches = read_launches()
+    routing = routing_compare(logs["cuda"], logs["cpu"], cfg.top_k)
+    del logs
+    expected = {"flash_attention": 2 * cfg.num_layers,
+                "decode_attention": cfg.num_layers * m["steps"], "ssd": 0,
+                "ssd_routes": {"wgmma": 0, "fp32": 0}}
+    if launches != expected:
+        fail(f"slice_moe: kernel launches {launches}, expected {expected} (prefill and "
+             f"the loss's forward each run flash once a layer)")
+    errs = []
+    for ref, out in zip(runs["cpu"], runs["cuda"]):
+        if out.shape != (m["batch"], cfg.padded_vocab) or not torch.isfinite(out).all():
+            fail(f"slice_moe: logits of shape {tuple(out.shape)} or not finite")
+        errs.append(check_close("slice_moe logits card vs cpu", out, ref, m["tol"]))
+    loss_err = {part: check_close(f"slice_moe {part} card vs cpu", got, want, m["tol"])
+                for part, got, want in zip(("loss", "xent", "aux"), runs["cuda_loss"],
+                                           runs["cpu_loss"])}
+    grad_err = {k: check_close(f"slice_moe grad {k} card vs cpu", runs["cuda_grads"][k], ref,
+                               m["tol"]) for k, ref in runs["cpu_grads"].items()}
+    for k, g in runs["cuda_grads"].items():
+        if "|moe|" in k and (not torch.isfinite(g).all() or not (g != 0).any()):
+            fail(f"slice_moe: MoE gradient {k} is not finite or is all 0")
+    row = dict(config=f"qwen2-moe-a2.7b full width, {cfg.num_layers} layers, fp32",
+               batch=m["batch"], prompt=m["seq"], decode_steps=m["steps"],
+               loss_tokens=list(tokens.shape), init_s=init_s, routing=routing,
+               logits_max_abs_err_per_step=errs, loss=float(runs["cuda_loss"][0]),
+               aux=float(runs["cuda_loss"][2]), loss_err=loss_err,
+               grad_leaves=len(grad_err), grad_max_abs_err=max(grad_err.values()),
+               moe_grad_err={k: v for k, v in grad_err.items() if "|moe|" in k},
+               tol=m["tol"], launches=launches)
+    emit("slice_moe", **row)
+    del cpu, card, runs
+    torch.cuda.empty_cache()
+    return row
+
+
+def moe_serve_bounds(cfg, params: int, b: int, prompt: int, gen: int, slots: int,
+                     distinct_experts: float):
+    """The card's least times of the MoE serve run, bf16. Operations: the
+    matrix products of every parameter but the embedding, the head's and
+    the routed experts' once a token, the head's for the last position only
+    (prefill), the routed experts' once per assignment (k a token) or, for
+    the reference's dispatch, once per slot of its (G, E, C) table (``slots``
+    a layer), and the causal attention. Bytes: every weight but the
+    embedding table read once and the KV cache written (prefill) or read up
+    to the attended length (decode). A decode step's bytes are given twice:
+    with all E experts a layer read (the reference's dispatch runs every
+    expert) and with the ``distinct_experts`` a layer that this run's steps
+    picked on average. Returns a dict of (seconds, bound_by) and the counts."""
+    from repro_torch.roofline.hw import bound_seconds
+    L, kh, h, hd = cfg.num_layers, cfg.num_kv_heads, cfg.num_heads, cfg.resolved_head_dim
+    d, e, k = cfg.d_model, cfg.padded_experts, cfg.top_k
+    per_expert = 3 * d * cfg.moe_d_ff
+    n_embed = n_head = cfg.padded_vocab * d           # untied
+    n_routed = L * e * per_expert
+    n_dense = params - n_embed - n_head - n_routed    # attention, shared expert, router, norms
+    tokens = b * prompt
+    kv_bytes_per_pos = 2 * L * b * kh * hd * 2
+    attn_flops = L * 4 * b * h * hd * prompt * (prompt + 1) // 2
+    weights = 2 * (params - n_embed)
+    prefill_bytes = weights + kv_bytes_per_pos * prompt
+    prefill_assigned = (2 * n_dense * tokens + 2 * n_head * b
+                        + 2 * per_expert * L * tokens * k + attn_flops)
+    prefill_slots = prefill_assigned - 2 * per_expert * L * tokens * k \
+        + 2 * per_expert * L * slots
+    lens = range(prompt + 1, prompt + gen)
+    steps = gen - 1
+    kv_read = kv_bytes_per_pos * sum(lens) / steps
+    decode_flops = (2 * (n_dense + n_head) * b + 2 * per_expert * L * b * k
+                    + L * 4 * b * h * hd * sum(lens) / steps)
+    decode_all = weights + kv_read
+    decode_picked = weights - 2 * n_routed + 2 * L * distinct_experts * per_expert + kv_read
+    return dict(prefill_assigned=bound_seconds(prefill_assigned, prefill_bytes, "bfloat16"),
+                prefill_slots=bound_seconds(prefill_slots, prefill_bytes, "bfloat16"),
+                decode_all_experts=bound_seconds(decode_flops, decode_all, "bfloat16"),
+                decode_picked_experts=bound_seconds(decode_flops, decode_picked, "bfloat16"),
+                prefill_tflop_assigned=prefill_assigned / 1e12,
+                prefill_tflop_slots=prefill_slots / 1e12,
+                decode_gbytes_all_experts=decode_all / 1e9,
+                decode_gbytes_picked_experts=decode_picked / 1e9)
+
+
+def phase_serve_moe(torch):
+    """Full qwen2-moe-a2.7b (24 layers, 60 routed experts padded to 64, top-4,
+    a shared expert of 5632, MHA of 16 heads at head_dim 128, untied head,
+    bf16), random weights drawn on the card from a seed: the same 8 x 1000
+    prompts and 32 greedy tokens, served twice (the first a warm-up whose
+    routing is recorded). 24 flash launches on wgmma, 24 x 31 decode
+    launches, no SSD launch."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import active_param_count, build_model, moe, param_count
+    from repro_torch.train.serve import build_decode_step, build_prefill_step
+
+    cfg = get_arch("qwen2-moe-a2.7b")
+    b, prompt, gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    t0 = time.perf_counter()
+    # drawn by a CUDA generator on the card: 15 B numbers drawn on the host
+    # would cost minutes of host time
+    model = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prefill, decode = build_prefill_step(model), build_decode_step(model)
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (b, prompt))).cuda()
+    with moe.record_routing() as log:
+        warm, *_ = serve_once(torch, prefill, decode, tokens, prompt + gen, gen)
+    L = cfg.num_layers
+    pre, dec = log[:L], log[L:]
+    if len(dec) != L * (gen - 1):
+        fail(f"serve_moe: {len(log)} MoE calls in the warm-up, expected {L * gen}")
+    dropped = sum(int((~r["valid"]).sum()) for r in pre) / sum(r["valid"].numel() for r in pre)
+    slots = pre[0]["top_e"].shape[0] * cfg.padded_experts * pre[0]["capacity"]
+    distinct = sum(int(r["top_e"].unique().numel()) for r in dec) / len(dec)
+    dec_dropped = sum(int((~r["valid"]).sum()) for r in dec)
+    # how alike the prefill's tokens route: the share of a layer's tokens
+    # whose first expert is that layer's most common first expert
+    mode_share = sum(int(torch.bincount(r["top_e"][..., 0].reshape(-1)).max())
+                     / r["top_e"][..., 0].numel() for r in pre) / len(pre)
+    # and within a group (500 consecutive tokens of one prompt): the experts
+    # its assignments reach, of the 60
+    per_group = sum(int(g.unique().numel()) for r in pre for g in r["top_e"]) \
+        / sum(r["top_e"].shape[0] for r in pre)
+    if max(int(r["top_e"].max()) for r in log) >= cfg.num_experts:
+        fail("serve_moe: a padded expert was routed to")
+    groups, cap = pre[0]["top_e"].shape[0], pre[0]["capacity"]
+    del log, pre, dec
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    seqs, finite, t_prefill, t_decode, shape = serve_once(
+        torch, prefill, decode, tokens, prompt + gen, gen)
+    launches = read_launches()
+    flash_routes = dict(fa.flash_attention.routes)
+    expected = {"flash_attention": L, "decode_attention": L * (gen - 1), "ssd": 0,
+                "ssd_routes": {"wgmma": 0, "fp32": 0}}
+    if (launches != expected or flash_routes != {"wgmma": L, "fp32": 0}
+            or (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim) != (16, 16, 128)):
+        fail(f"serve_moe: kernel launches {launches}, flash routes {flash_routes}; expected "
+             f"{expected}, flash all on wgmma, MHA 16/16 at head_dim 128")
+    if not finite or tuple(shape) != (b, cfg.padded_vocab):
+        fail(f"serve_moe: logits not finite or of shape {tuple(shape)}")
+    if seqs.shape != (b, gen) or not ((seqs >= 0) & (seqs < cfg.padded_vocab)).all():
+        fail("serve_moe: generated tokens out of range")
+    repeat = bool((warm == seqs).all())
+    if not repeat:
+        fail("serve_moe: the repeat generated other tokens than the warm-up")
+    params = param_count(cfg)
+    bounds = moe_serve_bounds(cfg, params, b, prompt, gen, slots, distinct)
+    row = dict(config=f"qwen2-moe-a2.7b full ({L} layers, {cfg.num_experts} experts padded "
+                      f"to {cfg.padded_experts}, top-{cfg.top_k}, shared "
+                      f"{cfg.shared_expert_d_ff}, MHA {cfg.num_heads}/{cfg.num_kv_heads} at "
+                      f"head_dim {cfg.resolved_head_dim}, bf16)",
+               params=params, active_params=active_param_count(cfg), batch=b,
+               prompt=prompt, gen=gen, init_s=init_s, prefill_ms=t_prefill * 1e3,
+               prefill_bound_assigned_ms=bounds["prefill_assigned"][0] * 1e3,
+               prefill_bound_assigned_by=bounds["prefill_assigned"][1],
+               prefill_bound_slots_ms=bounds["prefill_slots"][0] * 1e3,
+               prefill_bound_slots_by=bounds["prefill_slots"][1],
+               prefill_tflop_assigned=bounds["prefill_tflop_assigned"],
+               prefill_tflop_slots=bounds["prefill_tflop_slots"],
+               prefill_groups=groups, prefill_capacity=cap, prefill_slots_per_layer=slots,
+               prefill_dropped_share=dropped, prefill_top1_mode_share=mode_share,
+               prefill_experts_per_group=per_group,
+               decode_dropped=dec_dropped,
+               decode_distinct_experts_per_layer=distinct,
+               decode_steps=gen - 1, decode_ms_per_step=t_decode * 1e3 / (gen - 1),
+               decode_bound_all_experts_ms=bounds["decode_all_experts"][0] * 1e3,
+               decode_bound_all_experts_by=bounds["decode_all_experts"][1],
+               decode_bound_picked_experts_ms=bounds["decode_picked_experts"][0] * 1e3,
+               decode_bound_picked_experts_by=bounds["decode_picked_experts"][1],
+               decode_gbytes_all_experts=bounds["decode_gbytes_all_experts"],
+               decode_gbytes_picked_experts=bounds["decode_gbytes_picked_experts"],
+               decode_tok_s=b * (gen - 1) / t_decode,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=launches, flash_routes=flash_routes, logits_finite=finite,
+               repeat_identical=repeat, profiler_sessions_before=PROFILER_SESSIONS[0],
+               first_sequence=seqs[0].tolist())
+    emit("serve_moe", **row)
+    del model, prefill, decode
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_train_ssm(torch):
     """mamba2-2.7b at full width, cut to 8 layers, trained by the port's
     SimCluster with a failure and a stream recovery in the middle: the SSD
@@ -2157,24 +2456,27 @@ def main() -> int:
          ptxas=ptxas_summary(log), sass_hgmma=sass_hgmma(path))
 
     # the slices and both serve runs come before any torch.profiler session
-    phase_slice(torch)
-    served, serve = phase_serve(torch)
-    phase_slice_ssm(torch)
-    ssm_model, ssm_prefill, ssm_decode, ssm_tokens, serve_ssm = phase_serve_ssm(torch)
-    serve_hybrid = phase_serve_hybrid(torch)
-    phase_train_grad(torch)
-    train_mesh = phase_train_mesh(torch)
-    scenarios = phase_scenarios(torch)
-    train_ssm = phase_train_ssm(torch)
-    train = phase_train(torch)
-    kernels = phase_kernels(torch, F)
-    ssd_rows = phase_ssd_kernel(torch)
+    timed("slice", phase_slice, torch)
+    served, serve = timed("serve", phase_serve, torch)
+    timed("slice_ssm", phase_slice_ssm, torch)
+    ssm_model, ssm_prefill, ssm_decode, ssm_tokens, serve_ssm = timed(
+        "serve_ssm", phase_serve_ssm, torch)
+    serve_hybrid = timed("serve_hybrid", phase_serve_hybrid, torch)
+    timed("slice_moe", phase_slice_moe, torch)
+    serve_moe = timed("serve_moe", phase_serve_moe, torch)
+    timed("train_grad", phase_train_grad, torch)
+    train_mesh = timed("train_mesh", phase_train_mesh, torch)
+    scenarios = timed("scenarios", phase_scenarios, torch)
+    train_ssm = timed("train_ssm", phase_train_ssm, torch)
+    train = timed("train", phase_train, torch)
+    kernels = timed("kernels", phase_kernels, torch, F)
+    ssd_rows = timed("kernels", phase_ssd_kernel, torch)
     _, prefill, decode, tokens, _ = served
-    phase_trace(torch, prefill, decode, tokens, "qwen3-0.6b")
-    phase_trace(torch, ssm_prefill, ssm_decode, ssm_tokens, "mamba2-2.7b")
+    timed("trace", phase_trace, torch, prefill, decode, tokens, "qwen3-0.6b")
+    timed("trace", phase_trace, torch, ssm_prefill, ssm_decode, ssm_tokens, "mamba2-2.7b")
     del ssm_model, ssm_prefill, ssm_decode
     torch.cuda.empty_cache()
-    phase_serve(torch, served)                        # the same serve, after the profiler
+    timed("serve", phase_serve, torch, served)        # the same serve, after the profiler
 
     fa = kernels["flash_attention"]["bfloat16"]
     fa_train = kernels["flash_attention"]["bfloat16_train"]
@@ -2188,6 +2490,10 @@ def main() -> int:
     def hd112(rows):
         """The hd-112 rows (bf16, fp32) of one kernel for the kernels line."""
         return {dname: {k_: row[k_] for k_ in keys} for dname, row in rows.items()}
+
+    def moe_shape(row):
+        """A kernel's row at qwen2-moe-a2.7b's shape (bf16) for the kernels line."""
+        return {k_: row[k_] for k_ in keys}
     line = [
         dict(name="flash_attention", route="cuda", dispatch=fa["route"],
              source="src/repro_torch/csrc/flash_attention_wgmma.cu",
@@ -2214,6 +2520,8 @@ def main() -> int:
              train_mesh_launches=train_mesh["flash_launches"],
              hd112=hd112({d: kernels["flash_attention"][f"{d}_hd112"]
                           for d in ("bfloat16", "float32")}),
+             moe_launches=serve_moe["launches"]["flash_attention"],
+             moe_shape=moe_shape(kernels["flash_attention"]["bfloat16_moe"]),
              backward="plain blockwise_attention recompute (FlashAttention), no kernel"),
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attn.cu",
@@ -2233,7 +2541,9 @@ def main() -> int:
              hybrid_launches=serve_hybrid["launches"]["decode_attention"],
              train_ssm_launches=train_ssm["launches"]["decode_attention"],
              hd112=hd112({d: kernels["decode_attention"][f"{d}_hd112"][-1]
-                          for d in ("bfloat16", "float32")})),
+                          for d in ("bfloat16", "float32")}),
+             moe_launches=serve_moe["launches"]["decode_attention"],
+             moe_shape=moe_shape(kernels["decode_attention"]["bfloat16_moe"][-1])),
         dict(name="ssd", route="cuda", dispatch=ssd_main["route"],
              source="src/repro_torch/csrc/ssd_wgmma.cu",
              fp32_source="src/repro_torch/csrc/ssd.cu",
@@ -2257,10 +2567,11 @@ def main() -> int:
              hybrid_launches=serve_hybrid["launches"]["ssd"],
              train_ssm_launches=train_ssm["launches"]["ssd"],
              hybrid_shape={k_: ssd_hyb[k_] for k_ in keys},
+             moe_launches=serve_moe["launches"]["ssd"],
              backward="plain ssd_chunked recompute (SSD), no kernel"),
     ]
     emit("timing", kernel_timings=TIMING, profiler_sessions=PROFILER_SESSIONS[0],
-         script_s=time.perf_counter() - T_START)
+         phase_s=PHASE_S, script_s=time.perf_counter() - T_START)
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -34,13 +34,14 @@ def _count_leaves(tree) -> int:
 @torch.no_grad()
 def params_from_numpy(tree: Mapping, cfg: ArchConfig, device=None,
                       dtype: Optional[torch.dtype] = None) -> torch.nn.Module:
-    """The port's model for ``cfg.family`` (``DecoderLM``, ``MambaLM`` or
-    ``HybridLM``, whose ``shared_attn`` leaves are not stacked) on
-    ``device`` (CUDA by default) holding the reference's weights, cast to
-    each parameter's dtype: ``dtype`` (the config's by default), except the
-    leaves the model keeps in fp32 whatever its dtype (the Mamba2 block's
-    ``a_log``, ``d_skip``, ``dt_bias``), which the reference keeps in fp32
-    too. bf16 arrays (``ml_dtypes``) are widened to fp32 on the way, which
+    """The port's model for ``cfg.family`` (``DecoderLM`` for dense and MoE
+    configs, ``MambaLM`` or ``HybridLM``, whose ``shared_attn`` leaves are
+    not stacked) on ``device`` (CUDA by default) holding the reference's
+    weights, cast to each parameter's dtype: ``dtype`` (the config's by
+    default), except the leaves the model keeps in fp32 whatever its dtype
+    (the Mamba2 block's ``a_log``, ``d_skip``, ``dt_bias``; the MoE layer's
+    ``router`` and ``shared_gate``, beside its nested ``shared`` MLP), which
+    the reference keeps in fp32 too. bf16 arrays (``ml_dtypes``) are widened to fp32 on the way, which
     is exact."""
     model = build_model(cfg, device=device, dtype=dtype)
     used = set()

@@ -22,7 +22,7 @@ class ArchConfig:
     fields of the families it ports."""
 
     name: str
-    family: str  # "dense", "ssm" and "hybrid" build; the others name their ROADMAP item
+    family: str  # "dense", "moe", "ssm" and "hybrid" build; the others name their ROADMAP item
     num_layers: int
     d_model: int
     num_heads: int
@@ -35,6 +35,13 @@ class ArchConfig:
     use_qk_norm: bool = False
     tie_embeddings: bool = False
     rope_theta: float = 10_000.0
+    # --- MoE ---
+    num_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    num_shared_experts: int = 0
+    shared_expert_d_ff: int = 0
+    capacity_factor: float = 1.25
     # --- SSM (Mamba2 / SSD) ---
     ssm_state: int = 0
     ssm_head_dim: int = 64
@@ -61,12 +68,22 @@ class ArchConfig:
         return _round_up(self.vocab_size, 256)
 
     @property
+    def padded_experts(self) -> int:
+        """Experts padded to a multiple of 16 (even shards over an expert
+        axis of 16); the router masks the pads out."""
+        return _round_up(self.num_experts, 16) if self.num_experts else 0
+
+    @property
     def ssm_inner(self) -> int:
         return self.ssm_expand * self.d_model
 
     @property
     def ssm_heads(self) -> int:
         return self.ssm_inner // self.ssm_head_dim if self.ssm_state else 0
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
 
     def layer_kinds(self) -> Tuple[str, ...]:
         """Per-layer block kind for the decoder stack: a hybrid's layer i is
@@ -100,11 +117,12 @@ SHAPES: Dict[str, ShapeConfig] = {
 
 _REGISTRY: Dict[str, ArchConfig] = {}
 
-# Config modules ported so far: the dense ones, mamba2 and zamba2 (the JAX
-# registry loads twelve modules; the MoE, enc-dec and VLM ones wait for their
-# families, ROADMAP item 11).
+# Config modules ported so far: the dense ones, mamba2, zamba2 and the two
+# MoE ones (the JAX registry loads twelve modules; the enc-dec and VLM ones
+# wait for their families, ROADMAP item 11).
 _MODULES = ("deepseek_67b", "qwen3_0_6b", "nemotron_4_15b", "gemma_2b",
-            "mamba2_2_7b", "zamba2_7b", "paper_workloads")
+            "mamba2_2_7b", "zamba2_7b", "qwen3_moe_30b_a3b", "qwen2_moe_a2_7b",
+            "paper_workloads")
 
 
 def register(cfg: ArchConfig) -> ArchConfig:
@@ -130,8 +148,10 @@ def get_arch(name: str) -> ArchConfig:
 
 def reduce_for_smoke(cfg: ArchConfig) -> ArchConfig:
     """Shrink a production config to a CPU-smoke-testable size, by the rules
-    of ``repro.configs.reduce_for_smoke`` for the dense, SSM and hybrid
-    families: a hybrid keeps 4 layers and its attention cadence (every 2)."""
+    of ``repro.configs.reduce_for_smoke`` for the dense, MoE, SSM and hybrid
+    families: an MoE keeps 8 experts (padded to 16), top-k of at most 2 and
+    its shared expert; a hybrid keeps 4 layers and its attention cadence
+    (every 2)."""
     if cfg.num_kv_heads == 1:
         kv_heads = 1
     elif cfg.num_kv_heads < cfg.num_heads:
@@ -143,6 +163,10 @@ def reduce_for_smoke(cfg: ArchConfig) -> ArchConfig:
         num_layers=min(cfg.num_layers, 4 if cfg.family == "hybrid" else 2),
         d_model=64, num_heads=4, num_kv_heads=kv_heads, head_dim=16,
         d_ff=128 if cfg.d_ff else 0, vocab_size=256)
+    if cfg.is_moe:
+        changes.update(num_experts=8, top_k=min(cfg.top_k, 2), moe_d_ff=32)
+        if cfg.num_shared_experts:
+            changes.update(num_shared_experts=2, shared_expert_d_ff=32)
     if cfg.ssm_state:
         changes.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=8)
     if cfg.family == "hybrid":

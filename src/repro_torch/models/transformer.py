@@ -1,7 +1,9 @@
-"""The dense decoder-only LM, the pure SSM (Mamba2) LM and the hybrid
-(Zamba2) LM (ports of ``_build_decoder_lm``, ``_build_ssm_lm`` and
+"""The decoder-only LM (dense or MoE), the pure SSM (Mamba2) LM and the
+hybrid (Zamba2) LM (ports of ``_build_decoder_lm``, ``_build_ssm_lm`` and
 ``_build_hybrid_lm`` in ``repro.models.transformer``): ``init``,
 ``forward``, ``loss``, ``prefill``, ``decode_step`` and ``cache_specs``.
+An MoE config's layers hold ``moe`` (``models.moe``) where a dense one's
+hold ``mlp``, and its loss adds the layers' summed balance loss.
 
 Parameters are built frozen (``requires_grad=False``), which serving needs;
 ``model.requires_grad_(True)`` makes them trainable (``train.state.init_state``
@@ -30,14 +32,13 @@ import torch.nn as nn
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import mamba2
+from repro_torch.models import mamba2, moe
 from repro_torch.models.layers import (chunked_xent, embed_init, embed_lookup,
                                        mlp_apply, mlp_init, rms_norm, unembed)
 from repro_torch.models.modes import run_layer, unshard_layer_params
 
 # Families the port cannot build yet, with the ROADMAP §1 item that ports them.
 _NOT_PORTED = {
-    "moe": "ROADMAP §1 item 11 (models/moe.py)",
     "vlm": "ROADMAP §1 item 11 (the VLM patch path)",
     "encdec": "ROADMAP §1 item 11 (_build_encdec)",
 }
@@ -64,7 +65,8 @@ def _param(shape, dtype, device) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """RMSNorm -> GQA self-attention -> residual -> RMSNorm -> MLP -> residual."""
+    """RMSNorm -> GQA self-attention -> residual -> RMSNorm -> MLP (the MoE
+    layer for an MoE config) -> residual."""
 
     def __init__(self, cfg: ArchConfig, dtype, device):
         super().__init__()
@@ -73,37 +75,58 @@ class Block(nn.Module):
         self.ln1 = _param((d,), dtype, device)
         self.attn = attn.attn_init(cfg, dtype, device)
         self.ln2 = _param((d,), dtype, device)
-        mlp = {"w_up": _param((d, cfg.d_ff), dtype, device),
-               "w_down": _param((cfg.d_ff, d), dtype, device)}
-        if cfg.mlp_type in ("swiglu", "geglu"):
-            mlp["w_gate"] = _param((d, cfg.d_ff), dtype, device)
-        self.mlp = nn.ParameterDict(mlp)
+        if cfg.is_moe:
+            self.moe = moe.MoEParams(cfg, dtype, device)
+        else:
+            mlp = {"w_up": _param((d, cfg.d_ff), dtype, device),
+                   "w_down": _param((cfg.d_ff, d), dtype, device)}
+            if cfg.mlp_type in ("swiglu", "geglu"):
+                mlp["w_gate"] = _param((d, cfg.d_ff), dtype, device)
+            self.mlp = nn.ParameterDict(mlp)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> None:
         self.ln1.zero_()
         self.ln2.zero_()
         attn.init_attn(self.attn, self.cfg, generator)
-        mlp_init(generator, self.mlp, self.cfg.d_model, self.cfg.d_ff)
+        if self.cfg.is_moe:
+            moe.moe_init(self.moe, self.cfg, generator)
+        else:
+            mlp_init(generator, self.mlp, self.cfg.d_model, self.cfg.d_ff)
+
+    def _ffn(self, p: Dict, h: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The MLP of ``p``, or its MoE layer: (output, the MoE balance loss
+        or None)."""
+        if "moe" in p:
+            return moe.moe_apply(p["moe"], self.cfg, h)
+        return mlp_apply(p["mlp"], h, self.cfg.mlp_type), None
 
     def _mlp(self, x: torch.Tensor) -> torch.Tensor:
-        return x + mlp_apply(self.mlp, rms_norm(x, self.ln2), self.cfg.mlp_type)
+        return x + self._ffn(self.layer_params(), rms_norm(x, self.ln2))[0]
 
     def layer_params(self) -> Dict:
         """The layer's parameters as the reference's tree."""
-        return {"ln1": self.ln1, "attn": dict(self.attn.items()), "ln2": self.ln2,
-                "mlp": dict(self.mlp.items())}
+        p = {"ln1": self.ln1, "attn": dict(self.attn.items()), "ln2": self.ln2}
+        if self.cfg.is_moe:
+            p["moe"] = self.moe.tree()
+        else:
+            p["mlp"] = dict(self.mlp.items())
+        return p
 
-    def body(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
-        """The layer on the parameters ``p`` (full tensors)."""
+    def body(self, p: Dict, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The layer on the parameters ``p`` (full tensors): (output, the
+        MoE balance loss or None), as the reference's ``_attn_block``
+        returns its carry."""
         x = x + attn.self_attention(p["attn"], self.cfg, rms_norm(x, p["ln1"]))
-        return x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"]), self.cfg.mlp_type)
+        out, aux = self._ffn(p, rms_norm(x, p["ln2"]))
+        return x + out, aux
 
-    def apply_layer(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    def apply_layer(self, p: Dict, x: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The reference's ``_attn_block``: the FSDP gather, then the layer."""
         return self.body(unshard_layer_params(p, self.cfg), x)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         return run_layer(self.apply_layer, self.layer_params(), x)
 
     def prefill(self, x, k_cache, v_cache) -> torch.Tensor:
@@ -134,7 +157,8 @@ def _input_specs(model, shape) -> Dict:
 
 
 class DecoderLM(nn.Module):
-    """Dense decoder LM over the padded vocabulary, tied or untied head."""
+    """Dense or MoE decoder LM over the padded vocabulary, tied or untied
+    head."""
 
     def __init__(self, cfg: ArchConfig, device=None, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -176,27 +200,30 @@ class DecoderLM(nn.Module):
     def _head(self) -> torch.Tensor:
         return self.embed["w"] if self.cfg.tie_embeddings else self.lm_head["w"]
 
+    def _hidden(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The final-normed hidden states of ``tokens`` and the layers'
+        summed MoE balance loss (0 for a dense model)."""
+        x = embed_lookup(self.embed["w"], tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for blk in self.blocks:
+            x, lb = blk(x)
+            if lb is not None:
+                aux = aux + lb
+        return rms_norm(x, unshard_layer_params(self.final_norm)), aux
+
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, S) -> fp32 logits (B, S, padded_vocab), causal."""
-        x = embed_lookup(self.embed["w"], tokens)
-        for blk in self.blocks:
-            x = blk(x)
-        return unembed(self._head(), rms_norm(x, unshard_layer_params(self.final_norm)))
+        return unembed(self._head(), self._hidden(tokens)[0])
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
         """Next-token loss of ``batch["tokens"]`` (B, S+1): the first S
         tokens in, the last S as labels, the tied (or untied) head through
         ``chunked_xent``. Returns (total, {"xent", "aux"}) with total = xent +
-        0.01 * aux, as the reference; aux (the MoE balance loss) is 0 for a
-        dense model."""
+        0.01 * aux, as the reference; aux is the layers' summed MoE balance
+        loss, 0 for a dense model."""
         tokens = batch["tokens"].long()
-        inp, labels = tokens[:, :-1], tokens[:, 1:]
-        x = embed_lookup(self.embed["w"], inp)
-        for blk in self.blocks:
-            x = blk(x)
-        x = rms_norm(x, unshard_layer_params(self.final_norm))
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        xent = chunked_xent(self._head(), x, labels)
+        x, aux = self._hidden(tokens[:, :-1])
+        xent = chunked_xent(self._head(), x, tokens[:, 1:])
         return xent + 0.01 * aux, {"xent": xent, "aux": aux}
 
     def input_specs(self, shape) -> Dict:
@@ -418,7 +445,7 @@ class HybridLM(MambaLM):
                           x: torch.Tensor) -> torch.Tensor:
         """A ``mamba_attn`` layer: the Mamba2 layer, then the shared block on
         its gathered parameters ``shared``."""
-        return self.shared_attn.body(shared, blk.apply_layer(p, x))
+        return self.shared_attn.body(shared, blk.apply_layer(p, x))[0]
 
     def _hidden(self, tokens: torch.Tensor) -> torch.Tensor:
         x = embed_lookup(self.embed["w"], tokens)
@@ -478,7 +505,7 @@ class HybridLM(MambaLM):
         return self._logits(x[:, 0]), cache
 
 
-_MODELS = {"dense": DecoderLM, "ssm": MambaLM, "hybrid": HybridLM}
+_MODELS = {"dense": DecoderLM, "moe": DecoderLM, "ssm": MambaLM, "hybrid": HybridLM}
 
 
 def build_model(cfg: ArchConfig, device=None, dtype: Optional[torch.dtype] = None):
@@ -497,3 +524,15 @@ def build_model(cfg: ArchConfig, device=None, dtype: Optional[torch.dtype] = Non
 def param_count(cfg: ArchConfig) -> int:
     model = build_model(cfg, device="meta")
     return sum(p.numel() for p in model.parameters())
+
+
+def active_param_count(cfg: ArchConfig) -> int:
+    """Parameters touched per token: for an MoE, every parameter but the
+    routed experts', plus top_k routed experts a layer (the padded experts
+    counted among those not touched, as the reference counts them)."""
+    total = param_count(cfg)
+    if not cfg.is_moe:
+        return total
+    per_expert = 3 * cfg.d_model * cfg.moe_d_ff
+    return (total - cfg.num_layers * cfg.padded_experts * per_expert
+            + cfg.num_layers * cfg.top_k * per_expert)

@@ -137,13 +137,23 @@ def build_train_step(
     "param_gather", "backup"), synchronising the device around each.
 
     A "model" axis larger than 1 raises: tensor-parallel execution is not
-    ported yet (ROADMAP §1 item 9a); its specs are computed all the same.
+    ported yet (ROADMAP §1 item 9a); its specs are computed all the same. So
+    does an MoE config on more than one batch rank (ROADMAP §1 item 9c):
+    under the reference's jit ``moe_apply`` routes the global batch, so its
+    groups, capacity (which assignments are dropped) and balance loss follow
+    from the global token count, where a rank here would route its own rows.
     """
     if shd.axis_size(mesh, "model") > 1:
         raise NotImplementedError(
             "tensor-parallel execution over the 'model' axis is not ported yet "
             "(ROADMAP §1 item 9a): build the mesh with model=1")
     cfg = model.cfg
+    if cfg.is_moe and shd.dp_size(mesh) > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE routing over the global batch of {shd.dp_size(mesh)} "
+            "batch ranks is not ported yet (ROADMAP §1 item 9c): a rank would route "
+            "its own rows, with other groups, capacity and balance loss than the "
+            "reference's; build the mesh with one batch rank")
     plan = make_state_plan(model, mesh, fsdp_params=fsdp_params)
     razor = razor_plan(plan.state_specs["opt"], plan.opt_pspecs,
                        plan.state_specs["params"], mesh, zero_axis=backup_axis)

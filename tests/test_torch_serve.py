@@ -150,11 +150,22 @@ def test_build_model_without_device_raises_without_cuda(monkeypatch):
         params_from_numpy({}, get_arch("qwen3-0.6b"))
 
 
-@pytest.mark.parametrize("family", ["moe", "encdec", "vlm"])
+@pytest.mark.parametrize("family", ["encdec", "vlm"])
 def test_unported_families_raise(family):
     cfg = dataclasses.replace(get_arch("qwen3-0.6b"), family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen3-moe-30b-a3b"])
+def test_moe_configs_build_a_decoder_whose_blocks_hold_moe(arch):
+    """The MoE family builds (it raised until it was ported): a
+    ``DecoderLM`` whose every block holds the MoE layer and no MLP."""
+    from repro_torch.models import DecoderLM
+    from repro_torch.models.moe import MoEParams
+    model = build_model(get_arch(arch), device="meta")
+    assert isinstance(model, DecoderLM) and len(model.blocks) == get_arch(arch).num_layers
+    assert all(isinstance(b.moe, MoEParams) and not hasattr(b, "mlp") for b in model.blocks)
 
 
 def test_full_config_param_count():
