@@ -85,6 +85,27 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 warmup) within 1e-5 relative, m (0.1 of the gradient) of every
                 step within the slice's 2e-4, each against its leaf's largest
                 magnitude; v and step 2's master are reported.
+7c. train_tp -- the tensor-parallel step (train.step.build_train_step on a
+                (data 2, model 2) mesh: the Megatron split of the layer bodies,
+                the vocab-parallel embedding and cross-entropy) as four gloo
+                ranks sharing the card, as train_mesh. (a) Full qwen3-0.6b,
+                bf16, FSDP and the instant backup, 8 x 1024 tokens a step (4 x
+                1024 a data rank), 3 steps: on every rank and step the
+                all-reduces over "model" the mesh counted equal
+                train.step.model_all_reduces in calls and bytes, 2 x 28 x 3
+                flash launches all on wgmma at q (4, 1024, 8, 128) (the
+                rank's 8 of 16 heads) and none of decode or SSD, finite
+                losses, the first step's loss and global gradient norm within
+                bf16 tolerances (TP_VS_MESH) of train_mesh (a)'s on (4, 1) from
+                the same weights and batches, and the ring's bytes equal to the
+                rank's blocks of the razor-unique leaves (a model group's sum
+                the razor's per-device bytes plus the unique leaves that
+                "model" does not split, once more). Prints per step the median
+                over ranks of the step time and its parts (tp_reduce among
+                them), the global gradient norm, device memory and every rank's
+                host RSS. (b) Full width cut to 2
+                layers, fp32, 2 steps on (2, 2) against one NCCL rank, held as
+                train_mesh's (b).
 8. scenarios -- the port's adversarial scenario fleet (runtime/scenarios.py).
                 First all 15 corpus scenarios at the reference's scale (qwen3
                 reduced, fp32, seq 16), each built and replayed as run_scenario
@@ -138,7 +159,10 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 SSD B=8, S=1000 (ragged last chunk) and 1024, H=80, P=64, N=128,
                 chunk 256: the full ops.ssd against ssd_chunked, bf16 on the
                 wgmma route, once more with an initial state, and fp32, whose
-                intra-chunk kernel is also held to its three outputs), with the
+                intra-chunk kernel is also held to its three outputs; flash at
+                a rank's tensor-parallel shape, q (4, 1024, 8, 128), k/v (4,
+                1024, 4, 128), in both dtypes; the SSD at a rank's 40 (mamba2)
+                and 56 (zamba2) heads, 4 x 1024, bf16), with the
                 kernel's, the plain version's and (for attention) the library
                 call's times
                 (F.scaled_dot_product_attention, a yardstick only), the card's
@@ -155,7 +179,9 @@ slices and the serve runs come before any phase that opens torch.profiler:
 Then a ``timing`` line (kernel timings taken by CUPTI and by CUDA events, the
 host seconds of each phase),
 one {"kernels": [...]} line (each kernel's launches in every serve and training
-phase, ``moe_launches`` among them, and its rows at the other shapes), the card's name and power limit, and last
+phase, ``moe_launches`` and ``train_tp_launches`` among them, and its rows at the
+other shapes, ``tp_shape`` / ``tp_shapes`` among them), the card's name and power
+limit, and last
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -184,6 +210,13 @@ SSD_HYBRID = dict(b=8, h=112, p=64, n=64, chunk=256, seqs=(1000,))
 # bf16
 PREFILL_MOE = dict(b=8, s=1000, h=16, kh=16, hd=128)
 DECODE_MOE = dict(b=8, t=1032, h=16, kh=16, hd=128, cur_lens=(1032,))
+# a rank's attention in the tensor-parallel step (train_tp): qwen3-0.6b's 16 q /
+# 8 kv heads over model 2, 4 rows of 1024 (a data rank of 8)
+PREFILL_TP = dict(b=4, s=1024, h=8, kh=4, hd=128)
+# a rank's SSD under tensor parallelism at model 2: mamba2-2.7b's 80 heads and
+# zamba2-7b's 112, at the same rows
+SSD_TP = dict(SSD, b=4, h=40, seqs=(1024,))
+SSD_HYBRID_TP = dict(SSD_HYBRID, b=4, h=56, seqs=(1024,))
 SERVE = dict(batch=8, prompt=1000, gen=32)
 SSM_SLICE = dict(batch=2, prompt=600, steps=4)
 # the SSD kernel's chunk states and decay against the plain version: the
@@ -454,15 +487,17 @@ def phase_kernels(torch, F):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     # the serve shape in both dtypes, the training step's (S=1024) in bf16,
-    # zamba2-7b's serve shape (hd 112) in both dtypes and qwen2-moe-a2.7b's
-    # (MHA at hd 128) in bf16
+    # zamba2-7b's serve shape (hd 112) in both dtypes, qwen2-moe-a2.7b's
+    # (MHA at hd 128) in bf16 and a rank's of the tensor-parallel step in both
     for key, dtype, p in (("bfloat16", torch.bfloat16, PREFILL),
                           ("float32", torch.float32, PREFILL),
                           ("bfloat16_train", torch.bfloat16,
                            dict(PREFILL, s=TRAIN["seq_len"])),
                           ("bfloat16_hd112", torch.bfloat16, PREFILL_HD112),
                           ("float32_hd112", torch.float32, PREFILL_HD112),
-                          ("bfloat16_moe", torch.bfloat16, PREFILL_MOE)):
+                          ("bfloat16_moe", torch.bfloat16, PREFILL_MOE),
+                          ("bfloat16_tp", torch.bfloat16, PREFILL_TP),
+                          ("float32_tp", torch.float32, PREFILL_TP)):
         dname = str(dtype).split(".")[-1]
         q = rand((p["b"], p["s"], p["h"], p["hd"]), dtype)
         k = rand((p["b"], p["s"], p["kh"], p["hd"]), dtype)
@@ -817,7 +852,8 @@ def phase_ssd_kernel(torch) -> dict:
     shape (S=1000: the last 256-row chunk ragged) and at S=1024: bf16 on the
     tensor-core route (also with an initial state), fp32 on the CUDA-core
     route, whose intra-chunk kernel is also held to its three outputs; and
-    bf16 at zamba2-7b's serve shape (112 heads, N 64)."""
+    bf16 at zamba2-7b's serve shape (112 heads, N 64) and at a rank's share
+    of both models' heads at model 2 (40 and 56 heads, 4 x 1024)."""
     from repro_torch.kernels import ops, ssd
     from repro_torch.kernels.ref import ssd_intra_chunk_ref, ssd_ref
     from repro_torch.roofline.hw import bound_seconds
@@ -827,6 +863,9 @@ def phase_ssd_kernel(torch) -> dict:
     cases = [("mamba2-2.7b", SSD, s, dtype) for s in SSD["seqs"]
              for dtype in (torch.bfloat16, torch.float32)]
     cases += [("zamba2-7b", SSD_HYBRID, s, torch.bfloat16) for s in SSD_HYBRID["seqs"]]
+    cases += [(f"{model}/tp2", k, s, torch.bfloat16)
+              for model, k in (("mamba2-2.7b", SSD_TP), ("zamba2-7b", SSD_HYBRID_TP))
+              for s in k["seqs"]]
     for model, k, s, dtype in cases:
         b, h, p, n, lc = k["b"], k["h"], k["p"], k["n"], k["chunk"]
         dname = str(dtype).split(".")[-1]
@@ -1364,6 +1403,16 @@ TRAIN_MESH_B = dict(arch="qwen3-0.6b", smoke=False, layers=2, dtype="float32", w
                     grad_tol=2e-4)
 MESH_NOTE = ("gloo through the host on one shared card: the four ranks share one H100 and "
              "every collective crosses the host; not the figure of a ring on NVLink")
+# the tensor-parallel step on a (data 2, model 2) mesh of four gloo ranks
+# sharing the card: (a) full qwen3-0.6b, bf16, FSDP and the instant backup,
+# 8 x 1024 tokens a step (4 x 1024 a data rank), 3 steps; (b) full width cut to
+# 2 layers, fp32, 2 steps, against one rank of the same step over NCCL
+TRAIN_TP = dict(TRAIN_MESH, model=2, timeout_s=600)
+TRAIN_TP_B = dict(TRAIN_MESH_B, model=2)
+# (a)'s first step against train_mesh (a)'s (same weights and batches on
+# (4, 1)), relative: bf16 activations in two reduction orders, which on an
+# H100 gave a loss 8.6e-6 and a global gradient norm 2.6e-5 apart
+TP_VS_MESH = dict(loss_rtol=1e-4, grad_norm_rtol=1e-3)
 
 
 def run_children(name: str, jobs: list, timeout_s: float) -> None:
@@ -1403,9 +1452,10 @@ def _mesh_cfg(t: dict):
 
 
 def _mesh_setup(rank: int, world: int, t: dict, rdv: str, backend: str, device: str):
-    """One rank's process group and mesh, the step with and without FSDP,
-    a maker of the sharded initial state (weights from a host generator
-    seeded with t["seed"], as SimCluster draws them) and this rank's rows of
+    """One rank's process group and mesh (data world / t["model"], model
+    t["model"]; (1, 1) for one rank), the step with and without FSDP, a
+    maker of the sharded initial state (weights from a host generator seeded
+    with t["seed"], as SimCluster draws them) and this rank's rows of
     t["steps"] global batches."""
     import numpy as np
     import torch
@@ -1429,7 +1479,8 @@ def _mesh_setup(rank: int, world: int, t: dict, rdv: str, backend: str, device: 
     cfg = _mesh_cfg(t)
     model = build_model(cfg, device="cpu")
     model.init(torch.Generator().manual_seed(t["seed"]))
-    mesh = make_host_mesh(data=world, model=1)
+    model_axis = t.get("model", 1) if world > 1 else 1
+    mesh = make_host_mesh(data=world // model_axis, model=model_axis)
     shape = ShapeConfig("train_mesh", t["seq_len"], t["global_batch"], "train")
     hp = AdamWConfig(warmup_steps=2, total_steps=100)          # SimCluster's
     arts = {fsdp: build_train_step(model, mesh, hp, fsdp_params=fsdp, shape=shape,
@@ -1443,7 +1494,7 @@ def _mesh_setup(rank: int, world: int, t: dict, rdv: str, backend: str, device: 
     def make_state(fsdp: bool):
         return shard_init_state(param_tree(model), arts[fsdp].plan, mesh, device=device)
 
-    return cfg, mesh, arts, make_state, local
+    return cfg, mesh, arts, make_state, local, model
 
 
 def _digests(torch, tree, piece: int = 1 << 26) -> list:
@@ -1491,8 +1542,8 @@ def mesh_rank_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
     from repro_torch.parallel.sharding import is_spec
     from repro_torch.tree import tree_flatten, tree_map
 
-    cfg, mesh, arts, make_state, local = _mesh_setup(rank, world, t, f"{tmp}/rdv_a",
-                                                     "gloo", device)
+    cfg, mesh, arts, make_state, local, _ = _mesh_setup(rank, world, t, f"{tmp}/rdv_a",
+                                                        "gloo", device)
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     clone = lambda tree: tree_map(lambda x: x.clone(), tree, is_leaf=lambda v: v is None)
@@ -1512,6 +1563,7 @@ def mesh_rank_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
         sync()
         records.append(dict(step=i + 1, step_ms=(time.perf_counter() - t0) * 1e3,
                             loss=float(metrics["loss"]), lr=float(metrics["lr"]),
+                            grad_norm=float(art.step_fn.last_grad_norm),
                             **_timing_ms(art)))
     launches = read_launches()
     flash_routes = dict(fa.flash_attention.routes)
@@ -1592,8 +1644,8 @@ def mesh_rank_b(rank: int, world: int, tmp: str, t: dict, device: str, backend: 
     from repro_torch.parallel.sharding import join_tree
     from repro_torch.tree import keystr, tree_flatten_with_path
 
-    _, mesh, arts, make_state, local = _mesh_setup(rank, world, t, f"{tmp}/rdv_b{world}",
-                                                   backend, device)
+    _, mesh, arts, make_state, local, _ = _mesh_setup(rank, world, t,
+                                                      f"{tmp}/rdv_b{world}", backend, device)
     art = arts[True]
     state, out = make_state(True), []
     for i, tokens in enumerate(local):
@@ -1642,19 +1694,28 @@ def phase_train_mesh(torch, t: dict = TRAIN_MESH, tb: dict = TRAIN_MESH_B,
         a_s = time.perf_counter() - t0
         row_a = dict(_train_mesh_row(recs, t, a_s, device), parent_host_rss_gb=parent_rss)
         emit("train_mesh", **row_a)
-        t0 = time.perf_counter()
-        run_children("train_mesh (b), one rank", [(mesh_rank_b, (0, 1, tmp, tb, device,
-                                                                  backend_b))],
-                     tb["timeout_s"])
-        run_children("train_mesh (b), sharded",
-                     [(mesh_rank_b, (r, tb["world"], tmp, tb, device, "gloo"))
-                      for r in range(tb["world"])], tb["timeout_s"])
-        with open(f"{tmp}/b.json") as f:
-            steps_b = json.load(f)
-        b_s = time.perf_counter() - t0
+        row_b = _against_one_rank("train_mesh", tb, device, backend_b, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    emit("train_mesh_world1", **row_b)
+    return row_a
 
+
+def _against_one_rank(phase: str, tb: dict, device: str, backend_b: str, tmp: str) -> dict:
+    """Part (b) of ``phase``: tb["steps"] FSDP steps on tb["world"] gloo
+    ranks against one rank of the same step over ``backend_b``, from the
+    same weights and batches; fails the run where they differ, else returns
+    the printed row."""
+    t0 = time.perf_counter()
+    run_children(f"{phase} (b), one rank", [(mesh_rank_b, (0, 1, tmp, tb, device,
+                                                            backend_b))],
+                 tb["timeout_s"])
+    run_children(f"{phase} (b), sharded",
+                 [(mesh_rank_b, (r, tb["world"], tmp, tb, device, "gloo"))
+                  for r in range(tb["world"])], tb["timeout_s"])
+    with open(f"{tmp}/b.json") as f:
+        steps_b = json.load(f)
+    b_s = time.perf_counter() - t0
     # (b): the losses of every step and the master of the first (lr 0 under
     # the warmup) within tb["tol"] of one NCCL rank, and m (0.1 of the
     # gradient at step 1) within tb["grad_tol"], the training slice's fp32
@@ -1675,26 +1736,27 @@ def phase_train_mesh(torch, t: dict = TRAIN_MESH, tb: dict = TRAIN_MESH_B,
             if limit is not None and e > limit:
                 bad.append(f"step {st['step']} {k}: {e} (limit {limit})")
     if bad:
-        fail(f"train_mesh (b): sharded against one {backend_b} rank: " + "; ".join(bad))
-    row_b = dict(config=f"{_mesh_cfg(tb).name}, {tb['layers']} layers, fp32",
-                 sharded=f"{tb['world']} gloo ranks", against=f"one rank over {backend_b}",
-                 tol=tol, grad_tol=grad_tol, seconds=b_s,
-                 steps=[dict(step=st["step"], lr=st["lr"], loss=st["loss"],
-                             single_loss=st["single_loss"],
-                             loss_rel_err=abs(st["loss"] - st["single_loss"])
-                             / abs(st["single_loss"]),
-                             **{f"{part}_rel_err_max": max(e for k, e in st["err"].items()
-                                                           if k.startswith(part + "|"))
-                                for part in ("master", "m", "v")},
-                             master_max_abs_diff_over_lr=(st["master_max_abs_diff"] / st["lr"]
-                                                          if st["lr"] else 0.0))
-                        for st in steps_b],
-                 note="held: losses and the master of step 1 (lr 0) within tol; m (0.1 "
-                      "of the gradient) of every step within grad_tol, the fp32 gradient "
-                      "tolerance of the training slice; v (the gradients squared) and the "
-                      "later master are reported")
-    emit("train_mesh_world1", **row_b)
-    return row_a
+        fail(f"{phase} (b): sharded against one {backend_b} rank: " + "; ".join(bad))
+    model_axis = tb.get("model", 1)
+    return dict(config=f"{_mesh_cfg(tb).name}, {tb['layers']} layers, fp32",
+                sharded=f"{tb['world']} gloo ranks",
+                mesh=f"data={tb['world'] // model_axis}, model={model_axis}",
+                against=f"one rank over {backend_b}",
+                tol=tol, grad_tol=grad_tol, seconds=b_s,
+                steps=[dict(step=st["step"], lr=st["lr"], loss=st["loss"],
+                            single_loss=st["single_loss"],
+                            loss_rel_err=abs(st["loss"] - st["single_loss"])
+                            / abs(st["single_loss"]),
+                            **{f"{part}_rel_err_max": max(e for k, e in st["err"].items()
+                                                          if k.startswith(part + "|"))
+                               for part in ("master", "m", "v")},
+                            master_max_abs_diff_over_lr=(st["master_max_abs_diff"] / st["lr"]
+                                                         if st["lr"] else 0.0))
+                       for st in steps_b],
+                note="held: losses and the master of step 1 (lr 0) within tol; m (0.1 "
+                     "of the gradient) of every step within grad_tol, the fp32 gradient "
+                     "tolerance of the training slice; v (the gradients squared) and the "
+                     "later master are reported")
 
 
 def _train_mesh_row(recs: list, t: dict, a_s: float, device: str) -> dict:
@@ -1737,6 +1799,7 @@ def _train_mesh_row(recs: list, t: dict, a_s: float, device: str) -> dict:
                fsdp_params=True, instant_ckpt=True, global_batch=t["global_batch"],
                seq_len=t["seq_len"], tokens_per_rank=t["global_batch"] // t["world"]
                * t["seq_len"], steps=steps, losses=losses,
+               grad_norms=[s["grad_norm"] for s in recs[0]["records"]],
                step_ms=per_step("step_ms"), grad_reduce_ms=per_step("grad_reduce_ms"),
                param_gather_ms=per_step("param_gather_ms"),
                neighbor_backup_ms=per_step("backup_ms"),
@@ -1757,6 +1820,192 @@ def _train_mesh_row(recs: list, t: dict, a_s: float, device: str) -> dict:
                drill_bitwise=True, first_batch_loss_after=recs[0]["first_batch_loss_after"],
                seconds=a_s)
     return row
+
+
+def tp_rank_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
+    """Part (a) of train_tp on one rank; its record goes to tmp/tp_<rank>.json:
+    per step its time, parts and the all-reduces over "model" the mesh
+    counted beside ``model_all_reduces``, the flash calls' q shapes, the
+    kernel launches, the ring's bytes, device memory and host RSS."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.step import model_all_reduces
+    from repro_torch.tree import tree_flatten
+
+    cfg, mesh, arts, make_state, local, model = _mesh_setup(rank, world, t, f"{tmp}/rdv_tp",
+                                                            "gloo", device)
+    q_shapes = set()
+    flash = ops.flash_attention
+
+    def recording(q, *args, **kw):
+        q_shapes.add(tuple(q.shape))
+        return flash(q, *args, **kw)
+    ops.flash_attention = recording
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    art = arts[True]
+    state = make_state(True)
+    sync()
+    rss = {"setup": host_rss_gb()}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    rows = local[0].shape[0]
+    formula = model_all_reduces(model, mesh, rows, t["seq_len"], fsdp_params=True)
+    records, backup = [], None
+    reset_launches()
+    for i, tokens in enumerate(local):
+        mesh.reset_counts()
+        t0 = time.perf_counter()
+        state, metrics, backup = art.step_fn(state, {"tokens": tokens})
+        sync()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        records.append(dict(step=i + 1, step_ms=step_ms, loss=float(metrics["loss"]),
+                            lr=float(metrics["lr"]),
+                            grad_norm=float(art.step_fn.last_grad_norm),
+                            model_all_reduces=mesh.counts.get(("all_reduce", ("model",)),
+                                                              [0, 0]),
+                            **_timing_ms(art)))
+    launches = read_launches()
+    sent = sum(x.numel() * x.element_size()
+               for x in tree_flatten(backup, lambda v: v is None)[0] if x is not None)
+    # what the specs give: this rank's blocks of the razor-unique leaves, and
+    # the bytes a data rank of those leaves that "model" does not split (each
+    # model rank sends them: the razor's per-device figure counts them once)
+    unique = [(spec, leaf) for spec, leaf, keep in zip(
+        tree_flatten(art.plan.opt_pspecs, shd.is_spec)[0],
+        tree_flatten(art.plan.state_specs["opt"])[0],
+        tree_flatten(art.razor.unique_mask)[0]) if keep]
+    block_bytes = sum(math.prod(shd.block_shape(spec, tuple(leaf.shape), mesh))
+                      * leaf.dtype.itemsize for spec, leaf in unique)
+    model_replicated = sum(math.prod(leaf.shape) * leaf.dtype.itemsize for spec, leaf in unique
+                           if shd.sharded_dim(spec, "model") is None) // mesh.shape["data"]
+    rec = dict(rank=rank, coords=mesh.coords, records=records, formula=list(formula),
+               block_bytes=block_bytes, model_replicated_bytes=model_replicated,
+               launches=launches, flash_routes=dict(fa.flash_attention.routes),
+               flash_q_shapes=sorted(q_shapes),
+               peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+               ring_bytes_sent=sent, razor_bytes=art.razor.unique_bytes_per_device_ring,
+               host_rss_gb=dict(rss, steps=host_rss_gb()))
+    with open(f"{tmp}/tp_{rank}.json", "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+def phase_train_tp(torch, mesh_row: dict, t: dict = TRAIN_TP, tb: dict = TRAIN_TP_B,
+                   device: str = "cuda", backend_b: str = "nccl") -> dict:
+    """The tensor-parallel step on (data 2, model 2): parts (a) and (b);
+    ``mesh_row`` is train_mesh (a)'s row, the same run on (4, 1)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    parent_rss = host_rss_gb()
+    try:
+        t0 = time.perf_counter()
+        run_children("train_tp (a)", [(tp_rank_a, (r, t["world"], tmp, t, device))
+                                      for r in range(t["world"])], t["timeout_s"])
+        recs = []
+        for r in range(t["world"]):
+            with open(f"{tmp}/tp_{r}.json") as f:
+                recs.append(json.load(f))
+        row_a = dict(_train_tp_row(recs, t, time.perf_counter() - t0, device, mesh_row),
+                     parent_host_rss_gb=parent_rss)
+        emit("train_tp", **row_a)
+        row_b = _against_one_rank("train_tp", tb, device, backend_b, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("train_tp_world1", **row_b)
+    return row_a
+
+
+def _train_tp_row(recs: list, t: dict, a_s: float, device: str, mesh_row: dict) -> dict:
+    """Part (a)'s checks (each failing the run) and its printed fields."""
+    import numpy as np
+
+    cfg = _mesh_cfg(t)
+    steps, data = t["steps"], t["world"] // t["model"]
+    rows = t["global_batch"] // data
+    q_shape = [rows, t["seq_len"], cfg.num_heads // t["model"], cfg.resolved_head_dim]
+    flash = [r["launches"]["flash_attention"] for r in recs]
+    expected = 2 * cfg.num_layers * steps          # the forward and FSDP's recompute
+    if device == "cuda" and (
+            flash != [expected] * len(recs)
+            or any(r["launches"]["decode_attention"] or r["launches"]["ssd"] for r in recs)
+            or any(v for r in recs for k, v in r["flash_routes"].items() if k != "wgmma")
+            or any(r["flash_q_shapes"] != [q_shape] for r in recs)):
+        fail(f"train_tp: kernel launches {[r['launches'] for r in recs]}, flash routes "
+             f"{[r['flash_routes'] for r in recs]}, q shapes "
+             f"{[r['flash_q_shapes'] for r in recs]}; expected {expected} flash launches in "
+             f"every rank, all on wgmma at q {q_shape}, and no decode or SSD launch")
+    if not all(math.isfinite(s["loss"]) for r in recs for s in r["records"]):
+        fail(f"train_tp: losses {[[s['loss'] for s in r['records']] for r in recs]}")
+    # the same weights and global batches as train_mesh (a) on (4, 1): the
+    # first step's loss and global gradient norm agree within bf16 tolerances
+    first, ref = recs[0]["records"][0], mesh_row
+    vs_mesh = dict(loss_rel_err=abs(first["loss"] - ref["losses"][0]) / abs(ref["losses"][0]),
+                   grad_norm_rel_err=abs(first["grad_norm"] - ref["grad_norms"][0])
+                   / ref["grad_norms"][0])
+    if (vs_mesh["loss_rel_err"] > TP_VS_MESH["loss_rtol"]
+            or vs_mesh["grad_norm_rel_err"] > TP_VS_MESH["grad_norm_rtol"]):
+        fail(f"train_tp: step 1 loss {first['loss']} and gradient norm {first['grad_norm']} "
+             f"against train_mesh's {ref['losses'][0]} and {ref['grad_norms'][0]} on (4, 1): "
+             f"{vs_mesh}, tolerances {TP_VS_MESH}")
+    counts = [s["model_all_reduces"] for r in recs for s in r["records"]]
+    if any(c != recs[0]["formula"] for c in counts):
+        fail(f"train_tp: all-reduces over 'model' (calls, bytes) {counts}, the formula "
+             f"{recs[0]['formula']}")
+    group = sum(r["ring_bytes_sent"] for r in recs if r["coords"]["data"] == 0)
+    razor = recs[0]["razor_bytes"] + (t["model"] - 1) * recs[0]["model_replicated_bytes"]
+    if not all(r["ring_bytes_sent"] == r["block_bytes"] for r in recs) or group != razor:
+        fail(f"train_tp: ring bytes {[r['ring_bytes_sent'] for r in recs]} against the "
+             f"unique blocks' {[r['block_bytes'] for r in recs]}; a model group's "
+             f"{group} against the razor's {recs[0]['razor_bytes']} + "
+             f"{t['model'] - 1} x {recs[0]['model_replicated_bytes']}")
+
+    def per_step(key):
+        return [float(np.median([r["records"][i].get(key, 0.0) for r in recs]))
+                for i in range(steps)]
+
+    median_ms = float(np.median([s["step_ms"] for r in recs for s in r["records"][1:]]))
+    return dict(config=f"{cfg.name}, {cfg.num_layers} layers, {cfg.dtype}", world=t["world"],
+                mesh=f"data={data}, model={t['model']}", backend="gloo", device_note=MESH_NOTE,
+                fsdp_params=True, instant_ckpt=True, global_batch=t["global_batch"],
+                seq_len=t["seq_len"], tokens_per_data_rank=rows * t["seq_len"], steps=steps,
+                losses=[s["loss"] for s in recs[0]["records"]],
+                grad_norms=[s["grad_norm"] for s in recs[0]["records"]],
+                step_ms=per_step("step_ms"), tp_reduce_ms=per_step("tp_reduce_ms"),
+                grad_reduce_ms=per_step("grad_reduce_ms"),
+                param_gather_ms=per_step("param_gather_ms"),
+                neighbor_backup_ms=per_step("backup_ms"), median_step_ms=median_ms,
+                tokens_per_s=t["global_batch"] * t["seq_len"] / (median_ms / 1e3),
+                step_note="medians over the ranks; tp_reduce: every all-reduce over "
+                          "'model', forward, backward and the replicated leaves' gradients",
+                model_all_reduces=recs[0]["formula"],
+                model_all_reduces_note="(calls, bytes) a rank and step, equal on every "
+                                       "rank and step to train.step.model_all_reduces",
+                vs_train_mesh=dict(vs_mesh, **TP_VS_MESH, mesh_losses=ref["losses"],
+                                   mesh_grad_norms=ref["grad_norms"]),
+                peak_device_mem_gb=[r["peak_device_mem_gb"] for r in recs],
+                host_rss_gb=[r["host_rss_gb"] for r in recs],
+                host_rss_note="per rank: resident host memory after its setup and after "
+                              "its steps",
+                flash_launches=flash, flash_expected=expected, flash_q_shape=q_shape,
+                decode_launches=[r["launches"]["decode_attention"] for r in recs],
+                ssd_launches=[r["launches"]["ssd"] for r in recs],
+                flash_note="per rank: the forward and its recompute in the backward (FSDP "
+                           "recomputes each layer body), at the rank's 8 of 16 q heads",
+                ring_bytes_sent=[r["ring_bytes_sent"] for r in recs],
+                ring_bytes_model_group=group,
+                razor_unique_bytes_per_device_ring=recs[0]["razor_bytes"],
+                unique_model_replicated_bytes=recs[0]["model_replicated_bytes"],
+                ring_note="each rank sends its blocks of the razor-unique leaves; a model "
+                          "group's sum is the razor's per-device bytes plus (model - 1) "
+                          "copies of the unique leaves that 'model' does not split",
+                seconds=a_s)
 
 
 def phase_scenarios(torch):
@@ -2466,6 +2715,7 @@ def main() -> int:
     serve_moe = timed("serve_moe", phase_serve_moe, torch)
     timed("train_grad", phase_train_grad, torch)
     train_mesh = timed("train_mesh", phase_train_mesh, torch)
+    train_tp = timed("train_tp", phase_train_tp, torch, train_mesh)
     scenarios = timed("scenarios", phase_scenarios, torch)
     train_ssm = timed("train_ssm", phase_train_ssm, torch)
     train = timed("train", phase_train, torch)
@@ -2522,6 +2772,9 @@ def main() -> int:
                           for d in ("bfloat16", "float32")}),
              moe_launches=serve_moe["launches"]["flash_attention"],
              moe_shape=moe_shape(kernels["flash_attention"]["bfloat16_moe"]),
+             train_tp_launches=train_tp["flash_launches"],
+             tp_shape={d: moe_shape(kernels["flash_attention"][f"{d}_tp"])
+                       for d in ("bfloat16", "float32")},
              backward="plain blockwise_attention recompute (FlashAttention), no kernel"),
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attn.cu",
@@ -2543,6 +2796,7 @@ def main() -> int:
              hd112=hd112({d: kernels["decode_attention"][f"{d}_hd112"][-1]
                           for d in ("bfloat16", "float32")}),
              moe_launches=serve_moe["launches"]["decode_attention"],
+             train_tp_launches=train_tp["decode_launches"],
              moe_shape=moe_shape(kernels["decode_attention"]["bfloat16_moe"][-1])),
         dict(name="ssd", route="cuda", dispatch=ssd_main["route"],
              source="src/repro_torch/csrc/ssd_wgmma.cu",
@@ -2568,6 +2822,10 @@ def main() -> int:
              train_ssm_launches=train_ssm["launches"]["ssd"],
              hybrid_shape={k_: ssd_hyb[k_] for k_ in keys},
              moe_launches=serve_moe["launches"]["ssd"],
+             train_tp_launches=train_tp["ssd_launches"],
+             tp_shapes={model: {k_: ssd_rows[(f"{model}/tp2", 1024, "bfloat16")][k_]
+                                for k_ in keys}
+                        for model in ("mamba2-2.7b", "zamba2-7b")},
              backward="plain ssd_chunked recompute (SSD), no kernel"),
     ]
     emit("timing", kernel_timings=TIMING, profiler_sessions=PROFILER_SESSIONS[0],

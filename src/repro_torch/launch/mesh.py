@@ -21,11 +21,17 @@ are.
 A mesh built without a process group (``make_single_device_mesh()`` before
 ``init_process_group``, or ``Mesh(...)`` with no rank) still serves the
 sharding rules; its collectives over axes of size 1 return their input.
+
+``copy_to`` and ``reduce_from`` are Megatron's f and g over an axis, as
+autograd functions: the identity forward with an all-reduce of the gradient
+backward, and an all-reduce forward with the identity backward. ``counts``
+holds, for each (collective, axes), the calls that moved data and the bytes
+this rank handed them; ``reset_counts`` clears it.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, ContextManager, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -52,6 +58,7 @@ class Mesh:
         self.rank = rank
         self.coords: Optional[Dict[str, int]] = None
         self._groups: Dict[Tuple[str, ...], object] = {}
+        self.counts: Dict[Tuple[str, Tuple[str, ...]], List[int]] = {}
         if rank is not None:
             self.coords = self.coords_of(rank)
 
@@ -60,12 +67,14 @@ class Mesh:
 
     # ------------------------------------------------------------------ #
     def _build_groups(self) -> None:
-        """One group per axis and one over the batch axes when both are
-        present. ``dist.new_group`` is collective: every rank creates every
-        group, in the same order, and keeps the ones it belongs to."""
+        """One group per axis, one over the batch axes and one over
+        ("data", "model") where both are present. ``dist.new_group`` is
+        collective: every rank creates every group, in the same order, and
+        keeps the ones it belongs to."""
         keys: List[Tuple[str, ...]] = [(a,) for a in self.axis_names]
-        if all(a in self.axis_names for a in ("pod", "data")):
-            keys.append(("pod", "data"))
+        for pair in (("pod", "data"), ("data", "model")):
+            if all(a in self.axis_names for a in pair):
+                keys.append(pair)
         if len(self.axis_names) > 1:
             keys.append(self.axis_names)            # the whole mesh
         keys = list(dict.fromkeys(keys))
@@ -138,11 +147,20 @@ class Mesh:
             return True
         return False
 
+    def _count(self, op: str, axes: Axes, nbytes: int) -> None:
+        entry = self.counts.setdefault((op, _axes(axes)), [0, 0])
+        entry[0] += 1
+        entry[1] += nbytes
+
+    def reset_counts(self) -> None:
+        self.counts.clear()
+
     def all_reduce(self, x: torch.Tensor, axes: Axes, op=dist.ReduceOp.SUM) -> torch.Tensor:
         if self._local(axes):
             return x.clone()
+        self._count("all_reduce", axes, _nbytes(x))
         g = self.group(axes)
-        buf = self._scratch(g, x)
+        buf = self._scratch(g, x.contiguous())
         dist.all_reduce(buf, op=op, group=g)
         return buf.to(x.device)
 
@@ -150,6 +168,7 @@ class Mesh:
         """The blocks of ``axes``'s ranks joined along ``dim``, in rank order."""
         if self._local(axes):
             return x.clone()
+        self._count("all_gather", axes, _nbytes(x))
         g, n = self.group(axes), self.axes_size(axes)
         src = self._staged(g, x.reshape(-1))
         out = self._empty(src, n * x.numel())       # flat: gloo joins along dim 0
@@ -165,6 +184,7 @@ class Mesh:
         g, n = self.group(axes), self.axes_size(axes)
         if x.shape[dim] % n:
             raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split {n} ways")
+        self._count("reduce_scatter", axes, _nbytes(x))
         blocks = torch.stack(x.chunk(n, dim=dim))               # (n, *block)
         src = self._staged(g, blocks.view(-1))     # flat: gloo cuts along dim 0
         out = self._empty(src, blocks[0].numel())
@@ -176,6 +196,7 @@ class Mesh:
         (``x`` gives the shape and dtype on the others)."""
         if self._local(axes):
             return x.clone()
+        self._count("broadcast", axes, _nbytes(x))
         g = self.group(axes)
         if self.index(axes) == src:
             buf = self._scratch(g, x)
@@ -191,6 +212,7 @@ class Mesh:
         ``dst`` (other ranks get a tensor of the same shape, not the sum)."""
         if self._local(axes):
             return x.clone()
+        self._count("reduce", axes, _nbytes(x))
         g = self.group(axes)
         buf = self._scratch(g, x)
         dist.reduce(buf, dst=self._peer(axes, dst), group=g)
@@ -203,6 +225,7 @@ class Mesh:
         one ``batch_isend_irecv``."""
         if self._local(axis):
             return [t.clone() for t in tensors]
+        self._count("ring_exchange", axis, sum(_nbytes(t) for t in tensors))
         g, n, me = self.group(axis), self.shape[axis], self.index(axis)
         dst, src = self._peer(axis, (me + shift) % n), self._peer(axis, (me - shift) % n)
         sends = [self._staged(g, t.contiguous()) for t in tensors]
@@ -212,6 +235,51 @@ class Mesh:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
         return [r.to(t.device) for r, t in zip(recvs, tensors)]
+
+    # ------------------------------------------------------------------ #
+    # Megatron's f and g, differentiable; ``timer()`` (a context manager)
+    # wraps each all-reduce, forward or backward
+    # ------------------------------------------------------------------ #
+    def copy_to(self, x: torch.Tensor, axes: Axes,
+                timer: Callable[[], ContextManager]) -> torch.Tensor:
+        """``x`` as it is; its gradient all-reduced over ``axes``: where a
+        replicated activation enters a region that each rank of ``axes``
+        computes on its own block."""
+        return _CopyTo.apply(x, self, _axes(axes), timer)
+
+    def reduce_from(self, x: torch.Tensor, axes: Axes,
+                    timer: Callable[[], ContextManager]) -> torch.Tensor:
+        """The sum of ``x`` over ``axes``; its gradient as it is: where the
+        ranks' partial results of such a region become one replicated
+        activation again."""
+        return _ReduceFrom.apply(x, self, _axes(axes), timer)
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh: Mesh, axes: Tuple[str, ...], timer):
+        ctx.mesh, ctx.axes, ctx.timer = mesh, axes, timer
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        with ctx.timer():
+            return ctx.mesh.all_reduce(g, ctx.axes), None, None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh: Mesh, axes: Tuple[str, ...], timer):
+        with timer():
+            return mesh.all_reduce(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
 
 
 def _unravel(rank: int, sizes) -> Tuple[int, ...]:

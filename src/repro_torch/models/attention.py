@@ -142,11 +142,14 @@ def init_attn(p: nn.ParameterDict, cfg, generator: torch.Generator) -> None:
 
 def _project_qkv(p: Mapping, cfg, x: torch.Tensor, positions: torch.Tensor, *,
                  rope: bool = True):
+    """q, k, v of the heads whose columns ``wq``, ``wk`` and ``wv`` hold:
+    all of them, or this rank's under tensor parallelism (the local head
+    counts come from the widths, so the GQA group stays the config's)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, hd)
-    k = (x @ p["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
+    q = (x @ p["wq"]).reshape(b, s, p["wq"].shape[-1] // hd, hd)
+    k = (x @ p["wk"]).reshape(b, s, p["wk"].shape[-1] // hd, hd)
+    v = (x @ p["wv"]).reshape(b, s, p["wv"].shape[-1] // hd, hd)
     if cfg.use_qk_norm:            # qk-norm before RoPE
         q = head_rms_norm(q, p["q_norm"])
         k = head_rms_norm(k, p["k_norm"])
@@ -159,7 +162,7 @@ def _project_qkv(p: Mapping, cfg, x: torch.Tensor, positions: torch.Tensor, *,
 def self_attention(p: Mapping, cfg, x: torch.Tensor, *, causal: bool = True,
                    rope: bool = True) -> torch.Tensor:
     """The training and ``forward`` call site: differentiable on both
-    routes (``ops.flash_attention``)."""
+    routes (``ops.flash_attention``), on the heads that ``p`` holds."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, cfg, x, positions, rope=rope)

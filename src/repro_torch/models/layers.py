@@ -8,11 +8,14 @@ dtype with fp32 where the reference uses it (norm statistics, RoPE, logits).
 from __future__ import annotations
 
 import functools
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from repro_torch.models.modes import current_tp, tp_reduce
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -85,8 +88,19 @@ def mlp_init(generator: torch.Generator, p: Dict[str, torch.Tensor], d_model: in
                                 device=generator.device) * scales[name])
 
 
-def embed_lookup(w: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return w[tokens]
+def embed_lookup(w: torch.Tensor, tokens: torch.Tensor, vocab: Optional[int] = None
+                 ) -> torch.Tensor:
+    """The rows of ``w`` (V, D) at ``tokens``. Where ``w`` has fewer rows
+    than ``vocab`` it is this rank's block of a vocab-parallel table (under
+    ``modes.tensor_parallel``): the tokens outside its rows look up zeros,
+    and the sum over the ranks (``tp_reduce``) gives every rank the rows."""
+    if vocab is None or w.shape[0] == vocab:
+        return w[tokens]
+    rows = w.shape[0]
+    local = tokens - current_tp().index * rows
+    own = (local >= 0) & (local < rows)
+    x = torch.where(own[..., None], w[local.clamp(0, rows - 1)], 0)
+    return tp_reduce(x)
 
 
 def unembed(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -126,38 +140,67 @@ class _ChunkedXent(torch.autograd.Function):
     """Summed cross-entropy of ``x @ w.T`` against ``labels``, one chunk of
     the sequence at a time; the backward recomputes each chunk's logits
     (the reference's ``jax.checkpoint`` on the scan body), so no (B, S, V)
-    buffer is ever held."""
+    buffer is ever held.
+
+    Vocab-parallel where ``tp`` is given: ``w`` is this rank's block of rows
+    from ``lo``. Each chunk's log-sum-exp and label logit are then this
+    rank's (0 where another rank owns the label); after the chunks one MAX
+    and one SUM all-reduce over the axis make them global (the log-sum-exp
+    of the ranks' log-sum-exps). The backward's softmax takes the saved
+    global log-sum-exp, ``dw`` is the rank's own rows and the partial ``dx``
+    is all-reduced once, after the chunks."""
 
     @staticmethod
-    def forward(ctx, x, w, labels, chunk: int):
-        ctx.save_for_backward(x, w, labels)
-        ctx.chunk = chunk
+    def forward(ctx, x, w, labels, chunk: int, tp):
+        lo = tp.index * w.shape[0] if tp is not None else 0
+        lses, labs = [], []
+        for start in range(0, x.shape[1], chunk):
+            logits = unembed(w, x[:, start:start + chunk])
+            lses.append(torch.logsumexp(logits, dim=-1))
+            labs.append(_label_logits(logits, labels[:, start:start + chunk] - lo))
+        lse, lab = torch.cat(lses, dim=1), torch.cat(labs, dim=1)
+        if tp is not None:
+            top = tp.all_reduce(lse, dist.ReduceOp.MAX)
+            sums = tp.all_reduce(torch.stack([torch.exp(lse - top), lab]))
+            lse, lab = top + torch.log(sums[0]), sums[1]
         total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for lo in range(0, x.shape[1], chunk):
-            logits = unembed(w, x[:, lo:lo + chunk])
-            lab = logits.gather(-1, labels[:, lo:lo + chunk, None])[..., 0]
-            total = total + (torch.logsumexp(logits, dim=-1) - lab).sum()
+        for start in range(0, x.shape[1], chunk):
+            total = total + (lse[:, start:start + chunk] - lab[:, start:start + chunk]).sum()
+        ctx.save_for_backward(x, w, labels, lse)
+        ctx.chunk, ctx.tp, ctx.lo = chunk, tp, lo
         return total
 
     @staticmethod
     def backward(ctx, g):
-        x, w, labels = ctx.saved_tensors
-        chunk = ctx.chunk
+        x, w, labels, lse = ctx.saved_tensors
+        chunk, lo = ctx.chunk, ctx.lo
         dx = torch.empty_like(x)
         dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
-        for lo in range(0, x.shape[1], chunk):
-            x_k = x[:, lo:lo + chunk]
+        for start in range(0, x.shape[1], chunk):
+            x_k = x[:, start:start + chunk]
             # d(sum of lse - label logit)/d logits = softmax - one-hot
             logits = unembed(w, x_k)
-            probs = logits.sub_(torch.logsumexp(logits, dim=-1, keepdim=True)).exp_()
-            probs.scatter_add_(-1, labels[:, lo:lo + chunk, None],
-                               torch.full(probs.shape[:-1] + (1,), -1.0, device=x.device))
+            probs = logits.sub_(lse[:, start:start + chunk, None]).exp_()
+            local = labels[:, start:start + chunk] - lo
+            own = (local >= 0) & (local < w.shape[0])
+            probs.scatter_add_(-1, local.clamp(0, w.shape[0] - 1)[..., None],
+                               torch.where(own, -1.0, 0.0)[..., None])
             # bf16 operands with fp32 accumulation where w is bf16, as the
             # forward's product
             d_logits = (probs * g).reshape(-1, w.shape[0]).to(w.dtype)
-            dx[:, lo:lo + chunk] = (d_logits @ w).reshape(x_k.shape)
+            dx[:, start:start + chunk] = (d_logits @ w).reshape(x_k.shape)
             dw += _mm_fp32(d_logits.t(), x_k.reshape(-1, x.shape[-1]).to(w.dtype))
-        return dx, dw.to(w.dtype), None, None
+        if ctx.tp is not None:
+            dx = ctx.tp.all_reduce(dx)
+        return dx, dw.to(w.dtype), None, None, None
+
+
+def _label_logits(logits: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
+    """The logit at each label's column ``local`` of ``logits``, or 0 where
+    that column is another rank's (outside [0, V_local))."""
+    own = (local >= 0) & (local < logits.shape[-1])
+    got = logits.gather(-1, local.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
+    return torch.where(own, got, 0.0)
 
 
 def _mm_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -169,14 +212,18 @@ def _mm_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def chunked_xent(w: torch.Tensor, x: torch.Tensor, labels: torch.Tensor, *,
-                 chunk: int = 512) -> torch.Tensor:
+                 chunk: int = 512, vocab: Optional[int] = None) -> torch.Tensor:
     """Mean next-token cross-entropy of the head ``w`` (V, D) over the
     final hidden states ``x`` (B, S, D) against ``labels`` (B, S), computed
     ``chunk`` positions at a time (the last chunk may be short) and never
     holding the (B, S, V) logits: the live logits are (B, chunk, V), in the
-    forward and again in the backward, which recomputes them. Port of the
-    reference's ``chunked_xent``."""
+    forward and again in the backward, which recomputes them. Where ``w``
+    has fewer rows than ``vocab`` it is this rank's block of a
+    vocab-parallel head (under ``modes.tensor_parallel``), and the live
+    logits are (B, chunk, V / tp). Port of the reference's
+    ``chunked_xent``."""
     b, s, _ = x.shape
     x = bf16_grad_barrier(x)
-    total = _ChunkedXent.apply(x, w, labels, min(chunk, s))
+    tp = None if vocab is None or w.shape[0] == vocab else current_tp()
+    total = _ChunkedXent.apply(x, w, labels, min(chunk, s), tp)
     return total / (b * s)

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rms_norm
+from repro_torch.models.modes import tp_sum
 
 
 # --------------------------------------------------------------------------- #
@@ -163,20 +164,38 @@ def _mamba_projections(p: Dict, x: torch.Tensor):
     return z, xr, br, cr, dt_raw
 
 
-def _gate_out(p: Dict, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """D skip, gate by silu(z), RMSNorm, output projection."""
+def _gate_out(p: Dict, cfg, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor
+              ) -> torch.Tensor:
+    """D skip, gate by silu(z), RMSNorm over the whole inner width, output
+    projection (this rank's partial sum where the heads are split)."""
     bsz, s = z.shape[:2]
     y = y + (p["d_skip"].float()[:, None] * xh.float()).to(y.dtype)
-    y = y.reshape(bsz, s, -1)
-    y = rms_norm(y * F.silu(z), p["norm"])
+    y = y.reshape(bsz, s, -1) * F.silu(z)
+    if p["norm"].shape[0] == cfg.ssm_inner:
+        y = rms_norm(y, p["norm"])
+    else:
+        y = _split_rms_norm(y, p["norm"], cfg.ssm_inner)
     return y @ p["out"]
 
 
+def _split_rms_norm(x: torch.Tensor, scale: torch.Tensor, width: int,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """``rms_norm`` of a tensor whose last dim (``width`` in all) is split
+    over "model": the mean of squares sums every rank's block (``tp_sum``)."""
+    dtype = x.dtype
+    x = x.float()
+    var = tp_sum(x.square().sum(dim=-1, keepdim=True)) / width
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + scale.float())).to(dtype)
+
+
 def _ssd_inputs(p: Dict, cfg, xr, dt_raw):
+    """The SSD's x (B, S, H, P), dt and a, for the heads that the leaves
+    hold (all, or this rank's under tensor parallelism)."""
     bsz, s = xr.shape[:2]
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     a = -torch.exp(p["a_log"])
-    return xr.reshape(bsz, s, cfg.ssm_heads, cfg.ssm_head_dim), dt, a
+    return xr.reshape(bsz, s, -1, cfg.ssm_head_dim), dt, a
 
 
 def mamba_apply(p: Dict, cfg, x: torch.Tensor) -> torch.Tensor:
@@ -190,7 +209,7 @@ def mamba_apply(p: Dict, cfg, x: torch.Tensor) -> torch.Tensor:
     cr = causal_conv(cr, p["conv_c"])
     xh, dt, a = _ssd_inputs(p, cfg, xr, dt_raw)
     y, _ = ops.ssd(xh, dt, a, br, cr, chunk=cfg.ssm_chunk)
-    return _gate_out(p, y, xh, z)
+    return _gate_out(p, cfg, y, xh, z)
 
 
 def mamba_state_specs(cfg, batch: int) -> Dict[str, torch.Tensor]:
@@ -220,7 +239,7 @@ def mamba_decode(p: Dict, cfg, x: torch.Tensor, state: Dict[str, torch.Tensor]
         state[name].copy_(window)
     xh, dt, a = _ssd_inputs(p, cfg, xr, dt_raw)
     y, _ = ssd_step(xh[:, 0], dt[:, 0], a, br[:, 0], cr[:, 0], state["ssm"])
-    return _gate_out(p, y[:, None], xh, z), state
+    return _gate_out(p, cfg, y[:, None], xh, z), state
 
 
 def mamba_prefill(p: Dict, cfg, x: torch.Tensor
@@ -242,4 +261,4 @@ def mamba_prefill(p: Dict, cfg, x: torch.Tensor
     y, final_state = ops.ssd(xh, dt, a, br, cr, chunk=cfg.ssm_chunk)
     state = {"conv_x": window(xr_raw), "conv_b": window(br_raw),
              "conv_c": window(cr_raw), "ssm": final_state}
-    return _gate_out(p, y, xh, z), state
+    return _gate_out(p, cfg, y, xh, z), state

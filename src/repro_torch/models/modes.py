@@ -1,5 +1,5 @@
 """FSDP parameter storage: the layer bodies' gather (the FSDP half of
-``repro.models.modes``).
+``repro.models.modes``), and the tensor-parallel context of the layer bodies.
 
 Under FSDP a rank stores only its block of each "data"-sharded parameter
 (``parallel.sharding.param_pspecs(fsdp=True)``). The reference constrains a
@@ -28,6 +28,17 @@ along that dim and reduce-scattered back.
 recomputed in the backward (``torch.utils.checkpoint``), so a layer's full
 tensors exist only while its body runs, forward or backward; the reference's
 full remat around its scan body does the same. Elsewhere it is a plain call.
+The recompute stops at the last tensor the backward saves (the checkpoint's
+early stop), so a body's final row-parallel all-reduce is not run again.
+
+Tensor parallelism (the Megatron layout, without sequence parallelism): the
+sharded step binds each rank's blocks of the leaves that its specs split
+over "model", and the layer bodies see a split leaf by its width (a local
+width below the config's). ``tensor_parallel(tp)`` turns it on, over the
+"model" axis of tp's mesh, for the code it wraps; ``parallel_region`` runs a
+sub-layer on the local blocks between ``tp_copy`` (Megatron's f) and
+``tp_reduce`` (g); ``tp_sum`` is a sum over the axis whose gradient is
+summed too (a statistic over a split dim). Outside ``tensor_parallel`` nothing is split and nothing is reduced.
 """
 from __future__ import annotations
 
@@ -43,6 +54,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 _FSDP = contextvars.ContextVar("repro_torch_fsdp_unshard", default=None)
+_TP = contextvars.ContextVar("repro_torch_tensor_parallel", default=None)
+TP_AXIS = "model"        # the axis that ``parallel.sharding``'s specs split the bodies over
 
 
 @dataclass(frozen=True)
@@ -186,13 +199,86 @@ def run_layer(body: Callable, *args):
     """``body(*args)``; under ``fsdp_unshard`` with autograd recording,
     recomputed in the backward (the module docstring says why). The
     recomputation runs in the autograd engine's thread, which does not see
-    this thread's context, so the layout goes with it."""
-    layout = _FSDP.get()
+    this thread's context, so the layout and the tensor-parallel axis go
+    with it."""
+    layout, tp = _FSDP.get(), _TP.get()
     if layout is None or not torch.is_grad_enabled():
         return body(*args)
 
     def again(*a):
-        with fsdp_unshard(layout):
+        with fsdp_unshard(layout), tensor_parallel(tp):
             return body(*a)
 
     return checkpoint(again, *args, use_reentrant=False)
+
+
+# --------------------------------------------------------------------------- #
+# Tensor parallelism over "model"
+# --------------------------------------------------------------------------- #
+@dataclass(frozen=True)
+class TensorParallel:
+    """The mesh whose "model" axis splits the layer bodies, and ``timer()``,
+    a context manager around each of its collectives (the step's
+    "tp_reduce" span)."""
+    mesh: Any
+    timer: Callable[[], Any]
+
+    @property
+    def size(self) -> int:
+        return self.mesh.shape[TP_AXIS]
+
+    @property
+    def index(self) -> int:
+        return self.mesh.index(TP_AXIS)
+
+    def all_reduce(self, x: torch.Tensor, op=None) -> torch.Tensor:
+        """A plain (not differentiated) all-reduce over "model"."""
+        kw = {} if op is None else {"op": op}
+        with self.timer():
+            return self.mesh.all_reduce(x, TP_AXIS, **kw)
+
+
+@contextlib.contextmanager
+def tensor_parallel(tp: Optional[TensorParallel]):
+    """Within it, a leaf bound as its block of the "model" axis computes
+    with ``tp``'s collectives; ``None`` is no tensor parallelism."""
+    tok = _TP.set(tp)
+    try:
+        yield tp
+    finally:
+        _TP.reset(tok)
+
+
+def current_tp() -> TensorParallel:
+    """The active ``TensorParallel``: a split leaf outside one is a wrong
+    binding, not a case to compute."""
+    tp = _TP.get()
+    if tp is None:
+        raise RuntimeError("a leaf split over 'model' outside tensor_parallel(...)")
+    return tp
+
+
+def tp_copy(x: torch.Tensor) -> torch.Tensor:
+    tp = current_tp()
+    return tp.mesh.copy_to(x, TP_AXIS, tp.timer)
+
+
+def tp_reduce(x: torch.Tensor) -> torch.Tensor:
+    tp = current_tp()
+    return tp.mesh.reduce_from(x, TP_AXIS, tp.timer)
+
+
+def tp_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the axis, each rank's gradient the sum of all
+    of theirs: g then f, for a statistic that every rank's block reads."""
+    return tp_copy(tp_reduce(x))
+
+
+def parallel_region(split: bool, fn: Callable[[torch.Tensor], torch.Tensor],
+                    x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for a sub-layer whose leaves are column- then row-parallel
+    blocks (``split``): x enters through f and the partial output leaves
+    through g. A sub-layer with whole leaves runs as at model 1."""
+    if not split:
+        return fn(x)
+    return tp_reduce(fn(tp_copy(x)))

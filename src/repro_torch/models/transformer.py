@@ -21,6 +21,14 @@ identity outside it; ``constrain`` has no eager counterpart and is left out
 (``parallel.constraints``). The hybrid's shared block is gathered once per
 pass, before the layer loop, so its gradient is reduce-scattered once, after
 all its applications have added theirs.
+
+Under tensor parallelism (``models.modes.tensor_parallel``, the sharded
+step at model > 1) the bodies compute on the blocks bound to them, in the
+Megatron layout: the attention and MLP sub-layers and the Mamba2 mixer run
+as ``parallel_region``s (their normed input through f, their row-parallel
+output through g) where their leaves are split, and the embedding and the
+head are vocab-parallel (``embed_lookup`` and ``chunked_xent`` given the
+padded vocabulary).
 """
 from __future__ import annotations
 
@@ -35,7 +43,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, moe
 from repro_torch.models.layers import (chunked_xent, embed_init, embed_lookup,
                                        mlp_apply, mlp_init, rms_norm, unembed)
-from repro_torch.models.modes import run_layer, unshard_layer_params
+from repro_torch.models.modes import parallel_region, run_layer, unshard_layer_params
 
 # Families the port cannot build yet, with the ROADMAP §1 item that ports them.
 _NOT_PORTED = {
@@ -114,11 +122,19 @@ class Block(nn.Module):
         return p
 
     def body(self, p: Dict, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """The layer on the parameters ``p`` (full tensors): (output, the
-        MoE balance loss or None), as the reference's ``_attn_block``
-        returns its carry."""
-        x = x + attn.self_attention(p["attn"], self.cfg, rms_norm(x, p["ln1"]))
-        out, aux = self._ffn(p, rms_norm(x, p["ln2"]))
+        """The layer on the parameters ``p`` (full tensors, or this rank's
+        "model" blocks): (output, the MoE balance loss or None), as the
+        reference's ``_attn_block`` returns its carry."""
+        cfg, a = self.cfg, p["attn"]
+        split = a["wq"].shape[-1] != cfg.num_heads * cfg.resolved_head_dim
+        x = x + parallel_region(split, lambda h: attn.self_attention(a, cfg, h),
+                                rms_norm(x, p["ln1"]))
+        h = rms_norm(x, p["ln2"])
+        if "moe" in p:
+            out, aux = self._ffn(p, h)
+        else:
+            split = p["mlp"]["w_up"].shape[-1] != cfg.d_ff
+            out, aux = parallel_region(split, lambda t: self._ffn(p, t)[0], h), None
         return x + out, aux
 
     def apply_layer(self, p: Dict, x: torch.Tensor
@@ -203,7 +219,7 @@ class DecoderLM(nn.Module):
     def _hidden(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The final-normed hidden states of ``tokens`` and the layers'
         summed MoE balance loss (0 for a dense model)."""
-        x = embed_lookup(self.embed["w"], tokens)
+        x = embed_lookup(self.embed["w"], tokens, self.cfg.padded_vocab)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.blocks:
             x, lb = blk(x)
@@ -223,7 +239,7 @@ class DecoderLM(nn.Module):
         loss, 0 for a dense model."""
         tokens = batch["tokens"].long()
         x, aux = self._hidden(tokens[:, :-1])
-        xent = chunked_xent(self._head(), x, tokens[:, 1:])
+        xent = chunked_xent(self._head(), x, tokens[:, 1:], vocab=self.cfg.padded_vocab)
         return xent + 0.01 * aux, {"xent": xent, "aux": aux}
 
     def input_specs(self, shape) -> Dict:
@@ -292,7 +308,10 @@ class MambaBlock(nn.Module):
     def apply_layer(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
         """The reference's ``_mamba_block``: the FSDP gather, then the layer."""
         p = unshard_layer_params(p, self.cfg)
-        return x + mamba2.mamba_apply(p["mamba"], self.cfg, rms_norm(x, p["ln1"]))
+        m = p["mamba"]
+        return x + parallel_region(m["w_x"].shape[-1] != self.cfg.ssm_inner,
+                                   lambda h: mamba2.mamba_apply(m, self.cfg, h),
+                                   rms_norm(x, p["ln1"]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return run_layer(self.apply_layer, self.layer_params(), x)
@@ -347,7 +366,7 @@ class MambaLM(nn.Module):
         return unembed(self.embed["w"], rms_norm(x, unshard_layer_params(self.final_norm)))
 
     def _hidden(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = embed_lookup(self.embed["w"], tokens)
+        x = embed_lookup(self.embed["w"], tokens, self.cfg.padded_vocab)
         for blk in self.blocks:
             x = blk(x)
         return x
@@ -363,7 +382,7 @@ class MambaLM(nn.Module):
         ``DecoderLM.loss``; aux is 0."""
         tokens = batch["tokens"].long()
         x = rms_norm(self._hidden(tokens[:, :-1]), unshard_layer_params(self.final_norm))
-        xent = chunked_xent(self.embed["w"], x, tokens[:, 1:])
+        xent = chunked_xent(self.embed["w"], x, tokens[:, 1:], vocab=self.cfg.padded_vocab)
         return xent, {"xent": xent,
                       "aux": torch.zeros((), dtype=torch.float32, device=x.device)}
 
@@ -448,7 +467,7 @@ class HybridLM(MambaLM):
         return self.shared_attn.body(shared, blk.apply_layer(p, x))[0]
 
     def _hidden(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = embed_lookup(self.embed["w"], tokens)
+        x = embed_lookup(self.embed["w"], tokens, self.cfg.padded_vocab)
         shared = unshard_layer_params(self.shared_attn.layer_params(), self.cfg)
         for i, blk in enumerate(self.blocks):
             if i in self.attn_layers:

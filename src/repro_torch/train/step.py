@@ -15,10 +15,44 @@ razor-redundant. The one-device step of the simulated cluster is
 
 Optional beyond-paper feature: int8 cross-pod gradient compression
 (``parallel.compression``) applied before the optimizer update.
+
+Tensor parallelism over "model" (the Megatron layout, no sequence
+parallelism): activations are replicated over "model"; ``wq``, ``wk``,
+``wv``, ``w_gate``, ``w_up`` and Mamba2's head-split leaves are
+column-parallel blocks, ``wo``, ``w_down`` and Mamba2's ``out`` row-parallel
+ones followed by one all-reduce; the embedding and the head are
+vocab-parallel with a distributed cross-entropy. Which leaf is split comes
+from the specs (``parallel.sharding``), the collectives from
+``models.modes``. The all-reduces over "model" of one step on a rank
+(``model_all_reduces`` counts them), with microbatches of b rows of S
+positions, A = b·S·D activation bytes in the model dtype and F = 1 under
+FSDP (else 0):
+
+  each microbatch                                 calls       bytes
+    the vocab-parallel embedding's lookup (g)     1           A
+    each split attention or MLP sub-layer: g on   2 + F       (2 + F) A
+      its output, f's backward on its input's
+      gradient
+    each split Mamba2 mixer: those two, and the   2 (2 + F)   (2 + F)(A + 4bS)
+      mean of squares of its gated norm (b·S
+      fp32), forward and backward
+    the vocab-parallel cross-entropy: the MAX of  3           A + 12bS
+      the log-sum-exps, the SUM of their
+      exponentials with the label logits (fp32),
+      f's backward on its input's gradient
+  each step
+    the gradients of the replicated leaves that   1 a dtype   their blocks
+      split blocks read (``data_mean``)
+
+F counts the recompute of each layer body in FSDP's backward, which runs
+the body's forward all-reduces again up to the last tensor the body saves:
+a body that ends in a split sub-layer does not run that sub-layer's g
+again (one call of A bytes fewer).
 """
 from __future__ import annotations
 
 import contextlib
+import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -27,8 +61,9 @@ import torch.nn as nn
 
 from repro_torch.core.instant import neighbor_backup
 from repro_torch.core.razor import RazorPlan, razor_plan
-from repro_torch.models.modes import FsdpLayout, Shard, fsdp_unshard
-from repro_torch.models.transformer import build_model
+from repro_torch.models.modes import (FsdpLayout, Shard, TensorParallel, fsdp_unshard,
+                                      tensor_parallel)
+from repro_torch.models.transformer import build_model, torch_dtype
 from repro_torch.optim import AdamWConfig, adamw_update, cosine_schedule
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.compression import pod_compressed_value_and_grad
@@ -52,14 +87,22 @@ class StepArtifacts:
 @dataclass(frozen=True)
 class _Leaf:
     """One param leaf of the state: where it lives in the module, its
-    global shape and dtype, and the dims that its param and opt specs shard
-    over "data" (None where they do not)."""
+    global shape and dtype, its shape after the "model" split (``local``),
+    the dims that its param and opt specs shard over "data" (None where they
+    do not) and the dim its specs shard over "model" (``mdim``); ``partial``
+    where it is replicated over "model" in a sub-layer whose other leaves
+    are split (qk-norm scales shared by every head, Mamba2's single SSD
+    group read by every head), so that each rank's gradient is a part of
+    the sum."""
     names: Tuple[str, ...]       # the module's parameter names, one a layer if stacked
     stacked: bool
     shape: Tuple[int, ...]
+    local: Tuple[int, ...]
     dtype: torch.dtype
     pdim: Optional[int]
     odim: Optional[int]
+    mdim: Optional[int]
+    partial: bool
 
 
 class _Loss(nn.Module):
@@ -128,26 +171,44 @@ def build_train_step(
     more than one rank). ``metrics`` holds the global mean loss, xent and
     aux and the rate, as 0-d tensors.
 
+    On a "model" axis larger than 1 the layer bodies compute on this rank's
+    blocks (the module docstring has the layout and the all-reduces it
+    runs), the gradients of the ``partial`` leaves (replicated in a split
+    sub-layer) are summed over "model" in ``data_mean``, and the global norm counts a
+    leaf split over "model" on every model rank and a replicated one once.
+
     ``model`` gives the family and structure only: its own parameters are
     never read (the step runs a meta-device twin on the state's tensors).
     ``donate`` is the reference's buffer donation: True updates ``state``
     in place and returns it, False leaves it as it was and returns a new
     one. ``clock`` (e.g. ``time.perf_counter``) times the step's parts into
     ``step_fn.last_timing`` (seconds: "step", "grad_reduce",
-    "param_gather", "backup"), synchronising the device around each.
+    "param_gather", "tp_reduce", "backup"), synchronising the device around
+    each. ``step_fn.last_grad_norm`` is the last step's global gradient
+    norm (before clipping).
 
-    A "model" axis larger than 1 raises: tensor-parallel execution is not
-    ported yet (ROADMAP §1 item 9a); its specs are computed all the same. So
-    does an MoE config on more than one batch rank (ROADMAP §1 item 9c):
-    under the reference's jit ``moe_apply`` routes the global batch, so its
-    groups, capacity (which assignments are dropped) and balance loss follow
-    from the global token count, where a rank here would route its own rows.
+    These raise ``NotImplementedError``, each naming its ROADMAP §1 item:
+    an MoE config on more than one batch rank (item 9c: under the
+    reference's jit ``moe_apply`` routes the global batch, so its groups,
+    capacity (which assignments are dropped) and balance loss follow from
+    the global token count, where a rank here would route its own rows), or
+    on a "model" axis larger than 1 (items 9c and 9d, expert parallelism);
+    ``compress_pod_grads`` on a "model" axis larger than 1 (item 9e); and an
+    attention whose q heads split over "model" while its kv heads do not
+    (item 9f: ``_leaf_spec`` leaves ``wk`` / ``wv`` replicated where the kv
+    heads do not divide).
     """
-    if shd.axis_size(mesh, "model") > 1:
-        raise NotImplementedError(
-            "tensor-parallel execution over the 'model' axis is not ported yet "
-            "(ROADMAP §1 item 9a): build the mesh with model=1")
     cfg = model.cfg
+    tp = shd.axis_size(mesh, "model")
+    if tp > 1 and cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE on a 'model' axis of {tp} is not ported yet (ROADMAP §1 "
+            "items 9c and 9d, expert parallelism): build the mesh with model=1")
+    if tp > 1 and compress_pod_grads:
+        raise NotImplementedError(
+            f"int8 cross-pod gradient compression on a 'model' axis of {tp} is not "
+            "ported yet (ROADMAP §1 item 9e): build the mesh with model=1 or leave "
+            "compress_pod_grads off")
     if cfg.is_moe and shd.dp_size(mesh) > 1:
         raise NotImplementedError(
             f"{cfg.name}: MoE routing over the global batch of {shd.dp_size(mesh)} "
@@ -175,10 +236,11 @@ def build_train_step(
     n_micro = 1 if use_compression else microbatches
 
     twin = _Loss(build_model(cfg, device="meta"))
-    leaves = _leaves(plan, twin)
+    leaves = _leaves(plan, twin, mesh)
     data = shd.axis_size(mesh, "data")
     pods = shd.axis_size(mesh, "pod")
     spans = _Spans(clock)
+    tp_ctx = TensorParallel(mesh, lambda: spans("tp_reduce")) if tp > 1 else None
 
     def local_value_and_grad(params: List[torch.Tensor], batch: Dict):
         """(loss, aux) of this rank's batch and the gradient of each param
@@ -188,7 +250,8 @@ def build_train_step(
         for mb in _microbatches(batch, n_micro):
             layout = FsdpLayout(mesh, "data", spans) if fsdp_params else None
             aliases, names, extra = _bind(params, leaves, layout, mesh)
-            with fsdp_unshard(layout) if layout else contextlib.nullcontext():
+            with fsdp_unshard(layout) if layout else contextlib.nullcontext(), \
+                    tensor_parallel(tp_ctx):
                 loss, aux = torch.func.functional_call(twin, names, (mb,))
             g = torch.autograd.grad(loss, aliases + extra)[:len(aliases)]
             if n_micro > 1:
@@ -205,7 +268,22 @@ def build_train_step(
         return (loss, aux), grads
 
     def data_mean(params, batch):
-        """The mean over "data": each gradient onto its ZeRO block."""
+        """The mean over "data": each gradient onto its ZeRO block. With
+        model > 1 each rank's gradient of a leaf is then the whole one for
+        its "model" block, summed over "model" where:
+
+        - a split leaf (column-, row- or vocab-parallel): nowhere, its block
+          is read by this rank alone (the tied head's rows get both uses);
+        - ``ln1``, ``ln2``, the final norm (and a sub-layer's leaves that
+          are all replicated): in f's backward, which all-reduces the
+          gradient of the normed input before the norm's backward, so each
+          rank computes the whole gradient;
+        - Mamba2's split ``norm``: its own block; the mean of squares that
+          it divides by is summed forward and backward (``tp_sum``);
+        - ``q_norm``, ``k_norm`` (each rank's heads) and Mamba2's ``w_b``,
+          ``w_c``, ``conv_b``, ``conv_c`` (each rank's heads read the one
+          SSD group), the ``partial`` leaves: here, one all-reduce over
+          "model" per dtype, after the reduction over "data"."""
         (loss, aux), grads = local_value_and_grad(params, batch)
         out = []
         with spans("grad_reduce"):
@@ -214,6 +292,8 @@ def build_train_step(
                     g = (mesh.reduce_scatter(g, "data", leaf.odim)  # backward summed it
                          if leaf.odim is not None else mesh.all_reduce(g, "data"))
                 out.append(g / data)
+        if tp_ctx is not None:
+            out = _sum_partial(tp_ctx, leaves, out)
         return _mean(mesh, "data", loss, aux), out
 
     if use_compression:
@@ -233,12 +313,16 @@ def build_train_step(
         params, treedef = tree_flatten(state["params"])
         (loss, aux), grads = value_and_grad(params, batch)
 
-        # the global norm: every rank's blocks once, a replicated leaf once
+        # the global norm: every rank's blocks once, a leaf replicated over
+        # "data" or "model" once (at index 0 of that axis)
         sq = torch.zeros((), dtype=torch.float32, device=loss.device)
+        first_model = tp == 1 or mesh.index("model") == 0
         for leaf, g in zip(leaves, grads):
-            if leaf.odim is not None or mesh.index("data") == 0:
+            if ((leaf.odim is not None or mesh.index("data") == 0)
+                    and (leaf.mdim is not None or first_model)):
                 sq = sq + g.float().square().sum()
-        gnorm = torch.sqrt(mesh.all_reduce(sq, "data"))
+        gnorm = torch.sqrt(mesh.all_reduce(sq, ("data", "model") if tp > 1 else "data"))
+        step_fn.last_grad_norm = gnorm
 
         lr = cosine_schedule(state["step"], lr=hp.lr, warmup_steps=hp.warmup_steps,
                              total_steps=hp.total_steps)
@@ -264,7 +348,59 @@ def build_train_step(
         return out
 
     step_fn.last_timing = {}
+    step_fn.last_grad_norm = None
     return StepArtifacts(step_fn, plan, razor, input_pspecs, backup_pspecs)
+
+
+def model_all_reduces(model: nn.Module, mesh, rows: int, seq: int, *,
+                      fsdp_params: bool = True, microbatches: int = 1) -> Tuple[int, int]:
+    """(calls, bytes) of the all-reduces over "model" that one step of
+    ``build_train_step(model, mesh, fsdp_params=..., microbatches=...)``
+    runs on a rank whose batch is ``rows`` rows of ``seq`` positions: the
+    formula of the module docstring, with the splits of the step's specs."""
+    cfg = model.cfg
+    if shd.axis_size(mesh, "model") == 1:
+        return 0, 0
+    plan = make_state_plan(model, mesh, fsdp_params=fsdp_params)
+    mdim = {path: shd.sharded_dim(spec, "model")
+            for path, spec in tree_flatten_with_path(plan.param_pspecs, is_spec)}
+    split = lambda *path: mdim.get(path) is not None                    # noqa: E731
+    b = rows // microbatches
+    act = b * seq * cfg.d_model * torch_dtype(cfg).itemsize
+    stat = b * seq * 4                                   # one fp32 value a position
+    dense = lambda root: [("dense", split(root, "attn", "wq")),         # noqa: E731
+                          ("dense", split(root, "mlp", "w_up"))]
+    mamba = ("mamba", split("blocks", "mamba", "w_x"))
+    if cfg.family == "dense":
+        bodies = [dense("blocks")] * cfg.num_layers
+    else:
+        bodies = [[mamba] + (dense("shared_attn") if kind == "mamba_attn" else [])
+                  for kind in cfg.layer_kinds()]
+    head = ("lm_head", "w") if "lm_head" in plan.param_pspecs else ("embed", "w")
+    sizes: List[int] = []                                # one entry an all-reduce
+    if split("embed", "w"):
+        sizes.append(act)
+    for body in bodies:
+        fwd = []
+        for kind, is_split in body:
+            if is_split:
+                fwd += [stat, act] if kind == "mamba" else [act]
+        sizes += 2 * fwd                                 # the backward mirrors the forward
+        if fsdp_params:
+            sizes += fwd[:-1] if body[-1][1] else fwd
+    if split(*head):
+        sizes += [stat, 2 * stat, act]
+    sizes *= microbatches
+    leaves = _leaves(plan, _Loss(model), mesh)
+    data = shd.axis_size(mesh, "data")
+    per_dtype: Dict[torch.dtype, int] = {}
+    for leaf in leaves:
+        if leaf.partial:
+            dtype = torch.float32 if microbatches > 1 else leaf.dtype
+            numel = math.prod(leaf.local) // (data if leaf.odim is not None else 1)
+            per_dtype[dtype] = per_dtype.get(dtype, 0) + numel * dtype.itemsize
+    sizes += list(per_dtype.values())
+    return len(sizes), sum(sizes)
 
 
 def _mean(mesh, axis: str, loss: torch.Tensor, aux: Dict) -> Tuple[torch.Tensor, Dict]:
@@ -275,24 +411,57 @@ def _mean(mesh, axis: str, loss: torch.Tensor, aux: Dict) -> Tuple[torch.Tensor,
     return vals[0], dict(zip(keys, vals[1:]))
 
 
-def _leaves(plan: StatePlan, twin: nn.Module) -> List[_Leaf]:
-    """The param leaves in tree order, checked against the module's names."""
+def _leaves(plan: StatePlan, twin: nn.Module, mesh) -> List[_Leaf]:
+    """The param leaves in tree order, checked against the module's names;
+    a leaf is ``partial`` where its specs replicate it over "model" while a
+    leaf beside it (the same path but its last key) is split. An attention
+    whose q heads are split over "model" while its kv heads are not (``_leaf_spec``'s fallback where the kv heads do not divide)
+    raises: each rank would need the kv heads of its own q heads."""
     pspecs = dict(tree_flatten_with_path(plan.param_pspecs, is_spec))
     ospecs = dict(tree_flatten_with_path(plan.opt_pspecs["master"], is_spec))
+    mdims = {path: shd.sharded_dim(spec, "model") for path, spec in pspecs.items()}
+    tp = shd.axis_size(mesh, "model")
     out = []
     for path, spec in tree_flatten_with_path(plan.state_specs["params"]):
         stacked = path[0] in shd._STACKED_ROOTS
         rest = ".".join(str(k) for k in path[1:])
         names = (tuple(f"{path[0]}.{i}.{rest}" for i in range(spec.shape[0])) if stacked
                  else (".".join(str(k) for k in path),))
+        mdim = mdims[path]
+        if path[-1] == "wq" and mdim is not None and mdims[path[:-1] + ("wk",)] is None:
+            raise NotImplementedError(
+                f"{'.'.join(map(str, path[:-1]))}: q heads split over 'model' with the kv "
+                "heads replicated is not ported yet (ROADMAP §1 item 9f): use a 'model' "
+                "axis that divides the kv heads")
+        local = tuple(n // tp if d == mdim else n for d, n in enumerate(spec.shape))
+        # replicated in a sub-layer whose other leaves are split: this rank's
+        # blocks read it, so its gradient here is a part of the sum
+        partial = tp > 1 and mdim is None and any(d is not None for p, d in mdims.items()
+                                                  if p[:-1] == path[:-1])
         out.append(_Leaf(tuple("model." + n for n in names), stacked, tuple(spec.shape),
-                         spec.dtype, shd.sharded_dim(pspecs[path]),
-                         shd.sharded_dim(ospecs[path])))
+                         local, spec.dtype, shd.sharded_dim(pspecs[path]),
+                         shd.sharded_dim(ospecs[path]), mdim, partial))
     module_names = {n for n, _ in twin.named_parameters()}
     bound = {n for leaf in out for n in leaf.names}
     if bound != module_names:
         raise ValueError(f"the state's leaves {sorted(bound ^ module_names)} do not "
                          "match the model's parameters")
+    return out
+
+
+def _sum_partial(tp: TensorParallel, leaves: List[_Leaf], grads: List[torch.Tensor]
+                 ) -> List[torch.Tensor]:
+    """The gradients of the ``partial`` leaves summed over "model": one
+    all-reduce per dtype, in leaf order."""
+    out = list(grads)
+    groups: Dict[torch.dtype, List[int]] = {}
+    for i, (leaf, g) in enumerate(zip(leaves, grads)):
+        if leaf.partial:
+            groups.setdefault(g.dtype, []).append(i)
+    for idx in groups.values():
+        flat = tp.all_reduce(torch.cat([grads[i].reshape(-1) for i in idx]))
+        for i, piece in zip(idx, flat.split([grads[i].numel() for i in idx])):
+            out[i] = piece.view(grads[i].shape)
     return out
 
 
@@ -310,7 +479,7 @@ def _bind(params: List[torch.Tensor], leaves: List[_Leaf], layout: Optional[Fsdp
         aliases.append(a)
         sharded = layout is not None and leaf.pdim is not None
         if not leaf.stacked:
-            names[leaf.names[0]] = (layout.register(a, Shard(leaf.shape, dim=leaf.pdim))
+            names[leaf.names[0]] = (layout.register(a, Shard(leaf.local, dim=leaf.pdim))
                                     if sharded else a)
             continue
         layers = a.unbind(0)
@@ -318,7 +487,7 @@ def _bind(params: List[torch.Tensor], leaves: List[_Leaf], layout: Optional[Fsdp
             per = leaf.shape[0] // mesh.shape["data"]
             first = mesh.index("data") * per
             for i, name in enumerate(leaf.names):
-                shard = Shard(leaf.shape[1:], owner=i // per)
+                shard = Shard(leaf.local[1:], owner=i // per)
                 if first <= i < first + per:
                     names[name] = layout.register(layers[i - first], shard)
                 else:
@@ -327,7 +496,7 @@ def _bind(params: List[torch.Tensor], leaves: List[_Leaf], layout: Optional[Fsdp
                     names[name] = layout.register(ph, shard)
         else:
             for name, layer in zip(leaf.names, layers):
-                names[name] = (layout.register(layer, Shard(leaf.shape[1:], dim=leaf.pdim - 1))
+                names[name] = (layout.register(layer, Shard(leaf.local[1:], dim=leaf.pdim - 1))
                                if sharded else layer)
     return aliases, names, extra
 

@@ -428,14 +428,29 @@ def test_neighbor_backup_is_the_identity_on_one_rank():
     assert ring_perm(4, 3) == [(0, 3), (1, 0), (2, 1), (3, 2)]
 
 
-def test_a_model_axis_larger_than_one_raises():
+def test_an_moe_config_on_a_model_axis_raises():
+    """MoE at model > 1 (expert parallelism) is not ported: the step
+    refuses it, naming its items, also where one batch rank would route
+    the whole batch."""
+    from repro_torch.configs import get_arch, reduce_for_smoke
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import build_model
+    from repro_torch.train.step import build_train_step
+    model = build_model(reduce_for_smoke(get_arch("qwen2-moe-a2.7b")), device="meta")
+    for shape in ((2, 2), (1, 2)):
+        with pytest.raises(NotImplementedError, match="items 9c and 9d"):
+            build_train_step(model, Mesh(("data", "model"), shape))
+
+
+def test_pod_compression_on_a_model_axis_raises():
     from repro_torch.configs import get_arch, reduce_for_smoke
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import build_model
     from repro_torch.train.step import build_train_step
     model = build_model(reduce_for_smoke(get_arch("qwen3-0.6b")), device="meta")
-    with pytest.raises(NotImplementedError, match="item 9a"):
-        build_train_step(model, Mesh(("data", "model"), (2, 2)))
+    for axes, shape in ((("data", "model"), (2, 2)), (("pod", "data", "model"), (2, 1, 2))):
+        with pytest.raises(NotImplementedError, match="item 9e"):
+            build_train_step(model, Mesh(axes, shape), compress_pod_grads=True)
 
 
 def test_world_one_step_equals_the_one_device_step():
