@@ -66,12 +66,12 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 as four gloo ranks sharing the card, each a spawned process
                 (file:// rendezvous in a temporary directory), all exited before
                 the next phase. (a) Full qwen3-0.6b, bf16, FSDP and the instant
-                backup, 8 x 1024 tokens a step (2 x 1024 a rank), 3 steps: each
+                backup, 8 x 1024 tokens a step (2 x 1024 a rank), 2 steps: each
                 rank's backup bit for bit its predecessor's new optimizer blocks,
                 the bytes the ring sent equal to the razor's unique bytes per
-                rank, the neighbour drill (after step 2 rank 1's optimizer blocks
-                are dropped and rebuilt from rank 2's backup; step 3 from there
-                equals the uninterrupted step 3 bit for bit on every rank), flash
+                rank, the neighbour drill (after step 1 rank 1's optimizer blocks
+                are dropped and rebuilt from rank 2's backup; step 2 from there
+                equals the uninterrupted step 2 bit for bit on every rank), flash
                 launches in every rank (all wgmma; counts zeroed in each rank just
                 before its steps) and none of decode or SSD, and the first batch
                 scored again lower. Prints per step the median over ranks of the
@@ -90,9 +90,9 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 the vocab-parallel embedding and cross-entropy) as four gloo
                 ranks sharing the card, as train_mesh. (a) Full qwen3-0.6b,
                 bf16, FSDP and the instant backup, 8 x 1024 tokens a step (4 x
-                1024 a data rank), 3 steps: on every rank and step the
+                1024 a data rank), 2 steps: on every rank and step the
                 all-reduces over "model" the mesh counted equal
-                train.step.model_all_reduces in calls and bytes, 2 x 28 x 3
+                train.step.model_all_reduces in calls and bytes, 2 x 28 x 2
                 flash launches all on wgmma at q (4, 1024, 8, 128) (the
                 rank's 8 of 16 heads) and none of decode or SSD, finite
                 losses, the first step's loss and global gradient norm within
@@ -106,6 +106,35 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 host RSS. (b) Full width cut to 2
                 layers, fp32, 2 steps on (2, 2) against one NCCL rank, held as
                 train_mesh's (b).
+7d. train_moe_mesh -- the MoE in the sharded step: qwen2-moe-a2.7b at full width
+                (64 padded experts, top-4, the shared expert, MHA 16/16 at head_dim
+                128) cut to 2 layers, weights drawn on the card from a seed, on a
+                (data 2, model 2) mesh of four gloo ranks sharing the card: each
+                rank holds 32 experts and routes its 4 x 1024 tokens as 8 whole
+                groups of the global batch's 16, at its capacity. (a) bf16, FSDP
+                and the instant backup, 8 x 1024 tokens a step, 2 steps: the
+                all-reduces over "model" equal model_all_reduces on every rank and
+                step, 2 x 2 x 2 flash launches a rank on wgmma at q (4, 1024, 8,
+                128), no decode or SSD launch, finite losses, dropped assignments
+                on every rank, the ring's bytes the rank's unique blocks. Prints
+                the step time and its parts (tp_reduce among them), the dropped
+                assignments, device memory and host RSS a rank. (b) fp32, 2 steps,
+                against one NCCL rank of the same step on the global batch (run
+                first, in its own process; the backup off): the losses within
+                1e-5, m within 2e-4 of each leaf's largest value (each rank's
+                blocks against the one rank's, read from its saved m), and every
+                MoE call's top-k experts, positions and capacity verdicts equal,
+                with the flips and the smallest gate gap printed.
+7e. pipeline -- the GPipe forward (parallel.pipeline.pipeline_forward) over a
+                ("pipe",) mesh of four gloo ranks sharing the card, spawned once
+                for both parts: full qwen3-0.6b (28 layers, 7 a stage), bf16, 8
+                microbatches of 1 x 1024 tokens through Block.apply_layer (a
+                stage holds its own layers; rank 0 also the whole model), against
+                the loop over the 28 layers on the whole batch on rank 0; then 8
+                layers (2 a stage) in fp32 at 1e-5. 11 ring exchanges and one
+                broadcast a stage (counted by the mesh), 7 x 8 flash launches a
+                stage on wgmma (2 x 8 on fp32); prints each stage's wall time,
+                the loop's, the ticks and bubble_fraction(4, 8) = 3/11.
 8. scenarios -- the port's adversarial scenario fleet (runtime/scenarios.py).
                 First all 15 corpus scenarios at the reference's scale (qwen3
                 reduced, fp32, seq 16), each built and replayed as run_scenario
@@ -115,12 +144,12 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 card runs every flash launch on the fp32 route and no decode or
                 SSD launch. Then the events of
                 clean_software_failure (a software failure of worker 1 before
-                step 5, 10 steps) replayed by the port's _Runner on full
-                qwen3-0.6b (28 layers, bf16, dp=4 simulated workers, 8 x 1024
-                tokens a step) with the scenario's fabric and reliability values:
-                10 steps, one recovery from the neighbour, 0 rollbacks, 1
-                detection within one heartbeat of the analytic bound, finite
-                losses, 28 x 10 flash launches all on wgmma. Prints the verdict
+                step 5, 10 steps) replayed by the port's _Runner on qwen3-0.6b
+                at full width cut to 8 of 28 layers (bf16, dp=4 simulated
+                workers, 8 x 1024 tokens a step) with the scenario's fabric and
+                reliability values: 10 steps, one recovery from the neighbour, 0
+                rollbacks, 1 detection within one heartbeat of the analytic
+                bound, finite losses, 8 x 10 flash launches all on wgmma. Prints the verdict
                 beside the fields in which it differs from the reference-scale
                 pin, the step split, tokens/s (by the median step and by the
                 replay's whole window), the steps and host RSS before and after
@@ -161,7 +190,9 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 wgmma route, once more with an initial state, and fp32, whose
                 intra-chunk kernel is also held to its three outputs; flash at
                 a rank's tensor-parallel shape, q (4, 1024, 8, 128), k/v (4,
-                1024, 4, 128), in both dtypes; the SSD at a rank's 40 (mamba2)
+                1024, 4, 128), in both dtypes, and in bf16 at a rank's of
+                train_moe_mesh, q/k/v (4, 1024, 8, 128), and a pipeline stage's,
+                q (1, 1024, 16, 128), k/v (1, 1024, 8, 128); the SSD at a rank's 40 (mamba2)
                 and 56 (zamba2) heads, 4 x 1024, bf16), with the
                 kernel's, the plain version's and (for attention) the library
                 call's times
@@ -179,8 +210,10 @@ slices and the serve runs come before any phase that opens torch.profiler:
 Then a ``timing`` line (kernel timings taken by CUPTI and by CUDA events, the
 host seconds of each phase),
 one {"kernels": [...]} line (each kernel's launches in every serve and training
-phase, ``moe_launches`` and ``train_tp_launches`` among them, and its rows at the
-other shapes, ``tp_shape`` / ``tp_shapes`` among them), the card's name and power
+phase, ``moe_launches``, ``train_tp_launches``, ``train_moe_mesh_launches`` and
+``pipeline_launches`` among them, and its rows at the other shapes, ``tp_shape`` /
+``tp_shapes``, ``moe_mesh_shape`` and ``pipeline_shape`` among them), the card's name
+and power
 limit, and last
 {"ok": true, "device": {...}}.
 """
@@ -213,6 +246,11 @@ DECODE_MOE = dict(b=8, t=1032, h=16, kh=16, hd=128, cur_lens=(1032,))
 # a rank's attention in the tensor-parallel step (train_tp): qwen3-0.6b's 16 q /
 # 8 kv heads over model 2, 4 rows of 1024 (a data rank of 8)
 PREFILL_TP = dict(b=4, s=1024, h=8, kh=4, hd=128)
+# a rank's attention in the MoE's sharded step (train_moe_mesh): qwen2-moe's 16 /
+# 16 heads over model 2, 4 rows of 1024; and a pipeline stage's (pipeline): qwen3's
+# 16 q / 8 kv heads, one microbatch of 1 x 1024
+PREFILL_MOE_TP = dict(b=4, s=1024, h=8, kh=8, hd=128)
+PREFILL_PIPE = dict(b=1, s=1024, h=16, kh=8, hd=128)
 # a rank's SSD under tensor parallelism at model 2: mamba2-2.7b's 80 heads and
 # zamba2-7b's 112, at the same rows
 SSD_TP = dict(SSD, b=4, h=40, seqs=(1024,))
@@ -488,7 +526,8 @@ def phase_kernels(torch, F):
 
     # the serve shape in both dtypes, the training step's (S=1024) in bf16,
     # zamba2-7b's serve shape (hd 112) in both dtypes, qwen2-moe-a2.7b's
-    # (MHA at hd 128) in bf16 and a rank's of the tensor-parallel step in both
+    # (MHA at hd 128) in bf16, a rank's of the tensor-parallel step in both,
+    # and in bf16 a rank's of the MoE's sharded step and a pipeline stage's
     for key, dtype, p in (("bfloat16", torch.bfloat16, PREFILL),
                           ("float32", torch.float32, PREFILL),
                           ("bfloat16_train", torch.bfloat16,
@@ -497,7 +536,9 @@ def phase_kernels(torch, F):
                           ("float32_hd112", torch.float32, PREFILL_HD112),
                           ("bfloat16_moe", torch.bfloat16, PREFILL_MOE),
                           ("bfloat16_tp", torch.bfloat16, PREFILL_TP),
-                          ("float32_tp", torch.float32, PREFILL_TP)):
+                          ("float32_tp", torch.float32, PREFILL_TP),
+                          ("bfloat16_moe_tp", torch.bfloat16, PREFILL_MOE_TP),
+                          ("bfloat16_pipe", torch.bfloat16, PREFILL_PIPE)):
         dname = str(dtype).split(".")[-1]
         q = rand((p["b"], p["s"], p["h"], p["hd"]), dtype)
         k = rand((p["b"], p["s"], p["kh"], p["hd"]), dtype)
@@ -1379,7 +1420,7 @@ def phase_train(torch):
 # the full-width replay of the fleet's baseline scenario: its events (a
 # software failure of worker 1 before step 5, 10 steps) on full qwen3-0.6b,
 # dp=4 simulated workers, 8 x 1024 tokens a step
-REPLAY = dict(scenario="clean_software_failure", global_batch=8, seq_len=1024)
+REPLAY = dict(scenario="clean_software_failure", layers=8, global_batch=8, seq_len=1024)
 # a verdict field that may differ from the reference-scale pin at full width,
 # and why: the shard's size, or the simulated fabric time it takes
 SCALE_FIELDS = {"state_bytes_streamed": "bytes", "chunks_reused": "bytes",
@@ -1390,14 +1431,14 @@ SCALE_FIELDS = {"state_bytes_streamed": "bytes", "chunks_reused": "bytes",
 
 # the sharded multi-rank step (train.step.build_train_step), four gloo ranks
 # sharing the one card: (a) full qwen3-0.6b, bf16, FSDP and the instant
-# backup, 8 x 1024 tokens a step (2 x 1024 a rank), 3 steps, then the
+# backup, 8 x 1024 tokens a step (2 x 1024 a rank), 2 steps, then the
 # neighbour drill, the first batch scored again and one step without FSDP for
 # its memory; (b) full width cut to 2 layers, fp32, 2 steps, against one rank
 # of the same step over NCCL from the same weights and batches. The children
 # are spawned (CUDA cannot fork) and meet through file:// in a temporary
 # directory.
 TRAIN_MESH = dict(arch="qwen3-0.6b", smoke=False, layers=None, dtype="bfloat16", world=4,
-                  global_batch=8, seq_len=1024, steps=3, seed=0, timeout_s=600)
+                  global_batch=8, seq_len=1024, steps=2, seed=0, timeout_s=600)
 TRAIN_MESH_B = dict(arch="qwen3-0.6b", smoke=False, layers=2, dtype="float32", world=4,
                     global_batch=8, seq_len=1024, steps=2, seed=0, timeout_s=300, tol=1e-5,
                     grad_tol=2e-4)
@@ -1405,7 +1446,7 @@ MESH_NOTE = ("gloo through the host on one shared card: the four ranks share one
              "every collective crosses the host; not the figure of a ring on NVLink")
 # the tensor-parallel step on a (data 2, model 2) mesh of four gloo ranks
 # sharing the card: (a) full qwen3-0.6b, bf16, FSDP and the instant backup,
-# 8 x 1024 tokens a step (4 x 1024 a data rank), 3 steps; (b) full width cut to
+# 8 x 1024 tokens a step (4 x 1024 a data rank), 2 steps; (b) full width cut to
 # 2 layers, fp32, 2 steps, against one rank of the same step over NCCL
 TRAIN_TP = dict(TRAIN_MESH, model=2, timeout_s=600)
 TRAIN_TP_B = dict(TRAIN_MESH_B, model=2)
@@ -1413,6 +1454,19 @@ TRAIN_TP_B = dict(TRAIN_MESH_B, model=2)
 # (4, 1)), relative: bf16 activations in two reduction orders, which on an
 # H100 gave a loss 8.6e-6 and a global gradient norm 2.6e-5 apart
 TP_VS_MESH = dict(loss_rtol=1e-4, grad_norm_rtol=1e-3)
+# the MoE in the sharded step on a (data 2, model 2) mesh of four gloo ranks
+# sharing the card: qwen2-moe-a2.7b at full width (64 padded experts, top-4,
+# the shared expert, MHA 16/16 at hd 128) cut to 2 layers (1,833,187,328
+# parameters; a rank holds 32 experts), weights drawn on the card from a
+# seed, 8 x 1024 tokens a step (16 groups of 512; a data rank routes 8).
+# (a) bf16, FSDP and the instant backup, 2 steps; (b) fp32, 2 steps, against
+# one NCCL rank of the same step on the global batch (the backup off: it
+# does not touch the step's math, and (a) holds it)
+TRAIN_MOE = dict(arch="qwen2-moe-a2.7b", smoke=False, layers=2, dtype="bfloat16", world=4,
+                 model=2, global_batch=8, seq_len=1024, steps=2, seed=0, draw="cuda",
+                 timeout_s=900)
+TRAIN_MOE_B = dict(TRAIN_MOE, dtype="float32", instant_ckpt=False, tol=1e-5, grad_tol=2e-4,
+                   timeout_s=300)
 
 
 def run_children(name: str, jobs: list, timeout_s: float) -> None:
@@ -1451,15 +1505,31 @@ def _mesh_cfg(t: dict):
                                dtype=t["dtype"])
 
 
-def _mesh_setup(rank: int, world: int, t: dict, rdv: str, backend: str, device: str):
-    """One rank's process group and mesh (data world / t["model"], model
-    t["model"]; (1, 1) for one rank), the step with and without FSDP, a
-    maker of the sharded initial state (weights from a host generator seeded
-    with t["seed"], as SimCluster draws them) and this rank's rows of
-    t["steps"] global batches."""
-    import numpy as np
+def _mesh_init(rank: int, world: int, rdv: str, backend: str, device: str) -> None:
+    """One rank's process: its threads, its card (TF32 off) and the default
+    process group over ``backend``."""
     import torch
     import torch.distributed as dist
+
+    torch.set_num_threads(2)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"file://{rdv}", rank=rank,
+                            world_size=world)
+
+
+def _mesh_build(world: int, t: dict, device: str):
+    """The mesh of an initialised group of ``world`` ranks (data world /
+    t["model"], model t["model"]; (1, 1) for one rank), the step with and
+    without FSDP (the instant backup unless t["instant_ckpt"] is False), a
+    maker of the sharded initial state (weights from a host generator seeded
+    with t["seed"], as SimCluster draws them, or with t["draw"] "cuda" from
+    the card's generator) and this rank's rows of t["steps"] global
+    batches."""
+    import numpy as np
+    import torch
 
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch.mesh import make_host_mesh
@@ -1469,21 +1539,16 @@ def _mesh_setup(rank: int, world: int, t: dict, rdv: str, backend: str, device: 
     from repro_torch.train.state import param_tree, shard_init_state
     from repro_torch.train.step import build_train_step
 
-    torch.set_num_threads(2)
-    if device == "cuda":
-        torch.cuda.set_device(0)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    dist.init_process_group(backend, init_method=f"file://{rdv}", rank=rank,
-                            world_size=world)
     cfg = _mesh_cfg(t)
-    model = build_model(cfg, device="cpu")
-    model.init(torch.Generator().manual_seed(t["seed"]))
+    draw = t.get("draw", "cpu")
+    model = build_model(cfg, device=draw)
+    model.init(torch.Generator(device=draw).manual_seed(t["seed"]))
     model_axis = t.get("model", 1) if world > 1 else 1
     mesh = make_host_mesh(data=world // model_axis, model=model_axis)
     shape = ShapeConfig("train_mesh", t["seq_len"], t["global_batch"], "train")
     hp = AdamWConfig(warmup_steps=2, total_steps=100)          # SimCluster's
     arts = {fsdp: build_train_step(model, mesh, hp, fsdp_params=fsdp, shape=shape,
+                                   instant_ckpt=t.get("instant_ckpt", True),
                                    clock=time.perf_counter) for fsdp in (True, False)}
     rng = np.random.default_rng(t["seed"])
     spec = arts[True].input_pspecs["tokens"]
@@ -1528,7 +1593,26 @@ def _timing_ms(art) -> dict:
     return {f"{k}_ms": v * 1e3 for k, v in art.step_fn.last_timing.items() if k != "step"}
 
 
-def mesh_rank_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
+def mesh_rank(rank: int, world: int, tmp: str, rdv: str, parts: list, device: str,
+              backend: str = "gloo") -> None:
+    """One spawned rank of ``world``: its process group over ``backend``,
+    then each (part, config) of ``parts`` in turn, ``part(rank, world, tmp,
+    config, device)``, each part's tensors freed before the next."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    _mesh_init(rank, world, rdv, backend, device)
+    for part, cfg in parts:
+        part(rank, world, tmp, cfg, device)
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+
+def mesh_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
     """Part (a) on one rank; its record goes to tmp/a_<rank>.json."""
     import resource
 
@@ -1542,8 +1626,7 @@ def mesh_rank_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
     from repro_torch.parallel.sharding import is_spec
     from repro_torch.tree import tree_flatten, tree_map
 
-    cfg, mesh, arts, make_state, local, _ = _mesh_setup(rank, world, t, f"{tmp}/rdv_a",
-                                                        "gloo", device)
+    cfg, mesh, arts, make_state, local, _ = _mesh_build(world, t, device)
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     clone = lambda tree: tree_map(lambda x: x.clone(), tree, is_leaf=lambda v: v is None)
@@ -1629,23 +1712,20 @@ def mesh_rank_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
                peak_host_rss_gb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9)
     with open(f"{tmp}/a_{rank}.json", "w") as f:
         json.dump(rec, f)
-    dist.destroy_process_group()
 
 
-def mesh_rank_b(rank: int, world: int, tmp: str, t: dict, device: str, backend: str) -> None:
+def mesh_part_b(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
     """Part (b) on one rank of ``world``: t["steps"] FSDP steps. One rank
     alone saves its loss, master, m and v after each step to
     tmp/b1_step<i>.pt; rank 0 of the sharded run compares its joined ones
     with them and writes the errors (relative to each leaf's largest
     magnitude) to tmp/b.json."""
     import torch
-    import torch.distributed as dist
 
     from repro_torch.parallel.sharding import join_tree
     from repro_torch.tree import keystr, tree_flatten_with_path
 
-    _, mesh, arts, make_state, local, _ = _mesh_setup(rank, world, t,
-                                                      f"{tmp}/rdv_b{world}", backend, device)
+    _, mesh, arts, make_state, local, _ = _mesh_build(world, t, device)
     art = arts[True]
     state, out = make_state(True), []
     for i, tokens in enumerate(local):
@@ -1672,50 +1752,52 @@ def mesh_rank_b(rank: int, world: int, tmp: str, t: dict, device: str, backend: 
     if rank == 0 and world > 1:
         with open(f"{tmp}/b.json", "w") as f:
             json.dump(out, f)
-    dist.destroy_process_group()
 
 
-def phase_train_mesh(torch, t: dict = TRAIN_MESH, tb: dict = TRAIN_MESH_B,
+def phase_train_mesh(torch, tmp: str, t: dict = TRAIN_MESH, tb: dict = TRAIN_MESH_B,
                      device: str = "cuda", backend_b: str = "nccl") -> dict:
-    """The sharded multi-rank train step (parts (a) and (b) above)."""
-    import shutil
-    import tempfile
-
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    """The sharded multi-rank train step (parts (a) and (b) above). (b)'s
+    one-rank reference runs first, into ``tmp``, which train_tp's (b) (the
+    same run on one rank) reads again; then four ranks run (a) and (b)."""
     parent_rss = host_rss_gb()
-    try:
-        t0 = time.perf_counter()
-        run_children("train_mesh (a)", [(mesh_rank_a, (r, t["world"], tmp, t, device))
-                                        for r in range(t["world"])], t["timeout_s"])
-        recs = []
-        for r in range(t["world"]):
-            with open(f"{tmp}/a_{r}.json") as f:
-                recs.append(json.load(f))
-        a_s = time.perf_counter() - t0
-        row_a = dict(_train_mesh_row(recs, t, a_s, device), parent_host_rss_gb=parent_rss)
-        emit("train_mesh", **row_a)
-        row_b = _against_one_rank("train_mesh", tb, device, backend_b, tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    emit("train_mesh_world1", **row_b)
-    return row_a
-
-
-def _against_one_rank(phase: str, tb: dict, device: str, backend_b: str, tmp: str) -> dict:
-    """Part (b) of ``phase``: tb["steps"] FSDP steps on tb["world"] gloo
-    ranks against one rank of the same step over ``backend_b``, from the
-    same weights and batches; fails the run where they differ, else returns
-    the printed row."""
     t0 = time.perf_counter()
-    run_children(f"{phase} (b), one rank", [(mesh_rank_b, (0, 1, tmp, tb, device,
-                                                            backend_b))],
-                 tb["timeout_s"])
-    run_children(f"{phase} (b), sharded",
-                 [(mesh_rank_b, (r, tb["world"], tmp, tb, device, "gloo"))
-                  for r in range(tb["world"])], tb["timeout_s"])
+    run_children("train_mesh (b), one rank",
+                 [(mesh_rank, (0, 1, tmp, f"{tmp}/rdv_b1", [(mesh_part_b, tb)], device,
+                               backend_b))], tb["timeout_s"])
+    ref_s = time.perf_counter() - t0
+    return _sharded_phase(
+        "train_mesh", [(mesh_part_a, t), (mesh_part_b, tb)], tmp, t, tb, device,
+        lambda recs, a_s: dict(_train_mesh_row(recs, t, a_s, device),
+                               parent_host_rss_gb=parent_rss),
+        lambda: _against_one_rank("train_mesh", tb, backend_b, tmp, ref_s))
+
+
+def _sharded_phase(phase: str, parts: list, tmp: str, t: dict, tb: dict, device: str,
+                   row_a, row_b) -> dict:
+    """``phase`` on t["world"] spawned ranks running ``parts`` in turn:
+    part (a) records tmp/a_<rank>.json, which ``row_a(recs, seconds)``
+    checks and prints; then ``row_b()`` checks and prints part (b)."""
+    t0 = time.perf_counter()
+    run_children(phase, [(mesh_rank, (r, t["world"], tmp, f"{tmp}/rdv_{phase}", parts, device))
+                         for r in range(t["world"])], t["timeout_s"] + tb["timeout_s"])
+    recs = []
+    for r in range(t["world"]):
+        with open(f"{tmp}/a_{r}.json") as f:
+            recs.append(json.load(f))
+    row = row_a(recs, time.perf_counter() - t0)
+    emit(phase, **row)
+    emit(f"{phase}_world1", **row_b())
+    return row
+
+
+def _against_one_rank(phase: str, tb: dict, backend_b: str, tmp: str, ref_s) -> dict:
+    """Part (b) of ``phase``: tb["steps"] FSDP steps on tb["world"] gloo
+    ranks (tmp/b.json, written after part (a) in the same ranks) against
+    one rank of the same step over ``backend_b``, from the same weights and
+    batches; fails the run where they differ, else returns the printed
+    row."""
     with open(f"{tmp}/b.json") as f:
         steps_b = json.load(f)
-    b_s = time.perf_counter() - t0
     # (b): the losses of every step and the master of the first (lr 0 under
     # the warmup) within tb["tol"] of one NCCL rank, and m (0.1 of the
     # gradient at step 1) within tb["grad_tol"], the training slice's fp32
@@ -1742,7 +1824,7 @@ def _against_one_rank(phase: str, tb: dict, device: str, backend_b: str, tmp: st
                 sharded=f"{tb['world']} gloo ranks",
                 mesh=f"data={tb['world'] // model_axis}, model={model_axis}",
                 against=f"one rank over {backend_b}",
-                tol=tol, grad_tol=grad_tol, seconds=b_s,
+                tol=tol, grad_tol=grad_tol, one_rank_s=ref_s,
                 steps=[dict(step=st["step"], lr=st["lr"], loss=st["loss"],
                             single_loss=st["single_loss"],
                             loss_rel_err=abs(st["loss"] - st["single_loss"])
@@ -1810,7 +1892,7 @@ def _train_mesh_row(recs: list, t: dict, a_s: float, device: str) -> dict:
                peak_host_rss_gb=[r["peak_host_rss_gb"] for r in recs],
                host_rss_gb_rank0=recs[0]["host_rss_gb"],
                host_rss_note="host_rss_gb_rank0: rank 0's resident host memory after its "
-                             "setup, 3 steps, the drill and the step without FSDP",
+                             "setup, 2 steps, the drill and the step without FSDP",
                flash_launches=flash, flash_expected=2 * cfg.num_layers * steps,
                flash_note="per rank: the forward and its recompute in the backward (FSDP "
                           "recomputes each layer body, its gather included)",
@@ -1822,22 +1904,24 @@ def _train_mesh_row(recs: list, t: dict, a_s: float, device: str) -> dict:
     return row
 
 
-def tp_rank_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
-    """Part (a) of train_tp on one rank; its record goes to tmp/tp_<rank>.json:
-    per step its time, parts and the all-reduces over "model" the mesh
-    counted beside ``model_all_reduces``, the flash calls' q shapes, the
-    kernel launches, the ring's bytes, device memory and host RSS."""
+def tp_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
+    """Part (a) of train_tp (and train_moe_mesh) on one rank; its record goes
+    to tmp/a_<rank>.json: per step its time, parts and the all-reduces over
+    "model" the mesh counted beside ``model_all_reduces``, the flash calls'
+    q shapes, the kernel launches, the ring's bytes, device memory, host RSS
+    and, for an MoE, step 1's routing (its groups, capacity and drops)."""
+    import gc
+
     import torch
-    import torch.distributed as dist
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
+    from repro_torch.models import moe
     from repro_torch.parallel import sharding as shd
     from repro_torch.train.step import model_all_reduces
     from repro_torch.tree import tree_flatten
 
-    cfg, mesh, arts, make_state, local, model = _mesh_setup(rank, world, t, f"{tmp}/rdv_tp",
-                                                            "gloo", device)
+    cfg, mesh, arts, make_state, local, model = _mesh_build(world, t, device)
     q_shapes = set()
     flash = ops.flash_attention
 
@@ -1848,27 +1932,39 @@ def tp_rank_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     art = arts[True]
+    formula = model_all_reduces(model, mesh, local[0].shape[0], t["seq_len"], fsdp_params=True)
     state = make_state(True)
+    del make_state, model                       # the full weights
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
     sync()
     rss = {"setup": host_rss_gb()}
+    free_gb = torch.cuda.mem_get_info()[0] / 1e9 if cuda else None
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    rows = local[0].shape[0]
-    formula = model_all_reduces(model, mesh, rows, t["seq_len"], fsdp_params=True)
-    records, backup = [], None
+    records, routing = [], None
     reset_launches()
     for i, tokens in enumerate(local):
         mesh.reset_counts()
-        t0 = time.perf_counter()
-        state, metrics, backup = art.step_fn(state, {"tokens": tokens})
-        sync()
-        step_ms = (time.perf_counter() - t0) * 1e3
+        backup = None                # the last step's, freed before this one's comes
+        with moe.record_routing() as log:
+            t0 = time.perf_counter()
+            state, metrics, backup = art.step_fn(state, {"tokens": tokens})
+            sync()
+            step_ms = (time.perf_counter() - t0) * 1e3
+        if i == 0 and log:
+            routing = dict(dropped=sum(int((~r["valid"]).sum()) for r in log),
+                           assignments=sum(r["valid"].numel() for r in log),
+                           capacity=log[0]["capacity"], groups=log[0]["top_e"].shape[0])
+        del log
         records.append(dict(step=i + 1, step_ms=step_ms, loss=float(metrics["loss"]),
-                            lr=float(metrics["lr"]),
+                            aux=float(metrics["aux"]), lr=float(metrics["lr"]),
                             grad_norm=float(art.step_fn.last_grad_norm),
                             model_all_reduces=mesh.counts.get(("all_reduce", ("model",)),
                                                               [0, 0]),
                             **_timing_ms(art)))
+        rss[f"step{i + 1}"] = host_rss_gb()
     launches = read_launches()
     sent = sum(x.numel() * x.element_size()
                for x in tree_flatten(backup, lambda v: v is None)[0] if x is not None)
@@ -1886,45 +1982,38 @@ def tp_rank_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
     rec = dict(rank=rank, coords=mesh.coords, records=records, formula=list(formula),
                block_bytes=block_bytes, model_replicated_bytes=model_replicated,
                launches=launches, flash_routes=dict(fa.flash_attention.routes),
-               flash_q_shapes=sorted(q_shapes),
+               flash_q_shapes=sorted(q_shapes), routing=routing,
                peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+               device_free_gb_setup=free_gb,
                ring_bytes_sent=sent, razor_bytes=art.razor.unique_bytes_per_device_ring,
-               host_rss_gb=dict(rss, steps=host_rss_gb()))
-    with open(f"{tmp}/tp_{rank}.json", "w") as f:
+               host_rss_gb=rss)
+    with open(f"{tmp}/a_{rank}.json", "w") as f:
         json.dump(rec, f)
-    dist.destroy_process_group()
 
 
-def phase_train_tp(torch, mesh_row: dict, t: dict = TRAIN_TP, tb: dict = TRAIN_TP_B,
+def phase_train_tp(torch, mesh_row: dict, tmp: str, t: dict = TRAIN_TP, tb: dict = TRAIN_TP_B,
                    device: str = "cuda", backend_b: str = "nccl") -> dict:
     """The tensor-parallel step on (data 2, model 2): parts (a) and (b);
-    ``mesh_row`` is train_mesh (a)'s row, the same run on (4, 1)."""
-    import shutil
-    import tempfile
-
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    ``mesh_row`` is train_mesh (a)'s row, the same run on (4, 1), and
+    ``tmp`` holds train_mesh (b)'s one-rank reference, which is this (b)'s
+    (the same config, weights and batches on one rank)."""
     parent_rss = host_rss_gb()
-    try:
-        t0 = time.perf_counter()
-        run_children("train_tp (a)", [(tp_rank_a, (r, t["world"], tmp, t, device))
-                                      for r in range(t["world"])], t["timeout_s"])
-        recs = []
-        for r in range(t["world"]):
-            with open(f"{tmp}/tp_{r}.json") as f:
-                recs.append(json.load(f))
-        row_a = dict(_train_tp_row(recs, t, time.perf_counter() - t0, device, mesh_row),
-                     parent_host_rss_gb=parent_rss)
-        emit("train_tp", **row_a)
-        row_b = _against_one_rank("train_tp", tb, device, backend_b, tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    emit("train_tp_world1", **row_b)
-    return row_a
+    return _sharded_phase(
+        "train_tp", [(tp_part_a, t), (mesh_part_b, tb)], tmp, t, tb, device,
+        lambda recs, a_s: dict(_train_tp_row("train_tp", recs, t, a_s, device, mesh_row),
+                               parent_host_rss_gb=parent_rss),
+        lambda: _against_one_rank("train_tp", tb, backend_b, tmp, None))
 
 
-def _train_tp_row(recs: list, t: dict, a_s: float, device: str, mesh_row: dict) -> dict:
-    """Part (a)'s checks (each failing the run) and its printed fields."""
+def _train_tp_row(phase: str, recs: list, t: dict, a_s: float, device: str,
+                  mesh_row=None) -> dict:
+    """Part (a)'s checks (each failing the run) and its printed fields, for
+    train_tp (against ``mesh_row``, train_mesh (a)'s on (4, 1)) and
+    train_moe_mesh (the routing: a rank's groups of the global batch's 16,
+    and drops)."""
     import numpy as np
+
+    from repro_torch.models.moe import moe_groups
 
     cfg = _mesh_cfg(t)
     steps, data = t["steps"], t["world"] // t["model"]
@@ -1937,34 +2026,49 @@ def _train_tp_row(recs: list, t: dict, a_s: float, device: str, mesh_row: dict) 
             or any(r["launches"]["decode_attention"] or r["launches"]["ssd"] for r in recs)
             or any(v for r in recs for k, v in r["flash_routes"].items() if k != "wgmma")
             or any(r["flash_q_shapes"] != [q_shape] for r in recs)):
-        fail(f"train_tp: kernel launches {[r['launches'] for r in recs]}, flash routes "
+        fail(f"{phase}: kernel launches {[r['launches'] for r in recs]}, flash routes "
              f"{[r['flash_routes'] for r in recs]}, q shapes "
              f"{[r['flash_q_shapes'] for r in recs]}; expected {expected} flash launches in "
              f"every rank, all on wgmma at q {q_shape}, and no decode or SSD launch")
     if not all(math.isfinite(s["loss"]) for r in recs for s in r["records"]):
-        fail(f"train_tp: losses {[[s['loss'] for s in r['records']] for r in recs]}")
-    # the same weights and global batches as train_mesh (a) on (4, 1): the
-    # first step's loss and global gradient norm agree within bf16 tolerances
-    first, ref = recs[0]["records"][0], mesh_row
-    vs_mesh = dict(loss_rel_err=abs(first["loss"] - ref["losses"][0]) / abs(ref["losses"][0]),
-                   grad_norm_rel_err=abs(first["grad_norm"] - ref["grad_norms"][0])
-                   / ref["grad_norms"][0])
-    if (vs_mesh["loss_rel_err"] > TP_VS_MESH["loss_rtol"]
-            or vs_mesh["grad_norm_rel_err"] > TP_VS_MESH["grad_norm_rtol"]):
-        fail(f"train_tp: step 1 loss {first['loss']} and gradient norm {first['grad_norm']} "
+        fail(f"{phase}: losses {[[s['loss'] for s in r['records']] for r in recs]}")
+    extra = {}
+    if mesh_row is not None:
+        # the same weights and global batches as train_mesh (a) on (4, 1): the
+        # first step's loss and global gradient norm agree within bf16 tolerances
+        first, ref = recs[0]["records"][0], mesh_row
+        vs_mesh = dict(loss_rel_err=abs(first["loss"] - ref["losses"][0]) / abs(ref["losses"][0]),
+                       grad_norm_rel_err=abs(first["grad_norm"] - ref["grad_norms"][0])
+                       / ref["grad_norms"][0])
+        extra["vs_train_mesh"] = dict(vs_mesh, **TP_VS_MESH, mesh_losses=ref["losses"],
+                                      mesh_grad_norms=ref["grad_norms"])
+    if mesh_row is not None and (vs_mesh["loss_rel_err"] > TP_VS_MESH["loss_rtol"]
+                                 or vs_mesh["grad_norm_rel_err"] > TP_VS_MESH["grad_norm_rtol"]):
+        fail(f"{phase}: step 1 loss {first['loss']} and gradient norm {first['grad_norm']} "
              f"against train_mesh's {ref['losses'][0]} and {ref['grad_norms'][0]} on (4, 1): "
              f"{vs_mesh}, tolerances {TP_VS_MESH}")
     counts = [s["model_all_reduces"] for r in recs for s in r["records"]]
     if any(c != recs[0]["formula"] for c in counts):
-        fail(f"train_tp: all-reduces over 'model' (calls, bytes) {counts}, the formula "
+        fail(f"{phase}: all-reduces over 'model' (calls, bytes) {counts}, the formula "
              f"{recs[0]['formula']}")
     group = sum(r["ring_bytes_sent"] for r in recs if r["coords"]["data"] == 0)
     razor = recs[0]["razor_bytes"] + (t["model"] - 1) * recs[0]["model_replicated_bytes"]
     if not all(r["ring_bytes_sent"] == r["block_bytes"] for r in recs) or group != razor:
-        fail(f"train_tp: ring bytes {[r['ring_bytes_sent'] for r in recs]} against the "
+        fail(f"{phase}: ring bytes {[r['ring_bytes_sent'] for r in recs]} against the "
              f"unique blocks' {[r['block_bytes'] for r in recs]}; a model group's "
              f"{group} against the razor's {recs[0]['razor_bytes']} + "
              f"{t['model'] - 1} x {recs[0]['model_replicated_bytes']}")
+
+    if cfg.is_moe:
+        routing = [r["routing"] for r in recs]
+        groups = moe_groups(t["global_batch"] * t["seq_len"]) // data
+        if any(x["groups"] != groups or x["dropped"] <= 0 for x in routing):
+            fail(f"{phase}: routing {routing}; expected {groups} groups a rank of the global "
+                 "batch's, and dropped assignments")
+        extra.update(routing_step1=routing[0], dropped_per_rank=[x["dropped"] for x in routing],
+                     routing_note="rank 0's MoE calls of step 1's forward: its groups of the "
+                                  "global batch's and the global capacity; every rank's "
+                                  "dropped assignments above 0")
 
     def per_step(key):
         return [float(np.median([r["records"][i].get(key, 0.0) for r in recs]))
@@ -1976,6 +2080,7 @@ def _train_tp_row(recs: list, t: dict, a_s: float, device: str, mesh_row: dict) 
                 fsdp_params=True, instant_ckpt=True, global_batch=t["global_batch"],
                 seq_len=t["seq_len"], tokens_per_data_rank=rows * t["seq_len"], steps=steps,
                 losses=[s["loss"] for s in recs[0]["records"]],
+                aux=[s["aux"] for s in recs[0]["records"]],
                 grad_norms=[s["grad_norm"] for s in recs[0]["records"]],
                 step_ms=per_step("step_ms"), tp_reduce_ms=per_step("tp_reduce_ms"),
                 grad_reduce_ms=per_step("grad_reduce_ms"),
@@ -1987,17 +2092,16 @@ def _train_tp_row(recs: list, t: dict, a_s: float, device: str, mesh_row: dict) 
                 model_all_reduces=recs[0]["formula"],
                 model_all_reduces_note="(calls, bytes) a rank and step, equal on every "
                                        "rank and step to train.step.model_all_reduces",
-                vs_train_mesh=dict(vs_mesh, **TP_VS_MESH, mesh_losses=ref["losses"],
-                                   mesh_grad_norms=ref["grad_norms"]),
-                peak_device_mem_gb=[r["peak_device_mem_gb"] for r in recs],
+                **extra, peak_device_mem_gb=[r["peak_device_mem_gb"] for r in recs],
+                device_free_gb_setup=[r["device_free_gb_setup"] for r in recs],
                 host_rss_gb=[r["host_rss_gb"] for r in recs],
                 host_rss_note="per rank: resident host memory after its setup and after "
-                              "its steps",
+                              "each step",
                 flash_launches=flash, flash_expected=expected, flash_q_shape=q_shape,
                 decode_launches=[r["launches"]["decode_attention"] for r in recs],
                 ssd_launches=[r["launches"]["ssd"] for r in recs],
                 flash_note="per rank: the forward and its recompute in the backward (FSDP "
-                           "recomputes each layer body), at the rank's 8 of 16 q heads",
+                           "recomputes each layer body), at the rank's share of the q heads",
                 ring_bytes_sent=[r["ring_bytes_sent"] for r in recs],
                 ring_bytes_model_group=group,
                 razor_unique_bytes_per_device_ring=recs[0]["razor_bytes"],
@@ -2006,6 +2110,380 @@ def _train_tp_row(recs: list, t: dict, a_s: float, device: str, mesh_row: dict) 
                           "group's sum is the razor's per-device bytes plus (model - 1) "
                           "copies of the unique leaves that 'model' does not split",
                 seconds=a_s)
+
+
+def moe_part_single(rank: int, world: int, tmp: str, tb: dict, device: str) -> None:
+    """train_moe_mesh (b)'s reference: one rank of the same step on the
+    global batch, tb["steps"] FSDP steps. After each it saves to
+    tmp/moe1_step<i>.pt the loss, m (every leaf whole, fp32), each leaf's
+    largest |m| and the routing of every MoE call of the forward (top_e,
+    pos, valid, the gate probabilities and their smallest k-th / (k+1)-th
+    gap)."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.tree import keystr, tree_flatten_with_path
+
+    cfg, _, arts, make_state, local, model = _mesh_build(world, tb, device)
+    art = arts[True]
+    state = make_state(True)
+    del make_state, model
+    for i, tokens in enumerate(local):
+        with moe.record_routing() as log:
+            state, metrics, _ = art.step_fn(state, {"tokens": tokens})
+        m = {keystr(p): x for p, x in tree_flatten_with_path(state["opt"]["m"])}
+        torch.save({"loss": float(metrics["loss"]),
+                    "m": {k: x.cpu() for k, x in m.items()},
+                    "m_max": {k: float(x.abs().max()) for k, x in m.items()},
+                    "routing": [{"top_e": r["top_e"].cpu(), "pos": r["pos"].cpu(),
+                                 "valid": r["valid"].cpu(), "gate_probs": r["gate_probs"].cpu(),
+                                 "gap": _gate_gap(r["gate_probs"], cfg.top_k)} for r in log]},
+                   f"{tmp}/moe1_step{i}.pt")
+        del log, m
+
+
+def _gate_gap(gate_probs, k: int) -> float:
+    """The smallest gap between a token's k-th and (k+1)-th gate probability."""
+    top = gate_probs.float().topk(k + 1, dim=-1).values
+    return float((top[..., k - 1] - top[..., k]).min())
+
+
+def moe_part_b(rank: int, world: int, tmp: str, tb: dict, device: str) -> None:
+    """train_moe_mesh (b) on one of the four ranks, after part (a): tb["steps"]
+    FSDP steps in fp32; after each, this rank's blocks of m against the one
+    rank's (``moe_part_single``) and its routing against the one rank's
+    groups at its data index; rank 0 writes the steps to tmp/moe_b.json."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models import moe
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.tree import keystr, tree_flatten, tree_flatten_with_path
+
+    _, mesh, arts, make_state, local, model = _mesh_build(world, tb, device)
+    art = arts[True]
+    state = make_state(True)
+    del make_state, model
+    gc.collect()
+    specs = tree_flatten(art.plan.opt_pspecs["m"], shd.is_spec)[0]
+    data_index = mesh.index("data")
+    steps = []
+    for i, tokens in enumerate(local):
+        with moe.record_routing() as log:
+            state, metrics, _ = art.step_fn(state, {"tokens": tokens})
+        ref = torch.load(f"{tmp}/moe1_step{i}.pt", mmap=True)
+        err = {}
+        for (path, x), spec in zip(tree_flatten_with_path(state["opt"]["m"]), specs):
+            key = keystr(path)
+            block = shd.local_block(ref["m"][key], spec, mesh).to(x.device)
+            err[key] = float((x - block).abs().max()) / max(ref["m_max"][key], 1e-30)
+        routing = _routing_against(log, ref["routing"], data_index)
+        steps.append(dict(step=i + 1, loss=float(metrics["loss"]), single_loss=ref["loss"],
+                          err=err, **routing,
+                          min_gate_gap=min([r["gap"] for r in ref["routing"]]),
+                          dropped=sum(int((~r["valid"]).sum()) for r in ref["routing"]),
+                          assignments=sum(r["valid"].numel() for r in ref["routing"])))
+        del ref, log
+    every = [None] * world
+    dist.all_gather_object(every, (mesh.coords, steps))
+    if rank == 0:
+        out = []
+        for i, st in enumerate(steps):
+            per_rank = [s[i] for _, s in every]
+            first = [s[i] for c, s in every if c["model"] == 0]   # each data index once
+            out.append(dict(st, err={k: max(s["err"][k] for s in per_rank) for k in st["err"]},
+                            **{k: sum(s[k] for s in first) for k in _ROUTING_COUNTS},
+                            explained_gap_max=max(s["explained_gap_max"] for s in per_rank),
+                            gate_noise=max(s["gate_noise"] for s in per_rank),
+                            unexplained_on_any_rank=any(
+                                s["unexplained_flips"] or s["unexplained_diffs"]
+                                for s in per_rank)))
+        with open(f"{tmp}/moe_b.json", "w") as f:
+            json.dump(out, f)
+
+
+_ROUTING_COUNTS = ("flips", "explained_flips", "unexplained_flips", "pos_diff", "valid_diff",
+                   "unexplained_diffs")
+
+
+def _routing_against(log: list, ref: list, data_index: int) -> dict:
+    """This rank's routing of every MoE call (its groups of the global
+    batch) against the one rank's, at its data index. A flipped assignment
+    (another expert in a top-k slot) is explained where the one rank's gap
+    between the two experts' gate probabilities is within twice the largest
+    difference between the two runs' gate probabilities (``gate_noise``):
+    the two reduction orders' rounding decides it. Positions and capacity
+    verdicts may then differ in that group only; every other difference is
+    unexplained."""
+    import torch
+
+    if len(log) != len(ref):
+        fail(f"train_moe_mesh (b): {len(log)} MoE calls against {len(ref)}")
+    out = dict.fromkeys(_ROUTING_COUNTS, 0)
+    out.update(explained_gap_max=0.0, gate_noise=0.0)
+    for mine, full in zip(log, ref):
+        g = mine["top_e"].shape[0]             # this rank's groups of the global batch
+        part = slice(data_index * g, (data_index + 1) * g)
+        probs, probs_ref = mine["gate_probs"].cpu(), full["gate_probs"][part]
+        top, top_ref = mine["top_e"].cpu(), full["top_e"][part]
+        noise = float((probs - probs_ref).abs().max())
+        out["gate_noise"] = max(out["gate_noise"], noise)
+        flipped = set()
+        for gi, ti, si in (top != top_ref).nonzero().tolist():
+            a, b = int(top_ref[gi, ti, si]), int(top[gi, ti, si])
+            gap = float((probs_ref[gi, ti, a] - probs_ref[gi, ti, b]).abs())
+            out["flips"] += 1
+            if gap <= 2 * noise:
+                out["explained_flips"] += 1
+                out["explained_gap_max"] = max(out["explained_gap_max"], gap)
+                flipped.add(gi)
+            else:
+                out["unexplained_flips"] += 1
+        for key, diff in (("pos_diff", mine["pos"].cpu() != full["pos"][part]),
+                          ("valid_diff", mine["valid"].cpu() != full["valid"][part])):
+            out[key] += int(diff.sum())
+            keep = torch.ones(g, dtype=torch.bool)
+            keep[sorted(flipped)] = False
+            out["unexplained_diffs"] += int(diff[keep].sum())
+    return out
+
+
+def phase_train_moe_mesh(torch, t: dict = TRAIN_MOE, tb: dict = TRAIN_MOE_B,
+                         device: str = "cuda") -> dict:
+    """The MoE in the sharded step on (data 2, model 2): (b)'s one-rank
+    reference first, then four ranks for (a) and (b)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+    parent_rss = host_rss_gb()
+    torch.cuda.empty_cache()
+    parent_device_gb = torch.cuda.memory_reserved() / 1e9
+    try:
+        t0 = time.perf_counter()
+        run_children("train_moe_mesh (b), one rank",
+                     [(mesh_rank, (0, 1, tmp, f"{tmp}/rdv_moe1", [(moe_part_single, tb)], device,
+                                   "nccl" if device == "cuda" else "gloo"))], tb["timeout_s"])
+        single_s = time.perf_counter() - t0
+
+        def row_b():
+            with open(f"{tmp}/moe_b.json") as f:
+                return _train_moe_b_row(json.load(f), tb, single_s)
+        return _sharded_phase(
+            "train_moe_mesh", [(tp_part_a, t), (moe_part_b, tb)], tmp, t, tb, device,
+            lambda recs, a_s: dict(_train_tp_row("train_moe_mesh", recs, t, a_s, device),
+                                   parent_host_rss_gb=parent_rss,
+                                   parent_device_reserved_gb=parent_device_gb), row_b)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _train_moe_b_row(steps_b: list, tb: dict, single_s: float) -> dict:
+    """Part (b)'s checks: the losses within tb["tol"] of one NCCL rank, m
+    within tb["grad_tol"] of each leaf's largest value, the routing equal."""
+    tol, grad_tol = tb["tol"], tb["grad_tol"]
+    bad = []
+    for st in steps_b:
+        if abs(st["loss"] - st["single_loss"]) > tol * abs(st["single_loss"]):
+            bad.append(f"step {st['step']} loss {st['loss']} vs {st['single_loss']}")
+        bad += [f"step {st['step']} m {k}: {e} (limit {grad_tol})"
+                for k, e in st["err"].items() if e > grad_tol]
+        if st["unexplained_on_any_rank"]:
+            bad.append(f"step {st['step']} routing: {st['unexplained_flips']} flipped "
+                       f"assignments beyond the gate noise {st['gate_noise']}, "
+                       f"{st['unexplained_diffs']} positions or capacity verdicts differing in "
+                       f"groups without such a flip ({st['flips']} flips, {st['pos_diff']} "
+                       f"positions, {st['valid_diff']} verdicts in all; smallest gate gap "
+                       f"{st['min_gate_gap']})")
+    if bad:
+        fail("train_moe_mesh (b): sharded against one nccl rank: " + "; ".join(bad))
+    model_axis = tb["model"]
+    return dict(config=f"{_mesh_cfg(tb).name}, {tb['layers']} layers, fp32",
+                sharded=f"{tb['world']} gloo ranks", against="one rank over nccl",
+                mesh=f"data={tb['world'] // model_axis}, model={model_axis}",
+                instant_ckpt=tb["instant_ckpt"], tol=tol, grad_tol=grad_tol,
+                single_rank_s=single_s,
+                steps=[dict(step=st["step"], loss=st["loss"], single_loss=st["single_loss"],
+                            loss_rel_err=abs(st["loss"] - st["single_loss"])
+                            / abs(st["single_loss"]),
+                            m_rel_err_max=max(st["err"].values()),
+                            m_rel_err_moe=max(e for k, e in st["err"].items() if "|moe|" in k),
+                            flipped_assignments=st["flips"],
+                            explained_flips=st["explained_flips"],
+                            explained_gap_max=st["explained_gap_max"],
+                            gate_noise=st["gate_noise"], positions_differ=st["pos_diff"],
+                            valid_differs=st["valid_diff"], min_gate_gap=st["min_gate_gap"],
+                            dropped_assignments=st["dropped"], assignments=st["assignments"])
+                       for st in steps_b],
+                note="held: the losses within tol, m (0.1 of the gradient at step 1) of "
+                     "every leaf within grad_tol of its largest value, each rank's block "
+                     "against the one rank's; every MoE call's top-k experts, positions and "
+                     "capacity verdicts equal (a rank's groups the one rank's, at its data "
+                     "index) but for flips explained by the gate noise: the one rank's gap "
+                     "between the two experts within twice the largest difference of the "
+                     "two runs' gate probabilities (exact ties among them), and the "
+                     "positions and verdicts of their groups; each counted")
+
+
+# GPipe over a ("pipe",) mesh of four gloo ranks sharing the card:
+# full qwen3-0.6b (28 layers, 7 a stage), bf16, forward only, M = 8
+# microbatches of 1 x 1024 tokens through Block.apply_layer, held against the
+# loop over the 28 layers on the whole batch on rank 0; then fp32 at 8 layers
+# (2 a stage) held at 1e-5. ``tol`` is relative to the loop's largest value:
+# bf16's is the kernels' bf16 tolerance (an H100 read 0: the stages' products
+# over one microbatch equalled the loop's over eight, bit for bit; another
+# library may pick other kernels for the two row counts), fp32's the reading
+# 2.6e-6 with headroom
+PIPELINE = dict(arch="qwen3-0.6b", smoke=False, world=4, microbatches=8, rows=1,
+                seq_len=1024, seed=0, timeout_s=300,
+                parts=(dict(layers=None, dtype="bfloat16", tol=TOL["bfloat16"]),
+                       dict(layers=8, dtype="float32", tol=1e-5)))
+
+
+def _pipe_cfg(t: dict, part: dict):
+    return _mesh_cfg(dict(arch=t["arch"], smoke=t["smoke"], layers=part["layers"],
+                          dtype=part["dtype"]))
+
+
+def pipe_part(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
+    """Both parts of the pipeline phase on one stage; the record goes to
+    tmp/pipe_<rank>.json."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import embed_lookup
+    from repro_torch.parallel import bubble_fraction, pipeline_forward
+    from repro_torch.tree import tree_map
+
+    mesh = make_mesh((world,), ("pipe",))
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    parts = []
+    for part in t["parts"]:
+        cfg = _pipe_cfg(t, part)
+        model = build_model(cfg, device=device).init(
+            torch.Generator(device=device).manual_seed(t["seed"]))
+        tokens = torch.from_numpy(np.random.default_rng(t["seed"]).integers(
+            0, cfg.vocab_size, (t["microbatches"], t["rows"], t["seq_len"]))).to(device)
+        with torch.no_grad():
+            x = embed_lookup(model.embed["w"], tokens)          # (M, mb, S, D)
+        per = cfg.num_layers // world
+        blocks = list(model.blocks)
+        stage = tree_map(lambda *layers: torch.stack(layers),
+                         *[b.layer_params() for b in blocks[rank * per:(rank + 1) * per]])
+        body = blocks[0]
+        if rank:                                   # a stage holds its own layers only
+            del model, blocks
+            gc.collect()
+        mesh.reset_counts()
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        out = pipeline_forward(lambda p, h: body.apply_layer(p, h)[0], stage, x, mesh)
+        sync()
+        wall_s = time.perf_counter() - t0
+        rec = dict(config=f"{cfg.name}, {cfg.num_layers} layers, {cfg.dtype}",
+                   stage_layers=per, wall_s=wall_s, launches=read_launches(),
+                   flash_routes=dict(fa.flash_attention.routes),
+                   counts={f"{op}|{'.'.join(a)}": list(v) for (op, a), v in mesh.counts.items()},
+                   ticks=t["microbatches"] + world - 1,
+                   bubble_fraction=bubble_fraction(world, t["microbatches"]),
+                   finite=bool(torch.isfinite(out).all()), shape=list(out.shape))
+        if rank == 0:                              # the loop over every layer, whole batch
+            with torch.no_grad():
+                sync()
+                t0 = time.perf_counter()
+                h = x.reshape(-1, *x.shape[2:])
+                for b in blocks:
+                    h = b.apply_layer(b.layer_params(), h)[0]
+                sync()
+                rec["sequential_s"] = time.perf_counter() - t0
+            ref = h.reshape(x.shape).float()
+            rec["max_abs_err"] = float((out.float() - ref).abs().max())
+            rec["ref_max_abs"] = float(ref.abs().max())
+            rec["rel_err"] = rec["max_abs_err"] / rec["ref_max_abs"]
+            rec["tol"] = part["tol"]
+            del model, blocks, ref, h
+        parts.append(rec)
+        del stage, body, x, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(f"{tmp}/pipe_{rank}.json", "w") as f:
+        json.dump(dict(rank=rank, parts=parts), f)
+
+
+def phase_pipeline(torch, t: dict = PIPELINE, device: str = "cuda") -> dict:
+    """GPipe over four stages: full qwen3-0.6b in bf16, then 8 layers in
+    fp32, each against the sequential loop on rank 0."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pipe_")
+    try:
+        t0 = time.perf_counter()
+        run_children("pipeline", [(mesh_rank, (r, t["world"], tmp, f"{tmp}/rdv_pipe",
+                                               [(pipe_part, t)], device))
+                                  for r in range(t["world"])], t["timeout_s"])
+        recs = []
+        for r in range(t["world"]):
+            with open(f"{tmp}/pipe_{r}.json") as f:
+                recs.append(json.load(f))
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    world, m = t["world"], t["microbatches"]
+    rows = []
+    for i, part in enumerate(t["parts"]):
+        per_rank = [r["parts"][i] for r in recs]
+        head = per_rank[0]
+        dname = part["dtype"]
+        layers = head["stage_layers"] * world
+        tick_bytes = (t["rows"] * t["seq_len"] * _pipe_cfg(t, part).d_model
+                      * (2 if dname == "bfloat16" else 4))
+        want_counts = {"ring_exchange|pipe": [m + world - 1, (m + world - 1) * tick_bytes],
+                       "broadcast|pipe": [1, m * tick_bytes]}
+        flash = [r["launches"]["flash_attention"] for r in per_rank]
+        route = EXPECTED_ROUTE[dname]
+        if device == "cuda" and (
+                flash != [head["stage_layers"] * m] * world
+                or any(r["flash_routes"].get(route) != r["launches"]["flash_attention"]
+                       for r in per_rank)
+                or any(r["launches"]["decode_attention"] or r["launches"]["ssd"]
+                       for r in per_rank)):
+            fail(f"pipeline ({dname}): kernel launches {[r['launches'] for r in per_rank]}, "
+                 f"routes {[r['flash_routes'] for r in per_rank]}; expected "
+                 f"{head['stage_layers'] * m} flash launches a stage on {route}")
+        if any(r["counts"] != want_counts for r in per_rank):
+            fail(f"pipeline ({dname}): collectives {[r['counts'] for r in per_rank]}, "
+                 f"expected {want_counts}")
+        if not all(r["finite"] for r in per_rank) or head["rel_err"] > part["tol"]:
+            fail(f"pipeline ({dname}): against the sequential loop over {layers} layers "
+                 f"{head['rel_err']} of its largest value (limit {part['tol']})")
+        rows.append(dict(config=head["config"], stages=world, stage_layers=head["stage_layers"],
+                         microbatches=m, microbatch=[t["rows"], t["seq_len"]],
+                         ticks=head["ticks"], bubble_fraction=head["bubble_fraction"],
+                         wall_s=[r["wall_s"] for r in per_rank],
+                         sequential_s=head["sequential_s"],
+                         rel_err=head["rel_err"], max_abs_err=head["max_abs_err"],
+                         ref_max_abs=head["ref_max_abs"], tol=part["tol"],
+                         ring_exchange=head["counts"]["ring_exchange|pipe"],
+                         broadcast=head["counts"]["broadcast|pipe"],
+                         flash_launches=flash, flash_route=route))
+    row = dict(parts=rows, backend="gloo", device_note=MESH_NOTE.replace("four ranks",
+                                                                         "four stages"),
+               note="forward only; a stage skips its bubble ticks, so it runs its layers "
+                    "M times; wall_s per stage from its first tick to the broadcast; "
+                    "sequential_s: rank 0's loop over every layer on the whole batch; "
+                    "ring_exchange / broadcast: (calls, bytes) a stage",
+               seconds=seconds)
+    emit("pipeline", **row)
+    return row
 
 
 def phase_scenarios(torch):
@@ -2079,7 +2557,7 @@ def phase_scenarios(torch):
 
     # ---- 2. one scenario's events at full width ---- #
     sc = next(s for s in scs if s.name == REPLAY["scenario"])
-    cfg = get_arch("qwen3-0.6b")
+    cfg = dataclasses.replace(get_arch("qwen3-0.6b"), num_layers=REPLAY["layers"])
     ckpt_dir = ROOT / "build" / "chip_smoke_replay_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
@@ -2164,7 +2642,7 @@ def phase_scenarios(torch):
     row = dict(corpus=corpus_row,
                replay=dict(scenario=sc.name, events=[[e.at_step, e.action, e.kwargs()]
                                                      for e in sc.events],
-                           config=f"qwen3-0.6b full ({cfg.num_layers} layers, bf16)",
+                           config=f"qwen3-0.6b full width, {cfg.num_layers} layers, bf16",
                            dp=sc.dp, global_batch=REPLAY["global_batch"],
                            seq_len=REPLAY["seq_len"], link_bw=sc.link_bw, dcn_bw=sc.dcn_bw,
                            verdict=got, differs_from_pin=differs,
@@ -2391,8 +2869,7 @@ def routing_compare(card_log: list, cpu_log: list, k: int) -> dict:
     for a, b in zip(card_log, cpu_log):
         flips += int((a["top_e"].cpu() != b["top_e"]).sum())
         valid_diff += int((a["valid"].cpu() != b["valid"]).sum())
-        top = a["gate_probs"].float().topk(k + 1, dim=-1).values
-        gap = min(gap, float((top[..., k - 1] - top[..., k]).min()))
+        gap = min(gap, _gate_gap(a["gate_probs"], k))
     if len(card_log) != len(cpu_log):
         fail(f"slice_moe: {len(card_log)} MoE calls on the card, {len(cpu_log)} on the CPU")
     return dict(moe_calls=len(card_log), flipped_assignments=flips,
@@ -2685,6 +3162,9 @@ def phase_train_ssm(torch):
 
 
 def main() -> int:
+    import shutil
+    import tempfile
+
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA GPU")
@@ -2714,8 +3194,15 @@ def main() -> int:
     timed("slice_moe", phase_slice_moe, torch)
     serve_moe = timed("serve_moe", phase_serve_moe, torch)
     timed("train_grad", phase_train_grad, torch)
-    train_mesh = timed("train_mesh", phase_train_mesh, torch)
-    train_tp = timed("train_tp", phase_train_tp, torch, train_mesh)
+    # train_mesh (b)'s one-rank reference is train_tp (b)'s too: one directory
+    mesh_tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        train_mesh = timed("train_mesh", phase_train_mesh, torch, mesh_tmp)
+        train_tp = timed("train_tp", phase_train_tp, torch, train_mesh, mesh_tmp)
+    finally:
+        shutil.rmtree(mesh_tmp, ignore_errors=True)
+    train_moe_mesh = timed("train_moe_mesh", phase_train_moe_mesh, torch)
+    pipeline = timed("pipeline", phase_pipeline, torch)
     scenarios = timed("scenarios", phase_scenarios, torch)
     train_ssm = timed("train_ssm", phase_train_ssm, torch)
     train = timed("train", phase_train, torch)
@@ -2775,6 +3262,10 @@ def main() -> int:
              train_tp_launches=train_tp["flash_launches"],
              tp_shape={d: moe_shape(kernels["flash_attention"][f"{d}_tp"])
                        for d in ("bfloat16", "float32")},
+             train_moe_mesh_launches=train_moe_mesh["flash_launches"],
+             moe_mesh_shape=moe_shape(kernels["flash_attention"]["bfloat16_moe_tp"]),
+             pipeline_launches={p["config"]: p["flash_launches"] for p in pipeline["parts"]},
+             pipeline_shape=moe_shape(kernels["flash_attention"]["bfloat16_pipe"]),
              backward="plain blockwise_attention recompute (FlashAttention), no kernel"),
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attn.cu",
@@ -2797,6 +3288,7 @@ def main() -> int:
                           for d in ("bfloat16", "float32")}),
              moe_launches=serve_moe["launches"]["decode_attention"],
              train_tp_launches=train_tp["decode_launches"],
+             train_moe_mesh_launches=train_moe_mesh["decode_launches"],
              moe_shape=moe_shape(kernels["decode_attention"]["bfloat16_moe"][-1])),
         dict(name="ssd", route="cuda", dispatch=ssd_main["route"],
              source="src/repro_torch/csrc/ssd_wgmma.cu",
@@ -2823,6 +3315,7 @@ def main() -> int:
              hybrid_shape={k_: ssd_hyb[k_] for k_ in keys},
              moe_launches=serve_moe["launches"]["ssd"],
              train_tp_launches=train_tp["ssd_launches"],
+             train_moe_mesh_launches=train_moe_mesh["ssd_launches"],
              tp_shapes={model: {k_: ssd_rows[(f"{model}/tp2", 1024, "bfloat16")][k_]
                                 for k_ in keys}
                         for model in ("mamba2-2.7b", "zamba2-7b")},

@@ -221,20 +221,24 @@ class Mesh:
     def ring_exchange(self, tensors: Sequence[torch.Tensor], axis: str,
                       shift: int = 1) -> List[torch.Tensor]:
         """Send every tensor to the rank ``shift`` steps on along ``axis``
-        and receive the same shapes from the rank ``shift`` steps back, in
-        one ``batch_isend_irecv``."""
+        and receive the same shapes from the rank ``shift`` steps back, one
+        tensor at a time (a ``batch_isend_irecv`` of one send and one
+        receive each), so that a gloo group's host copies hold one tensor's
+        bytes at once, not the whole list's."""
         if self._local(axis):
             return [t.clone() for t in tensors]
         self._count("ring_exchange", axis, sum(_nbytes(t) for t in tensors))
         g, n, me = self.group(axis), self.shape[axis], self.index(axis)
         dst, src = self._peer(axis, (me + shift) % n), self._peer(axis, (me - shift) % n)
-        sends = [self._staged(g, t.contiguous()) for t in tensors]
-        recvs = [self._empty(s, *s.shape) for s in sends]
-        ops = ([dist.P2POp(dist.isend, s, dst, g) for s in sends]
-               + [dist.P2POp(dist.irecv, r, src, g) for r in recvs])
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-        return [r.to(t.device) for r, t in zip(recvs, tensors)]
+        out = []
+        for t in tensors:
+            send = self._staged(g, t.contiguous())
+            recv = self._empty(send, *send.shape)
+            for work in dist.batch_isend_irecv([dist.P2POp(dist.isend, send, dst, g),
+                                                dist.P2POp(dist.irecv, recv, src, g)]):
+                work.wait()
+            out.append(recv.to(t.device))
+        return out
 
     # ------------------------------------------------------------------ #
     # Megatron's f and g, differentiable; ``timer()`` (a context manager)
@@ -339,6 +343,12 @@ def make_host_mesh(data: int = 2, model: int = 2, pod: int = 1) -> Mesh:
     shape = (pod, data, model) if pod > 1 else (data, model)
     axes = ("pod", "data", "model") if pod > 1 else ("data", "model")
     return _host_mesh(shape, axes)
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str]) -> Mesh:
+    """A mesh of any axes over the default group (e.g. ``(("pipe",), (4,))``
+    for a pipeline), which must have exactly that many ranks."""
+    return _host_mesh(tuple(shape), tuple(axes))
 
 
 def make_single_device_mesh() -> Mesh:

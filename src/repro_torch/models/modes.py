@@ -39,6 +39,13 @@ width below the config's). ``tensor_parallel(tp)`` turns it on, over the
 sub-layer on the local blocks between ``tp_copy`` (Megatron's f) and
 ``tp_reduce`` (g); ``tp_sum`` is a sum over the axis whose gradient is
 summed too (a statistic over a split dim). Outside ``tensor_parallel`` nothing is split and nothing is reduced.
+
+MoE routing over the global batch: under the reference's jit an MoE layer
+routes the global batch, whose rows the sharded step splits over the batch
+ranks. ``global_routing(ctx)`` (a ``GlobalRouting``: the mesh, its batch
+axes and the global token count of the microbatch) tells ``models.moe``
+which groups and capacity the global batch has and where to sum its
+expert counts; outside it a call routes the tokens it is given.
 """
 from __future__ import annotations
 
@@ -55,6 +62,7 @@ from repro_torch.tree import tree_flatten, tree_unflatten
 
 _FSDP = contextvars.ContextVar("repro_torch_fsdp_unshard", default=None)
 _TP = contextvars.ContextVar("repro_torch_tensor_parallel", default=None)
+_ROUTING = contextvars.ContextVar("repro_torch_global_routing", default=None)
 TP_AXIS = "model"        # the axis that ``parallel.sharding``'s specs split the bodies over
 
 
@@ -199,14 +207,14 @@ def run_layer(body: Callable, *args):
     """``body(*args)``; under ``fsdp_unshard`` with autograd recording,
     recomputed in the backward (the module docstring says why). The
     recomputation runs in the autograd engine's thread, which does not see
-    this thread's context, so the layout and the tensor-parallel axis go
-    with it."""
-    layout, tp = _FSDP.get(), _TP.get()
+    this thread's context, so the layout, the tensor-parallel axis and the
+    MoE's global routing go with it."""
+    layout, tp, routing = _FSDP.get(), _TP.get(), _ROUTING.get()
     if layout is None or not torch.is_grad_enabled():
         return body(*args)
 
     def again(*a):
-        with fsdp_unshard(layout), tensor_parallel(tp):
+        with fsdp_unshard(layout), tensor_parallel(tp), global_routing(routing):
             return body(*a)
 
     return checkpoint(again, *args, use_reentrant=False)
@@ -282,3 +290,39 @@ def parallel_region(split: bool, fn: Callable[[torch.Tensor], torch.Tensor],
     if not split:
         return fn(x)
     return tp_reduce(fn(tp_copy(x)))
+
+
+# --------------------------------------------------------------------------- #
+# MoE routing over the global batch
+# --------------------------------------------------------------------------- #
+@dataclass(frozen=True)
+class GlobalRouting:
+    """The batch of which this rank's rows are a block: ``tokens`` tokens in
+    all (a microbatch's), split in contiguous row blocks over ``axes`` (the
+    batch axes) of ``mesh``."""
+    mesh: Any
+    axes: Tuple[str, ...]
+    tokens: int
+
+    @property
+    def ranks(self) -> int:
+        return self.mesh.axes_size(self.axes)
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """A plain (not differentiated) sum over the batch ranks."""
+        return self.mesh.all_reduce(x, self.axes)
+
+
+@contextlib.contextmanager
+def global_routing(ctx: Optional[GlobalRouting]):
+    """Within it, an MoE layer routes as a part of ``ctx``'s batch; ``None``
+    routes the tokens of each call alone."""
+    tok = _ROUTING.set(ctx)
+    try:
+        yield ctx
+    finally:
+        _ROUTING.reset(tok)
+
+
+def current_routing() -> Optional[GlobalRouting]:
+    return _ROUTING.get()

@@ -12,6 +12,38 @@ by default). Padded experts (Qwen2-MoE's 60 -> 64) get router logits of
 XLA gathers, scatters and einsums outside any Pallas kernel; so does this
 port, with PyTorch's. ``constrain`` is the identity in eager PyTorch
 (``parallel.constraints``) and is left out.
+
+Where routing happens. Alone, a call routes the B*S tokens it is given.
+Under the sharded train step (``train.step.build_train_step``) a rank holds
+a block of rows of the global batch, which the reference's jit routes as
+one: the step sets ``models.modes.global_routing`` to the global token
+count of the microbatch, and the groups and the capacity follow from it
+(``moe_groups(T)``, groups of T/G tokens, contiguous in row-major (B, S)
+order). The rows are split over the batch ranks in contiguous blocks, so
+where G divides over the ranks a rank holds G/ranks whole groups and routes
+them exactly as the reference does; where it does not, the call raises
+(ROADMAP §1 item 9g) rather than route other groups.
+
+The balance loss ``E * sum_e frac_e * mean_gate_e`` takes both factors over
+the global batch. Here ``frac`` (the argmax counts, integers with no
+gradient) is all-reduced over the batch ranks before the product, and the
+mean gate stays this rank's mean: the step's mean of the loss and of every
+gradient over the batch ranks then gives the global balance loss and its
+gradient (the mean over ranks of ``E * sum frac_global * localmean_r`` is
+``E * sum frac_global * globalmean``).
+
+Expert parallelism: under ``models.modes.tensor_parallel`` the routed
+experts' leaves may hold this rank's block of E/tp experts (split over
+"model" by ``parallel.sharding``) and the shared expert's its column and
+row blocks. The input is replicated over "model", so every rank routes
+every token and builds the whole (G, E, C) table, keeps its experts'
+columns, and adds 0 for an assignment to an expert it does not hold: the
+output is this rank's part of the sum, which the caller's g
+(``models.modes.tp_reduce``) completes (no all-to-all). Every model rank
+computes the router and the balance loss whole, and the caller's f sums
+the input's gradient over "model", as the step sums the router's; so the
+balance loss's gradient is weighted 1/tp on each rank, which makes the sum
+the reference's.
 """
 from __future__ import annotations
 
@@ -23,6 +55,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from repro_torch.models.modes import current_routing, current_tp
 
 _ROUTING = contextvars.ContextVar("repro_torch_moe_routing", default=None)
 
@@ -118,34 +152,78 @@ def _expert_mlp(p: Dict, xs: torch.Tensor) -> torch.Tensor:
     return torch.bmm(F.silu(g) * u, p["w_down"])
 
 
+class _GradScale(torch.autograd.Function):
+    """``x`` as it is; its gradient times ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale: float):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def _groups(t: int, ctx) -> Tuple[int, int]:
+    """(groups this call routes, tokens a group) for a call of ``t``
+    tokens: its own, or under ``ctx`` (a ``GlobalRouting``) its share of the
+    global batch's (module docstring)."""
+    if ctx is None:
+        grp = moe_groups(t)
+        return grp, t // grp
+    ranks = ctx.ranks
+    if t * ranks != ctx.tokens:
+        raise ValueError(f"{t} tokens on each of {ranks} batch ranks are not the "
+                         f"{ctx.tokens} of the global batch")
+    grp = moe_groups(ctx.tokens)
+    if grp % ranks:
+        raise NotImplementedError(
+            f"the {ctx.tokens} tokens of the global batch route as {grp} groups, which do "
+            f"not divide over {ranks} batch ranks: routing groups that straddle ranks is "
+            "not ported yet (ROADMAP §1 item 9g)")
+    return grp // ranks, ctx.tokens // grp
+
+
 def moe_apply(p: Dict, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out (B, S, D) in x's dtype, the Switch balance loss
     (0-d fp32)). Routing, positions, the dispatch table and the combine are
     group-local; the groups and the capacity follow from the B*S tokens of
-    this call."""
+    this call, or from the global batch under ``global_routing``. With this
+    rank's block of the experts (the module docstring), ``out`` is this
+    rank's part of the sum."""
     b, s, d = x.shape
     t = b * s
     e, k = cfg.padded_experts, cfg.top_k
-    grp = moe_groups(t)
-    tg = t // grp
+    ctx = current_routing()
+    grp, tg = _groups(t, ctx)
     cap = moe_capacity(tg, e, k, cfg.capacity_factor)
     xf = x.reshape(grp, tg, d)
     dev = x.device
+    el = p["w_gate"].shape[0]                                      # the experts held here
+    e0 = current_tp().index * el if el != e else 0
 
     # --- routing (fp32) ---
     logits = xf.float() @ p["router"]                              # (G, Tg, E)
     if e != cfg.num_experts:                                       # mask padded experts
         logits = logits.masked_fill(torch.arange(e, device=dev) >= cfg.num_experts, -1e30)
     gate_probs = torch.softmax(logits, dim=-1)
-    top_w, top_e = torch.topk(gate_probs, k, dim=-1)               # (G, Tg, k)
+    # the k largest, an exact tie to the lower expert as lax.top_k orders
+    # it (torch.topk leaves the order of ties unspecified)
+    top_w, top_e = torch.sort(gate_probs, dim=-1, descending=True, stable=True)
+    top_w, top_e = top_w[..., :k], top_e[..., :k]                  # (G, Tg, k)
     top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
 
     # Switch-style balance loss: the argmax counts carry no gradient
     hard = gate_probs.argmax(-1).reshape(-1)
     # index_add_ where bincount would wait on the device for its output size
-    frac = torch.zeros(e, device=dev).index_add_(
-        0, hard, torch.ones(t, device=dev)) / t
+    counts = torch.zeros(e, device=dev).index_add_(0, hard, torch.ones(t, device=dev))
+    if ctx is not None and ctx.ranks > 1:
+        counts = ctx.all_reduce(counts)
+    frac = counts / (t if ctx is None else ctx.tokens)
     aux = cfg.num_experts * (frac * gate_probs.reshape(t, e).mean(0)).sum()
+    if el != e:                    # every model rank computes it whole
+        aux = _GradScale.apply(aux, el / e)
 
     # --- group-local capacity positions via a stable sort ---
     flat_e = top_e.reshape(grp, tg * k)
@@ -167,18 +245,22 @@ def moe_apply(p: Dict, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
     table = torch.full((grp, e, cap + 1), tg, dtype=torch.long, device=dev)
     table.index_put_((gidx, flat_e, torch.where(valid, pos, cap)),
                      torch.where(valid, tok_ids, tg))
-    table = table[:, :, :cap]
+    table = table[:, e0:e0 + el, :cap]                             # this rank's experts
     xpad = torch.cat([xf, xf.new_zeros(grp, 1, d)], dim=1)
-    dispatched = xpad[torch.arange(grp, device=dev)[:, None, None], table]   # (G, E, C, D)
+    dispatched = xpad[torch.arange(grp, device=dev)[:, None, None], table]   # (G, El, C, D)
 
     # --- expert compute, the groups' slots of one expert in one product ---
-    rows = dispatched.permute(1, 0, 2, 3).reshape(e, grp * cap, d)
-    y = _expert_mlp(p, rows).reshape(e, grp, cap, d).permute(1, 0, 2, 3)    # (G, E, C, D)
+    rows = dispatched.permute(1, 0, 2, 3).reshape(el, grp * cap, d)
+    y = _expert_mlp(p, rows).reshape(el, grp, cap, d).permute(1, 0, 2, 3)  # (G, El, C, D)
 
-    # --- combine: group-local weighted gather back to the tokens ---
+    # --- combine: group-local weighted gather back to the tokens; an
+    # assignment to an expert held elsewhere reads slot 0 and weighs 0 ---
     flat_pos = pos.clamp_max(cap - 1).reshape(grp, tg, k)
-    gathered = y[torch.arange(grp, device=dev)[:, None, None], top_e, flat_pos]  # (G,Tg,k,D)
-    w = top_w * valid.reshape(grp, tg, k)
+    local_e = top_e - e0
+    held = (local_e >= 0) & (local_e < el)
+    gathered = y[torch.arange(grp, device=dev)[:, None, None],
+                 local_e.clamp(0, el - 1), flat_pos]                # (G, Tg, k, D)
+    w = top_w * (valid.reshape(grp, tg, k) & held)
     out = (gathered.float() * w[..., None]).sum(dim=2)
 
     # --- shared expert (Qwen2-MoE): a dense MLP times a sigmoid gate ---

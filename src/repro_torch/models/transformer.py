@@ -26,9 +26,10 @@ Under tensor parallelism (``models.modes.tensor_parallel``, the sharded
 step at model > 1) the bodies compute on the blocks bound to them, in the
 Megatron layout: the attention and MLP sub-layers and the Mamba2 mixer run
 as ``parallel_region``s (their normed input through f, their row-parallel
-output through g) where their leaves are split, and the embedding and the
-head are vocab-parallel (``embed_lookup`` and ``chunked_xent`` given the
-padded vocabulary).
+output through g) where their leaves are split, an MoE layer whose experts
+are split over "model" as a region of its own (``Block._moe_region``), and
+the embedding and the head are vocab-parallel (``embed_lookup`` and
+``chunked_xent`` given the padded vocabulary).
 """
 from __future__ import annotations
 
@@ -43,7 +44,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, moe
 from repro_torch.models.layers import (chunked_xent, embed_init, embed_lookup,
                                        mlp_apply, mlp_init, rms_norm, unembed)
-from repro_torch.models.modes import parallel_region, run_layer, unshard_layer_params
+from repro_torch.models.modes import (parallel_region, run_layer, tp_copy, tp_reduce,
+                                      unshard_layer_params)
 
 # Families the port cannot build yet, with the ROADMAP §1 item that ports them.
 _NOT_PORTED = {
@@ -131,11 +133,28 @@ class Block(nn.Module):
                                 rms_norm(x, p["ln1"]))
         h = rms_norm(x, p["ln2"])
         if "moe" in p:
-            out, aux = self._ffn(p, h)
+            out, aux = self._moe_region(p["moe"], h)
         else:
             split = p["mlp"]["w_up"].shape[-1] != cfg.d_ff
             out, aux = parallel_region(split, lambda t: self._ffn(p, t)[0], h), None
         return x + out, aux
+
+    def _moe_region(self, m: Dict, h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The MoE layer on ``m``: with this rank's block of the experts
+        (and of the shared expert's columns and rows) a region of its own,
+        f on the normed input and g on the summed routed and shared output;
+        with whole leaves as at model 1."""
+        cfg = self.cfg
+        split = m["w_gate"].shape[0] != cfg.padded_experts
+        if "shared" in m and split != (m["shared"]["w_up"].shape[-1]
+                                       != cfg.shared_expert_d_ff):
+            raise NotImplementedError(
+                f"{cfg.name}: the routed experts and the shared expert split differently "
+                "over 'model'; use a 'model' axis that divides both")
+        if not split:
+            return moe.moe_apply(m, cfg, h)
+        out, aux = moe.moe_apply(m, cfg, tp_copy(h))
+        return tp_reduce(out), aux
 
     def apply_layer(self, p: Dict, x: torch.Tensor
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:

@@ -30,9 +30,9 @@ FSDP (else 0):
 
   each microbatch                                 calls       bytes
     the vocab-parallel embedding's lookup (g)     1           A
-    each split attention or MLP sub-layer: g on   2 + F       (2 + F) A
-      its output, f's backward on its input's
-      gradient
+    each split attention, MLP or MoE sub-layer:   2 + F       (2 + F) A
+      g on its output, f's backward on its
+      input's gradient
     each split Mamba2 mixer: those two, and the   2 (2 + F)   (2 + F)(A + 4bS)
       mean of squares of its gated norm (b·S
       fp32), forward and backward
@@ -48,6 +48,15 @@ F counts the recompute of each layer body in FSDP's backward, which runs
 the body's forward all-reduces again up to the last tensor the body saves:
 a body that ends in a split sub-layer does not run that sub-layer's g
 again (one call of A bytes fewer).
+
+An MoE config routes the global batch (``models.moe``): the step sets
+``models.modes.global_routing`` to the microbatch's global token count, and
+each MoE call sums its expert counts over the batch axes (one all-reduce of
+E fp32 values, again in FSDP's recompute). At model > 1 each rank holds E/tp
+experts and the shared expert's blocks (expert parallelism without an
+all-to-all: the activations are replicated over "model"), the MoE layer is
+one split sub-layer above, and the router and ``shared_gate`` are
+``partial`` leaves (replicated beside split ones).
 """
 from __future__ import annotations
 
@@ -61,8 +70,8 @@ import torch.nn as nn
 
 from repro_torch.core.instant import neighbor_backup
 from repro_torch.core.razor import RazorPlan, razor_plan
-from repro_torch.models.modes import (FsdpLayout, Shard, TensorParallel, fsdp_unshard,
-                                      tensor_parallel)
+from repro_torch.models.modes import (FsdpLayout, GlobalRouting, Shard, TensorParallel,
+                                      fsdp_unshard, global_routing, tensor_parallel)
 from repro_torch.models.transformer import build_model, torch_dtype
 from repro_torch.optim import AdamWConfig, adamw_update, cosine_schedule
 from repro_torch.parallel import sharding as shd
@@ -187,34 +196,31 @@ def build_train_step(
     each. ``step_fn.last_grad_norm`` is the last step's global gradient
     norm (before clipping).
 
+    An MoE config routes the global batch, as under the reference's jit:
+    each rank routes its rows as their whole groups of the global batch (the
+    groups and the capacity from the global token count) and sums the
+    balance loss's expert counts over the batch axes; its mean gate stays
+    the rank's own, which the mean over the batch ranks makes global (the
+    design ``models.moe``'s docstring states). On a "model" axis larger
+    than 1 its experts are split over "model" (expert parallelism).
+
     These raise ``NotImplementedError``, each naming its ROADMAP §1 item:
-    an MoE config on more than one batch rank (item 9c: under the
-    reference's jit ``moe_apply`` routes the global batch, so its groups,
-    capacity (which assignments are dropped) and balance loss follow from
-    the global token count, where a rank here would route its own rows), or
-    on a "model" axis larger than 1 (items 9c and 9d, expert parallelism);
-    ``compress_pod_grads`` on a "model" axis larger than 1 (item 9e); and an
-    attention whose q heads split over "model" while its kv heads do not
-    (item 9f: ``_leaf_spec`` leaves ``wk`` / ``wv`` replicated where the kv
-    heads do not divide).
+    an MoE config with microbatches on more than one batch rank (item 9h:
+    the reference's microbatch is a block of the global rows, the port's a
+    chunk of each rank's, which routes other tokens together); an MoE call
+    whose global groups do not divide over the batch ranks (item 9g, raised
+    by ``models.moe`` at the first step); ``compress_pod_grads`` on a
+    "model" axis larger than 1 (item 9e); and an attention whose q heads
+    split over "model" while its kv heads do not (item 9f: ``_leaf_spec``
+    leaves ``wk`` / ``wv`` replicated where the kv heads do not divide).
     """
     cfg = model.cfg
     tp = shd.axis_size(mesh, "model")
-    if tp > 1 and cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE on a 'model' axis of {tp} is not ported yet (ROADMAP §1 "
-            "items 9c and 9d, expert parallelism): build the mesh with model=1")
     if tp > 1 and compress_pod_grads:
         raise NotImplementedError(
             f"int8 cross-pod gradient compression on a 'model' axis of {tp} is not "
             "ported yet (ROADMAP §1 item 9e): build the mesh with model=1 or leave "
             "compress_pod_grads off")
-    if cfg.is_moe and shd.dp_size(mesh) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE routing over the global batch of {shd.dp_size(mesh)} "
-            "batch ranks is not ported yet (ROADMAP §1 item 9c): a rank would route "
-            "its own rows, with other groups, capacity and balance loss than the "
-            "reference's; build the mesh with one batch rank")
     plan = make_state_plan(model, mesh, fsdp_params=fsdp_params)
     razor = razor_plan(plan.state_specs["opt"], plan.opt_pspecs,
                        plan.state_specs["params"], mesh, zero_axis=backup_axis)
@@ -234,6 +240,13 @@ def build_train_step(
         raise ValueError(f"microbatches={microbatches}")
     # as in the reference, the compressed step takes no microbatches
     n_micro = 1 if use_compression else microbatches
+    dp = shd.dp_size(mesh)
+    if cfg.is_moe and n_micro > 1 and dp > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: {n_micro} microbatches of an MoE on {dp} batch ranks are not "
+            "ported yet (ROADMAP §1 item 9h): the reference's microbatch i is the global "
+            "rows [i*B/n, (i+1)*B/n) and routes them together, where each rank here takes "
+            "a chunk of its own rows; use one microbatch or one batch rank")
 
     twin = _Loss(build_model(cfg, device="meta"))
     leaves = _leaves(plan, twin, mesh)
@@ -251,7 +264,7 @@ def build_train_step(
             layout = FsdpLayout(mesh, "data", spans) if fsdp_params else None
             aliases, names, extra = _bind(params, leaves, layout, mesh)
             with fsdp_unshard(layout) if layout else contextlib.nullcontext(), \
-                    tensor_parallel(tp_ctx):
+                    tensor_parallel(tp_ctx), global_routing(_routing(cfg, mesh, mb)):
                 loss, aux = torch.func.functional_call(twin, names, (mb,))
             g = torch.autograd.grad(loss, aliases + extra)[:len(aliases)]
             if n_micro > 1:
@@ -368,10 +381,11 @@ def model_all_reduces(model: nn.Module, mesh, rows: int, seq: int, *,
     b = rows // microbatches
     act = b * seq * cfg.d_model * torch_dtype(cfg).itemsize
     stat = b * seq * 4                                   # one fp32 value a position
+    ffn = ("moe", "w_gate") if cfg.is_moe else ("mlp", "w_up")
     dense = lambda root: [("dense", split(root, "attn", "wq")),         # noqa: E731
-                          ("dense", split(root, "mlp", "w_up"))]
+                          ("dense", split(root, *ffn))]
     mamba = ("mamba", split("blocks", "mamba", "w_x"))
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         bodies = [dense("blocks")] * cfg.num_layers
     else:
         bodies = [[mamba] + (dense("shared_attn") if kind == "mamba_attn" else [])
@@ -401,6 +415,17 @@ def model_all_reduces(model: nn.Module, mesh, rows: int, seq: int, *,
             per_dtype[dtype] = per_dtype.get(dtype, 0) + numel * dtype.itemsize
     sizes += list(per_dtype.values())
     return len(sizes), sum(sizes)
+
+
+def _routing(cfg, mesh, batch: Dict) -> Optional[GlobalRouting]:
+    """An MoE's routing context for this rank's ``batch``: the global
+    batch's token count (the rank's rows times the batch ranks, S = the
+    S+1 tokens a row less one) over the mesh's batch axes."""
+    if not cfg.is_moe:
+        return None
+    rows, cols = batch["tokens"].shape
+    axes = shd.batch_axes(mesh)
+    return GlobalRouting(mesh, axes, rows * (cols - 1) * mesh.axes_size(axes))
 
 
 def _mean(mesh, axis: str, loss: torch.Tensor, aux: Dict) -> Tuple[torch.Tensor, Dict]:

@@ -428,20 +428,6 @@ def test_neighbor_backup_is_the_identity_on_one_rank():
     assert ring_perm(4, 3) == [(0, 3), (1, 0), (2, 1), (3, 2)]
 
 
-def test_an_moe_config_on_a_model_axis_raises():
-    """MoE at model > 1 (expert parallelism) is not ported: the step
-    refuses it, naming its items, also where one batch rank would route
-    the whole batch."""
-    from repro_torch.configs import get_arch, reduce_for_smoke
-    from repro_torch.launch.mesh import Mesh
-    from repro_torch.models import build_model
-    from repro_torch.train.step import build_train_step
-    model = build_model(reduce_for_smoke(get_arch("qwen2-moe-a2.7b")), device="meta")
-    for shape in ((2, 2), (1, 2)):
-        with pytest.raises(NotImplementedError, match="items 9c and 9d"):
-            build_train_step(model, Mesh(("data", "model"), shape))
-
-
 def test_pod_compression_on_a_model_axis_raises():
     from repro_torch.configs import get_arch, reduce_for_smoke
     from repro_torch.launch.mesh import Mesh

@@ -5,8 +5,8 @@ smoke size: ``moe_apply`` with dropped assignments, dropless and in bf16,
 with every gradient; the MoE ``DecoderLM`` (forward, prefill and decode,
 the loss with its balance term and every gradient); the parameter counts,
 config copies, ``.npz`` keys and the opt vector; five ``SimCluster`` steps
-through a recovery; the sharded step at one batch rank and its refusal at
-more; and the CLIs. Inputs are made from numpy seeds and the same reference
+through a recovery; the sharded step at one batch rank (more batch ranks
+and a "model" axis: tests/test_torch_moe_step.py); and the CLIs. Inputs are made from numpy seeds and the same reference
 parameters (``repro`` init, moved across with ``params_from_numpy``) go
 through both packages.
 
@@ -48,7 +48,7 @@ from repro_torch import tree
 from repro_torch.bridge import params_from_numpy
 from repro_torch.ckpt import storage
 from repro_torch.configs import ShapeConfig, get_arch, reduce_for_smoke
-from repro_torch.launch.mesh import Mesh, make_single_device_mesh
+from repro_torch.launch.mesh import make_single_device_mesh
 from repro_torch.models import active_param_count, build_model, moe, param_count
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.parallel.sharding import join_tree
@@ -213,6 +213,25 @@ def test_positions_and_drops_match_the_references(arch):
     np.testing.assert_array_equal(rec["pos"].numpy(), pos)
     np.testing.assert_array_equal(rec["valid"].numpy(), pos < rec["capacity"])
     assert int(rec["top_e"].max()) < jcfg.num_experts < jcfg.padded_experts
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_tied_gates_route_as_jax(arch):
+    """Experts with equal router columns tie exactly in every token's gate
+    probabilities: the port orders them as ``lax.top_k`` does (the lower
+    expert first), so its top_e, positions, output and balance loss equal
+    the reference's."""
+    jcfg, tcfg, p, x, gy = _moe_case(arch, "drops")
+    for a, b in ((HOT, HOT + 1), (1, 6)):
+        p["router"][:, b] = p["router"][:, a]
+    top_e, pos = _reference_routing(jcfg, p, x)
+    assert (top_e == HOT).any() and (top_e == HOT + 1).any()   # a tie inside the top-k
+    jout, jaux, _, _ = _jax_moe(jcfg, p, x, gy)
+    out, aux, _, _, log = _port_moe(tcfg, p, x, gy)
+    np.testing.assert_array_equal(log[0]["top_e"].numpy(), top_e)
+    np.testing.assert_array_equal(log[0]["pos"].numpy(), pos)
+    np.testing.assert_allclose(_np(out), _np(jout), **TOL)
+    np.testing.assert_allclose(aux.item(), float(jaux), **TOL)
 
 
 @HYP
@@ -464,14 +483,6 @@ def test_sharded_step_at_one_batch_rank_matches_jax():
     for key, want in ref.items():
         np.testing.assert_allclose(_np(port[key]), np.asarray(want, np.float32),
                                    err_msg=key, **TOL)
-
-
-@pytest.mark.parametrize("axes,sizes", [(("data", "model"), (2, 1)),
-                                        (("pod", "data", "model"), (2, 1, 1))])
-def test_sharded_step_refuses_more_than_one_batch_rank(axes, sizes):
-    model = build_model(reduce_for_smoke(get_arch("qwen2-moe-a2.7b")), device="meta")
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        build_train_step(model, Mesh(axes, sizes))
 
 
 # ------------------------------ entry points ----------------------------- #
