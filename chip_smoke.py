@@ -81,10 +81,12 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 labelled as gloo through the host on one shared card. (b) Full
                 width cut to 2 layers, fp32, 2 steps: the 4-rank step against
                 one rank of the same step over NCCL from the same weights and
-                batches: the losses and the master of step 1 (lr 0 under the
-                warmup) within 1e-5 relative, m (0.1 of the gradient) of every
-                step within the slice's 2e-4, each against its leaf's largest
-                magnitude; v and step 2's master are reported.
+                batches (run first, in its own process, which saves its loss,
+                master, m and v after each step): each rank's blocks against
+                the one rank's, the losses and the master of step 1 (lr 0 under
+                the warmup) within 1e-5 relative, m (0.1 of the gradient) of
+                every step within the slice's 2e-4, each against its leaf's
+                largest magnitude; v and step 2's master are reported.
 7c. train_tp -- the tensor-parallel step (train.step.build_train_step on a
                 (data 2, model 2) mesh: the Megatron split of the layer bodies,
                 the vocab-parallel embedding and cross-entropy) as four gloo
@@ -118,13 +120,40 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 128), no decode or SSD launch, finite losses, dropped assignments
                 on every rank, the ring's bytes the rank's unique blocks. Prints
                 the step time and its parts (tp_reduce among them), the dropped
-                assignments, device memory and host RSS a rank. (b) fp32, 2 steps,
-                against one NCCL rank of the same step on the global batch (run
-                first, in its own process; the backup off): the losses within
-                1e-5, m within 2e-4 of each leaf's largest value (each rank's
-                blocks against the one rank's, read from its saved m), and every
-                MoE call's top-k experts, positions and capacity verdicts equal,
-                with the flips and the smallest gate gap printed.
+                assignments, device memory and host RSS a rank. (b) fp32, 2 steps
+                of 2 microbatches (a rank's block of each global microbatch, 16
+                groups of 256 tokens, 8 a data rank), against one NCCL rank of the
+                same step on the global batch (run first, in its own process; the
+                backup off): the losses within 1e-5, m within 2e-4 of each leaf's
+                largest value (each rank's blocks against the one rank's, read
+                from its saved m), every MoE call's top-k experts, positions and
+                capacity verdicts equal, with the flips and the smallest gate gap
+                printed, and rank 0's 16 flash launches on the fp32 route. Groups
+                that straddle batch ranks (ROADMAP item 9g) are held on the CPU
+                only (tests/test_torch_moe_step.py): the card's batches route 16
+                groups, which divide over 2 batch ranks.
+7f. train_gemma_mesh -- q heads split over "model" beside a replicated kv head:
+                gemma-2b at full width (d_model 2048, 8 q heads and 1 kv head of
+                256, GeGLU d_ff 16384, 256,000 tied vocabulary), weights drawn on
+                the card from a seed, four gloo ranks sharing the card. (a) (data
+                2, model 2), bf16, FSDP and the instant backup, 8 x 1024 tokens a
+                step, 2 steps, cut to 6 of 18 layers (param_count printed): as
+                train_tp, the all-reduces over "model" equal model_all_reduces on
+                every rank and step, 24 flash launches a rank on wgmma at q (4,
+                1024, 4, 256) and k/v (4, 1024, 1, 256), the ring's bytes the
+                rank's unique blocks; the step's parts, device memory and host RSS
+                a rank. (b) cut to 2 layers, fp32, 2 steps on (pod 2, data 1,
+                model 2) with int8 cross-pod compression, against one NCCL rank's
+                uncompressed step: the losses within 1e-5, every element of m of
+                both steps within 2e-4 of its leaf's largest value plus the error
+                the int8 rounding makes of it (each rank derives it from the
+                whole leaves' scales, recorded from the compressed mean's inputs,
+                and the two runs' clip factors: (1 - b1) c s / 4 a step and b1
+                times the last step's), rank 0's 8 flash launches on the fp32
+                route at hd 256. The compressed step against JAX's, where the
+                scale of a split leaf is the whole leaf's, is held on the CPU
+                (tests/test_torch_mesh_step.py): against the exact step a scale
+                over fewer blocks is only closer.
 7e. pipeline -- the GPipe forward (parallel.pipeline.pipeline_forward) over a
                 ("pipe",) mesh of four gloo ranks sharing the card, spawned once
                 for both parts: full qwen3-0.6b (28 layers, 7 a stage), bf16, 8
@@ -192,7 +221,10 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 a rank's tensor-parallel shape, q (4, 1024, 8, 128), k/v (4,
                 1024, 4, 128), in both dtypes, and in bf16 at a rank's of
                 train_moe_mesh, q/k/v (4, 1024, 8, 128), and a pipeline stage's,
-                q (1, 1024, 16, 128), k/v (1, 1024, 8, 128); the SSD at a rank's 40 (mamba2)
+                q (1, 1024, 16, 128), k/v (1, 1024, 8, 128); flash at head_dim 256
+                in both dtypes, at a rank's of train_gemma_mesh, q (4, 1024, 4,
+                256), k/v (4, 1024, 1, 256), and at a serve-like q (8, 1000, 8,
+                256), k/v (8, 1000, 1, 256); the SSD at a rank's 40 (mamba2)
                 and 56 (zamba2) heads, 4 x 1024, bf16), with the
                 kernel's, the plain version's and (for attention) the library
                 call's times
@@ -210,9 +242,10 @@ slices and the serve runs come before any phase that opens torch.profiler:
 Then a ``timing`` line (kernel timings taken by CUPTI and by CUDA events, the
 host seconds of each phase),
 one {"kernels": [...]} line (each kernel's launches in every serve and training
-phase, ``moe_launches``, ``train_tp_launches``, ``train_moe_mesh_launches`` and
-``pipeline_launches`` among them, and its rows at the other shapes, ``tp_shape`` /
-``tp_shapes``, ``moe_mesh_shape`` and ``pipeline_shape`` among them), the card's name
+phase, ``moe_launches``, ``train_tp_launches``, ``train_moe_mesh_launches``,
+``train_gemma_mesh_launches`` and ``pipeline_launches`` among them, and its rows at the
+other shapes, ``tp_shape`` / ``tp_shapes``, ``moe_mesh_shape``, ``pipeline_shape``,
+``gemma_tp_shape`` and ``hd256`` among them), the card's name
 and power
 limit, and last
 {"ok": true, "device": {...}}.
@@ -251,6 +284,11 @@ PREFILL_TP = dict(b=4, s=1024, h=8, kh=4, hd=128)
 # 16 q / 8 kv heads, one microbatch of 1 x 1024
 PREFILL_MOE_TP = dict(b=4, s=1024, h=8, kh=8, hd=128)
 PREFILL_PIPE = dict(b=1, s=1024, h=16, kh=8, hd=128)
+# gemma-2b's MQA at head_dim 256 (the hd-256 instantiations): a rank's in
+# train_gemma_mesh (its 4 of 8 q heads, the one kv head, 4 rows of 1024), and
+# at the serve-like shape of 8 prompts of 1000 tokens
+PREFILL_GEMMA_TP = dict(b=4, s=1024, h=4, kh=1, hd=256)
+PREFILL_HD256 = dict(b=8, s=1000, h=8, kh=1, hd=256)
 # a rank's SSD under tensor parallelism at model 2: mamba2-2.7b's 80 heads and
 # zamba2-7b's 112, at the same rows
 SSD_TP = dict(SSD, b=4, h=40, seqs=(1024,))
@@ -306,11 +344,11 @@ TIMING = {"cupti": 0, "cuda_events": 0}     # kernel timings taken by each metho
 PHASE_S: dict = {}          # host seconds of each phase, for the timing line
 
 
-def timed(name: str, fn, *args):
-    """``fn(*args)``, its host seconds added to ``PHASE_S[name]``."""
+def timed(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its host seconds added to ``PHASE_S[name]``."""
     t0 = time.perf_counter()
     try:
-        return fn(*args)
+        return fn(*args, **kwargs)
     finally:
         PHASE_S[name] = PHASE_S.get(name, 0.0) + time.perf_counter() - t0
 
@@ -492,7 +530,7 @@ def cuobjdump() -> str:
 
 
 # tensor-core kernels and their instantiations in the library
-WGMMA_KERNELS = {"flash_wgmma_kernel": 5, "ssd_wgmma_kernel": 7}
+WGMMA_KERNELS = {"flash_wgmma_kernel": 6, "ssd_wgmma_kernel": 7}
 
 
 def sass_hgmma(library: Path) -> dict:
@@ -527,7 +565,8 @@ def phase_kernels(torch, F):
     # the serve shape in both dtypes, the training step's (S=1024) in bf16,
     # zamba2-7b's serve shape (hd 112) in both dtypes, qwen2-moe-a2.7b's
     # (MHA at hd 128) in bf16, a rank's of the tensor-parallel step in both,
-    # and in bf16 a rank's of the MoE's sharded step and a pipeline stage's
+    # in bf16 a rank's of the MoE's sharded step and a pipeline stage's, and
+    # gemma-2b's at hd 256 (a rank's of train_gemma_mesh, the serve-like) in both
     for key, dtype, p in (("bfloat16", torch.bfloat16, PREFILL),
                           ("float32", torch.float32, PREFILL),
                           ("bfloat16_train", torch.bfloat16,
@@ -538,7 +577,11 @@ def phase_kernels(torch, F):
                           ("bfloat16_tp", torch.bfloat16, PREFILL_TP),
                           ("float32_tp", torch.float32, PREFILL_TP),
                           ("bfloat16_moe_tp", torch.bfloat16, PREFILL_MOE_TP),
-                          ("bfloat16_pipe", torch.bfloat16, PREFILL_PIPE)):
+                          ("bfloat16_pipe", torch.bfloat16, PREFILL_PIPE),
+                          ("bfloat16_gemma_tp", torch.bfloat16, PREFILL_GEMMA_TP),
+                          ("float32_gemma_tp", torch.float32, PREFILL_GEMMA_TP),
+                          ("bfloat16_hd256", torch.bfloat16, PREFILL_HD256),
+                          ("float32_hd256", torch.float32, PREFILL_HD256)):
         dname = str(dtype).split(".")[-1]
         q = rand((p["b"], p["s"], p["h"], p["hd"]), dtype)
         k = rand((p["b"], p["s"], p["kh"], p["hd"]), dtype)
@@ -1441,7 +1484,10 @@ TRAIN_MESH = dict(arch="qwen3-0.6b", smoke=False, layers=None, dtype="bfloat16",
                   global_batch=8, seq_len=1024, steps=2, seed=0, timeout_s=600)
 TRAIN_MESH_B = dict(arch="qwen3-0.6b", smoke=False, layers=2, dtype="float32", world=4,
                     global_batch=8, seq_len=1024, steps=2, seed=0, timeout_s=300, tol=1e-5,
-                    grad_tol=2e-4)
+                    grad_tol=2e-4, held=("m", "master", "v"),
+                    grad_tol_why="the fp32 gradient tolerance of the training slice: over "
+                    "8,192 tokens the two reduction orders differed by up to 8.8e-6 of a "
+                    "leaf's largest gradient on an H100")
 MESH_NOTE = ("gloo through the host on one shared card: the four ranks share one H100 and "
              "every collective crosses the host; not the figure of a ring on NVLink")
 # the tensor-parallel step on a (data 2, model 2) mesh of four gloo ranks
@@ -1459,14 +1505,37 @@ TP_VS_MESH = dict(loss_rtol=1e-4, grad_norm_rtol=1e-3)
 # the shared expert, MHA 16/16 at hd 128) cut to 2 layers (1,833,187,328
 # parameters; a rank holds 32 experts), weights drawn on the card from a
 # seed, 8 x 1024 tokens a step (16 groups of 512; a data rank routes 8).
-# (a) bf16, FSDP and the instant backup, 2 steps; (b) fp32, 2 steps, against
-# one NCCL rank of the same step on the global batch (the backup off: it
-# does not touch the step's math, and (a) holds it)
+# (a) bf16, FSDP and the instant backup, 2 steps; (b) fp32, 2 steps of 2
+# microbatches (a rank's block of each global microbatch: 16 groups of 256,
+# 8 a data rank), against one NCCL rank of the same step on the global batch
+# (the backup off: it does not touch the step's math, and (a) holds it)
 TRAIN_MOE = dict(arch="qwen2-moe-a2.7b", smoke=False, layers=2, dtype="bfloat16", world=4,
                  model=2, global_batch=8, seq_len=1024, steps=2, seed=0, draw="cuda",
                  timeout_s=900)
-TRAIN_MOE_B = dict(TRAIN_MOE, dtype="float32", instant_ckpt=False, tol=1e-5, grad_tol=2e-4,
-                   timeout_s=300)
+TRAIN_MOE_B = dict(TRAIN_MOE, dtype="float32", instant_ckpt=False, microbatches=2, tol=1e-5,
+                   grad_tol=2e-4, held=("m",), grad_tol_why="the fp32 gradient tolerance of "
+                   "the training slice", timeout_s=300)
+# gemma-2b at full width (d_model 2048, 8 q heads and 1 kv head of 256,
+# GeGLU d_ff 16384, 256,000 tied vocabulary) on four gloo ranks sharing the
+# card, weights drawn on the card from a seed: the q heads split over
+# "model", the one kv head replicated (each rank reads it for its 4 q heads,
+# and sums its wk and wv gradients over "model"). (a) (data 2, model 2), bf16,
+# FSDP and the instant backup, 8 x 1024 tokens a step, 2 steps, cut to 6 of
+# 18 layers (1,184,917,504 parameters: ~3.6 GB of master, m and v a rank and
+# as much again of backup received; 18 layers, 2,506,172,416, would be ~90 GB
+# for four ranks). (b) fp32, cut to 2 layers (744,499,200), on (pod 2, data
+# 1, model 2) with int8 cross-pod compression, 2 steps, against one NCCL
+# rank's uncompressed step: the losses within 1e-5 (step 1's update is 0
+# under the warmup, so both losses see the same weights), every element of
+# m of both steps within 2e-4 of its leaf's largest value plus the error
+# the int8 rounding makes of it, derived on each rank from the scales it
+# used (blocks_part_b, _int8_m_bound)
+TRAIN_GEMMA = dict(arch="gemma-2b", smoke=False, layers=6, dtype="bfloat16", world=4, model=2,
+                   global_batch=8, seq_len=1024, steps=2, seed=0, draw="cuda", timeout_s=900)
+TRAIN_GEMMA_B = dict(TRAIN_GEMMA, layers=2, dtype="float32", pod=2, compress_pod_grads=True,
+                     tol=1e-5, grad_tol=2e-4, held=("m",),
+                     grad_tol_why="the fp32 gradient tolerance of the training slice",
+                     timeout_s=400)
 
 
 def run_children(name: str, jobs: list, timeout_s: float) -> None:
@@ -1521,9 +1590,10 @@ def _mesh_init(rank: int, world: int, rdv: str, backend: str, device: str) -> No
 
 
 def _mesh_build(world: int, t: dict, device: str):
-    """The mesh of an initialised group of ``world`` ranks (data world /
-    t["model"], model t["model"]; (1, 1) for one rank), the step with and
-    without FSDP (the instant backup unless t["instant_ckpt"] is False), a
+    """The mesh of an initialised group of ``world`` ranks (pod t["pod"],
+    data world / (pod x model), model t["model"]; (1, 1) for one rank), the
+    step with and without FSDP (the instant backup unless t["instant_ckpt"]
+    is False, t["microbatches"] and t["compress_pod_grads"] where given), a
     maker of the sharded initial state (weights from a host generator seeded
     with t["seed"], as SimCluster draws them, or with t["draw"] "cuda" from
     the card's generator) and this rank's rows of t["steps"] global
@@ -1543,12 +1613,14 @@ def _mesh_build(world: int, t: dict, device: str):
     draw = t.get("draw", "cpu")
     model = build_model(cfg, device=draw)
     model.init(torch.Generator(device=draw).manual_seed(t["seed"]))
-    model_axis = t.get("model", 1) if world > 1 else 1
-    mesh = make_host_mesh(data=world // model_axis, model=model_axis)
+    model_axis, pods = (t.get("model", 1), t.get("pod", 1)) if world > 1 else (1, 1)
+    mesh = make_host_mesh(data=world // (model_axis * pods), model=model_axis, pod=pods)
     shape = ShapeConfig("train_mesh", t["seq_len"], t["global_batch"], "train")
     hp = AdamWConfig(warmup_steps=2, total_steps=100)          # SimCluster's
     arts = {fsdp: build_train_step(model, mesh, hp, fsdp_params=fsdp, shape=shape,
                                    instant_ckpt=t.get("instant_ckpt", True),
+                                   microbatches=t.get("microbatches", 1),
+                                   compress_pod_grads=t.get("compress_pod_grads", False),
                                    clock=time.perf_counter) for fsdp in (True, False)}
     rng = np.random.default_rng(t["seed"])
     spec = arts[True].input_pspecs["tokens"]
@@ -1714,133 +1786,6 @@ def mesh_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
         json.dump(rec, f)
 
 
-def mesh_part_b(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
-    """Part (b) on one rank of ``world``: t["steps"] FSDP steps. One rank
-    alone saves its loss, master, m and v after each step to
-    tmp/b1_step<i>.pt; rank 0 of the sharded run compares its joined ones
-    with them and writes the errors (relative to each leaf's largest
-    magnitude) to tmp/b.json."""
-    import torch
-
-    from repro_torch.parallel.sharding import join_tree
-    from repro_torch.tree import keystr, tree_flatten_with_path
-
-    _, mesh, arts, make_state, local, _ = _mesh_build(world, t, device)
-    art = arts[True]
-    state, out = make_state(True), []
-    for i, tokens in enumerate(local):
-        state, metrics, _ = art.step_fn(state, {"tokens": tokens})
-        opt = join_tree(state["opt"], art.plan.opt_pspecs, mesh)
-        if rank:
-            continue
-        flat = {f"{k}|{keystr(p)}": x for k in ("master", "m", "v")
-                for p, x in tree_flatten_with_path(opt[k])}
-        if world == 1:
-            torch.save({"loss": float(metrics["loss"]),
-                        "opt": {k: x.cpu() for k, x in flat.items()}}, f"{tmp}/b1_step{i}.pt")
-            continue
-        ref = torch.load(f"{tmp}/b1_step{i}.pt")
-        err, lr = {}, float(metrics["lr"])
-        for k, x in flat.items():
-            r = ref["opt"][k].to(x.device)
-            err[k] = float((x - r).abs().max() / r.abs().max().clamp_min(1e-30))
-        master_dmax = max(float((x - ref["opt"][k].to(x.device)).abs().max())
-                          for k, x in flat.items() if k.startswith("master|"))
-        out.append(dict(step=i + 1, loss=float(metrics["loss"]), single_loss=ref["loss"],
-                        lr=lr, err=err, master_max_abs_diff=master_dmax))
-        del ref
-    if rank == 0 and world > 1:
-        with open(f"{tmp}/b.json", "w") as f:
-            json.dump(out, f)
-
-
-def phase_train_mesh(torch, tmp: str, t: dict = TRAIN_MESH, tb: dict = TRAIN_MESH_B,
-                     device: str = "cuda", backend_b: str = "nccl") -> dict:
-    """The sharded multi-rank train step (parts (a) and (b) above). (b)'s
-    one-rank reference runs first, into ``tmp``, which train_tp's (b) (the
-    same run on one rank) reads again; then four ranks run (a) and (b)."""
-    parent_rss = host_rss_gb()
-    t0 = time.perf_counter()
-    run_children("train_mesh (b), one rank",
-                 [(mesh_rank, (0, 1, tmp, f"{tmp}/rdv_b1", [(mesh_part_b, tb)], device,
-                               backend_b))], tb["timeout_s"])
-    ref_s = time.perf_counter() - t0
-    return _sharded_phase(
-        "train_mesh", [(mesh_part_a, t), (mesh_part_b, tb)], tmp, t, tb, device,
-        lambda recs, a_s: dict(_train_mesh_row(recs, t, a_s, device),
-                               parent_host_rss_gb=parent_rss),
-        lambda: _against_one_rank("train_mesh", tb, backend_b, tmp, ref_s))
-
-
-def _sharded_phase(phase: str, parts: list, tmp: str, t: dict, tb: dict, device: str,
-                   row_a, row_b) -> dict:
-    """``phase`` on t["world"] spawned ranks running ``parts`` in turn:
-    part (a) records tmp/a_<rank>.json, which ``row_a(recs, seconds)``
-    checks and prints; then ``row_b()`` checks and prints part (b)."""
-    t0 = time.perf_counter()
-    run_children(phase, [(mesh_rank, (r, t["world"], tmp, f"{tmp}/rdv_{phase}", parts, device))
-                         for r in range(t["world"])], t["timeout_s"] + tb["timeout_s"])
-    recs = []
-    for r in range(t["world"]):
-        with open(f"{tmp}/a_{r}.json") as f:
-            recs.append(json.load(f))
-    row = row_a(recs, time.perf_counter() - t0)
-    emit(phase, **row)
-    emit(f"{phase}_world1", **row_b())
-    return row
-
-
-def _against_one_rank(phase: str, tb: dict, backend_b: str, tmp: str, ref_s) -> dict:
-    """Part (b) of ``phase``: tb["steps"] FSDP steps on tb["world"] gloo
-    ranks (tmp/b.json, written after part (a) in the same ranks) against
-    one rank of the same step over ``backend_b``, from the same weights and
-    batches; fails the run where they differ, else returns the printed
-    row."""
-    with open(f"{tmp}/b.json") as f:
-        steps_b = json.load(f)
-    # (b): the losses of every step and the master of the first (lr 0 under
-    # the warmup) within tb["tol"] of one NCCL rank, and m (0.1 of the
-    # gradient at step 1) within tb["grad_tol"], the training slice's fp32
-    # gradient tolerance (over 8,192 tokens the two reduction orders differed
-    # by up to 8.8e-6 of a leaf's largest gradient on an H100). v holds the same
-    # gradients squared and is reported. The later master is reported:
-    # AdamW moves every element by O(lr) whatever its gradient's size, so an
-    # element whose gradient is below the noise of the two reduction orders
-    # moves by a different O(lr).
-    tol, grad_tol = tb["tol"], tb["grad_tol"]
-    bad = []
-    for st in steps_b:
-        if abs(st["loss"] - st["single_loss"]) > tol * abs(st["single_loss"]):
-            bad.append(f"step {st['step']} loss {st['loss']} vs {st['single_loss']}")
-        for k, e in st["err"].items():
-            limit = (grad_tol if k.startswith("m|") else
-                     tol if k.startswith("master|") and st["step"] == 1 else None)
-            if limit is not None and e > limit:
-                bad.append(f"step {st['step']} {k}: {e} (limit {limit})")
-    if bad:
-        fail(f"{phase} (b): sharded against one {backend_b} rank: " + "; ".join(bad))
-    model_axis = tb.get("model", 1)
-    return dict(config=f"{_mesh_cfg(tb).name}, {tb['layers']} layers, fp32",
-                sharded=f"{tb['world']} gloo ranks",
-                mesh=f"data={tb['world'] // model_axis}, model={model_axis}",
-                against=f"one rank over {backend_b}",
-                tol=tol, grad_tol=grad_tol, one_rank_s=ref_s,
-                steps=[dict(step=st["step"], lr=st["lr"], loss=st["loss"],
-                            single_loss=st["single_loss"],
-                            loss_rel_err=abs(st["loss"] - st["single_loss"])
-                            / abs(st["single_loss"]),
-                            **{f"{part}_rel_err_max": max(e for k, e in st["err"].items()
-                                                          if k.startswith(part + "|"))
-                               for part in ("master", "m", "v")},
-                            master_max_abs_diff_over_lr=(st["master_max_abs_diff"] / st["lr"]
-                                                         if st["lr"] else 0.0))
-                       for st in steps_b],
-                note="held: losses and the master of step 1 (lr 0) within tol; m (0.1 "
-                     "of the gradient) of every step within grad_tol, the fp32 gradient "
-                     "tolerance of the training slice; v (the gradients squared) and the "
-                     "later master are reported")
-
-
 def _train_mesh_row(recs: list, t: dict, a_s: float, device: str) -> dict:
     """Part (a)'s checks (each failing the run) and its printed fields."""
     import numpy as np
@@ -1922,12 +1867,13 @@ def tp_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
     from repro_torch.tree import tree_flatten
 
     cfg, mesh, arts, make_state, local, model = _mesh_build(world, t, device)
-    q_shapes = set()
+    q_shapes, kv_shapes = set(), set()
     flash = ops.flash_attention
 
-    def recording(q, *args, **kw):
+    def recording(q, k, *args, **kw):
         q_shapes.add(tuple(q.shape))
-        return flash(q, *args, **kw)
+        kv_shapes.add(tuple(k.shape))
+        return flash(q, k, *args, **kw)
     ops.flash_attention = recording
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -1982,27 +1928,14 @@ def tp_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
     rec = dict(rank=rank, coords=mesh.coords, records=records, formula=list(formula),
                block_bytes=block_bytes, model_replicated_bytes=model_replicated,
                launches=launches, flash_routes=dict(fa.flash_attention.routes),
-               flash_q_shapes=sorted(q_shapes), routing=routing,
+               flash_q_shapes=sorted(q_shapes), flash_kv_shapes=sorted(kv_shapes),
+               routing=routing,
                peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
                device_free_gb_setup=free_gb,
                ring_bytes_sent=sent, razor_bytes=art.razor.unique_bytes_per_device_ring,
                host_rss_gb=rss)
     with open(f"{tmp}/a_{rank}.json", "w") as f:
         json.dump(rec, f)
-
-
-def phase_train_tp(torch, mesh_row: dict, tmp: str, t: dict = TRAIN_TP, tb: dict = TRAIN_TP_B,
-                   device: str = "cuda", backend_b: str = "nccl") -> dict:
-    """The tensor-parallel step on (data 2, model 2): parts (a) and (b);
-    ``mesh_row`` is train_mesh (a)'s row, the same run on (4, 1), and
-    ``tmp`` holds train_mesh (b)'s one-rank reference, which is this (b)'s
-    (the same config, weights and batches on one rank)."""
-    parent_rss = host_rss_gb()
-    return _sharded_phase(
-        "train_tp", [(tp_part_a, t), (mesh_part_b, tb)], tmp, t, tb, device,
-        lambda recs, a_s: dict(_train_tp_row("train_tp", recs, t, a_s, device, mesh_row),
-                               parent_host_rss_gb=parent_rss),
-        lambda: _against_one_rank("train_tp", tb, backend_b, tmp, None))
 
 
 def _train_tp_row(phase: str, recs: list, t: dict, a_s: float, device: str,
@@ -2013,23 +1946,34 @@ def _train_tp_row(phase: str, recs: list, t: dict, a_s: float, device: str,
     and drops)."""
     import numpy as np
 
+    from repro_torch.models import param_count
     from repro_torch.models.moe import moe_groups
 
     cfg = _mesh_cfg(t)
     steps, data = t["steps"], t["world"] // t["model"]
     rows = t["global_batch"] // data
-    q_shape = [rows, t["seq_len"], cfg.num_heads // t["model"], cfg.resolved_head_dim]
+    heads = cfg.num_heads // t["model"]
+    # a rank's kv heads, as attention._kv_weights picks them: its share where
+    # they divide the axis, else (replicated) the one its q heads share where
+    # they read one, else one for each q head
+    group = cfg.num_heads // cfg.num_kv_heads
+    kv_heads = (cfg.num_kv_heads // t["model"] if cfg.num_kv_heads % t["model"] == 0
+                else 1 if group % heads == 0 else heads)
+    q_shape = [rows, t["seq_len"], heads, cfg.resolved_head_dim]
+    kv_shape = [rows, t["seq_len"], kv_heads, cfg.resolved_head_dim]
     flash = [r["launches"]["flash_attention"] for r in recs]
     expected = 2 * cfg.num_layers * steps          # the forward and FSDP's recompute
     if device == "cuda" and (
             flash != [expected] * len(recs)
             or any(r["launches"]["decode_attention"] or r["launches"]["ssd"] for r in recs)
             or any(v for r in recs for k, v in r["flash_routes"].items() if k != "wgmma")
-            or any(r["flash_q_shapes"] != [q_shape] for r in recs)):
+            or any(r["flash_q_shapes"] != [q_shape] for r in recs)
+            or any(r["flash_kv_shapes"] != [kv_shape] for r in recs)):
         fail(f"{phase}: kernel launches {[r['launches'] for r in recs]}, flash routes "
-             f"{[r['flash_routes'] for r in recs]}, q shapes "
-             f"{[r['flash_q_shapes'] for r in recs]}; expected {expected} flash launches in "
-             f"every rank, all on wgmma at q {q_shape}, and no decode or SSD launch")
+             f"{[r['flash_routes'] for r in recs]}, q and kv shapes "
+             f"{[(r['flash_q_shapes'], r['flash_kv_shapes']) for r in recs]}; expected "
+             f"{expected} flash launches in every rank, all on wgmma at q {q_shape}, k/v "
+             f"{kv_shape}, and no decode or SSD launch")
     if not all(math.isfinite(s["loss"]) for r in recs for s in r["records"]):
         fail(f"{phase}: losses {[[s['loss'] for s in r['records']] for r in recs]}")
     extra = {}
@@ -2075,7 +2019,8 @@ def _train_tp_row(phase: str, recs: list, t: dict, a_s: float, device: str,
                 for i in range(steps)]
 
     median_ms = float(np.median([s["step_ms"] for r in recs for s in r["records"][1:]]))
-    return dict(config=f"{cfg.name}, {cfg.num_layers} layers, {cfg.dtype}", world=t["world"],
+    return dict(config=f"{cfg.name}, {cfg.num_layers} layers, {cfg.dtype}",
+                param_count=param_count(cfg), world=t["world"],
                 mesh=f"data={data}, model={t['model']}", backend="gloo", device_note=MESH_NOTE,
                 fsdp_params=True, instant_ckpt=True, global_batch=t["global_batch"],
                 seq_len=t["seq_len"], tokens_per_data_rank=rows * t["seq_len"], steps=steps,
@@ -2098,6 +2043,7 @@ def _train_tp_row(phase: str, recs: list, t: dict, a_s: float, device: str,
                 host_rss_note="per rank: resident host memory after its setup and after "
                               "each step",
                 flash_launches=flash, flash_expected=expected, flash_q_shape=q_shape,
+                flash_kv_shape=kv_shape,
                 decode_launches=[r["launches"]["decode_attention"] for r in recs],
                 ssd_launches=[r["launches"]["ssd"] for r in recs],
                 flash_note="per rank: the forward and its recompute in the backward (FSDP "
@@ -2112,13 +2058,15 @@ def _train_tp_row(phase: str, recs: list, t: dict, a_s: float, device: str,
                 seconds=a_s)
 
 
-def moe_part_single(rank: int, world: int, tmp: str, tb: dict, device: str) -> None:
-    """train_moe_mesh (b)'s reference: one rank of the same step on the
-    global batch, tb["steps"] FSDP steps. After each it saves to
-    tmp/moe1_step<i>.pt the loss, m (every leaf whole, fp32), each leaf's
-    largest |m| and the routing of every MoE call of the forward (top_e,
-    pos, valid, the gate probabilities and their smallest k-th / (k+1)-th
-    gap)."""
+def single_part_b(rank: int, world: int, tmp: str, tb: dict, device: str) -> None:
+    """Part (b)'s reference: one rank of the same step on the global batch,
+    tb["steps"] FSDP steps (uncompressed: one rank is one pod). After each
+    it saves to tmp/single_step<i>.pt the loss, the global gradient norm,
+    the optimizer leaves of tb["held"] (each whole, fp32, keyed
+    "<part>|<leaf>") with each one's largest magnitude, and the routing of
+    every MoE call of the forward (top_e, pos, valid, the gate
+    probabilities and their smallest k-th / (k+1)-th gap; none for a dense
+    model)."""
     import torch
 
     from repro_torch.models import moe
@@ -2131,15 +2079,17 @@ def moe_part_single(rank: int, world: int, tmp: str, tb: dict, device: str) -> N
     for i, tokens in enumerate(local):
         with moe.record_routing() as log:
             state, metrics, _ = art.step_fn(state, {"tokens": tokens})
-        m = {keystr(p): x for p, x in tree_flatten_with_path(state["opt"]["m"])}
+        opt = {f"{part}|{keystr(p)}": x for part in tb["held"]
+               for p, x in tree_flatten_with_path(state["opt"][part])}
         torch.save({"loss": float(metrics["loss"]),
-                    "m": {k: x.cpu() for k, x in m.items()},
-                    "m_max": {k: float(x.abs().max()) for k, x in m.items()},
+                    "grad_norm": float(art.step_fn.last_grad_norm),
+                    "opt": {k: x.cpu() for k, x in opt.items()},
+                    "max": {k: float(x.abs().max()) for k, x in opt.items()},
                     "routing": [{"top_e": r["top_e"].cpu(), "pos": r["pos"].cpu(),
                                  "valid": r["valid"].cpu(), "gate_probs": r["gate_probs"].cpu(),
                                  "gap": _gate_gap(r["gate_probs"], cfg.top_k)} for r in log]},
-                   f"{tmp}/moe1_step{i}.pt")
-        del log, m
+                   f"{tmp}/single_step{i}.pt")
+        del log, opt
 
 
 def _gate_gap(gate_probs, k: int) -> float:
@@ -2148,17 +2098,47 @@ def _gate_gap(gate_probs, k: int) -> float:
     return float((top[..., k - 1] - top[..., k]).min())
 
 
-def moe_part_b(rank: int, world: int, tmp: str, tb: dict, device: str) -> None:
-    """train_moe_mesh (b) on one of the four ranks, after part (a): tb["steps"]
-    FSDP steps in fp32; after each, this rank's blocks of m against the one
-    rank's (``moe_part_single``) and its routing against the one rank's
-    groups at its data index; rank 0 writes the steps to tmp/moe_b.json."""
+def _record_pod_scales(scales: list):
+    """Wrap the compressed cross-pod mean so that each call appends to
+    ``scales`` the int8 scale of every leaf as the reference defines it:
+    the largest |g| of the whole leaf over all pods (every rank's block, a
+    MAX over the world) / 127, taken from the mean's inputs. Returns the
+    function that puts the original back."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.parallel import compression
+    mean = compression.pod_compressed_mean
+
+    def recording(grads, mesh, axis="pod"):
+        top = torch.stack([g.detach().float().abs().max() for g in grads])
+        dist.all_reduce(top, op=dist.ReduceOp.MAX)
+        scales.append(top / 127.0)
+        return mean(grads, mesh, axis)
+
+    compression.pod_compressed_mean = recording
+    return lambda: setattr(compression, "pod_compressed_mean", mean)
+
+
+def blocks_part_b(rank: int, world: int, tmp: str, tb: dict, device: str) -> None:
+    """Part (b) on one of the sharded ranks, after part (a): tb["steps"]
+    FSDP steps in fp32; after each, this rank's blocks of the tb["held"]
+    optimizer leaves against the one rank's (``single_part_b``), each
+    leaf's largest difference relative to the one rank's largest
+    magnitude, and its routing against the one rank's groups at its data
+    index. m's limit a leaf, per element: tb["grad_tol"] of its largest
+    magnitude and, with int8 cross-pod compression, the error the rounding
+    makes of it (``_int8_m_bound``); the share of that limit an element
+    uses most is recorded. Rank 0 writes the steps and its kernel launches
+    to tmp/blocks_b.json."""
     import gc
 
     import torch
     import torch.distributed as dist
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import moe
+    from repro_torch.optim import AdamWConfig
     from repro_torch.parallel import sharding as shd
     from repro_torch.tree import keystr, tree_flatten, tree_flatten_with_path
 
@@ -2167,41 +2147,115 @@ def moe_part_b(rank: int, world: int, tmp: str, tb: dict, device: str) -> None:
     state = make_state(True)
     del make_state, model
     gc.collect()
-    specs = tree_flatten(art.plan.opt_pspecs["m"], shd.is_spec)[0]
+    specs = {part: tree_flatten(art.plan.opt_pspecs[part], shd.is_spec)[0]
+             for part in tb["held"]}
     data_index = mesh.index("data")
+    scales, restore = [], None
+    if tb.get("compress_pod_grads"):
+        restore = _record_pod_scales(scales)
+    hp, bound, prev = AdamWConfig(), {}, None
     steps = []
+    reset_launches()
     for i, tokens in enumerate(local):
         with moe.record_routing() as log:
             state, metrics, _ = art.step_fn(state, {"tokens": tokens})
-        ref = torch.load(f"{tmp}/moe1_step{i}.pt", mmap=True)
-        err = {}
-        for (path, x), spec in zip(tree_flatten_with_path(state["opt"]["m"]), specs):
-            key = keystr(path)
-            block = shd.local_block(ref["m"][key], spec, mesh).to(x.device)
-            err[key] = float((x - block).abs().max()) / max(ref["m_max"][key], 1e-30)
+        ref = torch.load(f"{tmp}/single_step{i}.pt", mmap=True)
+        clip = [min(1.0, hp.grad_clip / max(n, 1e-9))
+                for n in (float(art.step_fn.last_grad_norm), ref["grad_norm"])]
+        err, over = {}, {}
+        for part in tb["held"]:
+            for j, ((path, x), spec) in enumerate(zip(
+                    tree_flatten_with_path(state["opt"][part]), specs[part])):
+                key = f"{part}|{keystr(path)}"
+                int8 = (dict(scale=float(scales[i][j]), clip=clip, pods=mesh.shape["pod"],
+                             b1=hp.b1) if part == "m" and scales else None)
+                before = (shd.local_block(prev["opt"][key], spec, mesh)
+                          if int8 and prev is not None else None)
+                diff, share, bound[key] = _block_error(
+                    x, shd.local_block(ref["opt"][key], spec, mesh), before, bound.get(key),
+                    tb["grad_tol"] * ref["max"][key] if part == "m" else None, int8)
+                err[key] = diff / max(ref["max"][key], 1e-30)
+                if share is not None:
+                    over[key] = share
         routing = _routing_against(log, ref["routing"], data_index)
-        steps.append(dict(step=i + 1, loss=float(metrics["loss"]), single_loss=ref["loss"],
-                          err=err, **routing,
-                          min_gate_gap=min([r["gap"] for r in ref["routing"]]),
+        steps.append(dict(step=i + 1, lr=float(metrics["lr"]), loss=float(metrics["loss"]),
+                          single_loss=ref["loss"], clip=clip, err=err, over=over, **routing,
+                          min_gate_gap=min([r["gap"] for r in ref["routing"]], default=None),
                           dropped=sum(int((~r["valid"]).sum()) for r in ref["routing"]),
                           assignments=sum(r["valid"].numel() for r in ref["routing"])))
-        del ref, log
+        del log
+        prev = ref
+    if restore is not None:
+        restore()
+    launches = dict(read_launches(), flash_routes=dict(fa.flash_attention.routes))
     every = [None] * world
     dist.all_gather_object(every, (mesh.coords, steps))
     if rank == 0:
         out = []
         for i, st in enumerate(steps):
             per_rank = [s[i] for _, s in every]
-            first = [s[i] for c, s in every if c["model"] == 0]   # each data index once
-            out.append(dict(st, err={k: max(s["err"][k] for s in per_rank) for k in st["err"]},
+            first = [s[i] for c, s in every if c["model"] == 0 and c.get("pod", 0) == 0]
+            out.append(dict(st, **{k: {key: max(s[k][key] for s in per_rank) for key in st[k]}
+                                   for k in ("err", "over")},
                             **{k: sum(s[k] for s in first) for k in _ROUTING_COUNTS},
                             explained_gap_max=max(s["explained_gap_max"] for s in per_rank),
                             gate_noise=max(s["gate_noise"] for s in per_rank),
                             unexplained_on_any_rank=any(
                                 s["unexplained_flips"] or s["unexplained_diffs"]
                                 for s in per_rank)))
-        with open(f"{tmp}/moe_b.json", "w") as f:
-            json.dump(out, f)
+        with open(f"{tmp}/blocks_b.json", "w") as f:
+            json.dump(dict(steps=out, launches=launches), f)
+
+
+def _block_error(x, block, before, bound, limit, int8, piece: int = 1 << 24):
+    """The largest |x - block| (x this rank's leaf on its device, block the
+    one rank's block of it on the host), taken ``piece`` elements at a time
+    so that the copies on the card stay small. With ``limit`` (m's) also
+    the largest share of each element's limit that it uses: ``limit`` plus,
+    with ``int8`` (the compressed step's scale, clip factors, pod count and
+    b1), ``_int8_m_bound`` from ``before`` (the one rank's block of the
+    last step, or None) and ``bound`` (the last step's, flat on the host,
+    or None). Returns the difference, the share (None without a limit) and
+    this step's bound (None without ``int8``)."""
+    import torch
+    xf, rf = x.reshape(-1), block.reshape(-1)
+    pf = before.reshape(-1) if before is not None else None
+    new = torch.empty_like(rf) if int8 else None
+    diff, share = 0.0, None
+    for lo in range(0, xf.numel(), piece):
+        part = slice(lo, lo + piece)
+        r = rf[part].to(x.device)
+        d = (xf[part] - r).abs()
+        diff = max(diff, float(d.max()))
+        if limit is None:
+            continue
+        lim = limit
+        if int8:
+            b = _int8_m_bound(None if bound is None else bound[part].to(x.device), r,
+                              None if pf is None else pf[part].to(x.device), **int8)
+            new[part] = b.cpu()
+            lim = b + limit
+        share = max(share or 0.0, float((d / lim).max()))
+    return diff, share, new
+
+
+def _int8_m_bound(before, m_exact, m_exact_prev, scale: float, clip: list, pods: int,
+                  b1: float):
+    """The most by which each element of m may differ between the step with
+    int8 cross-pod compression and the exact one, this step (tensors of
+    this rank's block). A pod's compressed mean is (g_p + sum of the other
+    pods' q s) / pods, each q s within s / 2 of its g: it is off the exact
+    mean by at most (pods - 1) s / (2 pods). m adds (1 - b1) of the clipped
+    gradient: off by (1 - b1) c s (pods - 1) / (2 pods), c the compressed
+    step's clip factor, plus what the two steps' clip factors (clip: the
+    compressed one's and the exact one's) make of the exact term, |c / c_e
+    - 1| |m_e - b1 m_e'|; and b1 times the last step's bound. It holds
+    while both runs' steps start from the same weights: the first step's
+    learning rate is 0 under the warmup."""
+    term = m_exact if m_exact_prev is None else m_exact - b1 * m_exact_prev
+    out = ((1 - b1) * clip[0] * scale * (pods - 1) / (2 * pods)
+           + abs(clip[0] / clip[1] - 1) * term.abs())
+    return out if before is None else b1 * before + out
 
 
 _ROUTING_COUNTS = ("flips", "explained_flips", "unexplained_flips", "pos_diff", "valid_diff",
@@ -2250,46 +2304,64 @@ def _routing_against(log: list, ref: list, data_index: int) -> dict:
     return out
 
 
-def phase_train_moe_mesh(torch, t: dict = TRAIN_MOE, tb: dict = TRAIN_MOE_B,
-                         device: str = "cuda") -> dict:
-    """The MoE in the sharded step on (data 2, model 2): (b)'s one-rank
-    reference first, then four ranks for (a) and (b)."""
-    import shutil
-    import tempfile
-
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_")
-    parent_rss = host_rss_gb()
-    torch.cuda.empty_cache()
-    parent_device_gb = torch.cuda.memory_reserved() / 1e9
-    try:
+def phase_mesh(torch, phase: str, t: dict, tb: dict, tmp: str, part_a, row_a,
+               device: str = "cuda", single: bool = True) -> dict:
+    """A sharded phase: (b)'s one-rank reference first (``single_part_b``,
+    over NCCL, into ``tmp``; with ``single`` False ``tmp`` already holds
+    it, another phase's of the same config), then t["world"] spawned ranks
+    running (a) (``part_a``, which records tmp/a_<rank>.json, checked and
+    printed by ``row_a(recs, seconds)``) and (b) (``blocks_part_b``,
+    checked and printed by ``_blocks_b_row``) in turn. Returns (a)'s row
+    with (b)'s under "part_b"."""
+    parent = dict(parent_host_rss_gb=host_rss_gb(), parent_device_reserved_gb=None)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        parent["parent_device_reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+    single_s = None
+    if single:
         t0 = time.perf_counter()
-        run_children("train_moe_mesh (b), one rank",
-                     [(mesh_rank, (0, 1, tmp, f"{tmp}/rdv_moe1", [(moe_part_single, tb)], device,
-                                   "nccl" if device == "cuda" else "gloo"))], tb["timeout_s"])
+        run_children(f"{phase} (b), one rank",
+                     [(mesh_rank, (0, 1, tmp, f"{tmp}/rdv_single", [(single_part_b, tb)],
+                                   device, "nccl" if device == "cuda" else "gloo"))],
+                     tb["timeout_s"])
         single_s = time.perf_counter() - t0
 
-        def row_b():
-            with open(f"{tmp}/moe_b.json") as f:
-                return _train_moe_b_row(json.load(f), tb, single_s)
-        return _sharded_phase(
-            "train_moe_mesh", [(tp_part_a, t), (moe_part_b, tb)], tmp, t, tb, device,
-            lambda recs, a_s: dict(_train_tp_row("train_moe_mesh", recs, t, a_s, device),
-                                   parent_host_rss_gb=parent_rss,
-                                   parent_device_reserved_gb=parent_device_gb), row_b)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    run_children(phase, [(mesh_rank, (r, t["world"], tmp, f"{tmp}/rdv_{phase}",
+                                      [(part_a, t), (blocks_part_b, tb)], device))
+                         for r in range(t["world"])], t["timeout_s"] + tb["timeout_s"])
+    recs = []
+    for r in range(t["world"]):
+        with open(f"{tmp}/a_{r}.json") as f:
+            recs.append(json.load(f))
+    row = dict(row_a(recs, time.perf_counter() - t0), **parent)
+    emit(phase, **row)
+    with open(f"{tmp}/blocks_b.json") as f:
+        part_b = _blocks_b_row(phase, json.load(f), tb, single_s, device)
+    emit(f"{phase}_world1", **part_b)
+    return dict(row, part_b=part_b)
 
 
-def _train_moe_b_row(steps_b: list, tb: dict, single_s: float) -> dict:
-    """Part (b)'s checks: the losses within tb["tol"] of one NCCL rank, m
-    within tb["grad_tol"] of each leaf's largest value, the routing equal."""
-    tol, grad_tol = tb["tol"], tb["grad_tol"]
+def _blocks_b_row(phase: str, part_b: dict, tb: dict, single_s, device: str) -> dict:
+    """Part (b)'s checks: the losses within tb["tol"] of one NCCL rank, every
+    element of m within its limit (``blocks_part_b``), the master of step 1
+    (lr 0 under the warmup) within tb["tol"] where it is held, an MoE's
+    routing equal, rank 0's flash launches all on the fp32 route."""
+    cfg = _mesh_cfg(tb)
+    tol, compressed = tb["tol"], tb.get("compress_pod_grads", False)
+    steps_b, launches = part_b["steps"], part_b["launches"]
     bad = []
+    if compressed and len(steps_b) > 1 and steps_b[0]["lr"] != 0:
+        bad.append(f"step 1's learning rate {steps_b[0]['lr']}: the int8 bound of m holds "
+                   "only while both runs start each step from the same weights")
     for st in steps_b:
         if abs(st["loss"] - st["single_loss"]) > tol * abs(st["single_loss"]):
             bad.append(f"step {st['step']} loss {st['loss']} vs {st['single_loss']}")
-        bad += [f"step {st['step']} m {k}: {e} (limit {grad_tol})"
-                for k, e in st["err"].items() if e > grad_tol]
+        bad += [f"step {st['step']} {k}: {st['err'][k]} of its largest value, {x} of its "
+                "limit" for k, x in st["over"].items() if x > 1]
+        if st["step"] == 1:
+            bad += [f"step 1 {k}: {e} (limit {tol})" for k, e in st["err"].items()
+                    if k.startswith("master|") and e > tol]
         if st["unexplained_on_any_rank"]:
             bad.append(f"step {st['step']} routing: {st['unexplained_flips']} flipped "
                        f"assignments beyond the gate noise {st['gate_noise']}, "
@@ -2297,34 +2369,59 @@ def _train_moe_b_row(steps_b: list, tb: dict, single_s: float) -> dict:
                        f"groups without such a flip ({st['flips']} flips, {st['pos_diff']} "
                        f"positions, {st['valid_diff']} verdicts in all; smallest gate gap "
                        f"{st['min_gate_gap']})")
+    # the fp32 route of flash in every layer and microbatch, forward and recompute
+    flash = 2 * tb["layers"] * tb["steps"] * tb.get("microbatches", 1)
+    if device == "cuda" and launches["flash_routes"] != {"wgmma": 0, "fp32": flash}:
+        bad.append(f"flash routes {launches['flash_routes']} on rank 0, expected {flash} fp32")
     if bad:
-        fail("train_moe_mesh (b): sharded against one nccl rank: " + "; ".join(bad))
-    model_axis = tb["model"]
-    return dict(config=f"{_mesh_cfg(tb).name}, {tb['layers']} layers, fp32",
-                sharded=f"{tb['world']} gloo ranks", against="one rank over nccl",
-                mesh=f"data={tb['world'] // model_axis}, model={model_axis}",
-                instant_ckpt=tb["instant_ckpt"], tol=tol, grad_tol=grad_tol,
-                single_rank_s=single_s,
-                steps=[dict(step=st["step"], loss=st["loss"], single_loss=st["single_loss"],
+        fail(f"{phase} (b): sharded against one nccl rank: " + "; ".join(bad))
+    model_axis, pods = tb.get("model", 1), tb.get("pod", 1)
+    routing = ("; every MoE call's top-k experts, positions and capacity verdicts equal (a "
+               "rank's groups the one rank's, at its data index) but for flips explained by "
+               "the gate noise: the one rank's gap between the two experts within twice the "
+               "largest difference of the two runs' gate probabilities (exact ties among "
+               "them), and the positions and verdicts of their groups; each counted"
+               if cfg.is_moe else "")
+    limit = (f"grad_tol ({tb['grad_tol_why']}) of its leaf's largest value" + (
+        " plus the error int8 cross-pod compression makes of it: (1 - b1) c s / 4 a step "
+        "for 2 pods, s the whole leaf's scale (the largest |g| of every pod's block / 127, "
+        "recorded from the compressed mean's inputs) and c the step's clip factor, what "
+        "the two runs' clip factors make of the exact term, and b1 times the last step's"
+        if compressed else ""))
+    return dict(config=f"{cfg.name}, {tb['layers']} layers, fp32",
+                sharded=f"{tb['world']} gloo ranks",
+                against="one rank over nccl" + (", uncompressed" if compressed else ""),
+                mesh=(f"pod={pods}, " if pods > 1 else "")
+                + f"data={tb['world'] // (model_axis * pods)}, model={model_axis}",
+                compress_pod_grads=compressed, microbatches=tb.get("microbatches", 1),
+                instant_ckpt=tb.get("instant_ckpt", True), tol=tol, grad_tol=tb["grad_tol"],
+                single_rank_s=single_s, launches=launches,
+                steps=[dict(step=st["step"], lr=st["lr"], loss=st["loss"],
+                            single_loss=st["single_loss"],
                             loss_rel_err=abs(st["loss"] - st["single_loss"])
                             / abs(st["single_loss"]),
-                            m_rel_err_max=max(st["err"].values()),
-                            m_rel_err_moe=max(e for k, e in st["err"].items() if "|moe|" in k),
-                            flipped_assignments=st["flips"],
-                            explained_flips=st["explained_flips"],
-                            explained_gap_max=st["explained_gap_max"],
-                            gate_noise=st["gate_noise"], positions_differ=st["pos_diff"],
-                            valid_differs=st["valid_diff"], min_gate_gap=st["min_gate_gap"],
-                            dropped_assignments=st["dropped"], assignments=st["assignments"])
+                            **{f"{part}_rel_err_max": max(e for k, e in st["err"].items()
+                                                          if k.startswith(part + "|"))
+                               for part in tb["held"]},
+                            m_share_of_limit_max=max(st["over"].values()),
+                            **(dict(clip_factors=st["clip"]) if compressed else {}),
+                            **(dict(m_rel_err_moe=max(e for k, e in st["err"].items()
+                                                      if "|moe|" in k),
+                                    flipped_assignments=st["flips"],
+                                    explained_flips=st["explained_flips"],
+                                    explained_gap_max=st["explained_gap_max"],
+                                    gate_noise=st["gate_noise"],
+                                    positions_differ=st["pos_diff"],
+                                    valid_differs=st["valid_diff"],
+                                    min_gate_gap=st["min_gate_gap"],
+                                    dropped_assignments=st["dropped"],
+                                    assignments=st["assignments"]) if cfg.is_moe else {}))
                        for st in steps_b],
-                note="held: the losses within tol, m (0.1 of the gradient at step 1) of "
-                     "every leaf within grad_tol of its largest value, each rank's block "
-                     "against the one rank's; every MoE call's top-k experts, positions and "
-                     "capacity verdicts equal (a rank's groups the one rank's, at its data "
-                     "index) but for flips explained by the gate noise: the one rank's gap "
-                     "between the two experts within twice the largest difference of the "
-                     "two runs' gate probabilities (exact ties among them), and the "
-                     "positions and verdicts of their groups; each counted")
+                note=f"held: the losses within tol; every element of m, each rank's block "
+                     f"against the one rank's, within {limit}"
+                     + ("; the master of step 1 (lr 0) within tol; v and the later master "
+                        "reported" if "master" in tb["held"] else "")
+                     + f"; rank 0's {flash} flash launches on the fp32 route" + routing)
 
 
 # GPipe over a ("pipe",) mesh of four gloo ranks sharing the card:
@@ -3162,7 +3259,6 @@ def phase_train_ssm(torch):
 
 
 def main() -> int:
-    import shutil
     import tempfile
 
     import torch
@@ -3195,13 +3291,22 @@ def main() -> int:
     serve_moe = timed("serve_moe", phase_serve_moe, torch)
     timed("train_grad", phase_train_grad, torch)
     # train_mesh (b)'s one-rank reference is train_tp (b)'s too: one directory
-    mesh_tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
-    try:
-        train_mesh = timed("train_mesh", phase_train_mesh, torch, mesh_tmp)
-        train_tp = timed("train_tp", phase_train_tp, torch, train_mesh, mesh_tmp)
-    finally:
-        shutil.rmtree(mesh_tmp, ignore_errors=True)
-    train_moe_mesh = timed("train_moe_mesh", phase_train_moe_mesh, torch)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        train_mesh = timed("train_mesh", phase_mesh, torch, "train_mesh", TRAIN_MESH,
+                           TRAIN_MESH_B, tmp, mesh_part_a,
+                           lambda recs, a_s: _train_mesh_row(recs, TRAIN_MESH, a_s, "cuda"))
+        train_tp = timed("train_tp", phase_mesh, torch, "train_tp", TRAIN_TP, TRAIN_TP_B, tmp,
+                         tp_part_a, lambda recs, a_s: _train_tp_row(
+                             "train_tp", recs, TRAIN_TP, a_s, "cuda", train_mesh),
+                         single=False)
+    sharded = {}
+    for phase, t, tb in (("train_moe_mesh", TRAIN_MOE, TRAIN_MOE_B),
+                         ("train_gemma_mesh", TRAIN_GEMMA, TRAIN_GEMMA_B)):
+        with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{phase}_") as tmp:
+            sharded[phase] = timed(phase, phase_mesh, torch, phase, t, tb, tmp, tp_part_a,
+                                   lambda recs, a_s, phase=phase, t=t: _train_tp_row(
+                                       phase, recs, t, a_s, "cuda"))
+    train_moe_mesh, train_gemma_mesh = sharded["train_moe_mesh"], sharded["train_gemma_mesh"]
     pipeline = timed("pipeline", phase_pipeline, torch)
     scenarios = timed("scenarios", phase_scenarios, torch)
     train_ssm = timed("train_ssm", phase_train_ssm, torch)
@@ -3266,6 +3371,13 @@ def main() -> int:
              moe_mesh_shape=moe_shape(kernels["flash_attention"]["bfloat16_moe_tp"]),
              pipeline_launches={p["config"]: p["flash_launches"] for p in pipeline["parts"]},
              pipeline_shape=moe_shape(kernels["flash_attention"]["bfloat16_pipe"]),
+             train_gemma_mesh_launches=dict(
+                 a=train_gemma_mesh["flash_launches"],
+                 b_rank0=train_gemma_mesh["part_b"]["launches"]["flash_routes"]),
+             gemma_tp_shape={d: moe_shape(kernels["flash_attention"][f"{d}_gemma_tp"])
+                             for d in ("bfloat16", "float32")},
+             hd256={d: moe_shape(kernels["flash_attention"][f"{d}_hd256"])
+                    for d in ("bfloat16", "float32")},
              backward="plain blockwise_attention recompute (FlashAttention), no kernel"),
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attn.cu",
@@ -3289,7 +3401,9 @@ def main() -> int:
              moe_launches=serve_moe["launches"]["decode_attention"],
              train_tp_launches=train_tp["decode_launches"],
              train_moe_mesh_launches=train_moe_mesh["decode_launches"],
-             moe_shape=moe_shape(kernels["decode_attention"]["bfloat16_moe"][-1])),
+             train_gemma_mesh_launches=train_gemma_mesh["decode_launches"],
+             moe_shape=moe_shape(kernels["decode_attention"]["bfloat16_moe"][-1]),
+             head_dims="16, 32, 64, 112 (on 128's lanes), 128; 256 refused (ValueError)"),
         dict(name="ssd", route="cuda", dispatch=ssd_main["route"],
              source="src/repro_torch/csrc/ssd_wgmma.cu",
              fp32_source="src/repro_torch/csrc/ssd.cu",
@@ -3316,6 +3430,7 @@ def main() -> int:
              moe_launches=serve_moe["launches"]["ssd"],
              train_tp_launches=train_tp["ssd_launches"],
              train_moe_mesh_launches=train_moe_mesh["ssd_launches"],
+             train_gemma_mesh_launches=train_gemma_mesh["ssd_launches"],
              tp_shapes={model: {k_: ssd_rows[(f"{model}/tp2", 1024, "bfloat16")][k_]
                                 for k_ in keys}
                         for model in ("mamba2-2.7b", "zamba2-7b")},

@@ -26,6 +26,8 @@
 // shared-memory loads). head_dim 112 runs the hd-128 layout with the loads
 // of columns 112-127 predicated off (zero in shared memory), the scores'
 // sum stopped at column 112 and those columns of the output not stored.
+// head_dim 256 keeps the same tiles: 128 output accumulators a thread, and
+// 211 KB of shared memory (q, k, v and P tiles), one block an SM.
 
 #include <atomic>
 
@@ -293,6 +295,7 @@ extern "C" int repro_flash_attention_fp32(
     case 64: return (int)repro::launch_flash<64>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
     case 112: return (int)repro::launch_flash<128, 112>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
     case 128: return (int)repro::launch_flash<128>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
+    case 256: return (int)repro::launch_flash<256>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

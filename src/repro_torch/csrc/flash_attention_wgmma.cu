@@ -30,19 +30,21 @@
 //    wgmma, so P never goes through shared memory. V is B, MN-major
 //    (head_dim contiguous), read with the transpose bit.
 //  * Shared memory holds bf16 only, in the swizzled layout the wgmma
-//    descriptors name: 128-byte swizzle for hd 64 and 128 (hd 128 is two
-//    64-column atoms along head_dim), 64-byte for hd 32, 32-byte for hd 16.
+//    descriptors name: 128-byte swizzle for hd 64, 128 and 256 (hd 128 and
+//    256 are two and four 64-column atoms along head_dim), 64-byte for hd
+//    32, 32-byte for hd 16.
 //  * Copies are asynchronous and warp-specialized. One producer warp
 //    issues TMA loads (cp.async.bulk.tensor, 4-d tensor maps over the
 //    (B, S, heads, hd) strides, built on the host per call) into a ring of
-//    three kv stages, each with "full" mbarriers for K and V and an "empty"
-//    one the consumers release; TMA writes the swizzled layout itself and
-//    zero-fills the ragged edge. The two consumer warpgroups never meet at
-//    a block barrier: each waits only for the tiles it multiplies, so one
-//    warpgroup's softmax runs beside the other's products. Every wait is
-//    bounded by a clock: a fault in the protocol traps (a launch error)
-//    instead of hanging the card. The tensor-map encoder is reached through
-//    cudaGetDriverEntryPoint, so the library links only the CUDA runtime.
+//    three kv stages (two at hd 256), each with "full" mbarriers for K and
+//    V and an "empty" one the consumers release; TMA writes the swizzled
+//    layout itself and zero-fills the ragged edge. The two consumer
+//    warpgroups never meet at a block barrier: each waits only for the
+//    tiles it multiplies, so one warpgroup's softmax runs beside the
+//    other's products. Every wait is bounded by a clock: a fault in the
+//    protocol traps (a launch error) instead of hanging the card. The
+//    tensor-map encoder is reached through cudaGetDriverEntryPoint, so the
+//    library links only the CUDA runtime.
 //  * Softmax overlaps the tensor cores twice. Inside a warpgroup, the
 //    scores of tile j+1 and P_j . V_j are issued together and the softmax
 //    of tile j+1 runs while P_j . V_j is still on the tensor cores (two
@@ -63,6 +65,13 @@
 //    swizzle atom. Q.K^T stops at column 112 (7 k-steps of 16), P.V's
 //    columns 112-127 come out zero and are never stored. A third set of
 //    tile constants would buy at most the 1/8 of P.V spent on those zeros.
+//  * head_dim 256 (gemma-2b's) has its own instantiation: four 64-column
+//    swizzle atoms along head_dim, 64-row kv tiles, P.V on m64n256k16. Two
+//    kv stages instead of three (Q 64 KB + 4 x 32 KB of K and V), and no
+//    second set of P registers: the accumulator alone takes 128 of the 232
+//    registers a consumer thread has, so the softmax of tile j+1 waits for
+//    P_j . V_j (the overlap between the two warpgroups stays), FA3's design
+//    at this head_dim.
 //  * fp32 inputs keep the CUDA-core kernel in flash_attention.cu.
 
 #include <atomic>
@@ -84,13 +93,18 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
 struct Cfg {
-  static constexpr int BK = HD == 128 ? 64 : 128;        // kv rows per tile
+  static constexpr int BK = HD >= 128 ? 64 : 128;        // kv rows per tile
   static constexpr int W = HD < 64 ? HD : 64;            // elements per swizzled row
   static constexpr int SW = 2 * W;                       // its bytes: the swizzle width
   static constexpr uint64_t LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;  // descriptor code
   static constexpr int Q_BYTES = BQ * HD * 2;
   static constexpr int KV_BYTES = BK * HD * 2;           // one K or V tile
-  static constexpr int STAGES = 3;                      // kv tiles in the ring
+  // kv tiles in the ring: at hd 256, Q (64 KB) and three stages of K and V
+  // (192 KB) would pass the 227 KB a block may have; two stages need 128 KB
+  static constexpr int STAGES = HD == 256 ? 2 : 3;
+  // a second set of P registers beside the accumulator (the softmax of tile
+  // j+1 under P_j . V_j): at hd 256 the accumulator alone is 128 registers
+  static constexpr bool OVERLAP = HD <= 128;
   static constexpr int BARS = 3 + 3 * STAGES;  // q full, 2 turns; K, V full and empty per stage
   static constexpr size_t smem =
       Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARS + 1024;   // + 1024 for alignment
@@ -270,6 +284,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   float acc[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  auto rescale = [&](float c0, float c1) {   // rows row0 and row0 + 8 of the output
+#pragma unroll
+    for (int jj = 0; jj < HD / 8; ++jj) {
+      acc[4 * jj] *= c0;
+      acc[4 * jj + 1] *= c0;
+      acc[4 * jj + 2] *= c1;
+      acc[4 * jj + 3] *= c1;
+    }
+  };
   float m0 = kNegInf, m1 = kNegInf;   // running max of rows row0, row0 + 8 (raw scores)
   float l0 = 0.f, l1 = 0.f;           // this thread's share of their running sums
   float s[BK / 2];
@@ -313,31 +336,38 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
         Wgmma<HD>::rs(acc, pa[kk], smem_desc(sVj + kk * 16 * C::SW, BK * C::SW, SBO, C::LAYOUT));
       wgmma_commit();
       pass_turn();
-      float c0, c1, mn0 = m0, mn1 = m1, ln0 = l0, ln1 = l1;
-      uint32_t pn[BK / 16][4];
-      wgmma_wait<1>();                // the scores of tile t1 (P_j . V_j may still run)
-      fence_regs(s);
-      online_softmax<BK>(s, pn, mn0, mn1, ln0, ln1, c0, c1, t1 * BK, row0, col, Skv, causal,
-                         edge(t1), scale_log2);
-      wgmma_wait<0>();
-      fence_regs(acc);
-      release(j);
-      if (next) {
-        m0 = mn0;
-        m1 = mn1;
-        l0 = ln0;
-        l1 = ln1;
+      float c0, c1;
+      if constexpr (C::OVERLAP) {
+        float mn0 = m0, mn1 = m1, ln0 = l0, ln1 = l1;
+        uint32_t pn[BK / 16][4];
+        wgmma_wait<1>();              // the scores of tile t1 (P_j . V_j may still run)
+        fence_regs(s);
+        online_softmax<BK>(s, pn, mn0, mn1, ln0, ln1, c0, c1, t1 * BK, row0, col, Skv, causal,
+                           edge(t1), scale_log2);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        release(j);
+        if (next) {
+          m0 = mn0;
+          m1 = mn1;
+          l0 = ln0;
+          l1 = ln1;
+          rescale(c0, c1);
 #pragma unroll
-        for (int jj = 0; jj < HD / 8; ++jj) {
-          acc[4 * jj] *= c0;
-          acc[4 * jj + 1] *= c0;
-          acc[4 * jj + 2] *= c1;
-          acc[4 * jj + 3] *= c1;
+          for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) pa[kk][r] = pn[kk][r];
         }
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) pa[kk][r] = pn[kk][r];
+      } else {                        // both products land, then P of tile t1 into pa
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(acc);
+        release(j);
+        if (next) {
+          online_softmax<BK>(s, pa, m0, m1, l0, l1, c0, c1, t1 * BK, row0, col, Skv, causal,
+                             edge(t1), scale_log2);
+          rescale(c0, c1);
+        }
       }
     } else {
       mbar_wait(k_full(j % ST), (j / ST) & 1);
@@ -447,6 +477,7 @@ extern "C" int repro_flash_attention_wgmma(
     case 64: return (int)repro::launch_flash_wgmma<64>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
     case 112: return (int)repro::launch_flash_wgmma<128, 112>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
     case 128: return (int)repro::launch_flash_wgmma<128>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
+    case 256: return (int)repro::launch_flash_wgmma<256>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

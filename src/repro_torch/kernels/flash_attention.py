@@ -8,7 +8,7 @@ Both kernels read q (B, Sq, H, hd) and k, v (B, Skv, K, hd) through their
 strides, map q head h to kv head h // (H/K) without repeating kv heads, and
 mask ragged lengths. They take the head_dims in ``HEAD_DIMS``; 112 (the
 hybrid's) runs the 128 instantiation with columns 112-127 read as zero and
-never stored. ``FlashAttention`` puts the kernel under autograd for
+never stored, and 256 (gemma-2b's) has its own. ``FlashAttention`` puts the kernel under autograd for
 training: its backward recomputes through the plain
 ``blockwise_attention`` on head-repeated k and v, as the reference's
 custom VJP (``_bwd``, repro/kernels/flash_attention.py:108) does; the TPU
@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 112, 128)   # 112 on the 128 tiles, zero-padded
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)   # 112 on the 128 tiles, zero-padded
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {torch.bfloat16: ("wgmma", "repro_flash_attention_wgmma"),
           torch.float32: ("fp32", "repro_flash_attention_fp32")}

@@ -9,7 +9,7 @@ tensors ``ops`` runs exactly those plain functions.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Tuple
 
 import numpy as np
 import torch
@@ -17,6 +17,7 @@ import torch.nn as nn
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, head_rms_norm
+from repro_torch.models.modes import current_tp
 
 _NEG_INF = -1e30
 
@@ -140,16 +141,46 @@ def init_attn(p: nn.ParameterDict, cfg, generator: torch.Generator) -> None:
         p["k_norm"].zero_()
 
 
+def _kv_weights(p: Mapping, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The columns of ``wk`` and ``wv`` that the q heads of ``wq`` read.
+
+    All of them where the q heads are whole or the kv heads are split with
+    them (the local counts keep the config's group). Under tensor
+    parallelism where the q heads are split and the kv heads do not divide
+    the axis (``parallel.sharding`` leaves ``wk`` and ``wv`` replicated:
+    gemma-2b's one kv head, or 2 on a "model" axis of 4), those of the kv
+    heads of this rank's q heads, q head h reading kv head h // (H/K) as
+    ``repeat_kv`` maps it: the one kv head they share where the axis is a
+    multiple of the kv heads, else one kv head per q head. The unread
+    columns get no gradient here; the step sums the replicated leaves'
+    gradients over "model" (``partial`` leaves)."""
+    hd = cfg.resolved_head_dim
+    h = p["wq"].shape[-1] // hd
+    if h == cfg.num_heads or p["wk"].shape[-1] // hd < cfg.num_kv_heads:
+        return p["wk"], p["wv"]
+    group = cfg.num_heads // cfg.num_kv_heads
+    first = current_tp().index * h
+    if group % h == 0:
+        cols = slice(first // group * hd, (first // group + 1) * hd)
+        return p["wk"][:, cols], p["wv"][:, cols]
+    dev = p["wk"].device
+    heads = torch.arange(first, first + h, device=dev) // group
+    cols = (heads[:, None] * hd + torch.arange(hd, device=dev)).reshape(-1)
+    return p["wk"].index_select(-1, cols), p["wv"].index_select(-1, cols)
+
+
 def _project_qkv(p: Mapping, cfg, x: torch.Tensor, positions: torch.Tensor, *,
                  rope: bool = True):
     """q, k, v of the heads whose columns ``wq``, ``wk`` and ``wv`` hold:
     all of them, or this rank's under tensor parallelism (the local head
-    counts come from the widths, so the GQA group stays the config's)."""
+    counts come from the widths, so the GQA group stays the config's; kv
+    heads replicated beside split q heads as ``_kv_weights`` picks them)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
+    wk, wv = _kv_weights(p, cfg)
     q = (x @ p["wq"]).reshape(b, s, p["wq"].shape[-1] // hd, hd)
-    k = (x @ p["wk"]).reshape(b, s, p["wk"].shape[-1] // hd, hd)
-    v = (x @ p["wv"]).reshape(b, s, p["wv"].shape[-1] // hd, hd)
+    k = (x @ wk).reshape(b, s, wk.shape[-1] // hd, hd)
+    v = (x @ wv).reshape(b, s, wv.shape[-1] // hd, hd)
     if cfg.use_qk_norm:            # qk-norm before RoPE
         q = head_rms_norm(q, p["q_norm"])
         k = head_rms_norm(k, p["k_norm"])

@@ -308,9 +308,19 @@ class GlobalRouting:
     def ranks(self) -> int:
         return self.mesh.axes_size(self.axes)
 
+    @property
+    def index(self) -> int:
+        """This rank's index among the batch ranks: the block of rows it holds."""
+        return self.mesh.index(self.axes)
+
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """A plain (not differentiated) sum over the batch ranks."""
         return self.mesh.all_reduce(x, self.axes)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The batch ranks' ``x`` (not differentiated) joined along dim 0 in
+        rank order: the global batch's rows."""
+        return self.mesh.all_gather(x, self.axes, 0)
 
 
 @contextlib.contextmanager

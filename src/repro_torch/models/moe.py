@@ -21,8 +21,14 @@ count of the microbatch, and the groups and the capacity follow from it
 (``moe_groups(T)``, groups of T/G tokens, contiguous in row-major (B, S)
 order). The rows are split over the batch ranks in contiguous blocks, so
 where G divides over the ranks a rank holds G/ranks whole groups and routes
-them exactly as the reference does; where it does not, the call raises
-(ROADMAP §1 item 9g) rather than route other groups.
+them exactly as the reference does. Where it does not (24 global tokens
+route as 2 groups of 12, which 4 ranks of 6 tokens share), a token's
+position among its expert's assignments, and so whether it is under the
+capacity, depends on every earlier token of its group, which other ranks
+hold: the ranks gather the expert choices of the global batch (k ints a
+token, over the batch axes), sort each group whole and keep their own
+tokens' positions. Dispatch and combine then run on the rank's own tokens
+in the slots of the groups they lie in, at the global groups' capacity.
 
 The balance loss ``E * sum_e frac_e * mean_gate_e`` takes both factors over
 the global batch. Here ``frac`` (the argmax counts, integers with no
@@ -165,24 +171,33 @@ class _GradScale(torch.autograd.Function):
         return g * ctx.scale, None
 
 
-def _groups(t: int, ctx) -> Tuple[int, int]:
-    """(groups this call routes, tokens a group) for a call of ``t``
-    tokens: its own, or under ``ctx`` (a ``GlobalRouting``) its share of the
-    global batch's (module docstring)."""
+def _groups(t: int, ctx) -> Tuple[int, int, int]:
+    """(groups of the batch this call routes a part of, tokens a group, the
+    call's first token in that batch) for a call of ``t`` tokens: its own,
+    or under ``ctx`` (a ``GlobalRouting``) the global batch's, of which
+    this rank's tokens are the block at its index (module docstring)."""
     if ctx is None:
         grp = moe_groups(t)
-        return grp, t // grp
+        return grp, t // grp, 0
     ranks = ctx.ranks
     if t * ranks != ctx.tokens:
         raise ValueError(f"{t} tokens on each of {ranks} batch ranks are not the "
                          f"{ctx.tokens} of the global batch")
     grp = moe_groups(ctx.tokens)
-    if grp % ranks:
-        raise NotImplementedError(
-            f"the {ctx.tokens} tokens of the global batch route as {grp} groups, which do "
-            f"not divide over {ranks} batch ranks: routing groups that straddle ranks is "
-            "not ported yet (ROADMAP §1 item 9g)")
-    return grp // ranks, ctx.tokens // grp
+    return grp, ctx.tokens // grp, ctx.index * t
+
+
+def _positions(flat_e: torch.Tensor, e: int) -> torch.Tensor:
+    """Each assignment's position among its expert's assignments in its
+    group, in token order: a stable sort of each row of ``flat_e`` (G,
+    Tg*k)."""
+    grp, n = flat_e.shape
+    dev = flat_e.device
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    sorted_e = flat_e.gather(1, order)
+    first = torch.searchsorted(sorted_e, torch.arange(e, device=dev).repeat(grp, 1))
+    pos_sorted = torch.arange(n, device=dev) - first.gather(1, sorted_e)
+    return torch.empty_like(flat_e).scatter_(1, order, pos_sorted)
 
 
 def moe_apply(p: Dict, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -196,72 +211,76 @@ def moe_apply(p: Dict, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
     t = b * s
     e, k = cfg.padded_experts, cfg.top_k
     ctx = current_routing()
-    grp, tg = _groups(t, ctx)
+    grp, tg, start = _groups(t, ctx)
     cap = moe_capacity(tg, e, k, cfg.capacity_factor)
-    xf = x.reshape(grp, tg, d)
+    # the groups this call's tokens lie in: whole ones, or parts of groups
+    # that other batch ranks share (then a single row of the call's tokens)
+    whole = start % tg == 0 and t % tg == 0
+    pieces = (start + t - 1) // tg - start // tg + 1
+    rows = (pieces, tg) if whole else (1, t)
+    xf = x.reshape(t, d)
     dev = x.device
     el = p["w_gate"].shape[0]                                      # the experts held here
     e0 = current_tp().index * el if el != e else 0
 
     # --- routing (fp32) ---
-    logits = xf.float() @ p["router"]                              # (G, Tg, E)
+    logits = xf.float() @ p["router"]                              # (T, E)
     if e != cfg.num_experts:                                       # mask padded experts
         logits = logits.masked_fill(torch.arange(e, device=dev) >= cfg.num_experts, -1e30)
     gate_probs = torch.softmax(logits, dim=-1)
     # the k largest, an exact tie to the lower expert as lax.top_k orders
     # it (torch.topk leaves the order of ties unspecified)
     top_w, top_e = torch.sort(gate_probs, dim=-1, descending=True, stable=True)
-    top_w, top_e = top_w[..., :k], top_e[..., :k]                  # (G, Tg, k)
+    top_w, top_e = top_w[..., :k], top_e[..., :k]                  # (T, k)
     top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
 
     # Switch-style balance loss: the argmax counts carry no gradient
-    hard = gate_probs.argmax(-1).reshape(-1)
+    hard = gate_probs.argmax(-1)
     # index_add_ where bincount would wait on the device for its output size
     counts = torch.zeros(e, device=dev).index_add_(0, hard, torch.ones(t, device=dev))
     if ctx is not None and ctx.ranks > 1:
         counts = ctx.all_reduce(counts)
     frac = counts / (t if ctx is None else ctx.tokens)
-    aux = cfg.num_experts * (frac * gate_probs.reshape(t, e).mean(0)).sum()
+    aux = cfg.num_experts * (frac * gate_probs.mean(0)).sum()
     if el != e:                    # every model rank computes it whole
         aux = _GradScale.apply(aux, el / e)
 
-    # --- group-local capacity positions via a stable sort ---
-    flat_e = top_e.reshape(grp, tg * k)
-    order = torch.argsort(flat_e, dim=1, stable=True)
-    sorted_e = flat_e.gather(1, order)
-    first = torch.searchsorted(sorted_e, torch.arange(e, device=dev).repeat(grp, 1))
-    pos_sorted = torch.arange(tg * k, device=dev) - first.gather(1, sorted_e)
-    pos = torch.empty_like(flat_e).scatter_(1, order, pos_sorted)
+    # --- group-local capacity positions via a stable sort; a group that
+    # other ranks share is sorted whole from its gathered expert choices ---
+    if whole:
+        pos = _positions(top_e.reshape(pieces, tg * k), e).reshape(t, k)
+    else:
+        every = ctx.all_gather(top_e)                              # (global T, k)
+        pos = _positions(every.reshape(grp, tg * k), e).reshape(-1, k)[start:start + t]
     valid = pos < cap
     log = _ROUTING.get()
     if log is not None:
-        log.append({"gate_probs": gate_probs.detach(), "top_e": top_e, "pos": pos,
-                    "valid": valid, "capacity": cap})
+        log.append({"gate_probs": gate_probs.detach().reshape(*rows, e),
+                    "top_e": top_e.reshape(*rows, k), "pos": pos.reshape(rows[0], -1),
+                    "valid": valid.reshape(rows[0], -1), "capacity": cap})
 
-    # --- dispatch: the (G, E, C) token-index table (tg = "none"), then gather ---
-    tok_ids = (torch.arange(tg * k, device=dev) // k).expand(grp, tg * k)   # each token k times
-    gidx = torch.arange(grp, device=dev)[:, None].expand(grp, tg * k)
+    # --- dispatch: the (pieces, E, C) table of this call's token ids (t =
+    # "none"), then gather ---
+    tok = torch.arange(t, device=dev)[:, None].expand(t, k)         # each token k times
+    piece = (start + tok) // tg - start // tg
     # dropped assignments all write the spare column ``cap``, with one value
-    table = torch.full((grp, e, cap + 1), tg, dtype=torch.long, device=dev)
-    table.index_put_((gidx, flat_e, torch.where(valid, pos, cap)),
-                     torch.where(valid, tok_ids, tg))
+    table = torch.full((pieces, e, cap + 1), t, dtype=torch.long, device=dev)
+    table.index_put_((piece, top_e, torch.where(valid, pos, cap)), torch.where(valid, tok, t))
     table = table[:, e0:e0 + el, :cap]                             # this rank's experts
-    xpad = torch.cat([xf, xf.new_zeros(grp, 1, d)], dim=1)
-    dispatched = xpad[torch.arange(grp, device=dev)[:, None, None], table]   # (G, El, C, D)
+    xpad = torch.cat([xf, xf.new_zeros(1, d)])
+    dispatched = xpad[table]                                       # (pieces, El, C, D)
 
     # --- expert compute, the groups' slots of one expert in one product ---
-    rows = dispatched.permute(1, 0, 2, 3).reshape(el, grp * cap, d)
-    y = _expert_mlp(p, rows).reshape(el, grp, cap, d).permute(1, 0, 2, 3)  # (G, El, C, D)
+    slots = dispatched.permute(1, 0, 2, 3).reshape(el, pieces * cap, d)
+    y = _expert_mlp(p, slots).reshape(el, pieces, cap, d).permute(1, 0, 2, 3)
 
     # --- combine: group-local weighted gather back to the tokens; an
     # assignment to an expert held elsewhere reads slot 0 and weighs 0 ---
-    flat_pos = pos.clamp_max(cap - 1).reshape(grp, tg, k)
     local_e = top_e - e0
     held = (local_e >= 0) & (local_e < el)
-    gathered = y[torch.arange(grp, device=dev)[:, None, None],
-                 local_e.clamp(0, el - 1), flat_pos]                # (G, Tg, k, D)
-    w = top_w * (valid.reshape(grp, tg, k) & held)
-    out = (gathered.float() * w[..., None]).sum(dim=2)
+    gathered = y[piece, local_e.clamp(0, el - 1), pos.clamp_max(cap - 1)]   # (T, k, D)
+    w = top_w * (valid & held)
+    out = (gathered.float() * w[..., None]).sum(dim=1)
 
     # --- shared expert (Qwen2-MoE): a dense MLP times a sigmoid gate ---
     if "shared" in p:

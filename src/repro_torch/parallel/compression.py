@@ -31,17 +31,20 @@ def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def pod_compressed_mean(grads: Sequence[torch.Tensor], mesh, axis: str = "pod"
                         ) -> List[torch.Tensor]:
     """The mean over ``axis`` of each rank's ``grads`` (each a pod's mean,
-    whole or as this rank's block of it), as the reference's ``reduce_one``
-    computes it: a scale shared by all pods (the largest magnitude of the
-    whole leaf, a MAX over the pod and data ranks), q = clip(round(g / s),
-    -127, 127) in fp32, the fp32 sum of q over the pods (one collective for
-    every leaf), plus this rank's residual g - q s over the pod count."""
+    whole or as this rank's block of it, split over "data" and "model" or
+    not), as the reference's ``reduce_one`` computes it: a scale shared by
+    all pods (the largest magnitude of the whole leaf, a MAX over the pod,
+    data and model ranks: every block of a split leaf, and the same value
+    on every model rank of a leaf that "model" replicates), q =
+    clip(round(g / s), -127, 127) in fp32, the fp32 sum of q over the pods
+    (one collective for every leaf), plus this rank's residual g - q s over
+    the pod count."""
     npods = mesh.shape.get(axis, 1)
     if npods <= 1:
         return list(grads)
     xf = [g.float() for g in grads]
     local_max = torch.stack([torch.clamp(x.abs().max(), min=1e-12) for x in xf])
-    scale_axes = tuple(a for a in (axis, "data") if a in mesh.axis_names)
+    scale_axes = tuple(a for a in (axis, "data", "model") if a in mesh.axis_names)
     scales = mesh.all_reduce(local_max, scale_axes, op=dist.ReduceOp.MAX) / 127.0
     q = [torch.clamp(torch.round(x / s), -127, 127) for x, s in zip(xf, scales)]
     qsum = mesh.all_reduce(torch.cat([t.reshape(-1) for t in q]), axis)

@@ -196,31 +196,28 @@ def build_train_step(
     each. ``step_fn.last_grad_norm`` is the last step's global gradient
     norm (before clipping).
 
+    Microbatch i is, as in the reference, the global rows [i·B/n,
+    (i+1)·B/n), split over the batch ranks as the batch is: with more than
+    one batch rank the rows are gathered over the batch axes (token ids, a
+    few KB) and each rank takes its block of each microbatch.
+
     An MoE config routes the global batch, as under the reference's jit:
-    each rank routes its rows as their whole groups of the global batch (the
-    groups and the capacity from the global token count) and sums the
-    balance loss's expert counts over the batch axes; its mean gate stays
-    the rank's own, which the mean over the batch ranks makes global (the
-    design ``models.moe``'s docstring states). On a "model" axis larger
+    each rank routes its rows as their part of the groups of the global
+    batch (the groups and the capacity from the global token count; the
+    ranks that share a group gather its expert choices, ``models.moe``) and
+    sums the balance loss's expert counts over the batch axes; its mean gate
+    stays the rank's own, which the mean over the batch ranks makes global
+    (the design ``models.moe``'s docstring states). On a "model" axis larger
     than 1 its experts are split over "model" (expert parallelism).
 
-    These raise ``NotImplementedError``, each naming its ROADMAP §1 item:
-    an MoE config with microbatches on more than one batch rank (item 9h:
-    the reference's microbatch is a block of the global rows, the port's a
-    chunk of each rank's, which routes other tokens together); an MoE call
-    whose global groups do not divide over the batch ranks (item 9g, raised
-    by ``models.moe`` at the first step); ``compress_pod_grads`` on a
-    "model" axis larger than 1 (item 9e); and an attention whose q heads
-    split over "model" while its kv heads do not (item 9f: ``_leaf_spec``
-    leaves ``wk`` / ``wv`` replicated where the kv heads do not divide).
+    An attention whose q heads split over "model" while its kv heads do not
+    (``_leaf_spec`` leaves ``wk`` / ``wv`` replicated where the kv heads do
+    not divide the axis) computes on each rank the kv heads of its own q
+    heads (``models.attention``); ``wk``, ``wv`` and ``k_norm`` are then
+    ``partial`` leaves.
     """
     cfg = model.cfg
     tp = shd.axis_size(mesh, "model")
-    if tp > 1 and compress_pod_grads:
-        raise NotImplementedError(
-            f"int8 cross-pod gradient compression on a 'model' axis of {tp} is not "
-            "ported yet (ROADMAP §1 item 9e): build the mesh with model=1 or leave "
-            "compress_pod_grads off")
     plan = make_state_plan(model, mesh, fsdp_params=fsdp_params)
     razor = razor_plan(plan.state_specs["opt"], plan.opt_pspecs,
                        plan.state_specs["params"], mesh, zero_axis=backup_axis)
@@ -240,13 +237,6 @@ def build_train_step(
         raise ValueError(f"microbatches={microbatches}")
     # as in the reference, the compressed step takes no microbatches
     n_micro = 1 if use_compression else microbatches
-    dp = shd.dp_size(mesh)
-    if cfg.is_moe and n_micro > 1 and dp > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: {n_micro} microbatches of an MoE on {dp} batch ranks are not "
-            "ported yet (ROADMAP §1 item 9h): the reference's microbatch i is the global "
-            "rows [i*B/n, (i+1)*B/n) and routes them together, where each rank here takes "
-            "a chunk of its own rows; use one microbatch or one batch rank")
 
     twin = _Loss(build_model(cfg, device="meta"))
     leaves = _leaves(plan, twin, mesh)
@@ -260,7 +250,7 @@ def build_train_step(
         leaf: whole, or this rank's block summed over "data" where FSDP
         stores the leaf sharded (the gather's backward reduce-scatters it)."""
         grads, losses, auxes = None, [], []
-        for mb in _microbatches(batch, n_micro):
+        for mb in _microbatches(batch, n_micro, mesh):
             layout = FsdpLayout(mesh, "data", spans) if fsdp_params else None
             aliases, names, extra = _bind(params, leaves, layout, mesh)
             with fsdp_unshard(layout) if layout else contextlib.nullcontext(), \
@@ -439,9 +429,9 @@ def _mean(mesh, axis: str, loss: torch.Tensor, aux: Dict) -> Tuple[torch.Tensor,
 def _leaves(plan: StatePlan, twin: nn.Module, mesh) -> List[_Leaf]:
     """The param leaves in tree order, checked against the module's names;
     a leaf is ``partial`` where its specs replicate it over "model" while a
-    leaf beside it (the same path but its last key) is split. An attention
-    whose q heads are split over "model" while its kv heads are not (``_leaf_spec``'s fallback where the kv heads do not divide)
-    raises: each rank would need the kv heads of its own q heads."""
+    leaf beside it (the same path but its last key) is split: ``wk`` and
+    ``wv`` beside a split ``wq`` among them, whose kv heads each rank reads
+    for its own q heads only."""
     pspecs = dict(tree_flatten_with_path(plan.param_pspecs, is_spec))
     ospecs = dict(tree_flatten_with_path(plan.opt_pspecs["master"], is_spec))
     mdims = {path: shd.sharded_dim(spec, "model") for path, spec in pspecs.items()}
@@ -453,11 +443,6 @@ def _leaves(plan: StatePlan, twin: nn.Module, mesh) -> List[_Leaf]:
         names = (tuple(f"{path[0]}.{i}.{rest}" for i in range(spec.shape[0])) if stacked
                  else (".".join(str(k) for k in path),))
         mdim = mdims[path]
-        if path[-1] == "wq" and mdim is not None and mdims[path[:-1] + ("wk",)] is None:
-            raise NotImplementedError(
-                f"{'.'.join(map(str, path[:-1]))}: q heads split over 'model' with the kv "
-                "heads replicated is not ported yet (ROADMAP §1 item 9f): use a 'model' "
-                "axis that divides the kv heads")
         local = tuple(n // tp if d == mdim else n for d, n in enumerate(spec.shape))
         # replicated in a sub-layer whose other leaves are split: this rank's
         # blocks read it, so its gradient here is a part of the sum
@@ -540,14 +525,24 @@ def _cast_params(state: Dict, leaves: List[_Leaf], treedef, fsdp: bool, mesh, sp
                 p.copy_(mesh.all_gather(m.to(p.dtype), "data", leaf.odim))
 
 
-def _microbatches(batch: Dict, n: int) -> List[Dict]:
+def _microbatches(batch: Dict, n: int, mesh) -> List[Dict]:
+    """This rank's block of each of the ``n`` microbatches of the global
+    batch, whose rows the batch ranks hold in contiguous blocks: microbatch
+    i is the global rows [i·B/n, (i+1)·B/n), as the reference's reshape
+    makes it, and its block here the rows of this rank's index among the
+    batch ranks."""
     if n == 1:
         return [batch]
     rows = next(iter(batch.values())).shape[0]
     if rows % n:
         raise ValueError(f"{rows} rows of the batch do not split into {n} microbatches")
-    parts = {k: v.chunk(n, dim=0) for k, v in batch.items()}
-    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    axes = shd.batch_axes(mesh)
+    b = rows // n                                  # this rank's rows of a microbatch
+    per = b * mesh.axes_size(axes)                 # a microbatch's global rows
+    first = mesh.index(axes) * b
+    whole = {k: mesh.all_gather(v, axes, 0) for k, v in batch.items()}
+    return [{k: v[i * per + first:i * per + first + b] for k, v in whole.items()}
+            for i in range(n)]
 
 
 def _check_batch(batch: Dict, input_specs: Dict, input_pspecs: Dict, mesh) -> None:

@@ -64,6 +64,14 @@ def test_plan_splits_at_the_serve_shape():
     assert (n_split, rows) == (5, 256) and 8 * 8 * n_split >= 2 * 132
 
 
+def test_head_dims_flash_takes_256_and_decode_does_not():
+    """Flash has an hd-256 instantiation on both routes; decode's kernel
+    has no hd-256 lane mapping, so its own check refuses it."""
+    from repro_torch.kernels import flash_attention as tflash
+    assert 256 in tflash.HEAD_DIMS and 256 not in tdec.HEAD_DIMS
+    assert set(tdec.HEAD_DIMS) < set(tflash.HEAD_DIMS)
+
+
 def test_plan_splits_refuses_nonsense():
     with pytest.raises(ValueError):
         tdec.plan_splits(0, 8, 8, 132)
@@ -123,14 +131,14 @@ def test_split_merge_decode_matches_pallas(cur_len, h, kh):
 # --------------------------------------------------------------------------- #
 def wgmma_flash(q, k, v, causal):
     """The tensor-core flash kernel's algebra: 64-row warpgroups, kv tiles
-    of 64 rows (hd 128) or 128 (smaller hd), raw scores masked to -1e30,
+    of 64 rows (hd 128 and 256) or 128 (smaller hd), raw scores masked to -1e30,
     the running max in raw units, p = exp2(s * scale * log2(e) - m * scale
     * log2(e)), fp32 running sums, P rounded to bf16 before P.V, fp32
     accumulation, acc / max(l, 1e-30) rounded to bf16. q (B, Sq, H, hd),
     k/v (B, Skv, K, hd): fp32 arrays of bf16 values."""
     b, sq, h, hd = q.shape
     skv, kh = k.shape[1], k.shape[2]
-    bk = 64 if hd == 128 else 128
+    bk = 64 if hd >= 128 else 128
     scale = np.float32(1.0 / np.sqrt(hd)) * LOG2E
     out = np.zeros((b, sq, h, hd), np.float32)
     for hh in range(h):
@@ -163,7 +171,7 @@ def wgmma_flash(q, k, v, causal):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("s,h,kh,hd", [(128, 4, 2, 16), (256, 2, 1, 32), (64, 4, 4, 64),
-                                       (192, 2, 1, 128)])
+                                       (192, 2, 1, 128), (192, 4, 1, 256)])
 def test_wgmma_flash_tiling_matches_pallas(s, h, kh, hd, causal):
     b = 2
     q, k, v = _inputs(21, [(b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd)])

@@ -32,7 +32,8 @@ def _rand(gen, shape, dtype, device):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("b,s,h,kh,hd", [(2, 100, 4, 2, 16), (1, 129, 4, 4, 32),
                                          (2, 64, 8, 1, 64), (1, 200, 16, 8, 128),
-                                         (2, 130, 4, 4, 112), (1, 70, 8, 2, 112)])
+                                         (2, 130, 4, 4, 112), (1, 70, 8, 2, 112),
+                                         (2, 100, 8, 1, 256), (1, 129, 4, 1, 256)])
 def test_flash_kernel_matches_plain(cuda, b, s, h, kh, hd, causal, dtype):
     g = torch.Generator(device=cuda).manual_seed(0)
     q = _rand(g, (b, s, h, hd), dtype, cuda)
@@ -66,7 +67,7 @@ def _wgmma_case(cuda, q, k, v, causal):
 @pytest.mark.parametrize("group", [1, 2, 8])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("s", [1, 63, 100, 129, 1000])
-@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128, 256])
 def test_flash_wgmma_matches_plain(cuda, hd, s, causal, group):
     """Every head_dim and swizzle width, lengths below, at and across the
     64-row warpgroup, 128-row block and kv-tile edges, G q heads per kv
@@ -90,6 +91,28 @@ def test_flash_wgmma_strided_views(cuda, b, sq, skv, h, kh, hd, causal):
     q, k, v = qkv[:, :sq, :h], qkv[:, :skv, h:h + kh], qkv[:, :skv, h + kh:]
     assert not q.is_contiguous() and not k.is_contiguous()
     _wgmma_case(cuda, q, k, v, causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [4, 8])
+@pytest.mark.parametrize("b,sq,skv", [(2, 200, 200), (1, 100, 300), (2, 300, 77), (1, 1000, 1000)])
+def test_flash_hd256_matches_plain(cuda, b, sq, skv, group, causal, dtype):
+    """head_dim 256 (gemma-2b's MQA heads) on both routes: one kv head
+    read by 4 or 8 q heads, Sq equal to Skv and not."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = _rand(g, (b, sq, group, 256), dtype, cuda)
+    k = _rand(g, (b, skv, 1, 256), dtype, cuda)
+    v = _rand(g, (b, skv, 1, 256), dtype, cuda)
+    route = "wgmma" if dtype == torch.bfloat16 else "fp32"
+    routed = flash_attention.flash_attention.routes[route]
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.routes[route] == routed + 1
+    ref = ops.flash_attention_plain(q, k, v, causal=causal)
+    assert out.shape == q.shape and out.dtype == dtype
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               **_tol(dtype))
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -205,6 +228,11 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         decode_attn.decode_attention(q, kc, kc, 9)       # cur_len > T
     with pytest.raises(ValueError):
         decode_attn.decode_attention(q.half(), kc.half(), kc.half(), 4)
+    q, kc = torch.zeros(1, 1, 8, 256, device=cuda), torch.zeros(1, 8, 1, 256, device=cuda)
+    launches = decode_attn.decode_attention.launches
+    with pytest.raises(ValueError, match="hd=256"):                 # flash takes it, decode not
+        decode_attn.decode_attention(q, kc, kc, 4)
+    assert decode_attn.decode_attention.launches == launches
 
 
 def _ssd_args(seed, b, s, h, p, n, dtype, device):

@@ -5,7 +5,8 @@ mesh of 4 forced host devices, from the same weights (the reference's
 ``init_state``, moved through ``bridge.params_from_numpy``) and the same two
 batches: qwen3-0.6b smoke fp32 with FSDP on and off and with 2 microbatches,
 mamba2 and zamba2 smoke with FSDP, and int8 cross-pod compression on a
-(pod 2, data 2, model 1) mesh. Each run is two steps; the losses, the new
+(pod 2, data 2, model 1) mesh and on (pod 2, data 1, model 2), where the
+scale spans the "model" blocks of a split leaf. Each run is two steps; the losses, the new
 state (params, master, m, v) and the second step's backup are compared, the
 backup also against the predecessor's shard within the port, and the
 neighbor drill (a rank's optimizer shard dropped and rebuilt from its
@@ -41,18 +42,24 @@ COMPRESSED_TOL = dict(rtol=1e-5, atol=1e-5)
 # (tests/test_multidevice.py::test_cross_pod_compression_close_to_exact)
 EXACT_LOSS_TOL = 1e-4
 EXACT_PARAM_TOL = dict(rtol=5e-3, atol=5e-4)
+# elements of a compressed run's state part (every leaf) that may differ by
+# a rounding flip of q (seen: at most 3 in a part, none after the first step)
+FLIPS = 8
 HP = dict(lr=1e-3, warmup_steps=0, total_steps=50)    # a non-zero rate at step 0
 DEADLINE_S = 240
-# name -> (arch, build_train_step keywords, mesh (pod, data))
+# name -> (arch, build_train_step keywords, mesh (pod, data, model))
 RUNS = {
-    "qwen3_fsdp": ("qwen3-0.6b", dict(fsdp_params=True), (1, 4)),
-    "qwen3_nofsdp": ("qwen3-0.6b", dict(fsdp_params=False), (1, 4)),
-    "qwen3_mb2": ("qwen3-0.6b", dict(fsdp_params=True, microbatches=2), (1, 4)),
-    "mamba2_fsdp": ("mamba2-2.7b", dict(fsdp_params=True), (1, 4)),
-    "zamba2_fsdp": ("zamba2-7b", dict(fsdp_params=True), (1, 4)),
-    "qwen3_pod_int8": ("qwen3-0.6b", dict(compress_pod_grads=True), (2, 2)),
+    "qwen3_fsdp": ("qwen3-0.6b", dict(fsdp_params=True), (1, 4, 1)),
+    "qwen3_nofsdp": ("qwen3-0.6b", dict(fsdp_params=False), (1, 4, 1)),
+    "qwen3_mb2": ("qwen3-0.6b", dict(fsdp_params=True, microbatches=2), (1, 4, 1)),
+    "mamba2_fsdp": ("mamba2-2.7b", dict(fsdp_params=True), (1, 4, 1)),
+    "zamba2_fsdp": ("zamba2-7b", dict(fsdp_params=True), (1, 4, 1)),
+    "qwen3_pod_int8": ("qwen3-0.6b", dict(compress_pod_grads=True), (2, 2, 1)),
+    "qwen3_pod_int8_tp": ("qwen3-0.6b", dict(compress_pod_grads=True), (2, 1, 2)),
 }
-PARITY = [k for k in RUNS if k != "qwen3_pod_int8"]
+COMPRESSED = [k for k, v in RUNS.items() if v[1].get("compress_pod_grads")]
+PARITY = [k for k in RUNS if k not in COMPRESSED]
+WITH_BACKUP = [k for k, v in RUNS.items() if v[2][1] > 1]
 
 JAX_SCRIPT = """
 import dataclasses, sys
@@ -71,12 +78,12 @@ def flat(tree, prefix):
             np.asarray(v, np.float32)
             for p, v in jax.tree_util.tree_flatten_with_path(tree)[0] if v is not None}
 
-for name, (arch, kw, (pod, data)) in runs.items():
+for name, (arch, kw, (pod, data, mdl)) in runs.items():
     inp = np.load(f"{data_dir}/{name}_in.npz", allow_pickle=True)
     state = inp["state"].item()
     cfg = dataclasses.replace(reduce_for_smoke(get_arch(arch)), dtype="float32")
     model = build_model(cfg)
-    shape = (pod, data, 1) if pod > 1 else (data, 1)
+    shape = (pod, data, mdl) if pod > 1 else (data, mdl)
     axes = ("pod", "data", "model") if pod > 1 else ("data", "model")
     mesh = make_mesh_compat(shape, axes)
     art = build_train_step(model, mesh, AdamWConfig(**hp), donate=False,
@@ -140,16 +147,18 @@ def _rank_main(rank: int, world: int, data_dir: str):
         torch.set_num_threads(1)      # four ranks and the reference share the cores
         dist.init_process_group("gloo", init_method=f"file://{data_dir}/rendezvous",
                                 rank=rank, world_size=world)
-        for name, (arch, kw, (pod, data)) in RUNS.items():
+        for name, (arch, kw, (pod, data, mdl)) in RUNS.items():
             inp = np.load(f"{data_dir}/{name}_in.npz", allow_pickle=True)
             cfg = dataclasses.replace(reduce_for_smoke(get_arch(arch)), dtype="float32")
             model = params_from_numpy(inp["state"].item()["params"], cfg, device="cpu")
-            mesh = make_host_mesh(data=data, model=1, pod=pod)
+            mesh = make_host_mesh(data=data, model=mdl, pod=pod)
             art = build_train_step(model, mesh, AdamWConfig(**HP),
                                    shape=ShapeConfig("t", 16, 8, "train"), **kw)
             state = shard_init_state(param_tree(model), art.plan, mesh)
             out = {}
             batches = [torch.from_numpy(b) for b in inp["batches"]]
+            if kw.get("compress_pod_grads"):
+                _record_scales(state, out)
             for i, tokens in enumerate(batches):
                 local = shd.local_block(tokens, art.input_pspecs["tokens"], mesh).contiguous()
                 if i == len(batches) - 1 and name == "qwen3_fsdp":
@@ -161,6 +170,7 @@ def _rank_main(rank: int, world: int, data_dir: str):
                     out.update(_flat(shd.join_tree(state, art.plan.state_pspecs, mesh),
                                      "state0|"))
             if kw.get("compress_pod_grads"):
+                _record_scales(None, out)
                 out.update(_reference_check(model, mesh, batches[0]))
             full = shd.join_tree(state, art.plan.state_pspecs, mesh)
             joined_backup = shd.join_tree(backup, art.backup_pspecs, mesh)
@@ -174,6 +184,37 @@ def _rank_main(rank: int, world: int, data_dir: str):
         sys.stdout.flush()
         sys.stderr.flush()
         os._exit(1)
+
+
+def _record_scales(state, out):
+    """While ``state`` is not None, each call of the compressed mean writes
+    ``scale{call}|{leaf}`` into ``out``: the whole leaf's int8 scale as the
+    reference defines it, the largest magnitude of every pod's gradient
+    (every rank's block, a MAX over the world) over 127, taken from the
+    mean's inputs and not from its own scale. ``state=None`` puts the
+    module's function back."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import compression
+    from repro_torch.tree import keystr, tree_flatten_with_path
+    original = getattr(compression.pod_compressed_mean, "original",
+                       compression.pod_compressed_mean)
+    if state is None:
+        compression.pod_compressed_mean = original
+        return
+    names = [keystr(p) for p, _ in tree_flatten_with_path(state["params"])]
+    calls = []
+
+    def recording(grads, mesh, axis="pod"):
+        top = torch.stack([g.detach().float().abs().max() for g in grads])
+        dist.all_reduce(top, op=dist.ReduceOp.MAX)
+        out.update({f"scale{len(calls)}|{n}": (t / 127.0).numpy()
+                    for n, t in zip(names, top)})
+        calls.append(None)
+        return original(grads, mesh, axis)
+
+    recording.original = original
+    compression.pod_compressed_mean = recording
 
 
 def _reference_check(model, mesh, tokens):
@@ -321,7 +362,7 @@ def test_backup_matches_jax(runs, name):
     _assert_leaves_close(port, ref, "backup|")
 
 
-@pytest.mark.parametrize("name", list(RUNS))
+@pytest.mark.parametrize("name", WITH_BACKUP)
 def test_backup_is_the_predecessors_new_shard(runs, name):
     """Rank r's backup is rank (r - 1)'s post-update ZeRO block, bit for
     bit: the global backup is the new optimizer state with its blocks along
@@ -333,8 +374,8 @@ def test_backup_is_the_predecessors_new_shard(runs, name):
     from repro_torch.train.state import make_state_plan
     from repro_torch.tree import keystr, tree_flatten_with_path
 
-    arch, kw, (pod, data) = RUNS[name]
-    mesh = Mesh(("pod", "data", "model"), (pod, data, 1))
+    arch, kw, (pod, data, mdl) = RUNS[name]
+    mesh = Mesh(("pod", "data", "model"), (pod, data, mdl))
     model = build_model(reduce_for_smoke(get_arch(arch)), device="meta")
     plan = make_state_plan(model, mesh, fsdp_params=kw.get("fsdp_params", True))
     port = runs[name][1]
@@ -355,26 +396,79 @@ def test_neighbor_drill_rebuilds_the_step_bitwise(runs):
     assert runs["qwen3_fsdp"][1]["drill_bitwise"]
 
 
-def test_compressed_step_matches_jax_compressed(runs):
-    """Both losses, and the params and master after the first step, within
-    1e-5 of the reference's compressed step. Later m, v and master are held
-    to the rounding of q: a q that the two packages' fp32 sums (in other
-    orders) round to neighbouring integers moves that element's gradient by
-    s / 2, which AdamW's first step normalises away and its second does not."""
-    ref, port = runs["qwen3_pod_int8"]
+@pytest.mark.parametrize("name", COMPRESSED)
+def test_compressed_step_matches_jax_compressed(runs, name):
+    """Both losses within 1e-5 of the reference's compressed step."""
+    ref, port = runs[name]
     for i in range(2):
         np.testing.assert_allclose(port[f"loss{i}"], ref[f"loss{i}"], **COMPRESSED_TOL)
-    keys = [k for k in ref if k.startswith(("state0|params|", "state0|opt|master|"))]
-    assert keys
+
+
+@pytest.mark.parametrize("part", ["params", "opt|master", "opt|m", "opt|v"])
+@pytest.mark.parametrize("step", [0, 1])
+@pytest.mark.parametrize("name", COMPRESSED)
+def test_compressed_state_matches_jax_compressed(runs, name, step, part):
+    """Every leaf of the state after each step within 1e-5 of the
+    reference's compressed step (the absolute part relative to the leaf's
+    largest magnitude), but for at most FLIPS elements of all the leaves.
+
+    Such an element is one whose q the two packages' fp32 sums (in other
+    orders) round to neighbouring integers: another pod's q moves pod 0's
+    gradient by s / npods, s the whole leaf's scale (recorded from the
+    mean's inputs). It may then differ by what that does to it: m by
+    (1 - b1) s / npods a step, v by (1 - b2)(2 |g| + s / npods) s / npods,
+    params and master by two updates (2 lr) a step. A scale taken over
+    fewer blocks than the whole leaf moves nearly every element of its
+    other blocks by up to s / 2 and fails.
+
+    On "model" 2 the port sums the tensor-parallel gradients in another
+    order than XLA, and an element whose first gradient is near AdamW's eps
+    takes a first step that this order decides: such an element's params
+    and master are allowed what the first step makes of the gradient's own
+    tolerance, as tests/test_torch_tp_step.py allows it (seen: 1 of 16,384
+    of w_down, gradient 1.09e-8 against 1.14e-8, moved 1.04e-5 apart)."""
+    from repro_torch.optim import AdamWConfig
+    hp = AdamWConfig(**HP)
+    ref, port = runs[name]
+    npods, mdl = RUNS[name][2][0], RUNS[name][2][2]
+    prefix = f"state{'0' if step == 0 else ''}|{part}|"
+    keys = sorted(k for k in ref if k.startswith(prefix))
+    assert keys and keys == sorted(k for k in port if k.startswith(prefix))
+    flips = {}
     for k in keys:
-        np.testing.assert_allclose(port[k], ref[k], **COMPRESSED_TOL, err_msg=k)
+        leaf = k[len(prefix):]
+        d = np.abs(port[k] - ref[k])
+        base = COMPRESSED_TOL["atol"] * float(np.abs(ref[k]).max()) \
+            + COMPRESSED_TOL["rtol"] * np.abs(ref[k])
+        if mdl > 1 and part in ("params", "opt|master"):
+            g = np.abs(ref["state0|opt|m|" + leaf]) / (1 - hp.b1)
+            dg = COMPRESSED_TOL["atol"] * float(g.max())
+            base = base + hp.lr * np.minimum(2.0, 1e-8 * dg / (g + 1e-8) ** 2)
+        off = d > base
+        if not off.any():
+            continue
+        shifts = [float(port[f"scale{i}|{leaf}"]) / npods for i in range(step + 1)]
+        if part == "opt|m":
+            bound = (1 - hp.b1) * sum(shifts)
+        elif part == "opt|v":
+            g = np.sqrt(ref[k] / ((1 - hp.b2) * hp.b2 ** step)) + sum(shifts)
+            bound = (1 - hp.b2) * sum(2 * g * x + x * x for x in shifts)
+        else:
+            bound = 2 * hp.lr * (step + 1)
+        bound = base + bound
+        assert (d[off] <= np.broadcast_to(bound, d.shape)[off]).all(), (
+            f"{k}: an element differs by {float(d[off].max())}, more than a "
+            f"rounding flip of q makes of it")
+        flips[k] = int(off.sum())
+    assert sum(flips.values()) <= FLIPS, flips
 
 
-def test_compressed_step_is_close_to_the_exact_one(runs):
+@pytest.mark.parametrize("name", COMPRESSED)
+def test_compressed_step_is_close_to_the_exact_one(runs, name):
     """The reference's own check (its first step with AdamWConfig()'s
     defaults): the compressed step's loss within 1e-4 and its params within
     rtol 5e-3, atol 5e-4 of the exact step's."""
-    port = runs["qwen3_pod_int8"][1]
+    port = runs[name][1]
     assert abs(float(port["refcheck1|loss"]) - float(port["refcheck0|loss"])) < EXACT_LOSS_TOL
     keys = [k[len("refcheck0|"):] for k in port if k.startswith("refcheck0|params|")]
     assert keys
@@ -426,17 +520,6 @@ def test_neighbor_backup_is_the_identity_on_one_rank():
     assert neighbor_backup(tree, {"a": P("data"), "b": None}, mesh) is tree
     assert ring_perm(4) == [(0, 1), (1, 2), (2, 3), (3, 0)]
     assert ring_perm(4, 3) == [(0, 3), (1, 0), (2, 1), (3, 2)]
-
-
-def test_pod_compression_on_a_model_axis_raises():
-    from repro_torch.configs import get_arch, reduce_for_smoke
-    from repro_torch.launch.mesh import Mesh
-    from repro_torch.models import build_model
-    from repro_torch.train.step import build_train_step
-    model = build_model(reduce_for_smoke(get_arch("qwen3-0.6b")), device="meta")
-    for axes, shape in ((("data", "model"), (2, 2)), (("pod", "data", "model"), (2, 1, 2))):
-        with pytest.raises(NotImplementedError, match="item 9e"):
-            build_train_step(model, Mesh(axes, shape), compress_pod_grads=True)
 
 
 def test_world_one_step_equals_the_one_device_step():

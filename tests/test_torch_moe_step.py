@@ -5,11 +5,18 @@ devices, from the same weights (the reference's ``init_state``, moved
 through ``bridge.params_from_numpy``) and the same two batches of 8 x 128
 tokens: qwen2-moe-a2.7b smoke (8 experts padded to 16, top-2, the shared
 expert), fp32, on (data 4, model 1) with FSDP, (2, 2) without FSDP and a
-binding gradient clip, (2, 2) with FSDP and (1, 2) with FSDP. Under the
-reference's jit the MoE routes the global batch: 16 groups of 64 tokens at
-capacity 16 against a mean load of 16 an expert, so assignments drop, and
-a rank routes its rows as whole groups of that batch. Each run is two
-steps; the losses, xent and aux, the new state (params, master, m, v, the
+binding gradient clip, (2, 2) with FSDP, (1, 2) with FSDP and (2, 1) with
+2 microbatches. Under the reference's jit the MoE routes the global batch
+(of a microbatch: its global rows): 16 groups of 64 tokens at capacity 16
+against a mean load of 16 an expert, so assignments drop, and a rank routes
+its rows as whole groups of that batch. One more run on (4, 1) takes two
+batches of 4 x 6 tokens, whose 24 route as 2 groups of 12 that two ranks
+share each, and one on (2, 2) two batches of 2 x 7, whose 14 tokens route
+as one group that both batch ranks share, each with 8 of the 16 experts;
+their weights crowd most of a group's tokens onto one expert (an offset
+shared by every embedding row, and the router's column of expert 0 along
+it), so that the group's later tokens, on its second rank, overflow the
+capacity of 8. Each run is two steps; the losses, xent and aux, the new state (params, master, m, v, the
 leaves replicated over "model" among them) and the second step's backup
 are compared at 2e-4, and the neighbour drill (a rank's optimizer shard
 dropped and rebuilt from its "data" neighbour's backup) must give the
@@ -23,8 +30,8 @@ padded experts, 8 a rank, 4 of rank 1's padding); FSDP on expert leaves
 (the bound blocks hold E/tp experts after the gather along "data"). A
 control run routes each rank's rows alone and must miss JAX's losses.
 
-The reference runs in two subprocesses and the port's ranks in two sets of
-spawned processes (4 ranks, and 2 for (1, 2)), all at once, each joined
+The reference runs in three subprocesses and the port's ranks in two sets of
+spawned processes (4 ranks, and 2 for (1, 2) and (2, 1)), all at once, each joined
 with a deadline."""
 import dataclasses
 import os
@@ -54,16 +61,25 @@ HP = dict(lr=1e-3, warmup_steps=0, total_steps=50)    # a non-zero rate at step 
 CLIP = 0.1                                 # the first gradient's global norm is 0.692
 DEADLINE_S = 420                          # a hang guard: ~40 s alone, more beside other workers
 SHAPE = (8, 128)                          # global batch, sequence: 16 groups of 64 tokens
-# name -> (build_train_step keywords, mesh (data, model), AdamWConfig keywords)
+STRADDLE = (4, 6)                         # 24 tokens: 2 groups of 12 over 4 ranks
+STRADDLE_TP = (2, 7)                      # 14 tokens: 1 group over 2 batch ranks
+# name -> (build_train_step keywords, mesh (data, model), AdamWConfig keywords,
+# global batch and sequence)
 RUNS = {
-    "fsdp_41": (dict(fsdp_params=True), (4, 1), HP),
-    "clip_22": (dict(fsdp_params=False), (2, 2), dict(HP, grad_clip=CLIP)),
-    "fsdp_22": (dict(fsdp_params=True), (2, 2), HP),
-    "fsdp_12": (dict(fsdp_params=True), (1, 2), HP),
+    "fsdp_41": (dict(fsdp_params=True), (4, 1), HP, SHAPE),
+    "clip_22": (dict(fsdp_params=False), (2, 2), dict(HP, grad_clip=CLIP), SHAPE),
+    "fsdp_22": (dict(fsdp_params=True), (2, 2), HP, SHAPE),
+    "fsdp_12": (dict(fsdp_params=True), (1, 2), HP, SHAPE),
+    "mb2_21": (dict(fsdp_params=True, microbatches=2), (2, 1), HP, SHAPE),
+    "straddle_41": (dict(fsdp_params=True), (4, 1), HP, STRADDLE),
+    "straddle_22": (dict(fsdp_params=True), (2, 2), HP, STRADDLE_TP),
 }
+HOT = ("straddle_41", "straddle_22")                    # the runs whose weights crowd the experts
 # the control: fsdp_41 with each rank routing its own rows alone
 CONTROL = {"local_41": RUNS["fsdp_41"]}
 WITH_BACKUP = [k for k, v in RUNS.items() if v[1][0] > 1]
+WORLDS = {4: [k for k, v in RUNS.items() if v[1] in ((4, 1), (2, 2))] + list(CONTROL),
+          2: [k for k, v in RUNS.items() if v[1] in ((1, 2), (2, 1))]}
 # the leaves replicated over "model": the router and the shared gate beside
 # split experts (their gradients summed over "model"), the norms
 REPLICATED = ("moe|router", "moe|shared_gate", "|ln1", "|ln2", "final_norm")
@@ -77,18 +93,17 @@ from repro.models import build_model
 from repro.optim import AdamWConfig
 from repro.train.step import build_train_step
 
-runs, data_dir, (batch, seq), arch = (eval(sys.argv[1]), sys.argv[2], eval(sys.argv[3]),
-                                      sys.argv[4])
+runs, data_dir, arch = eval(sys.argv[1]), sys.argv[2], sys.argv[3]
 
 def flat(tree, prefix):
     return {prefix + "|".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in p):
             np.asarray(v, np.float32)
             for p, v in jax.tree_util.tree_flatten_with_path(tree)[0] if v is not None}
 
-inp = np.load(f"{data_dir}/in.npz", allow_pickle=True)
 cfg = dataclasses.replace(reduce_for_smoke(get_arch(arch)), dtype="float32")
 model = build_model(cfg)
-for name, (kw, (data, mdl), hp) in runs.items():
+for name, (kw, (data, mdl), hp, (batch, seq)) in runs.items():
+    inp = np.load(f"{data_dir}/{name}_in.npz", allow_pickle=True)
     state = inp["state"].item()
     out = {}
     if "grad_clip" in hp:          # the global norm of the first step's gradient
@@ -223,17 +238,17 @@ def _rank_main(rank: int, world: int, data_dir: str, names: list):
                                 rank=rank, world_size=world)
         seen = {}
         _record_bound_shapes(seen)
-        inp = np.load(f"{data_dir}/in.npz", allow_pickle=True)
         cfg = dataclasses.replace(reduce_for_smoke(get_arch(ARCH)), dtype="float32")
         routing = step_mod._routing
         for name in names:
-            kw, (data, mdl), hp = {**RUNS, **CONTROL}[name]
+            kw, (data, mdl), hp, (batch, seq) = {**RUNS, **CONTROL}[name]
+            inp = np.load(f"{data_dir}/{_inputs_of(name)}_in.npz", allow_pickle=True)
             step_mod._routing = (lambda *a: None) if name in CONTROL else routing
             model = params_from_numpy(inp["state"].item()["params"], cfg, device="cpu")
             mesh = make_host_mesh(data=data, model=mdl)
             art = step_mod.build_train_step(
-                model, mesh, AdamWConfig(**hp), shape=ShapeConfig("t", SHAPE[1], SHAPE[0],
-                                                                  "train"), **kw)
+                model, mesh, AdamWConfig(**hp), shape=ShapeConfig("t", seq, batch, "train"),
+                **kw)
             state = shard_init_state(param_tree(model), art.plan, mesh)
             out = {}
             batches = [torch.from_numpy(b) for b in inp["batches"]]
@@ -258,11 +273,12 @@ def _rank_main(rank: int, world: int, data_dir: str, names: list):
                     out["counts"] = np.asarray(mesh.counts.get(("all_reduce", ("model",)),
                                                                [0, 0]))
                     out["formula"] = np.asarray(step_mod.model_all_reduces(
-                        model, mesh, local.shape[0], SHAPE[1], **kw))
+                        model, mesh, local.shape[0], seq, **kw))
                     out["shapes"] = np.asarray(repr(dict(seen)))
             np.savez(f"{data_dir}/{name}_rank{rank}.npz", **{k: v for k, v in out.items()
                                                             if k in ("counts", "formula",
-                                                                     "shapes")})
+                                                                     "shapes", "dropped",
+                                                                     "groups", "capacity")})
             full = shd.join_tree(state, art.plan.state_pspecs, mesh)
             joined_backup = shd.join_tree(backup, art.backup_pspecs, mesh)
             if rank == 0:
@@ -309,6 +325,26 @@ def _drill(art, mesh, state, backup, local, neighbor_backup):
     return all(torch.equal(a, b) for a, b in pairs)
 
 
+def _inputs_of(name: str) -> str:
+    """The run whose inputs ``name`` takes: the control takes fsdp_41's."""
+    return "fsdp_41" if name in CONTROL else name
+
+
+def _crowd_the_experts(state: dict, rng) -> None:
+    """Every embedding row plus one offset c, 4x a row's norm, and the
+    router's column of expert 0 plus 4 c / |c| in each layer, in the params
+    and in their fp32 master: the hidden states share c's direction, which
+    crowds most tokens of a group onto one expert (0, 5 or 6 at this seed),
+    so a group of 12 tokens overflows its capacity of 8."""
+    emb = state["params"]["embed"]["w"]
+    c = rng.normal(size=emb.shape[1])
+    c *= 4 * np.linalg.norm(emb, axis=1).mean() / np.linalg.norm(c)
+    for tree in (state["params"], state["opt"]["master"]):
+        tree["embed"]["w"] += c.astype(tree["embed"]["w"].dtype)
+        router = tree["blocks"]["moe"]["router"]                  # (L, D, E)
+        router[:, :, 0] += (4 * c / np.linalg.norm(c)).astype(router.dtype)
+
+
 def _join(procs, deadline: float):
     for p in procs:
         p.join(max(0.0, deadline - time.monotonic()))
@@ -325,24 +361,26 @@ def runs(tmp_path_factory):
     the control, and the balance loss's gradients at model 2."""
     data_dir = tmp_path_factory.mktemp("moe_step")
     cfg = _cfg()
-    state = jax.tree.map(np.asarray, j_init_state(j_build_model(cfg), jax.random.key(0)))
-    batches = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (2, SHAPE[0], SHAPE[1] + 1)).astype(np.int32)
-    np.savez(data_dir / "in.npz", state=np.asarray(state, dtype=object), batches=batches)
+    rng = np.random.default_rng(0)
+    for name, (_, _, _, (batch, seq)) in RUNS.items():
+        state = jax.tree.map(np.array, j_init_state(j_build_model(cfg), jax.random.key(0)))
+        if name in HOT:
+            _crowd_the_experts(state, rng)
+        batches = rng.integers(0, cfg.vocab_size, (2, batch, seq + 1)).astype(np.int32)
+        np.savez(data_dir / f"{name}_in.npz", state=np.asarray(state, dtype=object),
+                 batches=batches)
     deadline = time.monotonic() + DEADLINE_S
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
                JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
     names = list(RUNS)
-    groups = [{k: RUNS[k] for k in names[:2]}, {k: RUNS[k] for k in names[2:]}]
+    groups = [{k: RUNS[k] for k in names[i::3]} for i in range(3)]
     refs = [subprocess.Popen(
-        [sys.executable, "-c", textwrap.dedent(JAX_SCRIPT), repr(g), str(data_dir),
-         repr(SHAPE), ARCH], env=env, cwd=ROOT, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for g in groups]
-    by_world = {4: [k for k in names if RUNS[k][1] != (1, 2)] + list(CONTROL),
-                2: [k for k in names if RUNS[k][1] == (1, 2)]}
+        [sys.executable, "-c", textwrap.dedent(JAX_SCRIPT), repr(g), str(data_dir), ARCH],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for g in groups]
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_rank_main, args=(r, world, str(data_dir), wanted))
-             for world, wanted in by_world.items() for r in range(world)]
+             for world, wanted in WORLDS.items() for r in range(world)]
     for p in procs:
         p.start()
     try:
@@ -357,10 +395,9 @@ def runs(tmp_path_factory):
         assert r.returncode == 0, f"reference step failed:\n{out}\n{err[-4000:]}"
     assert not hung and codes == [0] * len(procs), f"port ranks exit codes {codes}, hung={hung}"
     out = {}
-    for name, (_, (data, mdl), _) in {**RUNS, **CONTROL}.items():
+    for name, (_, (data, mdl), _, _) in {**RUNS, **CONTROL}.items():
         ranks = [dict(np.load(data_dir / f"{name}_rank{r}.npz")) for r in range(data * mdl)]
-        ref = "fsdp_41" if name in CONTROL else name
-        out[name] = (dict(np.load(data_dir / f"{ref}_jax.npz")),
+        out[name] = (dict(np.load(data_dir / f"{_inputs_of(name)}_jax.npz")),
                      dict(np.load(data_dir / f"{name}_port.npz")), ranks)
     out["aux_model2"] = dict(np.load(data_dir / "aux_model2.npz"))
     return out
@@ -375,14 +412,45 @@ def test_losses_xent_and_aux_match_jax(runs, name):
             np.testing.assert_allclose(port[f"{k}{i}"], ref[f"{k}{i}"], err_msg=k, **TOL)
 
 
-@pytest.mark.parametrize("name", list(RUNS))
+def _global_routing(name: str):
+    """(groups, capacity) of a microbatch's global batch in run ``name``."""
+    from repro_torch.models.moe import moe_capacity, moe_groups
+    cfg = _cfg()
+    kw, _, _, (batch, seq) = RUNS[name]
+    tokens = batch * seq // kw.get("microbatches", 1)
+    groups = moe_groups(tokens)
+    return groups, moe_capacity(tokens // groups, cfg.padded_experts, cfg.top_k,
+                                cfg.capacity_factor)
+
+
+@pytest.mark.parametrize("name", [k for k in RUNS if k not in HOT])
 def test_routing_is_the_global_batchs_and_drops(runs, name):
-    """A rank routes 16 / ranks whole groups of 64 tokens at the global
-    batch's capacity of 16, and assignments drop."""
+    """A rank routes 16 / ranks whole groups of the global batch's 64
+    tokens at its capacity of 16 (at 2 microbatches, 16 / 2 groups of a
+    microbatch's 32 at capacity 8), and assignments drop."""
     _, port, _ = runs[name]
     data = RUNS[name][1][0]
-    assert int(port["groups"]) == 16 // data and int(port["capacity"]) == 16
+    groups, capacity = _global_routing(name)
+    assert (groups, capacity) == ((16, 16) if name != "mb2_21" else (16, 8))
+    assert int(port["groups"]) == groups // data and int(port["capacity"]) == capacity
     assert int(port["dropped"]) > 0
+
+
+@pytest.mark.parametrize("name, groups", [("straddle_41", 2), ("straddle_22", 1)])
+def test_groups_that_straddle_ranks_drop_on_the_later_rank(runs, name, groups):
+    """24 tokens route as 2 groups of 12 at capacity 8 on 4 batch ranks of
+    6, and 14 as one group on 2 batch ranks of 7 (each model rank with its
+    8 experts): every rank routes its tokens as its part of one group, and
+    most of a group's tokens choose one expert, so the group's first rank
+    keeps its assignments (fewer tokens than 8) and the second overflows
+    the capacity. Routed alone, or sorted alone, neither would drop any."""
+    _, (data, mdl), _, _ = RUNS[name]
+    ranks = runs[name][2]
+    assert _global_routing(name) == (groups, 8)
+    assert [(int(r["groups"]), int(r["capacity"])) for r in ranks] == [(1, 8)] * len(ranks)
+    dropped = [int(r["dropped"]) for r in ranks]
+    first = [(rank // mdl) % (data // groups) == 0 for rank in range(len(ranks))]
+    assert all((d == 0) == f for d, f in zip(dropped, first)), dropped
 
 
 def test_routing_a_ranks_rows_alone_misses_jax(runs):
@@ -458,7 +526,7 @@ def test_backup_matches_jax(runs, name):
     from repro_torch.train.state import make_state_plan
     from repro_torch.tree import keystr, tree_flatten_with_path
 
-    kw, shape, _ = RUNS[name]
+    kw, shape, _, _ = RUNS[name]
     model = build_model(reduce_for_smoke(get_arch(ARCH)), device="meta")
     plan = make_state_plan(model, Mesh(("data", "model"), shape), fsdp_params=kw["fsdp_params"])
     dims = {keystr(p): sharded_dim(spec)
@@ -488,11 +556,11 @@ def test_bound_blocks_hold_the_ranks_experts(runs, name):
     rank's E/tp experts, its columns and rows of the shared expert and its
     heads."""
     cfg = _cfg()
-    data, mdl = RUNS[name][1]
+    kw, (data, mdl), _, (batch, seq) = RUNS[name]
     want = {"moe.w_gate": (cfg.padded_experts // mdl, cfg.d_model, cfg.moe_d_ff),
             "moe.w_down": (cfg.padded_experts // mdl, cfg.moe_d_ff, cfg.d_model),
             "moe.shared.w_up": (cfg.d_model, cfg.shared_expert_d_ff // mdl),
-            "flash.q": (SHAPE[0] // data, SHAPE[1], cfg.num_heads // mdl,
+            "flash.q": (batch // data // kw.get("microbatches", 1), seq, cfg.num_heads // mdl,
                         cfg.resolved_head_dim)}
     for rank, rec in enumerate(runs[name][2]):
         assert eval(str(rec["shapes"])) == want, (rank, rec["shapes"])
@@ -526,32 +594,14 @@ def test_balance_loss_gradient_at_model_2_equals_model_1(runs):
 
 
 # ------------------------- no processes needed ---------------------------- #
-@pytest.mark.parametrize("axes, sizes", [(("data", "model"), (2, 1)),
-                                         (("pod", "data", "model"), (2, 1, 2))])
-def test_microbatches_on_more_than_one_batch_rank_raise(axes, sizes):
-    """The reference's microbatch is a block of the global rows; the port's
-    a chunk of each rank's, which routes other tokens together."""
-    from repro_torch.configs import get_arch, reduce_for_smoke
-    from repro_torch.launch.mesh import Mesh
-    from repro_torch.models import build_model
-    from repro_torch.train.step import build_train_step
-    model = build_model(reduce_for_smoke(get_arch(ARCH)), device="meta")
-    with pytest.raises(NotImplementedError, match="item 9h"):
-        build_train_step(model, Mesh(axes, sizes), microbatches=2)
-    build_train_step(model, Mesh(("data", "model"), (1, 2)), microbatches=2)
-
-
-def test_groups_that_do_not_divide_over_the_batch_ranks_raise():
-    """24 global tokens route as 2 groups of 12, which 4 batch ranks of 6
-    tokens would straddle: the call raises before any collective."""
+def test_a_call_that_is_not_a_block_of_the_global_batch_raises():
+    """6 tokens on each of 4 batch ranks are not a global batch of 25: the
+    call raises before any collective."""
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import moe
     from repro_torch.models.modes import GlobalRouting, global_routing
     cfg, m, _ = _aux_inputs()
     x = torch.zeros(1, 6, cfg.d_model)
-    ctx = GlobalRouting(Mesh(("data", "model"), (4, 1)), ("data",), 24)
-    with global_routing(ctx), pytest.raises(NotImplementedError, match="item 9g"):
-        moe.moe_apply(m, cfg, x)
-    with global_routing(GlobalRouting(ctx.mesh, ("data",), 25)), \
+    with global_routing(GlobalRouting(Mesh(("data", "model"), (4, 1)), ("data",), 25)), \
             pytest.raises(ValueError, match="global batch"):
         moe.moe_apply(m, cfg, x)

@@ -5,9 +5,12 @@ the same host meshes of forced host devices, from the same weights (the
 reference's ``init_state``, moved through ``bridge.params_from_numpy``) and
 the same two batches: qwen3-0.6b smoke fp32 on (data 2, model 2) with FSDP
 off, on and with 2 microbatches, and on (1, 2) (tensor parallelism alone);
-mamba2 and zamba2 smoke on (2, 2) with FSDP. Each run is two steps; the
-losses, the new state (params, master, m, v, every leaf replicated over
-"model" among them) and the second step's backup are compared.
+mamba2 and zamba2 smoke on (2, 2) with FSDP; and the q heads split over
+"model" beside replicated kv heads: gemma-2b smoke (4 q heads, 1 kv head) on
+(2, 2) with FSDP, qwen3-0.6b smoke (4 q, 2 kv) on (1, 4). Each run is two
+steps; the losses, the new state (params, master, m, v, every leaf
+replicated over "model" among them) and the second step's backup are
+compared.
 
 The qwen3 run without FSDP clips its gradients at ``CLIP``, well below the
 global norm it sees (1.497 at its first step, in both packages), so a norm
@@ -18,8 +21,8 @@ in count and bytes, and the neighbour drill (a rank's optimizer shard
 dropped and rebuilt from its "data" neighbour's backup) gives the
 uninterrupted step bit for bit.
 
-The reference runs in three subprocesses and the port's ranks in two sets of
-spawned processes (4 ranks for (2, 2), 2 for (1, 2); ``file://``
+The reference runs in four subprocesses and the port's ranks in two sets of
+spawned processes (4 ranks for (2, 2) and (1, 4), 2 for (1, 2); ``file://``
 rendezvous under the test's temporary directory), all at once, each joined
 with a deadline."""
 import dataclasses
@@ -56,11 +59,16 @@ RUNS = {
     "qwen3_tp_only": ("qwen3-0.6b", dict(fsdp_params=False), (1, 2), HP),
     "mamba2_fsdp": ("mamba2-2.7b", dict(fsdp_params=True), (2, 2), HP),
     "zamba2_fsdp": ("zamba2-7b", dict(fsdp_params=True), (2, 2), HP),
+    "gemma_fsdp": ("gemma-2b", dict(fsdp_params=True), (2, 2), HP),
+    "qwen3_model4": ("qwen3-0.6b", dict(fsdp_params=False), (1, 4), HP),
 }
 WITH_BACKUP = [k for k, v in RUNS.items() if v[2][0] > 1]
 # the leaves replicated over "model" that split blocks read or that follow a
-# split region, by family
+# split region, by family (and wk, wv where the kv heads do not divide the
+# axis, ``KV_REPLICATED``)
+KV_REPLICATED = ("attn|wk", "attn|wv")
 REPLICATED = {"qwen3-0.6b": ("attn|q_norm", "attn|k_norm", "|ln1", "|ln2", "final_norm"),
+              "gemma-2b": ("|ln1", "|ln2", "final_norm"),
               "mamba2-2.7b": ("mamba|w_b", "mamba|w_c", "mamba|conv_b", "mamba|conv_c",
                               "|ln1", "final_norm"),
               "zamba2-7b": ("mamba|w_b", "mamba|w_c", "mamba|conv_b", "mamba|conv_c",
@@ -112,6 +120,12 @@ def _cfg(arch):
     return dataclasses.replace(j_reduce(j_get_arch(arch)), dtype="float32")
 
 
+def _kv_replicated(arch, mdl):
+    """The q heads split over "model" and the kv heads do not."""
+    cfg = _cfg(arch)
+    return cfg.family == "dense" and cfg.num_kv_heads % mdl != 0
+
+
 def _flat(tree, prefix):
     from repro_torch.tree import keystr, tree_flatten_with_path
     return {prefix + keystr(p): t.detach().float().numpy()
@@ -143,7 +157,8 @@ def _record_bound_shapes(seen: dict) -> None:
     wrap(transformer, "unshard_layer_params", layer)
     wrap(transformer, "embed_lookup", lambda a, _: seen.setdefault("embed.w", tuple(a[0].shape)))
     wrap(transformer, "chunked_xent", lambda a, _: seen.setdefault("head.w", tuple(a[0].shape)))
-    wrap(ops, "flash_attention", lambda a, _: seen.setdefault("flash.q", tuple(a[0].shape)))
+    wrap(ops, "flash_attention", lambda a, _: (seen.setdefault("flash.q", tuple(a[0].shape)),
+                                               seen.setdefault("flash.k", tuple(a[1].shape))))
     wrap(ops, "ssd", lambda a, _: seen.setdefault("ssd.x", tuple(a[0].shape)))
 
 
@@ -277,12 +292,16 @@ def runs(tmp_path_factory):
     deadline = time.monotonic() + DEADLINE_S
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
                JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
-    # three reference processes, each with its runs (the SSM family's two
+    # four reference processes, each with its runs (the SSM family's two
     # compiles take as long as the dense family's four): the compiles are
     # the fixture's longest path
     def group(run):
-        arch, kw, _, _ = run
-        return "ssm" if arch != "qwen3-0.6b" else f"dense, fsdp {kw['fsdp_params']}"
+        arch, kw, (_, mdl), _ = run
+        if arch in ("mamba2-2.7b", "zamba2-7b"):
+            return "ssm"
+        if _kv_replicated(arch, mdl):
+            return "kv heads replicated"
+        return f"dense, fsdp {kw['fsdp_params']}"
     groups = [{k: v for k, v in RUNS.items() if group(v) == g}
               for g in dict.fromkeys(group(v) for v in RUNS.values())]
     refs = [subprocess.Popen(
@@ -382,7 +401,8 @@ def test_replicated_leaves_match_jax(runs, name):
     (the norms): their m (the first step's gradient, and the second's) and
     params, with the rank at model index 0 holding the joined copy."""
     ref, port, _ = runs[name]
-    wanted = REPLICATED[RUNS[name][0]]
+    arch, _, (_, mdl), _ = RUNS[name]
+    wanted = REPLICATED[arch] + (KV_REPLICATED if _kv_replicated(arch, mdl) else ())
     keys = [k for part in ("params", "opt|m", "opt|v")
             for k in _keys(port, ref, f"state|{part}|") if k.endswith(wanted)]
     assert len(keys) == 3 * len(wanted), keys
@@ -430,7 +450,9 @@ def test_grad_norm_matches_jax_where_the_clip_binds(runs):
 def test_bound_blocks_are_the_local_blocks(runs, name):
     """Every rank computes on its "model" blocks: the layer bodies' wq,
     w_up, w_x, the embedding and the head, and the q of the attention call
-    and the x of the SSD call carry 1/model of the heads, columns or rows."""
+    and the x of the SSD call carry 1/model of the heads, columns or rows;
+    the k of the attention call the kv heads of the rank's q heads (1/model
+    of them, or the one that its q heads read where they do not divide)."""
     arch, _, (data, mdl), _ = RUNS[name]
     cfg = _cfg(arch)
     b, s, hd = SHAPE[0] // data // RUNS[name][1].get("microbatches", 1), SHAPE[1], \
@@ -441,6 +463,8 @@ def test_bound_blocks_are_the_local_blocks(runs, name):
         want["attn.wq"] = (cfg.d_model, cfg.num_heads * hd // mdl)
         want["mlp.w_up"] = (cfg.d_model, cfg.d_ff // mdl)
         want["flash.q"] = (b, s, cfg.num_heads // mdl, hd)
+        group = cfg.num_heads // cfg.num_kv_heads
+        want["flash.k"] = (b, s, max(1, cfg.num_heads // mdl // group), hd)
     if cfg.family in ("ssm", "hybrid"):
         want["mamba.w_x"] = (cfg.d_model, cfg.ssm_inner // mdl)
         want["ssd.x"] = (b, s, cfg.ssm_heads // mdl, cfg.ssm_head_dim)
@@ -458,16 +482,68 @@ def test_model_all_reduces_equal_the_formula(runs, name):
 
 
 # ------------------------- no processes needed ---------------------------- #
-def test_split_q_heads_over_replicated_kv_heads_raise():
-    """qwen3 smoke (4 q / 2 kv heads) on model 4: ``_leaf_spec`` splits wq
-    and leaves wk and wv replicated; the step refuses it, naming its item."""
+@pytest.mark.parametrize("heads, kv_heads, tp", [(8, 1, 2), (4, 2, 4), (12, 3, 2), (12, 3, 4)])
+def test_split_q_heads_read_their_kv_heads(heads, kv_heads, tp):
+    """q heads split over "model" beside whole wk, wv (kv heads that do not
+    divide the axis): each rank's attention output (its q heads, its rows of
+    wo) summed over the ranks is the whole attention's, and so are the
+    gradients of wk, wv and k_norm (each rank's a part of the sum, as the
+    step sums a ``partial`` leaf). 8/1 on 2 and 4/2 on 4 keep one group a
+    rank (gemma-2b, qwen3 smoke); 12/3 on 2 and 4 give a rank q heads of
+    two kv heads unevenly, one kv head per q head."""
+    import contextlib
+
     from repro_torch.configs import get_arch, reduce_for_smoke
     from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import attention as attn
+    from repro_torch.models.modes import TensorParallel, tensor_parallel
+    cfg = dataclasses.replace(reduce_for_smoke(get_arch("qwen3-0.6b")), dtype="float32",
+                              num_heads=heads, num_kv_heads=kv_heads)
+    hd, d = cfg.resolved_head_dim, cfg.d_model
+    rng = np.random.default_rng(3)
+    shapes = {"wq": (d, heads * hd), "wk": (d, kv_heads * hd), "wv": (d, kv_heads * hd),
+              "wo": (heads * hd, d), "q_norm": (hd,), "k_norm": (hd,)}
+    full = {k: torch.from_numpy((rng.normal(size=s) / np.sqrt(s[0])).astype(np.float32))
+            for k, s in shapes.items()}
+    x = torch.from_numpy(rng.normal(size=(2, 12, d)).astype(np.float32))
+
+    def run(p, tp_ctx):
+        p = {k: v.clone().requires_grad_() for k, v in p.items()}
+        with tensor_parallel(tp_ctx):
+            out = attn.self_attention(p, cfg, x)
+        grads = torch.autograd.grad((out * torch.linspace(-1, 1, d)).sum(),
+                                    [p["wk"], p["wv"], p["k_norm"]])
+        return out.detach(), grads
+
+    want, want_grads = run(full, None)
+    per = heads // tp * hd
+    got, got_grads = 0, [0, 0, 0]
+    for r in range(tp):
+        p = dict(full, wq=full["wq"][:, r * per:(r + 1) * per],
+                 wo=full["wo"][r * per:(r + 1) * per])
+        mesh = Mesh(("data", "model"), (1, tp), rank=r)
+        out, grads = run(p, TensorParallel(mesh, contextlib.nullcontext))
+        got = got + out
+        got_grads = [a + g for a, g in zip(got_grads, grads)]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    for g, w in zip(got_grads, want_grads):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_the_formula_counts_gemmas_replicated_kv_heads():
+    """``model_all_reduces`` for gemma-2b at full width on (2, 2), FSDP, one
+    microbatch of 4 x 1024: 1 + 18 x 5 + 3 + 1 all-reduces (the one over
+    the bf16 wk and wv gradients, a "data" half of each)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.models import build_model
-    from repro_torch.train.step import build_train_step
-    model = build_model(reduce_for_smoke(get_arch("qwen3-0.6b")), device="meta")
-    with pytest.raises(NotImplementedError, match="item 9f"):
-        build_train_step(model, Mesh(("data", "model"), (1, 4)))
+    from repro_torch.train.step import model_all_reduces
+    model = build_model(get_arch("gemma-2b"), device="meta")
+    act = 4 * 1024 * 2048 * 2
+    calls, nbytes = model_all_reduces(model, Mesh(("data", "model"), (2, 2)), 4, 1024)
+    assert calls == 1 + 18 * 5 + 3 + 1
+    kv = 2 * 18 * 2048 * 256 * 2 // 2
+    assert nbytes == act * (1 + 18 * 5 + 1) + 4 * 1024 * 12 + kv
 
 
 def test_the_formula_counts_every_split_region():
@@ -494,13 +570,17 @@ def test_the_formula_counts_every_split_region():
                              "blocks.mamba.conv_c"}),
     ("zamba2-7b", (1, 2), {"blocks.mamba.w_b", "blocks.mamba.w_c", "blocks.mamba.conv_b",
                            "blocks.mamba.conv_c"}),
+    ("gemma-2b", (2, 2), {"blocks.attn.wk", "blocks.attn.wv"}),
+    ("qwen3-0.6b", (1, 16), {"blocks.attn.q_norm", "blocks.attn.k_norm", "blocks.attn.wk",
+                             "blocks.attn.wv"}),
     ("qwen3-0.6b", (4, 1), set()),
 ])
 def test_partial_leaves_come_from_the_specs(arch, mesh_shape, expected):
     """The leaves whose gradient ``data_mean`` sums over "model" are those
     replicated in a sub-layer whose other leaves the specs split, at full
     width: the qk-norm scales and Mamba2's SSD group, never a norm before a
-    split region (its gradient is whole after f's backward), none at model 1."""
+    split region (its gradient is whole after f's backward), wk and wv where
+    the kv heads do not divide the axis, none at model 1."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import build_model
