@@ -154,6 +154,25 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 scale of a split leaf is the whole leaf's, is held on the CPU
                 (tests/test_torch_mesh_step.py): against the exact step a scale
                 over fewer blocks is only closer.
+7g. serve_mesh -- the serve steps on a mesh (train.serve.build_prefill_step /
+                build_decode_step with a mesh): gemma-2b, whose one kv head
+                cannot split, its KV cache split by sequence over "model", four
+                gloo ranks sharing the card on (data 2, model 2), weights drawn on
+                the card from a seed, spawned once for both parts. (a) Full width
+                and depth (18 layers, bf16): 8 prompts of 1,000 tokens and 32
+                greedy tokens (a rank's 4 rows and 516 of the 1,032 cache
+                positions), after a 2-token warm-up; with the counts zeroed just
+                before, on every rank 18 flash launches on wgmma at q (4, 1000, 4,
+                256), k/v (4, 1000, 1, 256), 18 x 31 = 558 decode launches in the
+                block form at q (4, 1, 8, 256), cache (4, 516, 1, 256), no SSD
+                launch, and the collectives of the prefill and of every decode
+                step equal to train.serve.serve_collectives; prints prefill ms,
+                decode ms a step, collectives and bytes a step, device memory
+                and host RSS a rank. (b) 2 layers, fp32, 8 decode steps, against
+                one unsharded rank (DecoderLM.prefill and decode_step, its own
+                process over NCCL, run first): the logits of the prefill and of
+                every step at 2e-4, the greedy tokens exactly, each cache block
+                against its slice of the one rank's cache.
 7e. pipeline -- the GPipe forward (parallel.pipeline.pipeline_forward) over a
                 ("pipe",) mesh of four gloo ranks sharing the card, spawned once
                 for both parts: full qwen3-0.6b (28 layers, 7 a stage), bf16, 8
@@ -174,11 +193,11 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 SSD launch. Then the events of
                 clean_software_failure (a software failure of worker 1 before
                 step 5, 10 steps) replayed by the port's _Runner on qwen3-0.6b
-                at full width cut to 8 of 28 layers (bf16, dp=4 simulated
+                at full width cut to 4 of 28 layers (bf16, dp=4 simulated
                 workers, 8 x 1024 tokens a step) with the scenario's fabric and
                 reliability values: 10 steps, one recovery from the neighbour, 0
                 rollbacks, 1 detection within one heartbeat of the analytic
-                bound, finite losses, 8 x 10 flash launches all on wgmma. Prints the verdict
+                bound, finite losses, 4 x 10 flash launches all on wgmma. Prints the verdict
                 beside the fields in which it differs from the reference-scale
                 pin, the step split, tokens/s (by the median step and by the
                 replay's whole window), the steps and host RSS before and after
@@ -224,8 +243,12 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 q (1, 1024, 16, 128), k/v (1, 1024, 8, 128); flash at head_dim 256
                 in both dtypes, at a rank's of train_gemma_mesh, q (4, 1024, 4,
                 256), k/v (4, 1024, 1, 256), and at a serve-like q (8, 1000, 8,
-                256), k/v (8, 1000, 1, 256); the SSD at a rank's 40 (mamba2)
-                and 56 (zamba2) heads, 4 x 1024, bf16), with the
+                256), k/v (8, 1000, 1, 256); decode at head_dim 256 in both
+                dtypes, in the block form (o fp32, lse) at a rank's of
+                serve_mesh, q (4, 1, 8, 256), cache (4, 516, 1, 256), and at the
+                serve shape, q (8, 1, 8, 256), caches (8, 1032, 1, 256); the SSD
+                at a rank's 40 (mamba2) and 56 (zamba2) heads, 4 x 1024, bf16),
+                with the
                 kernel's, the plain version's and (for attention) the library
                 call's times
                 (F.scaled_dot_product_attention, a yardstick only), the card's
@@ -243,7 +266,8 @@ Then a ``timing`` line (kernel timings taken by CUPTI and by CUDA events, the
 host seconds of each phase),
 one {"kernels": [...]} line (each kernel's launches in every serve and training
 phase, ``moe_launches``, ``train_tp_launches``, ``train_moe_mesh_launches``,
-``train_gemma_mesh_launches`` and ``pipeline_launches`` among them, and its rows at the
+``train_gemma_mesh_launches``, ``serve_mesh_launches`` and ``pipeline_launches`` among
+them, and its rows at the
 other shapes, ``tp_shape`` / ``tp_shapes``, ``moe_mesh_shape``, ``pipeline_shape``,
 ``gemma_tp_shape`` and ``hd256`` among them), the card's name
 and power
@@ -291,6 +315,11 @@ PREFILL_GEMMA_TP = dict(b=4, s=1024, h=4, kh=1, hd=256)
 PREFILL_HD256 = dict(b=8, s=1000, h=8, kh=1, hd=256)
 # a rank's SSD under tensor parallelism at model 2: mamba2-2.7b's 80 heads and
 # zamba2-7b's 112, at the same rows
+# decode at head_dim 256 (gemma-2b, 8 q heads on 1 kv head): a rank's block of
+# serve_mesh (4 rows, 516 of the 1,032 positions) in the block form, and the
+# one-card serve shape
+DECODE_HD256_BLOCK = dict(b=4, t=516, h=8, kh=1, hd=256, cur_lens=(516,), partial=True)
+DECODE_HD256 = dict(b=8, t=1032, h=8, kh=1, hd=256, cur_lens=(1032,))
 SSD_TP = dict(SSD, b=4, h=40, seqs=(1024,))
 SSD_HYBRID_TP = dict(SSD_HYBRID, b=4, h=56, seqs=(1024,))
 SERVE = dict(batch=8, prompt=1000, gen=32)
@@ -624,36 +653,49 @@ def phase_kernels(torch, F):
     for suffix, d, dtype in (("", DECODE, torch.bfloat16), ("", DECODE, torch.float32),
                              ("_hd112", DECODE_HD112, torch.bfloat16),
                              ("_hd112", DECODE_HD112, torch.float32),
-                             ("_moe", DECODE_MOE, torch.bfloat16)):
+                             ("_moe", DECODE_MOE, torch.bfloat16),
+                             ("_hd256_block", DECODE_HD256_BLOCK, torch.bfloat16),
+                             ("_hd256_block", DECODE_HD256_BLOCK, torch.float32),
+                             ("_hd256", DECODE_HD256, torch.bfloat16),
+                             ("_hd256", DECODE_HD256, torch.float32)):
         dname = str(dtype).split(".")[-1]
+        partial = d.get("partial", False)
         q = rand((d["b"], 1, d["h"], d["hd"]), dtype)
         kc = rand((d["b"], d["t"], d["kh"], d["hd"]), dtype)
         vc = rand((d["b"], d["t"], d["kh"], d["hd"]), dtype)
         args = input_copies((q, kc, vc))
         rows = []
         for cur_len in d["cur_lens"]:
-            out = decode_attn.decode_attention(q, kc, vc, cur_len)
+            out = decode_attn.decode_attention(q, kc, vc, cur_len, partial=partial)
             torch.cuda.synchronize()
             n_split, rows_per_split = decode_attn.decode_attention.last_split
-            ref = decode_attention_ref(q, kc, vc, cur_len)
-            err = check_close(f"decode_attention {dname} cur_len={cur_len}", out, ref,
-                              TOL[dname])
-            per_call = (2 * q.numel() + 2 * d["b"] * cur_len * d["kh"] * d["hd"]) \
-                * q.element_size()
+            ref = decode_attention_ref(q, kc, vc, cur_len, partial=partial)
+            what = f"decode_attention {dname} hd={d['hd']} cur_len={cur_len}"
+            if partial:          # o (fp32) and lse: the block form's two outputs
+                err = max(check_close(what + " o", out[0], ref[0], TOL[dname]),
+                          check_close(what + " lse", out[1], ref[1], TOL[dname]))
+            else:
+                err = check_close(what, out, ref, TOL[dname])
+            out_bytes = (q.numel() * 4 + d["b"] * d["h"] * 4 if partial
+                         else q.numel() * q.element_size())
+            per_call = ((q.numel() + 2 * d["b"] * cur_len * d["kh"] * d["hd"])
+                        * q.element_size() + out_bytes)
             before = dict(TIMING)
-            kernel = lambda a, b_, c: decode_attn.decode_attention(a, b_, c, cur_len)  # noqa: E731
+            kernel = lambda a, b_, c: decode_attn.decode_attention(  # noqa: E731
+                a, b_, c, cur_len, partial=partial)
             ms = time_ms(torch, kernel, args, 50)
             ev_ms = event_ms(torch, kernel, args, 50)
             launch_us = host_us(torch, kernel, args[0])
-            plain_ms = time_ms(torch, lambda a, b_, c: decode_attention_ref(a, b_, c, cur_len),
-                               args, 10)
+            plain_ms = time_ms(torch, lambda a, b_, c: decode_attention_ref(
+                a, b_, c, cur_len, partial=partial), args, 10)
             library_ms = time_ms(torch, lambda a, b_, c: F.scaled_dot_product_attention(
                 a.transpose(1, 2), b_[:, :cur_len].transpose(1, 2),
                 c[:, :cur_len].transpose(1, 2), enable_gqa=True), args, 50)
             flops = 4 * d["b"] * d["h"] * d["hd"] * cur_len
             bound_s, bound_by = bound_seconds(flops, per_call, dname)
             row = dict(kernel="decode_attention", dtype=dname,
-                       shape={k_: v_ for k_, v_ in d.items() if k_ != "cur_lens"},
+                       shape={k_: v_ for k_, v_ in d.items() if k_ not in ("cur_lens", "partial")},
+                       form="block (o fp32, lse)" if partial else "normalised",
                        cur_len=cur_len, n_split=n_split, rows_per_split=rows_per_split,
                        max_abs_err=err, tol=TOL[dname], ms=ms, event_ms=ev_ms,
                        plain_ms=plain_ms, library_ms=library_ms,
@@ -1461,9 +1503,10 @@ def phase_train(torch):
 
 
 # the full-width replay of the fleet's baseline scenario: its events (a
-# software failure of worker 1 before step 5, 10 steps) on full qwen3-0.6b,
-# dp=4 simulated workers, 8 x 1024 tokens a step
-REPLAY = dict(scenario="clean_software_failure", layers=8, global_batch=8, seq_len=1024)
+# software failure of worker 1 before step 5, 10 steps) on qwen3-0.6b at full
+# width cut to 4 of 28 layers (for the script's time limit), dp=4 simulated
+# workers, 8 x 1024 tokens a step
+REPLAY = dict(scenario="clean_software_failure", layers=4, global_batch=8, seq_len=1024)
 # a verdict field that may differ from the reference-scale pin at full width,
 # and why: the shard's size, or the simulated fabric time it takes
 SCALE_FIELDS = {"state_bytes_streamed": "bytes", "chunks_reused": "bytes",
@@ -2424,6 +2467,344 @@ def _blocks_b_row(phase: str, part_b: dict, tb: dict, single_s, device: str) -> 
                      + f"; rank 0's {flash} flash launches on the fp32 route" + routing)
 
 
+# Serving on a mesh (train.serve's mesh builders): gemma-2b, whose one kv
+# head cannot split over "model", so its KV cache splits by sequence alone.
+# (a) full width and depth (18 layers), bf16, four gloo ranks sharing the
+# card on (data 2, model 2): 8 prompts of 1,000 tokens and 32 greedy tokens
+# (a rank's 4 rows and 516 of the 1,032 cache positions), after a warm-up
+# of ``warmup_gen`` tokens. (b) the same ranks at 2 layers in fp32 against
+# one unsharded rank (its own process over NCCL): the logits of the prefill
+# and of every decode step at ``tol``, the greedy tokens exactly, each cache
+# block against its slice of the one rank's cache.
+SERVE_MESH = dict(arch="gemma-2b", smoke=False, layers=None, dtype="bfloat16", world=4,
+                  data=2, model=2, seed=0, draw="cuda", batch=SERVE["batch"],
+                  prompt=SERVE["prompt"], gen=SERVE["gen"],
+                  max_len=SERVE["prompt"] + SERVE["gen"], warmup_gen=2, timeout_s=600)
+SERVE_MESH_B = dict(SERVE_MESH, layers=2, dtype="float32", gen=9, tol=SLICE_TOL,
+                    timeout_s=300)
+
+
+def _serve_mesh_model(t: dict, device: str):
+    """The model of ``t`` drawn from its seed (on the card where
+    t["draw"] says so and the run is on it) and the prompts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import build_model
+    cfg = _mesh_cfg(t)
+    draw = t["draw"] if device == "cuda" else "cpu"
+    model = build_model(cfg, device=draw).init(torch.Generator(device=draw).manual_seed(t["seed"]))
+    tokens = torch.from_numpy(np.random.default_rng(t["seed"]).integers(
+        0, cfg.vocab_size, (t["batch"], t["prompt"])))
+    return cfg, model, tokens.to(device)
+
+
+def _serve_mesh_steps(world: int, t: dict, device: str):
+    """This rank's mesh, serve steps, param blocks (the full model freed),
+    prompts, the cache's specs and ``serve_collectives``."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.serve import build_decode_step, build_prefill_step, serve_collectives
+    from repro_torch.train.state import param_tree, shard_params
+
+    cfg, model, tokens = _serve_mesh_model(t, device)
+    mesh = make_host_mesh(data=t["data"], model=t["model"])
+    b, prompt, max_len = t["batch"], t["prompt"], t["max_len"]
+    prefill, plan, in_specs = build_prefill_step(
+        model, mesh, ShapeConfig("serve_mesh", prompt, b, "prefill"))
+    decode, _, dec_specs = build_decode_step(
+        model, mesh, ShapeConfig("serve_mesh", max_len, b, "decode"))
+    params = shard_params(param_tree(model), plan, mesh, device)
+    want = serve_collectives(model, mesh, b, prompt, max_len)
+    cache_specs = shd.cache_pspecs(cfg, model.cache_specs(b, max_len), mesh)
+    del model
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    local = shd.local_block(tokens, in_specs["tokens"], mesh).contiguous()
+    rows = shd.block_slices(in_specs["tokens"], tuple(tokens.shape), mesh)
+    return cfg, mesh, prefill, decode, params, local, rows, cache_specs, want
+
+
+def _counts(counts: dict) -> list:
+    return sorted([op, list(axes), calls, nbytes] for (op, axes), (calls, nbytes)
+                  in counts.items())
+
+
+def serve_mesh_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
+    """(a) on one rank: a warm-up serve, then the serve with the counts
+    zeroed just before; its record goes to tmp/serve_a_<rank>.json: prefill
+    and decode times, the collectives of the prefill and of every decode
+    step beside ``serve_collectives``, the kernel launches and the shapes
+    of their calls, device memory and host RSS."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    cfg, mesh, prefill, decode, params, local, _, _, want = _serve_mesh_steps(world, t, device)
+    shapes = {"flash": set(), "decode": set()}
+    flash, partial = ops.flash_attention, ops.decode_attention_partial
+
+    def flash_rec(q, k, *args, **kw):
+        shapes["flash"].add((tuple(q.shape), tuple(k.shape)))
+        return flash(q, k, *args, **kw)
+
+    def partial_rec(q, k, *args):
+        shapes["decode"].add((tuple(q.shape), tuple(k.shape)))
+        return partial(q, k, *args)
+    ops.flash_attention, ops.decode_attention_partial = flash_rec, partial_rec
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+    def serve(gen: int):
+        sync()
+        mesh.reset_counts()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": local, "max_len": t["max_len"]})
+        sync()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        counts = {"prefill": _counts(mesh.counts), "decode": []}
+        finite = bool(torch.isfinite(logits).all())
+        shape = list(logits.shape)
+        tok = logits.argmax(-1)
+        out = [tok]
+        t0 = time.perf_counter()
+        for _ in range(gen - 1):
+            mesh.reset_counts()
+            logits, cache = decode(params, cache, tok)
+            counts["decode"].append(_counts(mesh.counts))
+            finite &= bool(torch.isfinite(logits).all())
+            tok = logits.argmax(-1)
+            out.append(tok)
+        sync()
+        decode_s = time.perf_counter() - t0
+        return dict(prefill_ms=prefill_ms, decode_s=decode_s, counts=counts, finite=finite,
+                    logits_shape=shape, tokens=torch.stack(out, 1).tolist(),
+                    cache_block=list(cache["k"].shape))
+
+    serve(t["warmup_gen"])
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    shapes["flash"].clear()
+    shapes["decode"].clear()
+    reset_launches()
+    run = serve(t["gen"])
+    launches = read_launches()
+    ops.flash_attention, ops.decode_attention_partial = flash, partial
+    rec = dict(rank=rank, coords=mesh.coords, **run, want={k: _counts(v) for k, v in want.items()},
+               launches=launches, flash_routes=dict(fa.flash_attention.routes),
+               flash_shapes=sorted(shapes["flash"]), decode_shapes=sorted(shapes["decode"]),
+               peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+               host_rss_gb=host_rss_gb())
+    with open(f"{tmp}/serve_a_{rank}.json", "w") as f:
+        json.dump(rec, f)
+
+
+def serve_single_b(rank: int, world: int, tmp: str, tb: dict, device: str) -> None:
+    """(b)'s reference: one rank serving the unsharded model (``DecoderLM.
+    prefill`` and ``decode_step``); saves to tmp/serve_single.pt the logits
+    of the prefill and of every decode step, the greedy tokens and the
+    final cache."""
+    import torch
+
+    _, model, tokens = _serve_mesh_model(tb, device)
+    with torch.inference_mode():
+        logits, cache = model.prefill(tokens, tb["max_len"])
+        out, toks = [logits.cpu()], [logits.argmax(-1)]
+        for _ in range(tb["gen"] - 1):
+            logits, cache = model.decode_step(cache, toks[-1])
+            out.append(logits.cpu())
+            toks.append(logits.argmax(-1))
+    torch.save({"logits": out, "tokens": torch.stack(toks, 1).cpu(),
+                "cache": {k: cache[k].cpu() for k in ("k", "v")}}, f"{tmp}/serve_single.pt")
+
+
+def serve_mesh_part_b(rank: int, world: int, tmp: str, tb: dict, device: str) -> None:
+    """(b) on one rank: the same serve on the mesh, held to the one rank's
+    (tmp/serve_single.pt) on its rows and cache block; the record goes to
+    tmp/serve_b_<rank>.json."""
+    import torch
+
+    from repro_torch.parallel import sharding as shd
+
+    cfg, mesh, prefill, decode, params, local, rows, cache_specs, _ = _serve_mesh_steps(
+        world, tb, device)
+    ref = torch.load(f"{tmp}/serve_single.pt")
+    lo, n = (rows[0][1], rows[0][2]) if rows else (0, tb["batch"])
+    tol = tb["tol"]
+
+    def err(got, want):
+        got, want = got.float().cpu(), want.float()
+        diff = (got - want).abs()
+        return dict(max_abs_err=float(diff.max()),
+                    bad=int((diff > tol + tol * want.abs()).sum()))
+
+    reset_launches()
+    with torch.inference_mode():
+        logits, cache = prefill(params, {"tokens": local, "max_len": tb["max_len"]})
+        errs = [err(logits, ref["logits"][0][lo:lo + n])]
+        tok = logits.argmax(-1)
+        toks = [tok]
+        for i in range(1, tb["gen"]):
+            logits, cache = decode(params, cache, tok)
+            errs.append(err(logits, ref["logits"][i][lo:lo + n]))
+            tok = logits.argmax(-1)
+            toks.append(tok)
+    launches = read_launches()
+    tokens_equal = bool(torch.equal(torch.stack(toks, 1).cpu(), ref["tokens"][lo:lo + n]))
+    cache_errs = {k: err(cache[k], shd.local_block(ref["cache"][k], cache_specs[k], mesh))
+                  for k in ("k", "v")}
+    rec = dict(rank=rank, coords=mesh.coords, logits=errs, tokens_equal=tokens_equal,
+               cache=cache_errs, cache_block=list(cache["k"].shape), launches=launches)
+    with open(f"{tmp}/serve_b_{rank}.json", "w") as f:
+        json.dump(rec, f)
+
+
+def _serve_mesh_row(recs: list, t: dict, seconds: float, device: str) -> dict:
+    """(a)'s checks, each failing the run, and its printed fields."""
+    from repro_torch.models import param_count
+    cfg = _mesh_cfg(t)
+    bad = []
+    L, gen = cfg.num_layers, t["gen"]
+    rows = t["batch"] // t["data"]
+    want_launches = {"flash_attention": L, "decode_attention": L * (gen - 1), "ssd": 0}
+    hd, h, kh = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    block = t["max_len"] // t["model"]
+    for r in recs:
+        tag = f"rank {r['rank']}"
+        if r["counts"]["prefill"] != r["want"]["prefill"]:
+            bad.append(f"{tag} prefill collectives {r['counts']['prefill']}, "
+                       f"serve_collectives {r['want']['prefill']}")
+        off = [i for i, c in enumerate(r["counts"]["decode"]) if c != r["want"]["decode"]]
+        if off or len(r["counts"]["decode"]) != gen - 1:
+            bad.append(f"{tag} decode collectives differ from serve_collectives at steps {off}")
+        got = {k: r["launches"][k] for k in want_launches}
+        if device == "cuda" and got != want_launches:
+            bad.append(f"{tag} launches {got}, expected {want_launches}")
+        if device == "cuda" and r["launches"]["ssd_routes"] != {"wgmma": 0, "fp32": 0}:
+            bad.append(f"{tag} SSD routes {r['launches']['ssd_routes']}")
+        if device == "cuda" and r["flash_routes"].get("fp32"):
+            bad.append(f"{tag} flash on the fp32 route {r['flash_routes']}")
+        flash = [[[rows, t["prompt"], h // t["model"], hd], [rows, t["prompt"], kh, hd]]]
+        if r["flash_shapes"] != flash:
+            bad.append(f"{tag} flash calls at {r['flash_shapes']}, expected {flash}")
+        dec = [[[rows, 1, h, hd], [rows, block, kh, hd]]]
+        if r["decode_shapes"] != dec:
+            bad.append(f"{tag} decode calls at {r['decode_shapes']}, expected {dec}")
+        if not r["finite"] or r["logits_shape"] != [rows, cfg.padded_vocab]:
+            bad.append(f"{tag} logits not finite or of shape {r['logits_shape']}")
+        if r["cache_block"] != [L, rows, block, kh, hd]:
+            bad.append(f"{tag} cache block {r['cache_block']}")
+        if not all(0 <= x < cfg.padded_vocab for row in r["tokens"] for x in row):
+            bad.append(f"{tag} generated tokens out of range")
+    if bad:
+        fail("serve_mesh (a): " + "; ".join(bad))
+    med = lambda xs: sorted(xs)[len(xs) // 2]                              # noqa: E731
+    decode_ms = [r["decode_s"] * 1e3 / (gen - 1) for r in recs]
+    per_step = recs[0]["want"]["decode"]
+    params = param_count(cfg)
+    prefill_bound, decode_bound = serve_bounds(cfg, params, t["batch"], t["prompt"], gen)
+    return dict(config=f"{cfg.name} full width and depth ({L} layers, {t['dtype']})",
+                params=params, mesh=f"data={t['data']}, model={t['model']}",
+                ranks=f"{t['world']} gloo ranks sharing one card", batch=t["batch"],
+                prompt=t["prompt"], gen=gen, max_len=t["max_len"],
+                rows_per_rank=rows, cache_positions_per_rank=block,
+                prefill_ms_median=med([r["prefill_ms"] for r in recs]),
+                prefill_ms_max=max(r["prefill_ms"] for r in recs),
+                decode_ms_per_step_median=med(decode_ms), decode_ms_per_step_max=max(decode_ms),
+                decode_tok_s=t["batch"] * 1e3 / max(decode_ms),
+                one_card_bound_ms=dict(prefill=prefill_bound[0] * 1e3,
+                                       decode_step=decode_bound[0] * 1e3,
+                                       note="the same serve's least time on one card: "
+                                            "a yardstick, the four ranks share the card"),
+                prefill_collectives=recs[0]["want"]["prefill"],
+                decode_collectives_per_step=per_step,
+                decode_collective_calls_per_step=sum(c[2] for c in per_step),
+                decode_collective_bytes_per_step=sum(c[3] for c in per_step),
+                collectives_equal_serve_collectives=True,
+                launches_per_rank=recs[0]["launches"],
+                flash_shape=recs[0]["flash_shapes"], decode_shape=recs[0]["decode_shapes"],
+                peak_device_mem_gb=[r["peak_device_mem_gb"] for r in recs],
+                host_rss_gb=[r["host_rss_gb"] for r in recs],
+                first_sequence=recs[0]["tokens"][0], seconds=seconds,
+                note=MESH_NOTE)
+
+
+def _serve_mesh_b_row(recs: list, tb: dict, single_s: float, device: str) -> dict:
+    """(b)'s checks, each failing the run, and its printed fields."""
+    cfg = _mesh_cfg(tb)
+    bad = []
+    want = {"flash_attention": cfg.num_layers,
+            "decode_attention": cfg.num_layers * (tb["gen"] - 1), "ssd": 0}
+    for r in recs:
+        tag = f"rank {r['rank']}"
+        off = [i for i, e in enumerate(r["logits"]) if e["bad"]]
+        if off:
+            bad.append(f"{tag} logits beyond {tb['tol']} at steps {off}: "
+                       f"{[r['logits'][i]['max_abs_err'] for i in off]}")
+        if not r["tokens_equal"]:
+            bad.append(f"{tag} greedy tokens differ from the one rank's")
+        bad += [f"{tag} cache {k} beyond {tb['tol']}: {e['max_abs_err']}"
+                for k, e in r["cache"].items() if e["bad"]]
+        got = {k: r["launches"][k] for k in want}
+        if device == "cuda" and got != want:
+            bad.append(f"{tag} launches {got}, expected {want}")
+        if device == "cuda" and r["launches"]["ssd_routes"] != {"wgmma": 0, "fp32": 0}:
+            bad.append(f"{tag} SSD routes {r['launches']['ssd_routes']}")
+    if bad:
+        fail("serve_mesh (b): sharded against one rank: " + "; ".join(bad))
+    return dict(config=f"{cfg.name}, {tb['layers']} layers, fp32",
+                sharded=f"{tb['world']} gloo ranks, data={tb['data']}, model={tb['model']}",
+                against="one unsharded rank over nccl (DecoderLM.prefill, decode_step)",
+                batch=tb["batch"], prompt=tb["prompt"], decode_steps=tb["gen"] - 1,
+                max_len=tb["max_len"], tol=tb["tol"], single_rank_s=single_s,
+                logits_max_abs_err=max(e["max_abs_err"] for r in recs for e in r["logits"]),
+                logits_max_abs_err_per_step=[max(r["logits"][i]["max_abs_err"] for r in recs)
+                                             for i in range(tb["gen"])],
+                tokens_equal=True,
+                cache_max_abs_err=max(e["max_abs_err"] for r in recs
+                                      for e in r["cache"].values()),
+                cache_block=recs[0]["cache_block"], launches_per_rank=recs[0]["launches"])
+
+
+def phase_serve_mesh(torch, t: dict = SERVE_MESH, tb: dict = SERVE_MESH_B,
+                     device: str = "cuda") -> dict:
+    """serve_mesh: (b)'s one rank first (its own process, over NCCL on the
+    card), then t["world"] spawned ranks running (a) and (b) in turn."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_mesh_") as tmp:
+        t0 = time.perf_counter()
+        run_children("serve_mesh (b), one rank",
+                     [(mesh_rank, (0, 1, tmp, f"{tmp}/rdv_single", [(serve_single_b, tb)],
+                                   device, "nccl" if device == "cuda" else "gloo"))],
+                     tb["timeout_s"])
+        single_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_children("serve_mesh", [(mesh_rank, (r, t["world"], tmp, f"{tmp}/rdv",
+                                                 [(serve_mesh_part_a, t),
+                                                  (serve_mesh_part_b, tb)], device))
+                                    for r in range(t["world"])],
+                     t["timeout_s"] + tb["timeout_s"])
+        seconds = time.perf_counter() - t0
+        recs_a, recs_b = [], []
+        for r in range(t["world"]):
+            with open(f"{tmp}/serve_a_{r}.json") as f:
+                recs_a.append(json.load(f))
+            with open(f"{tmp}/serve_b_{r}.json") as f:
+                recs_b.append(json.load(f))
+    row = _serve_mesh_row(recs_a, t, seconds, device)
+    emit("serve_mesh", **row)
+    part_b = _serve_mesh_b_row(recs_b, tb, single_s, device)
+    emit("serve_mesh_world1", **part_b)
+    return dict(row, part_b=part_b)
+
+
 # GPipe over a ("pipe",) mesh of four gloo ranks sharing the card:
 # full qwen3-0.6b (28 layers, 7 a stage), bf16, forward only, M = 8
 # microbatches of 1 x 1024 tokens through Block.apply_layer, held against the
@@ -3307,6 +3688,7 @@ def main() -> int:
                                    lambda recs, a_s, phase=phase, t=t: _train_tp_row(
                                        phase, recs, t, a_s, "cuda"))
     train_moe_mesh, train_gemma_mesh = sharded["train_moe_mesh"], sharded["train_gemma_mesh"]
+    serve_mesh = timed("serve_mesh", phase_serve_mesh, torch)
     pipeline = timed("pipeline", phase_pipeline, torch)
     scenarios = timed("scenarios", phase_scenarios, torch)
     train_ssm = timed("train_ssm", phase_train_ssm, torch)
@@ -3374,6 +3756,9 @@ def main() -> int:
              train_gemma_mesh_launches=dict(
                  a=train_gemma_mesh["flash_launches"],
                  b_rank0=train_gemma_mesh["part_b"]["launches"]["flash_routes"]),
+             serve_mesh_launches=dict(
+                 a=serve_mesh["launches_per_rank"]["flash_attention"],
+                 b=serve_mesh["part_b"]["launches_per_rank"]["flash_attention"]),
              gemma_tp_shape={d: moe_shape(kernels["flash_attention"][f"{d}_gemma_tp"])
                              for d in ("bfloat16", "float32")},
              hd256={d: moe_shape(kernels["flash_attention"][f"{d}_hd256"])
@@ -3403,7 +3788,15 @@ def main() -> int:
              train_moe_mesh_launches=train_moe_mesh["decode_launches"],
              train_gemma_mesh_launches=train_gemma_mesh["decode_launches"],
              moe_shape=moe_shape(kernels["decode_attention"]["bfloat16_moe"][-1]),
-             head_dims="16, 32, 64, 112 (on 128's lanes), 128; 256 refused (ValueError)"),
+             serve_mesh_launches=dict(
+                 a=serve_mesh["launches_per_rank"]["decode_attention"],
+                 b=serve_mesh["part_b"]["launches_per_rank"]["decode_attention"],
+                 note="a rank's, block form on its 516 of 1,032 positions, every layer "
+                      "and decode step"),
+             hd256={f"{d}_{form}": moe_shape(kernels["decode_attention"][f"{d}_{key}"][-1])
+                    for d in ("bfloat16", "float32")
+                    for form, key in (("block", "hd256_block"), ("serve", "hd256"))},
+             head_dims="16, 32, 64, 112 (on 128's lanes), 128, 256 (two loads a lane in fp32)"),
         dict(name="ssd", route="cuda", dispatch=ssd_main["route"],
              source="src/repro_torch/csrc/ssd_wgmma.cu",
              fp32_source="src/repro_torch/csrc/ssd.cu",
@@ -3431,6 +3824,7 @@ def main() -> int:
              train_tp_launches=train_tp["ssd_launches"],
              train_moe_mesh_launches=train_moe_mesh["ssd_launches"],
              train_gemma_mesh_launches=train_gemma_mesh["ssd_launches"],
+             serve_mesh_launches=serve_mesh["launches_per_rank"]["ssd"],
              tp_shapes={model: {k_: ssd_rows[(f"{model}/tp2", 1024, "bfloat16")][k_]
                                 for k_ in keys}
                         for model in ("mamba2-2.7b", "zamba2-7b")},

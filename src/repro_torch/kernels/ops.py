@@ -52,6 +52,21 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     return _dec.decode_attention(q, k_cache, v_cache, cur_len)
 
 
+def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, cur_len: int):
+    """The block form on a rank's block of a cache split by sequence: (o
+    (B, 1, H, hd) fp32, lse (B, H) fp32) over its first ``cur_len``
+    positions. A block with none (``cur_len`` 0) launches nothing: o is 0
+    and lse -inf, which the merge weighs 0."""
+    if cur_len == 0:
+        b, _, h, hd = q.shape
+        return (q.new_zeros((b, 1, h, hd), dtype=torch.float32),
+                q.new_full((b, h), float("-inf"), dtype=torch.float32))
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k_cache, v_cache, cur_len, partial=True)
+    return _dec.decode_attention(q, k_cache, v_cache, cur_len, partial=True)
+
+
 def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
         c_mat: torch.Tensor, *, chunk: int, initial_state: Optional[torch.Tensor] = None):
     """x: (B, S, H, P); dt: (B, S, H); a: (H,); b/c: (B, S, N). Returns

@@ -19,9 +19,13 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
-                         v_cache: torch.Tensor, cur_len: int) -> torch.Tensor:
-    """The reference's decode call site (``models.attention.decode_attention``)."""
-    from repro_torch.models.attention import decode_attention
+                         v_cache: torch.Tensor, cur_len: int, *, partial: bool = False):
+    """The reference's decode call site (``models.attention.decode_attention``);
+    with ``partial`` the block form of the same math, (o fp32, lse (B, H))
+    (``models.attention.decode_attention_partial``), as the kernel's."""
+    from repro_torch.models.attention import decode_attention, decode_attention_partial
+    if partial:
+        return decode_attention_partial(q, k_cache, v_cache, cur_len, q.shape[2])
     return decode_attention(q, k_cache, v_cache, cur_len, q.shape[2])
 
 

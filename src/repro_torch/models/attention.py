@@ -6,6 +6,20 @@ with K kv heads. The sub-block reaches the CUDA kernels through
 ``kernels.ops`` at the two call sites where the reference calls
 ``blockwise_attention`` (prefill) and ``decode_attention`` (decode); on CPU
 tensors ``ops`` runs exactly those plain functions.
+
+On a mesh the serve steps split each cache by sequence
+(``parallel.sharding.cache_pspecs``, ``models.modes.split_cache``): a rank
+holds positions [r·T/n, (r+1)·T/n) of every kv head, as the reference's
+flash-decode layout keeps the scores sequence-sharded rather than
+replicating the cache. Prefill writes the rank's block of the prompt's k
+and v (every kv head: gathered over "model" where the rank computed its
+own). Decode writes the new token's k and v on the rank whose block holds
+``index``, gathers the q heads over "model", runs the decode kernel on the
+block for every head (``decode_attention_partial``: o and its log-sum-exp,
+in fp32), gathers those over the cache's axes and merges them
+(``merge_partials``); each rank then keeps its own q heads' rows for the
+row-parallel ``wo``. The reference leaves that merge to XLA's partitioned
+softmax; no Pallas kernel computes it.
 """
 from __future__ import annotations
 
@@ -17,7 +31,7 @@ import torch.nn as nn
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, head_rms_norm
-from repro_torch.models.modes import current_tp
+from repro_torch.models.modes import current_split_cache, current_tp
 
 _NEG_INF = -1e30
 
@@ -106,6 +120,36 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     return out.to(k_cache.dtype)
 
 
+def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                             cur_len: int, num_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``decode_attention`` on one block of a cache's positions, in the form
+    that ``merge_partials`` joins: (o (B, 1, H, hd) fp32, normalised over
+    the block's first ``cur_len`` >= 1 positions alone; lse (B, H) fp32, the
+    log of the block's softmax denominator), with ``decode_attention``'s
+    mixed precision (the probabilities cast to the cache dtype before P.V,
+    the sum kept in fp32)."""
+    t, hd = k_cache.shape[1], k_cache.shape[3]
+    k = repeat_kv(k_cache, num_heads)
+    v = repeat_kv(v_cache, num_heads)
+    q = (q.float() * (1.0 / np.sqrt(hd))).to(k.dtype)
+    s = torch.einsum("bqhd,bthd->bhqt", q.float(), k.float())
+    mask = torch.arange(t, device=q.device)[None, None, None, :] < cur_len
+    s = torch.where(mask, s, _NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    denom = e.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhqt,bthd->bqhd", (e / denom).to(k.dtype).float(), v.float())
+    return out, (m + torch.log(denom))[:, :, 0, 0]
+
+
+def merge_partials(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """The attention over a whole cache from its blocks' partial states: o
+    (n, ..., hd) fp32 and lse (n, ...) fp32 of n blocks (an empty block's o
+    0 and lse -inf), weighted by exp(lse - max): fp32 (..., hd)."""
+    w = torch.exp(lse - lse.amax(dim=0))
+    return (o * (w / w.sum(dim=0))[..., None]).sum(dim=0)
+
+
 # --------------------------------------------------------------------------- #
 # Full attention sub-block (projections + rope + attention + out-proj)
 # --------------------------------------------------------------------------- #
@@ -169,25 +213,32 @@ def _kv_weights(p: Mapping, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     return p["wk"].index_select(-1, cols), p["wv"].index_select(-1, cols)
 
 
+def _project(x: torch.Tensor, w: torch.Tensor, hd: int, norm, cfg,
+             positions: torch.Tensor, rope: bool) -> torch.Tensor:
+    """The heads of ``x @ w``, qk-normed (``norm``, where the config has
+    it) before RoPE."""
+    b, s, _ = x.shape
+    t = (x @ w).reshape(b, s, w.shape[-1] // hd, hd)
+    if norm is not None and cfg.use_qk_norm:
+        t = head_rms_norm(t, norm)
+    return apply_rope(t, positions, cfg.rope_theta) if rope else t
+
+
+def _project_kv(p: Mapping, cfg, x: torch.Tensor, positions: torch.Tensor,
+                wk: torch.Tensor, wv: torch.Tensor, rope: bool = True):
+    hd = cfg.resolved_head_dim
+    return (_project(x, wk, hd, p.get("k_norm"), cfg, positions, rope),
+            _project(x, wv, hd, None, cfg, positions, False))
+
+
 def _project_qkv(p: Mapping, cfg, x: torch.Tensor, positions: torch.Tensor, *,
                  rope: bool = True):
     """q, k, v of the heads whose columns ``wq``, ``wk`` and ``wv`` hold:
     all of them, or this rank's under tensor parallelism (the local head
     counts come from the widths, so the GQA group stays the config's; kv
     heads replicated beside split q heads as ``_kv_weights`` picks them)."""
-    b, s, _ = x.shape
-    hd = cfg.resolved_head_dim
-    wk, wv = _kv_weights(p, cfg)
-    q = (x @ p["wq"]).reshape(b, s, p["wq"].shape[-1] // hd, hd)
-    k = (x @ wk).reshape(b, s, wk.shape[-1] // hd, hd)
-    v = (x @ wv).reshape(b, s, wv.shape[-1] // hd, hd)
-    if cfg.use_qk_norm:            # qk-norm before RoPE
-        q = head_rms_norm(q, p["q_norm"])
-        k = head_rms_norm(k, p["k_norm"])
-    if rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    q = _project(x, p["wq"], cfg.resolved_head_dim, p.get("q_norm"), cfg, positions, rope)
+    return (q,) + _project_kv(p, cfg, x, positions, *_kv_weights(p, cfg), rope=rope)
 
 
 def self_attention(p: Mapping, cfg, x: torch.Tensor, *, causal: bool = True,
@@ -201,31 +252,81 @@ def self_attention(p: Mapping, cfg, x: torch.Tensor, *, causal: bool = True,
     return out.reshape(b, s, -1) @ p["wo"]
 
 
+def _cache_kv(p: Mapping, cfg, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k and v of every kv head, as a cache holds them, from those of
+    ``_project_qkv``: as they are where they are all of them; gathered over
+    "model" where ``wk`` and ``wv`` are this rank's blocks; projected again
+    from the whole leaves where ``_kv_weights`` picked the kv heads of this
+    rank's q heads."""
+    kh = cfg.num_kv_heads
+    if k.shape[2] == kh:
+        return k, v
+    if p["wk"].shape[-1] < kh * cfg.resolved_head_dim:
+        kv = current_tp().all_gather(torch.stack([k, v]), 3)
+        return kv[0], kv[1]
+    return _project_kv(p, cfg, x, positions, p["wk"], p["wv"])
+
+
+def _block_start(k_cache: torch.Tensor) -> Tuple[int, int]:
+    """(first position of this rank's cache block, positions in the whole
+    cache): (0, T) for a whole cache."""
+    split = current_split_cache()
+    block = k_cache.shape[1]
+    if split is None:
+        return 0, block
+    return split.index * block, split.ranks * block
+
+
 def self_attention_prefill(p: Mapping, cfg, x: torch.Tensor,
                            k_cache: torch.Tensor, v_cache: torch.Tensor) -> torch.Tensor:
     """Causal attention over the prompt; writes its k/v into positions
     [0, S) of this layer's caches (B, T, K, hd) in place, where the
-    reference returns them padded to T."""
+    reference returns them padded to T; on a split cache, the positions of
+    this rank's block."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, cfg, x, positions)
     out = ops.flash_attention(q, k, v, causal=True)
-    k_cache[:, :s] = k
-    v_cache[:, :s] = v
+    k, v = _cache_kv(p, cfg, x, k, v, positions)
+    first, _ = _block_start(k_cache)
+    n = min(max(s - first, 0), k_cache.shape[1])
+    k_cache[:, :n] = k[:, first:first + n]
+    v_cache[:, :n] = v[:, first:first + n]
     return out.reshape(b, s, -1) @ p["wo"]
 
 
 def self_attention_decode(p: Mapping, cfg, x: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, index: int) -> torch.Tensor:
     """One-token decode. x: (B, 1, D); caches (B, T, K, hd), updated in place
-    at ``index`` (a host int). Attends to positions [0, index]."""
+    at ``index`` (a host int). Attends to positions [0, index]. On a split
+    cache the module docstring's steps: the write where the block holds
+    ``index``, the q heads gathered over "model", the kernel's block form
+    on the block (nothing launched on a block with no position below
+    ``index`` + 1) and the merge over the cache's axes."""
     b = x.shape[0]
-    if not 0 <= index < k_cache.shape[1]:
+    first, total = _block_start(k_cache)
+    block = k_cache.shape[1]
+    if not 0 <= index < total:
         # the reference's dynamic_update_slice would clamp silently
-        raise IndexError(f"cache index {index} outside a cache of {k_cache.shape[1]}")
+        raise IndexError(f"cache index {index} outside a cache of {total}")
     positions = torch.full((1,), index, dtype=torch.int64, device=x.device)
     q, k, v = _project_qkv(p, cfg, x, positions)
-    k_cache[:, index] = k[:, 0]
-    v_cache[:, index] = v[:, 0]
-    out = ops.decode_attention(q, k_cache, v_cache, index + 1)
+    k, v = _cache_kv(p, cfg, x, k, v, positions)
+    if first <= index < first + block:
+        k_cache[:, index - first] = k[:, 0]
+        v_cache[:, index - first] = v[:, 0]
+    heads = q.shape[2]
+    if heads != cfg.num_heads:                    # this rank's q heads of all
+        q = current_tp().all_gather(q, 2)
+    if total == block:
+        out = ops.decode_attention(q, k_cache, v_cache, index + 1)
+    else:
+        cur = min(max(index + 1 - first, 0), block)
+        o, lse = ops.decode_attention_partial(q, k_cache, v_cache, cur)
+        parts = current_split_cache().all_gather(torch.cat([o[:, 0], lse[..., None]], -1)[None])
+        out = merge_partials(parts[..., :-1], parts[..., -1])[:, None].to(k_cache.dtype)
+    if heads != cfg.num_heads:
+        i = current_tp().index
+        out = out[:, :, i * heads:(i + 1) * heads]
     return out.reshape(b, 1, -1) @ p["wo"]

@@ -40,6 +40,13 @@ sub-layer on the local blocks between ``tp_copy`` (Megatron's f) and
 ``tp_reduce`` (g); ``tp_sum`` is a sum over the axis whose gradient is
 summed too (a statistic over a split dim). Outside ``tensor_parallel`` nothing is split and nothing is reduced.
 
+A KV cache split by sequence: the serve steps on a mesh
+(``train.serve.build_prefill_step`` / ``build_decode_step``) hold the
+caches as ``parallel.sharding.cache_pspecs`` lays them out, each rank a
+block of the positions of every kv head. ``split_cache(ctx)`` (a
+``SplitCache``: the mesh and the axes the sequence is split over) tells the
+attention sub-block which block its cache is (``models.attention``).
+
 MoE routing over the global batch: under the reference's jit an MoE layer
 routes the global batch, whose rows the sharded step splits over the batch
 ranks. ``global_routing(ctx)`` (a ``GlobalRouting``: the mesh, its batch
@@ -63,6 +70,7 @@ from repro_torch.tree import tree_flatten, tree_unflatten
 _FSDP = contextvars.ContextVar("repro_torch_fsdp_unshard", default=None)
 _TP = contextvars.ContextVar("repro_torch_tensor_parallel", default=None)
 _ROUTING = contextvars.ContextVar("repro_torch_global_routing", default=None)
+_CACHE = contextvars.ContextVar("repro_torch_split_cache", default=None)
 TP_AXIS = "model"        # the axis that ``parallel.sharding``'s specs split the bodies over
 
 
@@ -245,6 +253,11 @@ class TensorParallel:
         with self.timer():
             return self.mesh.all_reduce(x, TP_AXIS, **kw)
 
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The "model" ranks' blocks (not differentiated) joined along ``dim``."""
+        with self.timer():
+            return self.mesh.all_gather(x, TP_AXIS, dim)
+
 
 @contextlib.contextmanager
 def tensor_parallel(tp: Optional[TensorParallel]):
@@ -282,14 +295,71 @@ def tp_sum(x: torch.Tensor) -> torch.Tensor:
     return tp_copy(tp_reduce(x))
 
 
-def parallel_region(split: bool, fn: Callable[[torch.Tensor], torch.Tensor],
-                    x: torch.Tensor) -> torch.Tensor:
+def parallel_region(split: bool, fn: Callable[[torch.Tensor], Any], x: torch.Tensor) -> Any:
     """``fn(x)`` for a sub-layer whose leaves are column- then row-parallel
     blocks (``split``): x enters through f and the partial output leaves
-    through g. A sub-layer with whole leaves runs as at model 1."""
+    through g. ``fn`` returns the output, or a tuple of the output and what
+    else the sub-layer keeps (a serve step's decode state), which passes
+    as it is. A sub-layer with whole leaves runs as at model 1."""
     if not split:
         return fn(x)
-    return tp_reduce(fn(tp_copy(x)))
+    out = fn(tp_copy(x))
+    if isinstance(out, tuple):
+        return (tp_reduce(out[0]),) + out[1:]
+    return tp_reduce(out)
+
+
+# --------------------------------------------------------------------------- #
+# A KV cache split by sequence (the serve steps on a mesh)
+# --------------------------------------------------------------------------- #
+@dataclass(frozen=True)
+class SplitCache:
+    """The KV caches' sequence split over ``axes`` of ``mesh`` (none: the
+    cache is whole on every rank): the rank at ``index`` among ``ranks``
+    holds positions [index·T/ranks, (index+1)·T/ranks) of a T-long cache."""
+    mesh: Any
+    axes: Tuple[str, ...]
+
+    @property
+    def ranks(self) -> int:
+        return self.mesh.axes_size(self.axes)
+
+    @property
+    def index(self) -> int:
+        return self.mesh.index(self.axes)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' ``x`` joined along dim 0 in rank order: the blocks'
+        partial attention states, for the merge."""
+        return self.mesh.all_gather(x, self.axes, 0)
+
+
+@contextlib.contextmanager
+def split_cache(ctx: Optional[SplitCache]):
+    """Within it, a layer's KV cache is this rank's block of ``ctx``'s
+    split; ``None`` is a whole cache."""
+    tok = _CACHE.set(ctx)
+    try:
+        yield ctx
+    finally:
+        _CACHE.reset(tok)
+
+
+def current_split_cache() -> Optional[SplitCache]:
+    """The active split, or None where the cache is whole (one rank's)."""
+    ctx = _CACHE.get()
+    return ctx if ctx is not None and ctx.ranks > 1 else None
+
+
+def cache_block_len(max_len: int) -> int:
+    """The positions of a ``max_len``-long cache that this rank holds."""
+    ctx = current_split_cache()
+    if ctx is None:
+        return max_len
+    if max_len % ctx.ranks:
+        raise ValueError(f"a cache of {max_len} positions does not split over "
+                         f"{ctx.ranks} ranks of {ctx.axes}")
+    return max_len // ctx.ranks
 
 
 # --------------------------------------------------------------------------- #

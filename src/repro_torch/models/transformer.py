@@ -29,7 +29,11 @@ as ``parallel_region``s (their normed input through f, their row-parallel
 output through g) where their leaves are split, an MoE layer whose experts
 are split over "model" as a region of its own (``Block._moe_region``), and
 the embedding and the head are vocab-parallel (``embed_lookup`` and
-``chunked_xent`` given the padded vocabulary).
+``chunked_xent`` given the padded vocabulary). ``prefill`` and
+``decode_step`` run the same regions, for the serve steps on a mesh
+(``train.serve``): there the head's logits are this rank's vocab block,
+which the step gathers, and the KV caches this rank's blocks of positions
+(``models.modes.split_cache``); the Mamba2 states hold this rank's heads.
 """
 from __future__ import annotations
 
@@ -44,8 +48,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, moe
 from repro_torch.models.layers import (chunked_xent, embed_init, embed_lookup,
                                        mlp_apply, mlp_init, rms_norm, unembed)
-from repro_torch.models.modes import (parallel_region, run_layer, tp_copy, tp_reduce,
-                                      unshard_layer_params)
+from repro_torch.models.modes import (cache_block_len, parallel_region, run_layer, tp_copy,
+                                      tp_reduce, unshard_layer_params)
 
 # Families the port cannot build yet, with the ROADMAP §1 item that ports them.
 _NOT_PORTED = {
@@ -111,9 +115,6 @@ class Block(nn.Module):
             return moe.moe_apply(p["moe"], self.cfg, h)
         return mlp_apply(p["mlp"], h, self.cfg.mlp_type), None
 
-    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self._ffn(self.layer_params(), rms_norm(x, self.ln2))[0]
-
     def layer_params(self) -> Dict:
         """The layer's parameters as the reference's tree."""
         p = {"ln1": self.ln1, "attn": dict(self.attn.items()), "ln2": self.ln2}
@@ -123,21 +124,30 @@ class Block(nn.Module):
             p["mlp"] = dict(self.mlp.items())
         return p
 
-    def body(self, p: Dict, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """The layer on the parameters ``p`` (full tensors, or this rank's
-        "model" blocks): (output, the MoE balance loss or None), as the
-        reference's ``_attn_block`` returns its carry."""
+    def _attn_region(self, p: Dict, x: torch.Tensor, fn) -> torch.Tensor:
+        """x plus the attention sub-layer ``fn(attn leaves, normed x)``: a
+        parallel region where ``p``'s q heads are this rank's block."""
         cfg, a = self.cfg, p["attn"]
         split = a["wq"].shape[-1] != cfg.num_heads * cfg.resolved_head_dim
-        x = x + parallel_region(split, lambda h: attn.self_attention(a, cfg, h),
-                                rms_norm(x, p["ln1"]))
+        return x + parallel_region(split, lambda h: fn(a, h), rms_norm(x, p["ln1"]))
+
+    def _ffn_region(self, p: Dict, x: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """x plus the MLP (or MoE) sub-layer, and the MoE balance loss or None."""
         h = rms_norm(x, p["ln2"])
         if "moe" in p:
             out, aux = self._moe_region(p["moe"], h)
         else:
-            split = p["mlp"]["w_up"].shape[-1] != cfg.d_ff
+            split = p["mlp"]["w_up"].shape[-1] != self.cfg.d_ff
             out, aux = parallel_region(split, lambda t: self._ffn(p, t)[0], h), None
         return x + out, aux
+
+    def body(self, p: Dict, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The layer on the parameters ``p`` (full tensors, or this rank's
+        "model" blocks): (output, the MoE balance loss or None), as the
+        reference's ``_attn_block`` returns its carry."""
+        x = self._attn_region(p, x, lambda a, h: attn.self_attention(a, self.cfg, h))
+        return self._ffn_region(p, x)
 
     def _moe_region(self, m: Dict, h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The MoE layer on ``m``: with this rank's block of the experts
@@ -165,14 +175,16 @@ class Block(nn.Module):
         return run_layer(self.apply_layer, self.layer_params(), x)
 
     def prefill(self, x, k_cache, v_cache) -> torch.Tensor:
-        x = x + attn.self_attention_prefill(self.attn, self.cfg,
-                                            rms_norm(x, self.ln1), k_cache, v_cache)
-        return self._mlp(x)
+        p = self.layer_params()
+        x = self._attn_region(p, x, lambda a, h: attn.self_attention_prefill(
+            a, self.cfg, h, k_cache, v_cache))
+        return self._ffn_region(p, x)[0]
 
     def decode(self, x, k_cache, v_cache, index: int) -> torch.Tensor:
-        x = x + attn.self_attention_decode(self.attn, self.cfg, rms_norm(x, self.ln1),
-                                           k_cache, v_cache, index)
-        return self._mlp(x)
+        p = self.layer_params()
+        x = self._attn_region(p, x, lambda a, h: attn.self_attention_decode(
+            a, self.cfg, h, k_cache, v_cache, index))
+        return self._ffn_region(p, x)[0]
 
 
 def _input_specs(model, shape) -> Dict:
@@ -280,10 +292,10 @@ class DecoderLM(nn.Module):
         max_len = s if max_len is None else max_len
         if s > max_len:
             raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
-        spec = self.cache_specs(b, max_len)["k"]
-        cache = {"k": torch.zeros(spec.shape, dtype=spec.dtype, device=self.device),
-                 "v": torch.zeros(spec.shape, dtype=spec.dtype, device=self.device)}
-        x = embed_lookup(self.embed["w"], tokens)
+        shape = self.cache_specs(b, cache_block_len(max_len))["k"].shape
+        cache = {"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
+                 "v": torch.zeros(shape, dtype=self.dtype, device=self.device)}
+        x = embed_lookup(self.embed["w"], tokens, self.cfg.padded_vocab)
         for i, blk in enumerate(self.blocks):
             x = blk.prefill(x, cache["k"][i], cache["v"][i])
         logits = unembed(self._head(), rms_norm(x[:, -1], self.final_norm))
@@ -294,7 +306,7 @@ class DecoderLM(nn.Module):
         """One greedy step: token (B,) at position cache["index"]. Updates
         the cache in place and returns (fp32 logits (B, V), cache)."""
         index = int(cache["index"])
-        x = embed_lookup(self.embed["w"], token[:, None])           # (B, 1, D)
+        x = embed_lookup(self.embed["w"], token[:, None], self.cfg.padded_vocab)  # (B, 1, D)
         for i, blk in enumerate(self.blocks):
             x = blk.decode(x, cache["k"][i], cache["v"][i], index)
         logits = unembed(self._head(), rms_norm(x[:, 0], self.final_norm))
@@ -327,20 +339,27 @@ class MambaBlock(nn.Module):
     def apply_layer(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
         """The reference's ``_mamba_block``: the FSDP gather, then the layer."""
         p = unshard_layer_params(p, self.cfg)
-        m = p["mamba"]
-        return x + parallel_region(m["w_x"].shape[-1] != self.cfg.ssm_inner,
-                                   lambda h: mamba2.mamba_apply(m, self.cfg, h),
-                                   rms_norm(x, p["ln1"]))
+        return x + self._mixer_region(p, lambda m, h: mamba2.mamba_apply(m, self.cfg, h), x)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return run_layer(self.apply_layer, self.layer_params(), x)
 
+    def _mixer_region(self, p: Dict, fn, x: torch.Tensor):
+        """``fn(mamba leaves, normed x)`` on the layer's parameters ``p``, a
+        parallel region where the leaves hold this rank's heads; not yet
+        added to x."""
+        m = p["mamba"]
+        return parallel_region(m["w_x"].shape[-1] != self.cfg.ssm_inner,
+                               lambda h: fn(m, h), rms_norm(x, p["ln1"]))
+
     def prefill(self, x: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
-        out, state = mamba2.mamba_prefill(self.mamba, self.cfg, rms_norm(x, self.ln1))
+        out, state = self._mixer_region(
+            self.layer_params(), lambda m, h: mamba2.mamba_prefill(m, self.cfg, h), x)
         return x + out, state
 
     def decode(self, x: torch.Tensor, state: Dict) -> torch.Tensor:
-        out, _ = mamba2.mamba_decode(self.mamba, self.cfg, rms_norm(x, self.ln1), state)
+        out, _ = self._mixer_region(
+            self.layer_params(), lambda m, h: mamba2.mamba_decode(m, self.cfg, h, state), x)
         return x + out
 
 
@@ -418,13 +437,23 @@ class MambaLM(nn.Module):
                           for name, t in per_layer.items()},
                 "index": 0}
 
-    def _empty_states(self, specs: Dict) -> Dict[str, torch.Tensor]:
-        """Per-layer decode states of ``cache_specs(...)["mamba"]`` on the
-        model's device: the SSD state fp32, the conv windows in the
-        activation dtype."""
-        return {name: torch.empty(t.shape, device=self.device,
-                                  dtype=torch.float32 if name == "ssm" else self.dtype)
-                for name, t in specs.items()}
+    def _prefill_states(self, x: torch.Tensor, on_layer=None) -> Tuple[torch.Tensor, Dict]:
+        """The Mamba2 stack over the prompt's embeddings: (the last layer's
+        output, the per-layer decode states stacked (L, ...) as each layer
+        returns them: the conv windows in the activation dtype, the SSD
+        state fp32, this rank's heads on a mesh). ``on_layer(i, x)`` runs
+        after layer i and returns the new x."""
+        states: Optional[Dict[str, torch.Tensor]] = None
+        for i, blk in enumerate(self.blocks):
+            x, state = blk.prefill(x)
+            if states is None:
+                states = {name: t.new_empty((len(self.blocks),) + t.shape)
+                          for name, t in state.items()}
+            for name, t in state.items():
+                states[name][i].copy_(t)
+            if on_layer is not None:
+                x = on_layer(i, x)
+        return x, states
 
     def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict]:
@@ -432,19 +461,15 @@ class MambaLM(nn.Module):
         logits (B, V) and the cache {"mamba": {"conv_x", "conv_b", "conv_c":
         (L, B, k-1, C) in the activation dtype, "ssm": (L, B, H, N, P) fp32},
         "index": S}."""
-        b, s = tokens.shape
-        states = self._empty_states(self.cache_specs(b, s)["mamba"])
-        x = embed_lookup(self.embed["w"], tokens)
-        for i, blk in enumerate(self.blocks):
-            x, state = blk.prefill(x)
-            for name, t in state.items():
-                states[name][i].copy_(t)
+        s = tokens.shape[1]
+        x, states = self._prefill_states(embed_lookup(self.embed["w"], tokens,
+                                                      self.cfg.padded_vocab))
         return self._logits(x[:, -1]), {"mamba": states, "index": s}
 
     def decode_step(self, cache: Dict, token: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
         """One greedy step: token (B,). Updates the cache in place and
         returns (fp32 logits (B, V), cache)."""
-        x = embed_lookup(self.embed["w"], token[:, None])           # (B, 1, D)
+        x = embed_lookup(self.embed["w"], token[:, None], self.cfg.padded_vocab)
         states = cache["mamba"]
         for i, blk in enumerate(self.blocks):
             x = blk.decode(x, {name: t[i] for name, t in states.items()})
@@ -512,27 +537,25 @@ class HybridLM(MambaLM):
         max_len = s if max_len is None else max_len
         if s > max_len:
             raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
-        specs = self.cache_specs(b, max_len)
-        states = self._empty_states(specs["mamba"])
-        cache = {"mamba": states,
-                 "k": torch.zeros(specs["k"].shape, dtype=self.dtype, device=self.device),
-                 "v": torch.zeros(specs["v"].shape, dtype=self.dtype, device=self.device)}
-        x = embed_lookup(self.embed["w"], tokens)
-        for i, blk in enumerate(self.blocks):
-            x, state = blk.prefill(x)
-            for name, t in state.items():
-                states[name][i].copy_(t)
-            if i in self.attn_layers:
-                a = self.attn_layers.index(i)
-                x = self.shared_attn.prefill(x, cache["k"][a], cache["v"][a])
-        cache["index"] = s
-        return self._logits(x[:, -1]), cache
+        shape = self.cache_specs(b, cache_block_len(max_len))["k"].shape
+        kv = {"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
+              "v": torch.zeros(shape, dtype=self.dtype, device=self.device)}
+
+        def shared(i: int, x: torch.Tensor) -> torch.Tensor:
+            if i not in self.attn_layers:
+                return x
+            a = self.attn_layers.index(i)
+            return self.shared_attn.prefill(x, kv["k"][a], kv["v"][a])
+
+        x, states = self._prefill_states(
+            embed_lookup(self.embed["w"], tokens, self.cfg.padded_vocab), shared)
+        return self._logits(x[:, -1]), {"mamba": states, **kv, "index": s}
 
     def decode_step(self, cache: Dict, token: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
         """One greedy step: token (B,) at position cache["index"]. Updates
         the cache in place and returns (fp32 logits (B, V), cache)."""
         index = int(cache["index"])
-        x = embed_lookup(self.embed["w"], token[:, None])           # (B, 1, D)
+        x = embed_lookup(self.embed["w"], token[:, None], self.cfg.padded_vocab)
         states = cache["mamba"]
         for i, blk in enumerate(self.blocks):
             x = blk.decode(x, {name: t[i] for name, t in states.items()})

@@ -70,19 +70,29 @@ def shard_init_state(params: PyTree, plan: StatePlan, mesh, device=None) -> PyTr
     arrays), on ``device`` (the params' by default): the params' blocks in
     their dtype, the master's blocks in fp32 and zero m and v. The full
     optimizer state is never built."""
-    def block(x, spec, dtype):
-        b = shd.local_block(x, spec, mesh)
-        return b.to(device=device, dtype=dtype, copy=True).contiguous()
-
-    dtypes = tree_map(lambda s: s.dtype, plan.state_specs["params"])
-    local = tree_map(block, params, plan.param_pspecs, dtypes)
-    master = tree_map(lambda x, spec: block(x, spec, torch.float32), params,
+    local = shard_params(params, plan, mesh, device)
+    master = tree_map(lambda x, spec: _block(x, spec, torch.float32, mesh, device), params,
                       plan.opt_pspecs["master"])
     step_device = next(iter(tensors(local))).device
     return {"step": torch.zeros((), dtype=torch.int32, device=step_device),
             "params": local,
             "opt": {"master": master, "m": map_tensors(torch.zeros_like, master),
                     "v": map_tensors(torch.zeros_like, master)}}
+
+
+def _block(x, spec, dtype, mesh, device) -> torch.Tensor:
+    b = shd.local_block(x, spec, mesh)
+    return b.to(device=device, dtype=dtype, copy=True).contiguous()
+
+
+@torch.no_grad()
+def shard_params(params: PyTree, plan: StatePlan, mesh, device=None) -> PyTree:
+    """This rank's blocks of the full ``params`` (as ``shard_init_state``
+    takes them) by ``plan.param_pspecs``, in the params' dtypes, contiguous,
+    on ``device``: what the mesh's serve steps take."""
+    dtypes = tree_map(lambda s: s.dtype, plan.state_specs["params"])
+    return tree_map(lambda x, spec, dtype: _block(x, spec, dtype, mesh, device),
+                    params, plan.param_pspecs, dtypes)
 
 
 def param_tree(model: torch.nn.Module) -> Dict:

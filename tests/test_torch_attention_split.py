@@ -65,11 +65,12 @@ def test_plan_splits_at_the_serve_shape():
 
 
 def test_head_dims_flash_takes_256_and_decode_does_not():
-    """Flash has an hd-256 instantiation on both routes; decode's kernel
-    has no hd-256 lane mapping, so its own check refuses it."""
+    """Flash has an hd-256 instantiation on both routes, and so has decode
+    now (gemma-2b serves): the two kernels take the same head_dims, 80
+    (gpt2-2.7b's) in neither."""
     from repro_torch.kernels import flash_attention as tflash
-    assert 256 in tflash.HEAD_DIMS and 256 not in tdec.HEAD_DIMS
-    assert set(tdec.HEAD_DIMS) < set(tflash.HEAD_DIMS)
+    assert 256 in tflash.HEAD_DIMS and 256 in tdec.HEAD_DIMS
+    assert set(tdec.HEAD_DIMS) == set(tflash.HEAD_DIMS) and 80 not in tdec.HEAD_DIMS
 
 
 def test_plan_splits_refuses_nonsense():
@@ -81,7 +82,8 @@ def test_plan_splits_refuses_nonsense():
 
 @pytest.mark.parametrize("hd,itemsize,group,rows", [
     (128, 2, 2, 64), (128, 2, 8, 32), (128, 4, 1, 32), (16, 2, 4, 512), (64, 4, 4, 64),
-    (112, 2, 1, 64), (112, 4, 1, 32)])
+    (112, 2, 1, 64), (112, 4, 1, 32), (256, 2, 8, 16), (256, 2, 1, 32), (256, 4, 8, 16),
+    (256, 4, 4, 32)])
 def test_rows_per_step_is_the_kernel_geometry(hd, itemsize, group, rows):
     assert tdec.rows_per_step(hd, itemsize, group) == rows
 
@@ -196,3 +198,87 @@ def test_wgmma_flash_tiling_matches_pallas_on_ragged_lengths(s, causal):
     out = wgmma_flash(q, k, v, causal)
     np.testing.assert_allclose(out, pallas, **BF16_TOL)
     assert np.abs(out - pallas).max() <= 0.5 * BF16_TOL["atol"]
+
+
+# --------------------------------------------------------------------------- #
+# the block form: a cache split by sequence, merged across ranks
+# --------------------------------------------------------------------------- #
+def _decode_case(seed, b, t, h, kh, hd):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            for s in ((b, 1, h, hd), (b, t, kh, hd), (b, t, kh, hd))]
+
+
+try:
+    from hypothesis import given, settings
+    from hypothesis import strategies as st
+except ImportError:                     # the property test below then skips
+    given = None
+
+
+def _blocks_merge_to_the_whole(seed, t, cut_points, cur_len, h, kh):
+    """Blocks [c_i, c_{i+1}) of a t-long cache, each run on its first
+    clamp(cur_len - c_i, 0, len) positions as a rank does (an empty block
+    o = 0, lse = -inf, as ``ops.decode_attention_partial`` gives it without
+    running anything), merged: equal to ``decode_attention`` on the whole
+    cache at cur_len, in fp32."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import decode_attention, merge_partials
+    q, k, v = _decode_case(seed, 2, t, h, kh, 16)
+    want = decode_attention(q, k, v, cur_len, h)
+    edges = [0] + sorted(cut_points) + [t]
+    os, lses = [], []
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        cur = min(max(cur_len - lo, 0), hi - lo)
+        o, lse = ops.decode_attention_partial(q, k[:, lo:hi], v[:, lo:hi], cur)
+        assert o.dtype == torch.float32 and lse.shape == (2, h)
+        if cur == 0:
+            assert (o == 0).all() and torch.isneginf(lse).all()
+        os.append(o[:, 0])
+        lses.append(lse)
+    got = merge_partials(torch.stack(os), torch.stack(lses))[:, None]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+
+
+if given is not None:
+    @settings(max_examples=60, deadline=None)
+    @given(t=st.integers(1, 40), data=st.data(), h_kh=st.sampled_from([(4, 4), (8, 1), (4, 2)]),
+           seed=st.integers(0, 2 ** 16))
+    def test_blocks_of_any_split_merge_to_the_whole_cache(t, data, h_kh, seed):
+        """Any split of a cache into contiguous blocks, some of them empty or
+        past cur_len: the blocks' partial states merge to the whole-cache
+        attention (hypothesis draws the cut points and cur_len)."""
+        cuts = data.draw(st.lists(st.integers(0, t), max_size=5), label="cut points")
+        cur_len = data.draw(st.integers(1, t), label="cur_len")
+        _blocks_merge_to_the_whole(seed, t, cuts, cur_len, *h_kh)
+else:
+    def test_blocks_of_any_split_merge_to_the_whole_cache():
+        pytest.skip("hypothesis not installed")
+
+
+@pytest.mark.parametrize("t,cuts,cur_len", [(12, [6], 12), (12, [6], 3), (12, [4, 8], 5),
+                                            (9, [0, 0, 9], 9), (16, [8], 8)])
+def test_blocks_merge_to_the_whole_cache_at_fixed_splits(t, cuts, cur_len):
+    """The rank layouts of the serve steps: halves, thirds, empty blocks at
+    either end, a cur_len that ends exactly at a block's edge."""
+    _blocks_merge_to_the_whole(7, t, cuts, cur_len, 8, 1)
+
+
+def test_block_form_is_the_plain_decode_on_one_block():
+    """One block holding the whole cache: o is ``decode_attention``'s output
+    before its cast, lse the log of its softmax denominator; bf16 caches
+    keep o in fp32."""
+    from repro_torch.kernels.ref import decode_attention_ref
+    q, k, v = _decode_case(3, 2, 20, 8, 2, 32)
+    for dtype in (torch.float32, torch.bfloat16):
+        qd, kd, vd = (x.to(dtype) for x in (q, k, v))
+        o, lse = decode_attention_ref(qd, kd, vd, 13, partial=True)
+        assert o.dtype == torch.float32 and lse.dtype == torch.float32
+        want = decode_attention_ref(qd, kd, vd, 13)
+        np.testing.assert_allclose(o.to(dtype).float().numpy(), want.float().numpy(),
+                                   rtol=1e-2 if dtype == torch.bfloat16 else 1e-6,
+                                   atol=1e-2 if dtype == torch.bfloat16 else 1e-6)
+    kf = k.repeat_interleave(4, dim=2)[:, :13]
+    s = torch.einsum("bqhd,bthd->bht", q * (1.0 / np.sqrt(32)), kf)
+    _, lse = decode_attention_ref(q, k, v, 13, partial=True)
+    np.testing.assert_allclose(lse.numpy(), torch.logsumexp(s, -1).numpy(), rtol=1e-5, atol=1e-5)

@@ -195,6 +195,71 @@ def test_decode_split_hd112_matches_plain(cuda, cur_len, dtype):
                                **_tol(dtype))
 
 
+@pytest.mark.parametrize("partial", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [1, 8])
+@pytest.mark.parametrize("b,t,cur_len", [(2, 128, 1), (2, 128, 77), (4, 516, 516),
+                                         (8, 1032, 1032), (8, 1032, 129)])
+def test_decode_hd256_matches_plain(cuda, b, t, cur_len, group, dtype, partial):
+    """head_dim 256 (gemma-2b's 8 q heads on 1 kv head, and group 1): bf16
+    rows one vector a lane, fp32 rows two; at group 8 the block's shared
+    memory is dynamic (64 KB). The normalised form against
+    ``decode_attention_ref``, the block form's o (fp32) and lse against its
+    plain version; a rank's block of serve_mesh (4, 516) and the one-card
+    serve shape (8, 1032) among the shapes, split as the planner says."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    kh, hd = 1 if group == 8 else 4, 256
+    q = _rand(g, (b, 1, kh * group, hd), dtype, cuda)
+    kc = _rand(g, (b, t, kh, hd), dtype, cuda)
+    vc = _rand(g, (b, t, kh, hd), dtype, cuda)
+    before = decode_attn.decode_attention.launches
+    out = decode_attn.decode_attention(q, kc, vc, cur_len, partial=partial)
+    torch.cuda.synchronize()
+    assert decode_attn.decode_attention.launches == before + 1
+    sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    step = decode_attn.rows_per_step(hd, q.element_size(), group)
+    assert decode_attn.decode_attention.last_split == decode_attn.plan_splits(
+        cur_len, b, kh, sm, step)
+    ref = decode_attention_ref(q, kc, vc, cur_len, partial=partial)
+    if partial:
+        assert out[0].dtype == torch.float32 and out[1].shape == (b, kh * group)
+        for got, want in zip(out, ref):
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **_tol(dtype))
+    else:
+        assert out.dtype == dtype
+        np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                                   **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_block_with_no_position_launches_nothing(cuda, dtype):
+    """A rank whose cache block holds no position below the query's
+    (cur_len 0): ``ops.decode_attention_partial`` gives o = 0 and lse =
+    -inf without a launch, and the merge weighs it 0; blocks split at a
+    position give the whole cache's attention."""
+    from repro_torch.models.attention import merge_partials
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q = _rand(g, (4, 1, 8, 256), dtype, cuda)
+    kc = _rand(g, (4, 1032, 1, 256), dtype, cuda)
+    vc = _rand(g, (4, 1032, 1, 256), dtype, cuda)
+    before = decode_attn.decode_attention.launches
+    o, lse = ops.decode_attention_partial(q, kc[:, 516:], vc[:, 516:], 0)
+    assert decode_attn.decode_attention.launches == before
+    assert (o == 0).all() and torch.isneginf(lse).all() and o.dtype == torch.float32
+    o0, lse0 = ops.decode_attention_partial(q, kc[:, :516], vc[:, :516], 300)
+    assert decode_attn.decode_attention.launches == before + 1
+    merged = merge_partials(torch.stack([o0[:, 0], o[:, 0]]), torch.stack([lse0, lse]))
+    whole = ops.decode_attention(q, kc, vc, 300)
+    np.testing.assert_allclose(merged.to(dtype).float().cpu().numpy(),
+                               whole[:, 0].float().cpu().numpy(), **_tol(dtype))
+    o1, lse1 = ops.decode_attention_partial(q, kc[:, 516:], vc[:, 516:], 400)
+    o0, lse0 = ops.decode_attention_partial(q, kc[:, :516], vc[:, :516], 516)
+    merged = merge_partials(torch.stack([o0[:, 0], o1[:, 0]]), torch.stack([lse0, lse1]))
+    whole = ops.decode_attention(q, kc, vc, 916)
+    np.testing.assert_allclose(merged.to(dtype).float().cpu().numpy(),
+                               whole[:, 0].float().cpu().numpy(), **_tol(dtype))
+
+
 def test_flash_wgmma_refuses_what_it_does_not_take(cuda):
     """The tensor-core route refuses, and never falls back to the fp32
     kernel or the plain version."""
@@ -228,10 +293,12 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         decode_attn.decode_attention(q, kc, kc, 9)       # cur_len > T
     with pytest.raises(ValueError):
         decode_attn.decode_attention(q.half(), kc.half(), kc.half(), 4)
-    q, kc = torch.zeros(1, 1, 8, 256, device=cuda), torch.zeros(1, 8, 1, 256, device=cuda)
+    q, kc = torch.zeros(1, 1, 8, 80, device=cuda), torch.zeros(1, 8, 1, 80, device=cuda)
     launches = decode_attn.decode_attention.launches
-    with pytest.raises(ValueError, match="hd=256"):                 # flash takes it, decode not
+    with pytest.raises(ValueError, match="hd=80"):                  # neither kernel takes 80
         decode_attn.decode_attention(q, kc, kc, 4)
+    with pytest.raises(ValueError, match="hd=80"):
+        decode_attn.decode_attention(q, kc, kc, 4, partial=True)
     assert decode_attn.decode_attention.launches == launches
 
 
