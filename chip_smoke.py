@@ -89,14 +89,19 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 largest magnitude; v and step 2's master are reported.
 7c. train_tp -- the tensor-parallel step (train.step.build_train_step on a
                 (data 2, model 2) mesh: the Megatron split of the layer bodies,
-                the vocab-parallel embedding and cross-entropy) as four gloo
-                ranks sharing the card, as train_mesh. (a) Full qwen3-0.6b,
-                bf16, FSDP and the instant backup, 8 x 1024 tokens a step (4 x
-                1024 a data rank), 2 steps: on every rank and step the
-                all-reduces over "model" the mesh counted equal
-                train.step.model_all_reduces in calls and bytes, 2 x 28 x 2
-                flash launches all on wgmma at q (4, 1024, 8, 128) (the
-                rank's 8 of 16 heads) and none of decode or SSD, finite
+                the vocab-parallel embedding and cross-entropy, and the residual
+                stream split by sequence over "model": a layer body's input is
+                the rank's (4, 512, 1024) block of positions, each split
+                sub-layer entered by an all-gather and left by a reduce-scatter)
+                as four gloo ranks sharing the card, as train_mesh. (a) Full
+                qwen3-0.6b, bf16, FSDP and the instant backup, 8 x 1024 tokens a
+                step (4 x 1024 a data rank), 2 steps: on every rank and step the
+                collectives over "model" the mesh counted equal
+                train.step.model_collectives in calls and bytes (315 calls: 170
+                all-gathers, 142 reduce-scatters, 3 all-reduces), the residual
+                stream entering every layer body the rank's block of positions,
+                2 x 28 x 2 flash launches all on wgmma at q (4, 1024, 8, 128) (the
+                rank's 8 of 16 heads, every position) and none of decode or SSD, finite
                 losses, the first step's loss and global gradient norm within
                 bf16 tolerances (TP_VS_MESH) of train_mesh (a)'s on (4, 1) from
                 the same weights and batches, and the ring's bytes equal to the
@@ -104,18 +109,21 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 the razor's per-device bytes plus the unique leaves that
                 "model" does not split, once more). Prints per step the median
                 over ranks of the step time and its parts (tp_reduce among
-                them), the global gradient norm, device memory and every rank's
-                host RSS. (b) Full width cut to 2
-                layers, fp32, 2 steps on (2, 2) against one NCCL rank, held as
-                train_mesh's (b).
+                them: every collective over "model"), the global gradient norm,
+                device memory and every rank's host RSS, beside what the phase
+                recorded without sequence parallelism (``BEFORE_SP``). (b) Full
+                width cut to 2 layers, fp32, 2 steps on (2, 2) against one NCCL
+                rank, held as train_mesh's (b): the sequence split there too.
 7d. train_moe_mesh -- the MoE in the sharded step: qwen2-moe-a2.7b at full width
                 (64 padded experts, top-4, the shared expert, MHA 16/16 at head_dim
                 128) cut to 2 layers, weights drawn on the card from a seed, on a
                 (data 2, model 2) mesh of four gloo ranks sharing the card: each
                 rank holds 32 experts and routes its 4 x 1024 tokens as 8 whole
-                groups of the global batch's 16, at its capacity. (a) bf16, FSDP
+                groups of the global batch's 16, at its capacity; the residual
+                stream split by sequence over "model", the MoE layer routing the
+                gathered positions. (a) bf16, FSDP
                 and the instant backup, 8 x 1024 tokens a step, 2 steps: the
-                all-reduces over "model" equal model_all_reduces on every rank and
+                collectives over "model" equal model_collectives on every rank and
                 step, 2 x 2 x 2 flash launches a rank on wgmma at q (4, 1024, 8,
                 128), no decode or SSD launch, finite losses, dropped assignments
                 on every rank, the ring's bytes the rank's unique blocks. Prints
@@ -138,8 +146,8 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 the card from a seed, four gloo ranks sharing the card. (a) (data
                 2, model 2), bf16, FSDP and the instant backup, 8 x 1024 tokens a
                 step, 2 steps, cut to 6 of 18 layers (param_count printed): as
-                train_tp, the all-reduces over "model" equal model_all_reduces on
-                every rank and step, 24 flash launches a rank on wgmma at q (4,
+                train_tp (the sequence split), the collectives over "model" equal
+                model_collectives on every rank and step, 24 flash launches a rank on wgmma at q (4,
                 1024, 4, 256) and k/v (4, 1024, 1, 256), the ring's bytes the
                 rank's unique blocks; the step's parts, device memory and host RSS
                 a rank. (b) cut to 2 layers, fp32, 2 steps on (pod 2, data 1,
@@ -1543,6 +1551,16 @@ TRAIN_TP_B = dict(TRAIN_MESH_B, model=2)
 # (4, 1)), relative: bf16 activations in two reduction orders, which on an
 # H100 gave a loss 8.6e-6 and a global gradient norm 2.6e-5 apart
 TP_VS_MESH = dict(loss_rtol=1e-4, grad_norm_rtol=1e-3)
+# what train_tp, train_moe_mesh and train_gemma_mesh (a) recorded before the
+# residual stream was split by sequence over "model" (earlier runs of this
+# script, H100 80GB HBM3, 700.00 W), printed beside this run's numbers; None
+# where a run did not record it
+BEFORE_SP = {
+    "train_tp": dict(step_ms=7516, tp_reduce_s=[1.9, 2.4], peak_device_mem_gb=6.49,
+                     model_all_reduces=[145, 1191238656]),
+    "train_moe_mesh": dict(step_ms=16503, tp_reduce_s=None, peak_device_mem_gb=None),
+    "train_gemma_mesh": dict(step_ms=7279, tp_reduce_s=[0.58, 0.74], peak_device_mem_gb=None),
+}
 # the MoE in the sharded step on a (data 2, model 2) mesh of four gloo ranks
 # sharing the card: qwen2-moe-a2.7b at full width (64 padded experts, top-4,
 # the shared expert, MHA 16/16 at hd 128) cut to 2 layers (1,833,187,328
@@ -1894,10 +1912,11 @@ def _train_mesh_row(recs: list, t: dict, a_s: float, device: str) -> dict:
 
 def tp_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
     """Part (a) of train_tp (and train_moe_mesh) on one rank; its record goes
-    to tmp/a_<rank>.json: per step its time, parts and the all-reduces over
-    "model" the mesh counted beside ``model_all_reduces``, the flash calls'
-    q shapes, the kernel launches, the ring's bytes, device memory, host RSS
-    and, for an MoE, step 1's routing (its groups, capacity and drops)."""
+    to tmp/a_<rank>.json: per step its time, parts and the collectives over
+    "model" the mesh counted beside ``model_collectives``, the flash calls'
+    q shapes, the residual stream's shapes entering a layer body, the kernel
+    launches, the ring's bytes, device memory, host RSS and, for an MoE,
+    step 1's routing (its groups, capacity and drops)."""
     import gc
 
     import torch
@@ -1906,22 +1925,28 @@ def tp_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
     from repro_torch.kernels import ops
     from repro_torch.models import moe
     from repro_torch.parallel import sharding as shd
-    from repro_torch.train.step import model_all_reduces
+    from repro_torch.models import transformer
+    from repro_torch.train.step import model_collectives
     from repro_torch.tree import tree_flatten
 
     cfg, mesh, arts, make_state, local, model = _mesh_build(world, t, device)
-    q_shapes, kv_shapes = set(), set()
-    flash = ops.flash_attention
+    q_shapes, kv_shapes, residual_shapes = set(), set(), set()
+    flash, run_layer = ops.flash_attention, transformer.run_layer
 
     def recording(q, k, *args, **kw):
         q_shapes.add(tuple(q.shape))
         kv_shapes.add(tuple(k.shape))
         return flash(q, k, *args, **kw)
-    ops.flash_attention = recording
+
+    def layer(*args):
+        residual_shapes.add(tuple(args[-1].shape))
+        return run_layer(*args)
+    ops.flash_attention, transformer.run_layer = recording, layer
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     art = arts[True]
-    formula = model_all_reduces(model, mesh, local[0].shape[0], t["seq_len"], fsdp_params=True)
+    formula = _counts(model_collectives(model, mesh, local[0].shape[0], t["seq_len"],
+                                        fsdp_params=True))
     state = make_state(True)
     del make_state, model                       # the full weights
     gc.collect()
@@ -1950,8 +1975,8 @@ def tp_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
         records.append(dict(step=i + 1, step_ms=step_ms, loss=float(metrics["loss"]),
                             aux=float(metrics["aux"]), lr=float(metrics["lr"]),
                             grad_norm=float(art.step_fn.last_grad_norm),
-                            model_all_reduces=mesh.counts.get(("all_reduce", ("model",)),
-                                                              [0, 0]),
+                            model_collectives=_counts({k: v for k, v in mesh.counts.items()
+                                                       if k[1] == ("model",)}),
                             **_timing_ms(art)))
         rss[f"step{i + 1}"] = host_rss_gb()
     launches = read_launches()
@@ -1972,7 +1997,7 @@ def tp_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
                block_bytes=block_bytes, model_replicated_bytes=model_replicated,
                launches=launches, flash_routes=dict(fa.flash_attention.routes),
                flash_q_shapes=sorted(q_shapes), flash_kv_shapes=sorted(kv_shapes),
-               routing=routing,
+               residual_shapes=sorted(residual_shapes), routing=routing,
                peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
                device_free_gb_setup=free_gb,
                ring_bytes_sent=sent, razor_bytes=art.razor.unique_bytes_per_device_ring,
@@ -2034,10 +2059,21 @@ def _train_tp_row(phase: str, recs: list, t: dict, a_s: float, device: str,
         fail(f"{phase}: step 1 loss {first['loss']} and gradient norm {first['grad_norm']} "
              f"against train_mesh's {ref['losses'][0]} and {ref['grad_norms'][0]} on (4, 1): "
              f"{vs_mesh}, tolerances {TP_VS_MESH}")
-    counts = [s["model_all_reduces"] for r in recs for s in r["records"]]
+    counts = [s["model_collectives"] for r in recs for s in r["records"]]
     if any(c != recs[0]["formula"] for c in counts):
-        fail(f"{phase}: all-reduces over 'model' (calls, bytes) {counts}, the formula "
-             f"{recs[0]['formula']}")
+        fail(f"{phase}: collectives over 'model' [op, axes, calls, bytes] {counts}, the "
+             f"formula {recs[0]['formula']}")
+    # the reference's constrain(x, BATCH, "model", None): the sequence splits
+    # over "model" where that axis divides it, and every layer body's input
+    # is then the rank's block of positions
+    sp = t["seq_len"] % t["model"] == 0
+    residual = [rows, t["seq_len"] // t["model"] if sp else t["seq_len"], cfg.d_model]
+    kinds = {c[0] for c in recs[0]["formula"]}
+    if (any(r["residual_shapes"] != [residual] for r in recs)
+            or sp != ({"all_gather", "reduce_scatter"} <= kinds)):
+        fail(f"{phase}: residual streams {[r['residual_shapes'] for r in recs]} and "
+             f"collectives {sorted(kinds)}; expected {residual} in every rank"
+             + (", gathers and reduce-scatters" if sp else ""))
     group = sum(r["ring_bytes_sent"] for r in recs if r["coords"]["data"] == 0)
     razor = recs[0]["razor_bytes"] + (t["model"] - 1) * recs[0]["model_replicated_bytes"]
     if not all(r["ring_bytes_sent"] == r["block_bytes"] for r in recs) or group != razor:
@@ -2075,11 +2111,16 @@ def _train_tp_row(phase: str, recs: list, t: dict, a_s: float, device: str,
                 param_gather_ms=per_step("param_gather_ms"),
                 neighbor_backup_ms=per_step("backup_ms"), median_step_ms=median_ms,
                 tokens_per_s=t["global_batch"] * t["seq_len"] / (median_ms / 1e3),
-                step_note="medians over the ranks; tp_reduce: every all-reduce over "
-                          "'model', forward, backward and the replicated leaves' gradients",
-                model_all_reduces=recs[0]["formula"],
-                model_all_reduces_note="(calls, bytes) a rank and step, equal on every "
-                                       "rank and step to train.step.model_all_reduces",
+                step_note="medians over the ranks; tp_reduce: every collective over "
+                          "'model', forward, backward and the summed leaves' gradients",
+                sequence_parallel=sp, residual_shape=residual,
+                model_collectives=recs[0]["formula"],
+                model_collectives_note="[op, axes, calls, bytes] a rank and step, equal on "
+                                       "every rank and step to train.step.model_collectives",
+                before_sp=BEFORE_SP.get(phase),
+                before_sp_note="what the same phase recorded before the residual stream "
+                               "was split by sequence (H100 80GB HBM3, 700.00 W; another "
+                               "host and call, so host times compare only roughly)",
                 **extra, peak_device_mem_gb=[r["peak_device_mem_gb"] for r in recs],
                 device_free_gb_setup=[r["device_free_gb_setup"] for r in recs],
                 host_rss_gb=[r["host_rss_gb"] for r in recs],

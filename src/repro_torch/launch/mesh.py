@@ -24,9 +24,16 @@ sharding rules; its collectives over axes of size 1 return their input.
 
 ``copy_to`` and ``reduce_from`` are Megatron's f and g over an axis, as
 autograd functions: the identity forward with an all-reduce of the gradient
-backward, and an all-reduce forward with the identity backward. ``counts``
-holds, for each (collective, axes), the calls that moved data and the bytes
-this rank handed them; ``reset_counts`` clears it.
+backward, and an all-reduce forward with the identity backward.
+``gather_to`` and ``scatter_from`` are their counterparts where the
+activation between regions is this rank's block of a dim (the sequence,
+under sequence parallelism): an all-gather forward with a reduce-scatter of
+the gradient backward, and a reduce-scatter forward with an all-gather
+backward; around a region that every rank computes alike (``summed``
+False), the gather's backward and the scatter's forward take this rank's
+block instead of summing. ``counts`` holds, for each (collective, axes),
+the calls that moved data and the bytes this rank handed them;
+``reset_counts`` clears it.
 """
 from __future__ import annotations
 
@@ -258,9 +265,36 @@ class Mesh:
         activation again."""
         return _ReduceFrom.apply(x, self, _axes(axes), timer)
 
+    def gather_to(self, x: torch.Tensor, axes: Axes, dim: int,
+                  timer: Callable[[], ContextManager], *, summed: bool = True) -> torch.Tensor:
+        """The blocks of ``axes``'s ranks joined along ``dim``: where this
+        rank's block of an activation enters a region that reads all of it.
+        The gradient is reduce-scattered back where each rank's is a part of
+        the sum (``summed``: the region's leaves are this rank's blocks),
+        else this rank's block of it is taken (every rank computed the same
+        whole gradient; a sum would count it once a rank)."""
+        return _GatherTo.apply(x, self, _axes(axes), dim, timer, summed)
+
+    def scatter_from(self, x: torch.Tensor, axes: Axes, dim: int,
+                     timer: Callable[[], ContextManager], *, summed: bool = True
+                     ) -> torch.Tensor:
+        """This rank's block along ``dim`` of the sum of ``x`` over ``axes``
+        (``summed``: the ranks' partial results of a region) or of ``x``
+        itself (every rank computed the same whole); the gradient's blocks
+        all-gathered."""
+        return _ScatterFrom.apply(x, self, _axes(axes), dim, timer, summed)
+
 
 def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
+
+
+def _block(mesh: Mesh, x: torch.Tensor, axes: Tuple[str, ...], dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` cut along ``dim`` over ``axes``' ranks (a copy)."""
+    n = mesh.axes_size(axes)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split {n} ways")
+    return x.chunk(n, dim=dim)[mesh.index(axes)].clone(memory_format=torch.contiguous_format)
 
 
 class _CopyTo(torch.autograd.Function):
@@ -284,6 +318,38 @@ class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None, None, None
+
+
+class _GatherTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh: Mesh, axes: Tuple[str, ...], dim: int, timer, summed: bool):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.timer, ctx.summed = mesh, axes, dim, timer, summed
+        with timer():
+            return mesh.all_gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.summed:
+            return _block(ctx.mesh, g, ctx.axes, ctx.dim), None, None, None, None, None
+        with ctx.timer():
+            return (ctx.mesh.reduce_scatter(g.contiguous(), ctx.axes, ctx.dim),
+                    None, None, None, None, None)
+
+
+class _ScatterFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh: Mesh, axes: Tuple[str, ...], dim: int, timer, summed: bool):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.timer = mesh, axes, dim, timer
+        if not summed:             # a copy: an output that views the input would alias it
+            return _block(mesh, x, axes, dim)
+        with timer():
+            return mesh.reduce_scatter(x.contiguous(), axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        with ctx.timer():
+            return (ctx.mesh.all_gather(g.contiguous(), ctx.axes, ctx.dim),
+                    None, None, None, None, None)
 
 
 def _unravel(rank: int, sizes) -> Tuple[int, ...]:

@@ -15,7 +15,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from repro_torch.models.modes import current_tp, tp_reduce
+from repro_torch.models.modes import current_tp, seq_scatter, sequence_split, tp_reduce
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -93,14 +93,21 @@ def embed_lookup(w: torch.Tensor, tokens: torch.Tensor, vocab: Optional[int] = N
     """The rows of ``w`` (V, D) at ``tokens``. Where ``w`` has fewer rows
     than ``vocab`` it is this rank's block of a vocab-parallel table (under
     ``modes.tensor_parallel``): the tokens outside its rows look up zeros,
-    and the sum over the ranks (``tp_reduce``) gives every rank the rows."""
-    if vocab is None or w.shape[0] == vocab:
-        return w[tokens]
-    rows = w.shape[0]
-    local = tokens - current_tp().index * rows
-    own = (local >= 0) & (local < rows)
-    x = torch.where(own[..., None], w[local.clamp(0, rows - 1)], 0)
-    return tp_reduce(x)
+    and the sum over the ranks (``tp_reduce``) gives every rank the rows.
+    Under sequence parallelism the result is this rank's block of the
+    positions: the sum is a reduce-scatter along the sequence
+    (``seq_scatter``), and a whole table's rows are cut to the block."""
+    split = vocab is not None and w.shape[0] != vocab
+    if not split:
+        x = w[tokens]
+    else:
+        rows = w.shape[0]
+        local = tokens - current_tp().index * rows
+        own = (local >= 0) & (local < rows)
+        x = torch.where(own[..., None], w[local.clamp(0, rows - 1)], 0)
+    if sequence_split():
+        return seq_scatter(x, split)
+    return tp_reduce(x) if split else x
 
 
 def unembed(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -148,10 +155,12 @@ class _ChunkedXent(torch.autograd.Function):
     and one SUM all-reduce over the axis make them global (the log-sum-exp
     of the ranks' log-sum-exps). The backward's softmax takes the saved
     global log-sum-exp, ``dw`` is the rank's own rows and the partial ``dx``
-    is all-reduced once, after the chunks."""
+    is all-reduced once, after the chunks, unless ``reduce_dx`` is False:
+    under sequence parallelism ``x`` was gathered from the ranks' blocks,
+    whose backward reduce-scatters ``dx`` instead."""
 
     @staticmethod
-    def forward(ctx, x, w, labels, chunk: int, tp):
+    def forward(ctx, x, w, labels, chunk: int, tp, reduce_dx: bool):
         lo = tp.index * w.shape[0] if tp is not None else 0
         lses, labs = [], []
         for start in range(0, x.shape[1], chunk):
@@ -167,7 +176,7 @@ class _ChunkedXent(torch.autograd.Function):
         for start in range(0, x.shape[1], chunk):
             total = total + (lse[:, start:start + chunk] - lab[:, start:start + chunk]).sum()
         ctx.save_for_backward(x, w, labels, lse)
-        ctx.chunk, ctx.tp, ctx.lo = chunk, tp, lo
+        ctx.chunk, ctx.tp, ctx.lo, ctx.reduce_dx = chunk, tp, lo, reduce_dx
         return total
 
     @staticmethod
@@ -190,9 +199,9 @@ class _ChunkedXent(torch.autograd.Function):
             d_logits = (probs * g).reshape(-1, w.shape[0]).to(w.dtype)
             dx[:, start:start + chunk] = (d_logits @ w).reshape(x_k.shape)
             dw += _mm_fp32(d_logits.t(), x_k.reshape(-1, x.shape[-1]).to(w.dtype))
-        if ctx.tp is not None:
+        if ctx.tp is not None and ctx.reduce_dx:
             dx = ctx.tp.all_reduce(dx)
-        return dx, dw.to(w.dtype), None, None, None
+        return dx, dw.to(w.dtype), None, None, None, None
 
 
 def _label_logits(logits: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
@@ -220,10 +229,12 @@ def chunked_xent(w: torch.Tensor, x: torch.Tensor, labels: torch.Tensor, *,
     forward and again in the backward, which recomputes them. Where ``w``
     has fewer rows than ``vocab`` it is this rank's block of a
     vocab-parallel head (under ``modes.tensor_parallel``), and the live
-    logits are (B, chunk, V / tp). Port of the reference's
+    logits are (B, chunk, V / tp). Under sequence parallelism ``x`` holds
+    every position, gathered by the caller (``modes.seq_gather``), whose
+    backward sums ``dx`` over the ranks. Port of the reference's
     ``chunked_xent``."""
     b, s, _ = x.shape
     x = bf16_grad_barrier(x)
     tp = None if vocab is None or w.shape[0] == vocab else current_tp()
-    total = _ChunkedXent.apply(x, w, labels, min(chunk, s), tp)
+    total = _ChunkedXent.apply(x, w, labels, min(chunk, s), tp, not sequence_split())
     return total / (b * s)

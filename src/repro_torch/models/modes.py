@@ -31,14 +31,29 @@ full remat around its scan body does the same. Elsewhere it is a plain call.
 The recompute stops at the last tensor the backward saves (the checkpoint's
 early stop), so a body's final row-parallel all-reduce is not run again.
 
-Tensor parallelism (the Megatron layout, without sequence parallelism): the
-sharded step binds each rank's blocks of the leaves that its specs split
-over "model", and the layer bodies see a split leaf by its width (a local
-width below the config's). ``tensor_parallel(tp)`` turns it on, over the
-"model" axis of tp's mesh, for the code it wraps; ``parallel_region`` runs a
-sub-layer on the local blocks between ``tp_copy`` (Megatron's f) and
-``tp_reduce`` (g); ``tp_sum`` is a sum over the axis whose gradient is
-summed too (a statistic over a split dim). Outside ``tensor_parallel`` nothing is split and nothing is reduced.
+Tensor parallelism (the Megatron layout): the sharded step binds each
+rank's blocks of the leaves that its specs split over "model", and the
+layer bodies see a split leaf by its width (a local width below the
+config's). ``tensor_parallel(tp)`` turns it on, over the "model" axis of
+tp's mesh, for the code it wraps; ``parallel_region`` runs a sub-layer on
+the local blocks between ``tp_copy`` (Megatron's f) and ``tp_reduce`` (g);
+``tp_sum`` is a sum over the axis whose gradient is summed too (a statistic
+over a split dim). Outside ``tensor_parallel`` nothing is split and nothing
+is reduced.
+
+Sequence parallelism of the residual stream (the reference's
+``constrain(x, BATCH, "model", None)`` between sub-layers): under
+``sequence_parallel(True)``, which only the train step sets and only where
+``splits_sequence`` says the reference's constraint keeps "model", the
+residual stream between sub-layers is this rank's block of the positions
+(dim 1). The norms and residual adds run on that block; a region is entered
+by ``seq_gather`` (an all-gather over "model", whose backward
+reduce-scatters) and left by ``seq_scatter`` (a reduce-scatter, whose
+backward all-gathers), in place of f and g. A sub-layer whose leaves are
+whole is entered and left the same way without the sums: every rank
+computes it alike on the gathered positions and keeps its block. The serve
+steps never set it: their prefill and decode run as the reference's, whose
+bodies have no such constraint.
 
 A KV cache split by sequence: the serve steps on a mesh
 (``train.serve.build_prefill_step`` / ``build_decode_step``) hold the
@@ -71,6 +86,7 @@ _FSDP = contextvars.ContextVar("repro_torch_fsdp_unshard", default=None)
 _TP = contextvars.ContextVar("repro_torch_tensor_parallel", default=None)
 _ROUTING = contextvars.ContextVar("repro_torch_global_routing", default=None)
 _CACHE = contextvars.ContextVar("repro_torch_split_cache", default=None)
+_SP = contextvars.ContextVar("repro_torch_sequence_parallel", default=False)
 TP_AXIS = "model"        # the axis that ``parallel.sharding``'s specs split the bodies over
 
 
@@ -215,14 +231,15 @@ def run_layer(body: Callable, *args):
     """``body(*args)``; under ``fsdp_unshard`` with autograd recording,
     recomputed in the backward (the module docstring says why). The
     recomputation runs in the autograd engine's thread, which does not see
-    this thread's context, so the layout, the tensor-parallel axis and the
-    MoE's global routing go with it."""
-    layout, tp, routing = _FSDP.get(), _TP.get(), _ROUTING.get()
+    this thread's context, so the layout, the tensor-parallel axis, the
+    sequence parallelism and the MoE's global routing go with it."""
+    layout, tp, sp, routing = _FSDP.get(), _TP.get(), _SP.get(), _ROUTING.get()
     if layout is None or not torch.is_grad_enabled():
         return body(*args)
 
     def again(*a):
-        with fsdp_unshard(layout), tensor_parallel(tp), global_routing(routing):
+        with fsdp_unshard(layout), tensor_parallel(tp), sequence_parallel(sp), \
+                global_routing(routing):
             return body(*a)
 
     return checkpoint(again, *args, use_reentrant=False)
@@ -298,15 +315,65 @@ def tp_sum(x: torch.Tensor) -> torch.Tensor:
 def parallel_region(split: bool, fn: Callable[[torch.Tensor], Any], x: torch.Tensor) -> Any:
     """``fn(x)`` for a sub-layer whose leaves are column- then row-parallel
     blocks (``split``): x enters through f and the partial output leaves
-    through g. ``fn`` returns the output, or a tuple of the output and what
-    else the sub-layer keeps (a serve step's decode state), which passes
-    as it is. A sub-layer with whole leaves runs as at model 1."""
-    if not split:
+    through g, or, under sequence parallelism, x (this rank's block of the
+    positions) enters through ``seq_gather`` and the output leaves through
+    ``seq_scatter``. ``fn`` returns the output, or a tuple of the output and
+    what else the sub-layer keeps (a serve step's decode state, the MoE's
+    balance loss), which passes as it is. A sub-layer with whole leaves runs
+    as at model 1, on the gathered positions under sequence parallelism."""
+    if _SP.get():
+        out, leave = fn(seq_gather(x, split)), lambda t: seq_scatter(t, split)
+    elif split:
+        out, leave = fn(tp_copy(x)), tp_reduce
+    else:
         return fn(x)
-    out = fn(tp_copy(x))
     if isinstance(out, tuple):
-        return (tp_reduce(out[0]),) + out[1:]
-    return tp_reduce(out)
+        return (leave(out[0]),) + out[1:]
+    return leave(out)
+
+
+# --------------------------------------------------------------------------- #
+# Sequence parallelism of the residual stream over "model"
+# --------------------------------------------------------------------------- #
+def splits_sequence(tp: int, seq: int) -> bool:
+    """Whether the reference's ``constrain(x, BATCH, "model", None)`` keeps
+    "model" on a residual stream of ``seq`` positions: a "model" axis of
+    ``tp`` > 1 that divides it (``parallel.constraints`` drops an axis that
+    does not divide its dim)."""
+    return tp > 1 and seq % tp == 0
+
+
+@contextlib.contextmanager
+def sequence_parallel(on: bool):
+    """Within it (``on``, and under ``tensor_parallel``), the residual
+    stream between sub-layers is this rank's block of the positions."""
+    tok = _SP.set(bool(on))
+    try:
+        yield on
+    finally:
+        _SP.reset(tok)
+
+
+def sequence_split() -> bool:
+    """True where the residual stream is this rank's block of positions."""
+    return _SP.get()
+
+
+def seq_gather(x: torch.Tensor, split: bool) -> torch.Tensor:
+    """Every position of ``x`` (B, S/tp, ...), gathered from the "model"
+    ranks' blocks; the gradient reduce-scattered back where the reader's
+    leaves are split (``split``: each rank's gradient a part), else this
+    rank's block of it."""
+    tp = current_tp()
+    return tp.mesh.gather_to(x, TP_AXIS, 1, tp.timer, summed=split)
+
+
+def seq_scatter(x: torch.Tensor, split: bool) -> torch.Tensor:
+    """This rank's block of the positions of ``x`` (B, S, ...): of the sum
+    over the "model" ranks where ``split`` (their partial outputs), else of
+    ``x`` as every rank computed it; the gradient all-gathered."""
+    tp = current_tp()
+    return tp.mesh.scatter_from(x, TP_AXIS, 1, tp.timer, summed=split)
 
 
 # --------------------------------------------------------------------------- #

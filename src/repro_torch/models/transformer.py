@@ -29,9 +29,17 @@ as ``parallel_region``s (their normed input through f, their row-parallel
 output through g) where their leaves are split, an MoE layer whose experts
 are split over "model" as a region of its own (``Block._moe_region``), and
 the embedding and the head are vocab-parallel (``embed_lookup`` and
-``chunked_xent`` given the padded vocabulary). ``prefill`` and
-``decode_step`` run the same regions, for the serve steps on a mesh
-(``train.serve``): there the head's logits are this rank's vocab block,
+``chunked_xent`` given the padded vocabulary). Under the train step's
+sequence parallelism (``models.modes.sequence_parallel``, where the
+reference's ``constrain(x, BATCH, "model", None)`` keeps "model") the
+residual stream between sub-layers is this rank's block of positions: the
+embedding arrives as a block, the norms and residual adds run on it, each
+region gathers its normed input and reduce-scatters its output (the MoE
+layer's included, so that routing sees every position, as the reference's
+``moe.py`` constrains its input back to replicated), and the final norm runs
+on the block before the head gathers it (``_to_head``). ``prefill`` and
+``decode_step`` run the same regions without it, for the serve steps on a
+mesh (``train.serve``): there the head's logits are this rank's vocab block,
 which the step gathers, and the KV caches this rank's blocks of positions
 (``models.modes.split_cache``); the Mamba2 states hold this rank's heads.
 """
@@ -48,8 +56,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, moe
 from repro_torch.models.layers import (chunked_xent, embed_init, embed_lookup,
                                        mlp_apply, mlp_init, rms_norm, unembed)
-from repro_torch.models.modes import (cache_block_len, parallel_region, run_layer, tp_copy,
-                                      tp_reduce, unshard_layer_params)
+from repro_torch.models.modes import (cache_block_len, parallel_region, run_layer, seq_gather,
+                                      sequence_split, unshard_layer_params)
 
 # Families the port cannot build yet, with the ROADMAP §1 item that ports them.
 _NOT_PORTED = {
@@ -71,6 +79,14 @@ def resolve_device(device=None) -> torch.device:
                                "plain PyTorch path on the CPU")
         device = "cuda"
     return torch.device(device)
+
+
+def _to_head(x: torch.Tensor, w: torch.Tensor, vocab: int) -> torch.Tensor:
+    """The final-normed ``x`` as the head ``w`` reads it: under sequence
+    parallelism every position, gathered from the ranks' blocks (the
+    gradient reduce-scattered where ``w`` is this rank's vocab block, whose
+    ``dx`` is a part of the sum); else ``x``."""
+    return seq_gather(x, w.shape[0] != vocab) if sequence_split() else x
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -152,8 +168,10 @@ class Block(nn.Module):
     def _moe_region(self, m: Dict, h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The MoE layer on ``m``: with this rank's block of the experts
         (and of the shared expert's columns and rows) a region of its own,
-        f on the normed input and g on the summed routed and shared output;
-        with whole leaves as at model 1."""
+        entered by the normed input and left by the summed routed and shared
+        output (``parallel_region``); with whole leaves as at model 1. Under
+        sequence parallelism it routes the gathered positions, as many
+        tokens as without it."""
         cfg = self.cfg
         split = m["w_gate"].shape[0] != cfg.padded_experts
         if "shared" in m and split != (m["shared"]["w_up"].shape[-1]
@@ -161,10 +179,7 @@ class Block(nn.Module):
             raise NotImplementedError(
                 f"{cfg.name}: the routed experts and the shared expert split differently "
                 "over 'model'; use a 'model' axis that divides both")
-        if not split:
-            return moe.moe_apply(m, cfg, h)
-        out, aux = moe.moe_apply(m, cfg, tp_copy(h))
-        return tp_reduce(out), aux
+        return parallel_region(split, lambda t: moe.moe_apply(m, cfg, t), h)
 
     def apply_layer(self, p: Dict, x: torch.Tensor
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -248,15 +263,17 @@ class DecoderLM(nn.Module):
         return self.embed["w"] if self.cfg.tie_embeddings else self.lm_head["w"]
 
     def _hidden(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The final-normed hidden states of ``tokens`` and the layers'
-        summed MoE balance loss (0 for a dense model)."""
+        """The final-normed hidden states of ``tokens`` as the head reads
+        them (``_to_head``) and the layers' summed MoE balance loss (0 for a
+        dense model)."""
         x = embed_lookup(self.embed["w"], tokens, self.cfg.padded_vocab)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.blocks:
             x, lb = blk(x)
             if lb is not None:
                 aux = aux + lb
-        return rms_norm(x, unshard_layer_params(self.final_norm)), aux
+        x = rms_norm(x, unshard_layer_params(self.final_norm))
+        return _to_head(x, self._head(), self.cfg.padded_vocab), aux
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, S) -> fp32 logits (B, S, padded_vocab), causal."""
@@ -400,8 +417,13 @@ class MambaLM(nn.Module):
         self.final_norm.zero_()
         return self
 
+    def _normed(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` final-normed, as the head reads it (``_to_head``)."""
+        x = rms_norm(x, unshard_layer_params(self.final_norm))
+        return _to_head(x, self.embed["w"], self.cfg.padded_vocab)
+
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        return unembed(self.embed["w"], rms_norm(x, unshard_layer_params(self.final_norm)))
+        return unembed(self.embed["w"], self._normed(x))
 
     def _hidden(self, tokens: torch.Tensor) -> torch.Tensor:
         x = embed_lookup(self.embed["w"], tokens, self.cfg.padded_vocab)
@@ -419,7 +441,7 @@ class MambaLM(nn.Module):
         ``chunked_xent``. Returns (total, {"xent", "aux"}) as
         ``DecoderLM.loss``; aux is 0."""
         tokens = batch["tokens"].long()
-        x = rms_norm(self._hidden(tokens[:, :-1]), unshard_layer_params(self.final_norm))
+        x = self._normed(self._hidden(tokens[:, :-1]))
         xent = chunked_xent(self.embed["w"], x, tokens[:, 1:], vocab=self.cfg.padded_vocab)
         return xent, {"xent": xent,
                       "aux": torch.zeros((), dtype=torch.float32, device=x.device)}

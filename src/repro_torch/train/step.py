@@ -16,45 +16,66 @@ razor-redundant. The one-device step of the simulated cluster is
 Optional beyond-paper feature: int8 cross-pod gradient compression
 (``parallel.compression``) applied before the optimizer update.
 
-Tensor parallelism over "model" (the Megatron layout, no sequence
-parallelism): activations are replicated over "model"; ``wq``, ``wk``,
+Tensor parallelism over "model" (the Megatron layout): ``wq``, ``wk``,
 ``wv``, ``w_gate``, ``w_up`` and Mamba2's head-split leaves are
 column-parallel blocks, ``wo``, ``w_down`` and Mamba2's ``out`` row-parallel
-ones followed by one all-reduce; the embedding and the head are
-vocab-parallel with a distributed cross-entropy. Which leaf is split comes
-from the specs (``parallel.sharding``), the collectives from
-``models.modes``. The all-reduces over "model" of one step on a rank
-(``model_all_reduces`` counts them), with microbatches of b rows of S
-positions, A = b·S·D activation bytes in the model dtype and F = 1 under
-FSDP (else 0):
+ones; the embedding and the head are vocab-parallel with a distributed
+cross-entropy. Which leaf is split comes from the specs
+(``parallel.sharding``), the collectives from ``models.modes``.
 
-  each microbatch                                 calls       bytes
-    the vocab-parallel embedding's lookup (g)     1           A
-    each split attention, MLP or MoE sub-layer:   2 + F       (2 + F) A
-      g on its output, f's backward on its
-      input's gradient
-    each split Mamba2 mixer: those two, and the   2 (2 + F)   (2 + F)(A + 4bS)
-      mean of squares of its gated norm (b·S
-      fp32), forward and backward
-    the vocab-parallel cross-entropy: the MAX of  3           A + 12bS
-      the log-sum-exps, the SUM of their
-      exponentials with the label logits (fp32),
-      f's backward on its input's gradient
+Sequence parallelism of the residual stream (the reference's
+``constrain(x, BATCH, "model", None)``): where "model" divides the
+sequence (``models.modes.splits_sequence``) the residual stream between
+sub-layers is a rank's block of S/tp positions. The norms and residual adds
+run on it, each split sub-layer is entered by an all-gather over "model" and
+left by a reduce-scatter, and the norms' gradients (``ln1``, ``ln2``,
+``final_norm``) are each rank's part of the sum. Elsewhere (a sequence that
+"model" does not divide) activations are replicated over "model", each
+split sub-layer is entered by f (Megatron's identity, all-reduce backward)
+and left by g (an all-reduce). There is no switch: this is the reference's
+own rule.
+
+The collectives over "model" of one step on a rank (``model_collectives``
+counts them), with microbatches of b rows of S positions, A = b·S·D
+activation bytes in the model dtype, a = A/tp, st = 4bS (one fp32 value a
+position), AG / RS / AR an all-gather / reduce-scatter / all-reduce of the
+bytes this rank hands it, and F = 1 under FSDP (else 0):
+
+  each microbatch              sequence split           replicated (Megatron)
+    the vocab-parallel         RS A; backward AG a      AR A
+      embedding (a whole
+      table: backward AG a)
+    each split attention,      AG a, RS A; backward     AR A; backward AR A
+      MLP or MoE sub-layer      AG a, RS A
+    each split Mamba2 mixer    AG a, AR st, RS A;       AR st, AR A; backward
+      (AR st: the mean of       backward the same       the same
+      squares of its gated
+      norm, every position)
+    a sub-layer with whole     AG a; backward AG a      nothing
+      leaves
+    FSDP's recompute           F x the body's forward collectives, but a
+                               body's last RS / AR where it ends in a split
+                               sub-layer
+    the vocab-parallel head    AG a, AR st, AR 2st;     AR st, AR 2st;
+      (a whole head: AG a)      backward RS A           backward AR A
   each step
-    the gradients of the replicated leaves that   1 a dtype   their blocks
-      split blocks read (``data_mean``)
+    the ``summed`` leaves'     AR, one a dtype: the     AR, one a dtype: the
+      gradients (``data_mean``)  partial leaves and      partial leaves
+                                the norms
 
 F counts the recompute of each layer body in FSDP's backward, which runs
-the body's forward all-reduces again up to the last tensor the body saves:
-a body that ends in a split sub-layer does not run that sub-layer's g
-again (one call of A bytes fewer).
+the body's forward collectives again up to the last tensor the body saves:
+a body that ends in a split sub-layer does not run that sub-layer's exit
+again. The AR st, AR 2st of the head are the MAX of the log-sum-exps and
+the SUM of their exponentials with the label logits.
 
 An MoE config routes the global batch (``models.moe``): the step sets
 ``models.modes.global_routing`` to the microbatch's global token count, and
 each MoE call sums its expert counts over the batch axes (one all-reduce of
 E fp32 values, again in FSDP's recompute). At model > 1 each rank holds E/tp
 experts and the shared expert's blocks (expert parallelism without an
-all-to-all: the activations are replicated over "model"), the MoE layer is
+all-to-all: the layer's input is replicated over "model", gathered from the
+ranks' blocks of positions under sequence parallelism), the MoE layer is
 one split sub-layer above, and the router and ``shared_gate`` are
 ``partial`` leaves (replicated beside split ones).
 """
@@ -71,7 +92,8 @@ import torch.nn as nn
 from repro_torch.core.instant import neighbor_backup
 from repro_torch.core.razor import RazorPlan, razor_plan
 from repro_torch.models.modes import (FsdpLayout, GlobalRouting, Shard, TensorParallel,
-                                      fsdp_unshard, global_routing, tensor_parallel)
+                                      fsdp_unshard, global_routing, sequence_parallel,
+                                      splits_sequence, tensor_parallel)
 from repro_torch.models.transformer import build_model, torch_dtype
 from repro_torch.optim import AdamWConfig, adamw_update, cosine_schedule
 from repro_torch.parallel import sharding as shd
@@ -102,7 +124,10 @@ class _Leaf:
     where it is replicated over "model" in a sub-layer whose other leaves
     are split (qk-norm scales shared by every head, Mamba2's single SSD
     group read by every head), so that each rank's gradient is a part of
-    the sum."""
+    the sum. ``norm`` marks a norm of the residual stream (``ln1``,
+    ``ln2``, ``final_norm``) at model > 1: under sequence parallelism each
+    rank applies it to its block of positions, so its gradient there is a
+    part of the sum too (``summed``)."""
     names: Tuple[str, ...]       # the module's parameter names, one a layer if stacked
     stacked: bool
     shape: Tuple[int, ...]
@@ -112,6 +137,12 @@ class _Leaf:
     odim: Optional[int]
     mdim: Optional[int]
     partial: bool
+    norm: bool
+
+    def summed(self, sp: bool) -> bool:
+        """Whether the step sums this leaf's gradient over "model", with the
+        sequence split over it (``sp``) or not."""
+        return self.partial or (sp and self.norm)
 
 
 class _Loss(nn.Module):
@@ -181,10 +212,12 @@ def build_train_step(
     aux and the rate, as 0-d tensors.
 
     On a "model" axis larger than 1 the layer bodies compute on this rank's
-    blocks (the module docstring has the layout and the all-reduces it
-    runs), the gradients of the ``partial`` leaves (replicated in a split
-    sub-layer) are summed over "model" in ``data_mean``, and the global norm counts a
-    leaf split over "model" on every model rank and a replicated one once.
+    blocks, with the residual stream split by sequence where "model"
+    divides it (the module docstring has the layout and the collectives it
+    runs), the gradients of the ``summed`` leaves (replicated in a split
+    sub-layer, and the norms under sequence parallelism) are summed over
+    "model" in ``data_mean``, and the global norm counts a leaf split over
+    "model" on every model rank and a replicated one once.
 
     ``model`` gives the family and structure only: its own parameters are
     never read (the step runs a meta-device twin on the state's tensors).
@@ -245,16 +278,18 @@ def build_train_step(
     spans = _Spans(clock)
     tp_ctx = TensorParallel(mesh, lambda: spans("tp_reduce")) if tp > 1 else None
 
-    def local_value_and_grad(params: List[torch.Tensor], batch: Dict):
+    def local_value_and_grad(params: List[torch.Tensor], batch: Dict, sp: bool):
         """(loss, aux) of this rank's batch and the gradient of each param
         leaf: whole, or this rank's block summed over "data" where FSDP
-        stores the leaf sharded (the gather's backward reduce-scatters it)."""
+        stores the leaf sharded (the gather's backward reduce-scatters it).
+        ``sp``: the residual stream is split by sequence over "model"."""
         grads, losses, auxes = None, [], []
         for mb in _microbatches(batch, n_micro, mesh):
             layout = FsdpLayout(mesh, "data", spans) if fsdp_params else None
             aliases, names, extra = _bind(params, leaves, layout, mesh)
             with fsdp_unshard(layout) if layout else contextlib.nullcontext(), \
-                    tensor_parallel(tp_ctx), global_routing(_routing(cfg, mesh, mb)):
+                    tensor_parallel(tp_ctx), sequence_parallel(sp), \
+                    global_routing(_routing(cfg, mesh, mb)):
                 loss, aux = torch.func.functional_call(twin, names, (mb,))
             g = torch.autograd.grad(loss, aliases + extra)[:len(aliases)]
             if n_micro > 1:
@@ -277,17 +312,24 @@ def build_train_step(
 
         - a split leaf (column-, row- or vocab-parallel): nowhere, its block
           is read by this rank alone (the tied head's rows get both uses);
-        - ``ln1``, ``ln2``, the final norm (and a sub-layer's leaves that
-          are all replicated): in f's backward, which all-reduces the
-          gradient of the normed input before the norm's backward, so each
-          rank computes the whole gradient;
+        - a sub-layer's leaves that are all replicated: in the backward of
+          its entry (f's all-reduce, or under sequence parallelism the
+          gather's reduce-scatter: every rank computes it whole);
+        - ``ln1``, ``ln2`` and the final norm (the Mamba2 blocks' and the
+          shared block's among them): under sequence parallelism each rank
+          applies them to its positions, so they are ``summed`` here with
+          the ``partial`` leaves; without it, in f's backward, which
+          all-reduces the gradient of the normed input before the norm's
+          backward, so each rank computes the whole gradient;
         - Mamba2's split ``norm``: its own block; the mean of squares that
-          it divides by is summed forward and backward (``tp_sum``);
+          it divides by is summed forward and backward (``tp_sum``), over
+          every position;
         - ``q_norm``, ``k_norm`` (each rank's heads) and Mamba2's ``w_b``,
           ``w_c``, ``conv_b``, ``conv_c`` (each rank's heads read the one
           SSD group), the ``partial`` leaves: here, one all-reduce over
           "model" per dtype, after the reduction over "data"."""
-        (loss, aux), grads = local_value_and_grad(params, batch)
+        sp = splits_sequence(tp, batch["tokens"].shape[1] - 1)
+        (loss, aux), grads = local_value_and_grad(params, batch, sp)
         out = []
         with spans("grad_reduce"):
             for leaf, g in zip(leaves, grads):
@@ -296,7 +338,7 @@ def build_train_step(
                          if leaf.odim is not None else mesh.all_reduce(g, "data"))
                 out.append(g / data)
         if tp_ctx is not None:
-            out = _sum_partial(tp_ctx, leaves, out)
+            out = _sum_partial(tp_ctx, leaves, out, sp)
         return _mean(mesh, "data", loss, aux), out
 
     if use_compression:
@@ -355,15 +397,21 @@ def build_train_step(
     return StepArtifacts(step_fn, plan, razor, input_pspecs, backup_pspecs)
 
 
-def model_all_reduces(model: nn.Module, mesh, rows: int, seq: int, *,
-                      fsdp_params: bool = True, microbatches: int = 1) -> Tuple[int, int]:
-    """(calls, bytes) of the all-reduces over "model" that one step of
+def model_collectives(model: nn.Module, mesh, rows: int, seq: int, *,
+                      fsdp_params: bool = True, microbatches: int = 1
+                      ) -> Dict[Tuple[str, Tuple[str, ...]], List[int]]:
+    """The collectives over "model" that one step of
     ``build_train_step(model, mesh, fsdp_params=..., microbatches=...)``
-    runs on a rank whose batch is ``rows`` rows of ``seq`` positions: the
-    formula of the module docstring, with the splits of the step's specs."""
+    runs on a rank whose batch is ``rows`` rows of ``seq`` positions, as
+    ``Mesh.counts`` holds them: {(collective, ("model",)): [calls, bytes]}.
+    The module docstring's table, with the splits of the step's specs: the
+    sequence-parallel rows where ``splits_sequence`` holds, else the
+    Megatron rows (all-reduces only); empty at model 1."""
     cfg = model.cfg
-    if shd.axis_size(mesh, "model") == 1:
-        return 0, 0
+    tp = shd.axis_size(mesh, "model")
+    if tp == 1:
+        return {}
+    sp = splits_sequence(tp, seq)
     plan = make_state_plan(model, mesh, fsdp_params=fsdp_params)
     mdim = {path: shd.sharded_dim(spec, "model")
             for path, spec in tree_flatten_with_path(plan.param_pspecs, is_spec)}
@@ -371,40 +419,57 @@ def model_all_reduces(model: nn.Module, mesh, rows: int, seq: int, *,
     b = rows // microbatches
     act = b * seq * cfg.d_model * torch_dtype(cfg).itemsize
     stat = b * seq * 4                                   # one fp32 value a position
+    ag, rs, ar = ("all_gather", act // tp), ("reduce_scatter", act), "all_reduce"
+
+    def region(mamba: bool, is_split: bool):
+        """A sub-layer's (forward, backward) collectives, each in order."""
+        norm = [(ar, stat)] if mamba and is_split else []     # the gated norm's tp_sum
+        if sp:
+            return ([ag] + norm + [rs], [ag] + norm + [rs]) if is_split else ([ag], [ag])
+        return (norm + [(ar, act)],) * 2 if is_split else ([], [])
+
     ffn = ("moe", "w_gate") if cfg.is_moe else ("mlp", "w_up")
-    dense = lambda root: [("dense", split(root, "attn", "wq")),         # noqa: E731
-                          ("dense", split(root, *ffn))]
-    mamba = ("mamba", split("blocks", "mamba", "w_x"))
+    dense = lambda root: [(False, split(root, "attn", "wq")),          # noqa: E731
+                          (False, split(root, *ffn))]
+    mamba = (True, split("blocks", "mamba", "w_x"))
     if cfg.family in ("dense", "moe"):
         bodies = [dense("blocks")] * cfg.num_layers
     else:
         bodies = [[mamba] + (dense("shared_attn") if kind == "mamba_attn" else [])
                   for kind in cfg.layer_kinds()]
     head = ("lm_head", "w") if "lm_head" in plan.param_pspecs else ("embed", "w")
-    sizes: List[int] = []                                # one entry an all-reduce
-    if split("embed", "w"):
-        sizes.append(act)
+    calls: List[Tuple[str, int]] = []                    # (collective, bytes) a call
+    if sp:           # the embedding's sum (or a whole table's cut) and its backward
+        calls += ([rs] if split("embed", "w") else []) + [ag]
+    elif split("embed", "w"):
+        calls.append((ar, act))
     for body in bodies:
-        fwd = []
+        fwd: List[Tuple[str, int]] = []
         for kind, is_split in body:
-            if is_split:
-                fwd += [stat, act] if kind == "mamba" else [act]
-        sizes += 2 * fwd                                 # the backward mirrors the forward
-        if fsdp_params:
-            sizes += fwd[:-1] if body[-1][1] else fwd
-    if split(*head):
-        sizes += [stat, 2 * stat, act]
-    sizes *= microbatches
-    leaves = _leaves(plan, _Loss(model), mesh)
-    data = shd.axis_size(mesh, "data")
+            f, bwd = region(kind, is_split)
+            fwd += f
+            calls += f + bwd
+        if fsdp_params:      # the recompute stops at the last tensor the body saves
+            calls += fwd[:-1] if body[-1][1] else fwd
+    if sp:               # the head's gather and its backward
+        calls += [ag] + ([rs] if split(*head) else [])
+    if split(*head):     # the cross-entropy's statistics and, without SP, f's backward
+        calls += [(ar, stat), (ar, 2 * stat)] + ([] if sp else [(ar, act)])
+    calls *= microbatches
     per_dtype: Dict[torch.dtype, int] = {}
-    for leaf in leaves:
-        if leaf.partial:
+    data = shd.axis_size(mesh, "data")
+    for leaf in _leaves(plan, _Loss(model), mesh):
+        if leaf.summed(sp):
             dtype = torch.float32 if microbatches > 1 else leaf.dtype
             numel = math.prod(leaf.local) // (data if leaf.odim is not None else 1)
             per_dtype[dtype] = per_dtype.get(dtype, 0) + numel * dtype.itemsize
-    sizes += list(per_dtype.values())
-    return len(sizes), sum(sizes)
+    calls += [(ar, n) for n in per_dtype.values()]
+    out: Dict[Tuple[str, Tuple[str, ...]], List[int]] = {}
+    for op, nbytes in calls:
+        entry = out.setdefault((op, ("model",)), [0, 0])
+        entry[0] += 1
+        entry[1] += nbytes
+    return out
 
 
 def _routing(cfg, mesh, batch: Dict) -> Optional[GlobalRouting]:
@@ -426,12 +491,15 @@ def _mean(mesh, axis: str, loss: torch.Tensor, aux: Dict) -> Tuple[torch.Tensor,
     return vals[0], dict(zip(keys, vals[1:]))
 
 
+_RESIDUAL_NORMS = ("ln1", "ln2", "final_norm")      # applied to the residual stream
+
+
 def _leaves(plan: StatePlan, twin: nn.Module, mesh) -> List[_Leaf]:
     """The param leaves in tree order, checked against the module's names;
     a leaf is ``partial`` where its specs replicate it over "model" while a
     leaf beside it (the same path but its last key) is split: ``wk`` and
     ``wv`` beside a split ``wq`` among them, whose kv heads each rank reads
-    for its own q heads only."""
+    for its own q heads only. A norm of the residual stream is ``norm``."""
     pspecs = dict(tree_flatten_with_path(plan.param_pspecs, is_spec))
     ospecs = dict(tree_flatten_with_path(plan.opt_pspecs["master"], is_spec))
     mdims = {path: shd.sharded_dim(spec, "model") for path, spec in pspecs.items()}
@@ -450,7 +518,8 @@ def _leaves(plan: StatePlan, twin: nn.Module, mesh) -> List[_Leaf]:
                                                   if p[:-1] == path[:-1])
         out.append(_Leaf(tuple("model." + n for n in names), stacked, tuple(spec.shape),
                          local, spec.dtype, shd.sharded_dim(pspecs[path]),
-                         shd.sharded_dim(ospecs[path]), mdim, partial))
+                         shd.sharded_dim(ospecs[path]), mdim, partial,
+                         tp > 1 and path[-1] in _RESIDUAL_NORMS))
     module_names = {n for n, _ in twin.named_parameters()}
     bound = {n for leaf in out for n in leaf.names}
     if bound != module_names:
@@ -459,14 +528,15 @@ def _leaves(plan: StatePlan, twin: nn.Module, mesh) -> List[_Leaf]:
     return out
 
 
-def _sum_partial(tp: TensorParallel, leaves: List[_Leaf], grads: List[torch.Tensor]
-                 ) -> List[torch.Tensor]:
-    """The gradients of the ``partial`` leaves summed over "model": one
-    all-reduce per dtype, in leaf order."""
+def _sum_partial(tp: TensorParallel, leaves: List[_Leaf], grads: List[torch.Tensor],
+                 sp: bool) -> List[torch.Tensor]:
+    """The gradients of the leaves that each rank computes in part
+    (``_Leaf.summed``, with the sequence split or not) summed over "model":
+    one all-reduce per dtype, in leaf order."""
     out = list(grads)
     groups: Dict[torch.dtype, List[int]] = {}
     for i, (leaf, g) in enumerate(zip(leaves, grads)):
-        if leaf.partial:
+        if leaf.summed(sp):
             groups.setdefault(g.dtype, []).append(i)
     for idx in groups.values():
         flat = tp.all_reduce(torch.cat([grads[i].reshape(-1) for i in idx]))

@@ -6,11 +6,14 @@ mesh of 4 forced host devices, from the same weights (the reference's
 batches: qwen3-0.6b smoke fp32 with FSDP on and off and with 2 microbatches,
 mamba2 and zamba2 smoke with FSDP, and int8 cross-pod compression on a
 (pod 2, data 2, model 1) mesh and on (pod 2, data 1, model 2), where the
-scale spans the "model" blocks of a split leaf. Each run is two steps; the losses, the new
+scale spans the "model" blocks of a split leaf and the residual stream is
+split by sequence over "model" (a layer body's input a rank's (b, 8, D)
+block of the 16 positions). Each run is two steps; the losses, the new
 state (params, master, m, v) and the second step's backup are compared, the
-backup also against the predecessor's shard within the port, and the
-neighbor drill (a rank's optimizer shard dropped and rebuilt from its
-neighbor's backup) must give the uninterrupted step bit for bit.
+backup also against the predecessor's shard within the port, the neighbor
+drill (a rank's optimizer shard dropped and rebuilt from its neighbor's
+backup) must give the uninterrupted step bit for bit, and every rank's
+collectives over "model" equal ``train.step.model_collectives``.
 
 The reference runs in two subprocesses and the port's ranks in spawned
 processes (``file://`` rendezvous under the test's temporary directory),
@@ -132,7 +135,9 @@ def _flat(tree, prefix):
 # ------------------------------- the ranks -------------------------------- #
 def _rank_main(rank: int, world: int, data_dir: str):
     """One gloo rank: every run of RUNS from the reference's initial state,
-    two steps; rank 0 writes the joined state, backup and losses."""
+    two steps; rank 0 writes the joined state, backup and losses, and every
+    rank its first step's collectives over "model", their formula and the
+    residual stream's shape entering a layer body."""
     import torch.distributed as dist
 
     from repro_torch.bridge import params_from_numpy
@@ -142,11 +147,19 @@ def _rank_main(rank: int, world: int, data_dir: str):
     from repro_torch.optim import AdamWConfig
     from repro_torch.parallel import sharding as shd
     from repro_torch.train.state import param_tree, shard_init_state
-    from repro_torch.train.step import build_train_step
+    from repro_torch.models import transformer
+    from repro_torch.train.step import build_train_step, model_collectives
     try:
         torch.set_num_threads(1)      # four ranks and the reference share the cores
         dist.init_process_group("gloo", init_method=f"file://{data_dir}/rendezvous",
                                 rank=rank, world_size=world)
+        seen = {}
+        run_layer = transformer.run_layer
+
+        def recording(*args):
+            seen.setdefault("residual", tuple(args[-1].shape))
+            return run_layer(*args)
+        transformer.run_layer = recording
         for name, (arch, kw, (pod, data, mdl)) in RUNS.items():
             inp = np.load(f"{data_dir}/{name}_in.npz", allow_pickle=True)
             cfg = dataclasses.replace(reduce_for_smoke(get_arch(arch)), dtype="float32")
@@ -164,11 +177,21 @@ def _rank_main(rank: int, world: int, data_dir: str):
                 if i == len(batches) - 1 and name == "qwen3_fsdp":
                     out["drill_bitwise"] = np.asarray(
                         _drill(art, mesh, state, backup, local, neighbor_backup))
+                seen.clear()
+                mesh.reset_counts()
                 state, metrics, backup = art.step_fn(state, {"tokens": local})
                 out[f"loss{i}"] = metrics["loss"].numpy()
                 if i == 0:
                     out.update(_flat(shd.join_tree(state, art.plan.state_pspecs, mesh),
                                      "state0|"))
+                    np.savez(f"{data_dir}/{name}_rank{rank}.npz",
+                             counts=np.asarray(repr({k: v for k, v in mesh.counts.items()
+                                                     if k[1] == ("model",)})),
+                             formula=np.asarray(repr(model_collectives(
+                                 model, mesh, local.shape[0], 16,
+                                 **{k: v for k, v in kw.items()
+                                    if k in ("fsdp_params", "microbatches")}))),
+                             residual=np.asarray(seen["residual"]))
             if kw.get("compress_pod_grads"):
                 _record_scales(None, out)
                 out.update(_reference_check(model, mesh, batches[0]))
@@ -324,6 +347,8 @@ def runs(tmp_path_factory):
     assert not hung and codes == [0] * 4, f"port ranks exit codes {codes}, hung={hung}"
     out = {name: (dict(np.load(data_dir / f"{name}_jax.npz")),
                   dict(np.load(data_dir / f"{name}_port.npz"))) for name in RUNS}
+    out["collectives"] = {name: [dict(np.load(data_dir / f"{name}_rank{r}.npz"))
+                                 for r in range(4)] for name in RUNS}
     out["blocks"] = {}
     for g in groups:
         out["blocks"].update(eval(str(np.load(data_dir / f"blocks_{'_'.join(sorted(g))}.npy"))))
@@ -394,6 +419,23 @@ def test_backup_is_the_predecessors_new_shard(runs, name):
 
 def test_neighbor_drill_rebuilds_the_step_bitwise(runs):
     assert runs["qwen3_fsdp"][1]["drill_bitwise"]
+
+
+@pytest.mark.parametrize("name", list(RUNS))
+def test_model_collectives_equal_the_formula(runs, name):
+    """Every rank's collectives over "model" in the first step equal
+    ``model_collectives``: none at model 1; at model 2 (16 positions, which
+    split) all-gathers, reduce-scatters and all-reduces, the partial sums
+    of the norms and qk-norm scales before the compressed mean. The layer
+    bodies' residual stream is a rank's (b, 16 / model, D) block."""
+    arch, kw, (pod, data, mdl) = RUNS[name]
+    b = 8 // (pod * data) // kw.get("microbatches", 1)
+    want = (set() if mdl == 1 else {"all_gather", "reduce_scatter", "all_reduce"})
+    for rank, rec in enumerate(runs["collectives"][name]):
+        counts = eval(str(rec["counts"]))
+        assert {op for op, _ in counts} == want, (rank, counts)
+        assert counts == eval(str(rec["formula"])), rank
+        assert tuple(rec["residual"]) == (b, 16 // mdl, _cfg(arch).d_model)
 
 
 @pytest.mark.parametrize("name", COMPRESSED)

@@ -81,7 +81,8 @@ WITH_BACKUP = [k for k, v in RUNS.items() if v[1][0] > 1]
 WORLDS = {4: [k for k, v in RUNS.items() if v[1] in ((4, 1), (2, 2))] + list(CONTROL),
           2: [k for k, v in RUNS.items() if v[1] in ((1, 2), (2, 1))]}
 # the leaves replicated over "model": the router and the shared gate beside
-# split experts (their gradients summed over "model"), the norms
+# split experts (their gradients summed over "model"), the norms (summed too
+# where the sequence is split over "model")
 REPLICATED = ("moe|router", "moe|shared_gate", "|ln1", "|ln2", "final_norm")
 
 JAX_SCRIPT = """
@@ -141,9 +142,11 @@ def _flat(tree, prefix):
 def _record_bound_shapes(seen: dict) -> None:
     """Wrap the calls that receive the bound blocks, so that a step records
     their shapes: the MoE leaves as the layer bodies get them (after the
-    FSDP gather) and the q of the attention call."""
+    FSDP gather), the q of the attention call, the input of the MoE call
+    and the residual stream entering a layer body (``run_layer``'s last
+    argument)."""
     from repro_torch.kernels import ops
-    from repro_torch.models import transformer
+    from repro_torch.models import moe, transformer
 
     def wrap(owner, attr, record):
         fn = getattr(owner, attr)
@@ -161,6 +164,8 @@ def _record_bound_shapes(seen: dict) -> None:
             seen.setdefault("moe.shared.w_up", tuple(p["moe"]["shared"]["w_up"].shape))
     wrap(transformer, "unshard_layer_params", layer)
     wrap(ops, "flash_attention", lambda a, _: seen.setdefault("flash.q", tuple(a[0].shape)))
+    wrap(moe, "moe_apply", lambda a, _: seen.setdefault("moe.x", tuple(a[2].shape)))
+    wrap(transformer, "run_layer", lambda a, _: seen.setdefault("residual", tuple(a[-1].shape)))
 
 
 def _aux_grads(rank: int, data_dir: str) -> None:
@@ -270,10 +275,10 @@ def _rank_main(rank: int, world: int, data_dir: str, names: list):
                     out["dropped"] = np.asarray(sum(int((~r["valid"]).sum()) for r in log))
                     out["capacity"] = np.asarray(log[0]["capacity"])
                     out["groups"] = np.asarray(log[0]["top_e"].shape[0])
-                    out["counts"] = np.asarray(mesh.counts.get(("all_reduce", ("model",)),
-                                                               [0, 0]))
-                    out["formula"] = np.asarray(step_mod.model_all_reduces(
-                        model, mesh, local.shape[0], seq, **kw))
+                    out["counts"] = np.asarray(repr({k: v for k, v in mesh.counts.items()
+                                                     if k[1] == ("model",)}))
+                    out["formula"] = np.asarray(repr(step_mod.model_collectives(
+                        model, mesh, local.shape[0], seq, **kw)))
                     out["shapes"] = np.asarray(repr(dict(seen)))
             np.savez(f"{data_dir}/{name}_rank{rank}.npz", **{k: v for k, v in out.items()
                                                             if k in ("counts", "formula",
@@ -554,26 +559,38 @@ def test_grad_norm_matches_jax_where_the_clip_binds(runs):
 def test_bound_blocks_hold_the_ranks_experts(runs, name):
     """After FSDP's gather (along "data" only) a layer body computes on its
     rank's E/tp experts, its columns and rows of the shared expert and its
-    heads."""
+    heads. The residual stream entering a layer body is the rank's block of
+    the positions, (b, S/model, D), where "model" divides S (every run but
+    straddle_22's 7 positions on model 2); the MoE call routes every
+    position of the rank's rows, as without sequence parallelism."""
     cfg = _cfg()
     kw, (data, mdl), _, (batch, seq) = RUNS[name]
+    b = batch // data // kw.get("microbatches", 1)
     want = {"moe.w_gate": (cfg.padded_experts // mdl, cfg.d_model, cfg.moe_d_ff),
             "moe.w_down": (cfg.padded_experts // mdl, cfg.moe_d_ff, cfg.d_model),
             "moe.shared.w_up": (cfg.d_model, cfg.shared_expert_d_ff // mdl),
-            "flash.q": (batch // data // kw.get("microbatches", 1), seq, cfg.num_heads // mdl,
-                        cfg.resolved_head_dim)}
+            "flash.q": (b, seq, cfg.num_heads // mdl, cfg.resolved_head_dim),
+            "moe.x": (b, seq, cfg.d_model),
+            "residual": (b, seq // mdl if seq % mdl == 0 else seq, cfg.d_model)}
     for rank, rec in enumerate(runs[name][2]):
         assert eval(str(rec["shapes"])) == want, (rank, rec["shapes"])
 
 
 @pytest.mark.parametrize("name", list(RUNS))
-def test_model_all_reduces_equal_the_formula(runs, name):
-    """The all-reduces over "model" of one step, counted by the mesh on
-    every rank, equal ``model_all_reduces`` (the MoE layer one split
-    sub-layer, the router and the shared gate partial leaves)."""
+def test_model_collectives_equal_the_formula(runs, name):
+    """The collectives over "model" of one step, counted by the mesh on
+    every rank, equal ``model_collectives`` (the MoE layer one split
+    sub-layer, the router and the shared gate partial leaves, the norms too
+    where the sequence is split): all-gathers, reduce-scatters and
+    all-reduces where "model" divides the sequence, all-reduces alone where
+    it does not (straddle_22's 7 positions), none at model 1."""
+    _, (_, mdl), _, (_, seq) = RUNS[name]
+    ops = (set() if mdl == 1 else {"all_gather", "reduce_scatter", "all_reduce"}
+           if seq % mdl == 0 else {"all_reduce"})
     for rank, rec in enumerate(runs[name][2]):
-        assert (rec["counts"][0] > 0) == (RUNS[name][1][1] > 1)
-        assert list(rec["counts"]) == list(rec["formula"]), rank
+        counts = eval(str(rec["counts"]))
+        assert {op for op, _ in counts} == ops, (rank, counts)
+        assert counts == eval(str(rec["formula"])), rank
 
 
 def test_balance_loss_gradient_at_model_2_equals_model_1(runs):

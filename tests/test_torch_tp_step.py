@@ -7,19 +7,25 @@ the same two batches: qwen3-0.6b smoke fp32 on (data 2, model 2) with FSDP
 off, on and with 2 microbatches, and on (1, 2) (tensor parallelism alone);
 mamba2 and zamba2 smoke on (2, 2) with FSDP; and the q heads split over
 "model" beside replicated kv heads: gemma-2b smoke (4 q heads, 1 kv head) on
-(2, 2) with FSDP, qwen3-0.6b smoke (4 q, 2 kv) on (1, 4). Each run is two
-steps; the losses, the new state (params, master, m, v, every leaf
-replicated over "model" among them) and the second step's backup are
-compared.
+(2, 2) with FSDP, qwen3-0.6b smoke (4 q, 2 kv) on (1, 4). Their 16
+positions divide by 2 and 4, so every one of these runs splits the residual
+stream by sequence over "model" (sequence parallelism: a layer body's input
+is a rank's (b, 16/model, D) block). One more run, qwen3 on (1, 2) at 15
+positions, which "model" does not divide, keeps the Megatron layout, as the
+reference's ``constrain`` does. Each run is two steps; the losses, the new
+state (params, master, m, v, every leaf replicated over "model" among them)
+and the second step's backup are compared.
 
 The qwen3 run without FSDP clips its gradients at ``CLIP``, well below the
 global norm it sees (1.497 at its first step, in both packages), so a norm
 that counted a leaf once too often or too rarely would show in m and v.
 Within the port each rank's bound blocks have the local block's shape, the
-all-reduces over "model" of a step equal ``train.step.model_all_reduces``
-in count and bytes, and the neighbour drill (a rank's optimizer shard
-dropped and rebuilt from its "data" neighbour's backup) gives the
-uninterrupted step bit for bit.
+collectives over "model" of a step equal ``train.step.model_collectives``
+in count and bytes (no all-reduce of an activation where the sequence is
+split), and the neighbour drill (a rank's optimizer shard dropped and
+rebuilt from its "data" neighbour's backup) gives the uninterrupted step bit
+for bit. The 2-rank processes also hold ``Mesh.gather_to`` and
+``Mesh.scatter_from`` against their definitions, forward and backward.
 
 The reference runs in four subprocesses and the port's ranks in two sets of
 spawned processes (4 ranks for (2, 2) and (1, 4), 2 for (1, 2); ``file://``
@@ -50,19 +56,24 @@ TOL = dict(rtol=2e-4, atol=2e-4)          # the training slice's fp32 tolerance
 HP = dict(lr=1e-3, warmup_steps=0, total_steps=50)    # a non-zero rate at step 0
 CLIP = 0.25
 DEADLINE_S = 420                          # a hang guard: ~60 s alone, more beside other workers
-SHAPE = (8, 16)                           # global batch, sequence
-# name -> (arch, build_train_step keywords, mesh (data, model), AdamWConfig keywords)
+BATCH, SEQ = 8, 16                        # global batch, sequence
+# name -> (arch, build_train_step keywords, mesh (data, model), AdamWConfig keywords,
+# sequence)
 RUNS = {
-    "qwen3_nofsdp": ("qwen3-0.6b", dict(fsdp_params=False), (2, 2), dict(HP, grad_clip=CLIP)),
-    "qwen3_fsdp": ("qwen3-0.6b", dict(fsdp_params=True), (2, 2), HP),
-    "qwen3_mb2": ("qwen3-0.6b", dict(fsdp_params=True, microbatches=2), (2, 2), HP),
-    "qwen3_tp_only": ("qwen3-0.6b", dict(fsdp_params=False), (1, 2), HP),
-    "mamba2_fsdp": ("mamba2-2.7b", dict(fsdp_params=True), (2, 2), HP),
-    "zamba2_fsdp": ("zamba2-7b", dict(fsdp_params=True), (2, 2), HP),
-    "gemma_fsdp": ("gemma-2b", dict(fsdp_params=True), (2, 2), HP),
-    "qwen3_model4": ("qwen3-0.6b", dict(fsdp_params=False), (1, 4), HP),
+    "qwen3_nofsdp": ("qwen3-0.6b", dict(fsdp_params=False), (2, 2), dict(HP, grad_clip=CLIP),
+                     SEQ),
+    "qwen3_fsdp": ("qwen3-0.6b", dict(fsdp_params=True), (2, 2), HP, SEQ),
+    "qwen3_mb2": ("qwen3-0.6b", dict(fsdp_params=True, microbatches=2), (2, 2), HP, SEQ),
+    "qwen3_tp_only": ("qwen3-0.6b", dict(fsdp_params=False), (1, 2), HP, SEQ),
+    "mamba2_fsdp": ("mamba2-2.7b", dict(fsdp_params=True), (2, 2), HP, SEQ),
+    "zamba2_fsdp": ("zamba2-7b", dict(fsdp_params=True), (2, 2), HP, SEQ),
+    "gemma_fsdp": ("gemma-2b", dict(fsdp_params=True), (2, 2), HP, SEQ),
+    "qwen3_model4": ("qwen3-0.6b", dict(fsdp_params=False), (1, 4), HP, SEQ),
+    # 15 positions do not split over "model": the Megatron layout
+    "qwen3_seq15": ("qwen3-0.6b", dict(fsdp_params=True), (1, 2), HP, 15),
 }
 WITH_BACKUP = [k for k, v in RUNS.items() if v[2][0] > 1]
+SEQ_COLLECTIVES = ["gather_summed", "gather_whole", "scatter_summed", "scatter_whole"]
 # the leaves replicated over "model" that split blocks read or that follow a
 # split region, by family (and wk, wv where the kv heads do not divide the
 # axis, ``KV_REPLICATED``)
@@ -83,14 +94,14 @@ from repro.models import build_model
 from repro.optim import AdamWConfig
 from repro.train.step import build_train_step
 
-runs, data_dir, (batch, seq) = eval(sys.argv[1]), sys.argv[2], eval(sys.argv[3])
+runs, data_dir, batch = eval(sys.argv[1]), sys.argv[2], eval(sys.argv[3])
 
 def flat(tree, prefix):
     return {prefix + "|".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in p):
             np.asarray(v, np.float32)
             for p, v in jax.tree_util.tree_flatten_with_path(tree)[0] if v is not None}
 
-for name, (arch, kw, (data, mdl), hp) in runs.items():
+for name, (arch, kw, (data, mdl), hp, seq) in runs.items():
     inp = np.load(f"{data_dir}/{name}_in.npz", allow_pickle=True)
     state = inp["state"].item()
     cfg = dataclasses.replace(reduce_for_smoke(get_arch(arch)), dtype="float32")
@@ -136,9 +147,13 @@ def _flat(tree, prefix):
 def _record_bound_shapes(seen: dict) -> None:
     """Wrap the calls that receive the bound blocks, so that the first step
     of a run records their shapes: the layer parameters as the bodies get
-    them (after the FSDP gather), the embedding and the head, and the
-    inputs of the attention and SSD calls."""
+    them (after the FSDP gather), the embedding and the head, the inputs of
+    the attention and SSD calls, the residual stream entering a layer body
+    (``run_layer``'s last argument), and the all-reduces over "model" of an
+    activation (a tensor of d_model columns; ``seen["d_model"]`` says which
+    width that is)."""
     from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.models import transformer
 
     def wrap(owner, attr, record):
@@ -160,12 +175,21 @@ def _record_bound_shapes(seen: dict) -> None:
     wrap(ops, "flash_attention", lambda a, _: (seen.setdefault("flash.q", tuple(a[0].shape)),
                                                seen.setdefault("flash.k", tuple(a[1].shape))))
     wrap(ops, "ssd", lambda a, _: seen.setdefault("ssd.x", tuple(a[0].shape)))
+    wrap(transformer, "run_layer", lambda a, _: seen.setdefault("residual", tuple(a[-1].shape)))
+    all_reduce = Mesh.all_reduce
+
+    def counted(self, x, axes, *args, **kw):
+        if axes in ("model", ("model",)) and x.dim() == 3 and x.shape[-1] == seen.get("d_model"):
+            seen["activation_all_reduces"] = seen.get("activation_all_reduces", 0) + 1
+        return all_reduce(self, x, axes, *args, **kw)
+    Mesh.all_reduce = counted
 
 
 def _rank_main(rank: int, world: int, data_dir: str, names: list):
     """One gloo rank: each run of ``names`` from the reference's initial
     state, two steps; rank 0 writes the joined state, backup and losses,
-    and every rank its bound shapes and collective counts."""
+    and every rank its bound shapes and collective counts; the 2-rank
+    processes then hold the sequence collectives (``_seq_collectives``)."""
     import torch.distributed as dist
 
     from repro_torch.bridge import params_from_numpy
@@ -175,7 +199,7 @@ def _rank_main(rank: int, world: int, data_dir: str, names: list):
     from repro_torch.optim import AdamWConfig
     from repro_torch.parallel import sharding as shd
     from repro_torch.train.state import param_tree, shard_init_state
-    from repro_torch.train.step import build_train_step, model_all_reduces
+    from repro_torch.train.step import build_train_step, model_collectives
     try:
         torch.set_num_threads(1)      # the ranks and the reference share the cores
         dist.init_process_group("gloo", init_method=f"file://{data_dir}/rendezvous{world}",
@@ -183,13 +207,13 @@ def _rank_main(rank: int, world: int, data_dir: str, names: list):
         seen = {}
         _record_bound_shapes(seen)
         for name in names:
-            arch, kw, (data, mdl), hp = RUNS[name]
+            arch, kw, (data, mdl), hp, seq = RUNS[name]
             inp = np.load(f"{data_dir}/{name}_in.npz", allow_pickle=True)
             cfg = dataclasses.replace(reduce_for_smoke(get_arch(arch)), dtype="float32")
             model = params_from_numpy(inp["state"].item()["params"], cfg, device="cpu")
             mesh = make_host_mesh(data=data, model=mdl)
             art = build_train_step(model, mesh, AdamWConfig(**hp),
-                                   shape=ShapeConfig("t", SHAPE[1], SHAPE[0], "train"), **kw)
+                                   shape=ShapeConfig("t", seq, BATCH, "train"), **kw)
             state = shard_init_state(param_tree(model), art.plan, mesh)
             out = {}
             batches = [torch.from_numpy(b) for b in inp["batches"]]
@@ -199,6 +223,7 @@ def _rank_main(rank: int, world: int, data_dir: str, names: list):
                     out["drill_bitwise"] = np.asarray(
                         _drill(art, mesh, state, backup, local, neighbor_backup))
                 seen.clear()
+                seen["d_model"] = cfg.d_model
                 mesh.reset_counts()
                 state, metrics, backup = art.step_fn(state, {"tokens": local})
                 out[f"loss{i}"] = metrics["loss"].numpy()
@@ -206,26 +231,68 @@ def _rank_main(rank: int, world: int, data_dir: str, names: list):
                     out.update(_flat(shd.join_tree(state["opt"]["m"], art.plan.opt_pspecs["m"],
                                                    mesh), "state0|opt|m|"))
                     out["grad_norm0"] = art.step_fn.last_grad_norm.numpy()
-                    out["counts"] = np.asarray(mesh.counts.get(("all_reduce", ("model",)),
-                                                               [0, 0]))
-                    out["formula"] = np.asarray(model_all_reduces(
-                        model, mesh, local.shape[0], SHAPE[1], **kw))
+                    out["counts"] = np.asarray(repr({k: v for k, v in mesh.counts.items()
+                                                     if k[1] == ("model",)}))
+                    out["formula"] = np.asarray(repr(model_collectives(
+                        model, mesh, local.shape[0], seq, **kw)))
+                    out["activation_all_reduces"] = np.asarray(
+                        seen.pop("activation_all_reduces", 0))
+                    del seen["d_model"]
                     out["shapes"] = np.asarray(repr(dict(seen)))
-            np.savez(f"{data_dir}/{name}_rank{rank}.npz", **{k: v for k, v in out.items()
-                                                            if k in ("counts", "formula",
-                                                                     "shapes")})
+            np.savez(f"{data_dir}/{name}_rank{rank}.npz", **{
+                k: v for k, v in out.items()
+                if k in ("counts", "formula", "shapes", "activation_all_reduces")})
             full = shd.join_tree(state, art.plan.state_pspecs, mesh)
             joined_backup = shd.join_tree(backup, art.backup_pspecs, mesh)
             if rank == 0:
                 out.update(_flat(full, "state|"))
                 out.update(_flat(joined_backup, "backup|"))
                 np.savez(f"{data_dir}/{name}_port.npz", **out)
+        if world == 2:
+            np.savez(f"{data_dir}/seq_collectives_rank{rank}.npz", **_seq_collectives())
         dist.destroy_process_group()
     except BaseException:
         traceback.print_exc()
         sys.stdout.flush()
         sys.stderr.flush()
         os._exit(1)
+
+
+def _seq_collectives() -> dict:
+    """``Mesh.gather_to`` and ``Mesh.scatter_from`` on a (1, 2) mesh, summed
+    and not, against their definitions: each rank's input and the weights
+    of its loss drawn from seeds that every rank knows, so each computes
+    the expected output and gradient of its own. The largest difference of
+    each, forward and backward."""
+    import contextlib
+
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(data=1, model=2)
+    me = mesh.index("model")
+
+    def draw(seed, *shape):
+        return torch.from_numpy(np.random.default_rng(seed).normal(size=shape)
+                                .astype(np.float32))
+    blocks = [draw(10 + r, 2, 3, 4) for r in range(2)]          # a rank's positions
+    wholes = [draw(20 + r, 2, 6, 4) for r in range(2)]          # a region's output
+    weights = [draw(30 + r, 2, 6, 4) for r in range(2)]         # a loss on 6 positions
+    cuts = [draw(40 + r, 2, 3, 4) for r in range(2)]            # a loss on 3 positions
+    out = {}
+    for summed in (True, False):
+        tag = "summed" if summed else "whole"
+        x = blocks[me].clone().requires_grad_()
+        y = mesh.gather_to(x, "model", 1, contextlib.nullcontext, summed=summed)
+        (g,) = torch.autograd.grad((y * weights[me]).sum(), [x])
+        want = (sum(weights) if summed else weights[me])[:, 3 * me:3 * me + 3]
+        out[f"gather_{tag}"] = np.asarray([
+            float((y - torch.cat(blocks, 1)).abs().max()), float((g - want).abs().max())])
+        z = wholes[me].clone().requires_grad_()
+        y = mesh.scatter_from(z, "model", 1, contextlib.nullcontext, summed=summed)
+        (g,) = torch.autograd.grad((y * cuts[me]).sum(), [z])
+        want = (sum(wholes) if summed else wholes[me])[:, 3 * me:3 * me + 3]
+        out[f"scatter_{tag}"] = np.asarray([
+            float((y - want).abs().max()), float((g - torch.cat(cuts, 1)).abs().max())])
+    return out
 
 
 def _drill(art, mesh, state, backup, local, neighbor_backup):
@@ -283,10 +350,10 @@ def runs(tmp_path_factory):
     """The reference's and the port's results of every run in RUNS."""
     data_dir = tmp_path_factory.mktemp("tp_step")
     rng = np.random.default_rng(0)
-    for name, (arch, _, _, _) in RUNS.items():
+    for name, (arch, _, _, _, seq) in RUNS.items():
         cfg = _cfg(arch)
         state = jax.tree.map(np.asarray, j_init_state(j_build_model(cfg), jax.random.key(0)))
-        batches = rng.integers(0, cfg.vocab_size, (2, SHAPE[0], SHAPE[1] + 1)).astype(np.int32)
+        batches = rng.integers(0, cfg.vocab_size, (2, BATCH, seq + 1)).astype(np.int32)
         np.savez(data_dir / f"{name}_in.npz", state=np.asarray(state, dtype=object),
                  batches=batches)
     deadline = time.monotonic() + DEADLINE_S
@@ -296,7 +363,7 @@ def runs(tmp_path_factory):
     # compiles take as long as the dense family's four): the compiles are
     # the fixture's longest path
     def group(run):
-        arch, kw, (_, mdl), _ = run
+        arch, kw, (_, mdl), _, _ = run
         if arch in ("mamba2-2.7b", "zamba2-7b"):
             return "ssm"
         if _kv_replicated(arch, mdl):
@@ -306,10 +373,10 @@ def runs(tmp_path_factory):
               for g in dict.fromkeys(group(v) for v in RUNS.values())]
     refs = [subprocess.Popen(
         [sys.executable, "-c", textwrap.dedent(JAX_SCRIPT), repr(g), str(data_dir),
-         repr(SHAPE)], env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+         repr(BATCH)], env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True) for g in groups]
     by_world = {}
-    for name, (_, _, (data, mdl), _) in RUNS.items():
+    for name, (_, _, (data, mdl), _, _) in RUNS.items():
         by_world.setdefault(data * mdl, []).append(name)
     procs = [p for world, names in by_world.items()
              for p in _spawn_ranks(world, data_dir, names)]
@@ -325,10 +392,12 @@ def runs(tmp_path_factory):
         assert r.returncode == 0, f"reference step failed:\n{out}\n{err[-4000:]}"
     assert not hung and codes == [0] * len(procs), f"port ranks exit codes {codes}, hung={hung}"
     out = {}
-    for name, (_, _, (data, mdl), _) in RUNS.items():
+    for name, (_, _, (data, mdl), _, _) in RUNS.items():
         ranks = [dict(np.load(data_dir / f"{name}_rank{r}.npz")) for r in range(data * mdl)]
         out[name] = (dict(np.load(data_dir / f"{name}_jax.npz")),
                      dict(np.load(data_dir / f"{name}_port.npz")), ranks)
+    out["seq_collectives"] = [dict(np.load(data_dir / f"seq_collectives_rank{r}.npz"))
+                              for r in range(2)]
     return out
 
 
@@ -397,11 +466,13 @@ def test_state_matches_jax(runs, name, part):
 @pytest.mark.parametrize("name", list(RUNS))
 def test_replicated_leaves_match_jax(runs, name):
     """The leaves replicated over "model" whose gradient each rank computes
-    in part (qk-norm, Mamba2's SSD group) or in full after f's all-reduce
-    (the norms): their m (the first step's gradient, and the second's) and
-    params, with the rank at model index 0 holding the joined copy."""
+    in part (qk-norm, Mamba2's SSD group, and the norms where the sequence
+    is split: a rank's positions) or in full after f's all-reduce (the
+    norms where it is not): their m (the first step's gradient, and the
+    second's) and params, with the rank at model index 0 holding the joined
+    copy."""
     ref, port, _ = runs[name]
-    arch, _, (_, mdl), _ = RUNS[name]
+    arch, _, (_, mdl), _, _ = RUNS[name]
     wanted = REPLICATED[arch] + (KV_REPLICATED if _kv_replicated(arch, mdl) else ())
     keys = [k for part in ("params", "opt|m", "opt|v")
             for k in _keys(port, ref, f"state|{part}|") if k.endswith(wanted)]
@@ -418,7 +489,7 @@ def test_backup_matches_jax(runs, name):
     from repro_torch.train.state import make_state_plan
     from repro_torch.tree import keystr, tree_flatten_with_path
 
-    arch, kw, shape, _ = RUNS[name]
+    arch, kw, shape, _, _ = RUNS[name]
     model = build_model(reduce_for_smoke(get_arch(arch)), device="meta")
     plan = make_state_plan(model, Mesh(("data", "model"), shape),
                            fsdp_params=kw.get("fsdp_params", True))
@@ -452,13 +523,16 @@ def test_bound_blocks_are_the_local_blocks(runs, name):
     w_up, w_x, the embedding and the head, and the q of the attention call
     and the x of the SSD call carry 1/model of the heads, columns or rows;
     the k of the attention call the kv heads of the rank's q heads (1/model
-    of them, or the one that its q heads read where they do not divide)."""
-    arch, _, (data, mdl), _ = RUNS[name]
+    of them, or the one that its q heads read where they do not divide).
+    The residual stream entering a layer body is the rank's block of the
+    positions, (b, S/model, D), where "model" divides S, else (b, S, D);
+    the attention and the SSD read every position either way."""
+    arch, _, (data, mdl), _, s = RUNS[name]
     cfg = _cfg(arch)
-    b, s, hd = SHAPE[0] // data // RUNS[name][1].get("microbatches", 1), SHAPE[1], \
-        cfg.resolved_head_dim
+    b, hd = BATCH // data // RUNS[name][1].get("microbatches", 1), cfg.resolved_head_dim
     want = {"embed.w": (cfg.padded_vocab // mdl, cfg.d_model),
-            "head.w": (cfg.padded_vocab // mdl, cfg.d_model)}
+            "head.w": (cfg.padded_vocab // mdl, cfg.d_model),
+            "residual": (b, s // mdl if s % mdl == 0 else s, cfg.d_model)}
     if cfg.family in ("dense", "hybrid"):
         want["attn.wq"] = (cfg.d_model, cfg.num_heads * hd // mdl)
         want["mlp.w_up"] = (cfg.d_model, cfg.d_ff // mdl)
@@ -473,12 +547,32 @@ def test_bound_blocks_are_the_local_blocks(runs, name):
 
 
 @pytest.mark.parametrize("name", list(RUNS))
-def test_model_all_reduces_equal_the_formula(runs, name):
-    """The all-reduces over "model" of one step, counted by the mesh on
-    every rank, equal ``model_all_reduces`` in calls and in bytes."""
+def test_model_collectives_equal_the_formula(runs, name):
+    """The collectives over "model" of one step, counted by the mesh on
+    every rank, equal ``model_collectives`` in calls and in bytes: with the
+    sequence split, all-gathers and reduce-scatters and no all-reduce of an
+    activation (only statistics and the summed leaves' gradients); at 15
+    positions the Megatron layout's all-reduces alone."""
+    _, _, (_, mdl), _, seq = RUNS[name]
+    sp = seq % mdl == 0
     for rank, rec in enumerate(runs[name][2]):
-        assert rec["counts"][0] > 0
-        assert list(rec["counts"]) == list(rec["formula"]), rank
+        counts = eval(str(rec["counts"]))
+        assert counts == eval(str(rec["formula"])), rank
+        ops = {op for op, _ in counts}
+        assert ops == ({"all_gather", "reduce_scatter", "all_reduce"} if sp
+                       else {"all_reduce"}), (rank, counts)
+        assert (int(rec["activation_all_reduces"]) == 0) == sp, (rank, counts)
+
+
+@pytest.mark.parametrize("check", SEQ_COLLECTIVES)
+def test_sequence_collectives_on_two_ranks(runs, check):
+    """``Mesh.gather_to`` joins the ranks' blocks and reduce-scatters the
+    gradient (summed) or takes the rank's block of it (whole);
+    ``Mesh.scatter_from`` takes the rank's block of the ranks' sum (summed)
+    or of its own input (whole) and all-gathers the gradient: output and
+    gradient on both ranks of a (1, 2) mesh, exactly."""
+    for rank, rec in enumerate(runs["seq_collectives"]):
+        assert list(rec[check]) == [0.0, 0.0], (rank, list(rec[check]))
 
 
 # ------------------------- no processes needed ---------------------------- #
@@ -531,56 +625,85 @@ def test_split_q_heads_read_their_kv_heads(heads, kv_heads, tp):
 
 
 def test_the_formula_counts_gemmas_replicated_kv_heads():
-    """``model_all_reduces`` for gemma-2b at full width on (2, 2), FSDP, one
-    microbatch of 4 x 1024: 1 + 18 x 5 + 3 + 1 all-reduces (the one over
-    the bf16 wk and wv gradients, a "data" half of each)."""
+    """``model_collectives`` for gemma-2b at full width on (2, 2), FSDP, one
+    microbatch of 4 x 1024, the sequence split: as qwen3's below over 18
+    layers, a = A/2; the all-reduces the cross-entropy's two and one over
+    the bf16 wk and wv gradients (a "data" half of each) with the norms'.
+    At 4 x 1023 the Megatron layout's 1 + 18 x 5 + 3 + 1 all-reduces."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import build_model
-    from repro_torch.train.step import model_all_reduces
+    from repro_torch.train.step import model_collectives
     model = build_model(get_arch("gemma-2b"), device="meta")
+    mesh = Mesh(("data", "model"), (2, 2))
     act = 4 * 1024 * 2048 * 2
-    calls, nbytes = model_all_reduces(model, Mesh(("data", "model"), (2, 2)), 4, 1024)
-    assert calls == 1 + 18 * 5 + 3 + 1
     kv = 2 * 18 * 2048 * 256 * 2 // 2
-    assert nbytes == act * (1 + 18 * 5 + 1) + 4 * 1024 * 12 + kv
+    norms = (2 * 18 * 2048 + 2048) * 2 // 2             # ln1, ln2, final_norm
+    assert model_collectives(model, mesh, 4, 1024) == {
+        ("all_gather", ("model",)): [1 + 18 * 6 + 1, (1 + 18 * 6 + 1) * act // 2],
+        ("reduce_scatter", ("model",)): [1 + 18 * 5 + 1, (1 + 18 * 5 + 1) * act],
+        ("all_reduce", ("model",)): [2 + 1, 4 * 1024 * 12 + kv + norms]}
+    act = 4 * 1023 * 2048 * 2
+    assert model_collectives(model, mesh, 4, 1023) == {("all_reduce", ("model",)): [
+        1 + 18 * 5 + 3 + 1, act * (1 + 18 * 5 + 1) + 4 * 1023 * 12 + kv]}
 
 
 def test_the_formula_counts_every_split_region():
-    """``model_all_reduces`` at full width: qwen3-0.6b on (2, 2), FSDP, one
-    microbatch of 4 x 1024: 1 + 28 x 5 + 3 + 1 all-reduces (the embedding,
-    each layer's two regions twice and its attention's recomputed g, the
-    cross-entropy, the bf16 qk-norm gradients); none at model 1."""
+    """``model_collectives`` at full width: qwen3-0.6b on (2, 2), FSDP, one
+    microbatch of 4 x 1024, the sequence split, a = A/2: the embedding's
+    reduce-scatter and its backward gather; each layer's two regions, each
+    an all-gather in and a reduce-scatter out forward and backward, and the
+    recompute's three (its last exit is not run again): 6 gathers and 5
+    scatters a layer; the head's gather and its backward scatter; the
+    cross-entropy's two statistics and one all-reduce of the bf16 qk-norm
+    and norm gradients: 315 calls. At 4 x 1023, which "model" does not
+    divide, the Megatron layout: 1 + 28 x 5 + 3 + 1 all-reduces. None at
+    model 1."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import build_model
-    from repro_torch.train.step import model_all_reduces
+    from repro_torch.train.step import model_collectives
     model = build_model(get_arch("qwen3-0.6b"), device="meta")
+    mesh = Mesh(("data", "model"), (2, 2))
     act = 4 * 1024 * 1024 * 2
-    calls, nbytes = model_all_reduces(model, Mesh(("data", "model"), (2, 2)), 4, 1024)
-    assert calls == 1 + 28 * 5 + 3 + 1
     qk = 2 * 28 * 128 * 2 // 2                       # q_norm and k_norm, a "data" half
-    assert nbytes == act * (1 + 28 * 5 + 1) + 4 * 1024 * 12 + qk
-    assert model_all_reduces(model, Mesh(("data", "model"), (4, 1)), 2, 1024) == (0, 0)
+    norms = (2 * 28 * 1024 + 1024) * 2 // 2          # ln1, ln2, final_norm
+    got = model_collectives(model, mesh, 4, 1024)
+    assert got == {
+        ("all_gather", ("model",)): [1 + 28 * 6 + 1, (1 + 28 * 6 + 1) * act // 2],
+        ("reduce_scatter", ("model",)): [1 + 28 * 5 + 1, (1 + 28 * 5 + 1) * act],
+        ("all_reduce", ("model",)): [2 + 1, 4 * 1024 * 12 + qk + norms]}
+    assert sum(calls for calls, _ in got.values()) == 315
+    act = 4 * 1023 * 1024 * 2
+    assert model_collectives(model, mesh, 4, 1023) == {("all_reduce", ("model",)): [
+        1 + 28 * 5 + 3 + 1, act * (1 + 28 * 5 + 1) + 4 * 1023 * 12 + qk]}
+    assert model_collectives(model, Mesh(("data", "model"), (4, 1)), 2, 1024) == {}
 
 
-@pytest.mark.parametrize("arch, mesh_shape, expected", [
-    ("qwen3-0.6b", (2, 2), {"blocks.attn.q_norm", "blocks.attn.k_norm"}),
+@pytest.mark.parametrize("arch, mesh_shape, expected, norms", [
+    ("qwen3-0.6b", (2, 2), {"blocks.attn.q_norm", "blocks.attn.k_norm"},
+     {"blocks.ln1", "blocks.ln2", "final_norm"}),
     ("mamba2-2.7b", (2, 2), {"blocks.mamba.w_b", "blocks.mamba.w_c", "blocks.mamba.conv_b",
-                             "blocks.mamba.conv_c"}),
+                             "blocks.mamba.conv_c"}, {"blocks.ln1", "final_norm"}),
     ("zamba2-7b", (1, 2), {"blocks.mamba.w_b", "blocks.mamba.w_c", "blocks.mamba.conv_b",
-                           "blocks.mamba.conv_c"}),
-    ("gemma-2b", (2, 2), {"blocks.attn.wk", "blocks.attn.wv"}),
+                           "blocks.mamba.conv_c"},
+     {"blocks.ln1", "shared_attn.ln1", "shared_attn.ln2", "final_norm"}),
+    ("gemma-2b", (2, 2), {"blocks.attn.wk", "blocks.attn.wv"},
+     {"blocks.ln1", "blocks.ln2", "final_norm"}),
     ("qwen3-0.6b", (1, 16), {"blocks.attn.q_norm", "blocks.attn.k_norm", "blocks.attn.wk",
-                             "blocks.attn.wv"}),
-    ("qwen3-0.6b", (4, 1), set()),
+                             "blocks.attn.wv"}, {"blocks.ln1", "blocks.ln2", "final_norm"}),
+    ("qwen3-0.6b", (4, 1), set(), set()),
 ])
-def test_partial_leaves_come_from_the_specs(arch, mesh_shape, expected):
-    """The leaves whose gradient ``data_mean`` sums over "model" are those
-    replicated in a sub-layer whose other leaves the specs split, at full
-    width: the qk-norm scales and Mamba2's SSD group, never a norm before a
-    split region (its gradient is whole after f's backward), wk and wv where
-    the kv heads do not divide the axis, none at model 1."""
+def test_partial_leaves_come_from_the_specs(arch, mesh_shape, expected, norms):
+    """The leaves whose gradient ``data_mean`` sums over "model" at full
+    width. With the sequence replicated over "model" (the Megatron layout)
+    those replicated in a sub-layer whose other leaves the specs split: the
+    qk-norm scales and Mamba2's SSD group, never a norm before a split
+    region (its gradient is whole after f's backward), wk and wv where the
+    kv heads do not divide the axis. With the sequence split, the norms of
+    the residual stream too (``ln1``, ``ln2``, the shared block's and
+    ``final_norm``: each rank applies them to its positions). None at
+    model 1."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import build_model
@@ -592,5 +715,6 @@ def test_partial_leaves_come_from_the_specs(arch, mesh_shape, expected):
     plan = make_state_plan(model, mesh, fsdp_params=True)
     paths = [".".join(map(str, p)) for p, _ in
              tree_flatten_with_path(plan.state_specs["params"])]
-    partial = {p for p, leaf in zip(paths, _leaves(plan, _Loss(model), mesh)) if leaf.partial}
-    assert partial == expected
+    leaves = _leaves(plan, _Loss(model), mesh)
+    assert {p for p, leaf in zip(paths, leaves) if leaf.summed(False)} == expected
+    assert {p for p, leaf in zip(paths, leaves) if leaf.summed(True)} == expected | norms
