@@ -49,6 +49,23 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 decode times beside their bounds (prefill by routed assignments
                 and by the reference's dispatch slots, decode with every expert
                 read and with the experts picked). Freed after.
+6e. slice_vlm -- internvl2-26b at full width (48 q heads on 8 kv heads of 128:
+                decode at 6 q heads per kv head), 2 layers, fp32, CPU against
+                card, weights drawn on the card and copied to the CPU: one
+                prompt of 16 tokens behind 1,024 patch embeddings (N(0, 1) from a
+                seed), 8 decode steps; the logits of each, the caches after the
+                prefill and after the steps, and the index (1,040 then 1,048) at
+                2e-4; 2 flash and 16 decode launches.
+6f. serve_vlm -- full internvl2-26b (48 layers, untied head, bf16, 19.9 B
+                parameters drawn on the card from a seed): the same 8 x 1000
+                prompts, each behind 1,024 patch embeddings drawn N(0, 1) in bf16
+                from a seed, 32 greedy tokens (a cache of 2,056), served twice
+                (the repeat must equal the warm-up): 48 flash launches on wgmma at
+                q (8, 2024, 48, 128), k/v (8, 2024, 8, 128), 48 x 31 decode
+                launches at q (8, 1, 48, 128), caches (8, 2056, 8, 128), no SSD
+                launch (the calls' shapes recorded by wrapping ``ops``); prefill
+                and decode times beside their bounds, peak device memory. Freed
+                after.
 7. train_grad -- the flash kernel under autograd (FlashAttention) against the
                 plain blockwise_attention under autograd: output, dq, dk, dv at
                 the training shape (bf16, B=8, S=1024, H=16, K=8, hd=128), at
@@ -214,7 +231,7 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 beside the measured host checkpoint share of the step.
 8b. train_ssm -- mamba2-2.7b at full width cut to 8 of 64 layers, bf16, trained
                 by SimCluster as train below (dp=4, 8 x 1024 tokens, 2 steps, a
-                failure of worker 2, recover(), 2 steps): a neighbour recovery,
+                failure of worker 2, recover(), 1 step): a neighbour recovery,
                 0 rollbacks, the opt vector bitwise equal across recover(), 8
                 SSD launches a step all on wgmma, finite losses, and the first
                 step's batch scoring lower after the run; the step split, tokens/s
@@ -223,10 +240,10 @@ slices and the serve runs come before any phase that opens torch.profiler:
 9. train     -- the slice: full qwen3-0.6b (28 layers, bf16) trained by the
                 port's SimCluster, dp=4 simulated workers on the one card, 8 x
                 1024 tokens a step: 2 steps, a software failure of worker 2,
-                recover() with the stream policy, 2 more steps. Requires recovery
+                recover() with the stream policy, 1 more step. Requires recovery
                 from the neighbour with no rollback, the optimizer vector after
                 recovery bitwise equal to a host copy taken before the failure,
-                finite losses, and, with the counts zeroed just before, 28 x 4
+                finite losses, and, with the counts zeroed just before, 28 x 3
                 flash launches (all wgmma) and no decode or SSD launch. Prints
                 the step split (device by CUDA events, host checkpoint by the
                 host clock), tokens/s, the step's bound, peak device memory, peak
@@ -254,7 +271,10 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 256), k/v (8, 1000, 1, 256); decode at head_dim 256 in both
                 dtypes, in the block form (o fp32, lse) at a rank's of
                 serve_mesh, q (4, 1, 8, 256), cache (4, 516, 1, 256), and at the
-                serve shape, q (8, 1, 8, 256), caches (8, 1032, 1, 256); the SSD
+                serve shape, q (8, 1, 8, 256), caches (8, 1032, 1, 256); flash at
+                internvl2-26b's q (8, 2024, 48, 128), k/v (8, 2024, 8, 128) and
+                decode at its q (8, 1, 48, 128), caches (8, 2056, 8, 128), cur_len
+                2,056, both forms, each in both dtypes; the SSD
                 at a rank's 40 (mamba2) and 56 (zamba2) heads, 4 x 1024, bf16),
                 with the
                 kernel's, the plain version's and (for attention) the library
@@ -274,10 +294,10 @@ Then a ``timing`` line (kernel timings taken by CUPTI and by CUDA events, the
 host seconds of each phase),
 one {"kernels": [...]} line (each kernel's launches in every serve and training
 phase, ``moe_launches``, ``train_tp_launches``, ``train_moe_mesh_launches``,
-``train_gemma_mesh_launches``, ``serve_mesh_launches`` and ``pipeline_launches`` among
-them, and its rows at the
+``train_gemma_mesh_launches``, ``serve_mesh_launches``, ``pipeline_launches`` and
+``vlm_launches`` among them, and its rows at the
 other shapes, ``tp_shape`` / ``tp_shapes``, ``moe_mesh_shape``, ``pipeline_shape``,
-``gemma_tp_shape`` and ``hd256`` among them), the card's name
+``gemma_tp_shape``, ``hd256`` and ``vlm_shape`` among them), the card's name
 and power
 limit, and last
 {"ok": true, "device": {...}}.
@@ -285,6 +305,7 @@ limit, and last
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -328,6 +349,12 @@ PREFILL_HD256 = dict(b=8, s=1000, h=8, kh=1, hd=256)
 # one-card serve shape
 DECODE_HD256_BLOCK = dict(b=4, t=516, h=8, kh=1, hd=256, cur_lens=(516,), partial=True)
 DECODE_HD256 = dict(b=8, t=1032, h=8, kh=1, hd=256, cur_lens=(1032,))
+# internvl2-26b's serve shapes: 48 q heads on 8 kv heads of 128 (group 6), 8
+# prompts of 1,024 patch embeddings and 1,000 tokens (flash at S 2,024), a
+# cache of 2,056 positions (decode in both forms at the full cache)
+PREFILL_VLM = dict(b=8, s=2024, h=48, kh=8, hd=128)
+DECODE_VLM = dict(b=8, t=2056, h=48, kh=8, hd=128, cur_lens=(2056,))
+DECODE_VLM_BLOCK = dict(DECODE_VLM, partial=True)
 SSD_TP = dict(SSD, b=4, h=40, seqs=(1024,))
 SSD_HYBRID_TP = dict(SSD_HYBRID, b=4, h=56, seqs=(1024,))
 SERVE = dict(batch=8, prompt=1000, gen=32)
@@ -343,9 +370,11 @@ EXPECTED_ROUTE = {"bfloat16": "wgmma", "float32": "fp32"}
 # whole slice, card against CPU, fp32: the tolerance of the reference's
 # test_prefill_decode_matches_forward
 SLICE_TOL = 2e-4
-# the training slice (ISSUE's cell): qwen3-0.6b, dp=4 simulated workers,
-# 8 x 1024 tokens a step, 2 steps, a failure of worker 2, 2 more steps
-TRAIN = dict(dp=4, global_batch=8, seq_len=1024, steps_before=2, steps_after=2,
+# the training slice: qwen3-0.6b, dp=4 simulated workers, 8 x 1024 tokens a
+# step, 2 steps, a failure of worker 2, 1 more step (a host-bound step takes
+# ~18 s of the script's time limit); the step split is the median of the 2
+# steps after the first
+TRAIN = dict(dp=4, global_batch=8, seq_len=1024, steps_before=2, steps_after=1,
              failed=2)
 # flash gradients, kernel under autograd against the plain version: bf16 at
 # the training shape, fp32 (TF32 off) at a small one and at the scenario
@@ -369,11 +398,17 @@ HYBRID_LOSS = dict(batch=2, seq=64, tol=2e-4)
 # and the embedding are 1.83 B parameters, 7.3 GB), fp32, the tokens of LOSS:
 # prefill of 1 x 576, 8 decode steps, the loss of 1 x 577 and every gradient
 MOE_SLICE = dict(layers=2, batch=LOSS["batch"], seq=LOSS["seq"], steps=8, tol=2e-4)
+# the VLM slice, card against CPU: internvl2-26b at full width cut to 2 layers
+# (1,918,924,800 parameters, 7.7 GB of fp32 a side; 48 layers would be 79 GB
+# on the CPU), fp32, one prompt of 16 tokens behind its 1,024 patch
+# embeddings, 8 decode steps
+VLM_SLICE = dict(layers=2, batch=1, prompt=16, steps=8, tol=SLICE_TOL)
 # the SSM training cell: mamba2-2.7b at full width cut to 8 of 64 layers (the
 # host copies of the full 32.4 GB opt state would not fit the host), dp=4
-# simulated workers, 8 x 1024 tokens a step, 2 steps, a failure, 2 steps
+# simulated workers, 8 x 1024 tokens a step, 2 steps, a failure, 1 step (as
+# train, for the script's time limit)
 TRAIN_SSM = dict(layers=8, dp=4, global_batch=8, seq_len=1024, steps_before=2,
-                 steps_after=2, failed=2)
+                 steps_after=1, failed=2)
 L2_BYTES = 50 * 10**6
 T_START = time.perf_counter()
 PROFILER_SESSIONS = [0]     # torch.profiler sessions opened so far in this process
@@ -602,8 +637,9 @@ def phase_kernels(torch, F):
     # the serve shape in both dtypes, the training step's (S=1024) in bf16,
     # zamba2-7b's serve shape (hd 112) in both dtypes, qwen2-moe-a2.7b's
     # (MHA at hd 128) in bf16, a rank's of the tensor-parallel step in both,
-    # in bf16 a rank's of the MoE's sharded step and a pipeline stage's, and
-    # gemma-2b's at hd 256 (a rank's of train_gemma_mesh, the serve-like) in both
+    # in bf16 a rank's of the MoE's sharded step and a pipeline stage's,
+    # gemma-2b's at hd 256 (a rank's of train_gemma_mesh, the serve-like) in
+    # both, and internvl2-26b's at group 6 (patches and prompt) in both
     for key, dtype, p in (("bfloat16", torch.bfloat16, PREFILL),
                           ("float32", torch.float32, PREFILL),
                           ("bfloat16_train", torch.bfloat16,
@@ -618,7 +654,9 @@ def phase_kernels(torch, F):
                           ("bfloat16_gemma_tp", torch.bfloat16, PREFILL_GEMMA_TP),
                           ("float32_gemma_tp", torch.float32, PREFILL_GEMMA_TP),
                           ("bfloat16_hd256", torch.bfloat16, PREFILL_HD256),
-                          ("float32_hd256", torch.float32, PREFILL_HD256)):
+                          ("float32_hd256", torch.float32, PREFILL_HD256),
+                          ("bfloat16_vlm", torch.bfloat16, PREFILL_VLM),
+                          ("float32_vlm", torch.float32, PREFILL_VLM)):
         dname = str(dtype).split(".")[-1]
         q = rand((p["b"], p["s"], p["h"], p["hd"]), dtype)
         k = rand((p["b"], p["s"], p["kh"], p["hd"]), dtype)
@@ -665,7 +703,11 @@ def phase_kernels(torch, F):
                              ("_hd256_block", DECODE_HD256_BLOCK, torch.bfloat16),
                              ("_hd256_block", DECODE_HD256_BLOCK, torch.float32),
                              ("_hd256", DECODE_HD256, torch.bfloat16),
-                             ("_hd256", DECODE_HD256, torch.float32)):
+                             ("_hd256", DECODE_HD256, torch.float32),
+                             ("_vlm", DECODE_VLM, torch.bfloat16),
+                             ("_vlm", DECODE_VLM, torch.float32),
+                             ("_vlm_block", DECODE_VLM_BLOCK, torch.bfloat16),
+                             ("_vlm_block", DECODE_VLM_BLOCK, torch.float32)):
         dname = str(dtype).split(".")[-1]
         partial = d.get("partial", False)
         q = rand((d["b"], 1, d["h"], d["hd"]), dtype)
@@ -806,21 +848,25 @@ def serve_once(torch, prefill, decode, tokens, max_len, gen):
 
 def serve_bounds(cfg, params: int, b: int, prompt: int, gen: int):
     """The card's least time for the serve run's prefill and for its mean
-    decode step, bf16: weight bytes read once, KV cache bytes written or
-    read once, and the matrix products' and attention's operations."""
+    decode step, bf16: weight bytes read once (an untied embedding table is
+    gathered, not read whole), the patch embeddings read and the KV cache
+    bytes written or read once, and the matrix products' and attention's
+    operations over every position: a VLM's patches, then the prompt."""
     from repro_torch.roofline.hw import bound_seconds
     L, kh, h, hd = cfg.num_layers, cfg.num_kv_heads, cfg.num_heads, cfg.resolved_head_dim
-    n_head = cfg.padded_vocab * cfg.d_model          # tied embedding / head
-    n_body = params - n_head
-    weight_bytes = 2 * params
+    n_head = cfg.padded_vocab * cfg.d_model          # the head: the tied embedding or lm_head
+    n_embed = 0 if cfg.tie_embeddings else n_head     # an untied embedding, gathered by row
+    n_body = params - n_head - n_embed
+    weight_bytes = 2 * (params - n_embed)
+    s = cfg.num_patch_tokens + prompt                 # positions of the prefill
     kv_bytes_per_pos = 2 * L * b * kh * hd * 2        # K and V, all layers, bf16
-    prefill_flops = (2 * n_body * b * prompt + 2 * n_head * b
-                     + L * 4 * b * h * hd * prompt * (prompt + 1) // 2)
-    prefill = bound_seconds(prefill_flops, weight_bytes + kv_bytes_per_pos * prompt,
-                            "bfloat16")
-    lens = range(prompt + 1, prompt + gen)             # attended lengths per step
+    prefill_flops = (2 * n_body * b * s + 2 * n_head * b
+                     + L * 4 * b * h * hd * s * (s + 1) // 2)
+    prefill = bound_seconds(prefill_flops, weight_bytes + kv_bytes_per_pos * s
+                            + 2 * b * cfg.num_patch_tokens * cfg.d_model, "bfloat16")
+    lens = range(s + 1, s + gen)                       # attended lengths per step
     steps = gen - 1
-    decode_flops = 2 * params * b + L * 4 * b * h * hd * sum(lens) / steps
+    decode_flops = 2 * (n_body + n_head) * b + L * 4 * b * h * hd * sum(lens) / steps
     decode_bytes = weight_bytes + kv_bytes_per_pos * sum(lens) / steps
     return prefill, bound_seconds(decode_flops, decode_bytes, "bfloat16")
 
@@ -1747,8 +1793,6 @@ def mesh_rank(rank: int, world: int, tmp: str, rdv: str, parts: list, device: st
 
 def mesh_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
     """Part (a) on one rank; its record goes to tmp/a_<rank>.json."""
-    import resource
-
     import torch
     import torch.distributed as dist
 
@@ -1841,8 +1885,7 @@ def mesh_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
                ring_bytes_sent=sent, razor_bytes=art.razor.unique_bytes_per_device_ring,
                formula_bytes=razor_bytes_formula(param_count(cfg), world),
                drill_bitwise=drill_bitwise, first_batch_loss_after=first_batch_loss_after,
-               no_fsdp=no_fsdp, host_rss_gb=rss,
-               peak_host_rss_gb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9)
+               no_fsdp=no_fsdp, host_rss_gb=rss, host_rss_end_gb=host_rss_gb())
     with open(f"{tmp}/a_{rank}.json", "w") as f:
         json.dump(rec, f)
 
@@ -1895,9 +1938,11 @@ def _train_mesh_row(recs: list, t: dict, a_s: float, device: str) -> dict:
                tokens_per_s=t["global_batch"] * t["seq_len"] / (median_ms / 1e3),
                peak_device_mem_gb=[r["peak_device_mem_gb"] for r in recs],
                no_fsdp=[r["no_fsdp"] for r in recs],
-               peak_host_rss_gb=[r["peak_host_rss_gb"] for r in recs],
+               host_rss_end_gb=[r["host_rss_end_gb"] for r in recs],
                host_rss_gb_rank0=recs[0]["host_rss_gb"],
-               host_rss_note="host_rss_gb_rank0: rank 0's resident host memory after its "
+               host_rss_note="host_rss_end_gb: each rank's resident host memory when it "
+                             "wrote its record (not ru_maxrss, which counts the parent's "
+                             "pages at the spawn); host_rss_gb_rank0: rank 0's after its "
                              "setup, 2 steps, the drill and the step without FSDP",
                flash_launches=flash, flash_expected=2 * cfg.num_layers * steps,
                flash_note="per rank: the forward and its recompute in the backward (FSDP "
@@ -3632,6 +3677,177 @@ def phase_serve_moe(torch):
     return row
 
 
+def phase_slice_vlm(torch):
+    """internvl2-26b at full width (48 q heads on 8 kv heads of 128: the
+    decode kernel at group 6), cut to 2 layers, fp32: the same weights and
+    the same patch embeddings (N(0, 1) from a seed) on the CPU (plain
+    versions) and on the card (kernels). Prefill of one prompt of 16 tokens
+    behind 1,024 patches, then 8 decode steps (both sides take the CPU's
+    greedy token): the logits of each, the caches after the prefill and
+    after the steps, and the index, at 2e-4."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.train.serve import build_decode_step, build_prefill_step
+
+    m = VLM_SLICE
+    cfg = dataclasses.replace(get_arch("internvl2-26b"), num_layers=m["layers"],
+                              dtype="float32")
+    npatch = cfg.num_patch_tokens
+    t0 = time.perf_counter()
+    # drawn on the card (1.9 B numbers drawn on the host are slow), then
+    # copied to the CPU
+    card = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(6)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (m["batch"], m["prompt"])))
+    patches = torch.from_numpy(rng.standard_normal((m["batch"], npatch, cfg.d_model),
+                                                   dtype=np.float32))
+    max_len = npatch + m["prompt"] + m["steps"]
+    reset_launches()
+    runs = {}
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        dev = model.device
+        prefill, decode = build_prefill_step(model), build_decode_step(model)
+        logits, cache = prefill(tokens.to(dev), max_len, patches.to(dev))
+        # copies: decode writes the cache in place (.cpu() of a CPU tensor is itself)
+        run = dict(logits=[logits.cpu()], index=cache["index"], k=cache["k"].cpu().clone(),
+                   v=cache["v"].cpu().clone())
+        for step in range(m["steps"]):
+            tok = (runs["cpu"] if name == "cuda" else run)["logits"][step].argmax(-1)
+            logits, cache = decode(cache, tok.to(dev))
+            run["logits"].append(logits.cpu())
+        run.update(final_k=cache["k"].cpu(), final_v=cache["v"].cpu(),
+                   index_after=cache["index"])
+        runs[name] = run
+        del cache
+    launches = read_launches()
+    expected = {"flash_attention": cfg.num_layers,
+                "decode_attention": cfg.num_layers * m["steps"], "ssd": 0,
+                "ssd_routes": {"wgmma": 0, "fp32": 0}}
+    if launches != expected:
+        fail(f"slice_vlm: kernel launches {launches}, expected {expected}")
+    want_index = (npatch + m["prompt"], npatch + m["prompt"] + m["steps"])
+    for name, run in runs.items():
+        if (run["index"], run["index_after"]) != want_index:
+            fail(f"slice_vlm: {name} cache index {run['index']} then {run['index_after']}, "
+                 f"expected {want_index}")
+    errs = []
+    for ref, out in zip(runs["cpu"]["logits"], runs["cuda"]["logits"]):
+        if out.shape != (m["batch"], cfg.padded_vocab) or not torch.isfinite(out).all():
+            fail(f"slice_vlm: logits of shape {tuple(out.shape)} or not finite")
+        errs.append(check_close("slice_vlm logits card vs cpu", out, ref, m["tol"]))
+    cache_err = {key: check_close(f"slice_vlm cache {key} card vs cpu", runs["cuda"][key],
+                                  runs["cpu"][key], m["tol"])
+                 for key in ("k", "v", "final_k", "final_v")}
+    row = dict(config=f"internvl2-26b full width, {cfg.num_layers} layers, fp32, 48 q / 8 kv "
+                      "heads of 128 (group 6)",
+               batch=m["batch"], patches=npatch, prompt=m["prompt"], decode_steps=m["steps"],
+               init_s=init_s, logits_max_abs_err_per_step=errs, cache_max_abs_err=cache_err,
+               index=list(want_index), tol=m["tol"], launches=launches)
+    emit("slice_vlm", **row)
+    del cpu, card, runs
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_serve_vlm(torch):
+    """Full internvl2-26b (48 layers, d_model 6144, 48 q heads on 8 kv heads
+    of 128, SwiGLU 16,384, untied head of 92,553 padded to 92,672, bf16,
+    random weights drawn on the card from a seed): 8 prompts of 1,000
+    tokens behind 1,024 patch embeddings each (N(0, 1) in bf16 from a seed,
+    so that a misplaced or dropped patch would change the tokens), 32
+    greedy tokens, served twice (the first a warm-up). 48 flash launches on
+    wgmma at q (8, 2024, 48, 128), k/v (8, 2024, 8, 128), 48 x 31 decode
+    launches at group 6 against caches of (8, 2056, 8, 128), no SSD launch;
+    prefill and decode times beside their bounds. Freed after."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, param_count
+    from repro_torch.train.serve import build_decode_step, build_prefill_step
+
+    cfg = get_arch("internvl2-26b")
+    b, prompt, gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    npatch, L = cfg.num_patch_tokens, cfg.num_layers
+    max_len = npatch + prompt + gen
+    t0 = time.perf_counter()
+    # 19.9 B numbers drawn by a CUDA generator on the card
+    model = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    patches = torch.randn((b, npatch, cfg.d_model), device="cuda", dtype=torch.bfloat16,
+                          generator=torch.Generator(device="cuda").manual_seed(1))
+    prefill = functools.partial(build_prefill_step(model), patch_embeds=patches)
+    decode = build_decode_step(model)
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (b, prompt))).cuda()
+    warm, *_ = serve_once(torch, prefill, decode, tokens, max_len, gen)
+
+    shapes = {"flash": set(), "decode": set()}
+    flash, dec = ops.flash_attention, ops.decode_attention
+
+    def flash_rec(q, k, *args, **kw):
+        shapes["flash"].add((tuple(q.shape), tuple(k.shape)))
+        return flash(q, k, *args, **kw)
+
+    def decode_rec(q, k, *args):
+        shapes["decode"].add((tuple(q.shape), tuple(k.shape)))
+        return dec(q, k, *args)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ops.flash_attention, ops.decode_attention = flash_rec, decode_rec
+    try:
+        seqs, finite, t_prefill, t_decode, shape = serve_once(
+            torch, prefill, decode, tokens, max_len, gen)
+    finally:
+        ops.flash_attention, ops.decode_attention = flash, dec
+    launches = read_launches()
+    flash_routes = dict(fa.flash_attention.routes)
+    expected = {"flash_attention": L, "decode_attention": L * (gen - 1), "ssd": 0,
+                "ssd_routes": {"wgmma": 0, "fp32": 0}}
+    want_shapes = {"flash": [((b, npatch + prompt, 48, 128), (b, npatch + prompt, 8, 128))],
+                   "decode": [((b, 1, 48, 128), (b, max_len, 8, 128))]}
+    got_shapes = {k: sorted(v) for k, v in shapes.items()}
+    if launches != expected or flash_routes != {"wgmma": L, "fp32": 0}:
+        fail(f"serve_vlm: kernel launches {launches}, flash routes {flash_routes}; expected "
+             f"{expected}, flash all on wgmma")
+    if got_shapes != want_shapes:
+        fail(f"serve_vlm: kernel calls at (q, k) {got_shapes}, expected {want_shapes}")
+    if not finite or tuple(shape) != (b, cfg.padded_vocab):
+        fail(f"serve_vlm: logits not finite or of shape {tuple(shape)}")
+    if seqs.shape != (b, gen) or not ((seqs >= 0) & (seqs < cfg.padded_vocab)).all():
+        fail("serve_vlm: generated tokens out of range")
+    repeat = bool((warm == seqs).all())
+    if not repeat:
+        fail("serve_vlm: the repeat generated other tokens than the warm-up")
+    params = param_count(cfg)
+    prefill_bound, decode_bound = serve_bounds(cfg, params, b, prompt, gen)
+    row = dict(config=f"internvl2-26b full ({L} layers, d_model {cfg.d_model}, "
+                      f"{cfg.num_heads} q / {cfg.num_kv_heads} kv heads of "
+                      f"{cfg.resolved_head_dim}, untied head, bf16)",
+               params=params, batch=b, patches=npatch, prompt=prompt, gen=gen,
+               max_len=max_len, init_s=init_s, prefill_ms=t_prefill * 1e3,
+               prefill_bound_ms=prefill_bound[0] * 1e3, prefill_bound_by=prefill_bound[1],
+               decode_steps=gen - 1, decode_ms_per_step=t_decode * 1e3 / (gen - 1),
+               decode_step_bound_ms=decode_bound[0] * 1e3, decode_step_bound_by=decode_bound[1],
+               decode_tok_s=b * (gen - 1) / t_decode,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=launches, flash_routes=flash_routes, kernel_shapes=got_shapes,
+               logits_finite=finite, repeat_identical=repeat,
+               profiler_sessions_before=PROFILER_SESSIONS[0],
+               first_sequence=seqs[0].tolist())
+    emit("serve_vlm", **row)
+    del model, prefill, decode, patches
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_train_ssm(torch):
     """mamba2-2.7b at full width, cut to 8 layers, trained by the port's
     SimCluster with a failure and a stream recovery in the middle: the SSD
@@ -3711,6 +3927,8 @@ def main() -> int:
     serve_hybrid = timed("serve_hybrid", phase_serve_hybrid, torch)
     timed("slice_moe", phase_slice_moe, torch)
     serve_moe = timed("serve_moe", phase_serve_moe, torch)
+    timed("slice_vlm", phase_slice_vlm, torch)
+    serve_vlm = timed("serve_vlm", phase_serve_vlm, torch)
     timed("train_grad", phase_train_grad, torch)
     # train_mesh (b)'s one-rank reference is train_tp (b)'s too: one directory
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
@@ -3804,6 +4022,9 @@ def main() -> int:
                              for d in ("bfloat16", "float32")},
              hd256={d: moe_shape(kernels["flash_attention"][f"{d}_hd256"])
                     for d in ("bfloat16", "float32")},
+             vlm_launches=serve_vlm["launches"]["flash_attention"],
+             vlm_shape={d: moe_shape(kernels["flash_attention"][f"{d}_vlm"])
+                        for d in ("bfloat16", "float32")},
              backward="plain blockwise_attention recompute (FlashAttention), no kernel"),
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attn.cu",
@@ -3837,7 +4058,12 @@ def main() -> int:
              hd256={f"{d}_{form}": moe_shape(kernels["decode_attention"][f"{d}_{key}"][-1])
                     for d in ("bfloat16", "float32")
                     for form, key in (("block", "hd256_block"), ("serve", "hd256"))},
-             head_dims="16, 32, 64, 112 (on 128's lanes), 128, 256 (two loads a lane in fp32)"),
+             vlm_launches=serve_vlm["launches"]["decode_attention"],
+             vlm_shape={f"{d}_{form}": moe_shape(kernels["decode_attention"][f"{d}_{key}"][-1])
+                        for d in ("bfloat16", "float32")
+                        for form, key in (("serve", "vlm"), ("block", "vlm_block"))},
+             head_dims="16, 32, 64, 112 (on 128's lanes), 128, 256 (two loads a lane in fp32)",
+             groups="1, 2, 4, 6, 8 q heads per kv head"),
         dict(name="ssd", route="cuda", dispatch=ssd_main["route"],
              source="src/repro_torch/csrc/ssd_wgmma.cu",
              fp32_source="src/repro_torch/csrc/ssd.cu",
@@ -3866,6 +4092,7 @@ def main() -> int:
              train_moe_mesh_launches=train_moe_mesh["ssd_launches"],
              train_gemma_mesh_launches=train_gemma_mesh["ssd_launches"],
              serve_mesh_launches=serve_mesh["launches_per_rank"]["ssd"],
+             vlm_launches=serve_vlm["launches"]["ssd"],
              tp_shapes={model: {k_: ssd_rows[(f"{model}/tp2", 1024, "bfloat16")][k_]
                                 for k_ in keys}
                         for model in ("mamba2-2.7b", "zamba2-7b")},

@@ -45,6 +45,13 @@
 // shared memory is dynamic, raised once per instantiation where it needs
 // more.
 //
+// Groups: G = H/K is 1, 2, 4, 6 or 8 (6: internvl2-26b's and
+// nemotron-4-15b's 48 q heads on 8 kv heads). G > 4 keeps 2 rows in flight
+// a lane instead of 4, for registers; at G = 6 and head_dim 256 the warps'
+// partials take 49,536 bytes, which also goes the dynamic way. The merge
+// grid finds a q head's kv head and member as h / G and h % G, which holds
+// for a G that is not a power of two.
+//
 // The block form. Given lse (fp32, (B, H)), the call returns what a rank
 // holding one block of the cache's positions needs to merge with the
 // others': o in fp32 (B, 1, H, hd), normalised over this block alone, and
@@ -331,6 +338,7 @@ cudaError_t dispatch_g(int G, const void* q, const void* k, const void* v,
     case 1: return launch_decode<T, HD, 1, HDV>(q, k, v, o, lse, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
     case 2: return launch_decode<T, HD, 2, HDV>(q, k, v, o, lse, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
     case 4: return launch_decode<T, HD, 4, HDV>(q, k, v, o, lse, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
+    case 6: return launch_decode<T, HD, 6, HDV>(q, k, v, o, lse, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
     case 8: return launch_decode<T, HD, 8, HDV>(q, k, v, o, lse, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
     default: return cudaErrorInvalidValue;
   }

@@ -24,7 +24,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import DTYPES, check_operands
 
 HEAD_DIMS = (16, 32, 64, 112, 128, 256)   # the kernel's lane mappings; 112 on hd 128's
-GROUPS = (1, 2, 4, 8)   # q heads per kv head the kernel is built for
+GROUPS = (1, 2, 4, 6, 8)   # q heads per kv head the kernel is built for
 BLOCKS_PER_SM = 2       # what the split planner aims at
 MAX_GRID_YZ = 65535
 

@@ -4,11 +4,15 @@
         --batch 8 --prompt-len 1000 --gen 32           # full width, on CUDA
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
         --batch 8 --prompt-len 1000 --gen 32           # the hybrid, 13.3 GB bf16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b \
+        --batch 8 --prompt-len 1000 --gen 32           # the VLM, 39.7 GB bf16
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke
 
 Weights are random, drawn from ``--seed``. Unlike the reference CLI, whose
 ``--smoke`` flag is always on, this one runs the full config unless
-``--smoke`` is given.
+``--smoke`` is given. A VLM's prompts sit behind ``num_patch_tokens`` patch
+embeddings, zeros in the model's dtype as in the reference CLI (the ViT
+frontend is a stub), and the cache's length counts them.
 """
 from __future__ import annotations
 
@@ -50,12 +54,15 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
     rng = np.random.default_rng(args.seed)
     tokens = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))).to(device)
+    npatch = cfg.num_patch_tokens
+    patch_embeds = (torch.zeros((args.batch, npatch, cfg.d_model), dtype=model.dtype,
+                                device=device) if npatch else None)
     prefill = build_prefill_step(model)
     decode = build_decode_step(model)
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = prefill(tokens, args.prompt_len + args.gen)
+    logits, cache = prefill(tokens, npatch + args.prompt_len + args.gen, patch_embeds)
     _sync(device)
     print(f"prefill: {args.batch}x{args.prompt_len} in {time.perf_counter() - t0:.2f}s")
 

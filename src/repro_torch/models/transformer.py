@@ -1,9 +1,14 @@
-"""The decoder-only LM (dense or MoE), the pure SSM (Mamba2) LM and the
-hybrid (Zamba2) LM (ports of ``_build_decoder_lm``, ``_build_ssm_lm`` and
-``_build_hybrid_lm`` in ``repro.models.transformer``): ``init``,
+"""The decoder-only LM (dense, MoE or VLM), the pure SSM (Mamba2) LM and
+the hybrid (Zamba2) LM (ports of ``_build_decoder_lm``, ``_build_ssm_lm``
+and ``_build_hybrid_lm`` in ``repro.models.transformer``): ``init``,
 ``forward``, ``loss``, ``prefill``, ``decode_step`` and ``cache_specs``.
 An MoE config's layers hold ``moe`` (``models.moe``) where a dense one's
-hold ``mlp``, and its loss adds the layers' summed balance loss.
+hold ``mlp``, and its loss adds the layers' summed balance loss. A VLM
+config (``num_patch_tokens`` > 0) is the dense decoder with precomputed
+patch embeddings (B, num_patch_tokens, D) in front of the prompt's token
+embeddings (the ViT frontend is a stub, as in the reference): ``forward``,
+``loss`` (``batch["patch_embeds"]``) and ``prefill`` take them, the loss
+scores the text positions only, and the cache counts the patch positions.
 
 Parameters are built frozen (``requires_grad=False``), which serving needs;
 ``model.requires_grad_(True)`` makes them trainable (``train.state.init_state``
@@ -61,8 +66,7 @@ from repro_torch.models.modes import (cache_block_len, parallel_region, run_laye
 
 # Families the port cannot build yet, with the ROADMAP §1 item that ports them.
 _NOT_PORTED = {
-    "vlm": "ROADMAP §1 item 11 (the VLM patch path)",
-    "encdec": "ROADMAP §1 item 11 (_build_encdec)",
+    "encdec": "ROADMAP §1 item 11b (_build_encdec)",
 }
 
 
@@ -87,6 +91,26 @@ def _to_head(x: torch.Tensor, w: torch.Tensor, vocab: int) -> torch.Tensor:
     gradient reduce-scattered where ``w`` is this rank's vocab block, whose
     ``dx`` is a part of the sum); else ``x``."""
     return seq_gather(x, w.shape[0] != vocab) if sequence_split() else x
+
+
+def _embed_inputs(embed: torch.Tensor, cfg: ArchConfig, tokens: torch.Tensor,
+                  patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The token embeddings of ``tokens`` (B, S), behind the patch
+    embeddings (B, num_patch_tokens, D) cast to the model's dtype for a VLM
+    config (the reference's ``_embed_inputs``): (B, num_patch_tokens + S,
+    D). A VLM call without them or with another shape, and any other
+    config's call with them, raises ``ValueError``."""
+    x = embed_lookup(embed, tokens, cfg.padded_vocab)
+    npatch = cfg.num_patch_tokens
+    if not npatch:
+        if patch_embeds is not None:
+            raise ValueError(f"{cfg.name} takes no patch_embeds (num_patch_tokens is 0)")
+        return x
+    want = (tokens.shape[0], npatch, cfg.d_model)
+    if patch_embeds is None or tuple(patch_embeds.shape) != want:
+        got = None if patch_embeds is None else tuple(patch_embeds.shape)
+        raise ValueError(f"{cfg.name} needs patch_embeds of shape {want}, got {got}")
+    return torch.cat([patch_embeds.to(x.dtype), x], dim=1)
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -205,22 +229,28 @@ class Block(nn.Module):
 def _input_specs(model, shape) -> Dict:
     """The batch of a ``ShapeConfig`` as meta tensors (the reference's
     ``input_specs``): train takes S+1 tokens, prefill S, decode one token
-    and the cache of ``cache_specs(B, S)``."""
+    and the cache of ``cache_specs(B, S)``. A VLM's S counts its patches:
+    train and prefill take S - num_patch_tokens (+1) tokens and the patch
+    embeddings (B, num_patch_tokens, D) in the model's dtype."""
     b, s = shape.global_batch, shape.seq_len
+    npatch = model.cfg.num_patch_tokens
 
     def tokens(*dims):
         return torch.empty(dims, dtype=torch.int32, device="meta")
 
-    if shape.kind == "train":
-        return {"tokens": tokens(b, s + 1)}
-    if shape.kind == "prefill":
-        return {"tokens": tokens(b, s)}
-    return {"token": tokens(b), "cache": model.cache_specs(b, s)}
+    if shape.kind == "decode":
+        return {"token": tokens(b), "cache": model.cache_specs(b, s)}
+    text = s - npatch
+    specs = {"tokens": tokens(b, text + 1 if shape.kind == "train" else text)}
+    if npatch:
+        specs["patch_embeds"] = torch.empty((b, npatch, model.cfg.d_model),
+                                            dtype=model.dtype, device="meta")
+    return specs
 
 
 class DecoderLM(nn.Module):
-    """Dense or MoE decoder LM over the padded vocabulary, tied or untied
-    head."""
+    """Dense, MoE or VLM decoder LM over the padded vocabulary, tied or
+    untied head."""
 
     def __init__(self, cfg: ArchConfig, device=None, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -262,11 +292,12 @@ class DecoderLM(nn.Module):
     def _head(self) -> torch.Tensor:
         return self.embed["w"] if self.cfg.tie_embeddings else self.lm_head["w"]
 
-    def _hidden(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The final-normed hidden states of ``tokens`` as the head reads
-        them (``_to_head``) and the layers' summed MoE balance loss (0 for a
-        dense model)."""
-        x = embed_lookup(self.embed["w"], tokens, self.cfg.padded_vocab)
+    def _hidden(self, tokens: torch.Tensor, patch_embeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The final-normed hidden states of ``tokens`` (behind a VLM's
+        ``patch_embeds``) as the head reads them (``_to_head``) and the
+        layers' summed MoE balance loss (0 for a dense model)."""
+        x = _embed_inputs(self.embed["w"], self.cfg, tokens, patch_embeds)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.blocks:
             x, lb = blk(x)
@@ -275,18 +306,22 @@ class DecoderLM(nn.Module):
         x = rms_norm(x, unshard_layer_params(self.final_norm))
         return _to_head(x, self._head(), self.cfg.padded_vocab), aux
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) -> fp32 logits (B, S, padded_vocab), causal."""
-        return unembed(self._head(), self._hidden(tokens)[0])
+    def forward(self, tokens: torch.Tensor, patch_embeds: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """tokens (B, S) -> fp32 logits (B, S, padded_vocab), causal; a
+        VLM's (B, num_patch_tokens + S, padded_vocab), the patches first."""
+        return unembed(self._head(), self._hidden(tokens, patch_embeds)[0])
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
         """Next-token loss of ``batch["tokens"]`` (B, S+1): the first S
-        tokens in, the last S as labels, the tied (or untied) head through
-        ``chunked_xent``. Returns (total, {"xent", "aux"}) with total = xent +
+        tokens in (a VLM's behind ``batch["patch_embeds"]``), the last S as
+        labels, the tied (or untied) head through ``chunked_xent`` on the
+        text positions. Returns (total, {"xent", "aux"}) with total = xent +
         0.01 * aux, as the reference; aux is the layers' summed MoE balance
         loss, 0 for a dense model."""
         tokens = batch["tokens"].long()
-        x, aux = self._hidden(tokens[:, :-1])
+        x, aux = self._hidden(tokens[:, :-1], batch.get("patch_embeds"))
+        x = x[:, self.cfg.num_patch_tokens:]
         xent = chunked_xent(self._head(), x, tokens[:, 1:], vocab=self.cfg.padded_vocab)
         return xent + 0.01 * aux, {"xent": xent, "aux": aux}
 
@@ -300,19 +335,21 @@ class DecoderLM(nn.Module):
                           self.cfg.resolved_head_dim), dtype=self.dtype, device="meta")
         return {"k": kv, "v": kv, "index": 0}
 
-    def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None
-                ) -> Tuple[torch.Tensor, Dict]:
-        """Causal pass over the prompts. Returns the last position's fp32
-        logits (B, V) and a cache {"k", "v": (L, B, max_len, K, hd),
-        "index": S} whose positions >= S are zero."""
-        b, s = tokens.shape
+    def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None,
+                patch_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+        """Causal pass over the prompts (a VLM's behind its
+        ``patch_embeds``, which the positions count: S = num_patch_tokens +
+        the tokens). Returns the last position's fp32 logits (B, V) and a
+        cache {"k", "v": (L, B, max_len, K, hd), "index": S} whose positions
+        >= S are zero; ``max_len`` is S by default."""
+        x = _embed_inputs(self.embed["w"], self.cfg, tokens, patch_embeds)
+        b, s = x.shape[:2]
         max_len = s if max_len is None else max_len
         if s > max_len:
-            raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
+            raise ValueError(f"prompt of {s} positions exceeds max_len {max_len}")
         shape = self.cache_specs(b, cache_block_len(max_len))["k"].shape
         cache = {"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
                  "v": torch.zeros(shape, dtype=self.dtype, device=self.device)}
-        x = embed_lookup(self.embed["w"], tokens, self.cfg.padded_vocab)
         for i, blk in enumerate(self.blocks):
             x = blk.prefill(x, cache["k"][i], cache["v"][i])
         logits = unembed(self._head(), rms_norm(x[:, -1], self.final_norm))
@@ -425,8 +462,9 @@ class MambaLM(nn.Module):
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         return unembed(self.embed["w"], self._normed(x))
 
-    def _hidden(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = embed_lookup(self.embed["w"], tokens, self.cfg.padded_vocab)
+    def _hidden(self, tokens: torch.Tensor, patch_embeds: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        x = _embed_inputs(self.embed["w"], self.cfg, tokens, patch_embeds)
         for blk in self.blocks:
             x = blk(x)
         return x
@@ -441,7 +479,7 @@ class MambaLM(nn.Module):
         ``chunked_xent``. Returns (total, {"xent", "aux"}) as
         ``DecoderLM.loss``; aux is 0."""
         tokens = batch["tokens"].long()
-        x = self._normed(self._hidden(tokens[:, :-1]))
+        x = self._normed(self._hidden(tokens[:, :-1], batch.get("patch_embeds")))
         xent = chunked_xent(self.embed["w"], x, tokens[:, 1:], vocab=self.cfg.padded_vocab)
         return xent, {"xent": xent,
                       "aux": torch.zeros((), dtype=torch.float32, device=x.device)}
@@ -477,15 +515,15 @@ class MambaLM(nn.Module):
                 x = on_layer(i, x)
         return x, states
 
-    def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None
-                ) -> Tuple[torch.Tensor, Dict]:
+    def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None,
+                patch_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
         """Causal pass over the prompts. Returns the last position's fp32
         logits (B, V) and the cache {"mamba": {"conv_x", "conv_b", "conv_c":
         (L, B, k-1, C) in the activation dtype, "ssm": (L, B, H, N, P) fp32},
-        "index": S}."""
+        "index": S}. ``patch_embeds`` must be None (``_embed_inputs``)."""
         s = tokens.shape[1]
-        x, states = self._prefill_states(embed_lookup(self.embed["w"], tokens,
-                                                      self.cfg.padded_vocab))
+        x, states = self._prefill_states(_embed_inputs(self.embed["w"], self.cfg, tokens,
+                                                       patch_embeds))
         return self._logits(x[:, -1]), {"mamba": states, "index": s}
 
     def decode_step(self, cache: Dict, token: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
@@ -532,8 +570,9 @@ class HybridLM(MambaLM):
         its gathered parameters ``shared``."""
         return self.shared_attn.body(shared, blk.apply_layer(p, x))[0]
 
-    def _hidden(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = embed_lookup(self.embed["w"], tokens, self.cfg.padded_vocab)
+    def _hidden(self, tokens: torch.Tensor, patch_embeds: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        x = _embed_inputs(self.embed["w"], self.cfg, tokens, patch_embeds)
         shared = unshard_layer_params(self.shared_attn.layer_params(), self.cfg)
         for i, blk in enumerate(self.blocks):
             if i in self.attn_layers:
@@ -550,11 +589,11 @@ class HybridLM(MambaLM):
                           self.cfg.resolved_head_dim), dtype=self.dtype, device="meta")
         return {**super().cache_specs(batch, max_len), "k": kv, "v": kv}
 
-    def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None
-                ) -> Tuple[torch.Tensor, Dict]:
+    def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None,
+                patch_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
         """Causal pass over the prompts. Returns the last position's fp32
         logits (B, V) and the cache of ``cache_specs``, whose KV positions
-        >= S are zero, with "index": S."""
+        >= S are zero, with "index": S. ``patch_embeds`` must be None."""
         b, s = tokens.shape
         max_len = s if max_len is None else max_len
         if s > max_len:
@@ -570,7 +609,7 @@ class HybridLM(MambaLM):
             return self.shared_attn.prefill(x, kv["k"][a], kv["v"][a])
 
         x, states = self._prefill_states(
-            embed_lookup(self.embed["w"], tokens, self.cfg.padded_vocab), shared)
+            _embed_inputs(self.embed["w"], self.cfg, tokens, patch_embeds), shared)
         return self._logits(x[:, -1]), {"mamba": states, **kv, "index": s}
 
     def decode_step(self, cache: Dict, token: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
@@ -588,7 +627,8 @@ class HybridLM(MambaLM):
         return self._logits(x[:, 0]), cache
 
 
-_MODELS = {"dense": DecoderLM, "moe": DecoderLM, "ssm": MambaLM, "hybrid": HybridLM}
+_MODELS = {"dense": DecoderLM, "moe": DecoderLM, "vlm": DecoderLM, "ssm": MambaLM,
+           "hybrid": HybridLM}
 
 
 def build_model(cfg: ArchConfig, device=None, dtype: Optional[torch.dtype] = None):

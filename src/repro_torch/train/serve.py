@@ -64,37 +64,42 @@ from repro_torch.models.transformer import build_model, torch_dtype
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.sharding import is_spec
 from repro_torch.train.state import StatePlan, make_state_plan
-from repro_torch.train.step import _leaves
+from repro_torch.train.step import _leaves, refuse_patches_on_mesh
 from repro_torch.tree import tree_flatten, tree_flatten_with_path
 
 Counts = Dict[Tuple[str, Tuple[str, ...]], list]
 
 
 class ServingModel(Protocol):
-    """What the serve steps call on a model."""
+    """What the serve steps call on a model. ``patch_embeds`` (B,
+    num_patch_tokens, D) go in front of a VLM's prompt; any other model
+    raises if given them."""
 
-    def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None
-                ) -> Tuple[torch.Tensor, Dict]: ...
+    def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None,
+                patch_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]: ...
 
     def decode_step(self, cache: Dict, token: torch.Tensor
                     ) -> Tuple[torch.Tensor, Dict]: ...
 
 
 def build_prefill_step(model: ServingModel, mesh=None, shape=None):
-    """One device: prefill(tokens (B, S), max_len) -> (fp32 logits (B, V),
-    cache). On ``mesh``: (fn, plan, input_pspecs) with fn(params, batch) ->
-    (fp32 logits (b, V) of this rank's rows, this rank's cache blocks);
-    batch {"tokens": this rank's rows of ``shape``'s prompts, "max_len":
-    the cache's length, the prompt's where absent (the reference's
-    ``batch.get("max_len", ...)``)}."""
+    """One device: prefill(tokens (B, S), max_len, patch_embeds) -> (fp32
+    logits (B, V), cache); a VLM's ``patch_embeds`` (B, num_patch_tokens,
+    D) go in front of the tokens. On ``mesh``: (fn, plan, input_pspecs)
+    with fn(params, batch) -> (fp32 logits (b, V) of this rank's rows, this
+    rank's cache blocks); batch {"tokens": this rank's rows of ``shape``'s
+    prompts, "max_len": the cache's length, the prompt's where absent (the
+    reference's ``batch.get("max_len", ...)``)}. A VLM on a mesh raises
+    ``NotImplementedError`` (ROADMAP §1 item 11a-ii)."""
     if mesh is None:
         @torch.inference_mode()
-        def prefill(tokens: torch.Tensor, max_len: Optional[int] = None
-                    ) -> Tuple[torch.Tensor, Dict]:
-            return model.prefill(tokens, max_len)
+        def prefill(tokens: torch.Tensor, max_len: Optional[int] = None,
+                    patch_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+            return model.prefill(tokens, max_len, patch_embeds)
 
         return prefill
 
+    refuse_patches_on_mesh(model.cfg, "build_prefill_step")
     on_mesh = _OnMesh(model, mesh, "prefill")
     input_pspecs = shd.input_pspecs(model.cfg, model.input_specs(shape), mesh)
     twin = on_mesh.twin.model        # the step keeps no reference to ``model``'s weights

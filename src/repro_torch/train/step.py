@@ -179,6 +179,15 @@ class _Spans:
             self.totals[name] = self.totals.get(name, 0.0) + self.clock() - t0
 
 
+def refuse_patches_on_mesh(cfg, what: str) -> None:
+    """The steps on a mesh do not take a VLM's patch embeddings yet: raise
+    rather than run it without them."""
+    if cfg.num_patch_tokens:
+        raise NotImplementedError(
+            f"{what}: {cfg.name} takes patch_embeds, which the steps on a mesh do not "
+            "pass yet (ROADMAP §1 item 11a-ii)")
+
+
 def build_train_step(
     model: nn.Module,
     mesh,
@@ -248,8 +257,12 @@ def build_train_step(
     not divide the axis) computes on each rank the kv heads of its own q
     heads (``models.attention``); ``wk``, ``wv`` and ``k_norm`` are then
     ``partial`` leaves.
+
+    A VLM config (patch embeddings in front of the tokens) raises
+    ``NotImplementedError`` (ROADMAP §1 item 11a-ii).
     """
     cfg = model.cfg
+    refuse_patches_on_mesh(cfg, "build_train_step")
     tp = shd.axis_size(mesh, "model")
     plan = make_state_plan(model, mesh, fsdp_params=fsdp_params)
     razor = razor_plan(plan.state_specs["opt"], plan.opt_pspecs,

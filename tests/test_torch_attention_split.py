@@ -64,6 +64,19 @@ def test_plan_splits_at_the_serve_shape():
     assert (n_split, rows) == (5, 256) and 8 * 8 * n_split >= 2 * 132
 
 
+def test_plan_splits_at_the_vlm_serve_shape():
+    """internvl2-26b decode, B=8, K=8 kv heads of 128 read by 6 q heads
+    each (two rows in flight a lane: 32 rows a bf16 step), a cache of
+    1,024 patches + 1,000 tokens + 32: five splits of 416 at the full
+    cache, one block up to a step."""
+    assert 6 in tdec.GROUPS and 3 not in tdec.GROUPS
+    step = tdec.rows_per_step(128, 2, 6)
+    assert step == 32
+    assert tdec.plan_splits(1, 8, 8, 132, step) == (1, 32)
+    assert tdec.plan_splits(33, 8, 8, 132, step) == (2, 32)
+    assert tdec.plan_splits(2056, 8, 8, 132, step) == (5, 416)
+
+
 def test_head_dims_flash_takes_256_and_decode_does_not():
     """Flash has an hd-256 instantiation on both routes, and so has decode
     now (gemma-2b serves): the two kernels take the same head_dims, 80
@@ -83,7 +96,7 @@ def test_plan_splits_refuses_nonsense():
 @pytest.mark.parametrize("hd,itemsize,group,rows", [
     (128, 2, 2, 64), (128, 2, 8, 32), (128, 4, 1, 32), (16, 2, 4, 512), (64, 4, 4, 64),
     (112, 2, 1, 64), (112, 4, 1, 32), (256, 2, 8, 16), (256, 2, 1, 32), (256, 4, 8, 16),
-    (256, 4, 4, 32)])
+    (256, 4, 4, 32), (128, 2, 6, 32), (128, 4, 6, 16), (64, 2, 6, 64), (256, 4, 6, 16)])
 def test_rows_per_step_is_the_kernel_geometry(hd, itemsize, group, rows):
     assert tdec.rows_per_step(hd, itemsize, group) == rows
 
@@ -114,7 +127,7 @@ def split_merge_decode(q, k, v, cur_len, n_split, rows):
 
 
 @pytest.mark.parametrize("cur_len", [1, 63, 128, 129, 777, 1032])
-@pytest.mark.parametrize("h,kh", [(4, 4), (16, 8), (8, 2), (16, 2)])
+@pytest.mark.parametrize("h,kh", [(4, 4), (16, 8), (8, 2), (16, 2), (12, 2), (48, 8)])
 def test_split_merge_decode_matches_pallas(cur_len, h, kh):
     b, t, hd = 2, 1032, 32
     q, k, v = _inputs(20, [(b, 1, h, hd), (b, t, kh, hd), (b, t, kh, hd)])
@@ -262,6 +275,13 @@ def test_blocks_merge_to_the_whole_cache_at_fixed_splits(t, cuts, cur_len):
     """The rank layouts of the serve steps: halves, thirds, empty blocks at
     either end, a cur_len that ends exactly at a block's edge."""
     _blocks_merge_to_the_whole(7, t, cuts, cur_len, 8, 1)
+
+
+@pytest.mark.parametrize("t,cuts,cur_len", [(12, [6], 12), (12, [6], 3), (16, [4, 8, 12], 9)])
+def test_group6_blocks_merge_to_the_whole_cache(t, cuts, cur_len):
+    """The rank layouts at 6 q heads per kv head (a 12/2 VLM): the merge
+    maps q head h to kv head h // 6."""
+    _blocks_merge_to_the_whole(8, t, cuts, cur_len, 12, 2)
 
 
 def test_block_form_is_the_plain_decode_on_one_block():

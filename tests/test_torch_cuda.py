@@ -115,6 +115,30 @@ def test_flash_hd256_matches_plain(cuda, b, sq, skv, group, causal, dtype):
                                **_tol(dtype))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s,h,kh", [(2, 300, 48, 8), (1, 129, 12, 2), (2, 1000, 12, 2)])
+def test_flash_group6_matches_plain(cuda, b, s, h, kh, causal, dtype):
+    """6 q heads per kv head (internvl2-26b's 48/8 at head_dim 128, and its
+    12/2 part) on both routes: q head h reads kv head h // 6. Each kv head
+    is given its own offset, so that a q head reading a neighbour's would
+    miss the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q = _rand(g, (b, s, h, 128), dtype, cuda)
+    k = _rand(g, (b, s, kh, 128), dtype, cuda)
+    v = (_rand(g, (b, s, kh, 128), torch.float32, cuda)
+         + torch.arange(kh, device=cuda, dtype=torch.float32)[:, None]).to(dtype)
+    route = "wgmma" if dtype == torch.bfloat16 else "fp32"
+    routed = flash_attention.flash_attention.routes[route]
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.routes[route] == routed + 1
+    ref = ops.flash_attention_plain(q, k, v, causal=causal)
+    assert out.shape == q.shape and out.dtype == dtype
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               **_tol(dtype))
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_wgmma_head_major_views(cuda, causal):
     """q, k, v as transposes of (B, heads, S, hd) tensors: the head stride
@@ -231,17 +255,56 @@ def test_decode_hd256_matches_plain(cuda, b, t, cur_len, group, dtype, partial):
                                    **_tol(dtype))
 
 
+@pytest.mark.parametrize("partial", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_block_with_no_position_launches_nothing(cuda, dtype):
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("b,kh,t,cur_len", [(2, 2, 128, 1), (2, 2, 128, 77), (1, 8, 300, 129),
+                                            (8, 8, 2056, 2056), (8, 8, 2056, 1025)])
+def test_decode_group6_matches_plain(cuda, b, kh, t, cur_len, hd, dtype, partial):
+    """6 q heads per kv head (internvl2-26b's 48/8, and a 12/2 smoke):
+    two rows in flight a lane; at hd 256 the block's shared memory is
+    dynamic (49,536 B); the merge grid's kv head h // 6 and member h % 6.
+    Both forms against their plain versions, split as the planner says;
+    the VLM serve's caches (8, 2056, 8, hd) among the shapes. Each kv
+    head's values carry their own offset, so that a misread head shows."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    q = _rand(g, (b, 1, kh * 6, hd), dtype, cuda)
+    kc = _rand(g, (b, t, kh, hd), dtype, cuda)
+    vc = (_rand(g, (b, t, kh, hd), torch.float32, cuda)
+          + torch.arange(kh, device=cuda, dtype=torch.float32)[:, None]).to(dtype)
+    before = decode_attn.decode_attention.launches
+    out = decode_attn.decode_attention(q, kc, vc, cur_len, partial=partial)
+    torch.cuda.synchronize()
+    assert decode_attn.decode_attention.launches == before + 1
+    sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    step = decode_attn.rows_per_step(hd, q.element_size(), 6)
+    assert step == decode_attn.rows_per_step(hd, q.element_size(), 8)   # 2 rows in flight
+    assert decode_attn.decode_attention.last_split == decode_attn.plan_splits(
+        cur_len, b, kh, sm, step)
+    ref = decode_attention_ref(q, kc, vc, cur_len, partial=partial)
+    if partial:
+        assert out[0].dtype == torch.float32 and out[1].shape == (b, kh * 6)
+        for got, want in zip(out, ref):
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **_tol(dtype))
+    else:
+        assert out.dtype == dtype
+        np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                                   **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kh,hd", [(8, 1, 256), (48, 8, 128)], ids=["g8_hd256", "g6_hd128"])
+def test_decode_block_with_no_position_launches_nothing(cuda, h, kh, hd, dtype):
     """A rank whose cache block holds no position below the query's
     (cur_len 0): ``ops.decode_attention_partial`` gives o = 0 and lse =
     -inf without a launch, and the merge weighs it 0; blocks split at a
-    position give the whole cache's attention."""
+    position give the whole cache's attention. gemma-2b's 8 q heads on 1
+    kv head of 256, and internvl2-26b's 48 on 8 of 128 (group 6)."""
     from repro_torch.models.attention import merge_partials
     g = torch.Generator(device=cuda).manual_seed(12)
-    q = _rand(g, (4, 1, 8, 256), dtype, cuda)
-    kc = _rand(g, (4, 1032, 1, 256), dtype, cuda)
-    vc = _rand(g, (4, 1032, 1, 256), dtype, cuda)
+    q = _rand(g, (4, 1, h, hd), dtype, cuda)
+    kc = _rand(g, (4, 1032, kh, hd), dtype, cuda)
+    vc = _rand(g, (4, 1032, kh, hd), dtype, cuda)
     before = decode_attn.decode_attention.launches
     o, lse = ops.decode_attention_partial(q, kc[:, 516:], vc[:, 516:], 0)
     assert decode_attn.decode_attention.launches == before
@@ -299,6 +362,12 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         decode_attn.decode_attention(q, kc, kc, 4)
     with pytest.raises(ValueError, match="hd=80"):
         decode_attn.decode_attention(q, kc, kc, 4, partial=True)
+    # 3 q heads per kv head: a group the kernel is not built for
+    q, kc = torch.zeros(1, 1, 6, 16, device=cuda), torch.zeros(1, 8, 2, 16, device=cuda)
+    assert 3 not in decode_attn.GROUPS
+    for partial in (False, True):
+        with pytest.raises(ValueError, match="H=6, K=2"):
+            decode_attn.decode_attention(q, kc, kc, 4, partial=partial)
     assert decode_attn.decode_attention.launches == launches
 
 
@@ -460,3 +529,47 @@ def test_ops_ssd_has_a_gradient_on_the_card(cuda, dtype):
     assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in args)
     with torch.no_grad():
         assert ops.ssd(*args, chunk=32)[0].grad_fn is None
+
+
+def test_vlm_on_the_card_matches_the_cpu(cuda):
+    """A VLM at group 6 (12 q / 2 kv heads of 64, 2 layers, 8 patch tokens,
+    fp32): prefill behind random patch embeddings, 8 decode steps (both
+    sides take the CPU's greedy token), the loss on the text positions and
+    every gradient, on the card (flash and decode kernels, fp32 routes)
+    against the same weights on the CPU, at 2e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduce_for_smoke
+    from repro_torch.models import build_model
+    from repro_torch.train.serve import build_decode_step, build_prefill_step
+    cfg = dataclasses.replace(reduce_for_smoke(get_arch("internvl2-26b")), num_heads=12,
+                              num_kv_heads=2, head_dim=64, d_model=96, dtype="float32")
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(16)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 21)))
+    patches = torch.from_numpy(rng.normal(size=(2, 8, cfg.d_model)).astype(np.float32))
+    launches = (flash_attention.flash_attention.launches, decode_attn.decode_attention.launches)
+    outs = {}
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        dev = model.device
+        logits, cache = build_prefill_step(model)(tokens[:, :12].to(dev), 8 + 12 + 9,
+                                                  patches.to(dev))
+        assert cache["index"] == 8 + 12
+        steps = [logits.cpu()]
+        caches = [cache["k"].cpu().clone(), cache["v"].cpu().clone()]   # decode writes in place
+        decode = build_decode_step(model)
+        for step in range(8):
+            tok = (outs["cpu"] if name == "cuda" else steps)[step].argmax(-1)
+            logits, cache = decode(cache, tok.to(dev))
+            steps.append(logits.cpu())
+        model.requires_grad_(True)
+        loss, _ = model.loss({"tokens": tokens.to(dev), "patch_embeds": patches.to(dev)})
+        loss.backward()
+        outs[name] = steps + caches + [loss.detach().cpu()] + [
+            p.grad.cpu() for p in model.parameters()]
+    assert (flash_attention.flash_attention.launches - launches[0],
+            decode_attn.decode_attention.launches - launches[1]) == (2 * 2, 2 * 8)
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)

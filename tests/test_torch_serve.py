@@ -150,11 +150,38 @@ def test_build_model_without_device_raises_without_cuda(monkeypatch):
         params_from_numpy({}, get_arch("qwen3-0.6b"))
 
 
-@pytest.mark.parametrize("family", ["encdec", "vlm"])
+@pytest.mark.parametrize("family", ["encdec"])
 def test_unported_families_raise(family):
     cfg = dataclasses.replace(get_arch("qwen3-0.6b"), family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg, device="cpu")
+
+
+def test_vlm_family_builds_a_decoder_with_an_lm_head():
+    """The VLM family builds (it raised until it was ported): a
+    ``DecoderLM`` with its untied head, no refusal."""
+    from repro_torch.models import DecoderLM
+    cfg = get_arch("internvl2-26b")
+    model = build_model(cfg, device="meta")
+    assert cfg.family == "vlm" and isinstance(model, DecoderLM)
+    assert tuple(model.lm_head["w"].shape) == (cfg.padded_vocab, cfg.d_model)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_mesh_steps_refuse_the_vlm(kind):
+    """On a mesh the prefill step and the train step refuse a VLM, naming
+    its ROADMAP item, rather than run it without its patches; a (1, 1)
+    mesh needs no process."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.train.step import build_train_step
+    model = build_model(reduce_for_smoke(get_arch("internvl2-26b")), device="meta")
+    mesh = Mesh(("data", "model"), (1, 1))
+    with pytest.raises(NotImplementedError, match="11a-ii"):
+        if kind == "prefill":
+            build_prefill_step(model, mesh, SHAPES["prefill_32k"])
+        else:
+            build_train_step(model, mesh)
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen3-moe-30b-a3b"])
