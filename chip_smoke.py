@@ -66,6 +66,29 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 launch (the calls' shapes recorded by wrapping ``ops``); prefill
                 and decode times beside their bounds, peak device memory. Freed
                 after.
+6g. slice_encdec -- whisper-small at full width (d_model 768, 12 heads of 64,
+                gelu 3,072, the tied head of 51,968), cut to 2 encoder and 2
+                decoder layers, fp32, CPU against card, weights drawn on the card
+                and copied to the CPU, 2 clips of 1,500 frames (N(0, 1) from a
+                seed): prefill of a 16-token prompt, 8 decode steps, the logits of
+                each, the self and cross caches after the prefill and after the
+                steps and the index (16 then 24); then the loss of 2 x 33 tokens
+                and every gradient, at 2e-4. Launches exactly: the serve part 6
+                flash (2 encoder, 2 causal self, 2 cross) and 32 decode (2 layers
+                x 2 attentions x 8 steps), the loss 6 flash, the CPU none.
+6h. serve_encdec -- full whisper-small (12 encoder and 12 decoder layers, bf16,
+                238,139,904 parameters drawn on the card from a seed): 8 clips of
+                1,500 frame embeddings (N(0, 1) in bf16 from a seed), a 16-token
+                prompt, 32 greedy tokens, served twice (the repeat must equal the
+                warm-up): 36 flash launches on wgmma (12 non-causal at q/k/v (8,
+                1500, 12, 64), 12 causal at (8, 16, 12, 64), 12 non-causal at q (8,
+                16, 12, 64) against k/v (8, 1500, 12, 64)), 744 decode launches
+                (372 against the self cache (8, 48, 12, 64) at cur_len 17..47, 372
+                against the cross cache (8, 1500, 12, 64) at cur_len 1,500), no SSD
+                launch, the calls recorded by wrapping ``ops``; prefill and decode
+                times beside their own bounds (``encdec_serve_bounds``: the
+                encoder's full-square attention, cross_kv, both caches), peak
+                device memory. Freed after.
 7. train_grad -- the flash kernel under autograd (FlashAttention) against the
                 plain blockwise_attention under autograd: output, dq, dk, dv at
                 the training shape (bf16, B=8, S=1024, H=16, K=8, hd=128), at
@@ -82,8 +105,8 @@ slices and the serve runs come before any phase that opens torch.profiler:
 7b. train_mesh -- the sharded multi-rank train step (train.step.build_train_step)
                 as four gloo ranks sharing the card, each a spawned process
                 (file:// rendezvous in a temporary directory), all exited before
-                the next phase. (a) Full qwen3-0.6b, bf16, FSDP and the instant
-                backup, 8 x 1024 tokens a step (2 x 1024 a rank), 2 steps: each
+                the next phase. (a) qwen3-0.6b at full width cut to 8 of 28
+                layers, bf16, FSDP and the instant backup, 8 x 1024 tokens a step (2 x 1024 a rank), 2 steps: each
                 rank's backup bit for bit its predecessor's new optimizer blocks,
                 the bytes the ring sent equal to the razor's unique bytes per
                 rank, the neighbour drill (after step 1 rank 1's optimizer blocks
@@ -110,14 +133,14 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 stream split by sequence over "model": a layer body's input is
                 the rank's (4, 512, 1024) block of positions, each split
                 sub-layer entered by an all-gather and left by a reduce-scatter)
-                as four gloo ranks sharing the card, as train_mesh. (a) Full
-                qwen3-0.6b, bf16, FSDP and the instant backup, 8 x 1024 tokens a
+                as four gloo ranks sharing the card, as train_mesh. (a) qwen3-0.6b
+                at full width cut to 8 of 28 layers, bf16, FSDP and the instant backup, 8 x 1024 tokens a
                 step (4 x 1024 a data rank), 2 steps: on every rank and step the
                 collectives over "model" the mesh counted equal
-                train.step.model_collectives in calls and bytes (315 calls: 170
-                all-gathers, 142 reduce-scatters, 3 all-reduces), the residual
+                train.step.model_collectives in calls and bytes (at 28 layers 315
+                calls: 170 all-gathers, 142 reduce-scatters, 3 all-reduces), the residual
                 stream entering every layer body the rank's block of positions,
-                2 x 28 x 2 flash launches all on wgmma at q (4, 1024, 8, 128) (the
+                2 x 8 x 2 flash launches all on wgmma at q (4, 1024, 8, 128) (the
                 rank's 8 of 16 heads, every position) and none of decode or SSD, finite
                 losses, the first step's loss and global gradient norm within
                 bf16 tolerances (TP_VS_MESH) of train_mesh (a)'s on (4, 1) from
@@ -229,21 +252,22 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 the recovery, recover()'s wall time beside its
                 simulated time, peak memory and host RSS, and this run's FCR
                 beside the measured host checkpoint share of the step.
-8b. train_ssm -- mamba2-2.7b at full width cut to 8 of 64 layers, bf16, trained
+8b. train_ssm -- mamba2-2.7b at full width cut to 4 of 64 layers, bf16, trained
                 by SimCluster as train below (dp=4, 8 x 1024 tokens, 2 steps, a
                 failure of worker 2, recover(), 1 step): a neighbour recovery,
-                0 rollbacks, the opt vector bitwise equal across recover(), 8
+                0 rollbacks, the opt vector bitwise equal across recover(), 4
                 SSD launches a step all on wgmma, finite losses, and the first
                 step's batch scoring lower after the run; the step split, tokens/s
                 and bound as train. Placed after the replay's heap trim and before
                 the first profiler session; trims the heap again after.
-9. train     -- the slice: full qwen3-0.6b (28 layers, bf16) trained by the
+9. train     -- the slice: qwen3-0.6b at full width cut to 8 of 28 layers
+                (bf16; the host checkpoint sets a step's time) trained by the
                 port's SimCluster, dp=4 simulated workers on the one card, 8 x
                 1024 tokens a step: 2 steps, a software failure of worker 2,
                 recover() with the stream policy, 1 more step. Requires recovery
                 from the neighbour with no rollback, the optimizer vector after
                 recovery bitwise equal to a host copy taken before the failure,
-                finite losses, and, with the counts zeroed just before, 28 x 3
+                finite losses, and, with the counts zeroed just before, 8 x 3
                 flash launches (all wgmma) and no decode or SSD launch. Prints
                 the step split (device by CUDA events, host checkpoint by the
                 host clock), tokens/s, the step's bound, peak device memory, peak
@@ -274,7 +298,12 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 serve shape, q (8, 1, 8, 256), caches (8, 1032, 1, 256); flash at
                 internvl2-26b's q (8, 2024, 48, 128), k/v (8, 2024, 8, 128) and
                 decode at its q (8, 1, 48, 128), caches (8, 2056, 8, 128), cur_len
-                2,056, both forms, each in both dtypes; the SSD
+                2,056, both forms, each in both dtypes; flash at whisper-small's
+                head_dim 64, non-causal at q/k/v (8, 1500, 12, 64) and at q (8,
+                16, 12, 64) against k/v (8, 1500, 12, 64), causal at q/k/v (8,
+                16, 12, 64), and decode at q (8, 1, 12, 64) against its self
+                cache (8, 48, 12, 64), cur_len 17 and 47, and its cross cache
+                (8, 1500, 12, 64), cur_len 1,500, each in both dtypes; the SSD
                 at a rank's 40 (mamba2) and 56 (zamba2) heads, 4 x 1024, bf16),
                 with the
                 kernel's, the plain version's and (for attention) the library
@@ -294,10 +323,11 @@ Then a ``timing`` line (kernel timings taken by CUPTI and by CUDA events, the
 host seconds of each phase),
 one {"kernels": [...]} line (each kernel's launches in every serve and training
 phase, ``moe_launches``, ``train_tp_launches``, ``train_moe_mesh_launches``,
-``train_gemma_mesh_launches``, ``serve_mesh_launches``, ``pipeline_launches`` and
-``vlm_launches`` among them, and its rows at the
+``train_gemma_mesh_launches``, ``serve_mesh_launches``, ``pipeline_launches``,
+``vlm_launches`` and ``encdec_launches`` among them, and its rows at the
 other shapes, ``tp_shape`` / ``tp_shapes``, ``moe_mesh_shape``, ``pipeline_shape``,
-``gemma_tp_shape``, ``hd256`` and ``vlm_shape`` among them), the card's name
+``gemma_tp_shape``, ``hd256``, ``vlm_shape`` and ``encdec_shape`` among them), the
+card's name
 and power
 limit, and last
 {"ok": true, "device": {...}}.
@@ -355,6 +385,17 @@ DECODE_HD256 = dict(b=8, t=1032, h=8, kh=1, hd=256, cur_lens=(1032,))
 PREFILL_VLM = dict(b=8, s=2024, h=48, kh=8, hd=128)
 DECODE_VLM = dict(b=8, t=2056, h=48, kh=8, hd=128, cur_lens=(2056,))
 DECODE_VLM_BLOCK = dict(DECODE_VLM, partial=True)
+# whisper-small's serve shapes: MHA of 12 heads at head_dim 64; the encoder's
+# non-causal self-attention over 8 clips of 1,500 frames, the decoder's causal
+# self-attention over the 16-token prompt, its non-causal cross-attention of
+# the prompt against the frames; decode against the self cache of 48
+# positions (cur_len 17..47, the first and last step's) and against the
+# 1,500-frame cross cache (cur_len fixed by the input)
+PREFILL_ENCDEC_ENC = dict(b=8, s=1500, h=12, kh=12, hd=64, causal=False)
+PREFILL_ENCDEC_SELF = dict(b=8, s=16, h=12, kh=12, hd=64)
+PREFILL_ENCDEC_CROSS = dict(b=8, s=16, skv=1500, h=12, kh=12, hd=64, causal=False)
+DECODE_ENCDEC_SELF = dict(b=8, t=48, h=12, kh=12, hd=64, cur_lens=(17, 47))
+DECODE_ENCDEC_CROSS = dict(b=8, t=1500, h=12, kh=12, hd=64, cur_lens=(1500,))
 SSD_TP = dict(SSD, b=4, h=40, seqs=(1024,))
 SSD_HYBRID_TP = dict(SSD_HYBRID, b=4, h=56, seqs=(1024,))
 SERVE = dict(batch=8, prompt=1000, gen=32)
@@ -370,11 +411,12 @@ EXPECTED_ROUTE = {"bfloat16": "wgmma", "float32": "fp32"}
 # whole slice, card against CPU, fp32: the tolerance of the reference's
 # test_prefill_decode_matches_forward
 SLICE_TOL = 2e-4
-# the training slice: qwen3-0.6b, dp=4 simulated workers, 8 x 1024 tokens a
-# step, 2 steps, a failure of worker 2, 1 more step (a host-bound step takes
-# ~18 s of the script's time limit); the step split is the median of the 2
-# steps after the first
-TRAIN = dict(dp=4, global_batch=8, seq_len=1024, steps_before=2, steps_after=1,
+# the training slice: qwen3-0.6b at full width cut to 8 of 28 layers (the
+# host checkpoint of a step, which sets its time, scales with the state: ~18 s
+# a step at 28 layers), dp=4 simulated workers, 8 x 1024 tokens a step, 2
+# steps, a failure of worker 2, 1 more step; the step split is the median of
+# the 2 steps after the first
+TRAIN = dict(layers=8, dp=4, global_batch=8, seq_len=1024, steps_before=2, steps_after=1,
              failed=2)
 # flash gradients, kernel under autograd against the plain version: bf16 at
 # the training shape, fp32 (TF32 off) at a small one and at the scenario
@@ -403,11 +445,19 @@ MOE_SLICE = dict(layers=2, batch=LOSS["batch"], seq=LOSS["seq"], steps=8, tol=2e
 # on the CPU), fp32, one prompt of 16 tokens behind its 1,024 patch
 # embeddings, 8 decode steps
 VLM_SLICE = dict(layers=2, batch=1, prompt=16, steps=8, tol=SLICE_TOL)
-# the SSM training cell: mamba2-2.7b at full width cut to 8 of 64 layers (the
-# host copies of the full 32.4 GB opt state would not fit the host), dp=4
+# the enc-dec slice, card against CPU: whisper-small at full width cut to 2
+# encoder and 2 decoder layers, fp32, 2 clips of 1,500 frames: prefill of a
+# 16-token prompt, 8 decode steps, then the loss of 2 x 33 tokens and every
+# gradient
+ENCDEC_SLICE = dict(layers=2, batch=2, prompt=16, steps=8, loss_tokens=33, tol=SLICE_TOL)
+# the enc-dec serve run: 8 clips of 1,500 frames, a 16-token prompt, 32 tokens
+ENCDEC_SERVE = dict(batch=8, prompt=16, gen=32)
+# the SSM training cell: mamba2-2.7b at full width cut to 4 of 64 layers (the
+# host copies of the full 32.4 GB opt state would not fit the host, and the
+# host checkpoint of a step scales with the state), dp=4
 # simulated workers, 8 x 1024 tokens a step, 2 steps, a failure, 1 step (as
 # train, for the script's time limit)
-TRAIN_SSM = dict(layers=8, dp=4, global_batch=8, seq_len=1024, steps_before=2,
+TRAIN_SSM = dict(layers=4, dp=4, global_batch=8, seq_len=1024, steps_before=2,
                  steps_after=1, failed=2)
 L2_BYTES = 50 * 10**6
 T_START = time.perf_counter()
@@ -639,7 +689,10 @@ def phase_kernels(torch, F):
     # (MHA at hd 128) in bf16, a rank's of the tensor-parallel step in both,
     # in bf16 a rank's of the MoE's sharded step and a pipeline stage's,
     # gemma-2b's at hd 256 (a rank's of train_gemma_mesh, the serve-like) in
-    # both, and internvl2-26b's at group 6 (patches and prompt) in both
+    # both, internvl2-26b's at group 6 (patches and prompt) in both, and
+    # whisper-small's at hd 64 (the encoder's non-causal, the decoder's
+    # causal over the prompt, the cross-attention's non-causal at Sq 16
+    # against 1,500 frames) in both
     for key, dtype, p in (("bfloat16", torch.bfloat16, PREFILL),
                           ("float32", torch.float32, PREFILL),
                           ("bfloat16_train", torch.bfloat16,
@@ -656,38 +709,46 @@ def phase_kernels(torch, F):
                           ("bfloat16_hd256", torch.bfloat16, PREFILL_HD256),
                           ("float32_hd256", torch.float32, PREFILL_HD256),
                           ("bfloat16_vlm", torch.bfloat16, PREFILL_VLM),
-                          ("float32_vlm", torch.float32, PREFILL_VLM)):
+                          ("float32_vlm", torch.float32, PREFILL_VLM),
+                          ("bfloat16_encdec_enc", torch.bfloat16, PREFILL_ENCDEC_ENC),
+                          ("float32_encdec_enc", torch.float32, PREFILL_ENCDEC_ENC),
+                          ("bfloat16_encdec_self", torch.bfloat16, PREFILL_ENCDEC_SELF),
+                          ("float32_encdec_self", torch.float32, PREFILL_ENCDEC_SELF),
+                          ("bfloat16_encdec_cross", torch.bfloat16, PREFILL_ENCDEC_CROSS),
+                          ("float32_encdec_cross", torch.float32, PREFILL_ENCDEC_CROSS)):
         dname = str(dtype).split(".")[-1]
+        causal, skv = p.get("causal", True), p.get("skv", p["s"])
         q = rand((p["b"], p["s"], p["h"], p["hd"]), dtype)
-        k = rand((p["b"], p["s"], p["kh"], p["hd"]), dtype)
-        v = rand((p["b"], p["s"], p["kh"], p["hd"]), dtype)
+        k = rand((p["b"], skv, p["kh"], p["hd"]), dtype)
+        v = rand((p["b"], skv, p["kh"], p["hd"]), dtype)
         routed = dict(flash_attention.flash_attention.routes)
-        out = flash_attention.flash_attention(q, k, v, causal=True)
+        out = flash_attention.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
         route = [r for r, n in flash_attention.flash_attention.routes.items()
                  if n != routed[r]]
         if route != [EXPECTED_ROUTE[dname]]:
             fail(f"flash_attention {dname}: went by route {route}, "
                  f"expected {EXPECTED_ROUTE[dname]}")
-        ref = ops.flash_attention_plain(q, k, v, causal=True)
-        err = check_close(f"flash_attention {dname}", out, ref, TOL[dname])
+        ref = ops.flash_attention_plain(q, k, v, causal=causal)
+        err = check_close(f"flash_attention {dname} {key}", out, ref, TOL[dname])
         per_call = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         args = input_copies((q, k, v))
         before = dict(TIMING)
-        kernel = lambda a, b_, c: flash_attention.flash_attention(a, b_, c, causal=True)  # noqa: E731
+        kernel = lambda a, b_, c: flash_attention.flash_attention(a, b_, c, causal=causal)  # noqa: E731
         ms = time_ms(torch, kernel, args, 20)
         ev_ms = event_ms(torch, kernel, args, 20)
         launch_us = host_us(torch, kernel, args[0], 20)
-        plain_ms = time_ms(torch, lambda a, b_, c: ops.flash_attention_plain(a, b_, c, causal=True),
-                           args, 3)
+        plain_ms = time_ms(torch, lambda a, b_, c: ops.flash_attention_plain(
+            a, b_, c, causal=causal), args, 3)
         library_ms = time_ms(torch, lambda a, b_, c: F.scaled_dot_product_attention(
-            a.transpose(1, 2), b_.transpose(1, 2), c.transpose(1, 2), is_causal=True,
+            a.transpose(1, 2), b_.transpose(1, 2), c.transpose(1, 2), is_causal=causal,
             enable_gqa=True), args, 20)
-        pairs = p["s"] * (p["s"] + 1) // 2                   # causal (q, k) pairs
+        # the (q, k) pairs attended: causal (Sq = Skv), or every pair
+        pairs = p["s"] * (p["s"] + 1) // 2 if causal else p["s"] * skv
         flops = 4 * p["b"] * p["h"] * p["hd"] * pairs
         bound_s, bound_by = bound_seconds(flops, per_call, dname)
         row = dict(kernel="flash_attention", dtype=dname, route=route[0], shape=p,
-                   causal=True, max_abs_err=err, tol=TOL[dname], ms=ms, event_ms=ev_ms,
+                   causal=causal, max_abs_err=err, tol=TOL[dname], ms=ms, event_ms=ev_ms,
                    plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_s * 1e3, bound_by=bound_by,
                    host_us_per_launch=launch_us, gflop=flops / 1e9, mbytes=per_call / 1e6,
@@ -707,7 +768,11 @@ def phase_kernels(torch, F):
                              ("_vlm", DECODE_VLM, torch.bfloat16),
                              ("_vlm", DECODE_VLM, torch.float32),
                              ("_vlm_block", DECODE_VLM_BLOCK, torch.bfloat16),
-                             ("_vlm_block", DECODE_VLM_BLOCK, torch.float32)):
+                             ("_vlm_block", DECODE_VLM_BLOCK, torch.float32),
+                             ("_encdec_self", DECODE_ENCDEC_SELF, torch.bfloat16),
+                             ("_encdec_self", DECODE_ENCDEC_SELF, torch.float32),
+                             ("_encdec_cross", DECODE_ENCDEC_CROSS, torch.bfloat16),
+                             ("_encdec_cross", DECODE_ENCDEC_CROSS, torch.float32)):
         dname = str(dtype).split(".")[-1]
         partial = d.get("partial", False)
         q = rand((d["b"], 1, d["h"], d["hd"]), dtype)
@@ -1522,13 +1587,13 @@ def close_cluster(torch, run: dict) -> float:
 
 
 def phase_train(torch):
-    """Full qwen3-0.6b trained through the port's SimCluster with a
-    failure and a stream recovery in the middle."""
+    """qwen3-0.6b at full width, cut to TRAIN's layers, trained through the
+    port's SimCluster with a failure and a stream recovery in the middle."""
     from repro_torch.configs import get_arch
     from repro_torch.models import param_count
 
     t = TRAIN
-    cfg = get_arch("qwen3-0.6b")
+    cfg = dataclasses.replace(get_arch("qwen3-0.6b"), num_layers=t["layers"])
     run = train_through_a_failure(torch, "train", cfg, t, "chip_smoke_ckpt")
     steps = run["steps"]
     expected = {"flash_attention": cfg.num_layers * steps, "decode_attention": 0, "ssd": 0,
@@ -1548,7 +1613,7 @@ def phase_train(torch):
     params = param_count(cfg)
     bound, flops, attn_fwd = train_bound(cfg, params, t["global_batch"] * t["seq_len"],
                                          t["global_batch"], t["seq_len"])
-    row = dict(config=f"qwen3-0.6b full ({cfg.num_layers} layers, bf16, tied head)",
+    row = dict(config=f"qwen3-0.6b full width, {cfg.num_layers} of 28 layers (bf16, tied head)",
                **train_row(torch, run, t, params, bound, flops),
                attention_fwd_gflop_per_layer=attn_fwd / 1e9, device_step_trace=trace)
     row["host_rss_after_free_gb"] = close_cluster(torch, run)
@@ -1570,14 +1635,15 @@ SCALE_FIELDS = {"state_bytes_streamed": "bytes", "chunks_reused": "bytes",
 
 
 # the sharded multi-rank step (train.step.build_train_step), four gloo ranks
-# sharing the one card: (a) full qwen3-0.6b, bf16, FSDP and the instant
-# backup, 8 x 1024 tokens a step (2 x 1024 a rank), 2 steps, then the
+# sharing the one card: (a) qwen3-0.6b at full width cut to 8 of 28 layers
+# (the script's time: a step's host work scales with the state), bf16, FSDP
+# and the instant backup, 8 x 1024 tokens a step (2 x 1024 a rank), 2 steps, then the
 # neighbour drill, the first batch scored again and one step without FSDP for
 # its memory; (b) full width cut to 2 layers, fp32, 2 steps, against one rank
 # of the same step over NCCL from the same weights and batches. The children
 # are spawned (CUDA cannot fork) and meet through file:// in a temporary
 # directory.
-TRAIN_MESH = dict(arch="qwen3-0.6b", smoke=False, layers=None, dtype="bfloat16", world=4,
+TRAIN_MESH = dict(arch="qwen3-0.6b", smoke=False, layers=8, dtype="bfloat16", world=4,
                   global_batch=8, seq_len=1024, steps=2, seed=0, timeout_s=600)
 TRAIN_MESH_B = dict(arch="qwen3-0.6b", smoke=False, layers=2, dtype="float32", world=4,
                     global_batch=8, seq_len=1024, steps=2, seed=0, timeout_s=300, tol=1e-5,
@@ -1588,8 +1654,8 @@ TRAIN_MESH_B = dict(arch="qwen3-0.6b", smoke=False, layers=2, dtype="float32", w
 MESH_NOTE = ("gloo through the host on one shared card: the four ranks share one H100 and "
              "every collective crosses the host; not the figure of a ring on NVLink")
 # the tensor-parallel step on a (data 2, model 2) mesh of four gloo ranks
-# sharing the card: (a) full qwen3-0.6b, bf16, FSDP and the instant backup,
-# 8 x 1024 tokens a step (4 x 1024 a data rank), 2 steps; (b) full width cut to
+# sharing the card: (a) qwen3-0.6b at full width cut to 8 of 28 layers (as
+# train_mesh (a)), bf16, FSDP and the instant backup, 8 x 1024 tokens a step (4 x 1024 a data rank), 2 steps; (b) full width cut to
 # 2 layers, fp32, 2 steps, against one rank of the same step over NCCL
 TRAIN_TP = dict(TRAIN_MESH, model=2, timeout_s=600)
 TRAIN_TP_B = dict(TRAIN_MESH_B, model=2)
@@ -1600,9 +1666,10 @@ TP_VS_MESH = dict(loss_rtol=1e-4, grad_norm_rtol=1e-3)
 # what train_tp, train_moe_mesh and train_gemma_mesh (a) recorded before the
 # residual stream was split by sequence over "model" (earlier runs of this
 # script, H100 80GB HBM3, 700.00 W), printed beside this run's numbers; None
-# where a run did not record it
+# where a run did not record it (train_tp's at 28 layers, before (a) was cut
+# to 8)
 BEFORE_SP = {
-    "train_tp": dict(step_ms=7516, tp_reduce_s=[1.9, 2.4], peak_device_mem_gb=6.49,
+    "train_tp": dict(layers=28, step_ms=7516, tp_reduce_s=[1.9, 2.4], peak_device_mem_gb=6.49,
                      model_all_reduces=[145, 1191238656]),
     "train_moe_mesh": dict(step_ms=16503, tp_reduce_s=None, peak_device_mem_gb=None),
     "train_gemma_mesh": dict(step_ms=7279, tp_reduce_s=[0.58, 0.74], peak_device_mem_gb=None),
@@ -3848,8 +3915,283 @@ def phase_serve_vlm(torch):
     return row
 
 
+def phase_slice_encdec(torch):
+    """whisper-small at full width (d_model 768, 12 heads of 64, gelu 3,072,
+    the tied head of 51,968), cut to 2 encoder and 2 decoder layers, fp32:
+    the same weights (drawn on the card, copied to the CPU) and the same
+    frames (2 clips of 1,500, N(0, 1) from a seed) on the CPU (plain
+    versions) and on the card (kernels). Prefill of a 16-token prompt, then
+    8 decode steps (both sides take the CPU's greedy token): the logits of
+    each, the self and cross caches after the prefill and after the steps,
+    and the index; then the loss of 2 x 33 tokens and every gradient, at
+    2e-4. The launches of each part are asserted exactly."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.train.serve import build_decode_step, build_prefill_step
+    from repro_torch.train.state import grad_tree
+    from repro_torch.tree import keystr, tree_flatten_with_path
+
+    m = ENCDEC_SLICE
+    cfg = dataclasses.replace(get_arch("whisper-small"), num_layers=m["layers"],
+                              encoder_layers=m["layers"], dtype="float32")
+    L, senc = cfg.num_layers, cfg.encoder_seq
+    t0 = time.perf_counter()
+    card = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(7)
+    frames = torch.from_numpy(rng.standard_normal((m["batch"], senc, cfg.d_model),
+                                                  dtype=np.float32))
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (m["batch"], m["loss_tokens"])))
+    prompt = tokens[:, :m["prompt"]]
+    max_len = m["prompt"] + m["steps"]
+    runs, launches = {}, {}
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        dev = model.device
+        prefill, decode = build_prefill_step(model), build_decode_step(model)
+        reset_launches()
+        logits, cache = prefill(prompt.to(dev), max_len, None, frames.to(dev))
+        # copies: decode writes the self cache in place (.cpu() of a CPU tensor is itself)
+        run = dict(logits=[logits.cpu()], index=cache["index"],
+                   **{key: cache[key].cpu().clone() for key in ("k", "v", "cross_k", "cross_v")})
+        for step in range(m["steps"]):
+            tok = (runs["cpu"] if name == "cuda" else run)["logits"][step].argmax(-1)
+            logits, cache = decode(cache, tok.to(dev))
+            run["logits"].append(logits.cpu())
+        run.update({f"final_{key}": cache[key].cpu() for key in ("k", "v", "cross_k", "cross_v")})
+        run["index_after"] = cache["index"]
+        launches[name + "_serve"] = read_launches()
+        del cache
+        model.requires_grad_(True)
+        reset_launches()
+        loss, aux = model.loss({"tokens": tokens.to(dev), "frames": frames.to(dev)})
+        loss.backward()
+        launches[name + "_loss"] = read_launches()
+        run["loss"] = [loss.detach().cpu(), aux["xent"].detach().cpu()]
+        run["grads"] = {keystr(p): t for p, t in
+                        tree_flatten_with_path(_host_tree(grad_tree(model)))}
+        runs[name] = run
+    none = {"flash_attention": 0, "decode_attention": 0, "ssd": 0,
+            "ssd_routes": {"wgmma": 0, "fp32": 0}}
+    # serve: flash once a layer in the encoder, twice a decoder layer (causal
+    # self, cross) in the prefill; decode twice a decoder layer a step (self,
+    # cross); the loss's forward flash as the prefill's
+    expected = {"cpu_serve": none, "cpu_loss": none,
+                "cuda_serve": dict(none, flash_attention=cfg.encoder_layers + 2 * L,
+                                   decode_attention=2 * L * m["steps"]),
+                "cuda_loss": dict(none, flash_attention=cfg.encoder_layers + 2 * L)}
+    if launches != expected:
+        fail(f"slice_encdec: kernel launches {launches}, expected {expected}")
+    want_index = (m["prompt"], m["prompt"] + m["steps"])
+    for name, run in runs.items():
+        if (run["index"], run["index_after"]) != want_index:
+            fail(f"slice_encdec: {name} cache index {run['index']} then "
+                 f"{run['index_after']}, expected {want_index}")
+    errs = []
+    for ref, out in zip(runs["cpu"]["logits"], runs["cuda"]["logits"]):
+        if out.shape != (m["batch"], cfg.padded_vocab) or not torch.isfinite(out).all():
+            fail(f"slice_encdec: logits of shape {tuple(out.shape)} or not finite")
+        errs.append(check_close("slice_encdec logits card vs cpu", out, ref, m["tol"]))
+    keys = ("k", "v", "cross_k", "cross_v")
+    cache_err = {key: check_close(f"slice_encdec cache {key} card vs cpu", runs["cuda"][key],
+                                  runs["cpu"][key], m["tol"])
+                 for key in keys + tuple(f"final_{k_}" for k_ in keys)}
+    for key in ("cross_k", "cross_v"):
+        if runs["cuda"][key].shape != (L, m["batch"], senc, cfg.num_kv_heads,
+                                       cfg.resolved_head_dim) \
+                or not torch.equal(runs["cuda"][key], runs["cuda"]["final_" + key]):
+            fail(f"slice_encdec: the card's {key} is not (L, B, {senc}, K, hd) or changed "
+                 "in the decode steps")
+    loss_err = {part: check_close(f"slice_encdec {part} card vs cpu", got, want, m["tol"])
+                for part, got, want in zip(("loss", "xent"), runs["cuda"]["loss"],
+                                           runs["cpu"]["loss"])}
+    grad_err = {k: check_close(f"slice_encdec grad {k} card vs cpu", runs["cuda"]["grads"][k],
+                               ref, m["tol"]) for k, ref in runs["cpu"]["grads"].items()}
+    for k, g in runs["cuda"]["grads"].items():
+        if not torch.isfinite(g).all() or not (g != 0).any():
+            fail(f"slice_encdec: gradient {k} is not finite or is all 0")
+    row = dict(config=f"whisper-small full width, {cfg.encoder_layers} encoder + {L} decoder "
+                      "layers, fp32, 12 heads of 64 (MHA)",
+               batch=m["batch"], frames=senc, prompt=m["prompt"], decode_steps=m["steps"],
+               loss_tokens=list(tokens.shape), init_s=init_s,
+               logits_max_abs_err_per_step=errs, cache_max_abs_err=cache_err,
+               index=list(want_index), loss=float(runs["cuda"]["loss"][0]), loss_err=loss_err,
+               grad_leaves=len(grad_err), grad_max_abs_err=max(grad_err.values()),
+               cross_grad_err={k: v for k, v in grad_err.items()
+                               if "|cross|" in k or k.startswith("encoder")},
+               tol=m["tol"], launches=launches)
+    emit("slice_encdec", **row)
+    del cpu, card, runs
+    torch.cuda.empty_cache()
+    return row
+
+
+def encdec_serve_bounds(cfg, b: int, prompt: int, gen: int):
+    """The card's least time for the enc-dec serve run's prefill and for its
+    mean decode step, bf16. Prefill: the encoder's matrix products (2 x its
+    weights x B x Senc) and full-square attention (4 B H hd Senc^2 a layer),
+    cross_kv (2 x wk, wv x B x Senc a decoder layer), the decoder's products
+    over the prompt (self-attention, cross q and o, MLP), its causal and
+    cross attention, and the head at the last position; every weight, the
+    frames and the caches written once. Decode: the decoder's products and
+    the tied head for one token a row, self attention over the attended
+    lengths, cross attention over Senc; the decoder's weights but the cross
+    wk and wv (their products are the cross cache, read instead), the
+    embedding table (the head reads it whole) and both caches read once."""
+    from repro_torch.roofline.hw import bound_seconds
+    L, Le, senc = cfg.num_layers, cfg.encoder_layers, cfg.encoder_seq
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    attn_w = 2 * d * h * hd + 2 * d * kh * hd          # wq, wo, wk, wv
+    mlp_w = 2 * d * f                                  # w_up, w_down (gelu)
+    norms = 2 * d                                      # ln1, ln2
+    enc_params = Le * (attn_w + mlp_w + norms) + d     # and enc_norm
+    dec_params = L * (2 * attn_w + mlp_w + norms + d) + d
+    params = enc_params + dec_params + v * d
+    dec_token_w = 2 * d * h * hd + 2 * d * kh * hd + 2 * d * h * hd + mlp_w  # a token a layer
+    cross_kv_w = 2 * d * kh * hd
+    prefill_flops = (2 * Le * (attn_w + mlp_w) * b * senc + Le * 4 * b * h * hd * senc ** 2
+                     + 2 * L * cross_kv_w * b * senc + 2 * L * dec_token_w * b * prompt
+                     + L * 4 * b * h * hd * (prompt * (prompt + 1) // 2 + prompt * senc)
+                     + 2 * v * d * b)
+    kv_pos = 2 * L * b * kh * hd * 2                   # self K and V a position, bf16
+    cross_bytes = kv_pos * senc                        # the cross cache, bf16
+    prefill_bytes = 2 * params + 2 * b * senc * d + kv_pos * prompt + cross_bytes
+    lens = range(prompt + 1, prompt + gen)             # attended self lengths per step
+    steps = gen - 1
+    decode_flops = (2 * (L * dec_token_w + v * d) * b
+                    + L * 4 * b * h * hd * (sum(lens) / steps + senc))
+    decode_bytes = (2 * (dec_params - L * cross_kv_w + v * d) + kv_pos * sum(lens) / steps
+                    + cross_bytes)
+    return (bound_seconds(prefill_flops, prefill_bytes, "bfloat16"),
+            bound_seconds(decode_flops, decode_bytes, "bfloat16"),
+            dict(params=params, prefill_tflop=prefill_flops / 1e12,
+                 prefill_gbytes=prefill_bytes / 1e9,
+                 decode_gflop=decode_flops / 1e9, decode_gbytes=decode_bytes / 1e9,
+                 cross_cache_gbytes=cross_bytes / 1e9))
+
+
+def phase_serve_encdec(torch):
+    """Full whisper-small (12 encoder and 12 decoder layers, d_model 768, 12
+    heads of 64, gelu 3,072, the tied head of 51,865 padded to 51,968,
+    bf16, random weights drawn on the card from a seed): 8 clips of 1,500
+    frame embeddings (N(0, 1) in bf16 from a seed), a 16-token prompt, 32
+    greedy tokens, served twice (the first a warm-up, the repeat must give
+    its tokens). 36 flash launches on wgmma (12 non-causal at q/k/v (8,
+    1500, 12, 64), 12 causal at (8, 16, 12, 64), 12 non-causal at q (8, 16,
+    12, 64) against k/v (8, 1500, 12, 64)), 12 x 2 x 31 decode launches
+    (against the self cache (8, 48, 12, 64) at cur_len 17..47 and the cross
+    cache (8, 1500, 12, 64) at cur_len 1,500), no SSD launch, the calls'
+    shapes recorded by wrapping ``ops``; prefill and decode times beside
+    their bounds. Freed after."""
+    import collections
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, param_count
+    from repro_torch.train.serve import build_decode_step, build_prefill_step
+
+    cfg = get_arch("whisper-small")
+    b, prompt, gen = ENCDEC_SERVE["batch"], ENCDEC_SERVE["prompt"], ENCDEC_SERVE["gen"]
+    L, senc = cfg.num_layers, cfg.encoder_seq
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    max_len = prompt + gen
+    t0 = time.perf_counter()
+    model = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    frames = torch.randn((b, senc, cfg.d_model), device="cuda", dtype=torch.bfloat16,
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    prefill = functools.partial(build_prefill_step(model), frames=frames)
+    decode = build_decode_step(model)
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (b, prompt))).cuda()
+    warm, *_ = serve_once(torch, prefill, decode, tokens, max_len, gen)
+
+    calls = {"flash": collections.Counter(), "decode": collections.Counter()}
+    cur_lens = collections.defaultdict(set)
+    flash, dec = ops.flash_attention, ops.decode_attention
+
+    def flash_rec(q, k, v, *, causal=True):
+        calls["flash"][(tuple(q.shape), tuple(k.shape), causal)] += 1
+        return flash(q, k, v, causal=causal)
+
+    def decode_rec(q, k, v, cur_len):
+        calls["decode"][(tuple(q.shape), tuple(k.shape))] += 1
+        cur_lens[tuple(k.shape)].add(int(cur_len))
+        return dec(q, k, v, cur_len)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ops.flash_attention, ops.decode_attention = flash_rec, decode_rec
+    try:
+        seqs, finite, t_prefill, t_decode, shape = serve_once(
+            torch, prefill, decode, tokens, max_len, gen)
+    finally:
+        ops.flash_attention, ops.decode_attention = flash, dec
+    launches = read_launches()
+    flash_routes = dict(fa.flash_attention.routes)
+    expected = {"flash_attention": 3 * L, "decode_attention": 2 * L * (gen - 1), "ssd": 0,
+                "ssd_routes": {"wgmma": 0, "fp32": 0}}
+    enc_shape, dec_shape = (b, senc, h, hd), (b, prompt, h, hd)
+    self_cache, cross_cache = (b, max_len, h, hd), (b, senc, h, hd)
+    want_calls = {"flash": {(enc_shape, enc_shape, False): cfg.encoder_layers,
+                            (dec_shape, dec_shape, True): L,
+                            (dec_shape, enc_shape, False): L},
+                  "decode": {((b, 1, h, hd), self_cache): L * (gen - 1),
+                             ((b, 1, h, hd), cross_cache): L * (gen - 1)}}
+    want_lens = {self_cache: (prompt + 1, prompt + gen - 1), cross_cache: (senc, senc)}
+    got_calls = {k: dict(v) for k, v in calls.items()}
+    got_lens = {k: (min(v), max(v)) for k, v in cur_lens.items()}
+    if launches != expected or flash_routes != {"wgmma": 3 * L, "fp32": 0}:
+        fail(f"serve_encdec: kernel launches {launches}, flash routes {flash_routes}; "
+             f"expected {expected}, flash all on wgmma")
+    if got_calls != want_calls or got_lens != want_lens \
+            or cur_lens[cross_cache] != {senc}:
+        fail(f"serve_encdec: kernel calls {got_calls}, decode cur_len ranges {got_lens}; "
+             f"expected {want_calls}, {want_lens}")
+    if not finite or tuple(shape) != (b, cfg.padded_vocab):
+        fail(f"serve_encdec: logits not finite or of shape {tuple(shape)}")
+    if seqs.shape != (b, gen) or not ((seqs >= 0) & (seqs < cfg.padded_vocab)).all():
+        fail("serve_encdec: generated tokens out of range")
+    repeat = bool((warm == seqs).all())
+    if not repeat:
+        fail("serve_encdec: the repeat generated other tokens than the warm-up")
+    params = param_count(cfg)
+    prefill_bound, decode_bound, work = encdec_serve_bounds(cfg, b, prompt, gen)
+    if work["params"] != params:
+        fail(f"serve_encdec: the bound counts {work['params']} parameters, the model "
+             f"{params}")
+    row = dict(config=f"whisper-small full ({cfg.encoder_layers} encoder + {L} decoder layers, "
+                      f"d_model {cfg.d_model}, {h} heads of {hd}, tied head, bf16)",
+               params=params, batch=b, frames=senc, prompt=prompt, gen=gen,
+               max_len=max_len, init_s=init_s, prefill_ms=t_prefill * 1e3,
+               prefill_bound_ms=prefill_bound[0] * 1e3, prefill_bound_by=prefill_bound[1],
+               decode_steps=gen - 1, decode_ms_per_step=t_decode * 1e3 / (gen - 1),
+               decode_step_bound_ms=decode_bound[0] * 1e3, decode_step_bound_by=decode_bound[1],
+               decode_tok_s=b * (gen - 1) / t_decode, bound_work=work,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=launches, flash_routes=flash_routes,
+               kernel_calls={k: [[list(map(list, key[:2])) + list(key[2:]), n]
+                                 for key, n in sorted(v.items())]
+                             for k, v in got_calls.items()},
+               decode_cur_len_ranges=[[list(k), list(v)] for k, v in sorted(got_lens.items())],
+               logits_finite=finite, repeat_identical=repeat,
+               profiler_sessions_before=PROFILER_SESSIONS[0],
+               first_sequence=seqs[0].tolist())
+    emit("serve_encdec", **row)
+    del model, prefill, decode, frames
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_train_ssm(torch):
-    """mamba2-2.7b at full width, cut to 8 layers, trained by the port's
+    """mamba2-2.7b at full width, cut to TRAIN_SSM's layers, trained by the port's
     SimCluster with a failure and a stream recovery in the middle: the SSD
     kernel under autograd on the main training path."""
     import numpy as np
@@ -3929,6 +4271,8 @@ def main() -> int:
     serve_moe = timed("serve_moe", phase_serve_moe, torch)
     timed("slice_vlm", phase_slice_vlm, torch)
     serve_vlm = timed("serve_vlm", phase_serve_vlm, torch)
+    timed("slice_encdec", phase_slice_encdec, torch)
+    serve_encdec = timed("serve_encdec", phase_serve_encdec, torch)
     timed("train_grad", phase_train_grad, torch)
     # train_mesh (b)'s one-rank reference is train_tp (b)'s too: one directory
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
@@ -4025,6 +4369,11 @@ def main() -> int:
              vlm_launches=serve_vlm["launches"]["flash_attention"],
              vlm_shape={d: moe_shape(kernels["flash_attention"][f"{d}_vlm"])
                         for d in ("bfloat16", "float32")},
+             encdec_launches=serve_encdec["launches"]["flash_attention"],
+             encdec_shape={f"{d}_{part}": moe_shape(kernels["flash_attention"][
+                               f"{d}_encdec_{part}"])
+                           for d in ("bfloat16", "float32")
+                           for part in ("enc", "self", "cross")},
              backward="plain blockwise_attention recompute (FlashAttention), no kernel"),
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attn.cu",
@@ -4062,6 +4411,10 @@ def main() -> int:
              vlm_shape={f"{d}_{form}": moe_shape(kernels["decode_attention"][f"{d}_{key}"][-1])
                         for d in ("bfloat16", "float32")
                         for form, key in (("serve", "vlm"), ("block", "vlm_block"))},
+             encdec_launches=serve_encdec["launches"]["decode_attention"],
+             encdec_shape={f"{d}_{part}": moe_shape(
+                               kernels["decode_attention"][f"{d}_encdec_{part}"][-1])
+                           for d in ("bfloat16", "float32") for part in ("self", "cross")},
              head_dims="16, 32, 64, 112 (on 128's lanes), 128, 256 (two loads a lane in fp32)",
              groups="1, 2, 4, 6, 8 q heads per kv head"),
         dict(name="ssd", route="cuda", dispatch=ssd_main["route"],
@@ -4093,6 +4446,7 @@ def main() -> int:
              train_gemma_mesh_launches=train_gemma_mesh["ssd_launches"],
              serve_mesh_launches=serve_mesh["launches_per_rank"]["ssd"],
              vlm_launches=serve_vlm["launches"]["ssd"],
+             encdec_launches=serve_encdec["launches"]["ssd"],
              tp_shapes={model: {k_: ssd_rows[(f"{model}/tp2", 1024, "bfloat16")][k_]
                                 for k_ in keys}
                         for model in ("mamba2-2.7b", "zamba2-7b")},

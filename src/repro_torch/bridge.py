@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models.transformer import build_model
+from repro_torch.tree import STACKED_ROOTS
 
 
 def _leaf(tree: Mapping, path) -> np.ndarray:
@@ -34,9 +35,10 @@ def _count_leaves(tree) -> int:
 @torch.no_grad()
 def params_from_numpy(tree: Mapping, cfg: ArchConfig, device=None,
                       dtype: Optional[torch.dtype] = None) -> torch.nn.Module:
-    """The port's model for ``cfg.family`` (``DecoderLM`` for dense and MoE
-    configs, ``MambaLM`` or ``HybridLM``, whose ``shared_attn`` leaves are
-    not stacked) on ``device`` (CUDA by default) holding the reference's
+    """The port's model for ``cfg.family`` (``DecoderLM`` for dense, MoE and
+    VLM configs, ``MambaLM``, ``HybridLM``, whose ``shared_attn`` leaves are
+    not stacked, or ``EncDecLM``, whose ``encoder`` and ``decoder`` are) on
+    ``device`` (CUDA by default) holding the reference's
     weights, cast to each parameter's dtype: ``dtype`` (the config's by
     default), except the leaves the model keeps in fp32 whatever its dtype
     (the Mamba2 block's ``a_log``, ``d_skip``, ``dt_bias``; the MoE layer's
@@ -47,8 +49,8 @@ def params_from_numpy(tree: Mapping, cfg: ArchConfig, device=None,
     used = set()
     for name, param in model.named_parameters():
         parts = name.split(".")
-        if parts[0] == "blocks":
-            path = ("blocks",) + tuple(parts[2:])
+        if parts[0] in STACKED_ROOTS:
+            path = (parts[0],) + tuple(parts[2:])
             arr = np.asarray(_leaf(tree, path))[int(parts[1])]
         else:
             path = tuple(parts)

@@ -22,7 +22,7 @@ class ArchConfig:
     fields of the families it ports."""
 
     name: str
-    family: str  # "dense", "moe", "vlm", "ssm" and "hybrid" build; "encdec" names its ROADMAP item
+    family: str  # "dense", "moe", "vlm", "ssm", "hybrid" or "encdec"
     num_layers: int
     d_model: int
     num_heads: int
@@ -50,6 +50,9 @@ class ArchConfig:
     ssm_chunk: int = 256
     # --- hybrid (Zamba2-style): one shared attention block every k layers ---
     attn_every: int = 0
+    # --- encoder-decoder (Whisper): precomputed frame embeddings (conv frontend stubbed) ---
+    encoder_layers: int = 0
+    encoder_seq: int = 0
     # --- VLM (InternVL2): precomputed patch embeddings (ViT frontend stubbed) ---
     num_patch_tokens: int = 0
     # --- numerics ---
@@ -119,12 +122,12 @@ SHAPES: Dict[str, ShapeConfig] = {
 
 _REGISTRY: Dict[str, ArchConfig] = {}
 
-# Config modules ported so far: the dense ones, mamba2, zamba2, the two MoE
-# ones and the VLM (the JAX registry loads twelve modules; the enc-dec one
-# waits for its family, ROADMAP item 11b).
+# The config modules, the JAX registry's eleven in its order: the dense ones,
+# the enc-dec one, mamba2, zamba2, the two MoE ones, the VLM and the paper's
+# workloads.
 _MODULES = ("deepseek_67b", "qwen3_0_6b", "nemotron_4_15b", "gemma_2b",
-            "mamba2_2_7b", "zamba2_7b", "qwen3_moe_30b_a3b", "qwen2_moe_a2_7b",
-            "internvl2_26b", "paper_workloads")
+            "whisper_small", "mamba2_2_7b", "zamba2_7b", "qwen3_moe_30b_a3b",
+            "qwen2_moe_a2_7b", "internvl2_26b", "paper_workloads")
 
 
 def register(cfg: ArchConfig) -> ArchConfig:
@@ -148,12 +151,13 @@ def get_arch(name: str) -> ArchConfig:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}") from None
 
 
-def reduce_for_smoke(cfg: ArchConfig) -> ArchConfig:
+def reduce_for_smoke(cfg: ArchConfig, *, seq_hint: int = 32) -> ArchConfig:
     """Shrink a production config to a CPU-smoke-testable size, by the rules
-    of ``repro.configs.reduce_for_smoke`` for the dense, MoE, VLM, SSM and
-    hybrid families: an MoE keeps 8 experts (padded to 16), top-k of at most
-    2 and its shared expert; a hybrid keeps 4 layers and its attention
-    cadence (every 2); a VLM keeps 8 patch tokens."""
+    of ``repro.configs.reduce_for_smoke``: an MoE keeps 8 experts (padded to
+    16), top-k of at most 2 and its shared expert; a hybrid keeps 4 layers
+    and its attention cadence (every 2); an enc-dec keeps both stacks, 2
+    encoder layers of max(8, seq_hint // 2) frames; a VLM keeps 8 patch
+    tokens."""
     if cfg.num_kv_heads == 1:
         kv_heads = 1
     elif cfg.num_kv_heads < cfg.num_heads:
@@ -173,6 +177,8 @@ def reduce_for_smoke(cfg: ArchConfig) -> ArchConfig:
         changes.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=8)
     if cfg.family == "hybrid":
         changes.update(attn_every=2)
+    if cfg.encoder_layers:
+        changes.update(encoder_layers=2, encoder_seq=max(8, seq_hint // 2))
     if cfg.num_patch_tokens:
         changes.update(num_patch_tokens=8)
     return dataclasses.replace(cfg, **changes)

@@ -6,13 +6,18 @@
         --batch 8 --prompt-len 1000 --gen 32           # the hybrid, 13.3 GB bf16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b \
         --batch 8 --prompt-len 1000 --gen 32           # the VLM, 39.7 GB bf16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
+        --batch 8 --prompt-len 16 --gen 32             # the enc-dec, 1,500 frames a clip
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke
 
 Weights are random, drawn from ``--seed``. Unlike the reference CLI, whose
 ``--smoke`` flag is always on, this one runs the full config unless
 ``--smoke`` is given. A VLM's prompts sit behind ``num_patch_tokens`` patch
 embeddings, zeros in the model's dtype as in the reference CLI (the ViT
-frontend is a stub), and the cache's length counts them.
+frontend is a stub), and the cache's length counts them. An enc-dec's
+encoder takes ``encoder_seq`` frame embeddings a prompt, drawn N(0, 1) from
+the same seeded generator after the tokens and cast to bf16, as in the
+reference CLI (the conv frontend is a stub).
 """
 from __future__ import annotations
 
@@ -57,12 +62,16 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
     npatch = cfg.num_patch_tokens
     patch_embeds = (torch.zeros((args.batch, npatch, cfg.d_model), dtype=model.dtype,
                                 device=device) if npatch else None)
+    frames = None
+    if cfg.encoder_layers:
+        frames = torch.from_numpy(rng.normal(size=(args.batch, cfg.encoder_seq, cfg.d_model))
+                                  ).to(torch.bfloat16).to(device)
     prefill = build_prefill_step(model)
     decode = build_decode_step(model)
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = prefill(tokens, npatch + args.prompt_len + args.gen, patch_embeds)
+    logits, cache = prefill(tokens, npatch + args.prompt_len + args.gen, patch_embeds, frames)
     _sync(device)
     print(f"prefill: {args.batch}x{args.prompt_len} in {time.perf_counter() - t0:.2f}s")
 

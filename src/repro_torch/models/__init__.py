@@ -1,6 +1,6 @@
-from repro_torch.models.transformer import (DecoderLM, HybridLM, MambaLM,
+from repro_torch.models.transformer import (DecoderLM, EncDecLM, HybridLM, MambaLM,
                                             active_param_count, build_model,
                                             param_count)
 
-__all__ = ["DecoderLM", "HybridLM", "MambaLM", "active_param_count", "build_model",
-           "param_count"]
+__all__ = ["DecoderLM", "EncDecLM", "HybridLM", "MambaLM", "active_param_count",
+           "build_model", "param_count"]

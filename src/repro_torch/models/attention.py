@@ -1,11 +1,13 @@
 """Attention (port of ``repro.models.attention``): the plain blockwise and
-dense forms, the plain KV-cache decode, and the self-attention sub-block.
+dense forms, the plain KV-cache decode, the self-attention sub-block and the
+enc-dec's cross-attention.
 
 Layouts are the reference's: activations (B, S, H, hd), caches (B, T, K, hd)
-with K kv heads. The sub-block reaches the CUDA kernels through
-``kernels.ops`` at the two call sites where the reference calls
-``blockwise_attention`` (prefill) and ``decode_attention`` (decode); on CPU
-tensors ``ops`` runs exactly those plain functions.
+with K kv heads. The sub-blocks reach the CUDA kernels through
+``kernels.ops`` at the call sites where the reference calls
+``blockwise_attention`` (training, prefill, cross-attention) and
+``decode_attention`` (decode); on CPU tensors ``ops`` runs exactly those
+plain functions.
 
 On a mesh the serve steps split each cache by sequence
 (``parallel.sharding.cache_pspecs``, ``models.modes.split_cache``): a rank
@@ -330,3 +332,47 @@ def self_attention_decode(p: Mapping, cfg, x: torch.Tensor, k_cache: torch.Tenso
         i = current_tp().index
         out = out[:, :, i * heads:(i + 1) * heads]
     return out.reshape(b, 1, -1) @ p["wo"]
+
+
+# --------------------------------------------------------------------------- #
+# Cross-attention (Whisper decoder)
+# --------------------------------------------------------------------------- #
+def cross_attn_init(cfg, dtype, device) -> nn.ParameterDict:
+    """The leaves of ``attn_init`` (``wq``, ``wk``, ``wv``, ``wo``), which
+    ``init_attn`` fills, as the reference's ``cross_attn_init``."""
+    return attn_init(cfg, dtype, device)
+
+
+def cross_kv(p: Mapping, cfg, enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k and v of the encoder's output (B, Senc, D): each (B, Senc, K, hd),
+    no RoPE, no norm."""
+    b, s, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    k = (enc_out @ p["wk"]).reshape(b, s, -1, hd)
+    v = (enc_out @ p["wv"]).reshape(b, s, -1, hd)
+    return k, v
+
+
+def cross_attention(p: Mapping, cfg, x: torch.Tensor,
+                    enc_kv: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """x (B, S, D) attends to every encoder position of ``enc_kv`` ((k, v),
+    each (B, Senc, K, hd), from ``cross_kv`` or the cache). The reference
+    runs ``blockwise_attention(..., causal=False)``; the port runs its
+    kernels there. S > 1 (training, prefill) goes to the flash kernel,
+    non-causal, under ``FlashAttention``, so that the gradient reaches k
+    and v and, through ``cross_kv``, the encoder. S = 1 outside autograd (a
+    decode step) goes to the decode kernel with ``cur_len`` = Senc: the
+    same function, one query against every frame, where the flash kernel
+    would spend a 128-row q tile on one row. A one-row call that needs a
+    gradient stays on flash. On CPU tensors both routes run their plain
+    versions."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x @ p["wq"]).reshape(b, s, -1, hd)
+    k, v = enc_kv
+    needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if s == 1 and not needs_grad:
+        out = ops.decode_attention(q, k, v, k.shape[1])
+    else:
+        out = ops.flash_attention(q, k, v, causal=False)
+    return out.reshape(b, s, -1) @ p["wo"]

@@ -1,4 +1,4 @@
-"""Shared layers: norms, RoPE, MLP flavors, embeddings, the chunked
+"""Shared layers: norms, RoPE, sinusoidal positions, MLP flavors, embeddings, the chunked
 cross-entropy and the gradient barrier (port of ``repro.models.layers``).
 
 Plain functions on tensors; weights keep the JAX layout (``x @ w`` with
@@ -55,6 +55,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(dtype)
+
+
+def sinusoidal_positions(seq: int, d_model: int) -> np.ndarray:
+    """Whisper-style fixed sinusoidal embeddings for encoder frames, (seq,
+    d_model), computed in numpy exactly as the reference does (float64)."""
+    pos = np.arange(seq, dtype=np.float32)[:, None]
+    dim = np.arange(d_model // 2, dtype=np.float32)[None, :]
+    inv = np.exp(-np.log(10_000.0) * dim / max(d_model // 2 - 1, 1))
+    ang = pos * inv
+    return np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
 
 
 def mlp_apply(params: Dict[str, torch.Tensor], x: torch.Tensor, mlp_type: str) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""The decoder-only LM (dense, MoE or VLM), the pure SSM (Mamba2) LM and
-the hybrid (Zamba2) LM (ports of ``_build_decoder_lm``, ``_build_ssm_lm``
-and ``_build_hybrid_lm`` in ``repro.models.transformer``): ``init``,
-``forward``, ``loss``, ``prefill``, ``decode_step`` and ``cache_specs``.
+"""The decoder-only LM (dense, MoE or VLM), the pure SSM (Mamba2) LM, the
+hybrid (Zamba2) LM and the encoder-decoder (Whisper) LM (ports of
+``_build_decoder_lm``, ``_build_ssm_lm``, ``_build_hybrid_lm`` and
+``_build_encdec`` in ``repro.models.transformer``): ``init``, ``forward``,
+``loss``, ``prefill``, ``decode_step`` and ``cache_specs``.
 An MoE config's layers hold ``moe`` (``models.moe``) where a dense one's
 hold ``mlp``, and its loss adds the layers' summed balance loss. A VLM
 config (``num_patch_tokens`` > 0) is the dense decoder with precomputed
@@ -9,6 +10,9 @@ patch embeddings (B, num_patch_tokens, D) in front of the prompt's token
 embeddings (the ViT frontend is a stub, as in the reference): ``forward``,
 ``loss`` (``batch["patch_embeds"]``) and ``prefill`` take them, the loss
 scores the text positions only, and the cache counts the patch positions.
+The enc-dec (``EncDecLM``) takes precomputed frame embeddings (B,
+encoder_seq, D) (the conv frontend is a stub, as in the reference) through
+``frames`` where a VLM takes its patches.
 
 Parameters are built frozen (``requires_grad=False``), which serving needs;
 ``model.requires_grad_(True)`` makes them trainable (``train.state.init_state``
@@ -60,14 +64,10 @@ from repro_torch.configs import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, moe
 from repro_torch.models.layers import (chunked_xent, embed_init, embed_lookup,
-                                       mlp_apply, mlp_init, rms_norm, unembed)
+                                       mlp_apply, mlp_init, rms_norm, sinusoidal_positions,
+                                       unembed)
 from repro_torch.models.modes import (cache_block_len, parallel_region, run_layer, seq_gather,
                                       sequence_split, unshard_layer_params)
-
-# Families the port cannot build yet, with the ROADMAP §1 item that ports them.
-_NOT_PORTED = {
-    "encdec": "ROADMAP §1 item 11b (_build_encdec)",
-}
 
 
 def torch_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -94,12 +94,16 @@ def _to_head(x: torch.Tensor, w: torch.Tensor, vocab: int) -> torch.Tensor:
 
 
 def _embed_inputs(embed: torch.Tensor, cfg: ArchConfig, tokens: torch.Tensor,
-                  patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  patch_embeds: Optional[torch.Tensor] = None,
+                  frames: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The token embeddings of ``tokens`` (B, S), behind the patch
     embeddings (B, num_patch_tokens, D) cast to the model's dtype for a VLM
     config (the reference's ``_embed_inputs``): (B, num_patch_tokens + S,
     D). A VLM call without them or with another shape, and any other
-    config's call with them, raises ``ValueError``."""
+    config's call with them, raises ``ValueError``; so does a call of a
+    model without an encoder that is given ``frames``."""
+    if frames is not None and not cfg.encoder_layers:
+        raise ValueError(f"{cfg.name} takes no frames (encoder_layers is 0)")
     x = embed_lookup(embed, tokens, cfg.padded_vocab)
     npatch = cfg.num_patch_tokens
     if not npatch:
@@ -118,6 +122,16 @@ def _param(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+def _mlp_params(cfg: ArchConfig, dtype, device) -> nn.ParameterDict:
+    """The MLP's leaves: ``w_up``, ``w_down`` and, for a gated MLP, ``w_gate``."""
+    d = cfg.d_model
+    mlp = {"w_up": _param((d, cfg.d_ff), dtype, device),
+           "w_down": _param((cfg.d_ff, d), dtype, device)}
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        mlp["w_gate"] = _param((d, cfg.d_ff), dtype, device)
+    return nn.ParameterDict(mlp)
+
+
 class Block(nn.Module):
     """RMSNorm -> GQA self-attention -> residual -> RMSNorm -> MLP (the MoE
     layer for an MoE config) -> residual."""
@@ -132,11 +146,7 @@ class Block(nn.Module):
         if cfg.is_moe:
             self.moe = moe.MoEParams(cfg, dtype, device)
         else:
-            mlp = {"w_up": _param((d, cfg.d_ff), dtype, device),
-                   "w_down": _param((cfg.d_ff, d), dtype, device)}
-            if cfg.mlp_type in ("swiglu", "geglu"):
-                mlp["w_gate"] = _param((d, cfg.d_ff), dtype, device)
-            self.mlp = nn.ParameterDict(mlp)
+            self.mlp = _mlp_params(cfg, dtype, device)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> None:
@@ -231,7 +241,9 @@ def _input_specs(model, shape) -> Dict:
     ``input_specs``): train takes S+1 tokens, prefill S, decode one token
     and the cache of ``cache_specs(B, S)``. A VLM's S counts its patches:
     train and prefill take S - num_patch_tokens (+1) tokens and the patch
-    embeddings (B, num_patch_tokens, D) in the model's dtype."""
+    embeddings (B, num_patch_tokens, D) in the model's dtype. An enc-dec's
+    train and prefill also take the frames (B, encoder_seq, D) in the
+    model's dtype."""
     b, s = shape.global_batch, shape.seq_len
     npatch = model.cfg.num_patch_tokens
 
@@ -245,6 +257,9 @@ def _input_specs(model, shape) -> Dict:
     if npatch:
         specs["patch_embeds"] = torch.empty((b, npatch, model.cfg.d_model),
                                             dtype=model.dtype, device="meta")
+    if model.cfg.encoder_layers:
+        specs["frames"] = torch.empty((b, model.cfg.encoder_seq, model.cfg.d_model),
+                                      dtype=model.dtype, device="meta")
     return specs
 
 
@@ -336,13 +351,15 @@ class DecoderLM(nn.Module):
         return {"k": kv, "v": kv, "index": 0}
 
     def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None,
-                patch_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+                patch_embeds: Optional[torch.Tensor] = None,
+                frames: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
         """Causal pass over the prompts (a VLM's behind its
         ``patch_embeds``, which the positions count: S = num_patch_tokens +
         the tokens). Returns the last position's fp32 logits (B, V) and a
         cache {"k", "v": (L, B, max_len, K, hd), "index": S} whose positions
-        >= S are zero; ``max_len`` is S by default."""
-        x = _embed_inputs(self.embed["w"], self.cfg, tokens, patch_embeds)
+        >= S are zero; ``max_len`` is S by default. ``frames`` must be None
+        (``_embed_inputs``)."""
+        x = _embed_inputs(self.embed["w"], self.cfg, tokens, patch_embeds, frames)
         b, s = x.shape[:2]
         max_len = s if max_len is None else max_len
         if s > max_len:
@@ -516,14 +533,16 @@ class MambaLM(nn.Module):
         return x, states
 
     def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None,
-                patch_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+                patch_embeds: Optional[torch.Tensor] = None,
+                frames: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
         """Causal pass over the prompts. Returns the last position's fp32
         logits (B, V) and the cache {"mamba": {"conv_x", "conv_b", "conv_c":
         (L, B, k-1, C) in the activation dtype, "ssm": (L, B, H, N, P) fp32},
-        "index": S}. ``patch_embeds`` must be None (``_embed_inputs``)."""
+        "index": S}. ``patch_embeds`` and ``frames`` must be None
+        (``_embed_inputs``)."""
         s = tokens.shape[1]
         x, states = self._prefill_states(_embed_inputs(self.embed["w"], self.cfg, tokens,
-                                                       patch_embeds))
+                                                       patch_embeds, frames))
         return self._logits(x[:, -1]), {"mamba": states, "index": s}
 
     def decode_step(self, cache: Dict, token: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
@@ -590,10 +609,12 @@ class HybridLM(MambaLM):
         return {**super().cache_specs(batch, max_len), "k": kv, "v": kv}
 
     def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None,
-                patch_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+                patch_embeds: Optional[torch.Tensor] = None,
+                frames: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
         """Causal pass over the prompts. Returns the last position's fp32
         logits (B, V) and the cache of ``cache_specs``, whose KV positions
-        >= S are zero, with "index": S. ``patch_embeds`` must be None."""
+        >= S are zero, with "index": S. ``patch_embeds`` and ``frames`` must
+        be None."""
         b, s = tokens.shape
         max_len = s if max_len is None else max_len
         if s > max_len:
@@ -609,7 +630,7 @@ class HybridLM(MambaLM):
             return self.shared_attn.prefill(x, kv["k"][a], kv["v"][a])
 
         x, states = self._prefill_states(
-            _embed_inputs(self.embed["w"], self.cfg, tokens, patch_embeds), shared)
+            _embed_inputs(self.embed["w"], self.cfg, tokens, patch_embeds, frames), shared)
         return self._logits(x[:, -1]), {"mamba": states, **kv, "index": s}
 
     def decode_step(self, cache: Dict, token: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
@@ -627,20 +648,252 @@ class HybridLM(MambaLM):
         return self._logits(x[:, 0]), cache
 
 
+class EncDecBlock(nn.Module):
+    """A layer of the enc-dec (the reference's ``_encdec_block_init`` and the
+    bodies of ``_build_encdec``): RMSNorm -> self-attention -> residual ->
+    [RMSNorm -> cross-attention -> residual] -> RMSNorm -> MLP -> residual.
+    An encoder layer (``cross=False``) has no ``ln_cross`` / ``cross`` and
+    attends non-causally without RoPE; a decoder layer's self-attention is
+    causal with RoPE, as the reference's (Whisper's own decoder adds learned
+    positions instead), and its cross-attention reads the encoder's k and v."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device, *, cross: bool):
+        super().__init__()
+        d = cfg.d_model
+        self.cfg = cfg
+        self.ln1 = _param((d,), dtype, device)
+        self.attn = attn.attn_init(cfg, dtype, device)
+        self.ln2 = _param((d,), dtype, device)
+        self.mlp = _mlp_params(cfg, dtype, device)
+        if cross:
+            self.ln_cross = _param((d,), dtype, device)
+            self.cross = attn.cross_attn_init(cfg, dtype, device)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        self.ln1.zero_()
+        self.ln2.zero_()
+        attn.init_attn(self.attn, self.cfg, generator)
+        mlp_init(generator, self.mlp, self.cfg.d_model, self.cfg.d_ff)
+        if hasattr(self, "cross"):
+            self.ln_cross.zero_()
+            attn.init_attn(self.cross, self.cfg, generator)
+
+    def layer_params(self) -> Dict:
+        """The layer's parameters as the reference's tree."""
+        p = {"ln1": self.ln1, "attn": dict(self.attn.items()), "ln2": self.ln2,
+             "mlp": dict(self.mlp.items())}
+        if hasattr(self, "cross"):
+            p.update(ln_cross=self.ln_cross, cross=dict(self.cross.items()))
+        return p
+
+    def _mlp(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
+        return x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"]), self.cfg.mlp_type)
+
+    def _cross(self, p: Dict, x: torch.Tensor, enc_kv) -> torch.Tensor:
+        h = rms_norm(x, p["ln_cross"])
+        return x + attn.cross_attention(p["cross"], self.cfg, h, enc_kv)
+
+    def encode(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
+        """An encoder layer on the parameters ``p``."""
+        p = unshard_layer_params(p, self.cfg)
+        h = rms_norm(x, p["ln1"])
+        x = x + attn.self_attention(p["attn"], self.cfg, h, causal=False, rope=False)
+        return self._mlp(p, x)
+
+    def decode_train(self, p: Dict, x: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
+        """A decoder layer on the parameters ``p`` over every position of
+        ``x``, attending to the encoder's output ``enc_out``."""
+        p = unshard_layer_params(p, self.cfg)
+        x = x + attn.self_attention(p["attn"], self.cfg, rms_norm(x, p["ln1"]), causal=True)
+        x = self._cross(p, x, attn.cross_kv(p["cross"], self.cfg, enc_out))
+        return self._mlp(p, x)
+
+    def prefill(self, x: torch.Tensor, enc_out: torch.Tensor, k_cache: torch.Tensor,
+                v_cache: torch.Tensor, cross_k: torch.Tensor, cross_v: torch.Tensor
+                ) -> torch.Tensor:
+        """``decode_train`` that also writes the prompt's k and v into
+        ``k_cache`` / ``v_cache`` and the encoder's into ``cross_k`` /
+        ``cross_v`` (each this layer's slice of the cache), in place."""
+        p = self.layer_params()
+        h = rms_norm(x, p["ln1"])
+        x = x + attn.self_attention_prefill(p["attn"], self.cfg, h, k_cache, v_cache)
+        enc_kv = attn.cross_kv(p["cross"], self.cfg, enc_out)
+        cross_k.copy_(enc_kv[0])
+        cross_v.copy_(enc_kv[1])
+        return self._mlp(p, self._cross(p, x, enc_kv))
+
+    def decode(self, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+               cross_k: torch.Tensor, cross_v: torch.Tensor, index: int) -> torch.Tensor:
+        """One token at ``index``: the self cache written there, the cross
+        cache only read."""
+        p = self.layer_params()
+        h = rms_norm(x, p["ln1"])
+        x = x + attn.self_attention_decode(p["attn"], self.cfg, h, k_cache, v_cache, index)
+        return self._mlp(p, self._cross(p, x, (cross_k, cross_v)))
+
+
+class EncDecLM(nn.Module):
+    """Encoder-decoder (Whisper) LM: an ``encoder`` stack over the frame
+    embeddings (B, Senc, D) plus sinusoidal positions, ``enc_norm``, and a
+    ``decoder`` stack over the tokens with cross-attention to the encoder's
+    output, ``final_norm``. The head is the embedding table (tied, no
+    ``lm_head``) whatever ``tie_embeddings`` says, as in the reference. The
+    decode cache is {"k", "v": (L, B, max_len, K, hd), "cross_k",
+    "cross_v": (L, B, Senc, K, hd), "index"}: the cross cache is written
+    once, by the prefill, and only read after."""
+
+    def __init__(self, cfg: ArchConfig, device=None, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        device = torch.device(device) if device is not None else resolve_device()
+        dtype = dtype or torch_dtype(cfg)
+        self.cfg = cfg
+        d = cfg.d_model
+        self.embed = nn.ParameterDict({"w": _param((cfg.padded_vocab, d), dtype, device)})
+        self.encoder = nn.ModuleList(EncDecBlock(cfg, dtype, device, cross=False)
+                                     for _ in range(cfg.encoder_layers))
+        self.enc_norm = _param((d,), dtype, device)
+        self.decoder = nn.ModuleList(EncDecBlock(cfg, dtype, device, cross=True)
+                                     for _ in range(cfg.num_layers))
+        self.final_norm = _param((d,), dtype, device)
+        # the frames' positions in the model's dtype, kept with the model (a
+        # shorter clip takes the first rows: a row depends on its position only)
+        self.register_buffer("positions", torch.from_numpy(sinusoidal_positions(
+            cfg.encoder_seq, d)).to(device=device, dtype=dtype), persistent=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed["w"].device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.embed["w"].dtype
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "EncDecLM":
+        """Random weights from ``generator`` with the reference's
+        distributions. Returns self."""
+        cfg = self.cfg
+        self.embed["w"].copy_(embed_init(generator, cfg.padded_vocab, cfg.d_model,
+                                         torch.float32))
+        for blk in (*self.encoder, *self.decoder):
+            blk.init(generator)
+        self.enc_norm.zero_()
+        self.final_norm.zero_()
+        return self
+
+    def _encode(self, frames: Optional[torch.Tensor], batch: int) -> torch.Tensor:
+        """The encoder over ``frames`` (batch, Senc, D): the frames and the
+        positions each cast to the model's dtype, then added (the
+        reference's order), the layers, ``enc_norm``. Frames missing, not of
+        batch rows of width D, or of more than ``encoder_seq`` frames raise
+        ``ValueError``."""
+        cfg = self.cfg
+        if frames is None or frames.dim() != 3 or frames.shape[0] != batch \
+                or frames.shape[2] != cfg.d_model \
+                or not 1 <= frames.shape[1] <= cfg.encoder_seq:
+            got = None if frames is None else tuple(frames.shape)
+            raise ValueError(f"{cfg.name} needs frames of shape ({batch}, Senc <= "
+                             f"{cfg.encoder_seq}, {cfg.d_model}), got {got}")
+        x = frames.to(self.dtype) + self.positions[None, :frames.shape[1]]
+        for blk in self.encoder:
+            x = run_layer(blk.encode, blk.layer_params(), x)
+        return rms_norm(x, unshard_layer_params(self.enc_norm))
+
+    def _hidden(self, tokens: torch.Tensor, frames: Optional[torch.Tensor],
+                patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The final-normed decoder states of ``tokens`` (B, S) against the
+        encoded ``frames``."""
+        x = _embed_inputs(self.embed["w"], self.cfg, tokens, patch_embeds)
+        enc_out = self._encode(frames, tokens.shape[0])
+        for blk in self.decoder:
+            x = run_layer(blk.decode_train, blk.layer_params(), x, enc_out)
+        return rms_norm(x, unshard_layer_params(self.final_norm))
+
+    def forward(self, tokens: torch.Tensor, frames: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """tokens (B, S) and frames (B, Senc, D) -> fp32 logits (B, S,
+        padded_vocab), causal over the tokens."""
+        return unembed(self.embed["w"], self._hidden(tokens, frames))
+
+    def loss(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
+        """Next-token loss of ``batch["tokens"]`` (B, S+1) against
+        ``batch["frames"]``: the first S tokens in, the last S as labels,
+        the tied head through ``chunked_xent``. Returns (xent, {"xent",
+        "aux"}) with aux 0, as the reference."""
+        tokens = batch["tokens"].long()
+        x = self._hidden(tokens[:, :-1], batch.get("frames"), batch.get("patch_embeds"))
+        xent = chunked_xent(self.embed["w"], x, tokens[:, 1:], vocab=self.cfg.padded_vocab)
+        return xent, {"xent": xent,
+                      "aux": torch.zeros((), dtype=torch.float32, device=x.device)}
+
+    def input_specs(self, shape) -> Dict:
+        return _input_specs(self, shape)
+
+    def cache_specs(self, batch: int, max_len: int) -> Dict:
+        """Shapes and dtypes of the decode cache, as meta tensors; the cross
+        cache holds ``encoder_seq`` positions; ``index`` is a host int."""
+        cfg = self.cfg
+        kh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+
+        def kv(t: int) -> torch.Tensor:
+            return torch.empty((cfg.num_layers, batch, t, kh, hd), dtype=self.dtype,
+                               device="meta")
+
+        return {"k": kv(max_len), "v": kv(max_len), "cross_k": kv(cfg.encoder_seq),
+                "cross_v": kv(cfg.encoder_seq), "index": 0}
+
+    def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None,
+                patch_embeds: Optional[torch.Tensor] = None,
+                frames: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+        """The encoder over ``frames`` (B, Senc, D), then the causal decoder
+        pass over the prompts. Returns the last position's fp32 logits (B,
+        V) and the cache of ``cache_specs`` (with Senc cross positions),
+        whose self positions >= S are zero, with "index": S; ``max_len`` is
+        S by default. ``patch_embeds`` must be None."""
+        x = _embed_inputs(self.embed["w"], self.cfg, tokens, patch_embeds)
+        b, s = tokens.shape
+        max_len = s if max_len is None else max_len
+        if s > max_len:
+            raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
+        enc_out = self._encode(frames, b)
+        specs = self.cache_specs(b, cache_block_len(max_len))
+        cache = {"k": torch.zeros(specs["k"].shape, dtype=self.dtype, device=self.device),
+                 "v": torch.zeros(specs["v"].shape, dtype=self.dtype, device=self.device)}
+        cross = (self.cfg.num_layers, b, enc_out.shape[1]) + specs["cross_k"].shape[3:]
+        cache.update(cross_k=torch.empty(cross, dtype=self.dtype, device=self.device),
+                     cross_v=torch.empty(cross, dtype=self.dtype, device=self.device))
+        for i, blk in enumerate(self.decoder):
+            x = blk.prefill(x, enc_out, cache["k"][i], cache["v"][i], cache["cross_k"][i],
+                            cache["cross_v"][i])
+        logits = unembed(self.embed["w"], rms_norm(x[:, -1], self.final_norm))
+        cache["index"] = s
+        return logits, cache
+
+    def decode_step(self, cache: Dict, token: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+        """One greedy step: token (B,) at position cache["index"]. Updates
+        the self cache in place and returns (fp32 logits (B, V), cache)."""
+        index = int(cache["index"])
+        x = embed_lookup(self.embed["w"], token[:, None], self.cfg.padded_vocab)
+        for i, blk in enumerate(self.decoder):
+            x = blk.decode(x, cache["k"][i], cache["v"][i], cache["cross_k"][i],
+                           cache["cross_v"][i], index)
+        logits = unembed(self.embed["w"], rms_norm(x[:, 0], self.final_norm))
+        cache["index"] = index + 1
+        return logits, cache
+
+
 _MODELS = {"dense": DecoderLM, "moe": DecoderLM, "vlm": DecoderLM, "ssm": MambaLM,
-           "hybrid": HybridLM}
+           "hybrid": HybridLM, "encdec": EncDecLM}
 
 
 def build_model(cfg: ArchConfig, device=None, dtype: Optional[torch.dtype] = None):
     """An uninitialised model of ``cfg.family`` on ``device`` (CUDA by
     default; raises when there is none), in ``dtype`` (the config's by
     default). Call ``.init(generator)`` or load weights with
-    ``repro_torch.bridge.params_from_numpy``. A family not ported yet
-    raises, naming its ROADMAP item."""
+    ``repro_torch.bridge.params_from_numpy``. An unknown family raises."""
     if cfg.family not in _MODELS:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: "
-            f"{_NOT_PORTED.get(cfg.family, 'not on the ROADMAP')}")
+        raise NotImplementedError(f"unknown family {cfg.family!r}; known: {sorted(_MODELS)}")
     return _MODELS[cfg.family](cfg, device=device, dtype=dtype)
 
 

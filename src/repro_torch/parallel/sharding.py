@@ -33,8 +33,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ArchConfig
-from repro_torch.tree import (Stacked, tree_flatten, tree_map, tree_map_with_path,
-                              tree_unflatten)
+from repro_torch.tree import (STACKED_ROOTS, Stacked, tree_flatten, tree_map,
+                              tree_map_with_path, tree_unflatten)
 
 PyTree = Any
 
@@ -157,7 +157,6 @@ def _leaf_spec(name: str, shape: Tuple[int, ...], cfg: ArchConfig,
     return spec(*([None] * len(base)))
 
 
-_STACKED_ROOTS = ("blocks", "encoder", "decoder")
 
 
 def param_pspecs(cfg: ArchConfig, specs: PyTree, mesh, *, fsdp: bool = False) -> PyTree:
@@ -169,7 +168,7 @@ def param_pspecs(cfg: ArchConfig, specs: PyTree, mesh, *, fsdp: bool = False) ->
 
     def rule(path, leaf):
         keys = _keys(path)
-        stacked = any(k in _STACKED_ROOTS for k in keys)
+        stacked = any(k in STACKED_ROOTS for k in keys)
         spec = _leaf_spec(keys[-1], tuple(leaf.shape), cfg, tp, stacked)
         # embeddings stay TP-only: FSDP-sharding the (V, D) tables makes the
         # logits product contract over a "data"-sharded dim, which the

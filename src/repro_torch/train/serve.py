@@ -1,7 +1,8 @@
 """Serving step builders (port of ``repro.train.serve``): prefill and cached
 decode, on one device or over a mesh, for any model with the serving
 interface below (``DecoderLM`` with its KV cache, ``MambaLM`` with its
-recurrent state, ``HybridLM`` with both).
+recurrent state, ``HybridLM`` with both, ``EncDecLM`` with its self and
+cross caches; the enc-dec on one device only).
 
 PyTorch runs eagerly, so a step is the model's method under
 ``torch.inference_mode()``; there is no jit.
@@ -64,7 +65,7 @@ from repro_torch.models.transformer import build_model, torch_dtype
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.sharding import is_spec
 from repro_torch.train.state import StatePlan, make_state_plan
-from repro_torch.train.step import _leaves, refuse_patches_on_mesh
+from repro_torch.train.step import _leaves, refuse_encdec_on_mesh, refuse_patches_on_mesh
 from repro_torch.tree import tree_flatten, tree_flatten_with_path
 
 Counts = Dict[Tuple[str, Tuple[str, ...]], list]
@@ -72,34 +73,40 @@ Counts = Dict[Tuple[str, Tuple[str, ...]], list]
 
 class ServingModel(Protocol):
     """What the serve steps call on a model. ``patch_embeds`` (B,
-    num_patch_tokens, D) go in front of a VLM's prompt; any other model
-    raises if given them."""
+    num_patch_tokens, D) go in front of a VLM's prompt, and ``frames`` (B,
+    encoder_seq, D) into an enc-dec's encoder; any other model raises if
+    given them."""
 
     def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None,
-                patch_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]: ...
+                patch_embeds: Optional[torch.Tensor] = None,
+                frames: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]: ...
 
     def decode_step(self, cache: Dict, token: torch.Tensor
                     ) -> Tuple[torch.Tensor, Dict]: ...
 
 
 def build_prefill_step(model: ServingModel, mesh=None, shape=None):
-    """One device: prefill(tokens (B, S), max_len, patch_embeds) -> (fp32
-    logits (B, V), cache); a VLM's ``patch_embeds`` (B, num_patch_tokens,
-    D) go in front of the tokens. On ``mesh``: (fn, plan, input_pspecs)
+    """One device: prefill(tokens (B, S), max_len, patch_embeds, frames) ->
+    (fp32 logits (B, V), cache); a VLM's ``patch_embeds`` (B,
+    num_patch_tokens, D) go in front of the tokens, an enc-dec's ``frames``
+    (B, encoder_seq, D) into its encoder. On ``mesh``: (fn, plan, input_pspecs)
     with fn(params, batch) -> (fp32 logits (b, V) of this rank's rows, this
     rank's cache blocks); batch {"tokens": this rank's rows of ``shape``'s
     prompts, "max_len": the cache's length, the prompt's where absent (the
     reference's ``batch.get("max_len", ...)``)}. A VLM on a mesh raises
-    ``NotImplementedError`` (ROADMAP §1 item 11a-ii)."""
+    ``NotImplementedError`` (ROADMAP §1 item 11a-ii), as does an enc-dec
+    (ROADMAP §1 item 11b-ii)."""
     if mesh is None:
         @torch.inference_mode()
         def prefill(tokens: torch.Tensor, max_len: Optional[int] = None,
-                    patch_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
-            return model.prefill(tokens, max_len, patch_embeds)
+                    patch_embeds: Optional[torch.Tensor] = None,
+                    frames: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+            return model.prefill(tokens, max_len, patch_embeds, frames)
 
         return prefill
 
     refuse_patches_on_mesh(model.cfg, "build_prefill_step")
+    refuse_encdec_on_mesh(model.cfg, "build_prefill_step")
     on_mesh = _OnMesh(model, mesh, "prefill")
     input_pspecs = shd.input_pspecs(model.cfg, model.input_specs(shape), mesh)
     twin = on_mesh.twin.model        # the step keeps no reference to ``model``'s weights
@@ -122,7 +129,8 @@ def build_decode_step(model: ServingModel, mesh=None, shape=None):
     ``shape`` (its length ``shape.seq_len``) and its rows of the tokens. The
     cache is updated in place and returned: the counterpart of the
     reference's ``donate_argnums=(1,)``, which lets XLA reuse the cache
-    buffers; its ``index`` is a host int."""
+    buffers; its ``index`` is a host int. An enc-dec on a mesh raises
+    ``NotImplementedError`` (ROADMAP §1 item 11b-ii)."""
     if mesh is None:
         @torch.inference_mode()
         def decode(cache: Dict, token: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
@@ -130,6 +138,7 @@ def build_decode_step(model: ServingModel, mesh=None, shape=None):
 
         return decode
 
+    refuse_encdec_on_mesh(model.cfg, "build_decode_step")
     on_mesh = _OnMesh(model, mesh, "decode_step")
     input_pspecs = shd.input_pspecs(model.cfg, model.input_specs(shape), mesh)
     t_axes = _cache_axes(model, mesh, shape.global_batch, shape.seq_len)

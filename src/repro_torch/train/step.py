@@ -100,8 +100,8 @@ from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.compression import pod_compressed_value_and_grad
 from repro_torch.parallel.sharding import is_spec
 from repro_torch.train.state import StatePlan, make_state_plan
-from repro_torch.tree import (tree_flatten, tree_flatten_with_path, tree_map,
-                              tree_unflatten)
+from repro_torch.tree import (STACKED_ROOTS, tree_flatten, tree_flatten_with_path,
+                              tree_map, tree_unflatten)
 
 PyTree = Any
 
@@ -188,6 +188,15 @@ def refuse_patches_on_mesh(cfg, what: str) -> None:
             "pass yet (ROADMAP §1 item 11a-ii)")
 
 
+def refuse_encdec_on_mesh(cfg, what: str) -> None:
+    """The steps on a mesh do not run an enc-dec yet (its frames, its
+    encoder and its cross cache): raise rather than run it without them."""
+    if cfg.encoder_layers:
+        raise NotImplementedError(
+            f"{what}: {cfg.name} is an encoder-decoder, which the steps on a mesh do not "
+            "run yet (ROADMAP §1 item 11b-ii)")
+
+
 def build_train_step(
     model: nn.Module,
     mesh,
@@ -259,10 +268,12 @@ def build_train_step(
     ``partial`` leaves.
 
     A VLM config (patch embeddings in front of the tokens) raises
-    ``NotImplementedError`` (ROADMAP §1 item 11a-ii).
+    ``NotImplementedError`` (ROADMAP §1 item 11a-ii), as does an enc-dec
+    config (ROADMAP §1 item 11b-ii).
     """
     cfg = model.cfg
     refuse_patches_on_mesh(cfg, "build_train_step")
+    refuse_encdec_on_mesh(cfg, "build_train_step")
     tp = shd.axis_size(mesh, "model")
     plan = make_state_plan(model, mesh, fsdp_params=fsdp_params)
     razor = razor_plan(plan.state_specs["opt"], plan.opt_pspecs,
@@ -519,7 +530,7 @@ def _leaves(plan: StatePlan, twin: nn.Module, mesh) -> List[_Leaf]:
     tp = shd.axis_size(mesh, "model")
     out = []
     for path, spec in tree_flatten_with_path(plan.state_specs["params"]):
-        stacked = path[0] in shd._STACKED_ROOTS
+        stacked = path[0] in STACKED_ROOTS
         rest = ".".join(str(k) for k in path[1:])
         names = (tuple(f"{path[0]}.{i}.{rest}" for i in range(spec.shape[0])) if stacked
                  else (".".join(str(k) for k in path),))

@@ -166,17 +166,23 @@ def map_tensors(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
     return tree_map(one, tree, *rest)
 
 
+# The module lists whose layers the reference stacks on a leading axis: the
+# decoder-only stacks' ``blocks`` and the enc-dec's ``encoder`` and ``decoder``.
+STACKED_ROOTS = ("blocks", "encoder", "decoder")
+
+
 def layered(named: Mapping[str, torch.Tensor]) -> Dict:
     """The reference's tree of a name-keyed parameter dict (as
     ``named_parameters()`` gives it): ``embed.w`` becomes
-    ``{"embed": {"w": ...}}`` and ``blocks.<i>.<rest>`` the layer-``i`` entry
-    of one ``Stacked`` leaf at ``("blocks", *rest)``."""
+    ``{"embed": {"w": ...}}`` and ``<root>.<i>.<rest>`` of a root in
+    ``STACKED_ROOTS`` the layer-``i`` entry of one ``Stacked`` leaf at
+    ``(root, *rest)``."""
     tree: Dict = {}
     stacks: Dict[Tuple[str, ...], Dict[int, torch.Tensor]] = {}
     for name, t in named.items():
         parts = name.split(".")
-        if parts[0] == "blocks":
-            stacks.setdefault(("blocks",) + tuple(parts[2:]), {})[int(parts[1])] = t
+        if parts[0] in STACKED_ROOTS:
+            stacks.setdefault((parts[0],) + tuple(parts[2:]), {})[int(parts[1])] = t
         else:
             _insert(tree, tuple(parts), t)
     for path, by_layer in stacks.items():

@@ -573,3 +573,104 @@ def test_vlm_on_the_card_matches_the_cpu(cuda):
             decode_attn.decode_attention.launches - launches[1]) == (2 * 2, 2 * 8)
     for got, want in zip(outs["cuda"], outs["cpu"]):
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq", [1500, 16])
+def test_flash_noncausal_hd64_at_whisper_shapes(cuda, sq, dtype):
+    """whisper-small's non-causal attention at head_dim 64, 12 heads (MHA):
+    the encoder's q/k/v (2, 1500, 12, 64) (11 full 128-row q tiles and a
+    ragged one of 92, ragged kv tiles) and the cross-attention's q (2, 16,
+    12, 64) against k/v (2, 1500, 12, 64); the forward on the kernel and
+    the gradient into q, k and v under ``FlashAttention`` against autograd
+    through the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    q = _rand(g, (2, sq, 12, 64), dtype, cuda).requires_grad_()
+    k = _rand(g, (2, 1500, 12, 64), dtype, cuda).requires_grad_()
+    v = _rand(g, (2, 1500, 12, 64), dtype, cuda).requires_grad_()
+    dout = _rand(g, (2, sq, 12, 64), dtype, cuda)
+    route = "wgmma" if dtype == torch.bfloat16 else "fp32"
+    routed = flash_attention.flash_attention.routes[route]
+    out = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.routes[route] == routed + 1
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    ref = ops.flash_attention_plain(q, k, v, causal=False)
+    ref_grads = torch.autograd.grad(ref, (q, k, v), dout)
+    assert out.shape == q.shape and out.dtype == dtype
+    for got, want in zip((out,) + grads, (ref,) + ref_grads):
+        np.testing.assert_allclose(got.detach().float().cpu().numpy(),
+                                   want.detach().float().cpu().numpy(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("partial", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [2, 8])
+def test_decode_against_the_whisper_cross_cache(cuda, b, dtype, partial):
+    """One query a row against every one of the cross cache's 1,500 frames
+    (group 1, head_dim 64, 12 heads, cur_len = the cache's length), at 8
+    rows (the serve run's 96 (batch x head) rows, its split plan) and 2."""
+    g = torch.Generator(device=cuda).manual_seed(18)
+    q = _rand(g, (b, 1, 12, 64), dtype, cuda)
+    kc = _rand(g, (b, 1500, 12, 64), dtype, cuda)
+    vc = _rand(g, (b, 1500, 12, 64), dtype, cuda)
+    before = decode_attn.decode_attention.launches
+    out = decode_attn.decode_attention(q, kc, vc, 1500, partial=partial)
+    torch.cuda.synchronize()
+    assert decode_attn.decode_attention.launches == before + 1
+    sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert decode_attn.decode_attention.last_split == decode_attn.plan_splits(
+        1500, b, 12, sm, decode_attn.rows_per_step(64, q.element_size(), 1))
+    ref = decode_attention_ref(q, kc, vc, 1500, partial=partial)
+    for got, want in zip(out if partial else (out,), ref if partial else (ref,)):
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                                   **_tol(dtype))
+
+
+def test_encdec_on_the_card_matches_the_cpu(cuda):
+    """The smoke whisper-small at head_dim 64 (12 heads, d_model 96, 2 + 2
+    layers, 40 frames, fp32): prefill of random frames and a prompt, 8
+    decode steps (both sides take the CPU's greedy token), the self and
+    cross caches, the loss and every gradient, on the card (flash and
+    decode kernels, fp32 routes) against the same weights on the CPU, at
+    2e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduce_for_smoke
+    from repro_torch.models import build_model
+    from repro_torch.train.serve import build_decode_step, build_prefill_step
+    cfg = dataclasses.replace(reduce_for_smoke(get_arch("whisper-small")), num_heads=12,
+                              num_kv_heads=12, head_dim=64, d_model=96, encoder_seq=40,
+                              dtype="float32")
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(19)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 21)))
+    frames = torch.from_numpy(rng.normal(size=(2, 40, cfg.d_model)).astype(np.float32))
+    launches = (flash_attention.flash_attention.launches, decode_attn.decode_attention.launches)
+    outs = {}
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        dev = model.device
+        logits, cache = build_prefill_step(model)(tokens[:, :12].to(dev), 12 + 9, None,
+                                                  frames.to(dev))
+        assert cache["index"] == 12
+        steps = [logits.cpu()]
+        # decode writes the self cache in place
+        caches = [cache[key].cpu().clone() for key in ("k", "v", "cross_k", "cross_v")]
+        decode = build_decode_step(model)
+        for step in range(8):
+            tok = (outs["cpu"] if name == "cuda" else steps)[step].argmax(-1)
+            logits, cache = decode(cache, tok.to(dev))
+            steps.append(logits.cpu())
+        model.requires_grad_(True)
+        loss, _ = model.loss({"tokens": tokens.to(dev), "frames": frames.to(dev)})
+        loss.backward()
+        outs[name] = steps + caches + [cache["k"].cpu(), loss.detach().cpu()] + [
+            p.grad.cpu() for p in model.parameters()]
+    # flash: 2 encoder + 2 x 2 decoder layers in the prefill and again in the
+    # loss; decode: 2 layers x 2 attentions x 8 steps
+    assert (flash_attention.flash_attention.launches - launches[0],
+            decode_attn.decode_attention.launches - launches[1]) == (2 * 6, 2 * 2 * 8)
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)

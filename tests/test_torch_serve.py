@@ -151,10 +151,18 @@ def test_build_model_without_device_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("family", ["encdec"])
-def test_unported_families_raise(family):
-    cfg = dataclasses.replace(get_arch("qwen3-0.6b"), family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, device="cpu")
+def test_encdec_family_builds_with_a_tied_head(family):
+    """The enc-dec family builds (it raised until it was ported): an
+    ``EncDecLM`` whose head is its embedding (tied, no ``lm_head``), with
+    no refusal; an unknown family still raises."""
+    from repro_torch.models import EncDecLM
+    cfg = get_arch("whisper-small")
+    model = build_model(cfg, device="meta")
+    assert cfg.family == family and isinstance(model, EncDecLM)
+    assert not hasattr(model, "lm_head") and not cfg.tie_embeddings
+    assert tuple(model.embed["w"].shape) == (cfg.padded_vocab, cfg.d_model)
+    with pytest.raises(NotImplementedError, match="unknown family"):
+        build_model(dataclasses.replace(cfg, family="other"), device="meta")
 
 
 def test_vlm_family_builds_a_decoder_with_an_lm_head():

@@ -32,7 +32,7 @@ from repro_torch.tree import keystr, tree_flatten_with_path
 
 ARCHS = ["deepseek-67b", "gemma-2b", "gpt2-2.7b", "internvl2-26b", "llama2-13b", "llama3-70b",
          "llama3-8b", "mamba2-2.7b", "nemotron-4-15b", "qwen2-moe-a2.7b", "qwen3-0.6b", "qwen3-moe-30b-a3b",
-         "zamba2-7b"]
+         "whisper-small", "zamba2-7b"]
 MESHES = {"4x2": ((4, 2), ("data", "model")),
           "16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}

@@ -314,9 +314,9 @@ def test_serve_cli_cache_counts_the_zero_patches(monkeypatch):
     seen = {}
     prefill = transformer.DecoderLM.prefill
 
-    def spy(self, tokens, max_len=None, patch_embeds=None):
+    def spy(self, tokens, max_len=None, patch_embeds=None, frames=None):
         seen.update(max_len=max_len, patches=patch_embeds.clone())
-        return prefill(self, tokens, max_len, patch_embeds)
+        return prefill(self, tokens, max_len, patch_embeds, frames)
 
     monkeypatch.setattr(transformer.DecoderLM, "prefill", spy)
     seqs = serve_cli.main(["--device", "cpu", "--smoke", "--arch", "internvl2-26b",
