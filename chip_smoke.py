@@ -105,7 +105,7 @@ slices and the serve runs come before any phase that opens torch.profiler:
 7b. train_mesh -- the sharded multi-rank train step (train.step.build_train_step)
                 as four gloo ranks sharing the card, each a spawned process
                 (file:// rendezvous in a temporary directory), all exited before
-                the next phase. (a) qwen3-0.6b at full width cut to 8 of 28
+                the next phase. (a) qwen3-0.6b at full width cut to 4 of 28
                 layers, bf16, FSDP and the instant backup, 8 x 1024 tokens a step (2 x 1024 a rank), 2 steps: each
                 rank's backup bit for bit its predecessor's new optimizer blocks,
                 the bytes the ring sent equal to the razor's unique bytes per
@@ -134,13 +134,13 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 the rank's (4, 512, 1024) block of positions, each split
                 sub-layer entered by an all-gather and left by a reduce-scatter)
                 as four gloo ranks sharing the card, as train_mesh. (a) qwen3-0.6b
-                at full width cut to 8 of 28 layers, bf16, FSDP and the instant backup, 8 x 1024 tokens a
+                at full width cut to 4 of 28 layers, bf16, FSDP and the instant backup, 8 x 1024 tokens a
                 step (4 x 1024 a data rank), 2 steps: on every rank and step the
                 collectives over "model" the mesh counted equal
                 train.step.model_collectives in calls and bytes (at 28 layers 315
                 calls: 170 all-gathers, 142 reduce-scatters, 3 all-reduces), the residual
                 stream entering every layer body the rank's block of positions,
-                2 x 8 x 2 flash launches all on wgmma at q (4, 1024, 8, 128) (the
+                2 x 4 x 2 flash launches all on wgmma at q (4, 1024, 8, 128) (the
                 rank's 8 of 16 heads, every position) and none of decode or SSD, finite
                 losses, the first step's loss and global gradient norm within
                 bf16 tolerances (TP_VS_MESH) of train_mesh (a)'s on (4, 1) from
@@ -185,9 +185,9 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 256, GeGLU d_ff 16384, 256,000 tied vocabulary), weights drawn on
                 the card from a seed, four gloo ranks sharing the card. (a) (data
                 2, model 2), bf16, FSDP and the instant backup, 8 x 1024 tokens a
-                step, 2 steps, cut to 6 of 18 layers (param_count printed): as
+                step, 2 steps, cut to 2 of 18 layers (param_count printed): as
                 train_tp (the sequence split), the collectives over "model" equal
-                model_collectives on every rank and step, 24 flash launches a rank on wgmma at q (4,
+                model_collectives on every rank and step, 8 flash launches a rank on wgmma at q (4,
                 1024, 4, 256) and k/v (4, 1024, 1, 256), the ring's bytes the
                 rank's unique blocks; the step's parts, device memory and host RSS
                 a rank. (b) cut to 2 layers, fp32, 2 steps on (pod 2, data 1,
@@ -221,6 +221,36 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 process over NCCL, run first): the logits of the prefill and of
                 every step at 2e-4, the greedy tokens exactly, each cache block
                 against its slice of the one rank's cache.
+7h. train_vlm_mesh -- the VLM in the sharded step: internvl2-26b at full width
+                (d_model 6144, 48 q heads on 8 kv heads of 128, SwiGLU 16,384, the
+                untied head of 92,672), weights and patch embeddings (N(0, 1) in
+                the model's dtype) drawn on the card from a seed, four gloo ranks
+                sharing the card on (data 2, model 2); each row 1,024 patches in
+                front of 1,024 tokens, 2,048 positions split by sequence over
+                "model" (rank 0's block all patches, the embedding's reduce-scatter
+                of the whole sequence). (a) cut to 2 of 48 layers, bf16, FSDP and
+                the instant backup, 8 rows a step, 2 steps, held as train_tp's
+                (a): the collectives over "model" equal model_collectives at 2,048
+                positions on every rank and step, the residual stream (4, 1024,
+                6144) entering every layer body, 2 x 2 x 2 flash launches a rank on
+                wgmma at q (4, 2048, 24, 128), k/v (4, 2048, 4, 128), no decode or
+                SSD launch, the ring's bytes the rank's unique blocks. (b) cut to
+                1 layer, fp32, 4 rows, 2 steps of 2 microbatches (a rank's block of
+                each microbatch's patch rows), the backup off, against one NCCL
+                rank of the same step: the losses within 1e-5, m within 2e-4 of
+                each leaf's largest value, rank 0's 8 flash launches on fp32.
+7i. serve_vlm_mesh -- serve_mesh's parts for internvl2-26b on (data 2, model 2):
+                its kv heads split over "model", the cache by sequence. (a) full
+                width cut to 12 of 48 layers, bf16 (the ranks draw the whole cut
+                model in turn, keep their blocks and free it): 8 prompts of 1,000
+                tokens behind 1,024 patches (N(0, 1) in bf16 from a seed), 32
+                greedy tokens, a cache of 2,056 (a rank's 1,028: rank 0's all
+                patches); on every rank 12 flash launches on wgmma at q (4, 2024,
+                24, 128), k/v (4, 2024, 4, 128), 12 x 31 decode launches in the
+                block form at q (4, 1, 48, 128), cache (4, 1028, 8, 128), the
+                collectives of the prefill and every step equal to
+                serve_collectives. (b) 2 layers, fp32, against one unsharded NCCL
+                rank: logits 2e-4, tokens exact, cache blocks 2e-4.
 7e. pipeline -- the GPipe forward (parallel.pipeline.pipeline_forward) over a
                 ("pipe",) mesh of four gloo ranks sharing the card, spawned once
                 for both parts: full qwen3-0.6b (28 layers, 7 a stage), bf16, 8
@@ -241,33 +271,33 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 SSD launch. Then the events of
                 clean_software_failure (a software failure of worker 1 before
                 step 5, 10 steps) replayed by the port's _Runner on qwen3-0.6b
-                at full width cut to 4 of 28 layers (bf16, dp=4 simulated
+                at full width cut to 2 of 28 layers (bf16, dp=4 simulated
                 workers, 8 x 1024 tokens a step) with the scenario's fabric and
                 reliability values: 10 steps, one recovery from the neighbour, 0
                 rollbacks, 1 detection within one heartbeat of the analytic
-                bound, finite losses, 4 x 10 flash launches all on wgmma. Prints the verdict
+                bound, finite losses, 2 x 10 flash launches all on wgmma. Prints the verdict
                 beside the fields in which it differs from the reference-scale
                 pin, the step split, tokens/s (by the median step and by the
                 replay's whole window), the steps and host RSS before and after
                 the recovery, recover()'s wall time beside its
                 simulated time, peak memory and host RSS, and this run's FCR
                 beside the measured host checkpoint share of the step.
-8b. train_ssm -- mamba2-2.7b at full width cut to 4 of 64 layers, bf16, trained
+8b. train_ssm -- mamba2-2.7b at full width cut to 2 of 64 layers, bf16, trained
                 by SimCluster as train below (dp=4, 8 x 1024 tokens, 2 steps, a
                 failure of worker 2, recover(), 1 step): a neighbour recovery,
-                0 rollbacks, the opt vector bitwise equal across recover(), 4
+                0 rollbacks, the opt vector bitwise equal across recover(), 2
                 SSD launches a step all on wgmma, finite losses, and the first
                 step's batch scoring lower after the run; the step split, tokens/s
                 and bound as train. Placed after the replay's heap trim and before
                 the first profiler session; trims the heap again after.
-9. train     -- the slice: qwen3-0.6b at full width cut to 8 of 28 layers
+9. train     -- the slice: qwen3-0.6b at full width cut to 4 of 28 layers
                 (bf16; the host checkpoint sets a step's time) trained by the
                 port's SimCluster, dp=4 simulated workers on the one card, 8 x
                 1024 tokens a step: 2 steps, a software failure of worker 2,
                 recover() with the stream policy, 1 more step. Requires recovery
                 from the neighbour with no rollback, the optimizer vector after
                 recovery bitwise equal to a host copy taken before the failure,
-                finite losses, and, with the counts zeroed just before, 8 x 3
+                finite losses, and, with the counts zeroed just before, 4 x 3
                 flash launches (all wgmma) and no decode or SSD launch. Prints
                 the step split (device by CUDA events, host checkpoint by the
                 host clock), tokens/s, the step's bound, peak device memory, peak
@@ -303,7 +333,13 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 16, 12, 64) against k/v (8, 1500, 12, 64), causal at q/k/v (8,
                 16, 12, 64), and decode at q (8, 1, 12, 64) against its self
                 cache (8, 48, 12, 64), cur_len 17 and 47, and its cross cache
-                (8, 1500, 12, 64), cur_len 1,500, each in both dtypes; the SSD
+                (8, 1500, 12, 64), cur_len 1,500, each in both dtypes; flash at a
+                rank's of train_vlm_mesh, q (4, 2048, 24, 128), k/v (4, 2048, 4,
+                128), and of serve_vlm_mesh's prefill, q (4, 2024, 24, 128), k/v
+                (4, 2024, 4, 128), and decode's block form at a rank's of
+                serve_vlm_mesh, q (4,
+                1, 48, 128), cache block (4, 1028, 8, 128), cur_len 996 and 1,028,
+                each in both dtypes; the SSD
                 at a rank's 40 (mamba2) and 56 (zamba2) heads, 4 x 1024, bf16),
                 with the
                 kernel's, the plain version's and (for attention) the library
@@ -324,9 +360,10 @@ host seconds of each phase),
 one {"kernels": [...]} line (each kernel's launches in every serve and training
 phase, ``moe_launches``, ``train_tp_launches``, ``train_moe_mesh_launches``,
 ``train_gemma_mesh_launches``, ``serve_mesh_launches``, ``pipeline_launches``,
-``vlm_launches`` and ``encdec_launches`` among them, and its rows at the
-other shapes, ``tp_shape`` / ``tp_shapes``, ``moe_mesh_shape``, ``pipeline_shape``,
-``gemma_tp_shape``, ``hd256``, ``vlm_shape`` and ``encdec_shape`` among them), the
+``vlm_launches``, ``encdec_launches`` and ``vlm_mesh_launches`` among them, and
+its rows at the other shapes, ``tp_shape`` / ``tp_shapes``, ``moe_mesh_shape``,
+``pipeline_shape``, ``gemma_tp_shape``, ``hd256``, ``vlm_shape``, ``encdec_shape``
+and ``vlm_mesh_shape`` among them), the
 card's name
 and power
 limit, and last
@@ -385,6 +422,16 @@ DECODE_HD256 = dict(b=8, t=1032, h=8, kh=1, hd=256, cur_lens=(1032,))
 PREFILL_VLM = dict(b=8, s=2024, h=48, kh=8, hd=128)
 DECODE_VLM = dict(b=8, t=2056, h=48, kh=8, hd=128, cur_lens=(2056,))
 DECODE_VLM_BLOCK = dict(DECODE_VLM, partial=True)
+# internvl2-26b on (data 2, model 2): a rank's attention in train_vlm_mesh (its
+# 24 q and 4 kv heads, 4 rows of 1,024 patches + 1,024 tokens) and in
+# serve_vlm_mesh's prefill (4 rows of 1,024 patches + 1,000 tokens: not a
+# whole number of tiles), and decode's
+# block form on a rank's 1,028 of serve_vlm_mesh's 2,056 cache positions with
+# the q heads gathered, part-filled (rank 1 after the prefill) and full
+PREFILL_VLM_TP = dict(b=4, s=2048, h=24, kh=4, hd=128)
+PREFILL_VLM_SERVE_TP = dict(PREFILL_VLM_TP, s=2024)
+DECODE_VLM_MESH_BLOCK = dict(b=4, t=1028, h=48, kh=8, hd=128, cur_lens=(996, 1028),
+                             partial=True)
 # whisper-small's serve shapes: MHA of 12 heads at head_dim 64; the encoder's
 # non-causal self-attention over 8 clips of 1,500 frames, the decoder's causal
 # self-attention over the 16-token prompt, its non-causal cross-attention of
@@ -411,12 +458,12 @@ EXPECTED_ROUTE = {"bfloat16": "wgmma", "float32": "fp32"}
 # whole slice, card against CPU, fp32: the tolerance of the reference's
 # test_prefill_decode_matches_forward
 SLICE_TOL = 2e-4
-# the training slice: qwen3-0.6b at full width cut to 8 of 28 layers (the
+# the training slice: qwen3-0.6b at full width cut to 4 of 28 layers (the
 # host checkpoint of a step, which sets its time, scales with the state: ~18 s
-# a step at 28 layers), dp=4 simulated workers, 8 x 1024 tokens a step, 2
+# a step at 28 layers, ~9 s at 8), dp=4 simulated workers, 8 x 1024 tokens a step, 2
 # steps, a failure of worker 2, 1 more step; the step split is the median of
 # the 2 steps after the first
-TRAIN = dict(layers=8, dp=4, global_batch=8, seq_len=1024, steps_before=2, steps_after=1,
+TRAIN = dict(layers=4, dp=4, global_batch=8, seq_len=1024, steps_before=2, steps_after=1,
              failed=2)
 # flash gradients, kernel under autograd against the plain version: bf16 at
 # the training shape, fp32 (TF32 off) at a small one and at the scenario
@@ -452,12 +499,12 @@ VLM_SLICE = dict(layers=2, batch=1, prompt=16, steps=8, tol=SLICE_TOL)
 ENCDEC_SLICE = dict(layers=2, batch=2, prompt=16, steps=8, loss_tokens=33, tol=SLICE_TOL)
 # the enc-dec serve run: 8 clips of 1,500 frames, a 16-token prompt, 32 tokens
 ENCDEC_SERVE = dict(batch=8, prompt=16, gen=32)
-# the SSM training cell: mamba2-2.7b at full width cut to 4 of 64 layers (the
+# the SSM training cell: mamba2-2.7b at full width cut to 2 of 64 layers (the
 # host copies of the full 32.4 GB opt state would not fit the host, and the
 # host checkpoint of a step scales with the state), dp=4
 # simulated workers, 8 x 1024 tokens a step, 2 steps, a failure, 1 step (as
 # train, for the script's time limit)
-TRAIN_SSM = dict(layers=4, dp=4, global_batch=8, seq_len=1024, steps_before=2,
+TRAIN_SSM = dict(layers=2, dp=4, global_batch=8, seq_len=1024, steps_before=2,
                  steps_after=1, failed=2)
 L2_BYTES = 50 * 10**6
 T_START = time.perf_counter()
@@ -473,6 +520,8 @@ def timed(name: str, fn, *args, **kwargs):
         return fn(*args, **kwargs)
     finally:
         PHASE_S[name] = PHASE_S.get(name, 0.0) + time.perf_counter() - t0
+        print(f"chip_smoke: {name} {time.perf_counter() - t0:.1f} s, script "
+              f"{time.perf_counter() - T_START:.1f} s", file=sys.stderr, flush=True)
 
 
 def emit(phase: str, **fields) -> None:
@@ -689,7 +738,8 @@ def phase_kernels(torch, F):
     # (MHA at hd 128) in bf16, a rank's of the tensor-parallel step in both,
     # in bf16 a rank's of the MoE's sharded step and a pipeline stage's,
     # gemma-2b's at hd 256 (a rank's of train_gemma_mesh, the serve-like) in
-    # both, internvl2-26b's at group 6 (patches and prompt) in both, and
+    # both, internvl2-26b's at group 6 (patches and prompt; a rank's of
+    # train_vlm_mesh) in both, and
     # whisper-small's at hd 64 (the encoder's non-causal, the decoder's
     # causal over the prompt, the cross-attention's non-causal at Sq 16
     # against 1,500 frames) in both
@@ -710,6 +760,10 @@ def phase_kernels(torch, F):
                           ("float32_hd256", torch.float32, PREFILL_HD256),
                           ("bfloat16_vlm", torch.bfloat16, PREFILL_VLM),
                           ("float32_vlm", torch.float32, PREFILL_VLM),
+                          ("bfloat16_vlm_tp", torch.bfloat16, PREFILL_VLM_TP),
+                          ("float32_vlm_tp", torch.float32, PREFILL_VLM_TP),
+                          ("bfloat16_vlm_serve_tp", torch.bfloat16, PREFILL_VLM_SERVE_TP),
+                          ("float32_vlm_serve_tp", torch.float32, PREFILL_VLM_SERVE_TP),
                           ("bfloat16_encdec_enc", torch.bfloat16, PREFILL_ENCDEC_ENC),
                           ("float32_encdec_enc", torch.float32, PREFILL_ENCDEC_ENC),
                           ("bfloat16_encdec_self", torch.bfloat16, PREFILL_ENCDEC_SELF),
@@ -769,6 +823,8 @@ def phase_kernels(torch, F):
                              ("_vlm", DECODE_VLM, torch.float32),
                              ("_vlm_block", DECODE_VLM_BLOCK, torch.bfloat16),
                              ("_vlm_block", DECODE_VLM_BLOCK, torch.float32),
+                             ("_vlm_mesh_block", DECODE_VLM_MESH_BLOCK, torch.bfloat16),
+                             ("_vlm_mesh_block", DECODE_VLM_MESH_BLOCK, torch.float32),
                              ("_encdec_self", DECODE_ENCDEC_SELF, torch.bfloat16),
                              ("_encdec_self", DECODE_ENCDEC_SELF, torch.float32),
                              ("_encdec_cross", DECODE_ENCDEC_CROSS, torch.bfloat16),
@@ -1623,9 +1679,9 @@ def phase_train(torch):
 
 # the full-width replay of the fleet's baseline scenario: its events (a
 # software failure of worker 1 before step 5, 10 steps) on qwen3-0.6b at full
-# width cut to 4 of 28 layers (for the script's time limit), dp=4 simulated
+# width cut to 2 of 28 layers (for the script's time limit), dp=4 simulated
 # workers, 8 x 1024 tokens a step
-REPLAY = dict(scenario="clean_software_failure", layers=4, global_batch=8, seq_len=1024)
+REPLAY = dict(scenario="clean_software_failure", layers=2, global_batch=8, seq_len=1024)
 # a verdict field that may differ from the reference-scale pin at full width,
 # and why: the shard's size, or the simulated fabric time it takes
 SCALE_FIELDS = {"state_bytes_streamed": "bytes", "chunks_reused": "bytes",
@@ -1635,18 +1691,20 @@ SCALE_FIELDS = {"state_bytes_streamed": "bytes", "chunks_reused": "bytes",
 
 
 # the sharded multi-rank step (train.step.build_train_step), four gloo ranks
-# sharing the one card: (a) qwen3-0.6b at full width cut to 8 of 28 layers
+# sharing the one card: (a) qwen3-0.6b at full width cut to 4 of 28 layers
 # (the script's time: a step's host work scales with the state), bf16, FSDP
 # and the instant backup, 8 x 1024 tokens a step (2 x 1024 a rank), 2 steps, then the
 # neighbour drill, the first batch scored again and one step without FSDP for
 # its memory; (b) full width cut to 2 layers, fp32, 2 steps, against one rank
-# of the same step over NCCL from the same weights and batches. The children
-# are spawned (CUDA cannot fork) and meet through file:// in a temporary
-# directory.
-TRAIN_MESH = dict(arch="qwen3-0.6b", smoke=False, layers=8, dtype="bfloat16", world=4,
-                  global_batch=8, seq_len=1024, steps=2, seed=0, timeout_s=600)
+# of the same step over NCCL from the same weights (drawn on the card from
+# the seed, as the other sharded phases draw theirs) and batches. The
+# children are spawned (CUDA cannot fork) and meet through file:// in a
+# temporary directory.
+TRAIN_MESH = dict(arch="qwen3-0.6b", smoke=False, layers=4, dtype="bfloat16", world=4,
+                  global_batch=8, seq_len=1024, steps=2, seed=0, draw="cuda", timeout_s=600)
 TRAIN_MESH_B = dict(arch="qwen3-0.6b", smoke=False, layers=2, dtype="float32", world=4,
-                    global_batch=8, seq_len=1024, steps=2, seed=0, timeout_s=300, tol=1e-5,
+                    global_batch=8, seq_len=1024, steps=2, seed=0, draw="cuda", timeout_s=300,
+                    tol=1e-5,
                     grad_tol=2e-4, held=("m", "master", "v"),
                     grad_tol_why="the fp32 gradient tolerance of the training slice: over "
                     "8,192 tokens the two reduction orders differed by up to 8.8e-6 of a "
@@ -1654,7 +1712,7 @@ TRAIN_MESH_B = dict(arch="qwen3-0.6b", smoke=False, layers=2, dtype="float32", w
 MESH_NOTE = ("gloo through the host on one shared card: the four ranks share one H100 and "
              "every collective crosses the host; not the figure of a ring on NVLink")
 # the tensor-parallel step on a (data 2, model 2) mesh of four gloo ranks
-# sharing the card: (a) qwen3-0.6b at full width cut to 8 of 28 layers (as
+# sharing the card: (a) qwen3-0.6b at full width cut to 4 of 28 layers (as
 # train_mesh (a)), bf16, FSDP and the instant backup, 8 x 1024 tokens a step (4 x 1024 a data rank), 2 steps; (b) full width cut to
 # 2 layers, fp32, 2 steps, against one rank of the same step over NCCL
 TRAIN_TP = dict(TRAIN_MESH, model=2, timeout_s=600)
@@ -1666,13 +1724,14 @@ TP_VS_MESH = dict(loss_rtol=1e-4, grad_norm_rtol=1e-3)
 # what train_tp, train_moe_mesh and train_gemma_mesh (a) recorded before the
 # residual stream was split by sequence over "model" (earlier runs of this
 # script, H100 80GB HBM3, 700.00 W), printed beside this run's numbers; None
-# where a run did not record it (train_tp's at 28 layers, before (a) was cut
-# to 8)
+# where a run did not record it; at the depths given, before the phases'
+# (a) were cut
 BEFORE_SP = {
     "train_tp": dict(layers=28, step_ms=7516, tp_reduce_s=[1.9, 2.4], peak_device_mem_gb=6.49,
                      model_all_reduces=[145, 1191238656]),
-    "train_moe_mesh": dict(step_ms=16503, tp_reduce_s=None, peak_device_mem_gb=None),
-    "train_gemma_mesh": dict(step_ms=7279, tp_reduce_s=[0.58, 0.74], peak_device_mem_gb=None),
+    "train_moe_mesh": dict(layers=2, step_ms=16503, tp_reduce_s=None, peak_device_mem_gb=None),
+    "train_gemma_mesh": dict(layers=6, step_ms=7279, tp_reduce_s=[0.58, 0.74],
+                             peak_device_mem_gb=None),
 }
 # the MoE in the sharded step on a (data 2, model 2) mesh of four gloo ranks
 # sharing the card: qwen2-moe-a2.7b at full width (64 padded experts, top-4,
@@ -1694,22 +1753,44 @@ TRAIN_MOE_B = dict(TRAIN_MOE, dtype="float32", instant_ckpt=False, microbatches=
 # card, weights drawn on the card from a seed: the q heads split over
 # "model", the one kv head replicated (each rank reads it for its 4 q heads,
 # and sums its wk and wv gradients over "model"). (a) (data 2, model 2), bf16,
-# FSDP and the instant backup, 8 x 1024 tokens a step, 2 steps, cut to 6 of
-# 18 layers (1,184,917,504 parameters: ~3.6 GB of master, m and v a rank and
-# as much again of backup received; 18 layers, 2,506,172,416, would be ~90 GB
-# for four ranks). (b) fp32, cut to 2 layers (744,499,200), on (pod 2, data
+# FSDP and the instant backup, 8 x 1024 tokens a step, 2 steps, cut to 2 of
+# 18 layers for the script's time (744,499,200 parameters: ~2.2 GB of master,
+# m and v a rank and as much again of backup received; 18 layers,
+# 2,506,172,416, would be ~90 GB for four ranks). (b) fp32, also 2 layers, on (pod 2, data
 # 1, model 2) with int8 cross-pod compression, 2 steps, against one NCCL
 # rank's uncompressed step: the losses within 1e-5 (step 1's update is 0
 # under the warmup, so both losses see the same weights), every element of
 # m of both steps within 2e-4 of its leaf's largest value plus the error
 # the int8 rounding makes of it, derived on each rank from the scales it
 # used (blocks_part_b, _int8_m_bound)
-TRAIN_GEMMA = dict(arch="gemma-2b", smoke=False, layers=6, dtype="bfloat16", world=4, model=2,
+TRAIN_GEMMA = dict(arch="gemma-2b", smoke=False, layers=2, dtype="bfloat16", world=4, model=2,
                    global_batch=8, seq_len=1024, steps=2, seed=0, draw="cuda", timeout_s=900)
 TRAIN_GEMMA_B = dict(TRAIN_GEMMA, layers=2, dtype="float32", pod=2, compress_pod_grads=True,
                      tol=1e-5, grad_tol=2e-4, held=("m",),
                      grad_tol_why="the fp32 gradient tolerance of the training slice",
                      timeout_s=400)
+# internvl2-26b (the VLM) in the sharded step on four gloo ranks sharing the
+# card, weights and patch embeddings (N(0, 1), in the model's dtype) drawn on
+# the card from a seed: full width (d 6,144, 48 q / 8 kv heads of 128, SwiGLU
+# 16,384, 92,553 words padded to 92,672), each row 1,024 patches in front of
+# 1,024 text tokens, so 2,048 positions, split by sequence over "model"
+# (rank 0's block all patches). (a) (data 2, model 2), bf16, FSDP and the
+# instant backup, 8 rows a step, 2 steps, cut to 2 of 48 layers (1,918,924,800
+# parameters: ~5.8 GB of master, m and v a rank and as much again of backup
+# received; each rank draws the whole cut model, 3.84 GB, before it shards
+# it; beside the models the parent holds, 2.7 GB a rank of reserved but
+# unallocated blocks ran the card out of memory until the ranks' allocators
+# grew expandable segments). (b) fp32, cut to 1 layer (1,528,842,240), 4
+# rows, 2 microbatches (a
+# rank's block of each microbatch's patch rows), the backup off, against one
+# NCCL rank of the same step (~31 GB), as train_moe_mesh (b)
+TRAIN_VLM = dict(arch="internvl2-26b", smoke=False, layers=2, dtype="bfloat16", world=4,
+                 model=2, global_batch=8, seq_len=2048, steps=2, seed=0, draw="cuda",
+                 timeout_s=900)
+TRAIN_VLM_B = dict(TRAIN_VLM, layers=1, dtype="float32", global_batch=4, microbatches=2,
+                   instant_ckpt=False, tol=1e-5, grad_tol=2e-4, held=("m",),
+                   grad_tol_why="the fp32 gradient tolerance of the training slice",
+                   timeout_s=400)
 
 
 def run_children(name: str, jobs: list, timeout_s: float) -> None:
@@ -1771,7 +1852,9 @@ def _mesh_build(world: int, t: dict, device: str):
     maker of the sharded initial state (weights from a host generator seeded
     with t["seed"], as SimCluster draws them, or with t["draw"] "cuda" from
     the card's generator) and this rank's rows of t["steps"] global
-    batches."""
+    batches ({"tokens"}; a VLM's with its "patch_embeds", N(0, 1) in the
+    model's dtype drawn where the weights are, from t["seed"] + 1 + the
+    step: t["seq_len"] counts the patches, as the ShapeConfig's does)."""
     import numpy as np
     import torch
 
@@ -1797,10 +1880,19 @@ def _mesh_build(world: int, t: dict, device: str):
                                    compress_pod_grads=t.get("compress_pod_grads", False),
                                    clock=time.perf_counter) for fsdp in (True, False)}
     rng = np.random.default_rng(t["seed"])
-    spec = arts[True].input_pspecs["tokens"]
-    local = [shd.local_block(torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (t["global_batch"], t["seq_len"] + 1), dtype=np.int32)),
-        spec, mesh).contiguous().to(device) for _ in range(t["steps"])]
+    specs = arts[True].input_pspecs
+    npatch, b = cfg.num_patch_tokens, t["global_batch"]
+    local = []
+    for i in range(t["steps"]):
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (b, t["seq_len"] - npatch + 1), dtype=np.int32))}
+        if npatch:
+            batch["patch_embeds"] = torch.randn(
+                (b, npatch, cfg.d_model), device=draw,
+                generator=torch.Generator(device=draw).manual_seed(t["seed"] + 1 + i)
+            ).to(model.dtype)
+        local.append({k: shd.local_block(v, specs[k], mesh).contiguous().to(device)
+                      for k, v in batch.items()})
 
     def make_state(fsdp: bool):
         return shard_init_state(param_tree(model), arts[fsdp].plan, mesh, device=device)
@@ -1843,12 +1935,20 @@ def mesh_rank(rank: int, world: int, tmp: str, rdv: str, parts: list, device: st
               backend: str = "gloo") -> None:
     """One spawned rank of ``world``: its process group over ``backend``,
     then each (part, config) of ``parts`` in turn, ``part(rank, world, tmp,
-    config, device)``, each part's tensors freed before the next."""
+    config, device)``, each part's tensors freed before the next. The
+    rank's allocator grows expandable segments, which leave no reserved but
+    unallocated blocks behind."""
+    import os
+    if os.environ.get("PYTHONPYCACHEPREFIX"):    # bytecode_cache(): spawned with -B
+        sys.dont_write_bytecode = False
     import gc
 
     import torch
     import torch.distributed as dist
 
+    # before the first CUDA allocation, which reads it: four ranks share the
+    # card, and a rank's reserved but unallocated blocks would crowd the others
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     _mesh_init(rank, world, rdv, backend, device)
     for part, cfg in parts:
         part(rank, world, tmp, cfg, device)
@@ -1882,11 +1982,11 @@ def mesh_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
         torch.cuda.reset_peak_memory_stats()
     records, backup, before_last = [], None, None
     reset_launches()
-    for i, tokens in enumerate(local):
+    for i, batch in enumerate(local):
         if i == len(local) - 1:       # for the drill: the state after step i and its backup
             before_last = (clone(state), backup)
         t0 = time.perf_counter()
-        state, metrics, backup = art.step_fn(state, {"tokens": tokens})
+        state, metrics, backup = art.step_fn(state, batch)
         sync()
         records.append(dict(step=i + 1, step_ms=(time.perf_counter() - t0) * 1e3,
                             loss=float(metrics["loss"]), lr=float(metrics["lr"]),
@@ -1926,12 +2026,12 @@ def mesh_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
                 p.zero_()
                 p.copy_(m)
     del returned, kept, before_last
-    drill_state, _, drill_backup = art.step_fn(restored, {"tokens": local[-1]})
+    drill_state, _, drill_backup = art.step_fn(restored, local[-1])
     drill_bitwise = _same(torch, drill_state, state) and _same(torch, drill_backup, backup)
     del drill_state, drill_backup, restored, unique
     rss["drill"] = host_rss_gb()
     # (v) the first batch scored again: the loss a step on a copy reports
-    _, again, _ = art.step_fn(clone(state), {"tokens": local[0]})
+    _, again, _ = art.step_fn(clone(state), local[0])
     first_batch_loss_after = float(again["loss"])
     del state, backup
     if cuda:
@@ -1941,7 +2041,7 @@ def mesh_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
     plain = arts[False]
     state = make_state(False)
     t0 = time.perf_counter()
-    state, metrics, _ = plain.step_fn(state, {"tokens": local[0]})
+    state, metrics, _ = plain.step_fn(state, local[0])
     sync()
     no_fsdp = dict(step_ms=(time.perf_counter() - t0) * 1e3, loss=float(metrics["loss"]),
                    peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
@@ -2057,8 +2157,8 @@ def tp_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     art = arts[True]
-    formula = _counts(model_collectives(model, mesh, local[0].shape[0], t["seq_len"],
-                                        fsdp_params=True))
+    formula = _counts(model_collectives(model, mesh, local[0]["tokens"].shape[0],
+                                        t["seq_len"], fsdp_params=True))
     state = make_state(True)
     del make_state, model                       # the full weights
     gc.collect()
@@ -2071,12 +2171,12 @@ def tp_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
         torch.cuda.reset_peak_memory_stats()
     records, routing = [], None
     reset_launches()
-    for i, tokens in enumerate(local):
+    for i, batch in enumerate(local):
         mesh.reset_counts()
         backup = None                # the last step's, freed before this one's comes
         with moe.record_routing() as log:
             t0 = time.perf_counter()
-            state, metrics, backup = art.step_fn(state, {"tokens": tokens})
+            state, metrics, backup = art.step_fn(state, batch)
             sync()
             step_ms = (time.perf_counter() - t0) * 1e3
         if i == 0 and log:
@@ -2118,6 +2218,18 @@ def tp_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
         json.dump(rec, f)
 
 
+def _rank_heads(cfg, model: int) -> tuple:
+    """A rank's q heads at "model" size ``model`` and its kv heads, as
+    attention._kv_weights picks them: its share where they divide the axis,
+    else (replicated) the one its q heads share where they read one, else
+    one for each q head."""
+    heads = cfg.num_heads // model
+    group = cfg.num_heads // cfg.num_kv_heads
+    kv_heads = (cfg.num_kv_heads // model if cfg.num_kv_heads % model == 0
+                else 1 if group % heads == 0 else heads)
+    return heads, kv_heads
+
+
 def _train_tp_row(phase: str, recs: list, t: dict, a_s: float, device: str,
                   mesh_row=None) -> dict:
     """Part (a)'s checks (each failing the run) and its printed fields, for
@@ -2132,13 +2244,7 @@ def _train_tp_row(phase: str, recs: list, t: dict, a_s: float, device: str,
     cfg = _mesh_cfg(t)
     steps, data = t["steps"], t["world"] // t["model"]
     rows = t["global_batch"] // data
-    heads = cfg.num_heads // t["model"]
-    # a rank's kv heads, as attention._kv_weights picks them: its share where
-    # they divide the axis, else (replicated) the one its q heads share where
-    # they read one, else one for each q head
-    group = cfg.num_heads // cfg.num_kv_heads
-    kv_heads = (cfg.num_kv_heads // t["model"] if cfg.num_kv_heads % t["model"] == 0
-                else 1 if group % heads == 0 else heads)
+    heads, kv_heads = _rank_heads(cfg, t["model"])
     q_shape = [rows, t["seq_len"], heads, cfg.resolved_head_dim]
     kv_shape = [rows, t["seq_len"], kv_heads, cfg.resolved_head_dim]
     flash = [r["launches"]["flash_attention"] for r in recs]
@@ -2272,9 +2378,9 @@ def single_part_b(rank: int, world: int, tmp: str, tb: dict, device: str) -> Non
     art = arts[True]
     state = make_state(True)
     del make_state, model
-    for i, tokens in enumerate(local):
+    for i, batch in enumerate(local):
         with moe.record_routing() as log:
-            state, metrics, _ = art.step_fn(state, {"tokens": tokens})
+            state, metrics, _ = art.step_fn(state, batch)
         opt = {f"{part}|{keystr(p)}": x for part in tb["held"]
                for p, x in tree_flatten_with_path(state["opt"][part])}
         torch.save({"loss": float(metrics["loss"]),
@@ -2352,9 +2458,9 @@ def blocks_part_b(rank: int, world: int, tmp: str, tb: dict, device: str) -> Non
     hp, bound, prev = AdamWConfig(), {}, None
     steps = []
     reset_launches()
-    for i, tokens in enumerate(local):
+    for i, batch in enumerate(local):
         with moe.record_routing() as log:
-            state, metrics, _ = art.step_fn(state, {"tokens": tokens})
+            state, metrics, _ = art.step_fn(state, batch)
         ref = torch.load(f"{tmp}/single_step{i}.pt", mmap=True)
         clip = [min(1.0, hp.grad_clip / max(n, 1e-9))
                 for n in (float(art.step_fn.last_grad_norm), ref["grad_norm"])]
@@ -2635,11 +2741,28 @@ SERVE_MESH = dict(arch="gemma-2b", smoke=False, layers=None, dtype="bfloat16", w
                   max_len=SERVE["prompt"] + SERVE["gen"], warmup_gen=2, timeout_s=600)
 SERVE_MESH_B = dict(SERVE_MESH, layers=2, dtype="float32", gen=9, tol=SLICE_TOL,
                     timeout_s=300)
+# the VLM served on a mesh: internvl2-26b at full width (48 q / 8 kv heads of
+# 128: the kv heads split over "model", the cache by sequence) on (data 2,
+# model 2), 8 prompts of 1,000 tokens behind 1,024 patch embeddings (N(0, 1)
+# drawn on the card from a seed), 32 greedy tokens, a cache of 2,056
+# positions (a rank's 1,028: rank 0's all patches, so decode's block form
+# runs on a full block there and a filling one on rank 1). (a) bf16, cut to
+# 12 of 48 layers: each rank draws the whole cut model, 11.6 GB, before it
+# keeps its blocks, 5.8 GB (the ranks take turns: four whole models at once
+# and their blocks would fill the card; at 48 layers the blocks alone would
+# be 19.9 GB a rank, and a whole model 39.7 GB). (b) 2 layers, fp32, against
+# one unsharded NCCL rank, as serve_mesh (b)
+SERVE_VLM_MESH = dict(SERVE_MESH, arch="internvl2-26b", layers=12,
+                      max_len=1024 + SERVE["prompt"] + SERVE["gen"])
+SERVE_VLM_MESH_B = dict(SERVE_VLM_MESH, layers=2, dtype="float32", gen=9, tol=SLICE_TOL,
+                        timeout_s=300)
 
 
 def _serve_mesh_model(t: dict, device: str):
     """The model of ``t`` drawn from its seed (on the card where
-    t["draw"] says so and the run is on it) and the prompts."""
+    t["draw"] says so and the run is on it) and the prompts: {"tokens"},
+    and a VLM's "patch_embeds", N(0, 1) in the model's dtype drawn where
+    the weights are from t["seed"] + 1."""
     import numpy as np
     import torch
 
@@ -2647,17 +2770,26 @@ def _serve_mesh_model(t: dict, device: str):
     cfg = _mesh_cfg(t)
     draw = t["draw"] if device == "cuda" else "cpu"
     model = build_model(cfg, device=draw).init(torch.Generator(device=draw).manual_seed(t["seed"]))
-    tokens = torch.from_numpy(np.random.default_rng(t["seed"]).integers(
-        0, cfg.vocab_size, (t["batch"], t["prompt"])))
-    return cfg, model, tokens.to(device)
+    prompts = {"tokens": torch.from_numpy(np.random.default_rng(t["seed"]).integers(
+        0, cfg.vocab_size, (t["batch"], t["prompt"]))).to(device)}
+    if cfg.num_patch_tokens:
+        prompts["patch_embeds"] = torch.randn(
+            (t["batch"], cfg.num_patch_tokens, cfg.d_model), device=draw,
+            generator=torch.Generator(device=draw).manual_seed(t["seed"] + 1)
+        ).to(device=device, dtype=model.dtype)
+    return cfg, model, prompts
 
 
 def _serve_mesh_steps(world: int, t: dict, device: str):
     """This rank's mesh, serve steps, param blocks (the full model freed),
-    prompts, the cache's specs and ``serve_collectives``."""
+    its rows of the prompts (and of a VLM's patches), the cache's specs and
+    ``serve_collectives``. The ranks draw the whole model and keep their
+    blocks one at a time, so that the card holds one whole model and the
+    blocks of the others at once, not four whole models."""
     import gc
 
     import torch
+    import torch.distributed as dist
 
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch.mesh import make_host_mesh
@@ -2665,22 +2797,27 @@ def _serve_mesh_steps(world: int, t: dict, device: str):
     from repro_torch.train.serve import build_decode_step, build_prefill_step, serve_collectives
     from repro_torch.train.state import param_tree, shard_params
 
-    cfg, model, tokens = _serve_mesh_model(t, device)
     mesh = make_host_mesh(data=t["data"], model=t["model"])
     b, prompt, max_len = t["batch"], t["prompt"], t["max_len"]
-    prefill, plan, in_specs = build_prefill_step(
-        model, mesh, ShapeConfig("serve_mesh", prompt, b, "prefill"))
-    decode, _, dec_specs = build_decode_step(
-        model, mesh, ShapeConfig("serve_mesh", max_len, b, "decode"))
-    params = shard_params(param_tree(model), plan, mesh, device)
-    want = serve_collectives(model, mesh, b, prompt, max_len)
-    cache_specs = shd.cache_pspecs(cfg, model.cache_specs(b, max_len), mesh)
-    del model
-    gc.collect()
-    if device == "cuda":
-        torch.cuda.empty_cache()
-    local = shd.local_block(tokens, in_specs["tokens"], mesh).contiguous()
-    rows = shd.block_slices(in_specs["tokens"], tuple(tokens.shape), mesh)
+    for turn in range(world):
+        if dist.get_rank() == turn:
+            cfg, model, prompts = _serve_mesh_model(t, device)
+            prefill, plan, in_specs = build_prefill_step(
+                model, mesh, ShapeConfig("serve_mesh", cfg.num_patch_tokens + prompt, b,
+                                         "prefill"))
+            decode, _, dec_specs = build_decode_step(
+                model, mesh, ShapeConfig("serve_mesh", max_len, b, "decode"))
+            params = shard_params(param_tree(model), plan, mesh, device)
+            want = serve_collectives(model, mesh, b, prompt, max_len)
+            cache_specs = shd.cache_pspecs(cfg, model.cache_specs(b, max_len), mesh)
+            del model
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+        dist.barrier()
+    local = {k: shd.local_block(v, in_specs[k], mesh).contiguous() for k, v in prompts.items()}
+    rows = shd.block_slices(in_specs["tokens"], tuple(prompts["tokens"].shape), mesh)
     return cfg, mesh, prefill, decode, params, local, rows, cache_specs, want
 
 
@@ -2719,7 +2856,7 @@ def serve_mesh_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> 
         sync()
         mesh.reset_counts()
         t0 = time.perf_counter()
-        logits, cache = prefill(params, {"tokens": local, "max_len": t["max_len"]})
+        logits, cache = prefill(params, dict(local, max_len=t["max_len"]))
         sync()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         counts = {"prefill": _counts(mesh.counts), "decode": []}
@@ -2766,9 +2903,10 @@ def serve_single_b(rank: int, world: int, tmp: str, tb: dict, device: str) -> No
     final cache."""
     import torch
 
-    _, model, tokens = _serve_mesh_model(tb, device)
+    _, model, prompts = _serve_mesh_model(tb, device)
     with torch.inference_mode():
-        logits, cache = model.prefill(tokens, tb["max_len"])
+        logits, cache = model.prefill(prompts["tokens"], tb["max_len"],
+                                      prompts.get("patch_embeds"))
         out, toks = [logits.cpu()], [logits.argmax(-1)]
         for _ in range(tb["gen"] - 1):
             logits, cache = model.decode_step(cache, toks[-1])
@@ -2800,7 +2938,7 @@ def serve_mesh_part_b(rank: int, world: int, tmp: str, tb: dict, device: str) ->
 
     reset_launches()
     with torch.inference_mode():
-        logits, cache = prefill(params, {"tokens": local, "max_len": tb["max_len"]})
+        logits, cache = prefill(params, dict(local, max_len=tb["max_len"]))
         errs = [err(logits, ref["logits"][0][lo:lo + n])]
         tok = logits.argmax(-1)
         toks = [tok]
@@ -2819,8 +2957,9 @@ def serve_mesh_part_b(rank: int, world: int, tmp: str, tb: dict, device: str) ->
         json.dump(rec, f)
 
 
-def _serve_mesh_row(recs: list, t: dict, seconds: float, device: str) -> dict:
+def _serve_mesh_row(phase: str, recs: list, t: dict, seconds: float, device: str) -> dict:
     """(a)'s checks, each failing the run, and its printed fields."""
+    from repro_torch.configs import get_arch
     from repro_torch.models import param_count
     cfg = _mesh_cfg(t)
     bad = []
@@ -2829,6 +2968,8 @@ def _serve_mesh_row(recs: list, t: dict, seconds: float, device: str) -> dict:
     want_launches = {"flash_attention": L, "decode_attention": L * (gen - 1), "ssd": 0}
     hd, h, kh = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
     block = t["max_len"] // t["model"]
+    positions = cfg.num_patch_tokens + t["prompt"]
+    heads, kv_heads = _rank_heads(cfg, t["model"])
     for r in recs:
         tag = f"rank {r['rank']}"
         if r["counts"]["prefill"] != r["want"]["prefill"]:
@@ -2844,7 +2985,7 @@ def _serve_mesh_row(recs: list, t: dict, seconds: float, device: str) -> dict:
             bad.append(f"{tag} SSD routes {r['launches']['ssd_routes']}")
         if device == "cuda" and r["flash_routes"].get("fp32"):
             bad.append(f"{tag} flash on the fp32 route {r['flash_routes']}")
-        flash = [[[rows, t["prompt"], h // t["model"], hd], [rows, t["prompt"], kh, hd]]]
+        flash = [[[rows, positions, heads, hd], [rows, positions, kv_heads, hd]]]
         if r["flash_shapes"] != flash:
             bad.append(f"{tag} flash calls at {r['flash_shapes']}, expected {flash}")
         dec = [[[rows, 1, h, hd], [rows, block, kh, hd]]]
@@ -2857,16 +2998,18 @@ def _serve_mesh_row(recs: list, t: dict, seconds: float, device: str) -> dict:
         if not all(0 <= x < cfg.padded_vocab for row in r["tokens"] for x in row):
             bad.append(f"{tag} generated tokens out of range")
     if bad:
-        fail("serve_mesh (a): " + "; ".join(bad))
+        fail(f"{phase} (a): " + "; ".join(bad))
     med = lambda xs: sorted(xs)[len(xs) // 2]                              # noqa: E731
     decode_ms = [r["decode_s"] * 1e3 / (gen - 1) for r in recs]
     per_step = recs[0]["want"]["decode"]
     params = param_count(cfg)
     prefill_bound, decode_bound = serve_bounds(cfg, params, t["batch"], t["prompt"], gen)
-    return dict(config=f"{cfg.name} full width and depth ({L} layers, {t['dtype']})",
+    depth = get_arch(t["arch"]).num_layers
+    return dict(config=f"{cfg.name} full width, {L} of {depth} layers, {t['dtype']}",
                 params=params, mesh=f"data={t['data']}, model={t['model']}",
                 ranks=f"{t['world']} gloo ranks sharing one card", batch=t["batch"],
-                prompt=t["prompt"], gen=gen, max_len=t["max_len"],
+                patches=cfg.num_patch_tokens, prompt=t["prompt"], gen=gen,
+                max_len=t["max_len"],
                 rows_per_rank=rows, cache_positions_per_rank=block,
                 prefill_ms_median=med([r["prefill_ms"] for r in recs]),
                 prefill_ms_max=max(r["prefill_ms"] for r in recs),
@@ -2889,7 +3032,7 @@ def _serve_mesh_row(recs: list, t: dict, seconds: float, device: str) -> dict:
                 note=MESH_NOTE)
 
 
-def _serve_mesh_b_row(recs: list, tb: dict, single_s: float, device: str) -> dict:
+def _serve_mesh_b_row(phase: str, recs: list, tb: dict, single_s: float, device: str) -> dict:
     """(b)'s checks, each failing the run, and its printed fields."""
     cfg = _mesh_cfg(tb)
     bad = []
@@ -2911,7 +3054,7 @@ def _serve_mesh_b_row(recs: list, tb: dict, single_s: float, device: str) -> dic
         if device == "cuda" and r["launches"]["ssd_routes"] != {"wgmma": 0, "fp32": 0}:
             bad.append(f"{tag} SSD routes {r['launches']['ssd_routes']}")
     if bad:
-        fail("serve_mesh (b): sharded against one rank: " + "; ".join(bad))
+        fail(f"{phase} (b): sharded against one rank: " + "; ".join(bad))
     return dict(config=f"{cfg.name}, {tb['layers']} layers, fp32",
                 sharded=f"{tb['world']} gloo ranks, data={tb['data']}, model={tb['model']}",
                 against="one unsharded rank over nccl (DecoderLM.prefill, decode_step)",
@@ -2927,19 +3070,20 @@ def _serve_mesh_b_row(recs: list, tb: dict, single_s: float, device: str) -> dic
 
 
 def phase_serve_mesh(torch, t: dict = SERVE_MESH, tb: dict = SERVE_MESH_B,
-                     device: str = "cuda") -> dict:
-    """serve_mesh: (b)'s one rank first (its own process, over NCCL on the
-    card), then t["world"] spawned ranks running (a) and (b) in turn."""
+                     device: str = "cuda", phase: str = "serve_mesh") -> dict:
+    """A serve on a mesh (``phase``): (b)'s one rank first (its own
+    process, over NCCL on the card), then t["world"] spawned ranks running
+    (a) and (b) in turn."""
     import tempfile
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_mesh_") as tmp:
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{phase}_") as tmp:
         t0 = time.perf_counter()
-        run_children("serve_mesh (b), one rank",
+        run_children(f"{phase} (b), one rank",
                      [(mesh_rank, (0, 1, tmp, f"{tmp}/rdv_single", [(serve_single_b, tb)],
                                    device, "nccl" if device == "cuda" else "gloo"))],
                      tb["timeout_s"])
         single_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        run_children("serve_mesh", [(mesh_rank, (r, t["world"], tmp, f"{tmp}/rdv",
+        run_children(phase, [(mesh_rank, (r, t["world"], tmp, f"{tmp}/rdv",
                                                  [(serve_mesh_part_a, t),
                                                   (serve_mesh_part_b, tb)], device))
                                     for r in range(t["world"])],
@@ -2951,10 +3095,10 @@ def phase_serve_mesh(torch, t: dict = SERVE_MESH, tb: dict = SERVE_MESH_B,
                 recs_a.append(json.load(f))
             with open(f"{tmp}/serve_b_{r}.json") as f:
                 recs_b.append(json.load(f))
-    row = _serve_mesh_row(recs_a, t, seconds, device)
-    emit("serve_mesh", **row)
-    part_b = _serve_mesh_b_row(recs_b, tb, single_s, device)
-    emit("serve_mesh_world1", **part_b)
+    row = _serve_mesh_row(phase, recs_a, t, seconds, device)
+    emit(phase, **row)
+    part_b = _serve_mesh_b_row(phase, recs_b, tb, single_s, device)
+    emit(f"{phase}_world1", **part_b)
     return dict(row, part_b=part_b)
 
 
@@ -4238,6 +4382,22 @@ def phase_train_ssm(torch):
     return row
 
 
+def bytecode_cache() -> None:
+    """Let this process and the ranks it spawns cache the bytecode of the
+    modules they import, under build/pycache of the checkout: a Python run
+    with PYTHONDONTWRITEBYTECODE (or a read-only installation) compiles
+    every module from source in every process, several seconds a spawned
+    rank, and torch.utils.checkpoint's first call imports torch._dynamo.
+    A spawned child inherits -B from this process's flags: ``mesh_rank``
+    turns the writing on again before it imports torch."""
+    import os
+    cache = str(ROOT / "build" / "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = cache
+    sys.pycache_prefix = cache
+    sys.dont_write_bytecode = False
+
+
 def main() -> int:
     import tempfile
 
@@ -4247,6 +4407,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.kernels import _build
+    bytecode_cache()
     torch.backends.cuda.matmul.allow_tf32 = False      # full fp32 comparisons
     torch.backends.cudnn.allow_tf32 = False
 
@@ -4285,13 +4446,17 @@ def main() -> int:
                          single=False)
     sharded = {}
     for phase, t, tb in (("train_moe_mesh", TRAIN_MOE, TRAIN_MOE_B),
-                         ("train_gemma_mesh", TRAIN_GEMMA, TRAIN_GEMMA_B)):
+                         ("train_gemma_mesh", TRAIN_GEMMA, TRAIN_GEMMA_B),
+                         ("train_vlm_mesh", TRAIN_VLM, TRAIN_VLM_B)):
         with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{phase}_") as tmp:
             sharded[phase] = timed(phase, phase_mesh, torch, phase, t, tb, tmp, tp_part_a,
                                    lambda recs, a_s, phase=phase, t=t: _train_tp_row(
                                        phase, recs, t, a_s, "cuda"))
     train_moe_mesh, train_gemma_mesh = sharded["train_moe_mesh"], sharded["train_gemma_mesh"]
+    train_vlm_mesh = sharded["train_vlm_mesh"]
     serve_mesh = timed("serve_mesh", phase_serve_mesh, torch)
+    serve_vlm_mesh = timed("serve_vlm_mesh", phase_serve_mesh, torch, SERVE_VLM_MESH,
+                           SERVE_VLM_MESH_B, phase="serve_vlm_mesh")
     pipeline = timed("pipeline", phase_pipeline, torch)
     scenarios = timed("scenarios", phase_scenarios, torch)
     train_ssm = timed("train_ssm", phase_train_ssm, torch)
@@ -4369,6 +4534,15 @@ def main() -> int:
              vlm_launches=serve_vlm["launches"]["flash_attention"],
              vlm_shape={d: moe_shape(kernels["flash_attention"][f"{d}_vlm"])
                         for d in ("bfloat16", "float32")},
+             vlm_mesh_launches=dict(
+                 train_a=train_vlm_mesh["flash_launches"],
+                 train_b_rank0=train_vlm_mesh["part_b"]["launches"]["flash_routes"],
+                 serve_a=serve_vlm_mesh["launches_per_rank"]["flash_attention"],
+                 serve_b=serve_vlm_mesh["part_b"]["launches_per_rank"]["flash_attention"]),
+             vlm_mesh_shape={f"{d}_{part}": moe_shape(kernels["flash_attention"][
+                                 f"{d}_vlm_{key}"])
+                             for d in ("bfloat16", "float32")
+                             for part, key in (("train", "tp"), ("serve", "serve_tp"))},
              encdec_launches=serve_encdec["launches"]["flash_attention"],
              encdec_shape={f"{d}_{part}": moe_shape(kernels["flash_attention"][
                                f"{d}_encdec_{part}"])
@@ -4398,6 +4572,7 @@ def main() -> int:
              train_tp_launches=train_tp["decode_launches"],
              train_moe_mesh_launches=train_moe_mesh["decode_launches"],
              train_gemma_mesh_launches=train_gemma_mesh["decode_launches"],
+             train_vlm_mesh_launches=train_vlm_mesh["decode_launches"],
              moe_shape=moe_shape(kernels["decode_attention"]["bfloat16_moe"][-1]),
              serve_mesh_launches=dict(
                  a=serve_mesh["launches_per_rank"]["decode_attention"],
@@ -4411,6 +4586,15 @@ def main() -> int:
              vlm_shape={f"{d}_{form}": moe_shape(kernels["decode_attention"][f"{d}_{key}"][-1])
                         for d in ("bfloat16", "float32")
                         for form, key in (("serve", "vlm"), ("block", "vlm_block"))},
+             vlm_mesh_launches=dict(
+                 a=serve_vlm_mesh["launches_per_rank"]["decode_attention"],
+                 b=serve_vlm_mesh["part_b"]["launches_per_rank"]["decode_attention"],
+                 note="a rank's, block form on its 1,028 of 2,056 positions, every layer "
+                      "and decode step"),
+             vlm_mesh_shape={f"{d}_{c}": moe_shape(row)
+                             for d in ("bfloat16", "float32")
+                             for c, row in zip(("part", "full"), kernels["decode_attention"][
+                                 f"{d}_vlm_mesh_block"])},
              encdec_launches=serve_encdec["launches"]["decode_attention"],
              encdec_shape={f"{d}_{part}": moe_shape(
                                kernels["decode_attention"][f"{d}_encdec_{part}"][-1])
@@ -4445,6 +4629,8 @@ def main() -> int:
              train_moe_mesh_launches=train_moe_mesh["ssd_launches"],
              train_gemma_mesh_launches=train_gemma_mesh["ssd_launches"],
              serve_mesh_launches=serve_mesh["launches_per_rank"]["ssd"],
+             train_vlm_mesh_launches=train_vlm_mesh["ssd_launches"],
+             serve_vlm_mesh_launches=serve_vlm_mesh["launches_per_rank"]["ssd"],
              vlm_launches=serve_vlm["launches"]["ssd"],
              encdec_launches=serve_encdec["launches"]["ssd"],
              tp_shapes={model: {k_: ssd_rows[(f"{model}/tp2", 1024, "bfloat16")][k_]

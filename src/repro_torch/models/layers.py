@@ -98,15 +98,19 @@ def mlp_init(generator: torch.Generator, p: Dict[str, torch.Tensor], d_model: in
                                 device=generator.device) * scales[name])
 
 
-def embed_lookup(w: torch.Tensor, tokens: torch.Tensor, vocab: Optional[int] = None
-                 ) -> torch.Tensor:
-    """The rows of ``w`` (V, D) at ``tokens``. Where ``w`` has fewer rows
-    than ``vocab`` it is this rank's block of a vocab-parallel table (under
-    ``modes.tensor_parallel``): the tokens outside its rows look up zeros,
-    and the sum over the ranks (``tp_reduce``) gives every rank the rows.
-    Under sequence parallelism the result is this rank's block of the
-    positions: the sum is a reduce-scatter along the sequence
-    (``seq_scatter``), and a whole table's rows are cut to the block."""
+def embed_lookup(w: torch.Tensor, tokens: torch.Tensor, vocab: Optional[int] = None,
+                 prefix: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The rows of ``w`` (V, D) at ``tokens``, behind ``prefix`` (B, P, D)
+    where given (a VLM's patch embeddings, cast to ``w``'s dtype). Where
+    ``w`` has fewer rows than ``vocab`` it is this rank's block of a
+    vocab-parallel table (under ``modes.tensor_parallel``): the tokens
+    outside its rows look up zeros, and the sum over the ranks
+    (``tp_reduce``) gives every rank the rows; the prefix is put in front
+    after the sum. Under sequence parallelism the result is this rank's
+    block of the positions of [prefix | tokens]: the sum is a reduce-scatter
+    of the whole sequence (``seq_scatter``), to which the rank at "model"
+    index 0 gives the prefix and the others zeros there (so the sum is
+    exact), and a whole table's sequence is cut to the block."""
     split = vocab is not None and w.shape[0] != vocab
     if not split:
         x = w[tokens]
@@ -115,9 +119,16 @@ def embed_lookup(w: torch.Tensor, tokens: torch.Tensor, vocab: Optional[int] = N
         local = tokens - current_tp().index * rows
         own = (local >= 0) & (local < rows)
         x = torch.where(own[..., None], w[local.clamp(0, rows - 1)], 0)
+    if prefix is not None:
+        prefix = prefix.to(x.dtype)
     if sequence_split():
+        if prefix is not None:
+            if split and current_tp().index:
+                prefix = torch.zeros_like(prefix)
+            x = torch.cat([prefix, x], dim=1)
         return seq_scatter(x, split)
-    return tp_reduce(x) if split else x
+    x = tp_reduce(x) if split else x
+    return x if prefix is None else torch.cat([prefix, x], dim=1)
 
 
 def unembed(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -99,22 +99,22 @@ def _embed_inputs(embed: torch.Tensor, cfg: ArchConfig, tokens: torch.Tensor,
     """The token embeddings of ``tokens`` (B, S), behind the patch
     embeddings (B, num_patch_tokens, D) cast to the model's dtype for a VLM
     config (the reference's ``_embed_inputs``): (B, num_patch_tokens + S,
-    D). A VLM call without them or with another shape, and any other
-    config's call with them, raises ``ValueError``; so does a call of a
-    model without an encoder that is given ``frames``."""
+    D), or under sequence parallelism this rank's block of those positions
+    (``embed_lookup``'s prefix). A VLM call without them or with another
+    shape, and any other config's call with them, raises ``ValueError``; so
+    does a call of a model without an encoder that is given ``frames``."""
     if frames is not None and not cfg.encoder_layers:
         raise ValueError(f"{cfg.name} takes no frames (encoder_layers is 0)")
-    x = embed_lookup(embed, tokens, cfg.padded_vocab)
     npatch = cfg.num_patch_tokens
     if not npatch:
         if patch_embeds is not None:
             raise ValueError(f"{cfg.name} takes no patch_embeds (num_patch_tokens is 0)")
-        return x
+        return embed_lookup(embed, tokens, cfg.padded_vocab)
     want = (tokens.shape[0], npatch, cfg.d_model)
     if patch_embeds is None or tuple(patch_embeds.shape) != want:
         got = None if patch_embeds is None else tuple(patch_embeds.shape)
         raise ValueError(f"{cfg.name} needs patch_embeds of shape {want}, got {got}")
-    return torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+    return embed_lookup(embed, tokens, cfg.padded_vocab, prefix=patch_embeds)
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -336,6 +336,8 @@ class DecoderLM(nn.Module):
         loss, 0 for a dense model."""
         tokens = batch["tokens"].long()
         x, aux = self._hidden(tokens[:, :-1], batch.get("patch_embeds"))
+        # every position here, gathered under sequence parallelism: the text
+        # positions are the last S of the whole sequence, not of a rank's block
         x = x[:, self.cfg.num_patch_tokens:]
         xent = chunked_xent(self._head(), x, tokens[:, 1:], vocab=self.cfg.padded_vocab)
         return xent + 0.01 * aux, {"xent": xent, "aux": aux}
@@ -885,6 +887,13 @@ class EncDecLM(nn.Module):
 
 _MODELS = {"dense": DecoderLM, "moe": DecoderLM, "vlm": DecoderLM, "ssm": MambaLM,
            "hybrid": HybridLM, "encdec": EncDecLM}
+
+
+def is_decoder_stack(cfg: ArchConfig) -> bool:
+    """Whether ``cfg`` builds a ``DecoderLM``: a stack of ``num_layers``
+    attention + FFN blocks (dense, MoE and the VLM), as the sharded steps'
+    collective counts see it."""
+    return _MODELS.get(cfg.family) is DecoderLM
 
 
 def build_model(cfg: ArchConfig, device=None, dtype: Optional[torch.dtype] = None):

@@ -29,12 +29,13 @@ reference's jit (``models.modes.global_routing``). The logits come back
 whole: the head's vocab blocks are gathered over "model".
 
 The collectives of one step on a rank (``serve_collectives`` counts them),
-with b rows of n positions a row (n = S in prefill, 1 in decode), A =
-b·n·D·itemsize activation bytes, H (K) q (kv) heads, tp the "model" size,
-hd the head_dim, V the padded vocabulary:
+with b rows of n positions a row (n = S in prefill, a VLM's patches
+included, 1 in decode), A = b·n·D·itemsize activation bytes, H (K) q (kv)
+heads, tp the "model" size, hd the head_dim, V the padded vocabulary:
 
   all_reduce over "model"                               calls    bytes
-    the vocab-parallel embedding (g)                    1        A
+    the vocab-parallel embedding (g; a VLM's            1        A
+      patches join after it: A of its tokens)
     each split attention, MLP or MoE sub-layer (g)      1        A
     each split Mamba2 mixer: g, and the mean of         2        A + 4bn
       squares of its gated norm (fp32)
@@ -61,11 +62,11 @@ import torch.nn as nn
 from repro_torch.models.modes import (GlobalRouting, SplitCache, TensorParallel,
                                       global_routing, split_cache, tensor_parallel)
 from repro_torch.models.moe import moe_groups
-from repro_torch.models.transformer import build_model, torch_dtype
+from repro_torch.models.transformer import build_model, is_decoder_stack, torch_dtype
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.sharding import is_spec
 from repro_torch.train.state import StatePlan, make_state_plan
-from repro_torch.train.step import _leaves, refuse_encdec_on_mesh, refuse_patches_on_mesh
+from repro_torch.train.step import _leaves, refuse_encdec_on_mesh
 from repro_torch.tree import tree_flatten, tree_flatten_with_path
 
 Counts = Dict[Tuple[str, Tuple[str, ...]], list]
@@ -92,10 +93,11 @@ def build_prefill_step(model: ServingModel, mesh=None, shape=None):
     (B, encoder_seq, D) into its encoder. On ``mesh``: (fn, plan, input_pspecs)
     with fn(params, batch) -> (fp32 logits (b, V) of this rank's rows, this
     rank's cache blocks); batch {"tokens": this rank's rows of ``shape``'s
-    prompts, "max_len": the cache's length, the prompt's where absent (the
-    reference's ``batch.get("max_len", ...)``)}. A VLM on a mesh raises
-    ``NotImplementedError`` (ROADMAP §1 item 11a-ii), as does an enc-dec
-    (ROADMAP §1 item 11b-ii)."""
+    prompts, "patch_embeds": a VLM's, this rank's rows, "max_len": the
+    cache's length, the prompt's positions (a VLM's patches and tokens)
+    where absent (the reference's ``batch.get("max_len", ...)``)}. An
+    enc-dec on a mesh raises ``NotImplementedError`` (ROADMAP §1 item
+    11b-ii)."""
     if mesh is None:
         @torch.inference_mode()
         def prefill(tokens: torch.Tensor, max_len: Optional[int] = None,
@@ -105,19 +107,20 @@ def build_prefill_step(model: ServingModel, mesh=None, shape=None):
 
         return prefill
 
-    refuse_patches_on_mesh(model.cfg, "build_prefill_step")
     refuse_encdec_on_mesh(model.cfg, "build_prefill_step")
     on_mesh = _OnMesh(model, mesh, "prefill")
     input_pspecs = shd.input_pspecs(model.cfg, model.input_specs(shape), mesh)
     twin = on_mesh.twin.model        # the step keeps no reference to ``model``'s weights
+    npatch = model.cfg.num_patch_tokens
 
     @torch.inference_mode()
     def prefill_fn(params, batch: Dict) -> Tuple[torch.Tensor, Dict]:
         tokens = batch["tokens"]
-        max_len = int(batch.get("max_len", tokens.shape[1]))
+        positions = npatch + tokens.shape[1]
+        max_len = int(batch.get("max_len", positions))
         t_axes = _cache_axes(twin, mesh, shape.global_batch, max_len)
-        return on_mesh(params, tokens.shape[0] * tokens.shape[1],
-                       input_pspecs["tokens"], t_axes, tokens, max_len)
+        return on_mesh(params, tokens.shape[0] * positions, input_pspecs["tokens"], t_axes,
+                       tokens, max_len, batch.get("patch_embeds"))
 
     return prefill_fn, on_mesh.plan, input_pspecs
 
@@ -214,12 +217,14 @@ def _cache_axes(model, mesh, batch: int, max_len: int) -> Tuple[str, ...]:
 def serve_collectives(model: nn.Module, mesh, batch: int, seq: int,
                       max_len: Optional[int] = None) -> Dict[str, Counts]:
     """The collectives one step of the mesh's serve steps runs on a rank,
-    for a global batch of ``batch`` prompts of ``seq`` tokens and a cache of
-    ``max_len`` (``seq`` by default) positions: {"prefill": ..., "decode":
+    for a global batch of ``batch`` prompts of ``seq`` tokens (behind a
+    VLM's num_patch_tokens patches) and a cache of ``max_len`` (the
+    prompt's positions by default) positions: {"prefill": ..., "decode":
     ...}, each {(collective, axes): [calls, bytes]} as ``Mesh.counts``
     holds them, by the module docstring's table."""
     cfg = model.cfg
-    max_len = seq if max_len is None else max_len
+    npatch = cfg.num_patch_tokens
+    max_len = npatch + seq if max_len is None else max_len
     tp = shd.axis_size(mesh, "model")
     plan = make_state_plan(model, mesh)
     mdim = {path: shd.sharded_dim(spec, "model")
@@ -268,9 +273,9 @@ def serve_collectives(model: nn.Module, mesh, batch: int, seq: int,
                 if (rows * n) % (total // moe_groups(total)):       # a group straddles ranks
                     add("all_gather", batch_axes, 8 * rows * n * cfg.top_k)
 
-        if split("embed", "w"):
-            add("all_reduce", model_axis, act)
-        if cfg.family in ("dense", "moe"):
+        if split("embed", "w"):       # the tokens' rows: a VLM's patches join after
+            add("all_reduce", model_axis, rows * (1 if decode else seq) * cfg.d_model * itemsize)
+        if is_decoder_stack(cfg):
             for _ in range(cfg.num_layers):
                 attention("blocks")
                 ffn("blocks")
@@ -287,4 +292,4 @@ def serve_collectives(model: nn.Module, mesh, batch: int, seq: int,
             add("all_gather", model_axis, 4 * rows * cfg.padded_vocab // tp)
         return out
 
-    return {"prefill": step(seq, False), "decode": step(1, True)}
+    return {"prefill": step(npatch + seq, False), "decode": step(1, True)}

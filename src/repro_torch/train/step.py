@@ -69,6 +69,13 @@ a body that ends in a split sub-layer does not run that sub-layer's exit
 again. The AR st, AR 2st of the head are the MAX of the log-sum-exps and
 the SUM of their exponentials with the label logits.
 
+A VLM's S counts its patch positions in front of the tokens, where A and a
+are the residual stream's: under sequence parallelism the embedding's RS is
+of the whole [patches | tokens] sequence, the patches given by the rank at
+"model" index 0 and zeros by the others. The Megatron embedding's AR A, the
+head's AR st, AR 2st and its AR A count the text positions alone (the
+patches are not looked up, and the loss scores the text).
+
 An MoE config routes the global batch (``models.moe``): the step sets
 ``models.modes.global_routing`` to the microbatch's global token count, and
 each MoE call sums its expert counts over the batch axes (one all-reduce of
@@ -94,7 +101,7 @@ from repro_torch.core.razor import RazorPlan, razor_plan
 from repro_torch.models.modes import (FsdpLayout, GlobalRouting, Shard, TensorParallel,
                                       fsdp_unshard, global_routing, sequence_parallel,
                                       splits_sequence, tensor_parallel)
-from repro_torch.models.transformer import build_model, torch_dtype
+from repro_torch.models.transformer import build_model, is_decoder_stack, torch_dtype
 from repro_torch.optim import AdamWConfig, adamw_update, cosine_schedule
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.compression import pod_compressed_value_and_grad
@@ -179,15 +186,6 @@ class _Spans:
             self.totals[name] = self.totals.get(name, 0.0) + self.clock() - t0
 
 
-def refuse_patches_on_mesh(cfg, what: str) -> None:
-    """The steps on a mesh do not take a VLM's patch embeddings yet: raise
-    rather than run it without them."""
-    if cfg.num_patch_tokens:
-        raise NotImplementedError(
-            f"{what}: {cfg.name} takes patch_embeds, which the steps on a mesh do not "
-            "pass yet (ROADMAP §1 item 11a-ii)")
-
-
 def refuse_encdec_on_mesh(cfg, what: str) -> None:
     """The steps on a mesh do not run an enc-dec yet (its frames, its
     encoder and its cross cache): raise rather than run it without them."""
@@ -249,8 +247,10 @@ def build_train_step(
 
     Microbatch i is, as in the reference, the global rows [i·B/n,
     (i+1)·B/n), split over the batch ranks as the batch is: with more than
-    one batch rank the rows are gathered over the batch axes (token ids, a
-    few KB) and each rank takes its block of each microbatch.
+    one batch rank every leaf of the batch is gathered over the batch axes
+    (the token ids, a few KB; a VLM's patch embeddings, num_patch_tokens·D
+    values a row: 12.6 MB a row of internvl2-26b's in bf16) and each rank
+    takes its block of each microbatch.
 
     An MoE config routes the global batch, as under the reference's jit:
     each rank routes its rows as their part of the groups of the global
@@ -267,12 +267,15 @@ def build_train_step(
     heads (``models.attention``); ``wk``, ``wv`` and ``k_norm`` are then
     ``partial`` leaves.
 
-    A VLM config (patch embeddings in front of the tokens) raises
-    ``NotImplementedError`` (ROADMAP §1 item 11a-ii), as does an enc-dec
-    config (ROADMAP §1 item 11b-ii).
+    A VLM config takes ``batch["patch_embeds"]`` (this rank's rows), in
+    front of the tokens: the sequence is then num_patch_tokens + S
+    positions, which decide the sequence split, and under it the embedding
+    reduce-scatters the whole [patches | tokens] sequence
+    (``models.layers.embed_lookup``); the loss scores the S text positions.
+    An enc-dec config raises ``NotImplementedError`` (ROADMAP §1 item
+    11b-ii).
     """
     cfg = model.cfg
-    refuse_patches_on_mesh(cfg, "build_train_step")
     refuse_encdec_on_mesh(cfg, "build_train_step")
     tp = shd.axis_size(mesh, "model")
     plan = make_state_plan(model, mesh, fsdp_params=fsdp_params)
@@ -352,7 +355,7 @@ def build_train_step(
           ``w_c``, ``conv_b``, ``conv_c`` (each rank's heads read the one
           SSD group), the ``partial`` leaves: here, one all-reduce over
           "model" per dtype, after the reduction over "data"."""
-        sp = splits_sequence(tp, batch["tokens"].shape[1] - 1)
+        sp = splits_sequence(tp, cfg.num_patch_tokens + batch["tokens"].shape[1] - 1)
         (loss, aux), grads = local_value_and_grad(params, batch, sp)
         out = []
         with spans("grad_reduce"):
@@ -430,7 +433,11 @@ def model_collectives(model: nn.Module, mesh, rows: int, seq: int, *,
     ``Mesh.counts`` holds them: {(collective, ("model",)): [calls, bytes]}.
     The module docstring's table, with the splits of the step's specs: the
     sequence-parallel rows where ``splits_sequence`` holds, else the
-    Megatron rows (all-reduces only); empty at model 1."""
+    Megatron rows (all-reduces only); empty at model 1. A VLM's ``seq``
+    counts its patches (num_patch_tokens + S positions): the residual
+    stream's A and a count them all, while the Megatron embedding's AR and
+    the head's statistics (and its AR A without SP) count the S text
+    positions, which alone are looked up and scored."""
     cfg = model.cfg
     tp = shd.axis_size(mesh, "model")
     if tp == 1:
@@ -441,8 +448,10 @@ def model_collectives(model: nn.Module, mesh, rows: int, seq: int, *,
             for path, spec in tree_flatten_with_path(plan.param_pspecs, is_spec)}
     split = lambda *path: mdim.get(path) is not None                    # noqa: E731
     b = rows // microbatches
-    act = b * seq * cfg.d_model * torch_dtype(cfg).itemsize
-    stat = b * seq * 4                                   # one fp32 value a position
+    width = cfg.d_model * torch_dtype(cfg).itemsize
+    text = seq - cfg.num_patch_tokens                    # the positions looked up and scored
+    act, act_text = b * seq * width, b * text * width
+    stat, stat_text = b * seq * 4, b * text * 4          # one fp32 value a position
     ag, rs, ar = ("all_gather", act // tp), ("reduce_scatter", act), "all_reduce"
 
     def region(mamba: bool, is_split: bool):
@@ -456,7 +465,7 @@ def model_collectives(model: nn.Module, mesh, rows: int, seq: int, *,
     dense = lambda root: [(False, split(root, "attn", "wq")),          # noqa: E731
                           (False, split(root, *ffn))]
     mamba = (True, split("blocks", "mamba", "w_x"))
-    if cfg.family in ("dense", "moe"):
+    if is_decoder_stack(cfg):
         bodies = [dense("blocks")] * cfg.num_layers
     else:
         bodies = [[mamba] + (dense("shared_attn") if kind == "mamba_attn" else [])
@@ -466,7 +475,7 @@ def model_collectives(model: nn.Module, mesh, rows: int, seq: int, *,
     if sp:           # the embedding's sum (or a whole table's cut) and its backward
         calls += ([rs] if split("embed", "w") else []) + [ag]
     elif split("embed", "w"):
-        calls.append((ar, act))
+        calls.append((ar, act_text))
     for body in bodies:
         fwd: List[Tuple[str, int]] = []
         for kind, is_split in body:
@@ -478,7 +487,7 @@ def model_collectives(model: nn.Module, mesh, rows: int, seq: int, *,
     if sp:               # the head's gather and its backward
         calls += [ag] + ([rs] if split(*head) else [])
     if split(*head):     # the cross-entropy's statistics and, without SP, f's backward
-        calls += [(ar, stat), (ar, 2 * stat)] + ([] if sp else [(ar, act)])
+        calls += [(ar, stat_text), (ar, 2 * stat_text)] + ([] if sp else [(ar, act_text)])
     calls *= microbatches
     per_dtype: Dict[torch.dtype, int] = {}
     data = shd.axis_size(mesh, "data")
@@ -624,7 +633,8 @@ def _microbatches(batch: Dict, n: int, mesh) -> List[Dict]:
     batch, whose rows the batch ranks hold in contiguous blocks: microbatch
     i is the global rows [i·B/n, (i+1)·B/n), as the reference's reshape
     makes it, and its block here the rows of this rank's index among the
-    batch ranks."""
+    batch ranks. Every leaf (the tokens, a VLM's patch embeddings) is cut
+    by its rows alike."""
     if n == 1:
         return [batch]
     rows = next(iter(batch.values())).shape[0]

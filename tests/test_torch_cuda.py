@@ -139,6 +139,34 @@ def test_flash_group6_matches_plain(cuda, b, s, h, kh, causal, dtype):
                                **_tol(dtype))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_group6_at_a_vlm_mesh_rank(cuda, dtype):
+    """A rank's attention in internvl2-26b's sharded step on (data 2, model
+    2): its 24 q and 4 kv heads of 128 over 4 rows of 1,024 patches + 1,024
+    tokens, causal; the forward on the kernel and the gradient into q, k
+    and v under ``FlashAttention`` against autograd through the plain
+    version. Each kv head's values carry their own offset."""
+    g = torch.Generator(device=cuda).manual_seed(19)
+    b, s, h, kh = 4, 2048, 24, 4
+    q = _rand(g, (b, s, h, 128), dtype, cuda).requires_grad_()
+    k = _rand(g, (b, s, kh, 128), dtype, cuda).requires_grad_()
+    v = (_rand(g, (b, s, kh, 128), torch.float32, cuda)
+         + torch.arange(kh, device=cuda, dtype=torch.float32)[:, None]).to(dtype).requires_grad_()
+    dout = _rand(g, (b, s, h, 128), dtype, cuda)
+    route = "wgmma" if dtype == torch.bfloat16 else "fp32"
+    routed = flash_attention.flash_attention.routes[route]
+    out = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.routes[route] == routed + 1
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    ref = ops.flash_attention_plain(q, k, v, causal=True)
+    ref_grads = torch.autograd.grad(ref, (q, k, v), dout)
+    assert out.shape == q.shape and out.dtype == dtype
+    for got, want in zip((out,) + grads, (ref,) + ref_grads):
+        np.testing.assert_allclose(got.detach().float().cpu().numpy(),
+                                   want.detach().float().cpu().numpy(), **_tol(dtype))
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_wgmma_head_major_views(cuda, causal):
     """q, k, v as transposes of (B, heads, S, hd) tensors: the head stride
@@ -290,6 +318,46 @@ def test_decode_group6_matches_plain(cuda, b, kh, t, cur_len, hd, dtype, partial
         assert out.dtype == dtype
         np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
                                    **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_group6_blocks_of_a_vlm_mesh_rank(cuda, dtype):
+    """Decode's block form at group 6 on a rank's block of internvl2-26b's
+    cache on (data 2, model 2): q (4, 1, 48, 128) gathered over "model",
+    blocks (4, 1028, 8, 128) of a 2,056-position cache, the first full
+    (cur_len 1,028: all patches after the prefill of 1,024 patches and
+    1,000 tokens) and the second part-filled (cur_len 996). Each block's o
+    and lse against its plain version; the two merged (``merge_partials``)
+    against the whole cache at cur_len 2,024."""
+    from repro_torch.models.attention import merge_partials
+    g = torch.Generator(device=cuda).manual_seed(20)
+    b, t, kh, hd = 4, 1028, 8, 128
+    q = _rand(g, (b, 1, kh * 6, hd), dtype, cuda)
+    kc = _rand(g, (b, 2 * t, kh, hd), dtype, cuda)
+    vc = (_rand(g, (b, 2 * t, kh, hd), torch.float32, cuda)
+          + torch.arange(kh, device=cuda, dtype=torch.float32)[:, None]).to(dtype)
+    sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    step = decode_attn.rows_per_step(hd, q.element_size(), 6)
+    parts = []
+    for i, cur_len in enumerate((1028, 996)):
+        block = slice(i * t, (i + 1) * t)
+        kb, vb = kc[:, block].contiguous(), vc[:, block].contiguous()
+        before = decode_attn.decode_attention.launches
+        out = ops.decode_attention_partial(q, kb, vb, cur_len)
+        torch.cuda.synchronize()
+        assert decode_attn.decode_attention.launches == before + 1
+        assert decode_attn.decode_attention.last_split == decode_attn.plan_splits(
+            cur_len, b, kh, sm, step)
+        ref = decode_attention_ref(q, kb, vb, cur_len, partial=True)
+        assert out[0].dtype == torch.float32 and out[1].shape == (b, kh * 6)
+        for got, want in zip(out, ref):
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **_tol(dtype))
+        parts.append(out)
+    merged = merge_partials(torch.stack([o[:, 0] for o, _ in parts]),
+                            torch.stack([lse for _, lse in parts]))
+    whole = decode_attention_ref(q, kc, vc, 1028 + 996)[:, 0]
+    np.testing.assert_allclose(merged.cpu().numpy(), whole.float().cpu().numpy(),
+                               **_tol(dtype))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -175,23 +175,6 @@ def test_vlm_family_builds_a_decoder_with_an_lm_head():
     assert tuple(model.lm_head["w"].shape) == (cfg.padded_vocab, cfg.d_model)
 
 
-@pytest.mark.parametrize("kind", ["prefill", "train"])
-def test_mesh_steps_refuse_the_vlm(kind):
-    """On a mesh the prefill step and the train step refuse a VLM, naming
-    its ROADMAP item, rather than run it without its patches; a (1, 1)
-    mesh needs no process."""
-    from repro_torch.configs import SHAPES
-    from repro_torch.launch.mesh import Mesh
-    from repro_torch.train.step import build_train_step
-    model = build_model(reduce_for_smoke(get_arch("internvl2-26b")), device="meta")
-    mesh = Mesh(("data", "model"), (1, 1))
-    with pytest.raises(NotImplementedError, match="11a-ii"):
-        if kind == "prefill":
-            build_prefill_step(model, mesh, SHAPES["prefill_32k"])
-        else:
-            build_train_step(model, mesh)
-
-
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen3-moe-30b-a3b"])
 def test_moe_configs_build_a_decoder_whose_blocks_hold_moe(arch):
     """The MoE family builds (it raised until it was ported): a
