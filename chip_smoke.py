@@ -122,7 +122,10 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 width cut to 2 layers, fp32, 2 steps: the 4-rank step against
                 one rank of the same step over NCCL from the same weights and
                 batches (run first, in its own process, which saves its loss,
-                master, m and v after each step): each rank's blocks against
+                master, m and v after each step; the later train phases' (b)
+                references each run in their own process beside an earlier
+                phase's ranks or, internvl2-26b's, beside the light phases before
+                this one: ``train_meshes``): each rank's blocks against
                 the one rank's, the losses and the master of step 1 (lr 0 under
                 the warmup) within 1e-5 relative, m (0.1 of the gradient) of
                 every step within the slice's 2e-4, each against its leaf's
@@ -171,7 +174,7 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 assignments, device memory and host RSS a rank. (b) fp32, 2 steps
                 of 2 microbatches (a rank's block of each global microbatch, 16
                 groups of 256 tokens, 8 a data rank), against one NCCL rank of the
-                same step on the global batch (run first, in its own process; the
+                same step on the global batch (run before, in its own process; the
                 backup off): the losses within 1e-5, m within 2e-4 of each leaf's
                 largest value (each rank's blocks against the one rank's, read
                 from its saved m), every MoE call's top-k experts, positions and
@@ -218,7 +221,7 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 decode ms a step, collectives and bytes a step, device memory
                 and host RSS a rank. (b) 2 layers, fp32, 8 decode steps, against
                 one unsharded rank (DecoderLM.prefill and decode_step, its own
-                process over NCCL, run first): the logits of the prefill and of
+                process over NCCL, beside the ranks): the logits of the prefill and of
                 every step at 2e-4, the greedy tokens exactly, each cache block
                 against its slice of the one rank's cache.
 7h. train_vlm_mesh -- the VLM in the sharded step: internvl2-26b at full width
@@ -251,6 +254,32 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 collectives of the prefill and every step equal to
                 serve_collectives. (b) 2 layers, fp32, against one unsharded NCCL
                 rank: logits 2e-4, tokens exact, cache blocks 2e-4.
+7j. train_encdec_mesh, serve_encdec_mesh -- the enc-dec on (data 2, model 2):
+                whisper-small at full width and depth (12 + 12 layers), weights and
+                frame embeddings (N(0, 1) in the model's dtype) drawn on the card
+                from a seed, every sub-layer a Megatron region and the residual
+                streams whole over "model" (the reference's enc-dec bodies
+                constrain none). Train (a): bf16, FSDP and the instant backup, 8
+                rows a step of 1,500 frames and 448 + 1 tokens, 2 steps: the
+                collectives over "model" (161 all-reduces a rank-step, nothing
+                else) equal model_collectives on every rank and step, the streams
+                entering the encoder and decoder bodies (4, 1500, 768) and (4,
+                448, 768), 144 flash launches a rank on wgmma (the encoder's at
+                q/k/v (4, 1500, 6, 64), the decoder's at (4, 448, 6, 64), the
+                cross-attention's at q (4, 448, 6, 64) against (4, 1500, 6, 64)),
+                no decode or SSD launch, the ring's bytes the rank's unique
+                blocks. (b) 2 + 2 layers fp32 against one NCCL rank, as the
+                others. Serve (a): serve_encdec's request set, a rank's 4 rows,
+                24 of the 48 self and 750 of the 1,500 cross positions: 36 flash
+                launches on wgmma, decode's block form once a layer and step on
+                the cross block at cur_len 750 and on the self block where it
+                holds a position (744 a rank at "model" index 0, 648 at index
+                1), the collectives of the prefill and every step equal to
+                serve_collectives, times beside encdec_serve_bounds. (b) 2 + 2
+                layers fp32, a self cache of 24, against one unsharded rank.
+                serve_mesh, serve_vlm_mesh and these run as one set of four
+                ranks (``phase_mesh_group``, the mesh_group line) beside one NCCL
+                process that runs their (b) references meanwhile.
 7e. pipeline -- the GPipe forward (parallel.pipeline.pipeline_forward) over a
                 ("pipe",) mesh of four gloo ranks sharing the card, spawned once
                 for both parts: full qwen3-0.6b (28 layers, 7 a stage), bf16, 8
@@ -339,7 +368,12 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 (4, 2024, 4, 128), and decode's block form at a rank's of
                 serve_vlm_mesh, q (4,
                 1, 48, 128), cache block (4, 1028, 8, 128), cur_len 996 and 1,028,
-                each in both dtypes; the SSD
+                each in both dtypes; flash at a rank's of train_encdec_mesh, the
+                encoder's q/k/v (4, 1500, 6, 64) and the cross-attention's q (4,
+                448, 6, 64) against k/v (4, 1500, 6, 64), non-causal, and
+                decode's block form on a rank's block of serve_encdec_mesh's
+                cross cache, q (4, 1, 12, 64), block (4, 750, 12, 64), cur_len
+                750, each in both dtypes; the SSD
                 at a rank's 40 (mamba2) and 56 (zamba2) heads, 4 x 1024, bf16),
                 with the
                 kernel's, the plain version's and (for attention) the library
@@ -360,10 +394,11 @@ host seconds of each phase),
 one {"kernels": [...]} line (each kernel's launches in every serve and training
 phase, ``moe_launches``, ``train_tp_launches``, ``train_moe_mesh_launches``,
 ``train_gemma_mesh_launches``, ``serve_mesh_launches``, ``pipeline_launches``,
-``vlm_launches``, ``encdec_launches`` and ``vlm_mesh_launches`` among them, and
-its rows at the other shapes, ``tp_shape`` / ``tp_shapes``, ``moe_mesh_shape``,
-``pipeline_shape``, ``gemma_tp_shape``, ``hd256``, ``vlm_shape``, ``encdec_shape``
-and ``vlm_mesh_shape`` among them), the
+``vlm_launches``, ``encdec_launches``, ``vlm_mesh_launches`` and
+``encdec_mesh_launches`` among them, and its rows at the other shapes,
+``tp_shape`` / ``tp_shapes``, ``moe_mesh_shape``, ``pipeline_shape``,
+``gemma_tp_shape``, ``hd256``, ``vlm_shape``, ``encdec_shape``,
+``vlm_mesh_shape`` and ``encdec_mesh_shape`` among them), the
 card's name
 and power
 limit, and last
@@ -443,6 +478,14 @@ PREFILL_ENCDEC_SELF = dict(b=8, s=16, h=12, kh=12, hd=64)
 PREFILL_ENCDEC_CROSS = dict(b=8, s=16, skv=1500, h=12, kh=12, hd=64, causal=False)
 DECODE_ENCDEC_SELF = dict(b=8, t=48, h=12, kh=12, hd=64, cur_lens=(17, 47))
 DECODE_ENCDEC_CROSS = dict(b=8, t=1500, h=12, kh=12, hd=64, cur_lens=(1500,))
+# whisper-small on (data 2, model 2): a rank's attention in train_encdec_mesh
+# (its 6 heads, 4 rows: the encoder's 1,500 frames, and the cross-attention
+# of 448 tokens against them), and decode's block form on a rank's 750 of the
+# 1,500-frame cross cache in serve_encdec_mesh, the q heads gathered, every
+# position valid
+PREFILL_ENCDEC_ENC_TP = dict(PREFILL_ENCDEC_ENC, b=4, h=6, kh=6)
+PREFILL_ENCDEC_CROSS_TP = dict(PREFILL_ENCDEC_CROSS, b=4, s=448, h=6, kh=6)
+DECODE_ENCDEC_MESH_BLOCK = dict(DECODE_ENCDEC_CROSS, b=4, t=750, cur_lens=(750,), partial=True)
 SSD_TP = dict(SSD, b=4, h=40, seqs=(1024,))
 SSD_HYBRID_TP = dict(SSD_HYBRID, b=4, h=56, seqs=(1024,))
 SERVE = dict(batch=8, prompt=1000, gen=32)
@@ -742,7 +785,8 @@ def phase_kernels(torch, F):
     # train_vlm_mesh) in both, and
     # whisper-small's at hd 64 (the encoder's non-causal, the decoder's
     # causal over the prompt, the cross-attention's non-causal at Sq 16
-    # against 1,500 frames) in both
+    # against 1,500 frames; a rank's of train_encdec_mesh: the encoder's and
+    # the cross-attention's of 448 tokens) in both
     for key, dtype, p in (("bfloat16", torch.bfloat16, PREFILL),
                           ("float32", torch.float32, PREFILL),
                           ("bfloat16_train", torch.bfloat16,
@@ -769,7 +813,11 @@ def phase_kernels(torch, F):
                           ("bfloat16_encdec_self", torch.bfloat16, PREFILL_ENCDEC_SELF),
                           ("float32_encdec_self", torch.float32, PREFILL_ENCDEC_SELF),
                           ("bfloat16_encdec_cross", torch.bfloat16, PREFILL_ENCDEC_CROSS),
-                          ("float32_encdec_cross", torch.float32, PREFILL_ENCDEC_CROSS)):
+                          ("float32_encdec_cross", torch.float32, PREFILL_ENCDEC_CROSS),
+                          ("bfloat16_encdec_enc_tp", torch.bfloat16, PREFILL_ENCDEC_ENC_TP),
+                          ("float32_encdec_enc_tp", torch.float32, PREFILL_ENCDEC_ENC_TP),
+                          ("bfloat16_encdec_cross_tp", torch.bfloat16, PREFILL_ENCDEC_CROSS_TP),
+                          ("float32_encdec_cross_tp", torch.float32, PREFILL_ENCDEC_CROSS_TP)):
         dname = str(dtype).split(".")[-1]
         causal, skv = p.get("causal", True), p.get("skv", p["s"])
         q = rand((p["b"], p["s"], p["h"], p["hd"]), dtype)
@@ -828,7 +876,9 @@ def phase_kernels(torch, F):
                              ("_encdec_self", DECODE_ENCDEC_SELF, torch.bfloat16),
                              ("_encdec_self", DECODE_ENCDEC_SELF, torch.float32),
                              ("_encdec_cross", DECODE_ENCDEC_CROSS, torch.bfloat16),
-                             ("_encdec_cross", DECODE_ENCDEC_CROSS, torch.float32)):
+                             ("_encdec_cross", DECODE_ENCDEC_CROSS, torch.float32),
+                             ("_encdec_mesh_block", DECODE_ENCDEC_MESH_BLOCK, torch.bfloat16),
+                             ("_encdec_mesh_block", DECODE_ENCDEC_MESH_BLOCK, torch.float32)):
         dname = str(dtype).split(".")[-1]
         partial = d.get("partial", False)
         q = rand((d["b"], 1, d["h"], d["hd"]), dtype)
@@ -1791,19 +1841,41 @@ TRAIN_VLM_B = dict(TRAIN_VLM, layers=1, dtype="float32", global_batch=4, microba
                    instant_ckpt=False, tol=1e-5, grad_tol=2e-4, held=("m",),
                    grad_tol_why="the fp32 gradient tolerance of the training slice",
                    timeout_s=400)
+# whisper-small (the enc-dec) in the sharded step on four gloo ranks sharing
+# the card, weights and frame embeddings (N(0, 1), in the model's dtype)
+# drawn on the card from a seed: full width and depth (12 encoder and 12
+# decoder layers, d 768, 12 heads of 64, gelu 3,072, 51,865 words padded to
+# 51,968; 238,139,904 parameters), each row a clip of 1,500 frames and 448 + 1
+# tokens (Whisper's text context). The residual streams stay whole over
+# "model" (the reference's enc-dec bodies constrain none): the Megatron
+# all-reduces. (a) (data 2, model 2), bf16, FSDP and the instant backup, 8
+# rows a step, 2 steps. (b) fp32, 2 + 2 layers, 2 steps, against one NCCL
+# rank of the same step
+TRAIN_ENCDEC = dict(arch="whisper-small", smoke=False, layers=None, dtype="bfloat16", world=4,
+                    model=2, global_batch=8, seq_len=448, steps=2, seed=0, draw="cuda",
+                    timeout_s=600)
+TRAIN_ENCDEC_B = dict(TRAIN_ENCDEC, layers=2, dtype="float32", tol=1e-5, grad_tol=2e-4,
+                      held=("m",), grad_tol_why="the fp32 gradient tolerance of the training "
+                      "slice", timeout_s=300)
 
 
-def run_children(name: str, jobs: list, timeout_s: float) -> None:
-    """Start ``jobs`` ((function, args) each) as spawned processes and wait
-    for all of them; a child that exits non-zero, or any still running at
-    the deadline, kills the others and fails the phase."""
+def start_children(jobs: list) -> list:
+    """``jobs`` ((function, args) each) started as spawned (CUDA cannot
+    fork) daemon processes, which end with this one if it fails first."""
     import multiprocessing
-    from multiprocessing.connection import wait
 
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=fn, args=args) for fn, args in jobs]
+    procs = [ctx.Process(target=fn, args=args, daemon=True) for fn, args in jobs]
     for p in procs:
         p.start()
+    return procs
+
+
+def wait_children(name: str, procs: list, timeout_s: float) -> None:
+    """Wait for all of ``procs``; a child that exits non-zero, or any still
+    running ``timeout_s`` from now, kills the others and fails the phase."""
+    from multiprocessing.connection import wait
+
     deadline = time.monotonic() + timeout_s
     try:
         while any(p.exitcode is None for p in procs):
@@ -1814,6 +1886,9 @@ def run_children(name: str, jobs: list, timeout_s: float) -> None:
             bad = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
             if bad:
                 fail(f"{name}: a rank exited with {bad[0]}")
+        bad = [p.exitcode for p in procs if p.exitcode != 0]
+        if bad:
+            fail(f"{name}: a rank exited with {bad[0]}")
     finally:
         for p in procs:
             if p.is_alive():
@@ -1821,12 +1896,30 @@ def run_children(name: str, jobs: list, timeout_s: float) -> None:
             p.join(30)
 
 
+def run_children(name: str, jobs: list, timeout_s: float) -> None:
+    """Start ``jobs`` and wait for them (``start_children``, ``wait_children``)."""
+    wait_children(name, start_children(jobs), timeout_s)
+
+
+def start_reference(phase: str, tb: dict, tmp: str, device: str = "cuda") -> tuple:
+    """Start a sharded phase's (b) reference, ``single_part_b`` of ``tb`` on
+    one rank over NCCL into ``tmp``, in its own process; ``phase_mesh``
+    waits for it. Started while an earlier phase's ranks hold the card, it
+    runs beside them: that phase's and this reference's device memory must
+    fit the card together."""
+    procs = start_children([(mesh_rank, (0, 1, tmp, f"{tmp}/rdv_single", [(single_part_b, tb)],
+                                         device, "nccl" if device == "cuda" else "gloo"))])
+    return f"{phase} (b), one rank", procs, tb["timeout_s"]
+
+
 def _mesh_cfg(t: dict):
     from repro_torch.configs import get_arch, reduce_for_smoke
     cfg = get_arch(t["arch"])
     cfg = reduce_for_smoke(cfg) if t["smoke"] else cfg
+    encoder = dict(encoder_layers=t["layers"] or cfg.encoder_layers) if cfg.encoder_layers \
+        else {}
     return dataclasses.replace(cfg, num_layers=t["layers"] or cfg.num_layers,
-                               dtype=t["dtype"])
+                               dtype=t["dtype"], **encoder)
 
 
 def _mesh_init(rank: int, world: int, rdv: str, backend: str, device: str) -> None:
@@ -1852,9 +1945,10 @@ def _mesh_build(world: int, t: dict, device: str):
     maker of the sharded initial state (weights from a host generator seeded
     with t["seed"], as SimCluster draws them, or with t["draw"] "cuda" from
     the card's generator) and this rank's rows of t["steps"] global
-    batches ({"tokens"}; a VLM's with its "patch_embeds", N(0, 1) in the
-    model's dtype drawn where the weights are, from t["seed"] + 1 + the
-    step: t["seq_len"] counts the patches, as the ShapeConfig's does)."""
+    batches ({"tokens"}; a VLM's with its "patch_embeds", an enc-dec's with
+    its "frames", each N(0, 1) in the model's dtype drawn where the weights
+    are, from t["seed"] + 1 + the step: a VLM's t["seq_len"] counts the
+    patches, as the ShapeConfig's does)."""
     import numpy as np
     import torch
 
@@ -1886,9 +1980,11 @@ def _mesh_build(world: int, t: dict, device: str):
     for i in range(t["steps"]):
         batch = {"tokens": torch.from_numpy(rng.integers(
             0, cfg.vocab_size, (b, t["seq_len"] - npatch + 1), dtype=np.int32))}
-        if npatch:
-            batch["patch_embeds"] = torch.randn(
-                (b, npatch, cfg.d_model), device=draw,
+        extra = ({"patch_embeds": npatch} if npatch else
+                 {"frames": cfg.encoder_seq} if cfg.encoder_layers else {})
+        for key, n in extra.items():
+            batch[key] = torch.randn(
+                (b, n, cfg.d_model), device=draw,
                 generator=torch.Generator(device=draw).manual_seed(t["seed"] + 1 + i)
             ).to(model.dtype)
         local.append({k: shd.local_block(v, specs[k], mesh).contiguous().to(device)
@@ -1934,10 +2030,13 @@ def _timing_ms(art) -> dict:
 def mesh_rank(rank: int, world: int, tmp: str, rdv: str, parts: list, device: str,
               backend: str = "gloo") -> None:
     """One spawned rank of ``world``: its process group over ``backend``,
-    then each (part, config) of ``parts`` in turn, ``part(rank, world, tmp,
-    config, device)``, each part's tensors freed before the next. The
-    rank's allocator grows expandable segments, which leave no reserved but
-    unallocated blocks behind."""
+    then each (part, config[, subdirectory]) of ``parts`` in turn,
+    ``part(rank, world, dir, config, device)`` with ``dir`` ``tmp`` or its
+    subdirectory, each part's tensors freed before the next. After each
+    part rank 0 writes <dir>/<part's name>.done with the part's seconds
+    (``await_part``: another process's (b) part waits for its reference's).
+    The rank's allocator grows expandable segments, which leave no reserved
+    but unallocated blocks behind."""
     import os
     if os.environ.get("PYTHONPYCACHEPREFIX"):    # bytecode_cache(): spawned with -B
         sys.dont_write_bytecode = False
@@ -1950,12 +2049,33 @@ def mesh_rank(rank: int, world: int, tmp: str, rdv: str, parts: list, device: st
     # card, and a rank's reserved but unallocated blocks would crowd the others
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     _mesh_init(rank, world, rdv, backend, device)
-    for part, cfg in parts:
-        part(rank, world, tmp, cfg, device)
+    for part, cfg, *sub in parts:
+        where = os.path.join(tmp, *sub)
+        t0 = time.perf_counter()
+        part(rank, world, where, cfg, device)
         gc.collect()
         if device == "cuda":
             torch.cuda.empty_cache()
+        if rank == 0:
+            done = os.path.join(where, f"{part.__name__}.done")
+            with open(done + ".tmp", "w") as f:
+                json.dump({"seconds": time.perf_counter() - t0}, f)
+            os.replace(done + ".tmp", done)
     dist.destroy_process_group()
+
+
+def await_part(where: str, name: str, timeout_s: float) -> dict:
+    """The record of part ``name`` that another process finished in
+    ``where`` (``mesh_rank`` writes it), waited for up to ``timeout_s``."""
+    import os
+    done = os.path.join(where, f"{name}.done")
+    deadline = time.monotonic() + timeout_s
+    while not os.path.exists(done):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{name} did not finish in {where} within {timeout_s} s")
+        time.sleep(0.5)
+    with open(done) as f:
+        return json.load(f)
 
 
 def mesh_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
@@ -2126,7 +2246,8 @@ def tp_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
     """Part (a) of train_tp (and train_moe_mesh) on one rank; its record goes
     to tmp/a_<rank>.json: per step its time, parts and the collectives over
     "model" the mesh counted beside ``model_collectives``, the flash calls'
-    q shapes, the residual stream's shapes entering a layer body, the kernel
+    q and k shapes (and their pairs), the residual stream's shapes entering
+    a layer body (an enc-dec's encoder and decoder bodies), the kernel
     launches, the ring's bytes, device memory, host RSS and, for an MoE,
     step 1's routing (its groups, capacity and drops)."""
     import gc
@@ -2142,17 +2263,18 @@ def tp_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
     from repro_torch.tree import tree_flatten
 
     cfg, mesh, arts, make_state, local, model = _mesh_build(world, t, device)
-    q_shapes, kv_shapes, residual_shapes = set(), set(), set()
+    q_shapes, kv_shapes, pairs, residual_shapes = set(), set(), set(), set()
     flash, run_layer = ops.flash_attention, transformer.run_layer
 
     def recording(q, k, *args, **kw):
         q_shapes.add(tuple(q.shape))
         kv_shapes.add(tuple(k.shape))
+        pairs.add((tuple(q.shape), tuple(k.shape)))
         return flash(q, k, *args, **kw)
 
-    def layer(*args):
-        residual_shapes.add(tuple(args[-1].shape))
-        return run_layer(*args)
+    def layer(body, params, x, *rest):        # rest: a decoder layer's encoder output
+        residual_shapes.add(tuple(x.shape))
+        return run_layer(body, params, x, *rest)
     ops.flash_attention, transformer.run_layer = recording, layer
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -2209,7 +2331,8 @@ def tp_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
                block_bytes=block_bytes, model_replicated_bytes=model_replicated,
                launches=launches, flash_routes=dict(fa.flash_attention.routes),
                flash_q_shapes=sorted(q_shapes), flash_kv_shapes=sorted(kv_shapes),
-               residual_shapes=sorted(residual_shapes), routing=routing,
+               flash_pairs=sorted(pairs), residual_shapes=sorted(residual_shapes),
+               routing=routing,
                peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
                device_free_gb_setup=free_gb,
                ring_bytes_sent=sent, razor_bytes=art.razor.unique_bytes_per_device_ring,
@@ -2230,6 +2353,18 @@ def _rank_heads(cfg, model: int) -> tuple:
     return heads, kv_heads
 
 
+def layers(cfg) -> str:
+    """A config's depth as a row prints it: an enc-dec's encoder + decoder."""
+    encoder = f"{cfg.encoder_layers} + " if cfg.encoder_layers else ""
+    return f"{encoder}{cfg.num_layers} layers"
+
+
+def attention_calls(cfg) -> int:
+    """The flash calls of one forward: one a layer, an enc-dec's decoder
+    layers two (self- and cross-attention)."""
+    return cfg.encoder_layers + 2 * cfg.num_layers if cfg.encoder_layers else cfg.num_layers
+
+
 def _train_tp_row(phase: str, recs: list, t: dict, a_s: float, device: str,
                   mesh_row=None) -> dict:
     """Part (a)'s checks (each failing the run) and its printed fields, for
@@ -2245,21 +2380,24 @@ def _train_tp_row(phase: str, recs: list, t: dict, a_s: float, device: str,
     steps, data = t["steps"], t["world"] // t["model"]
     rows = t["global_batch"] // data
     heads, kv_heads = _rank_heads(cfg, t["model"])
-    q_shape = [rows, t["seq_len"], heads, cfg.resolved_head_dim]
-    kv_shape = [rows, t["seq_len"], kv_heads, cfg.resolved_head_dim]
+    hd, seq = cfg.resolved_head_dim, t["seq_len"]
+    q_shape, kv_shape = [rows, seq, heads, hd], [rows, seq, kv_heads, hd]
+    # an enc-dec: the encoder's attention over the frames, the decoder's over
+    # the tokens and its cross-attention of the tokens against the frames
+    enc = [rows, cfg.encoder_seq, heads, hd]
+    pairs = (sorted([[enc, enc], [q_shape, kv_shape], [q_shape, enc]]) if cfg.encoder_layers
+             else [[q_shape, kv_shape]])
     flash = [r["launches"]["flash_attention"] for r in recs]
-    expected = 2 * cfg.num_layers * steps          # the forward and FSDP's recompute
+    expected = 2 * attention_calls(cfg) * steps    # the forward and FSDP's recompute
     if device == "cuda" and (
             flash != [expected] * len(recs)
             or any(r["launches"]["decode_attention"] or r["launches"]["ssd"] for r in recs)
             or any(v for r in recs for k, v in r["flash_routes"].items() if k != "wgmma")
-            or any(r["flash_q_shapes"] != [q_shape] for r in recs)
-            or any(r["flash_kv_shapes"] != [kv_shape] for r in recs)):
+            or any(r["flash_pairs"] != pairs for r in recs)):
         fail(f"{phase}: kernel launches {[r['launches'] for r in recs]}, flash routes "
-             f"{[r['flash_routes'] for r in recs]}, q and kv shapes "
-             f"{[(r['flash_q_shapes'], r['flash_kv_shapes']) for r in recs]}; expected "
-             f"{expected} flash launches in every rank, all on wgmma at q {q_shape}, k/v "
-             f"{kv_shape}, and no decode or SSD launch")
+             f"{[r['flash_routes'] for r in recs]}, (q, k) shapes "
+             f"{[r['flash_pairs'] for r in recs]}; expected {expected} flash launches in "
+             f"every rank, all on wgmma at (q, k) {pairs}, and no decode or SSD launch")
     if not all(math.isfinite(s["loss"]) for r in recs for s in r["records"]):
         fail(f"{phase}: losses {[[s['loss'] for s in r['records']] for r in recs]}")
     extra = {}
@@ -2283,15 +2421,20 @@ def _train_tp_row(phase: str, recs: list, t: dict, a_s: float, device: str,
              f"formula {recs[0]['formula']}")
     # the reference's constrain(x, BATCH, "model", None): the sequence splits
     # over "model" where that axis divides it, and every layer body's input
-    # is then the rank's block of positions
-    sp = t["seq_len"] % t["model"] == 0
-    residual = [rows, t["seq_len"] // t["model"] if sp else t["seq_len"], cfg.d_model]
+    # is then the rank's block of positions; an enc-dec's bodies have no such
+    # constraint, and its streams (the encoder's frames, the decoder's
+    # tokens) stay whole
+    sp = seq % t["model"] == 0 and not cfg.encoder_layers
+    residual = [rows, seq // t["model"] if sp else seq, cfg.d_model]
+    residuals = (sorted([[rows, cfg.encoder_seq, cfg.d_model], residual])
+                 if cfg.encoder_layers else [residual])
     kinds = {c[0] for c in recs[0]["formula"]}
-    if (any(r["residual_shapes"] != [residual] for r in recs)
-            or sp != ({"all_gather", "reduce_scatter"} <= kinds)):
+    if (any(r["residual_shapes"] != residuals for r in recs)
+            or sp != ({"all_gather", "reduce_scatter"} <= kinds)
+            or not sp and kinds != {"all_reduce"}):
         fail(f"{phase}: residual streams {[r['residual_shapes'] for r in recs]} and "
-             f"collectives {sorted(kinds)}; expected {residual} in every rank"
-             + (", gathers and reduce-scatters" if sp else ""))
+             f"collectives {sorted(kinds)}; expected {residuals} in every rank"
+             + (", gathers and reduce-scatters" if sp else ", all-reduces alone"))
     group = sum(r["ring_bytes_sent"] for r in recs if r["coords"]["data"] == 0)
     razor = recs[0]["razor_bytes"] + (t["model"] - 1) * recs[0]["model_replicated_bytes"]
     if not all(r["ring_bytes_sent"] == r["block_bytes"] for r in recs) or group != razor:
@@ -2316,7 +2459,7 @@ def _train_tp_row(phase: str, recs: list, t: dict, a_s: float, device: str,
                 for i in range(steps)]
 
     median_ms = float(np.median([s["step_ms"] for r in recs for s in r["records"][1:]]))
-    return dict(config=f"{cfg.name}, {cfg.num_layers} layers, {cfg.dtype}",
+    return dict(config=f"{cfg.name}, {layers(cfg)}, {cfg.dtype}",
                 param_count=param_count(cfg), world=t["world"],
                 mesh=f"data={data}, model={t['model']}", backend="gloo", device_note=MESH_NOTE,
                 fsdp_params=True, instant_ckpt=True, global_batch=t["global_batch"],
@@ -2331,7 +2474,7 @@ def _train_tp_row(phase: str, recs: list, t: dict, a_s: float, device: str,
                 tokens_per_s=t["global_batch"] * t["seq_len"] / (median_ms / 1e3),
                 step_note="medians over the ranks; tp_reduce: every collective over "
                           "'model', forward, backward and the summed leaves' gradients",
-                sequence_parallel=sp, residual_shape=residual,
+                sequence_parallel=sp, residual_shapes=residuals,
                 model_collectives=recs[0]["formula"],
                 model_collectives_note="[op, axes, calls, bytes] a rank and step, equal on "
                                        "every rank and step to train.step.model_collectives",
@@ -2344,12 +2487,13 @@ def _train_tp_row(phase: str, recs: list, t: dict, a_s: float, device: str,
                 host_rss_gb=[r["host_rss_gb"] for r in recs],
                 host_rss_note="per rank: resident host memory after its setup and after "
                               "each step",
-                flash_launches=flash, flash_expected=expected, flash_q_shape=q_shape,
-                flash_kv_shape=kv_shape,
+                flash_launches=flash, flash_expected=expected, flash_q_k_shapes=pairs,
                 decode_launches=[r["launches"]["decode_attention"] for r in recs],
                 ssd_launches=[r["launches"]["ssd"] for r in recs],
                 flash_note="per rank: the forward and its recompute in the backward (FSDP "
-                           "recomputes each layer body), at the rank's share of the q heads",
+                           "recomputes each layer body), at the rank's share of the q heads"
+                           + ("; each encoder layer one, each decoder layer two (self- "
+                              "and cross-attention)" if cfg.encoder_layers else ""),
                 ring_bytes_sent=[r["ring_bytes_sent"] for r in recs],
                 ring_bytes_model_group=group,
                 razor_unique_bytes_per_device_ring=recs[0]["razor_bytes"],
@@ -2461,6 +2605,8 @@ def blocks_part_b(rank: int, world: int, tmp: str, tb: dict, device: str) -> Non
     for i, batch in enumerate(local):
         with moe.record_routing() as log:
             state, metrics, _ = art.step_fn(state, batch)
+        if i == 0:
+            await_part(tmp, "single_part_b", tb["timeout_s"])
         ref = torch.load(f"{tmp}/single_step{i}.pt", mmap=True)
         clip = [min(1.0, hp.grad_clip / max(n, 1e-9))
                 for n in (float(art.step_fn.last_grad_norm), ref["grad_norm"])]
@@ -2607,26 +2753,22 @@ def _routing_against(log: list, ref: list, data_index: int) -> dict:
 
 
 def phase_mesh(torch, phase: str, t: dict, tb: dict, tmp: str, part_a, row_a,
-               device: str = "cuda", single: bool = True) -> dict:
-    """A sharded phase: (b)'s one-rank reference first (``single_part_b``,
-    over NCCL, into ``tmp``; with ``single`` False ``tmp`` already holds
-    it, another phase's of the same config), then t["world"] spawned ranks
-    running (a) (``part_a``, which records tmp/a_<rank>.json, checked and
-    printed by ``row_a(recs, seconds)``) and (b) (``blocks_part_b``,
-    checked and printed by ``_blocks_b_row``) in turn. Returns (a)'s row
-    with (b)'s under "part_b"."""
+               device: str = "cuda", ref=None) -> dict:
+    """A sharded phase: (b)'s one-rank reference ``ref`` (``start_reference``
+    into ``tmp``; None where ``tmp`` already holds another phase's of the
+    same config) waited for, then t["world"] spawned ranks running (a)
+    (``part_a``, which records tmp/a_<rank>.json, checked and printed by
+    ``row_a(recs, seconds)``) and (b) (``blocks_part_b``, checked and
+    printed by ``_blocks_b_row``) in turn. Returns (a)'s row with (b)'s
+    under "part_b"."""
     parent = dict(parent_host_rss_gb=host_rss_gb(), parent_device_reserved_gb=None)
     if device == "cuda":
         torch.cuda.empty_cache()
         parent["parent_device_reserved_gb"] = torch.cuda.memory_reserved() / 1e9
     single_s = None
-    if single:
-        t0 = time.perf_counter()
-        run_children(f"{phase} (b), one rank",
-                     [(mesh_rank, (0, 1, tmp, f"{tmp}/rdv_single", [(single_part_b, tb)],
-                                   device, "nccl" if device == "cuda" else "gloo"))],
-                     tb["timeout_s"])
-        single_s = time.perf_counter() - t0
+    if ref is not None:
+        wait_children(*ref)
+        single_s = await_part(tmp, "single_part_b", 0)["seconds"]
 
     t0 = time.perf_counter()
     run_children(phase, [(mesh_rank, (r, t["world"], tmp, f"{tmp}/rdv_{phase}",
@@ -2642,6 +2784,45 @@ def phase_mesh(torch, phase: str, t: dict, tb: dict, tmp: str, part_a, row_a,
         part_b = _blocks_b_row(phase, json.load(f), tb, single_s, device)
     emit(f"{phase}_world1", **part_b)
     return dict(row, part_b=part_b)
+
+
+TRAIN_MESH_PHASES = ("train_mesh", "train_moe_mesh", "train_gemma_mesh", "train_vlm_mesh")
+
+
+def train_meshes(torch, tmp: dict, ref: dict, device: str = "cuda") -> tuple:
+    """The sharded train phases in turn (train_mesh, train_tp,
+    train_moe_mesh, train_gemma_mesh, train_vlm_mesh), each timed as its
+    own phase, in ``tmp``'s directory of each of TRAIN_MESH_PHASES
+    (train_mesh (b)'s reference is train_tp (b)'s too). Each (b) reference
+    runs in its own process (``ref``: the ones the caller started,
+    internvl2-26b's beside the light phases before this one), the others
+    beside an earlier phase's ranks where the card holds both: gemma-2b's
+    beside train_mesh's, qwen2-moe's beside train_tp's. The card holds no
+    two of the largest (internvl2-26b's 38 GB, qwen2-moe's, a phase's
+    ranks) at once. Returns the phases' rows in that order."""
+    ref["train_mesh"] = start_reference("train_mesh", TRAIN_MESH_B, tmp["train_mesh"], device)
+    for held in ("train_mesh", "train_vlm_mesh"):
+        timed("train_mesh", wait_children, *ref[held])
+    ref["train_gemma_mesh"] = start_reference("train_gemma_mesh", TRAIN_GEMMA_B,
+                                              tmp["train_gemma_mesh"], device)
+    train_mesh = timed("train_mesh", phase_mesh, torch, "train_mesh", TRAIN_MESH, TRAIN_MESH_B,
+                       tmp["train_mesh"], mesh_part_a,
+                       lambda recs, a_s: _train_mesh_row(recs, TRAIN_MESH, a_s, device),
+                       device, ref["train_mesh"])
+    timed("train_tp", wait_children, *ref["train_gemma_mesh"])
+    ref["train_moe_mesh"] = start_reference("train_moe_mesh", TRAIN_MOE_B,
+                                            tmp["train_moe_mesh"], device)
+    rows = [train_mesh, timed(
+        "train_tp", phase_mesh, torch, "train_tp", TRAIN_TP, TRAIN_TP_B, tmp["train_mesh"],
+        tp_part_a, lambda recs, a_s: _train_tp_row("train_tp", recs, TRAIN_TP, a_s, device,
+                                                   train_mesh), device)]
+    for phase, t, tb in (("train_moe_mesh", TRAIN_MOE, TRAIN_MOE_B),
+                         ("train_gemma_mesh", TRAIN_GEMMA, TRAIN_GEMMA_B),
+                         ("train_vlm_mesh", TRAIN_VLM, TRAIN_VLM_B)):
+        rows.append(timed(phase, phase_mesh, torch, phase, t, tb, tmp[phase], tp_part_a,
+                          lambda recs, a_s, phase=phase, t=t: _train_tp_row(
+                              phase, recs, t, a_s, device), device, ref[phase]))
+    return tuple(rows)
 
 
 def _blocks_b_row(phase: str, part_b: dict, tb: dict, single_s, device: str) -> dict:
@@ -2672,7 +2853,7 @@ def _blocks_b_row(phase: str, part_b: dict, tb: dict, single_s, device: str) -> 
                        f"positions, {st['valid_diff']} verdicts in all; smallest gate gap "
                        f"{st['min_gate_gap']})")
     # the fp32 route of flash in every layer and microbatch, forward and recompute
-    flash = 2 * tb["layers"] * tb["steps"] * tb.get("microbatches", 1)
+    flash = 2 * attention_calls(cfg) * tb["steps"] * tb.get("microbatches", 1)
     if device == "cuda" and launches["flash_routes"] != {"wgmma": 0, "fp32": flash}:
         bad.append(f"flash routes {launches['flash_routes']} on rank 0, expected {flash} fp32")
     if bad:
@@ -2690,7 +2871,7 @@ def _blocks_b_row(phase: str, part_b: dict, tb: dict, single_s, device: str) -> 
         "recorded from the compressed mean's inputs) and c the step's clip factor, what "
         "the two runs' clip factors make of the exact term, and b1 times the last step's"
         if compressed else ""))
-    return dict(config=f"{cfg.name}, {tb['layers']} layers, fp32",
+    return dict(config=f"{cfg.name}, {layers(cfg)}, fp32",
                 sharded=f"{tb['world']} gloo ranks",
                 against="one rank over nccl" + (", uncompressed" if compressed else ""),
                 mesh=(f"pod={pods}, " if pods > 1 else "")
@@ -2756,13 +2937,26 @@ SERVE_VLM_MESH = dict(SERVE_MESH, arch="internvl2-26b", layers=12,
                       max_len=1024 + SERVE["prompt"] + SERVE["gen"])
 SERVE_VLM_MESH_B = dict(SERVE_VLM_MESH, layers=2, dtype="float32", gen=9, tol=SLICE_TOL,
                         timeout_s=300)
+# the enc-dec served on a mesh: whisper-small at full width and depth on (data
+# 2, model 2), serve_encdec's request set (8 clips of 1,500 frames, N(0, 1)
+# drawn on the card from a seed, 16-token prompts, 32 greedy tokens, a self
+# cache of 48): a rank's 4 rows, 24 of the 48 self positions (rank 1's block
+# empty until position 24: its block form launches nothing for the first 8
+# steps) and 750 of the 1,500 cross positions, every one valid. (b) 2 + 2
+# layers fp32, 8 decode steps into a self cache of 24 (every block filled by
+# the prompt), against one unsharded NCCL rank
+SERVE_ENCDEC_MESH = dict(SERVE_MESH, arch="whisper-small", layers=None,
+                         prompt=ENCDEC_SERVE["prompt"], gen=ENCDEC_SERVE["gen"],
+                         max_len=ENCDEC_SERVE["prompt"] + ENCDEC_SERVE["gen"])
+SERVE_ENCDEC_MESH_B = dict(SERVE_ENCDEC_MESH, layers=2, dtype="float32", gen=9,
+                           max_len=ENCDEC_SERVE["prompt"] + 8, tol=SLICE_TOL, timeout_s=300)
 
 
 def _serve_mesh_model(t: dict, device: str):
     """The model of ``t`` drawn from its seed (on the card where
     t["draw"] says so and the run is on it) and the prompts: {"tokens"},
-    and a VLM's "patch_embeds", N(0, 1) in the model's dtype drawn where
-    the weights are from t["seed"] + 1."""
+    and a VLM's "patch_embeds" or an enc-dec's "frames", N(0, 1) in the
+    model's dtype drawn where the weights are from t["seed"] + 1."""
     import numpy as np
     import torch
 
@@ -2772,9 +2966,11 @@ def _serve_mesh_model(t: dict, device: str):
     model = build_model(cfg, device=draw).init(torch.Generator(device=draw).manual_seed(t["seed"]))
     prompts = {"tokens": torch.from_numpy(np.random.default_rng(t["seed"]).integers(
         0, cfg.vocab_size, (t["batch"], t["prompt"]))).to(device)}
-    if cfg.num_patch_tokens:
-        prompts["patch_embeds"] = torch.randn(
-            (t["batch"], cfg.num_patch_tokens, cfg.d_model), device=draw,
+    extra = ({"patch_embeds": cfg.num_patch_tokens} if cfg.num_patch_tokens else
+             {"frames": cfg.encoder_seq} if cfg.encoder_layers else {})
+    for key, n in extra.items():
+        prompts[key] = torch.randn(
+            (t["batch"], n, cfg.d_model), device=draw,
             generator=torch.Generator(device=draw).manual_seed(t["seed"] + 1)
         ).to(device=device, dtype=model.dtype)
     return cfg, model, prompts
@@ -2839,15 +3035,17 @@ def serve_mesh_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> 
 
     cfg, mesh, prefill, decode, params, local, _, _, want = _serve_mesh_steps(world, t, device)
     shapes = {"flash": set(), "decode": set()}
+    cur_lens = {}                 # a cache block's shape: the cur_len of each call
     flash, partial = ops.flash_attention, ops.decode_attention_partial
 
     def flash_rec(q, k, *args, **kw):
         shapes["flash"].add((tuple(q.shape), tuple(k.shape)))
         return flash(q, k, *args, **kw)
 
-    def partial_rec(q, k, *args):
+    def partial_rec(q, k, v, cur_len):
         shapes["decode"].add((tuple(q.shape), tuple(k.shape)))
-        return partial(q, k, *args)
+        cur_lens.setdefault(str(list(k.shape)), []).append(int(cur_len))
+        return partial(q, k, v, cur_len)
     ops.flash_attention, ops.decode_attention_partial = flash_rec, partial_rec
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -2876,13 +3074,15 @@ def serve_mesh_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> 
         decode_s = time.perf_counter() - t0
         return dict(prefill_ms=prefill_ms, decode_s=decode_s, counts=counts, finite=finite,
                     logits_shape=shape, tokens=torch.stack(out, 1).tolist(),
-                    cache_block=list(cache["k"].shape))
+                    cache_block=list(cache["k"].shape),
+                    cross_block=list(cache["cross_k"].shape) if "cross_k" in cache else None)
 
     serve(t["warmup_gen"])
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     shapes["flash"].clear()
     shapes["decode"].clear()
+    cur_lens.clear()
     reset_launches()
     run = serve(t["gen"])
     launches = read_launches()
@@ -2890,6 +3090,7 @@ def serve_mesh_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> 
     rec = dict(rank=rank, coords=mesh.coords, **run, want={k: _counts(v) for k, v in want.items()},
                launches=launches, flash_routes=dict(fa.flash_attention.routes),
                flash_shapes=sorted(shapes["flash"]), decode_shapes=sorted(shapes["decode"]),
+               decode_cur_lens={k: [len(v), min(v), max(v)] for k, v in cur_lens.items()},
                peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
                host_rss_gb=host_rss_gb())
     with open(f"{tmp}/serve_a_{rank}.json", "w") as f:
@@ -2897,23 +3098,24 @@ def serve_mesh_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> 
 
 
 def serve_single_b(rank: int, world: int, tmp: str, tb: dict, device: str) -> None:
-    """(b)'s reference: one rank serving the unsharded model (``DecoderLM.
-    prefill`` and ``decode_step``); saves to tmp/serve_single.pt the logits
-    of the prefill and of every decode step, the greedy tokens and the
-    final cache."""
+    """(b)'s reference: one rank serving the unsharded model (its
+    ``prefill`` and ``decode_step``); saves to tmp/serve_single.pt the
+    logits of the prefill and of every decode step, the greedy tokens and
+    the final caches (an enc-dec's cross cache too)."""
     import torch
 
     _, model, prompts = _serve_mesh_model(tb, device)
     with torch.inference_mode():
         logits, cache = model.prefill(prompts["tokens"], tb["max_len"],
-                                      prompts.get("patch_embeds"))
+                                      prompts.get("patch_embeds"), prompts.get("frames"))
         out, toks = [logits.cpu()], [logits.argmax(-1)]
         for _ in range(tb["gen"] - 1):
             logits, cache = model.decode_step(cache, toks[-1])
             out.append(logits.cpu())
             toks.append(logits.argmax(-1))
     torch.save({"logits": out, "tokens": torch.stack(toks, 1).cpu(),
-                "cache": {k: cache[k].cpu() for k in ("k", "v")}}, f"{tmp}/serve_single.pt")
+                "cache": {k: x.cpu() for k, x in cache.items() if k != "index"}},
+               f"{tmp}/serve_single.pt")
 
 
 def serve_mesh_part_b(rank: int, world: int, tmp: str, tb: dict, device: str) -> None:
@@ -2926,6 +3128,7 @@ def serve_mesh_part_b(rank: int, world: int, tmp: str, tb: dict, device: str) ->
 
     cfg, mesh, prefill, decode, params, local, rows, cache_specs, _ = _serve_mesh_steps(
         world, tb, device)
+    await_part(tmp, "serve_single_b", tb["timeout_s"])
     ref = torch.load(f"{tmp}/serve_single.pt")
     lo, n = (rows[0][1], rows[0][2]) if rows else (0, tb["batch"])
     tol = tb["tol"]
@@ -2949,12 +3152,42 @@ def serve_mesh_part_b(rank: int, world: int, tmp: str, tb: dict, device: str) ->
             toks.append(tok)
     launches = read_launches()
     tokens_equal = bool(torch.equal(torch.stack(toks, 1).cpu(), ref["tokens"][lo:lo + n]))
-    cache_errs = {k: err(cache[k], shd.local_block(ref["cache"][k], cache_specs[k], mesh))
-                  for k in ("k", "v")}
+    cache_errs = {k: err(cache[k], shd.local_block(x, cache_specs[k], mesh))
+                  for k, x in ref["cache"].items()}
     rec = dict(rank=rank, coords=mesh.coords, logits=errs, tokens_equal=tokens_equal,
                cache=cache_errs, cache_block=list(cache["k"].shape), launches=launches)
     with open(f"{tmp}/serve_b_{rank}.json", "w") as f:
         json.dump(rec, f)
+
+
+def _serve_mesh_expected(cfg, t: dict, model_index: int) -> dict:
+    """What a serve of ``t`` launches on the rank at ``model_index`` of
+    "model" (the self cache split over "model" alone, the batch over
+    "data"): flash once a layer (an enc-dec: its encoder's, and its decoder's
+    self- and cross-attention), decode's block form once a layer and step
+    on the self cache where the block holds a position below index + 1 (a
+    block past the prompt launches nothing until the sequence reaches it),
+    and an enc-dec's on the cross cache's block every step; the (q, k)
+    shapes of both, and the cache blocks."""
+    L, gen, rows = cfg.num_layers, t["gen"], t["batch"] // t["data"]
+    hd, h, kh = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    heads, kv_heads = _rank_heads(cfg, t["model"])
+    block = t["max_len"] // t["model"]
+    positions = cfg.num_patch_tokens + t["prompt"]
+    filled = sum(positions + i + 1 > model_index * block for i in range(gen - 1))
+    q, kv = [rows, positions, heads, hd], [rows, positions, kv_heads, hd]
+    out = dict(launches={"flash_attention": L, "decode_attention": L * filled, "ssd": 0},
+               flash=[[q, kv]], decode=[[[rows, 1, h, hd], [rows, block, kh, hd]]],
+               block=[L, rows, block, kh, hd], cross_block=None)
+    if cfg.encoder_layers:
+        cross = cfg.encoder_seq // t["model"]
+        enc = [rows, cfg.encoder_seq, heads, hd]
+        out.update(launches={"flash_attention": attention_calls(cfg),
+                             "decode_attention": L * (filled + gen - 1), "ssd": 0},
+                   flash=sorted([[enc, enc], [q, kv], [q, enc]]),
+                   decode=sorted(out["decode"] + [[[rows, 1, h, hd], [rows, cross, kh, hd]]]),
+                   cross_block=[L, rows, cross, kh, hd])
+    return out
 
 
 def _serve_mesh_row(phase: str, recs: list, t: dict, seconds: float, device: str) -> dict:
@@ -2965,36 +3198,36 @@ def _serve_mesh_row(phase: str, recs: list, t: dict, seconds: float, device: str
     bad = []
     L, gen = cfg.num_layers, t["gen"]
     rows = t["batch"] // t["data"]
-    want_launches = {"flash_attention": L, "decode_attention": L * (gen - 1), "ssd": 0}
-    hd, h, kh = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
     block = t["max_len"] // t["model"]
-    positions = cfg.num_patch_tokens + t["prompt"]
-    heads, kv_heads = _rank_heads(cfg, t["model"])
     for r in recs:
         tag = f"rank {r['rank']}"
+        want = _serve_mesh_expected(cfg, t, r["coords"]["model"])
         if r["counts"]["prefill"] != r["want"]["prefill"]:
             bad.append(f"{tag} prefill collectives {r['counts']['prefill']}, "
                        f"serve_collectives {r['want']['prefill']}")
         off = [i for i, c in enumerate(r["counts"]["decode"]) if c != r["want"]["decode"]]
         if off or len(r["counts"]["decode"]) != gen - 1:
             bad.append(f"{tag} decode collectives differ from serve_collectives at steps {off}")
-        got = {k: r["launches"][k] for k in want_launches}
-        if device == "cuda" and got != want_launches:
-            bad.append(f"{tag} launches {got}, expected {want_launches}")
+        got = {k: r["launches"][k] for k in want["launches"]}
+        if device == "cuda" and got != want["launches"]:
+            bad.append(f"{tag} launches {got}, expected {want['launches']}")
         if device == "cuda" and r["launches"]["ssd_routes"] != {"wgmma": 0, "fp32": 0}:
             bad.append(f"{tag} SSD routes {r['launches']['ssd_routes']}")
         if device == "cuda" and r["flash_routes"].get("fp32"):
             bad.append(f"{tag} flash on the fp32 route {r['flash_routes']}")
-        flash = [[[rows, positions, heads, hd], [rows, positions, kv_heads, hd]]]
-        if r["flash_shapes"] != flash:
-            bad.append(f"{tag} flash calls at {r['flash_shapes']}, expected {flash}")
-        dec = [[[rows, 1, h, hd], [rows, block, kh, hd]]]
-        if r["decode_shapes"] != dec:
-            bad.append(f"{tag} decode calls at {r['decode_shapes']}, expected {dec}")
+        if r["flash_shapes"] != want["flash"]:
+            bad.append(f"{tag} flash calls at {r['flash_shapes']}, expected {want['flash']}")
+        if r["decode_shapes"] != want["decode"]:
+            bad.append(f"{tag} decode calls at {r['decode_shapes']}, expected {want['decode']}")
+        if cfg.encoder_layers and r["decode_cur_lens"].get(str(want["cross_block"][1:])) != [
+                L * (gen - 1), want["cross_block"][2], want["cross_block"][2]]:
+            bad.append(f"{tag} cross-cache decode calls [calls, least and largest cur_len] "
+                       f"{r['decode_cur_lens']}, expected {L * (gen - 1)} at "
+                       f"{want['cross_block'][2]}")
         if not r["finite"] or r["logits_shape"] != [rows, cfg.padded_vocab]:
             bad.append(f"{tag} logits not finite or of shape {r['logits_shape']}")
-        if r["cache_block"] != [L, rows, block, kh, hd]:
-            bad.append(f"{tag} cache block {r['cache_block']}")
+        if r["cache_block"] != want["block"] or r["cross_block"] != want["cross_block"]:
+            bad.append(f"{tag} cache blocks {r['cache_block']}, {r['cross_block']}")
         if not all(0 <= x < cfg.padded_vocab for row in r["tokens"] for x in row):
             bad.append(f"{tag} generated tokens out of range")
     if bad:
@@ -3003,14 +3236,19 @@ def _serve_mesh_row(phase: str, recs: list, t: dict, seconds: float, device: str
     decode_ms = [r["decode_s"] * 1e3 / (gen - 1) for r in recs]
     per_step = recs[0]["want"]["decode"]
     params = param_count(cfg)
-    prefill_bound, decode_bound = serve_bounds(cfg, params, t["batch"], t["prompt"], gen)
+    prefill_bound, decode_bound = (
+        encdec_serve_bounds(cfg, t["batch"], t["prompt"], gen)[:2] if cfg.encoder_layers
+        else serve_bounds(cfg, params, t["batch"], t["prompt"], gen))
     depth = get_arch(t["arch"]).num_layers
-    return dict(config=f"{cfg.name} full width, {L} of {depth} layers, {t['dtype']}",
+    encoder = f"{cfg.encoder_layers} encoder + " if cfg.encoder_layers else ""
+    return dict(config=f"{cfg.name} full width, {encoder}{L} of {depth} layers, {t['dtype']}",
                 params=params, mesh=f"data={t['data']}, model={t['model']}",
                 ranks=f"{t['world']} gloo ranks sharing one card", batch=t["batch"],
                 patches=cfg.num_patch_tokens, prompt=t["prompt"], gen=gen,
                 max_len=t["max_len"],
                 rows_per_rank=rows, cache_positions_per_rank=block,
+                cross_positions_per_rank=(cfg.encoder_seq // t["model"] if cfg.encoder_layers
+                                          else None),
                 prefill_ms_median=med([r["prefill_ms"] for r in recs]),
                 prefill_ms_max=max(r["prefill_ms"] for r in recs),
                 decode_ms_per_step_median=med(decode_ms), decode_ms_per_step_max=max(decode_ms),
@@ -3025,7 +3263,9 @@ def _serve_mesh_row(phase: str, recs: list, t: dict, seconds: float, device: str
                 decode_collective_bytes_per_step=sum(c[3] for c in per_step),
                 collectives_equal_serve_collectives=True,
                 launches_per_rank=recs[0]["launches"],
+                launches_by_rank=[r["launches"] for r in recs],
                 flash_shape=recs[0]["flash_shapes"], decode_shape=recs[0]["decode_shapes"],
+                decode_cur_lens_by_rank=[r["decode_cur_lens"] for r in recs],
                 peak_device_mem_gb=[r["peak_device_mem_gb"] for r in recs],
                 host_rss_gb=[r["host_rss_gb"] for r in recs],
                 first_sequence=recs[0]["tokens"][0], seconds=seconds,
@@ -3036,10 +3276,9 @@ def _serve_mesh_b_row(phase: str, recs: list, tb: dict, single_s: float, device:
     """(b)'s checks, each failing the run, and its printed fields."""
     cfg = _mesh_cfg(tb)
     bad = []
-    want = {"flash_attention": cfg.num_layers,
-            "decode_attention": cfg.num_layers * (tb["gen"] - 1), "ssd": 0}
     for r in recs:
         tag = f"rank {r['rank']}"
+        want = _serve_mesh_expected(cfg, tb, r["coords"]["model"])["launches"]
         off = [i for i, e in enumerate(r["logits"]) if e["bad"]]
         if off:
             bad.append(f"{tag} logits beyond {tb['tol']} at steps {off}: "
@@ -3055,9 +3294,9 @@ def _serve_mesh_b_row(phase: str, recs: list, tb: dict, single_s: float, device:
             bad.append(f"{tag} SSD routes {r['launches']['ssd_routes']}")
     if bad:
         fail(f"{phase} (b): sharded against one rank: " + "; ".join(bad))
-    return dict(config=f"{cfg.name}, {tb['layers']} layers, fp32",
+    return dict(config=f"{cfg.name}, {layers(cfg)}, fp32",
                 sharded=f"{tb['world']} gloo ranks, data={tb['data']}, model={tb['model']}",
-                against="one unsharded rank over nccl (DecoderLM.prefill, decode_step)",
+                against="one unsharded rank over nccl (the model's prefill, decode_step)",
                 batch=tb["batch"], prompt=tb["prompt"], decode_steps=tb["gen"] - 1,
                 max_len=tb["max_len"], tol=tb["tol"], single_rank_s=single_s,
                 logits_max_abs_err=max(e["max_abs_err"] for r in recs for e in r["logits"]),
@@ -3066,40 +3305,91 @@ def _serve_mesh_b_row(phase: str, recs: list, tb: dict, single_s: float, device:
                 tokens_equal=True,
                 cache_max_abs_err=max(e["max_abs_err"] for r in recs
                                       for e in r["cache"].values()),
-                cache_block=recs[0]["cache_block"], launches_per_rank=recs[0]["launches"])
+                cache_block=recs[0]["cache_block"], launches_per_rank=recs[0]["launches"],
+                launches_by_rank=[r["launches"] for r in recs])
 
 
-def phase_serve_mesh(torch, t: dict = SERVE_MESH, tb: dict = SERVE_MESH_B,
-                     device: str = "cuda", phase: str = "serve_mesh") -> dict:
-    """A serve on a mesh (``phase``): (b)'s one rank first (its own
-    process, over NCCL on the card), then t["world"] spawned ranks running
-    (a) and (b) in turn."""
+def phase_mesh_group(torch, device: str = "cuda") -> dict:
+    """serve_mesh, serve_vlm_mesh and the enc-dec's train and serve on a
+    mesh in one set of four spawned gloo ranks, beside one single-rank NCCL
+    process that runs every (b) reference meanwhile, each phase in its own
+    subdirectory (a rank's (b) part waits for its reference, ``await_part``):
+    one start-up of each, and the references off the ranks' path. Prints
+    each phase's lines (serve_mesh, serve_vlm_mesh, train_encdec_mesh,
+    serve_encdec_mesh and each one's _world1) and a mesh_group line with
+    every part's seconds; returns {phase: row}, the enc-dec's train row with
+    its (b) under "part_b" and its serve's under "serve"."""
+    import os
     import tempfile
-    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{phase}_") as tmp:
+    refs = [(serve_single_b, SERVE_MESH_B, "serve_mesh"),
+            (serve_single_b, SERVE_VLM_MESH_B, "serve_vlm_mesh"),
+            (single_part_b, TRAIN_ENCDEC_B, "encdec_mesh"),
+            (serve_single_b, SERVE_ENCDEC_MESH_B, "encdec_mesh")]
+    parts = [(serve_mesh_part_a, SERVE_MESH, "serve_mesh"),
+             (serve_mesh_part_b, SERVE_MESH_B, "serve_mesh"),
+             (serve_mesh_part_a, SERVE_VLM_MESH, "serve_vlm_mesh"),
+             (serve_mesh_part_b, SERVE_VLM_MESH_B, "serve_vlm_mesh"),
+             (tp_part_a, TRAIN_ENCDEC, "encdec_mesh"),
+             (blocks_part_b, TRAIN_ENCDEC_B, "encdec_mesh"),
+             (serve_mesh_part_a, SERVE_ENCDEC_MESH, "encdec_mesh"),
+             (serve_mesh_part_b, SERVE_ENCDEC_MESH_B, "encdec_mesh")]
+    world = TRAIN_ENCDEC["world"]
+    parent = dict(parent_host_rss_gb=host_rss_gb(), parent_device_reserved_gb=None)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        parent["parent_device_reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_group_") as tmp:
+        for sub in {sub for *_, sub in parts}:
+            os.makedirs(f"{tmp}/{sub}")
         t0 = time.perf_counter()
-        run_children(f"{phase} (b), one rank",
-                     [(mesh_rank, (0, 1, tmp, f"{tmp}/rdv_single", [(serve_single_b, tb)],
-                                   device, "nccl" if device == "cuda" else "gloo"))],
-                     tb["timeout_s"])
-        single_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        run_children(phase, [(mesh_rank, (r, t["world"], tmp, f"{tmp}/rdv",
-                                                 [(serve_mesh_part_a, t),
-                                                  (serve_mesh_part_b, tb)], device))
-                                    for r in range(t["world"])],
-                     t["timeout_s"] + tb["timeout_s"])
+        run_children("mesh_group", [(mesh_rank, (0, 1, tmp, f"{tmp}/rdv_single", refs, device,
+                                                 "nccl" if device == "cuda" else "gloo"))]
+                     + [(mesh_rank, (r, world, tmp, f"{tmp}/rdv", parts, device))
+                        for r in range(world)],
+                     sum(cfg["timeout_s"] for _, cfg, _ in parts))
         seconds = time.perf_counter() - t0
-        recs_a, recs_b = [], []
-        for r in range(t["world"]):
-            with open(f"{tmp}/serve_a_{r}.json") as f:
-                recs_a.append(json.load(f))
-            with open(f"{tmp}/serve_b_{r}.json") as f:
-                recs_b.append(json.load(f))
-    row = _serve_mesh_row(phase, recs_a, t, seconds, device)
-    emit(phase, **row)
-    part_b = _serve_mesh_b_row(phase, recs_b, tb, single_s, device)
-    emit(f"{phase}_world1", **part_b)
-    return dict(row, part_b=part_b)
+
+        def load(sub: str, name: str):
+            with open(f"{tmp}/{sub}/{name}") as f:
+                return json.load(f)
+
+        def secs(sub: str, *parts_run) -> float:
+            return sum(load(sub, f"{part.__name__}.done")["seconds"] for part in parts_run)
+
+        def ranks(sub: str, name: str) -> list:
+            return [load(sub, f"{name}_{r}.json") for r in range(world)]
+
+        rows = {}
+        for phase, t, tb in (("serve_mesh", SERVE_MESH, SERVE_MESH_B),
+                             ("serve_vlm_mesh", SERVE_VLM_MESH, SERVE_VLM_MESH_B)):
+            row = _serve_mesh_row(phase, ranks(phase, "serve_a"), t,
+                                  secs(phase, serve_mesh_part_a, serve_mesh_part_b), device)
+            emit(phase, **row)
+            part_b = _serve_mesh_b_row(phase, ranks(phase, "serve_b"), tb,
+                                       secs(phase, serve_single_b), device)
+            emit(f"{phase}_world1", **part_b)
+            rows[phase] = dict(row, part_b=part_b)
+        sub = "encdec_mesh"
+        train = dict(_train_tp_row("train_encdec_mesh", ranks(sub, "a"), TRAIN_ENCDEC,
+                                   secs(sub, tp_part_a), device), **parent)
+        emit("train_encdec_mesh", **train)
+        train_b = _blocks_b_row("train_encdec_mesh", load(sub, "blocks_b.json"), TRAIN_ENCDEC_B,
+                                secs(sub, single_part_b), device)
+        emit("train_encdec_mesh_world1", **train_b)
+        serve = _serve_mesh_row("serve_encdec_mesh", ranks(sub, "serve_a"), SERVE_ENCDEC_MESH,
+                                secs(sub, serve_mesh_part_a), device)
+        emit("serve_encdec_mesh", **serve)
+        serve_b = _serve_mesh_b_row("serve_encdec_mesh", ranks(sub, "serve_b"),
+                                    SERVE_ENCDEC_MESH_B, secs(sub, serve_single_b), device)
+        emit("serve_encdec_mesh_world1", **serve_b)
+        rows["encdec_mesh"] = dict(train, part_b=train_b, serve=dict(serve, part_b=serve_b))
+        emit("mesh_group", seconds=seconds,
+             rank0_part_s=[[sub, part.__name__, secs(sub, part)] for part, _, sub in parts],
+             reference_part_s=[[sub, part.__name__, secs(sub, part)] for part, _, sub in refs],
+             note="one set of four gloo ranks runs every part in turn; one NCCL process runs "
+                  "the references meanwhile (each (b) part waits for its own); a part's "
+                  "seconds are its rank 0's or the reference process's, start-up excluded")
+    return rows
 
 
 # GPipe over a ("pipe",) mesh of four gloo ranks sharing the card:
@@ -4399,6 +4689,7 @@ def bytecode_cache() -> None:
 
 
 def main() -> int:
+    import contextlib
     import tempfile
 
     import torch
@@ -4432,31 +4723,22 @@ def main() -> int:
     serve_moe = timed("serve_moe", phase_serve_moe, torch)
     timed("slice_vlm", phase_slice_vlm, torch)
     serve_vlm = timed("serve_vlm", phase_serve_vlm, torch)
-    timed("slice_encdec", phase_slice_encdec, torch)
-    serve_encdec = timed("serve_encdec", phase_serve_encdec, torch)
-    timed("train_grad", phase_train_grad, torch)
-    # train_mesh (b)'s one-rank reference is train_tp (b)'s too: one directory
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
-        train_mesh = timed("train_mesh", phase_mesh, torch, "train_mesh", TRAIN_MESH,
-                           TRAIN_MESH_B, tmp, mesh_part_a,
-                           lambda recs, a_s: _train_mesh_row(recs, TRAIN_MESH, a_s, "cuda"))
-        train_tp = timed("train_tp", phase_mesh, torch, "train_tp", TRAIN_TP, TRAIN_TP_B, tmp,
-                         tp_part_a, lambda recs, a_s: _train_tp_row(
-                             "train_tp", recs, TRAIN_TP, a_s, "cuda", train_mesh),
-                         single=False)
-    sharded = {}
-    for phase, t, tb in (("train_moe_mesh", TRAIN_MOE, TRAIN_MOE_B),
-                         ("train_gemma_mesh", TRAIN_GEMMA, TRAIN_GEMMA_B),
-                         ("train_vlm_mesh", TRAIN_VLM, TRAIN_VLM_B)):
-        with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{phase}_") as tmp:
-            sharded[phase] = timed(phase, phase_mesh, torch, phase, t, tb, tmp, tp_part_a,
-                                   lambda recs, a_s, phase=phase, t=t: _train_tp_row(
-                                       phase, recs, t, a_s, "cuda"))
-    train_moe_mesh, train_gemma_mesh = sharded["train_moe_mesh"], sharded["train_gemma_mesh"]
-    train_vlm_mesh = sharded["train_vlm_mesh"]
-    serve_mesh = timed("serve_mesh", phase_serve_mesh, torch)
-    serve_vlm_mesh = timed("serve_vlm_mesh", phase_serve_mesh, torch, SERVE_VLM_MESH,
-                           SERVE_VLM_MESH_B, phase="serve_vlm_mesh")
+    with contextlib.ExitStack() as stack:
+        tmp = {phase: stack.enter_context(tempfile.TemporaryDirectory(
+            prefix=f"chip_smoke_{phase}_")) for phase in TRAIN_MESH_PHASES}
+        # internvl2-26b's (b) reference (38 GB on the card) beside the light
+        # phases that follow, once serve_vlm has freed its model
+        ref = {"train_vlm_mesh": start_reference("train_vlm_mesh", TRAIN_VLM_B,
+                                                 tmp["train_vlm_mesh"])}
+        timed("slice_encdec", phase_slice_encdec, torch)
+        serve_encdec = timed("serve_encdec", phase_serve_encdec, torch)
+        timed("train_grad", phase_train_grad, torch)
+        train_mesh, train_tp, train_moe_mesh, train_gemma_mesh, train_vlm_mesh = (
+            train_meshes(torch, tmp, ref))
+    group = timed("mesh_group", phase_mesh_group, torch)
+    serve_mesh, serve_vlm_mesh = group["serve_mesh"], group["serve_vlm_mesh"]
+    encdec_mesh = group["encdec_mesh"]
+    serve_encdec_mesh = encdec_mesh["serve"]
     pipeline = timed("pipeline", phase_pipeline, torch)
     scenarios = timed("scenarios", phase_scenarios, torch)
     train_ssm = timed("train_ssm", phase_train_ssm, torch)
@@ -4548,6 +4830,14 @@ def main() -> int:
                                f"{d}_encdec_{part}"])
                            for d in ("bfloat16", "float32")
                            for part in ("enc", "self", "cross")},
+             encdec_mesh_launches=dict(
+                 train_a=encdec_mesh["flash_launches"],
+                 train_b_rank0=encdec_mesh["part_b"]["launches"]["flash_routes"],
+                 serve_a=serve_encdec_mesh["launches_per_rank"]["flash_attention"],
+                 serve_b=serve_encdec_mesh["part_b"]["launches_per_rank"]["flash_attention"]),
+             encdec_mesh_shape={f"{d}_{part}": moe_shape(kernels["flash_attention"][
+                                    f"{d}_encdec_{part}_tp"])
+                                for d in ("bfloat16", "float32") for part in ("enc", "cross")},
              backward="plain blockwise_attention recompute (FlashAttention), no kernel"),
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attn.cu",
@@ -4599,6 +4889,18 @@ def main() -> int:
              encdec_shape={f"{d}_{part}": moe_shape(
                                kernels["decode_attention"][f"{d}_encdec_{part}"][-1])
                            for d in ("bfloat16", "float32") for part in ("self", "cross")},
+             train_encdec_mesh_launches=encdec_mesh["decode_launches"],
+             encdec_mesh_launches=dict(
+                 a=[x["decode_attention"] for x in serve_encdec_mesh["launches_by_rank"]],
+                 b=[x["decode_attention"]
+                    for x in serve_encdec_mesh["part_b"]["launches_by_rank"]],
+                 note="per rank, block form: 372 on its 750 of the 1,500 cross positions "
+                      "(cur_len 750) and one a layer and step on its 24 of the 48 self "
+                      "positions where they hold one below index + 1 (rank 1's from the "
+                      "9th step)"),
+             encdec_mesh_shape={f"{d}_cross_block": moe_shape(
+                                    kernels["decode_attention"][f"{d}_encdec_mesh_block"][-1])
+                                for d in ("bfloat16", "float32")},
              head_dims="16, 32, 64, 112 (on 128's lanes), 128, 256 (two loads a lane in fp32)",
              groups="1, 2, 4, 6, 8 q heads per kv head"),
         dict(name="ssd", route="cuda", dispatch=ssd_main["route"],
@@ -4633,6 +4935,9 @@ def main() -> int:
              serve_vlm_mesh_launches=serve_vlm_mesh["launches_per_rank"]["ssd"],
              vlm_launches=serve_vlm["launches"]["ssd"],
              encdec_launches=serve_encdec["launches"]["ssd"],
+             encdec_mesh_launches=dict(
+                 train_a=encdec_mesh["ssd_launches"],
+                 serve_a=[x["ssd"] for x in serve_encdec_mesh["launches_by_rank"]]),
              tp_shapes={model: {k_: ssd_rows[(f"{model}/tp2", 1024, "bfloat16")][k_]
                                 for k_ in keys}
                         for model in ("mamba2-2.7b", "zamba2-7b")},

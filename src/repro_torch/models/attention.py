@@ -21,11 +21,15 @@ block for every head (``decode_attention_partial``: o and its log-sum-exp,
 in fp32), gathers those over the cache's axes and merges them
 (``merge_partials``); each rank then keeps its own q heads' rows for the
 row-parallel ``wo``. The reference leaves that merge to XLA's partitioned
-softmax; no Pallas kernel computes it.
+softmax; no Pallas kernel computes it. An enc-dec's cross cache is split
+by its own axes (``split_cache``'s ``cross``): the prefill writes the
+rank's block of the encoder positions (every kv head, gathered over
+"model"), and a decode step attends to it by the same steps, every position
+of the block valid.
 """
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from typing import Callable, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -254,30 +258,70 @@ def self_attention(p: Mapping, cfg, x: torch.Tensor, *, causal: bool = True,
     return out.reshape(b, s, -1) @ p["wo"]
 
 
-def _cache_kv(p: Mapping, cfg, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """k and v of every kv head, as a cache holds them, from those of
-    ``_project_qkv``: as they are where they are all of them; gathered over
-    "model" where ``wk`` and ``wv`` are this rank's blocks; projected again
-    from the whole leaves where ``_kv_weights`` picked the kv heads of this
-    rank's q heads."""
+def _cache_kv(p: Mapping, cfg, k: torch.Tensor, v: torch.Tensor,
+              whole: Callable[[], Tuple[torch.Tensor, torch.Tensor]]
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k and v of every kv head, as a cache holds them, from those this
+    rank computed: as they are where they are all of them; gathered over
+    "model" where ``wk`` and ``wv`` are this rank's blocks; ``whole()``
+    (projected again from the whole leaves) where ``_kv_weights`` picked
+    the kv heads of this rank's q heads."""
     kh = cfg.num_kv_heads
     if k.shape[2] == kh:
         return k, v
     if p["wk"].shape[-1] < kh * cfg.resolved_head_dim:
         kv = current_tp().all_gather(torch.stack([k, v]), 3)
         return kv[0], kv[1]
-    return _project_kv(p, cfg, x, positions, p["wk"], p["wv"])
+    return whole()
 
 
-def _block_start(k_cache: torch.Tensor) -> Tuple[int, int]:
-    """(first position of this rank's cache block, positions in the whole
-    cache): (0, T) for a whole cache."""
-    split = current_split_cache()
+def _block_start(k_cache: torch.Tensor, cross: bool = False) -> Tuple[int, int]:
+    """(first position of this rank's block of the self cache, or of the
+    cross cache where ``cross``, positions in the whole cache): (0, T) for
+    a whole cache."""
+    split = current_split_cache(cross)
     block = k_cache.shape[1]
     if split is None:
         return 0, block
     return split.index * block, split.ranks * block
+
+
+def _write_block(k_cache: torch.Tensor, v_cache: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, cross: bool = False) -> None:
+    """Positions [0, S) of k and v (B, S, K, hd), every kv head, written into
+    this rank's block of the caches (B, T, K, hd) in place."""
+    first, _ = _block_start(k_cache, cross)
+    n = min(max(k.shape[1] - first, 0), k_cache.shape[1])
+    k_cache[:, :n] = k[:, first:first + n]
+    v_cache[:, :n] = v[:, first:first + n]
+
+
+def _decode_cached(cfg, q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                   length: int, cross: bool = False) -> torch.Tensor:
+    """The attention of q (B, 1, h, hd), all q heads or this rank's h,
+    over the first ``length`` positions of a cache that holds every kv head
+    (the self cache, or the cross cache where ``cross``), whole or this
+    rank's block of its split: (B, 1, h, hd) in the cache dtype. On a split
+    cache the module docstring's steps: the q heads gathered over "model",
+    the kernel's block form on the block (nothing launched on a block with
+    no position below ``length``), the merge over the cache's axes, this
+    rank's heads kept."""
+    heads = q.shape[2]
+    if heads != cfg.num_heads:                    # this rank's q heads of all
+        q = current_tp().all_gather(q, 2)
+    split = current_split_cache(cross)
+    if split is None:
+        out = ops.decode_attention(q, k_cache, v_cache, length)
+    else:
+        block = k_cache.shape[1]
+        cur = min(max(length - split.index * block, 0), block)
+        o, lse = ops.decode_attention_partial(q, k_cache, v_cache, cur)
+        parts = split.all_gather(torch.cat([o[:, 0], lse[..., None]], -1)[None])
+        out = merge_partials(parts[..., :-1], parts[..., -1])[:, None].to(k_cache.dtype)
+    if heads != cfg.num_heads:
+        i = current_tp().index
+        out = out[:, :, i * heads:(i + 1) * heads]
+    return out
 
 
 def self_attention_prefill(p: Mapping, cfg, x: torch.Tensor,
@@ -290,11 +334,8 @@ def self_attention_prefill(p: Mapping, cfg, x: torch.Tensor,
     positions = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, cfg, x, positions)
     out = ops.flash_attention(q, k, v, causal=True)
-    k, v = _cache_kv(p, cfg, x, k, v, positions)
-    first, _ = _block_start(k_cache)
-    n = min(max(s - first, 0), k_cache.shape[1])
-    k_cache[:, :n] = k[:, first:first + n]
-    v_cache[:, :n] = v[:, first:first + n]
+    _write_block(k_cache, v_cache, *_cache_kv(
+        p, cfg, k, v, lambda: _project_kv(p, cfg, x, positions, p["wk"], p["wv"])))
     return out.reshape(b, s, -1) @ p["wo"]
 
 
@@ -314,23 +355,12 @@ def self_attention_decode(p: Mapping, cfg, x: torch.Tensor, k_cache: torch.Tenso
         raise IndexError(f"cache index {index} outside a cache of {total}")
     positions = torch.full((1,), index, dtype=torch.int64, device=x.device)
     q, k, v = _project_qkv(p, cfg, x, positions)
-    k, v = _cache_kv(p, cfg, x, k, v, positions)
+    k, v = _cache_kv(p, cfg, k, v,
+                     lambda: _project_kv(p, cfg, x, positions, p["wk"], p["wv"]))
     if first <= index < first + block:
         k_cache[:, index - first] = k[:, 0]
         v_cache[:, index - first] = v[:, 0]
-    heads = q.shape[2]
-    if heads != cfg.num_heads:                    # this rank's q heads of all
-        q = current_tp().all_gather(q, 2)
-    if total == block:
-        out = ops.decode_attention(q, k_cache, v_cache, index + 1)
-    else:
-        cur = min(max(index + 1 - first, 0), block)
-        o, lse = ops.decode_attention_partial(q, k_cache, v_cache, cur)
-        parts = current_split_cache().all_gather(torch.cat([o[:, 0], lse[..., None]], -1)[None])
-        out = merge_partials(parts[..., :-1], parts[..., -1])[:, None].to(k_cache.dtype)
-    if heads != cfg.num_heads:
-        i = current_tp().index
-        out = out[:, :, i * heads:(i + 1) * heads]
+    out = _decode_cached(cfg, q, k_cache, v_cache, index + 1)
     return out.reshape(b, 1, -1) @ p["wo"]
 
 
@@ -343,14 +373,18 @@ def cross_attn_init(cfg, dtype, device) -> nn.ParameterDict:
     return attn_init(cfg, dtype, device)
 
 
-def cross_kv(p: Mapping, cfg, enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """k and v of the encoder's output (B, Senc, D): each (B, Senc, K, hd),
-    no RoPE, no norm."""
+def _cross_project(cfg, enc_out: torch.Tensor, wk: torch.Tensor, wv: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     b, s, _ = enc_out.shape
     hd = cfg.resolved_head_dim
-    k = (enc_out @ p["wk"]).reshape(b, s, -1, hd)
-    v = (enc_out @ p["wv"]).reshape(b, s, -1, hd)
-    return k, v
+    return (enc_out @ wk).reshape(b, s, -1, hd), (enc_out @ wv).reshape(b, s, -1, hd)
+
+
+def cross_kv(p: Mapping, cfg, enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k and v of the encoder's output (B, Senc, D): each (B, Senc, K, hd),
+    no RoPE, no norm; under tensor parallelism those of the kv heads of
+    this rank's q heads (``_kv_weights``)."""
+    return _cross_project(cfg, enc_out, *_kv_weights(p, cfg))
 
 
 def cross_attention(p: Mapping, cfg, x: torch.Tensor,
@@ -376,3 +410,30 @@ def cross_attention(p: Mapping, cfg, x: torch.Tensor,
     else:
         out = ops.flash_attention(q, k, v, causal=False)
     return out.reshape(b, s, -1) @ p["wo"]
+
+
+def cross_prefill(p: Mapping, cfg, x: torch.Tensor, enc_out: torch.Tensor,
+                  cross_k: torch.Tensor, cross_v: torch.Tensor) -> torch.Tensor:
+    """``cross_attention`` of the prompt x (B, S, D) over ``cross_kv`` of
+    the encoder's output, which it also writes into this layer's cross
+    cache (B, Senc, K, hd) in place: every kv head (gathered over "model"
+    where ``wk`` and ``wv`` are this rank's blocks), and on a split cross
+    cache the positions of this rank's block."""
+    k, v = cross_kv(p, cfg, enc_out)
+    out = cross_attention(p, cfg, x, (k, v))
+    _write_block(cross_k, cross_v, *_cache_kv(
+        p, cfg, k, v, lambda: _cross_project(cfg, enc_out, p["wk"], p["wv"])), cross=True)
+    return out
+
+
+def cross_attention_decode(p: Mapping, cfg, x: torch.Tensor, cross_k: torch.Tensor,
+                           cross_v: torch.Tensor) -> torch.Tensor:
+    """One token x (B, 1, D) against every encoder position of the cross
+    cache (B, Senc, K, hd), whole or this rank's block: the decode kernel
+    with ``cur_len`` the cache's length (a block's every position), by the
+    steps of ``self_attention_decode`` on a split cache."""
+    b = x.shape[0]
+    q = (x @ p["wq"]).reshape(b, 1, -1, cfg.resolved_head_dim)
+    out = _decode_cached(cfg, q, cross_k, cross_v, _block_start(cross_k, cross=True)[1],
+                         cross=True)
+    return out.reshape(b, 1, -1) @ p["wo"]

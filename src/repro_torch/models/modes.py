@@ -58,9 +58,11 @@ bodies have no such constraint.
 A KV cache split by sequence: the serve steps on a mesh
 (``train.serve.build_prefill_step`` / ``build_decode_step``) hold the
 caches as ``parallel.sharding.cache_pspecs`` lays them out, each rank a
-block of the positions of every kv head. ``split_cache(ctx)`` (a
-``SplitCache``: the mesh and the axes the sequence is split over) tells the
-attention sub-block which block its cache is (``models.attention``).
+block of the positions of every kv head. ``split_cache(ctx, cross)`` (each
+a ``SplitCache``: the mesh and the axes the sequence is split over) tells
+the attention sub-blocks which block the self cache is and which block an
+enc-dec's cross cache is (``models.attention``): the two can split over
+different axes, the cross cache's length being the encoder's.
 
 MoE routing over the global batch: under the reference's jit an MoE layer
 routes the global batch, whose rows the sharded step splits over the batch
@@ -86,6 +88,7 @@ _FSDP = contextvars.ContextVar("repro_torch_fsdp_unshard", default=None)
 _TP = contextvars.ContextVar("repro_torch_tensor_parallel", default=None)
 _ROUTING = contextvars.ContextVar("repro_torch_global_routing", default=None)
 _CACHE = contextvars.ContextVar("repro_torch_split_cache", default=None)
+_CROSS_CACHE = contextvars.ContextVar("repro_torch_split_cross_cache", default=None)
 _SP = contextvars.ContextVar("repro_torch_sequence_parallel", default=False)
 TP_AXIS = "model"        # the axis that ``parallel.sharding``'s specs split the bodies over
 
@@ -225,6 +228,17 @@ def unshard_layer_params(p: Any, cfg=None) -> Any:
     for i, t in zip(idx, full):
         leaves[i] = t
     return tree_unflatten(treedef, leaves)
+
+
+def bound_shape(t: torch.Tensor) -> torch.Size:
+    """The shape of the tensor a layer body computes on for the bound
+    ``t``: under ``fsdp_unshard`` a registered shard's full shape (this
+    rank's "model" block of the leaf), else ``t``'s own. A decision taken
+    outside the bodies (which have not gathered yet) reads the width here."""
+    layout = _FSDP.get()
+    if layout is not None and id(t) in layout.shards:
+        return torch.Size(layout.shards[id(t)].shape)
+    return t.shape
 
 
 def run_layer(body: Callable, *args):
@@ -402,25 +416,29 @@ class SplitCache:
 
 
 @contextlib.contextmanager
-def split_cache(ctx: Optional[SplitCache]):
+def split_cache(ctx: Optional[SplitCache], cross: Optional[SplitCache] = None):
     """Within it, a layer's KV cache is this rank's block of ``ctx``'s
-    split; ``None`` is a whole cache."""
-    tok = _CACHE.set(ctx)
+    split and an enc-dec's cross cache its block of ``cross``'s; ``None``
+    is a whole cache."""
+    tok, cross_tok = _CACHE.set(ctx), _CROSS_CACHE.set(cross)
     try:
         yield ctx
     finally:
+        _CROSS_CACHE.reset(cross_tok)
         _CACHE.reset(tok)
 
 
-def current_split_cache() -> Optional[SplitCache]:
-    """The active split, or None where the cache is whole (one rank's)."""
-    ctx = _CACHE.get()
+def current_split_cache(cross: bool = False) -> Optional[SplitCache]:
+    """The active split of the self cache (of the cross cache where
+    ``cross``), or None where that cache is whole (one rank's)."""
+    ctx = (_CROSS_CACHE if cross else _CACHE).get()
     return ctx if ctx is not None and ctx.ranks > 1 else None
 
 
-def cache_block_len(max_len: int) -> int:
-    """The positions of a ``max_len``-long cache that this rank holds."""
-    ctx = current_split_cache()
+def cache_block_len(max_len: int, cross: bool = False) -> int:
+    """The positions of a ``max_len``-long cache (the cross cache where
+    ``cross``) that this rank holds."""
+    ctx = current_split_cache(cross)
     if ctx is None:
         return max_len
     if max_len % ctx.ranks:

@@ -66,8 +66,9 @@ from repro_torch.models import mamba2, moe
 from repro_torch.models.layers import (chunked_xent, embed_init, embed_lookup,
                                        mlp_apply, mlp_init, rms_norm, sinusoidal_positions,
                                        unembed)
-from repro_torch.models.modes import (cache_block_len, parallel_region, run_layer, seq_gather,
-                                      sequence_split, unshard_layer_params)
+from repro_torch.models.modes import (bound_shape, cache_block_len, parallel_region, run_layer,
+                                      seq_gather, sequence_split, tp_copy,
+                                      unshard_layer_params)
 
 
 def torch_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -117,6 +118,23 @@ def _embed_inputs(embed: torch.Tensor, cfg: ArchConfig, tokens: torch.Tensor,
     return embed_lookup(embed, tokens, cfg.padded_vocab, prefix=patch_embeds)
 
 
+def _attn_region(cfg: ArchConfig, a: Dict, ln: torch.Tensor, x: torch.Tensor,
+                 fn) -> torch.Tensor:
+    """x plus the attention sub-layer ``fn(a, normed x)`` on its leaves
+    ``a``: a parallel region where ``a``'s q heads are this rank's block."""
+    split = a["wq"].shape[-1] != cfg.num_heads * cfg.resolved_head_dim
+    return x + parallel_region(split, lambda h: fn(a, h), rms_norm(x, ln))
+
+
+def _mlp_region(cfg: ArchConfig, mlp: Dict, ln: torch.Tensor, x: torch.Tensor
+                ) -> torch.Tensor:
+    """x plus the dense MLP on its leaves ``mlp``: a parallel region where
+    they are this rank's blocks."""
+    split = mlp["w_up"].shape[-1] != cfg.d_ff
+    return x + parallel_region(split, lambda h: mlp_apply(mlp, h, cfg.mlp_type),
+                               rms_norm(x, ln))
+
+
 def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
@@ -158,13 +176,6 @@ class Block(nn.Module):
         else:
             mlp_init(generator, self.mlp, self.cfg.d_model, self.cfg.d_ff)
 
-    def _ffn(self, p: Dict, h: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """The MLP of ``p``, or its MoE layer: (output, the MoE balance loss
-        or None)."""
-        if "moe" in p:
-            return moe.moe_apply(p["moe"], self.cfg, h)
-        return mlp_apply(p["mlp"], h, self.cfg.mlp_type), None
-
     def layer_params(self) -> Dict:
         """The layer's parameters as the reference's tree."""
         p = {"ln1": self.ln1, "attn": dict(self.attn.items()), "ln2": self.ln2}
@@ -175,21 +186,15 @@ class Block(nn.Module):
         return p
 
     def _attn_region(self, p: Dict, x: torch.Tensor, fn) -> torch.Tensor:
-        """x plus the attention sub-layer ``fn(attn leaves, normed x)``: a
-        parallel region where ``p``'s q heads are this rank's block."""
-        cfg, a = self.cfg, p["attn"]
-        split = a["wq"].shape[-1] != cfg.num_heads * cfg.resolved_head_dim
-        return x + parallel_region(split, lambda h: fn(a, h), rms_norm(x, p["ln1"]))
+        """x plus the attention sub-layer ``fn(attn leaves, normed x)``."""
+        return _attn_region(self.cfg, p["attn"], p["ln1"], x, fn)
 
     def _ffn_region(self, p: Dict, x: torch.Tensor
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """x plus the MLP (or MoE) sub-layer, and the MoE balance loss or None."""
-        h = rms_norm(x, p["ln2"])
-        if "moe" in p:
-            out, aux = self._moe_region(p["moe"], h)
-        else:
-            split = p["mlp"]["w_up"].shape[-1] != self.cfg.d_ff
-            out, aux = parallel_region(split, lambda t: self._ffn(p, t)[0], h), None
+        if "moe" not in p:
+            return _mlp_region(self.cfg, p["mlp"], p["ln2"], x), None
+        out, aux = self._moe_region(p["moe"], rms_norm(x, p["ln2"]))
         return x + out, aux
 
     def body(self, p: Dict, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -689,26 +694,33 @@ class EncDecBlock(nn.Module):
             p.update(ln_cross=self.ln_cross, cross=dict(self.cross.items()))
         return p
 
-    def _mlp(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
-        return x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"]), self.cfg.mlp_type)
+    def _attn(self, p: Dict, x: torch.Tensor, fn) -> torch.Tensor:
+        return _attn_region(self.cfg, p["attn"], p["ln1"], x, fn)
 
-    def _cross(self, p: Dict, x: torch.Tensor, enc_kv) -> torch.Tensor:
-        h = rms_norm(x, p["ln_cross"])
-        return x + attn.cross_attention(p["cross"], self.cfg, h, enc_kv)
+    def _cross(self, p: Dict, x: torch.Tensor, fn) -> torch.Tensor:
+        return _attn_region(self.cfg, p["cross"], p["ln_cross"], x, fn)
+
+    def _mlp(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
+        return _mlp_region(self.cfg, p["mlp"], p["ln2"], x)
 
     def encode(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
         """An encoder layer on the parameters ``p``."""
-        p = unshard_layer_params(p, self.cfg)
-        h = rms_norm(x, p["ln1"])
-        x = x + attn.self_attention(p["attn"], self.cfg, h, causal=False, rope=False)
+        cfg = self.cfg
+        p = unshard_layer_params(p, cfg)
+        x = self._attn(p, x, lambda a, h: attn.self_attention(a, cfg, h, causal=False,
+                                                              rope=False))
         return self._mlp(p, x)
 
     def decode_train(self, p: Dict, x: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
         """A decoder layer on the parameters ``p`` over every position of
-        ``x``, attending to the encoder's output ``enc_out``."""
-        p = unshard_layer_params(p, self.cfg)
-        x = x + attn.self_attention(p["attn"], self.cfg, rms_norm(x, p["ln1"]), causal=True)
-        x = self._cross(p, x, attn.cross_kv(p["cross"], self.cfg, enc_out))
+        ``x``, attending to the encoder's output ``enc_out`` (which enters
+        the cross sub-layer's region as it is: ``EncDecLM._hidden`` puts it
+        through f once for every layer)."""
+        cfg = self.cfg
+        p = unshard_layer_params(p, cfg)
+        x = self._attn(p, x, lambda a, h: attn.self_attention(a, cfg, h, causal=True))
+        x = self._cross(p, x, lambda a, h: attn.cross_attention(
+            a, cfg, h, attn.cross_kv(a, cfg, enc_out)))
         return self._mlp(p, x)
 
     def prefill(self, x: torch.Tensor, enc_out: torch.Tensor, k_cache: torch.Tensor,
@@ -716,23 +728,25 @@ class EncDecBlock(nn.Module):
                 ) -> torch.Tensor:
         """``decode_train`` that also writes the prompt's k and v into
         ``k_cache`` / ``v_cache`` and the encoder's into ``cross_k`` /
-        ``cross_v`` (each this layer's slice of the cache), in place."""
-        p = self.layer_params()
-        h = rms_norm(x, p["ln1"])
-        x = x + attn.self_attention_prefill(p["attn"], self.cfg, h, k_cache, v_cache)
-        enc_kv = attn.cross_kv(p["cross"], self.cfg, enc_out)
-        cross_k.copy_(enc_kv[0])
-        cross_v.copy_(enc_kv[1])
-        return self._mlp(p, self._cross(p, x, enc_kv))
+        ``cross_v`` (each this layer's slice of the cache, or of this rank's
+        blocks on a mesh), in place."""
+        cfg, p = self.cfg, self.layer_params()
+        x = self._attn(p, x, lambda a, h: attn.self_attention_prefill(a, cfg, h, k_cache,
+                                                                      v_cache))
+        x = self._cross(p, x, lambda a, h: attn.cross_prefill(a, cfg, h, enc_out, cross_k,
+                                                              cross_v))
+        return self._mlp(p, x)
 
     def decode(self, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                cross_k: torch.Tensor, cross_v: torch.Tensor, index: int) -> torch.Tensor:
         """One token at ``index``: the self cache written there, the cross
         cache only read."""
-        p = self.layer_params()
-        h = rms_norm(x, p["ln1"])
-        x = x + attn.self_attention_decode(p["attn"], self.cfg, h, k_cache, v_cache, index)
-        return self._mlp(p, self._cross(p, x, (cross_k, cross_v)))
+        cfg, p = self.cfg, self.layer_params()
+        x = self._attn(p, x, lambda a, h: attn.self_attention_decode(a, cfg, h, k_cache,
+                                                                     v_cache, index))
+        x = self._cross(p, x, lambda a, h: attn.cross_attention_decode(a, cfg, h, cross_k,
+                                                                       cross_v))
+        return self._mlp(p, x)
 
 
 class EncDecLM(nn.Module):
@@ -743,7 +757,15 @@ class EncDecLM(nn.Module):
     ``lm_head``) whatever ``tie_embeddings`` says, as in the reference. The
     decode cache is {"k", "v": (L, B, max_len, K, hd), "cross_k",
     "cross_v": (L, B, Senc, K, hd), "index"}: the cross cache is written
-    once, by the prefill, and only read after."""
+    once, by the prefill, and only read after.
+
+    Under tensor parallelism every sub-layer (the encoder's attention and
+    MLP, the decoder's self-attention, cross-attention and MLP) is a
+    parallel region where its leaves are split, and the residual streams
+    stay whole over "model": the reference's ``_build_encdec`` bodies have
+    no ``constrain``, so the train step never splits them by sequence. On a
+    mesh the serve steps hold the self and cross caches as blocks of their
+    own splits (``models.modes.split_cache``)."""
 
     def __init__(self, cfg: ArchConfig, device=None, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -797,7 +819,11 @@ class EncDecLM(nn.Module):
             got = None if frames is None else tuple(frames.shape)
             raise ValueError(f"{cfg.name} needs frames of shape ({batch}, Senc <= "
                              f"{cfg.encoder_seq}, {cfg.d_model}), got {got}")
-        x = frames.to(self.dtype) + self.positions[None, :frames.shape[1]]
+        pos = self.positions
+        if pos.is_meta:          # a meta twin's: the steps on a mesh bind the params only
+            pos = torch.from_numpy(sinusoidal_positions(cfg.encoder_seq, cfg.d_model)).to(
+                device=frames.device, dtype=self.dtype)
+        x = frames.to(self.dtype) + pos[None, :frames.shape[1]]
         for blk in self.encoder:
             x = run_layer(blk.encode, blk.layer_params(), x)
         return rms_norm(x, unshard_layer_params(self.enc_norm))
@@ -805,9 +831,16 @@ class EncDecLM(nn.Module):
     def _hidden(self, tokens: torch.Tensor, frames: Optional[torch.Tensor],
                 patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The final-normed decoder states of ``tokens`` (B, S) against the
-        encoded ``frames``."""
+        encoded ``frames``. Where the cross-attention's leaves are this
+        rank's blocks, the encoder's output enters every decoder layer's
+        region through one f: each rank's k/v blocks give its gradient a
+        part of the sum, which f's backward all-reduces once for the
+        decoder's every layer."""
         x = _embed_inputs(self.embed["w"], self.cfg, tokens, patch_embeds)
         enc_out = self._encode(frames, tokens.shape[0])
+        if self.decoder and bound_shape(self.decoder[0].cross["wq"])[-1] != \
+                self.cfg.num_heads * self.cfg.resolved_head_dim:
+            enc_out = tp_copy(enc_out)
         for blk in self.decoder:
             x = run_layer(blk.decode_train, blk.layer_params(), x, enc_out)
         return rms_norm(x, unshard_layer_params(self.final_norm))
@@ -852,7 +885,8 @@ class EncDecLM(nn.Module):
         pass over the prompts. Returns the last position's fp32 logits (B,
         V) and the cache of ``cache_specs`` (with Senc cross positions),
         whose self positions >= S are zero, with "index": S; ``max_len`` is
-        S by default. ``patch_embeds`` must be None."""
+        S by default; on a mesh this rank's blocks of both caches.
+        ``patch_embeds`` must be None."""
         x = _embed_inputs(self.embed["w"], self.cfg, tokens, patch_embeds)
         b, s = tokens.shape
         max_len = s if max_len is None else max_len
@@ -862,7 +896,8 @@ class EncDecLM(nn.Module):
         specs = self.cache_specs(b, cache_block_len(max_len))
         cache = {"k": torch.zeros(specs["k"].shape, dtype=self.dtype, device=self.device),
                  "v": torch.zeros(specs["v"].shape, dtype=self.dtype, device=self.device)}
-        cross = (self.cfg.num_layers, b, enc_out.shape[1]) + specs["cross_k"].shape[3:]
+        cross = ((self.cfg.num_layers, b, cache_block_len(enc_out.shape[1], cross=True))
+                 + specs["cross_k"].shape[3:])
         cache.update(cross_k=torch.empty(cross, dtype=self.dtype, device=self.device),
                      cross_v=torch.empty(cross, dtype=self.dtype, device=self.device))
         for i, blk in enumerate(self.decoder):

@@ -2,7 +2,7 @@
 decode, on one device or over a mesh, for any model with the serving
 interface below (``DecoderLM`` with its KV cache, ``MambaLM`` with its
 recurrent state, ``HybridLM`` with both, ``EncDecLM`` with its self and
-cross caches; the enc-dec on one device only).
+cross caches).
 
 PyTorch runs eagerly, so a step is the model's method under
 ``torch.inference_mode()``; there is no jit.
@@ -24,14 +24,19 @@ replicated over "model"); the KV cache is split by sequence over "model"
 (over the batch axes and "model" where the batch does not split), each rank
 holding a block of positions of every kv head, and decode merges the
 blocks' attention across ranks (``models.attention``); the Mamba2 state
-holds this rank's heads. An MoE routes the global batch, as under the
-reference's jit (``models.modes.global_routing``). The logits come back
-whole: the head's vocab blocks are gathered over "model".
+holds this rank's heads. An enc-dec's cross cache (``encoder_seq``
+positions) is split by its own rule of the same kind (its axes can differ
+from the self cache's), the encoder runs the same regions as the decoder,
+and its frames are split by rows as the tokens are. An MoE routes the
+global batch, as under the reference's jit (``models.modes.global_routing``).
+The logits come back whole: the head's vocab blocks are gathered over
+"model".
 
 The collectives of one step on a rank (``serve_collectives`` counts them),
 with b rows of n positions a row (n = S in prefill, a VLM's patches
 included, 1 in decode), A = b·n·D·itemsize activation bytes, H (K) q (kv)
-heads, tp the "model" size, hd the head_dim, V the padded vocabulary:
+heads, tp the "model" size, hd the head_dim, V the padded vocabulary, and
+for an enc-dec Senc = encoder_seq, Aenc = b·Senc·D·itemsize:
 
   all_reduce over "model"                               calls    bytes
     the vocab-parallel embedding (g; a VLM's            1        A
@@ -39,13 +44,18 @@ heads, tp the "model" size, hd the head_dim, V the padded vocabulary:
     each split attention, MLP or MoE sub-layer (g)      1        A
     each split Mamba2 mixer: g, and the mean of         2        A + 4bn
       squares of its gated norm (fp32)
+    prefill: each split encoder attention or MLP (g)    1        Aenc
   all_gather over "model"
     the head's vocab blocks of the logits (fp32)        1        4b·V/tp
     each split attention's kv heads, where wk and wv    1        2b·n·(K/tp)·hd·itemsize
       are blocks (a cache holds every kv head)
-    decode: each split attention's q heads              1        b·(H/tp)·hd·itemsize
+    prefill: each split cross-attention's kv heads      1        2b·Senc·(K/tp)·hd·itemsize
+    decode: each split attention's (a decoder layer's   1        b·(H/tp)·hd·itemsize
+      self- and cross-attention's) q heads
   all_gather over the cache's sequence axes
-    decode: each attention's (o, lse) in fp32           1        4b·H·(hd + 1)
+    decode: each attention's (o, lse) in fp32, over     1        4b·H·(hd + 1)
+      the self cache's axes (a cross-attention's: the
+      cross cache's)
   MoE routing, where the batch splits over more than one rank
     all_reduce over the batch axes: the expert counts   1        4E
     all_gather over the batch axes: the expert          1        8b·n·top_k
@@ -66,7 +76,7 @@ from repro_torch.models.transformer import build_model, is_decoder_stack, torch_
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.sharding import is_spec
 from repro_torch.train.state import StatePlan, make_state_plan
-from repro_torch.train.step import _leaves, refuse_encdec_on_mesh
+from repro_torch.train.step import _leaves
 from repro_torch.tree import tree_flatten, tree_flatten_with_path
 
 Counts = Dict[Tuple[str, Tuple[str, ...]], list]
@@ -95,9 +105,8 @@ def build_prefill_step(model: ServingModel, mesh=None, shape=None):
     rank's cache blocks); batch {"tokens": this rank's rows of ``shape``'s
     prompts, "patch_embeds": a VLM's, this rank's rows, "max_len": the
     cache's length, the prompt's positions (a VLM's patches and tokens)
-    where absent (the reference's ``batch.get("max_len", ...)``)}. An
-    enc-dec on a mesh raises ``NotImplementedError`` (ROADMAP §1 item
-    11b-ii)."""
+    where absent (the reference's ``batch.get("max_len", ...)``), "frames":
+    an enc-dec's, this rank's rows}."""
     if mesh is None:
         @torch.inference_mode()
         def prefill(tokens: torch.Tensor, max_len: Optional[int] = None,
@@ -107,7 +116,6 @@ def build_prefill_step(model: ServingModel, mesh=None, shape=None):
 
         return prefill
 
-    refuse_encdec_on_mesh(model.cfg, "build_prefill_step")
     on_mesh = _OnMesh(model, mesh, "prefill")
     input_pspecs = shd.input_pspecs(model.cfg, model.input_specs(shape), mesh)
     twin = on_mesh.twin.model        # the step keeps no reference to ``model``'s weights
@@ -120,7 +128,7 @@ def build_prefill_step(model: ServingModel, mesh=None, shape=None):
         max_len = int(batch.get("max_len", positions))
         t_axes = _cache_axes(twin, mesh, shape.global_batch, max_len)
         return on_mesh(params, tokens.shape[0] * positions, input_pspecs["tokens"], t_axes,
-                       tokens, max_len, batch.get("patch_embeds"))
+                       tokens, max_len, batch.get("patch_embeds"), batch.get("frames"))
 
     return prefill_fn, on_mesh.plan, input_pspecs
 
@@ -132,8 +140,7 @@ def build_decode_step(model: ServingModel, mesh=None, shape=None):
     ``shape`` (its length ``shape.seq_len``) and its rows of the tokens. The
     cache is updated in place and returned: the counterpart of the
     reference's ``donate_argnums=(1,)``, which lets XLA reuse the cache
-    buffers; its ``index`` is a host int. An enc-dec on a mesh raises
-    ``NotImplementedError`` (ROADMAP §1 item 11b-ii)."""
+    buffers; its ``index`` is a host int."""
     if mesh is None:
         @torch.inference_mode()
         def decode(cache: Dict, token: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
@@ -141,7 +148,6 @@ def build_decode_step(model: ServingModel, mesh=None, shape=None):
 
         return decode
 
-    refuse_encdec_on_mesh(model.cfg, "build_decode_step")
     on_mesh = _OnMesh(model, mesh, "decode_step")
     input_pspecs = shd.input_pspecs(model.cfg, model.input_specs(shape), mesh)
     t_axes = _cache_axes(model, mesh, shape.global_batch, shape.seq_len)
@@ -189,11 +195,14 @@ class _OnMesh:
         return GlobalRouting(self.mesh, axes, tokens * self.mesh.axes_size(axes))
 
     def __call__(self, params, tokens: int, rows_spec, t_axes, *args):
+        """The method on ``args`` with ``params`` bound, its caches split
+        over ``t_axes`` (the self cache's axes, the cross cache's)."""
         names = {}
         for t, leaf in zip(tree_flatten(params)[0], self.leaves):
             names.update(zip(leaf.names, t.unbind(0)) if leaf.stacked
                          else [(leaf.names[0], t)])
-        with tensor_parallel(self.tp), split_cache(SplitCache(self.mesh, t_axes)), \
+        with tensor_parallel(self.tp), split_cache(SplitCache(self.mesh, t_axes[0]),
+                                                   SplitCache(self.mesh, t_axes[1])), \
                 global_routing(self._routing(tokens, rows_spec)):
             logits, cache = torch.func.functional_call(self.twin, names, args)
         if logits.shape[-1] != self.cfg.padded_vocab:
@@ -207,11 +216,13 @@ def _axis_names(part) -> Tuple[str, ...]:
     return (part,) if isinstance(part, str) else tuple(part)
 
 
-def _cache_axes(model, mesh, batch: int, max_len: int) -> Tuple[str, ...]:
-    """The axes that ``cache_pspecs`` splits the KV caches' sequence over
-    (none for a model without one)."""
+def _cache_axes(model, mesh, batch: int, max_len: int
+                ) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """The axes that ``cache_pspecs`` splits the KV caches' sequence over:
+    the self cache's and an enc-dec's cross cache's (none for a model
+    without such a cache)."""
     specs = shd.cache_pspecs(model.cfg, model.cache_specs(batch, max_len), mesh)
-    return _axis_names(specs["k"][2]) if "k" in specs else ()
+    return tuple(_axis_names(specs[k][2]) if k in specs else () for k in ("k", "cross_k"))
 
 
 def serve_collectives(model: nn.Module, mesh, batch: int, seq: int,
@@ -233,7 +244,7 @@ def serve_collectives(model: nn.Module, mesh, batch: int, seq: int,
     tokens = torch.empty((batch, seq), dtype=torch.int32, device="meta")
     spec = shd.input_pspecs(cfg, {"tokens": tokens}, mesh)["tokens"]
     rows = shd.block_shape(spec, (batch, seq), mesh)[0]
-    t_axes = _cache_axes(model, mesh, batch, max_len)
+    t_axes, cross_axes = _cache_axes(model, mesh, batch, max_len)
     itemsize = torch_dtype(cfg).itemsize
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     batch_axes = shd.batch_axes(mesh)
@@ -250,14 +261,17 @@ def serve_collectives(model: nn.Module, mesh, batch: int, seq: int,
 
         act = rows * n * cfg.d_model * itemsize
 
-        def attention(root):
-            if split(root, "attn", "wk"):
-                add("all_gather", model_axis, 2 * rows * n * (kh // tp) * hd * itemsize)
-            if decode and split(root, "attn", "wq"):
+        def attention(root, sub="attn", cached=n, axes=t_axes):
+            """A cached attention sub-layer: its kv heads for the cache (the
+            cross-attention's of the ``cached`` encoder positions, in prefill
+            alone), decode's q heads and (o, lse), g."""
+            if cached and split(root, sub, "wk"):
+                add("all_gather", model_axis, 2 * rows * cached * (kh // tp) * hd * itemsize)
+            if decode and split(root, sub, "wq"):
                 add("all_gather", model_axis, rows * (h // tp) * hd * itemsize)
-            if decode and mesh.axes_size(t_axes) > 1:
-                add("all_gather", t_axes, 4 * rows * h * (hd + 1))
-            if split(root, "attn", "wq"):
+            if decode and mesh.axes_size(axes) > 1:
+                add("all_gather", axes, 4 * rows * h * (hd + 1))
+            if split(root, sub, "wq"):
                 add("all_reduce", model_axis, act)
 
         def ffn(root):
@@ -279,6 +293,17 @@ def serve_collectives(model: nn.Module, mesh, batch: int, seq: int,
             for _ in range(cfg.num_layers):
                 attention("blocks")
                 ffn("blocks")
+        elif cfg.encoder_layers:
+            if not decode:          # the encoder: the regions of its uncached attention, MLP
+                enc = rows * cfg.encoder_seq * cfg.d_model * itemsize
+                for path in [("encoder", "attn", "wq"), ("encoder", "mlp", "w_up")] \
+                        * cfg.encoder_layers:
+                    if split(*path):
+                        add("all_reduce", model_axis, enc)
+            for _ in range(cfg.num_layers):
+                attention("decoder")
+                attention("decoder", "cross", 0 if decode else cfg.encoder_seq, cross_axes)
+                ffn("decoder")
         else:
             for kind in cfg.layer_kinds():
                 if split("blocks", "mamba", "w_x"):

@@ -76,6 +76,13 @@ of the whole [patches | tokens] sequence, the patches given by the rank at
 head's AR st, AR 2st and its AR A count the text positions alone (the
 patches are not looked up, and the loss scores the text).
 
+An enc-dec's S is its decoder positions, and its rows are the Megatron
+ones whatever S: each encoder body has two split sub-layers (attention,
+MLP) whose A counts ``encoder_seq`` positions, each decoder body three
+(self-attention, cross-attention, MLP) at S, and the encoder's output
+enters the cross-attention regions through one f, whose backward is one AR
+of the encoder's A a microbatch.
+
 An MoE config routes the global batch (``models.moe``): the step sets
 ``models.modes.global_routing`` to the microbatch's global token count, and
 each MoE call sums its expert counts over the batch axes (one all-reduce of
@@ -186,13 +193,13 @@ class _Spans:
             self.totals[name] = self.totals.get(name, 0.0) + self.clock() - t0
 
 
-def refuse_encdec_on_mesh(cfg, what: str) -> None:
-    """The steps on a mesh do not run an enc-dec yet (its frames, its
-    encoder and its cross cache): raise rather than run it without them."""
-    if cfg.encoder_layers:
-        raise NotImplementedError(
-            f"{what}: {cfg.name} is an encoder-decoder, which the steps on a mesh do not "
-            "run yet (ROADMAP §1 item 11b-ii)")
+def splits_residual(cfg, tp: int, seq: int) -> bool:
+    """Whether the step splits the residual stream of ``seq`` positions by
+    sequence over "model": the reference's rule (``splits_sequence``) for
+    the bodies that ``constrain`` it, never for an enc-dec, whose bodies
+    (``_build_encdec``) have no such constraint and keep the Megatron
+    layout."""
+    return not cfg.encoder_layers and splits_sequence(tp, seq)
 
 
 def build_train_step(
@@ -272,11 +279,16 @@ def build_train_step(
     positions, which decide the sequence split, and under it the embedding
     reduce-scatters the whole [patches | tokens] sequence
     (``models.layers.embed_lookup``); the loss scores the S text positions.
-    An enc-dec config raises ``NotImplementedError`` (ROADMAP §1 item
-    11b-ii).
+
+    An enc-dec config takes ``batch["frames"]`` (this rank's rows, cut by
+    rows into microbatches as the tokens are). Its residual streams stay
+    whole over "model" (the Megatron layout, the reference's
+    ``_build_encdec``): every sub-layer of the encoder and the decoder is a
+    parallel region where its leaves are split, and the encoder's output
+    enters the decoder's cross-attention regions through one f
+    (``models.transformer.EncDecLM``).
     """
     cfg = model.cfg
-    refuse_encdec_on_mesh(cfg, "build_train_step")
     tp = shd.axis_size(mesh, "model")
     plan = make_state_plan(model, mesh, fsdp_params=fsdp_params)
     razor = razor_plan(plan.state_specs["opt"], plan.opt_pspecs,
@@ -355,7 +367,7 @@ def build_train_step(
           ``w_c``, ``conv_b``, ``conv_c`` (each rank's heads read the one
           SSD group), the ``partial`` leaves: here, one all-reduce over
           "model" per dtype, after the reduction over "data"."""
-        sp = splits_sequence(tp, cfg.num_patch_tokens + batch["tokens"].shape[1] - 1)
+        sp = splits_residual(cfg, tp, cfg.num_patch_tokens + batch["tokens"].shape[1] - 1)
         (loss, aux), grads = local_value_and_grad(params, batch, sp)
         out = []
         with spans("grad_reduce"):
@@ -432,17 +444,21 @@ def model_collectives(model: nn.Module, mesh, rows: int, seq: int, *,
     runs on a rank whose batch is ``rows`` rows of ``seq`` positions, as
     ``Mesh.counts`` holds them: {(collective, ("model",)): [calls, bytes]}.
     The module docstring's table, with the splits of the step's specs: the
-    sequence-parallel rows where ``splits_sequence`` holds, else the
+    sequence-parallel rows where ``splits_residual`` holds, else the
     Megatron rows (all-reduces only); empty at model 1. A VLM's ``seq``
     counts its patches (num_patch_tokens + S positions): the residual
     stream's A and a count them all, while the Megatron embedding's AR and
     the head's statistics (and its AR A without SP) count the S text
-    positions, which alone are looked up and scored."""
+    positions, which alone are looked up and scored. An enc-dec's ``seq``
+    is its S decoder positions: its encoder bodies' regions move
+    activations of ``encoder_seq`` positions, and the f that the encoder's
+    output passes before the decoder's cross-attention all-reduces such an
+    activation in the backward, once a microbatch."""
     cfg = model.cfg
     tp = shd.axis_size(mesh, "model")
     if tp == 1:
         return {}
-    sp = splits_sequence(tp, seq)
+    sp = splits_residual(cfg, tp, seq)
     plan = make_state_plan(model, mesh, fsdp_params=fsdp_params)
     mdim = {path: shd.sharded_dim(spec, "model")
             for path, spec in tree_flatten_with_path(plan.param_pspecs, is_spec)}
@@ -451,22 +467,29 @@ def model_collectives(model: nn.Module, mesh, rows: int, seq: int, *,
     width = cfg.d_model * torch_dtype(cfg).itemsize
     text = seq - cfg.num_patch_tokens                    # the positions looked up and scored
     act, act_text = b * seq * width, b * text * width
+    enc_act = b * cfg.encoder_seq * width                # an enc-dec's encoder stream
     stat, stat_text = b * seq * 4, b * text * 4          # one fp32 value a position
     ag, rs, ar = ("all_gather", act // tp), ("reduce_scatter", act), "all_reduce"
 
-    def region(mamba: bool, is_split: bool):
-        """A sub-layer's (forward, backward) collectives, each in order."""
+    def region(mamba: bool, is_split: bool, nbytes: int):
+        """A sub-layer's (forward, backward) collectives, each in order, on
+        a stream of ``nbytes`` activation bytes."""
         norm = [(ar, stat)] if mamba and is_split else []     # the gated norm's tp_sum
         if sp:
             return ([ag] + norm + [rs], [ag] + norm + [rs]) if is_split else ([ag], [ag])
-        return (norm + [(ar, act)],) * 2 if is_split else ([], [])
+        return (norm + [(ar, nbytes)],) * 2 if is_split else ([], [])
 
     ffn = ("moe", "w_gate") if cfg.is_moe else ("mlp", "w_up")
-    dense = lambda root: [(False, split(root, "attn", "wq")),          # noqa: E731
-                          (False, split(root, *ffn))]
-    mamba = (True, split("blocks", "mamba", "w_x"))
+    dense = lambda root, n=act: [(False, split(root, "attn", "wq"), n),   # noqa: E731
+                                 (False, split(root, *ffn), n)]
+    mamba = (True, split("blocks", "mamba", "w_x"), act)
     if is_decoder_stack(cfg):
         bodies = [dense("blocks")] * cfg.num_layers
+    elif cfg.encoder_layers:
+        cross = split("decoder", "cross", "wq")
+        decoder = dense("decoder")
+        bodies = ([dense("encoder", enc_act)] * cfg.encoder_layers
+                  + [decoder[:1] + [(False, cross, act)] + decoder[1:]] * cfg.num_layers)
     else:
         bodies = [[mamba] + (dense("shared_attn") if kind == "mamba_attn" else [])
                   for kind in cfg.layer_kinds()]
@@ -478,12 +501,14 @@ def model_collectives(model: nn.Module, mesh, rows: int, seq: int, *,
         calls.append((ar, act_text))
     for body in bodies:
         fwd: List[Tuple[str, int]] = []
-        for kind, is_split in body:
-            f, bwd = region(kind, is_split)
+        for kind, is_split, nbytes in body:
+            f, bwd = region(kind, is_split, nbytes)
             fwd += f
             calls += f + bwd
         if fsdp_params:      # the recompute stops at the last tensor the body saves
             calls += fwd[:-1] if body[-1][1] else fwd
+    if cfg.encoder_layers and cross:   # f's backward on the encoder's output
+        calls.append((ar, enc_act))
     if sp:               # the head's gather and its backward
         calls += [ag] + ([rs] if split(*head) else [])
     if split(*head):     # the cross-entropy's statistics and, without SP, f's backward

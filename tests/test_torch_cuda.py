@@ -742,3 +742,70 @@ def test_encdec_on_the_card_matches_the_cpu(cuda):
             decode_attn.decode_attention.launches - launches[1]) == (2 * 6, 2 * 2 * 8)
     for got, want in zip(outs["cuda"], outs["cpu"]):
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_blocks_of_an_encdec_mesh_rank(cuda, dtype):
+    """Decode's block form at head_dim 64 and group 1 on a rank's block of
+    whisper-small's cross cache on (data 2, model 2): q (4, 1, 12, 64)
+    gathered over "model", blocks (4, 750, 12, 64) of the 1,500 frames,
+    every position valid (cur_len 750). Each block's o and lse against its
+    plain version; the two merged (``merge_partials``) against the whole
+    cache at cur_len 1,500."""
+    from repro_torch.models.attention import merge_partials
+    g = torch.Generator(device=cuda).manual_seed(21)
+    b, t, h, hd = 4, 750, 12, 64
+    q = _rand(g, (b, 1, h, hd), dtype, cuda)
+    kc = _rand(g, (b, 2 * t, h, hd), dtype, cuda)
+    vc = (_rand(g, (b, 2 * t, h, hd), torch.float32, cuda)
+          + torch.arange(h, device=cuda, dtype=torch.float32)[:, None]).to(dtype)
+    sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    step = decode_attn.rows_per_step(hd, q.element_size(), 1)
+    parts = []
+    for i in range(2):
+        block = slice(i * t, (i + 1) * t)
+        kb, vb = kc[:, block].contiguous(), vc[:, block].contiguous()
+        before = decode_attn.decode_attention.launches
+        out = ops.decode_attention_partial(q, kb, vb, t)
+        torch.cuda.synchronize()
+        assert decode_attn.decode_attention.launches == before + 1
+        assert decode_attn.decode_attention.last_split == decode_attn.plan_splits(
+            t, b, h, sm, step)
+        ref = decode_attention_ref(q, kb, vb, t, partial=True)
+        assert out[0].dtype == torch.float32 and out[1].shape == (b, h)
+        for got, want in zip(out, ref):
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **_tol(dtype))
+        parts.append(out)
+    merged = merge_partials(torch.stack([o[:, 0] for o, _ in parts]),
+                            torch.stack([lse for _, lse in parts]))
+    whole = decode_attention_ref(q, kc, vc, 2 * t)[:, 0]
+    np.testing.assert_allclose(merged.cpu().numpy(), whole.float().cpu().numpy(),
+                               **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_noncausal_at_an_encdec_mesh_rank(cuda, dtype):
+    """A rank's encoder attention in whisper-small's sharded step on (data
+    2, model 2): its 6 heads of 64 over 4 rows of 1,500 frames, non-causal;
+    the forward on the kernel and the gradient into q, k and v under
+    ``FlashAttention`` against autograd through the plain version. Each
+    head's values carry their own offset."""
+    g = torch.Generator(device=cuda).manual_seed(22)
+    b, s, h = 4, 1500, 6
+    q = _rand(g, (b, s, h, 64), dtype, cuda).requires_grad_()
+    k = _rand(g, (b, s, h, 64), dtype, cuda).requires_grad_()
+    v = (_rand(g, (b, s, h, 64), torch.float32, cuda)
+         + torch.arange(h, device=cuda, dtype=torch.float32)[:, None]).to(dtype).requires_grad_()
+    dout = _rand(g, (b, s, h, 64), dtype, cuda)
+    route = "wgmma" if dtype == torch.bfloat16 else "fp32"
+    routed = flash_attention.flash_attention.routes[route]
+    out = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.routes[route] == routed + 1
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    ref = ops.flash_attention_plain(q, k, v, causal=False)
+    ref_grads = torch.autograd.grad(ref, (q, k, v), dout)
+    assert out.shape == q.shape and out.dtype == dtype
+    for got, want in zip((out,) + grads, (ref,) + ref_grads):
+        np.testing.assert_allclose(got.detach().float().cpu().numpy(),
+                                   want.detach().float().cpu().numpy(), **_tol(dtype))

@@ -6,7 +6,7 @@ CPU: the same reference parameters (``repro`` init, moved across with
 layers, d_model 64, 4 heads of 16, 16 frames), fp32; its pieces
 (``sinusoidal_positions``, ``cross_kv``, ``cross_attention``) on their own;
 the config and ``param_count`` at full width; the serve CLI; and the mesh
-steps' refusals.
+steps' input specs (``tests/test_torch_encdec_mesh.py`` runs them).
 
 Tolerance: fp32 at 2e-4 (the reference's test_prefill_decode_matches_forward)."""
 import dataclasses
@@ -455,17 +455,22 @@ def test_serve_cli_draws_the_references_frames(monkeypatch):
 
 # --------------------------------- mesh ---------------------------------- #
 @pytest.mark.parametrize("step", ["prefill", "decode", "train"])
-def test_mesh_steps_refuse_the_encdec(step):
-    """On a mesh the three steps refuse an enc-dec, naming its ROADMAP item;
-    a (1, 1) mesh needs no process."""
+def test_mesh_steps_take_the_encdec(step):
+    """The three steps build for whisper-small on a (data 2, model 2) mesh
+    (they refused an enc-dec before its frames, encoder and cross cache
+    went through them): the frames' rows split over "data" like the
+    tokens' (prefill, train), and decode's cross cache, what the frames
+    become, like the token's rows, its encoder positions over "model"."""
     from repro_torch.launch.mesh import Mesh
     from repro_torch.train.step import build_train_step
     model = build_model(reduce_for_smoke(get_arch("whisper-small")), device="meta")
-    mesh = Mesh(("data", "model"), (1, 1))
-    with pytest.raises(NotImplementedError, match="11b-ii"):
-        if step == "prefill":
-            build_prefill_step(model, mesh, SHAPES["prefill_32k"])
-        elif step == "decode":
-            build_decode_step(model, mesh, SHAPES["decode_32k"])
-        else:
-            build_train_step(model, mesh)
+    mesh = Mesh(("data", "model"), (2, 2))
+    if step == "decode":
+        specs = build_decode_step(model, mesh, SHAPES["decode_32k"])[2]
+        assert tuple(specs["cache"]["cross_k"]) == (None, "data", "model", None, None)
+        assert specs["cache"]["cross_k"][1] == specs["token"][0]
+        return
+    specs = (build_prefill_step(model, mesh, SHAPES["prefill_32k"])[2] if step == "prefill"
+             else build_train_step(model, mesh, shape=SHAPES["train_4k"]).input_pspecs)
+    assert tuple(specs["frames"]) == ("data", None, None)
+    assert specs["frames"][0] == specs["tokens"][0]
