@@ -37,8 +37,9 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 tokens with its balance term and every gradient, at 2e-4; first
                 the routing of every MoE call (top_e and the capacity verdicts,
                 exactly, and the smallest gap between a token's k-th and
-                (k+1)-th gate probability) is compared and printed; 4 flash and
-                16 decode launches.
+                (k+1)-th gate probability) is compared and printed (a flip with
+                its own gap, at once); the caches after the prefill and after the
+                steps at 2e-4; 4 flash and 16 decode launches.
 6d. serve_moe -- full qwen2-moe-a2.7b (24 layers, 60 routed experts padded to
                 64, top-4, the shared expert, MHA 16/16 at head_dim 128, bf16,
                 random weights drawn on the card from a seed), the same
@@ -48,7 +49,8 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 on wgmma, 24 x 31 decode launches, no SSD launch; prefill and
                 decode times beside their bounds (prefill by routed assignments
                 and by the reference's dispatch slots, decode with every expert
-                read and with the experts picked). Freed after.
+                read and with the experts picked), the calls' shapes recorded by
+                wrapping ``ops``. Freed after.
 6e. slice_vlm -- internvl2-26b at full width (48 q heads on 8 kv heads of 128:
                 decode at 6 q heads per kv head), 2 layers, fp32, CPU against
                 card, weights drawn on the card and copied to the CPU: one
@@ -66,6 +68,24 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 launch (the calls' shapes recorded by wrapping ``ops``); prefill
                 and decode times beside their bounds, peak device memory. Freed
                 after.
+6f2. slice_moe_30b -- qwen3-moe-30b-a3b at full width (128 experts of 768,
+                top-8, 32 q heads on 4 kv heads of 128: both attention kernels at
+                group 8), 2 layers, fp32, CPU against card, weights drawn on the
+                card and copied: prefill of 2 x 256 tokens (16 groups of 32 at
+                capacity 8), 8 decode steps; every MoE call's top-8 experts and
+                capacity verdicts compared exactly first, then the logits of each
+                step and the caches after the prefill and after the steps at
+                2e-4; 2 flash and 16 decode launches.
+6f3. serve_moe_30b -- full qwen3-moe-30b-a3b (48 layers, 30,532,646,912
+                parameters, 61.1 GB of bf16 drawn on the card from a seed), as
+                serve_moe: the same requests served twice, the repeat identical;
+                48 flash launches on wgmma at q (8, 1000, 32, 128), k/v (8, 1000,
+                4, 128), 48 x 31 decode launches at q (8, 1, 32, 128), caches (8,
+                1032, 4, 128), no SSD launch; the dropped share, the distinct
+                experts a decode layer, prefill and decode times beside their
+                bounds and peak device memory. Freed after; one decode step's
+                device time comes from a torch.profiler window over the model
+                built again after every timed serve (11, ``trace``).
 6g. slice_encdec -- whisper-small at full width (d_model 768, 12 heads of 64,
                 gelu 3,072, the tied head of 51,968), cut to 2 encoder and 2
                 decoder layers, fp32, CPU against card, weights drawn on the card
@@ -373,7 +393,10 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 448, 6, 64) against k/v (4, 1500, 6, 64), non-causal, and
                 decode's block form on a rank's block of serve_encdec_mesh's
                 cross cache, q (4, 1, 12, 64), block (4, 750, 12, 64), cur_len
-                750, each in both dtypes; the SSD
+                750, each in both dtypes; flash at qwen3-moe-30b-a3b's q (8,
+                1000, 32, 128), k/v (8, 1000, 4, 128) and decode at its q (8, 1,
+                32, 128), caches (8, 1032, 4, 128), cur_len 1,032, each in both
+                dtypes; the SSD
                 at a rank's 40 (mamba2) and 56 (zamba2) heads, 4 x 1024, bf16),
                 with the
                 kernel's, the plain version's and (for attention) the library
@@ -385,7 +408,9 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 calls instead. Each kernel is also timed by events
                 (``event_ms``), a check of that fallback.
 11. trace    -- torch.profiler over one prefill and over 4 decode steps of each
-                model: device busy share and the kernels that take the device time.
+                model: device busy share and the kernels that take the device time;
+                qwen3-moe-30b-a3b built again for its window (prefill and 2
+                decode steps: its decode step's device time, by kernel group).
 12. serve    -- qwen3-0.6b served again, as in 4, now after the profiler
                 sessions (``after_profiler``: true).
 
@@ -394,11 +419,12 @@ host seconds of each phase),
 one {"kernels": [...]} line (each kernel's launches in every serve and training
 phase, ``moe_launches``, ``train_tp_launches``, ``train_moe_mesh_launches``,
 ``train_gemma_mesh_launches``, ``serve_mesh_launches``, ``pipeline_launches``,
-``vlm_launches``, ``encdec_launches``, ``vlm_mesh_launches`` and
-``encdec_mesh_launches`` among them, and its rows at the other shapes,
-``tp_shape`` / ``tp_shapes``, ``moe_mesh_shape``, ``pipeline_shape``,
-``gemma_tp_shape``, ``hd256``, ``vlm_shape``, ``encdec_shape``,
-``vlm_mesh_shape`` and ``encdec_mesh_shape`` among them), the
+``vlm_launches``, ``encdec_launches``, ``vlm_mesh_launches``,
+``encdec_mesh_launches`` and ``moe_30b_launches`` among them, and its rows
+at the other shapes, ``tp_shape`` / ``tp_shapes``, ``moe_mesh_shape``,
+``pipeline_shape``, ``gemma_tp_shape``, ``hd256``, ``vlm_shape``,
+``encdec_shape``, ``vlm_mesh_shape``, ``encdec_mesh_shape`` and
+``moe_30b_shape`` among them), the
 card's name
 and power
 limit, and last
@@ -406,6 +432,8 @@ limit, and last
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import functools
 import json
@@ -486,6 +514,11 @@ DECODE_ENCDEC_CROSS = dict(b=8, t=1500, h=12, kh=12, hd=64, cur_lens=(1500,))
 PREFILL_ENCDEC_ENC_TP = dict(PREFILL_ENCDEC_ENC, b=4, h=6, kh=6)
 PREFILL_ENCDEC_CROSS_TP = dict(PREFILL_ENCDEC_CROSS, b=4, s=448, h=6, kh=6)
 DECODE_ENCDEC_MESH_BLOCK = dict(DECODE_ENCDEC_CROSS, b=4, t=750, cur_lens=(750,), partial=True)
+# qwen3-moe-30b-a3b's serve shapes: 32 q heads on 4 kv heads of 128 (group 8),
+# 8 prompts of 1,000 tokens (flash causal at S 1,000), a cache of 1,032
+# positions (decode at the full cache)
+PREFILL_MOE30 = dict(b=8, s=1000, h=32, kh=4, hd=128)
+DECODE_MOE30 = dict(b=8, t=1032, h=32, kh=4, hd=128, cur_lens=(1032,))
 SSD_TP = dict(SSD, b=4, h=40, seqs=(1024,))
 SSD_HYBRID_TP = dict(SSD_HYBRID, b=4, h=56, seqs=(1024,))
 SERVE = dict(batch=8, prompt=1000, gen=32)
@@ -529,7 +562,15 @@ HYBRID_LOSS = dict(batch=2, seq=64, tol=2e-4)
 # layers (a CPU copy of 24 fp32 layers would be 60 GB; 2 layers with the head
 # and the embedding are 1.83 B parameters, 7.3 GB), fp32, the tokens of LOSS:
 # prefill of 1 x 576, 8 decode steps, the loss of 1 x 577 and every gradient
-MOE_SLICE = dict(layers=2, batch=LOSS["batch"], seq=LOSS["seq"], steps=8, tol=2e-4)
+MOE_SLICE = dict(arch="qwen2-moe-a2.7b", phase="slice_moe", layers=2, batch=LOSS["batch"],
+                 seq=LOSS["seq"], steps=8, loss=True, tol=2e-4)
+# the same for qwen3-moe-30b-a3b at full width cut to 2 layers (128 experts of
+# 768, top-8, 32 q / 4 kv heads of 128, the untied head: 1,869,097,472
+# parameters, 7.5 GB of fp32 a side), fp32: prefill of 2 x 256 tokens (16
+# groups of 32 at capacity 8, where assignments drop), 8 decode steps, the
+# caches after each; no loss (the serve path)
+MOE_SLICE_30B = dict(MOE_SLICE, arch="qwen3-moe-30b-a3b", phase="slice_moe_30b", batch=2,
+                     seq=256, loss=False)
 # the VLM slice, card against CPU: internvl2-26b at full width cut to 2 layers
 # (1,918,924,800 parameters, 7.7 GB of fp32 a side; 48 layers would be 79 GB
 # on the CPU), fp32, one prompt of 16 tokens behind its 1,024 patch
@@ -786,7 +827,8 @@ def phase_kernels(torch, F):
     # whisper-small's at hd 64 (the encoder's non-causal, the decoder's
     # causal over the prompt, the cross-attention's non-causal at Sq 16
     # against 1,500 frames; a rank's of train_encdec_mesh: the encoder's and
-    # the cross-attention's of 448 tokens) in both
+    # the cross-attention's of 448 tokens) in both, and qwen3-moe-30b-a3b's at
+    # group 8 in both
     for key, dtype, p in (("bfloat16", torch.bfloat16, PREFILL),
                           ("float32", torch.float32, PREFILL),
                           ("bfloat16_train", torch.bfloat16,
@@ -817,7 +859,9 @@ def phase_kernels(torch, F):
                           ("bfloat16_encdec_enc_tp", torch.bfloat16, PREFILL_ENCDEC_ENC_TP),
                           ("float32_encdec_enc_tp", torch.float32, PREFILL_ENCDEC_ENC_TP),
                           ("bfloat16_encdec_cross_tp", torch.bfloat16, PREFILL_ENCDEC_CROSS_TP),
-                          ("float32_encdec_cross_tp", torch.float32, PREFILL_ENCDEC_CROSS_TP)):
+                          ("float32_encdec_cross_tp", torch.float32, PREFILL_ENCDEC_CROSS_TP),
+                          ("bfloat16_moe30", torch.bfloat16, PREFILL_MOE30),
+                          ("float32_moe30", torch.float32, PREFILL_MOE30)):
         dname = str(dtype).split(".")[-1]
         causal, skv = p.get("causal", True), p.get("skv", p["s"])
         q = rand((p["b"], p["s"], p["h"], p["hd"]), dtype)
@@ -878,7 +922,9 @@ def phase_kernels(torch, F):
                              ("_encdec_cross", DECODE_ENCDEC_CROSS, torch.bfloat16),
                              ("_encdec_cross", DECODE_ENCDEC_CROSS, torch.float32),
                              ("_encdec_mesh_block", DECODE_ENCDEC_MESH_BLOCK, torch.bfloat16),
-                             ("_encdec_mesh_block", DECODE_ENCDEC_MESH_BLOCK, torch.float32)):
+                             ("_encdec_mesh_block", DECODE_ENCDEC_MESH_BLOCK, torch.float32),
+                             ("_moe30", DECODE_MOE30, torch.bfloat16),
+                             ("_moe30", DECODE_MOE30, torch.float32)):
         dname = str(dtype).split(".")[-1]
         partial = d.get("partial", False)
         q = rand((d["b"], 1, d["h"], d["hd"]), dtype)
@@ -996,8 +1042,43 @@ def read_launches() -> dict:
             "ssd": ssd.ssd.launches, "ssd_routes": dict(ssd.ssd.routes)}
 
 
+@contextlib.contextmanager
+def record_kernel_calls():
+    """The attention kernels' calls while the block runs, by wrapping
+    ``ops.flash_attention`` and ``ops.decode_attention``: flash calls counted
+    by (q shape, k shape, causal), decode calls by (q shape, k shape), and
+    each decode cache shape's ``cur_len`` values."""
+    from repro_torch.kernels import ops
+
+    calls = {"flash": collections.Counter(), "decode": collections.Counter(),
+             "cur_lens": collections.defaultdict(set)}
+    flash, dec = ops.flash_attention, ops.decode_attention
+
+    def flash_rec(q, k, v, *, causal=True):
+        calls["flash"][(tuple(q.shape), tuple(k.shape), causal)] += 1
+        return flash(q, k, v, causal=causal)
+
+    def decode_rec(q, k, v, cur_len):
+        calls["decode"][(tuple(q.shape), tuple(k.shape))] += 1
+        calls["cur_lens"][tuple(k.shape)].add(int(cur_len))
+        return dec(q, k, v, cur_len)
+    ops.flash_attention, ops.decode_attention = flash_rec, decode_rec
+    try:
+        yield calls
+    finally:
+        ops.flash_attention, ops.decode_attention = flash, dec
+
+
+def qk_shapes(calls) -> dict:
+    """The distinct (q shape, k shape) pairs of each kernel's recorded calls."""
+    return {"flash": sorted({(q, k) for q, k, _ in calls["flash"]}),
+            "decode": sorted(calls["decode"])}
+
 
 def serve_once(torch, prefill, decode, tokens, max_len, gen):
+    """Prefill, then ``gen`` - 1 greedy decode steps: (the generated tokens
+    (B, gen), whether every logit was finite, prefill s, decode s, the last
+    logits' shape)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache = prefill(tokens, max_len)
@@ -1142,6 +1223,21 @@ def train_kernel_group(name: str) -> str:
     if "gemm" in name or "nvjet" in name:
         fp32 = any(tag in name for tag in ("f32f32_f32f32", "sgemm", "ffma"))
         return "fp32 matmul (CUDA cores)" if fp32 else "bf16 matmul (tensor cores)"
+    return "elementwise, reductions, copies"
+
+
+def serve_kernel_group(name: str) -> str:
+    """The group of a device activity of a serve step, by its name."""
+    if "decode_split_kernel" in name or "decode_merge_kernel" in name:
+        return "decode kernel (ours)"
+    if "flash_wgmma_kernel" in name or "flash_fwd_kernel" in name:
+        return "flash kernel (ours)"
+    if "gemm" in name or "nvjet" in name or "cutlass" in name:
+        return "matmul"
+    if "sort" in name.lower() or "radix" in name.lower() or "scan" in name.lower():
+        return "sort, scan (routing)"
+    if any(tag in name for tag in ("index", "gather", "scatter", "Index")):
+        return "index, gather, scatter"
     return "elementwise, reductions, copies"
 
 
@@ -3922,33 +4018,47 @@ def phase_serve_hybrid(torch):
     return row
 
 
-def routing_compare(card_log: list, cpu_log: list, k: int) -> dict:
+def routing_compare(card_log: list, cpu_log: list, k: int, phase: str) -> dict:
     """The routing of the card's run against the CPU's, record by record
     (one per MoE call: layer by layer, prefill, decode steps, loss): the
     assignments whose expert differs (flips), the capacity verdicts that
     differ, and, on the card's gate probabilities, the smallest gap between
     a token's k-th and (k+1)-th expert over the real experts: how close the
-    closest token came to flipping."""
+    closest token came to flipping. A flipped token's own gate gap (the
+    smallest gap between adjacent ones of its k+1 largest gate
+    probabilities on the CPU) is listed, and any difference is printed at
+    once, before a later check can stop the run."""
     flips = valid_diff = 0
     gap = math.inf
+    flip_gaps = []
     for a, b in zip(card_log, cpu_log):
-        flips += int((a["top_e"].cpu() != b["top_e"]).sum())
+        differs = a["top_e"].cpu() != b["top_e"]
+        flips += int(differs.sum())
         valid_diff += int((a["valid"].cpu() != b["valid"]).sum())
         gap = min(gap, _gate_gap(a["gate_probs"], k))
+        if differs.any():
+            top = b["gate_probs"][differs.any(-1)].float().topk(k + 1, dim=-1).values
+            flip_gaps += (top[:, :-1] - top[:, 1:]).min(-1).values.tolist()
     if len(card_log) != len(cpu_log):
-        fail(f"slice_moe: {len(card_log)} MoE calls on the card, {len(cpu_log)} on the CPU")
-    return dict(moe_calls=len(card_log), flipped_assignments=flips,
-                valid_differs=valid_diff, min_gate_gap=gap,
-                dropped_assignments=sum(int((~r["valid"]).sum()) for r in cpu_log),
-                assignments=sum(r["valid"].numel() for r in cpu_log))
+        fail(f"{phase}: {len(card_log)} MoE calls on the card, {len(cpu_log)} on the CPU")
+    out = dict(moe_calls=len(card_log), flipped_assignments=flips,
+               valid_differs=valid_diff, min_gate_gap=gap, flip_gate_gaps=flip_gaps[:16],
+               dropped_assignments=sum(int((~r["valid"]).sum()) for r in cpu_log),
+               assignments=sum(r["valid"].numel() for r in cpu_log))
+    if flips or valid_diff:
+        print(f"chip_smoke: {phase} routing differs card vs cpu: {json.dumps(out)}",
+              file=sys.stderr, flush=True)
+    return out
 
 
-def phase_slice_moe(torch):
-    """qwen2-moe-a2.7b at full width, cut to 2 layers, fp32: the same
-    weights on the CPU (plain versions) and on the card (kernels). Prefill
-    of 1 x 576 tokens, 8 decode steps (both sides take the CPU's greedy
-    token), then the loss of 1 x 577 tokens and every gradient; the routing
-    of every MoE call compared first."""
+def phase_slice_moe(torch, m: dict = MOE_SLICE):
+    """An MoE config of ``m`` (qwen2-moe-a2.7b, or qwen3-moe-30b-a3b at 128
+    experts and top-8) at full width, cut to 2 layers, fp32: the same weights
+    on the CPU (plain versions) and on the card (kernels). Prefill of the
+    prompt, then decode steps (both sides take the CPU's greedy token), with
+    the caches after the prefill and after the steps; where ``m["loss"]``,
+    then the loss of the prompt and one more token and every gradient. The
+    routing of every MoE call is compared first."""
     import numpy as np
 
     from repro_torch.configs import get_arch
@@ -3957,11 +4067,10 @@ def phase_slice_moe(torch):
     from repro_torch.train.state import grad_tree
     from repro_torch.tree import keystr, tree_flatten_with_path
 
-    m = MOE_SLICE
-    cfg = dataclasses.replace(get_arch("qwen2-moe-a2.7b"), num_layers=m["layers"],
-                              dtype="float32")
+    phase = m["phase"]
+    cfg = dataclasses.replace(get_arch(m["arch"]), num_layers=m["layers"], dtype="float32")
     t0 = time.perf_counter()
-    # drawn on the card (1.83 B numbers drawn on the host take ~15 s), then
+    # drawn on the card (1.8 B numbers drawn on the host take ~15 s), then
     # copied to the CPU
     card = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
     cpu = build_model(cfg, device="cpu")
@@ -3977,52 +4086,64 @@ def phase_slice_moe(torch):
         prefill, decode = build_prefill_step(model), build_decode_step(model)
         with moe.record_routing() as log:
             logits, cache = prefill(prompt.to(dev), m["seq"] + m["steps"] + 1)
+            # copies: decode writes the cache in place (.cpu() of a CPU tensor is itself)
             outs = [logits.cpu()]
+            caches = {"k": cache["k"].cpu().clone(), "v": cache["v"].cpu().clone()}
             for step in range(m["steps"]):
                 tok = (runs["cpu"] if name == "cuda" else outs)[step].argmax(-1)
                 logits, cache = decode(cache, tok.to(dev))
                 outs.append(logits.cpu())
+            caches.update(final_k=cache["k"].cpu(), final_v=cache["v"].cpu())
             del cache
-            model.requires_grad_(True)
-            loss, aux = model.loss({"tokens": tokens.to(dev)})
-            loss.backward()
+            if m["loss"]:
+                model.requires_grad_(True)
+                loss, aux = model.loss({"tokens": tokens.to(dev)})
+                loss.backward()
         runs[name] = outs
+        runs[name + "_caches"] = caches
         logs[name] = log
-        runs[name + "_loss"] = [loss.detach().cpu(), aux["xent"].detach().cpu(),
-                                aux["aux"].detach().cpu()]
-        runs[name + "_grads"] = {keystr(p): t for p, t in
-                                 tree_flatten_with_path(_host_tree(grad_tree(model)))}
+        if m["loss"]:
+            runs[name + "_loss"] = [loss.detach().cpu(), aux["xent"].detach().cpu(),
+                                    aux["aux"].detach().cpu()]
+            runs[name + "_grads"] = {keystr(p): t for p, t in
+                                     tree_flatten_with_path(_host_tree(grad_tree(model)))}
     launches = read_launches()
-    routing = routing_compare(logs["cuda"], logs["cpu"], cfg.top_k)
+    routing = routing_compare(logs["cuda"], logs["cpu"], cfg.top_k, phase)
     del logs
-    expected = {"flash_attention": 2 * cfg.num_layers,
+    expected = {"flash_attention": (2 if m["loss"] else 1) * cfg.num_layers,
                 "decode_attention": cfg.num_layers * m["steps"], "ssd": 0,
                 "ssd_routes": {"wgmma": 0, "fp32": 0}}
     if launches != expected:
-        fail(f"slice_moe: kernel launches {launches}, expected {expected} (prefill and "
+        fail(f"{phase}: kernel launches {launches}, expected {expected} (prefill and "
              f"the loss's forward each run flash once a layer)")
     errs = []
     for ref, out in zip(runs["cpu"], runs["cuda"]):
         if out.shape != (m["batch"], cfg.padded_vocab) or not torch.isfinite(out).all():
-            fail(f"slice_moe: logits of shape {tuple(out.shape)} or not finite")
-        errs.append(check_close("slice_moe logits card vs cpu", out, ref, m["tol"]))
-    loss_err = {part: check_close(f"slice_moe {part} card vs cpu", got, want, m["tol"])
-                for part, got, want in zip(("loss", "xent", "aux"), runs["cuda_loss"],
-                                           runs["cpu_loss"])}
-    grad_err = {k: check_close(f"slice_moe grad {k} card vs cpu", runs["cuda_grads"][k], ref,
-                               m["tol"]) for k, ref in runs["cpu_grads"].items()}
-    for k, g in runs["cuda_grads"].items():
-        if "|moe|" in k and (not torch.isfinite(g).all() or not (g != 0).any()):
-            fail(f"slice_moe: MoE gradient {k} is not finite or is all 0")
-    row = dict(config=f"qwen2-moe-a2.7b full width, {cfg.num_layers} layers, fp32",
-               batch=m["batch"], prompt=m["seq"], decode_steps=m["steps"],
-               loss_tokens=list(tokens.shape), init_s=init_s, routing=routing,
-               logits_max_abs_err_per_step=errs, loss=float(runs["cuda_loss"][0]),
-               aux=float(runs["cuda_loss"][2]), loss_err=loss_err,
-               grad_leaves=len(grad_err), grad_max_abs_err=max(grad_err.values()),
-               moe_grad_err={k: v for k, v in grad_err.items() if "|moe|" in k},
-               tol=m["tol"], launches=launches)
-    emit("slice_moe", **row)
+            fail(f"{phase}: logits of shape {tuple(out.shape)} or not finite")
+        errs.append(check_close(f"{phase} logits card vs cpu", out, ref, m["tol"]))
+    cache_err = {key: check_close(f"{phase} cache {key} card vs cpu", got,
+                                  runs["cpu_caches"][key], m["tol"])
+                 for key, got in runs["cuda_caches"].items()}
+    row = dict(config=f"{m['arch']} full width, {cfg.num_layers} layers, fp32, "
+                      f"{cfg.num_experts} experts, top-{cfg.top_k}, {cfg.num_heads} q / "
+                      f"{cfg.num_kv_heads} kv heads of {cfg.resolved_head_dim}",
+               batch=m["batch"], prompt=m["seq"], decode_steps=m["steps"], init_s=init_s,
+               routing=routing, logits_max_abs_err_per_step=errs,
+               cache_max_abs_err=cache_err, tol=m["tol"], launches=launches)
+    if m["loss"]:
+        loss_err = {part: check_close(f"{phase} {part} card vs cpu", got, want, m["tol"])
+                    for part, got, want in zip(("loss", "xent", "aux"), runs["cuda_loss"],
+                                               runs["cpu_loss"])}
+        grad_err = {k: check_close(f"{phase} grad {k} card vs cpu", runs["cuda_grads"][k],
+                                   ref, m["tol"]) for k, ref in runs["cpu_grads"].items()}
+        for k, g in runs["cuda_grads"].items():
+            if "|moe|" in k and (not torch.isfinite(g).all() or not (g != 0).any()):
+                fail(f"{phase}: MoE gradient {k} is not finite or is all 0")
+        row.update(loss_tokens=list(tokens.shape), loss=float(runs["cuda_loss"][0]),
+                   aux=float(runs["cuda_loss"][2]), loss_err=loss_err,
+                   grad_leaves=len(grad_err), grad_max_abs_err=max(grad_err.values()),
+                   moe_grad_err={k: v for k, v in grad_err.items() if "|moe|" in k})
+    emit(phase, **row)
     del cpu, card, runs
     torch.cuda.empty_cache()
     return row
@@ -4074,13 +4195,24 @@ def moe_serve_bounds(cfg, params: int, b: int, prompt: int, gen: int, slots: int
                 decode_gbytes_picked_experts=decode_picked / 1e9)
 
 
-def phase_serve_moe(torch):
-    """Full qwen2-moe-a2.7b (24 layers, 60 routed experts padded to 64, top-4,
-    a shared expert of 5632, MHA of 16 heads at head_dim 128, untied head,
-    bf16), random weights drawn on the card from a seed: the same 8 x 1000
-    prompts and 32 greedy tokens, served twice (the first a warm-up whose
-    routing is recorded). 24 flash launches on wgmma, 24 x 31 decode
-    launches, no SSD launch."""
+# the MoE serves: each phase's config and what it must be (depth, q heads,
+# kv heads and head_dim, real and padded experts, top-k)
+MOE_SERVES = {
+    "serve_moe": dict(arch="qwen2-moe-a2.7b", layers=24, heads=(16, 16, 128),
+                      experts=(60, 64), top_k=4),
+    "serve_moe_30b": dict(arch="qwen3-moe-30b-a3b", layers=48, heads=(32, 4, 128),
+                          experts=(128, 128), top_k=8),
+}
+def phase_serve_moe(torch, phase: str = "serve_moe"):
+    """A full MoE config of ``MOE_SERVES[phase]`` (qwen2-moe-a2.7b: 24
+    layers, 60 routed experts padded to 64, top-4, a shared expert of 5632,
+    MHA of 16 heads at head_dim 128; qwen3-moe-30b-a3b: 48 layers, 128
+    experts of 768, top-8, no shared expert, 32 q heads on 4 kv heads of 128,
+    qk-norm; both with an untied head, bf16), random weights drawn on the
+    card from a seed: the same 8 x 1000 prompts and 32 greedy tokens, served
+    twice (the first a warm-up whose routing is recorded). L flash launches
+    on wgmma, L x 31 decode launches, no SSD launch, the calls' shapes
+    recorded by wrapping ``ops``. Freed after."""
     import numpy as np
 
     from repro_torch.configs import get_arch
@@ -4088,11 +4220,19 @@ def phase_serve_moe(torch):
     from repro_torch.models import active_param_count, build_model, moe, param_count
     from repro_torch.train.serve import build_decode_step, build_prefill_step
 
-    cfg = get_arch("qwen2-moe-a2.7b")
+    want = MOE_SERVES[phase]
+    cfg = get_arch(want["arch"])
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    if (cfg.num_layers, (h, kh, hd), (cfg.num_experts, cfg.padded_experts), cfg.top_k) != (
+            want["layers"], want["heads"], want["experts"], want["top_k"]):
+        fail(f"{phase}: {cfg.name} is {cfg.num_layers} layers, {h} q / {kh} kv heads of "
+             f"{hd}, {cfg.num_experts} experts padded to {cfg.padded_experts}, top-"
+             f"{cfg.top_k}; expected {want}")
     b, prompt, gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    L = cfg.num_layers
     t0 = time.perf_counter()
-    # drawn by a CUDA generator on the card: 15 B numbers drawn on the host
-    # would cost minutes of host time
+    # drawn by a CUDA generator on the card: 15 to 30 B numbers drawn on the
+    # host would cost minutes of host time
     model = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -4101,10 +4241,9 @@ def phase_serve_moe(torch):
         np.random.default_rng(0).integers(0, cfg.vocab_size, (b, prompt))).cuda()
     with moe.record_routing() as log:
         warm, *_ = serve_once(torch, prefill, decode, tokens, prompt + gen, gen)
-    L = cfg.num_layers
     pre, dec = log[:L], log[L:]
     if len(dec) != L * (gen - 1):
-        fail(f"serve_moe: {len(log)} MoE calls in the warm-up, expected {L * gen}")
+        fail(f"{phase}: {len(log)} MoE calls in the warm-up, expected {L * gen}")
     dropped = sum(int((~r["valid"]).sum()) for r in pre) / sum(r["valid"].numel() for r in pre)
     slots = pre[0]["top_e"].shape[0] * cfg.padded_experts * pre[0]["capacity"]
     distinct = sum(int(r["top_e"].unique().numel()) for r in dec) / len(dec)
@@ -4114,39 +4253,45 @@ def phase_serve_moe(torch):
     mode_share = sum(int(torch.bincount(r["top_e"][..., 0].reshape(-1)).max())
                      / r["top_e"][..., 0].numel() for r in pre) / len(pre)
     # and within a group (500 consecutive tokens of one prompt): the experts
-    # its assignments reach, of the 60
+    # its assignments reach
     per_group = sum(int(g.unique().numel()) for r in pre for g in r["top_e"]) \
         / sum(r["top_e"].shape[0] for r in pre)
     if max(int(r["top_e"].max()) for r in log) >= cfg.num_experts:
-        fail("serve_moe: a padded expert was routed to")
+        fail(f"{phase}: a padded expert was routed to")
     groups, cap = pre[0]["top_e"].shape[0], pre[0]["capacity"]
     del log, pre, dec
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    seqs, finite, t_prefill, t_decode, shape = serve_once(
-        torch, prefill, decode, tokens, prompt + gen, gen)
+    with record_kernel_calls() as calls:
+        seqs, finite, t_prefill, t_decode, shape = serve_once(
+            torch, prefill, decode, tokens, prompt + gen, gen)
     launches = read_launches()
     flash_routes = dict(fa.flash_attention.routes)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expected = {"flash_attention": L, "decode_attention": L * (gen - 1), "ssd": 0,
                 "ssd_routes": {"wgmma": 0, "fp32": 0}}
-    if (launches != expected or flash_routes != {"wgmma": L, "fp32": 0}
-            or (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim) != (16, 16, 128)):
-        fail(f"serve_moe: kernel launches {launches}, flash routes {flash_routes}; expected "
-             f"{expected}, flash all on wgmma, MHA 16/16 at head_dim 128")
+    if launches != expected or flash_routes != {"wgmma": L, "fp32": 0}:
+        fail(f"{phase}: kernel launches {launches}, flash routes {flash_routes}; expected "
+             f"{expected}, flash all on wgmma")
+    want_shapes = {"flash": [((b, prompt, h, hd), (b, prompt, kh, hd))],
+                   "decode": [((b, 1, h, hd), (b, prompt + gen, kh, hd))]}
+    got_shapes = qk_shapes(calls)
+    if got_shapes != want_shapes:
+        fail(f"{phase}: kernel calls at (q, k) {got_shapes}, expected {want_shapes}")
     if not finite or tuple(shape) != (b, cfg.padded_vocab):
-        fail(f"serve_moe: logits not finite or of shape {tuple(shape)}")
+        fail(f"{phase}: logits not finite or of shape {tuple(shape)}")
     if seqs.shape != (b, gen) or not ((seqs >= 0) & (seqs < cfg.padded_vocab)).all():
-        fail("serve_moe: generated tokens out of range")
+        fail(f"{phase}: generated tokens out of range")
     repeat = bool((warm == seqs).all())
     if not repeat:
-        fail("serve_moe: the repeat generated other tokens than the warm-up")
+        fail(f"{phase}: the repeat generated other tokens than the warm-up")
     params = param_count(cfg)
     bounds = moe_serve_bounds(cfg, params, b, prompt, gen, slots, distinct)
-    row = dict(config=f"qwen2-moe-a2.7b full ({L} layers, {cfg.num_experts} experts padded "
-                      f"to {cfg.padded_experts}, top-{cfg.top_k}, shared "
-                      f"{cfg.shared_expert_d_ff}, MHA {cfg.num_heads}/{cfg.num_kv_heads} at "
-                      f"head_dim {cfg.resolved_head_dim}, bf16)",
+    shared = f", shared {cfg.shared_expert_d_ff}" if cfg.num_shared_experts else ""
+    row = dict(config=f"{cfg.name} full ({L} layers, {cfg.num_experts} experts of "
+                      f"{cfg.moe_d_ff} padded to {cfg.padded_experts}, top-{cfg.top_k}"
+                      f"{shared}, {h} q / {kh} kv heads of {hd}, untied head, bf16)",
                params=params, active_params=active_param_count(cfg), batch=b,
                prompt=prompt, gen=gen, init_s=init_s, prefill_ms=t_prefill * 1e3,
                prefill_bound_assigned_ms=bounds["prefill_assigned"][0] * 1e3,
@@ -4168,11 +4313,12 @@ def phase_serve_moe(torch):
                decode_gbytes_all_experts=bounds["decode_gbytes_all_experts"],
                decode_gbytes_picked_experts=bounds["decode_gbytes_picked_experts"],
                decode_tok_s=b * (gen - 1) / t_decode,
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-               launches=launches, flash_routes=flash_routes, logits_finite=finite,
-               repeat_identical=repeat, profiler_sessions_before=PROFILER_SESSIONS[0],
+               peak_mem_gb=peak_gb, mem_allocated_gb=torch.cuda.memory_allocated() / 1e9,
+               launches=launches, flash_routes=flash_routes, kernel_shapes=got_shapes,
+               logits_finite=finite, repeat_identical=repeat,
+               profiler_sessions_before=PROFILER_SESSIONS[0],
                first_sequence=seqs[0].tolist())
-    emit("serve_moe", **row)
+    emit(phase, **row)
     del model, prefill, decode
     torch.cuda.empty_cache()
     return row
@@ -4269,7 +4415,6 @@ def phase_serve_vlm(torch):
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops
     from repro_torch.models import build_model, param_count
     from repro_torch.train.serve import build_decode_step, build_prefill_step
 
@@ -4290,31 +4435,18 @@ def phase_serve_vlm(torch):
         np.random.default_rng(0).integers(0, cfg.vocab_size, (b, prompt))).cuda()
     warm, *_ = serve_once(torch, prefill, decode, tokens, max_len, gen)
 
-    shapes = {"flash": set(), "decode": set()}
-    flash, dec = ops.flash_attention, ops.decode_attention
-
-    def flash_rec(q, k, *args, **kw):
-        shapes["flash"].add((tuple(q.shape), tuple(k.shape)))
-        return flash(q, k, *args, **kw)
-
-    def decode_rec(q, k, *args):
-        shapes["decode"].add((tuple(q.shape), tuple(k.shape)))
-        return dec(q, k, *args)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    ops.flash_attention, ops.decode_attention = flash_rec, decode_rec
-    try:
+    with record_kernel_calls() as calls:
         seqs, finite, t_prefill, t_decode, shape = serve_once(
             torch, prefill, decode, tokens, max_len, gen)
-    finally:
-        ops.flash_attention, ops.decode_attention = flash, dec
     launches = read_launches()
     flash_routes = dict(fa.flash_attention.routes)
     expected = {"flash_attention": L, "decode_attention": L * (gen - 1), "ssd": 0,
                 "ssd_routes": {"wgmma": 0, "fp32": 0}}
     want_shapes = {"flash": [((b, npatch + prompt, 48, 128), (b, npatch + prompt, 8, 128))],
                    "decode": [((b, 1, 48, 128), (b, max_len, 8, 128))]}
-    got_shapes = {k: sorted(v) for k, v in shapes.items()}
+    got_shapes = qk_shapes(calls)
     if launches != expected or flash_routes != {"wgmma": L, "fp32": 0}:
         fail(f"serve_vlm: kernel launches {launches}, flash routes {flash_routes}; expected "
              f"{expected}, flash all on wgmma")
@@ -4521,13 +4653,11 @@ def phase_serve_encdec(torch):
     cache (8, 1500, 12, 64) at cur_len 1,500), no SSD launch, the calls'
     shapes recorded by wrapping ``ops``; prefill and decode times beside
     their bounds. Freed after."""
-    import collections
 
     import numpy as np
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops
     from repro_torch.models import build_model, param_count
     from repro_torch.train.serve import build_decode_step, build_prefill_step
 
@@ -4548,26 +4678,11 @@ def phase_serve_encdec(torch):
         np.random.default_rng(0).integers(0, cfg.vocab_size, (b, prompt))).cuda()
     warm, *_ = serve_once(torch, prefill, decode, tokens, max_len, gen)
 
-    calls = {"flash": collections.Counter(), "decode": collections.Counter()}
-    cur_lens = collections.defaultdict(set)
-    flash, dec = ops.flash_attention, ops.decode_attention
-
-    def flash_rec(q, k, v, *, causal=True):
-        calls["flash"][(tuple(q.shape), tuple(k.shape), causal)] += 1
-        return flash(q, k, v, causal=causal)
-
-    def decode_rec(q, k, v, cur_len):
-        calls["decode"][(tuple(q.shape), tuple(k.shape))] += 1
-        cur_lens[tuple(k.shape)].add(int(cur_len))
-        return dec(q, k, v, cur_len)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    ops.flash_attention, ops.decode_attention = flash_rec, decode_rec
-    try:
+    with record_kernel_calls() as calls:
         seqs, finite, t_prefill, t_decode, shape = serve_once(
             torch, prefill, decode, tokens, max_len, gen)
-    finally:
-        ops.flash_attention, ops.decode_attention = flash, dec
     launches = read_launches()
     flash_routes = dict(fa.flash_attention.routes)
     expected = {"flash_attention": 3 * L, "decode_attention": 2 * L * (gen - 1), "ssd": 0,
@@ -4580,13 +4695,13 @@ def phase_serve_encdec(torch):
                   "decode": {((b, 1, h, hd), self_cache): L * (gen - 1),
                              ((b, 1, h, hd), cross_cache): L * (gen - 1)}}
     want_lens = {self_cache: (prompt + 1, prompt + gen - 1), cross_cache: (senc, senc)}
-    got_calls = {k: dict(v) for k, v in calls.items()}
-    got_lens = {k: (min(v), max(v)) for k, v in cur_lens.items()}
+    got_calls = {k: dict(calls[k]) for k in ("flash", "decode")}
+    got_lens = {k: (min(v), max(v)) for k, v in calls["cur_lens"].items()}
     if launches != expected or flash_routes != {"wgmma": 3 * L, "fp32": 0}:
         fail(f"serve_encdec: kernel launches {launches}, flash routes {flash_routes}; "
              f"expected {expected}, flash all on wgmma")
     if got_calls != want_calls or got_lens != want_lens \
-            or cur_lens[cross_cache] != {senc}:
+            or calls["cur_lens"][cross_cache] != {senc}:
         fail(f"serve_encdec: kernel calls {got_calls}, decode cur_len ranges {got_lens}; "
              f"expected {want_calls}, {want_lens}")
     if not finite or tuple(shape) != (b, cfg.padded_vocab):
@@ -4622,6 +4737,53 @@ def phase_serve_encdec(torch):
     del model, prefill, decode, frames
     torch.cuda.empty_cache()
     return row
+
+
+def phase_trace_moe(torch, phase: str = "serve_moe_30b"):
+    """The MoE serve's config of ``phase`` built again from the same seed
+    (its serve phase freed it) for a torch.profiler window over its prefill
+    and 2 decode steps, placed after every timed serve (a serve run after a
+    profiler session is slower on the host): the device's busy time of a
+    decode step (the summed device activities, one stream), its share of
+    the wall time, and the time by kernel group: the decode step's device
+    time (CUDA events cannot take it: a step's ~7,000 device activities
+    fill the launch queue, so the host cannot enqueue a step ahead of the
+    device). Freed after."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.train.serve import build_decode_step, build_prefill_step
+
+    cfg = get_arch(MOE_SERVES[phase]["arch"])
+    # 2 steps: the profiler's cost grows with the ~7,000 device activities a step
+    b, prompt, gen, steps = SERVE["batch"], SERVE["prompt"], SERVE["gen"], 2
+    model = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    prefill, decode = build_prefill_step(model), build_decode_step(model)
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (b, prompt))).cuda()
+    state = {}
+
+    def run_prefill():
+        state["logits"], state["cache"] = prefill(tokens, prompt + gen)
+
+    def run_decode():
+        logits, cache = state["logits"], state["cache"]
+        for _ in range(steps):
+            logits, cache = decode(cache, logits.argmax(-1))
+
+    rows = {}
+    for part, fn in (("prefill", run_prefill), (f"decode x{steps}", run_decode)):
+        rows[part] = device_share(torch, fn, classify=serve_kernel_group)
+        emit("trace", model=cfg.name, part=part, **rows[part])
+    busy = rows[f"decode x{steps}"]["device_busy_ms"]
+    del model, prefill, decode, state
+    torch.cuda.empty_cache()
+    return dict(ms=None if busy is None else busy / steps, method="torch.profiler (CUPTI)",
+                steps=steps, wall_ms=rows[f"decode x{steps}"]["wall_ms"] / steps,
+                device_busy_share=rows[f"decode x{steps}"]["device_busy_share"],
+                groups=rows[f"decode x{steps}"].get("groups"),
+                prefill_device_busy_ms=rows["prefill"]["device_busy_ms"])
 
 
 def phase_train_ssm(torch):
@@ -4689,7 +4851,6 @@ def bytecode_cache() -> None:
 
 
 def main() -> int:
-    import contextlib
     import tempfile
 
     import torch
@@ -4723,6 +4884,10 @@ def main() -> int:
     serve_moe = timed("serve_moe", phase_serve_moe, torch)
     timed("slice_vlm", phase_slice_vlm, torch)
     serve_vlm = timed("serve_vlm", phase_serve_vlm, torch)
+    # qwen3-moe-30b-a3b (61.1 GB of bf16 weights) once internvl2-26b is freed
+    # and before internvl2-26b's (b) reference takes 38 GB of the card
+    timed("slice_moe_30b", phase_slice_moe, torch, MOE_SLICE_30B)
+    serve_moe_30b = timed("serve_moe_30b", phase_serve_moe, torch, "serve_moe_30b")
     with contextlib.ExitStack() as stack:
         tmp = {phase: stack.enter_context(tempfile.TemporaryDirectory(
             prefix=f"chip_smoke_{phase}_")) for phase in TRAIN_MESH_PHASES}
@@ -4750,6 +4915,8 @@ def main() -> int:
     timed("trace", phase_trace, torch, ssm_prefill, ssm_decode, ssm_tokens, "mamba2-2.7b")
     del ssm_model, ssm_prefill, ssm_decode
     torch.cuda.empty_cache()
+    emit("serve_moe_30b_decode_device",
+         **timed("trace", phase_trace_moe, torch, "serve_moe_30b"))
     timed("serve", phase_serve, torch, served)        # the same serve, after the profiler
 
     fa = kernels["flash_attention"]["bfloat16"]
@@ -4838,6 +5005,9 @@ def main() -> int:
              encdec_mesh_shape={f"{d}_{part}": moe_shape(kernels["flash_attention"][
                                     f"{d}_encdec_{part}_tp"])
                                 for d in ("bfloat16", "float32") for part in ("enc", "cross")},
+             moe_30b_launches=serve_moe_30b["launches"]["flash_attention"],
+             moe_30b_shape={d: moe_shape(kernels["flash_attention"][f"{d}_moe30"])
+                            for d in ("bfloat16", "float32")},
              backward="plain blockwise_attention recompute (FlashAttention), no kernel"),
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attn.cu",
@@ -4901,6 +5071,9 @@ def main() -> int:
              encdec_mesh_shape={f"{d}_cross_block": moe_shape(
                                     kernels["decode_attention"][f"{d}_encdec_mesh_block"][-1])
                                 for d in ("bfloat16", "float32")},
+             moe_30b_launches=serve_moe_30b["launches"]["decode_attention"],
+             moe_30b_shape={d: moe_shape(kernels["decode_attention"][f"{d}_moe30"][-1])
+                            for d in ("bfloat16", "float32")},
              head_dims="16, 32, 64, 112 (on 128's lanes), 128, 256 (two loads a lane in fp32)",
              groups="1, 2, 4, 6, 8 q heads per kv head"),
         dict(name="ssd", route="cuda", dispatch=ssd_main["route"],
@@ -4938,6 +5111,7 @@ def main() -> int:
              encdec_mesh_launches=dict(
                  train_a=encdec_mesh["ssd_launches"],
                  serve_a=[x["ssd"] for x in serve_encdec_mesh["launches_by_rank"]]),
+             moe_30b_launches=serve_moe_30b["launches"]["ssd"],
              tp_shapes={model: {k_: ssd_rows[(f"{model}/tp2", 1024, "bfloat16")][k_]
                                 for k_ in keys}
                         for model in ("mamba2-2.7b", "zamba2-7b")},

@@ -17,9 +17,8 @@ def _round_up(x: int, m: int) -> int:
 
 @dataclass(frozen=True)
 class ArchConfig:
-    """One architecture. All sizes are the *full* production config. Only
-    the fields the ported families read are kept; each later slice adds the
-    fields of the families it ports."""
+    """One architecture. All sizes are the *full* production config. The
+    fields are the reference's, in its order."""
 
     name: str
     family: str  # "dense", "moe", "vlm", "ssm", "hybrid" or "encdec"
@@ -55,8 +54,12 @@ class ArchConfig:
     encoder_seq: int = 0
     # --- VLM (InternVL2): precomputed patch embeddings (ViT frontend stubbed) ---
     num_patch_tokens: int = 0
-    # --- numerics ---
+    # --- numerics / memory ---
     dtype: str = "bfloat16"
+    # none | full | dots: the recompute the reference's layers run, which
+    # roofline.memory_model counts; the port's layers recompute under FSDP
+    # only (models.modes.run_layer) and do not read it
+    remat_policy: str = "full"
     # --- capability flags ---
     sub_quadratic: bool = False  # can run long_500k
     source: str = ""
@@ -122,6 +125,28 @@ SHAPES: Dict[str, ShapeConfig] = {
 
 _REGISTRY: Dict[str, ArchConfig] = {}
 
+# The ten assigned architectures (dry-run and roofline targets).
+ASSIGNED: Tuple[str, ...] = (
+    "deepseek-67b",
+    "qwen3-0.6b",
+    "nemotron-4-15b",
+    "gemma-2b",
+    "whisper-small",
+    "mamba2-2.7b",
+    "zamba2-7b",
+    "qwen3-moe-30b-a3b",
+    "qwen2-moe-a2.7b",
+    "internvl2-26b",
+)
+
+# The paper's own evaluation workloads (Table 4).
+PAPER_WORKLOADS: Tuple[str, ...] = (
+    "gpt2-2.7b",
+    "llama3-8b",
+    "llama2-13b",
+    "llama3-70b",
+)
+
 # The config modules, the JAX registry's eleven in its order: the dense ones,
 # the enc-dec one, mamba2, zamba2, the two MoE ones, the VLM and the paper's
 # workloads.
@@ -151,9 +176,38 @@ def get_arch(name: str) -> ArchConfig:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}") from None
 
 
+def list_archs() -> Tuple[str, ...]:
+    if not _REGISTRY:
+        _load_all()
+    return tuple(sorted(_REGISTRY))
+
+
+def get_shape(name: str) -> ShapeConfig:
+    try:
+        return SHAPES[name]
+    except KeyError:
+        raise KeyError(f"unknown shape {name!r}; known: {sorted(SHAPES)}") from None
+
+
+def dryrun_cells(include_skips: bool = False):
+    """All (arch, shape, skip) dry-run cells of the assigned architectures;
+    ``skip`` marks long_500k for a full-attention arch, which is left out
+    unless ``include_skips``."""
+    cells = []
+    for arch_name in ASSIGNED:
+        cfg = get_arch(arch_name)
+        for shape in SHAPES.values():
+            skip = shape.requires_sub_quadratic and not cfg.sub_quadratic
+            if skip and not include_skips:
+                continue
+            cells.append((cfg, shape, skip))
+    return cells
+
+
 def reduce_for_smoke(cfg: ArchConfig, *, seq_hint: int = 32) -> ArchConfig:
     """Shrink a production config to a CPU-smoke-testable size, by the rules
-    of ``repro.configs.reduce_for_smoke``: an MoE keeps 8 experts (padded to
+    of ``repro.configs.reduce_for_smoke`` (no recompute: ``remat_policy``
+    "none"): an MoE keeps 8 experts (padded to
     16), top-k of at most 2 and its shared expert; a hybrid keeps 4 layers
     and its attention cadence (every 2); an enc-dec keeps both stacks, 2
     encoder layers of max(8, seq_hint // 2) frames; a VLM keeps 8 patch
@@ -168,7 +222,7 @@ def reduce_for_smoke(cfg: ArchConfig, *, seq_hint: int = 32) -> ArchConfig:
         name=cfg.name + "-smoke",
         num_layers=min(cfg.num_layers, 4 if cfg.family == "hybrid" else 2),
         d_model=64, num_heads=4, num_kv_heads=kv_heads, head_dim=16,
-        d_ff=128 if cfg.d_ff else 0, vocab_size=256)
+        d_ff=128 if cfg.d_ff else 0, vocab_size=256, remat_policy="none")
     if cfg.is_moe:
         changes.update(num_experts=8, top_k=min(cfg.top_k, 2), moe_d_ff=32)
         if cfg.num_shared_experts:

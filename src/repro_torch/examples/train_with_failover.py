@@ -8,9 +8,9 @@ recovery resumes from partial chunks.
     PYTHONPATH=src python -m repro_torch.examples.train_with_failover --device cpu --steps 8
 
 The port of the reference's ``examples/train_with_failover.py``, with the
-same ``demo-100m`` config (the port's ``ArchConfig`` has no
-``remat_policy``). The MTTR it prints is simulated fabric time; the s/it is
-the host's wall clock. Below about 20 steps (the learning rate's warm-up)
+same ``demo-100m`` config but its ``remat_policy`` (which the port's layers
+do not read). The MTTR it prints is simulated fabric time; the s/it is the
+host's wall clock. Below about 20 steps (the learning rate's warm-up)
 the closing "did not learn" check compares two noisy losses: it fails at
 ``--steps 4``.
 """

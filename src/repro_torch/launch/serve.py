@@ -8,6 +8,8 @@
         --batch 8 --prompt-len 1000 --gen 32           # the VLM, 39.7 GB bf16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
         --batch 8 --prompt-len 16 --gen 32             # the enc-dec, 1,500 frames a clip
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \\
+        --batch 8 --prompt-len 1000 --gen 32           # 128 experts, top-8, 61.1 GB bf16
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke
 
 Weights are random, drawn from ``--seed``. Unlike the reference CLI, whose

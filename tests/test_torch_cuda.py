@@ -809,3 +809,44 @@ def test_flash_noncausal_at_an_encdec_mesh_rank(cuda, dtype):
     for got, want in zip((out,) + grads, (ref,) + ref_grads):
         np.testing.assert_allclose(got.detach().float().cpu().numpy(),
                                    want.detach().float().cpu().numpy(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_at_the_qwen3_moe_30b_serve_shape(cuda, dtype):
+    """The prefill's attention: q (8, 1000, 32, 128), k/v (8, 1000, 4, 128),
+    causal, on the wrapper's route for the dtype."""
+    g = torch.Generator(device=cuda).manual_seed(30)
+    q = _rand(g, (8, 1000, 32, 128), dtype, cuda)
+    k = _rand(g, (8, 1000, 4, 128), dtype, cuda)
+    v = _rand(g, (8, 1000, 4, 128), dtype, cuda)
+    route = "wgmma" if dtype == torch.bfloat16 else "fp32"
+    routed = flash_attention.flash_attention.routes[route]
+    out = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.routes[route] == routed + 1
+    ref = ops.flash_attention_plain(q, k, v, causal=True)
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cur_len", [1001, 1032])
+def test_decode_at_the_qwen3_moe_30b_serve_shape(cuda, cur_len, dtype):
+    """A decode step's attention: q (8, 1, 32, 128) against caches (8, 1032,
+    4, 128) at the first and last step's length, split as the planner says
+    for group 8."""
+    g = torch.Generator(device=cuda).manual_seed(31)
+    q = _rand(g, (8, 1, 32, 128), dtype, cuda)
+    kc = _rand(g, (8, 1032, 4, 128), dtype, cuda)
+    vc = _rand(g, (8, 1032, 4, 128), dtype, cuda)
+    before = decode_attn.decode_attention.launches
+    out = ops.decode_attention(q, kc, vc, cur_len)
+    torch.cuda.synchronize()
+    assert decode_attn.decode_attention.launches == before + 1
+    sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    step = decode_attn.rows_per_step(128, q.element_size(), 8)
+    assert decode_attn.decode_attention.last_split == decode_attn.plan_splits(
+        cur_len, 8, 4, sm, step)
+    ref = decode_attention_ref(q, kc, vc, cur_len)
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               **_tol(dtype))
