@@ -39,7 +39,8 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 exactly, and the smallest gap between a token's k-th and
                 (k+1)-th gate probability) is compared and printed (a flip with
                 its own gap, at once); the caches after the prefill and after the
-                steps at 2e-4; 4 flash and 16 decode launches.
+                steps at 2e-4; 6 flash (the prefill's, the loss's forward and its
+                recompute: remat_policy "full") and 16 decode launches.
 6d. serve_moe -- full qwen2-moe-a2.7b (24 layers, 60 routed experts padded to
                 64, top-4, the shared expert, MHA 16/16 at head_dim 128, bf16,
                 random weights drawn on the card from a seed), the same
@@ -86,6 +87,30 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 bounds and peak device memory. Freed after; one decode step's
                 device time comes from a torch.profiler window over the model
                 built again after every timed serve (11, ``trace``).
+6f4. slice_nemotron -- nemotron-4-15b at full width (48 q heads on 8 kv heads
+                of 128: both attention kernels at group 6; the squared-ReLU MLP of
+                24,576; the untied head of 256,000), 2 layers, fp32, CPU against
+                card, weights drawn on the card and copied: prefill of 2 x 256
+                tokens, 8 decode steps; the logits of each, the caches after the
+                prefill and after the steps and the index at 2e-4, the greedy
+                flips counted; 2 flash and 16 decode launches.
+6f5. serve_nemotron -- full nemotron-4-15b (32 layers, 15,628,376,064
+                parameters, 31.3 GB of bf16 drawn on the card from a seed): the
+                same requests served twice, the repeat identical; 32 flash
+                launches on wgmma at q (8, 1000, 48, 128), k/v (8, 1000, 8, 128),
+                32 x 31 = 992 decode launches at q (8, 1, 48, 128), caches (8,
+                1032, 8, 128), no SSD launch; prefill and decode times beside
+                their bounds and the serve's own peak device memory. Freed after.
+6f6. dryrun -- the port's dry-run (repro_torch.launch.dryrun.run_cell, fake
+                tensors on a (1, 1) mesh, in a process started after the build
+                and running beside the card's phases): nemotron-4-15b's prefill
+                and decode cells at serve_nemotron's shape, deepseek-67b's decode
+                at the same shape. Fails unless the fit verdicts agree with the
+                card (nemotron fits: it ran; deepseek-67b's 134.9 GB do not) and
+                predicted / measured peak lies in DRYRUN["peak_band"]
+                ([0.95, 1.25]); prints the predicted against the measured
+                peak and the analysis FLOPs of the prefill against the bound
+                helper's count.
 6g. slice_encdec -- whisper-small at full width (d_model 768, 12 heads of 64,
                 gelu 3,072, the tied head of 51,968), cut to 2 encoder and 2
                 decoder layers, fp32, CPU against card, weights drawn on the card
@@ -95,7 +120,8 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 steps and the index (16 then 24); then the loss of 2 x 33 tokens
                 and every gradient, at 2e-4. Launches exactly: the serve part 6
                 flash (2 encoder, 2 causal self, 2 cross) and 32 decode (2 layers
-                x 2 attentions x 8 steps), the loss 6 flash, the CPU none.
+                x 2 attentions x 8 steps), the loss 12 flash (its forward and the
+                recompute), the CPU none.
 6h. serve_encdec -- full whisper-small (12 encoder and 12 decoder layers, bf16,
                 238,139,904 parameters drawn on the card from a seed): 8 clips of
                 1,500 frame embeddings (N(0, 1) in bf16 from a seed), a 16-token
@@ -141,11 +167,12 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 labelled as gloo through the host on one shared card. (b) Full
                 width cut to 2 layers, fp32, 2 steps: the 4-rank step against
                 one rank of the same step over NCCL from the same weights and
-                batches (run first, in its own process, which saves its loss,
-                master, m and v after each step; the later train phases' (b)
-                references each run in their own process beside an earlier
-                phase's ranks or, internvl2-26b's, beside the light phases before
-                this one: ``train_meshes``): each rank's blocks against
+                batches (one process that saves its loss, master, m and v after
+                each step; it runs train_mesh's, train_gemma_mesh's and
+                train_moe_mesh's in turn beside the ranks, internvl2-26b's runs
+                beside the light phases before this one; the five train phases
+                share one set of four ranks: ``phase_train_group``): each rank's
+                blocks against
                 the one rank's, the losses and the master of step 1 (lr 0 under
                 the warmup) within 1e-5 relative, m (0.1 of the gradient) of
                 every step within the slice's 2e-4, each against its leaf's
@@ -324,7 +351,8 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 workers, 8 x 1024 tokens a step) with the scenario's fabric and
                 reliability values: 10 steps, one recovery from the neighbour, 0
                 rollbacks, 1 detection within one heartbeat of the analytic
-                bound, finite losses, 2 x 10 flash launches all on wgmma. Prints the verdict
+                bound, finite losses, 2 x 2 x 10 flash launches (the forward and
+                the recompute) all on wgmma. Prints the verdict
                 beside the fields in which it differs from the reference-scale
                 pin, the step split, tokens/s (by the median step and by the
                 replay's whole window), the steps and host RSS before and after
@@ -334,8 +362,9 @@ slices and the serve runs come before any phase that opens torch.profiler:
 8b. train_ssm -- mamba2-2.7b at full width cut to 2 of 64 layers, bf16, trained
                 by SimCluster as train below (dp=4, 8 x 1024 tokens, 2 steps, a
                 failure of worker 2, recover(), 1 step): a neighbour recovery,
-                0 rollbacks, the opt vector bitwise equal across recover(), 2
-                SSD launches a step all on wgmma, finite losses, and the first
+                0 rollbacks, the opt vector bitwise equal across recover(), 2 x 2
+                SSD launches a step (the forward and the recompute) all on wgmma,
+                finite losses, and the first
                 step's batch scoring lower after the run; the step split, tokens/s
                 and bound as train. Placed after the replay's heap trim and before
                 the first profiler session; trims the heap again after.
@@ -346,13 +375,18 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 recover() with the stream policy, 1 more step. Requires recovery
                 from the neighbour with no rollback, the optimizer vector after
                 recovery bitwise equal to a host copy taken before the failure,
-                finite losses, and, with the counts zeroed just before, 4 x 3
-                flash launches (all wgmma) and no decode or SSD launch. Prints
+                finite losses, and, with the counts zeroed just before, 2 x 4 x 3
+                flash launches (all wgmma: every layer body recomputed in the
+                backward under the config's remat_policy "full") and no decode or
+                SSD launch. Prints
                 the step split (device by CUDA events, host checkpoint by the
                 host clock), tokens/s, the step's bound, peak device memory, peak
                 host RSS and recover()'s wall time beside its simulated time;
-                then one more device step under torch.profiler (the script's
-                first profiler session): busy share and the largest kernels.
+                then a forward and backward of the same config on a batch of the
+                step's shape, without recompute and with it (``remat_compare``:
+                device ms by CUDA events, peak device memory above the model), and
+                one more device step under torch.profiler (the script's first
+                profiler session): busy share and the largest kernels.
 10. kernels  -- each kernel against its plain PyTorch version on the card at the
                 serve shapes, zamba2-7b's at head_dim 112 too (prefill B=8,
                 S=1000, H=K=32; decode T=1032, cur_len 1032; its SSD, 112 heads,
@@ -396,7 +430,9 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 750, each in both dtypes; flash at qwen3-moe-30b-a3b's q (8,
                 1000, 32, 128), k/v (8, 1000, 4, 128) and decode at its q (8, 1,
                 32, 128), caches (8, 1032, 4, 128), cur_len 1,032, each in both
-                dtypes; the SSD
+                dtypes; flash at nemotron-4-15b's q (8, 1000, 48, 128), k/v (8,
+                1000, 8, 128) and decode at its q (8, 1, 48, 128), caches (8,
+                1032, 8, 128), cur_len 1,001 and 1,032, each in both dtypes; the SSD
                 at a rank's 40 (mamba2) and 56 (zamba2) heads, 4 x 1024, bf16),
                 with the
                 kernel's, the plain version's and (for attention) the library
@@ -420,11 +456,11 @@ one {"kernels": [...]} line (each kernel's launches in every serve and training
 phase, ``moe_launches``, ``train_tp_launches``, ``train_moe_mesh_launches``,
 ``train_gemma_mesh_launches``, ``serve_mesh_launches``, ``pipeline_launches``,
 ``vlm_launches``, ``encdec_launches``, ``vlm_mesh_launches``,
-``encdec_mesh_launches`` and ``moe_30b_launches`` among them, and its rows
-at the other shapes, ``tp_shape`` / ``tp_shapes``, ``moe_mesh_shape``,
-``pipeline_shape``, ``gemma_tp_shape``, ``hd256``, ``vlm_shape``,
-``encdec_shape``, ``vlm_mesh_shape``, ``encdec_mesh_shape`` and
-``moe_30b_shape`` among them), the
+``encdec_mesh_launches``, ``moe_30b_launches`` and ``nemotron_launches``
+among them, and its rows at the other shapes, ``tp_shape`` / ``tp_shapes``,
+``moe_mesh_shape``, ``pipeline_shape``, ``gemma_tp_shape``, ``hd256``,
+``vlm_shape``, ``encdec_shape``, ``vlm_mesh_shape``, ``encdec_mesh_shape``,
+``moe_30b_shape`` and ``nemotron_shape`` among them), the
 card's name
 and power
 limit, and last
@@ -519,6 +555,11 @@ DECODE_ENCDEC_MESH_BLOCK = dict(DECODE_ENCDEC_CROSS, b=4, t=750, cur_lens=(750,)
 # positions (decode at the full cache)
 PREFILL_MOE30 = dict(b=8, s=1000, h=32, kh=4, hd=128)
 DECODE_MOE30 = dict(b=8, t=1032, h=32, kh=4, hd=128, cur_lens=(1032,))
+# nemotron-4-15b's serve shapes: 48 q heads on 8 kv heads of 128 (group 6),
+# 8 prompts of 1,000 tokens, a cache of 1,032 positions (decode at the first
+# step's length and at the full cache)
+PREFILL_NEMOTRON = dict(b=8, s=1000, h=48, kh=8, hd=128)
+DECODE_NEMOTRON = dict(b=8, t=1032, h=48, kh=8, hd=128, cur_lens=(1001, 1032))
 SSD_TP = dict(SSD, b=4, h=40, seqs=(1024,))
 SSD_HYBRID_TP = dict(SSD_HYBRID, b=4, h=56, seqs=(1024,))
 SERVE = dict(batch=8, prompt=1000, gen=32)
@@ -576,6 +617,17 @@ MOE_SLICE_30B = dict(MOE_SLICE, arch="qwen3-moe-30b-a3b", phase="slice_moe_30b",
 # on the CPU), fp32, one prompt of 16 tokens behind its 1,024 patch
 # embeddings, 8 decode steps
 VLM_SLICE = dict(layers=2, batch=1, prompt=16, steps=8, tol=SLICE_TOL)
+# the nemotron-4-15b slice, card against CPU: full width cut to 2 layers
+# (3,925,899,264 parameters, 15.7 GB of fp32 a side), fp32, prefill of 2 x
+# 256 tokens, 8 decode steps
+NEMOTRON_SLICE = dict(layers=2, batch=2, prompt=256, steps=8, tol=SLICE_TOL)
+# the dry-run's prediction of one card's peak against serve_nemotron's
+# measured one, as predicted / measured in [0.95, 1.25]: below by at most 5 %
+# (the caching allocator rounds every block up to 512 bytes, and cuBLAS takes
+# a workspace that the dry-run's plain forms do not), above by at most 25 %
+# (the plain unembedding's fp32 copy of the head, 6.29 GB, reads 1.159; a
+# count of every storage twice would read 2.32)
+DRYRUN = dict(arch="nemotron-4-15b", over="deepseek-67b", peak_band=(0.95, 1.25))
 # the enc-dec slice, card against CPU: whisper-small at full width cut to 2
 # encoder and 2 decoder layers, fp32, 2 clips of 1,500 frames: prefill of a
 # 16-token prompt, 8 decode steps, then the loss of 2 x 33 tokens and every
@@ -827,8 +879,8 @@ def phase_kernels(torch, F):
     # whisper-small's at hd 64 (the encoder's non-causal, the decoder's
     # causal over the prompt, the cross-attention's non-causal at Sq 16
     # against 1,500 frames; a rank's of train_encdec_mesh: the encoder's and
-    # the cross-attention's of 448 tokens) in both, and qwen3-moe-30b-a3b's at
-    # group 8 in both
+    # the cross-attention's of 448 tokens) in both, qwen3-moe-30b-a3b's at
+    # group 8 in both, and nemotron-4-15b's at group 6 in both
     for key, dtype, p in (("bfloat16", torch.bfloat16, PREFILL),
                           ("float32", torch.float32, PREFILL),
                           ("bfloat16_train", torch.bfloat16,
@@ -861,7 +913,9 @@ def phase_kernels(torch, F):
                           ("bfloat16_encdec_cross_tp", torch.bfloat16, PREFILL_ENCDEC_CROSS_TP),
                           ("float32_encdec_cross_tp", torch.float32, PREFILL_ENCDEC_CROSS_TP),
                           ("bfloat16_moe30", torch.bfloat16, PREFILL_MOE30),
-                          ("float32_moe30", torch.float32, PREFILL_MOE30)):
+                          ("float32_moe30", torch.float32, PREFILL_MOE30),
+                          ("bfloat16_nemotron", torch.bfloat16, PREFILL_NEMOTRON),
+                          ("float32_nemotron", torch.float32, PREFILL_NEMOTRON)):
         dname = str(dtype).split(".")[-1]
         causal, skv = p.get("causal", True), p.get("skv", p["s"])
         q = rand((p["b"], p["s"], p["h"], p["hd"]), dtype)
@@ -924,7 +978,9 @@ def phase_kernels(torch, F):
                              ("_encdec_mesh_block", DECODE_ENCDEC_MESH_BLOCK, torch.bfloat16),
                              ("_encdec_mesh_block", DECODE_ENCDEC_MESH_BLOCK, torch.float32),
                              ("_moe30", DECODE_MOE30, torch.bfloat16),
-                             ("_moe30", DECODE_MOE30, torch.float32)):
+                             ("_moe30", DECODE_MOE30, torch.float32),
+                             ("_nemotron", DECODE_NEMOTRON, torch.bfloat16),
+                             ("_nemotron", DECODE_NEMOTRON, torch.float32)):
         dname = str(dtype).split(".")[-1]
         partial = d.get("partial", False)
         q = rand((d["b"], 1, d["h"], d["hd"]), dtype)
@@ -1098,6 +1154,18 @@ def serve_once(torch, prefill, decode, tokens, max_len, gen):
     return torch.stack(out, 1), bool(finite), t_prefill, t_decode, logits.shape
 
 
+def serve_prefill_flops(cfg, params: int, b: int, prompt: int) -> int:
+    """The operations ``serve_bounds`` counts for a prefill: 2 a weight of
+    the body (every parameter but the head and an untied embedding, the
+    norms' weights among them) and position, 2 a weight of the head for the
+    last position, and causal attention's products over s(s+1)/2 pairs."""
+    L, h, hd = cfg.num_layers, cfg.num_heads, cfg.resolved_head_dim
+    n_head = cfg.padded_vocab * cfg.d_model
+    n_body = params - n_head - (0 if cfg.tie_embeddings else n_head)
+    s = cfg.num_patch_tokens + prompt
+    return 2 * n_body * b * s + 2 * n_head * b + L * 4 * b * h * hd * s * (s + 1) // 2
+
+
 def serve_bounds(cfg, params: int, b: int, prompt: int, gen: int):
     """The card's least time for the serve run's prefill and for its mean
     decode step, bf16: weight bytes read once (an untied embedding table is
@@ -1112,8 +1180,7 @@ def serve_bounds(cfg, params: int, b: int, prompt: int, gen: int):
     weight_bytes = 2 * (params - n_embed)
     s = cfg.num_patch_tokens + prompt                 # positions of the prefill
     kv_bytes_per_pos = 2 * L * b * kh * hd * 2        # K and V, all layers, bf16
-    prefill_flops = (2 * n_body * b * s + 2 * n_head * b
-                     + L * 4 * b * h * hd * s * (s + 1) // 2)
+    prefill_flops = serve_prefill_flops(cfg, params, b, prompt)
     prefill = bound_seconds(prefill_flops, weight_bytes + kv_bytes_per_pos * s
                             + 2 * b * cfg.num_patch_tokens * cfg.d_model, "bfloat16")
     lens = range(s + 1, s + gen)                       # attended lengths per step
@@ -1788,9 +1855,51 @@ def close_cluster(torch, run: dict) -> float:
     return host_rss_gb()
 
 
+def remat_compare(torch, cfg, t: dict) -> dict:
+    """One forward and backward of ``cfg`` on a batch of the training
+    step's shape, without recompute ("none": what the port's layers did
+    before they read remat_policy) and under the config's policy, in the
+    same process: the device ms (CUDA events, the median of 3 after a
+    warm-up) and the device memory at the peak above the model and its
+    gradients."""
+    import numpy as np
+
+    from repro_torch.models import build_model
+
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (t["global_batch"], t["seq_len"] + 1))).cuda()
+    out = {}
+    for policy in ("none", cfg.remat_policy):
+        model = build_model(dataclasses.replace(cfg, remat_policy=policy)).init(
+            torch.Generator(device="cuda").manual_seed(0))
+        model.requires_grad_(True)
+
+        def step():
+            model.loss({"tokens": tokens})[0].backward()
+        step()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            step()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        out[policy] = dict(device_ms=float(np.median(times)), device_ms_all=times,
+                           peak_above_model_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
+        del model, step
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_train(torch):
     """qwen3-0.6b at full width, cut to TRAIN's layers, trained through the
-    port's SimCluster with a failure and a stream recovery in the middle."""
+    port's SimCluster with a failure and a stream recovery in the middle;
+    then a forward and backward with and without the config's recompute
+    (``remat_compare``)."""
     from repro_torch.configs import get_arch
     from repro_torch.models import param_count
 
@@ -1798,13 +1907,14 @@ def phase_train(torch):
     cfg = dataclasses.replace(get_arch("qwen3-0.6b"), num_layers=t["layers"])
     run = train_through_a_failure(torch, "train", cfg, t, "chip_smoke_ckpt")
     steps = run["steps"]
-    expected = {"flash_attention": cfg.num_layers * steps, "decode_attention": 0, "ssd": 0,
+    flash = passes(cfg) * cfg.num_layers * steps        # the forward and the recompute
+    expected = {"flash_attention": flash, "decode_attention": 0, "ssd": 0,
                 "ssd_routes": {"wgmma": 0, "fp32": 0}}
-    if (run["launches"] != expected
-            or run["flash_routes"].get("wgmma") != cfg.num_layers * steps):
+    if run["launches"] != expected or run["flash_routes"].get("wgmma") != flash:
         fail(f"train: kernel launches {run['launches']}, flash routes {run['flash_routes']}, "
              f"expected {expected} all on wgmma")
 
+    remat = remat_compare(torch, cfg, t)
     # where the device step's time goes: one more step under torch.profiler,
     # after the measured run (the first profiler session of the script)
     clu = run["clu"]
@@ -1817,7 +1927,8 @@ def phase_train(torch):
                                          t["global_batch"], t["seq_len"])
     row = dict(config=f"qwen3-0.6b full width, {cfg.num_layers} of 28 layers (bf16, tied head)",
                **train_row(torch, run, t, params, bound, flops),
-               attention_fwd_gflop_per_layer=attn_fwd / 1e9, device_step_trace=trace)
+               attention_fwd_gflop_per_layer=attn_fwd / 1e9, device_step_trace=trace,
+               remat_policy=cfg.remat_policy, fwd_bwd_by_remat=remat)
     row["host_rss_after_free_gb"] = close_cluster(torch, run)
     emit("train", **row)
     return row
@@ -2136,6 +2247,7 @@ def mesh_rank(rank: int, world: int, tmp: str, rdv: str, parts: list, device: st
     import os
     if os.environ.get("PYTHONPYCACHEPREFIX"):    # bytecode_cache(): spawned with -B
         sys.dont_write_bytecode = False
+    import ctypes
     import gc
 
     import torch
@@ -2150,6 +2262,7 @@ def mesh_rank(rank: int, world: int, tmp: str, rdv: str, parts: list, device: st
         t0 = time.perf_counter()
         part(rank, world, where, cfg, device)
         gc.collect()
+        ctypes.CDLL("libc.so.6").malloc_trim(0)      # the freed host heap, back to the OS
         if device == "cuda":
             torch.cuda.empty_cache()
         if rank == 0:
@@ -2368,9 +2481,9 @@ def tp_part_a(rank: int, world: int, tmp: str, t: dict, device: str) -> None:
         pairs.add((tuple(q.shape), tuple(k.shape)))
         return flash(q, k, *args, **kw)
 
-    def layer(body, params, x, *rest):        # rest: a decoder layer's encoder output
+    def layer(body, params, x, *rest, **kw):  # rest: a decoder layer's encoder output
         residual_shapes.add(tuple(x.shape))
-        return run_layer(body, params, x, *rest)
+        return run_layer(body, params, x, *rest, **kw)
     ops.flash_attention, transformer.run_layer = recording, layer
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -2459,6 +2572,13 @@ def attention_calls(cfg) -> int:
     """The flash calls of one forward: one a layer, an enc-dec's decoder
     layers two (self- and cross-attention)."""
     return cfg.encoder_layers + 2 * cfg.num_layers if cfg.encoder_layers else cfg.num_layers
+
+
+def passes(cfg) -> int:
+    """The forwards of a layer body that autograd runs for one loss: one,
+    and once more where the config's remat_policy recomputes the body in
+    the backward (models.modes.run_layer; the full configs' "full")."""
+    return 1 if cfg.remat_policy == "none" else 2
 
 
 def _train_tp_row(phase: str, recs: list, t: dict, a_s: float, device: str,
@@ -2848,76 +2968,100 @@ def _routing_against(log: list, ref: list, data_index: int) -> dict:
     return out
 
 
-def phase_mesh(torch, phase: str, t: dict, tb: dict, tmp: str, part_a, row_a,
-               device: str = "cuda", ref=None) -> dict:
-    """A sharded phase: (b)'s one-rank reference ``ref`` (``start_reference``
-    into ``tmp``; None where ``tmp`` already holds another phase's of the
-    same config) waited for, then t["world"] spawned ranks running (a)
-    (``part_a``, which records tmp/a_<rank>.json, checked and printed by
-    ``row_a(recs, seconds)``) and (b) (``blocks_part_b``, checked and
-    printed by ``_blocks_b_row``) in turn. Returns (a)'s row with (b)'s
-    under "part_b"."""
-    parent = dict(parent_host_rss_gb=host_rss_gb(), parent_device_reserved_gb=None)
-    if device == "cuda":
-        torch.cuda.empty_cache()
-        parent["parent_device_reserved_gb"] = torch.cuda.memory_reserved() / 1e9
-    single_s = None
-    if ref is not None:
-        wait_children(*ref)
-        single_s = await_part(tmp, "single_part_b", 0)["seconds"]
-
-    t0 = time.perf_counter()
-    run_children(phase, [(mesh_rank, (r, t["world"], tmp, f"{tmp}/rdv_{phase}",
-                                      [(part_a, t), (blocks_part_b, tb)], device))
-                         for r in range(t["world"])], t["timeout_s"] + tb["timeout_s"])
-    recs = []
-    for r in range(t["world"]):
-        with open(f"{tmp}/a_{r}.json") as f:
-            recs.append(json.load(f))
-    row = dict(row_a(recs, time.perf_counter() - t0), **parent)
-    emit(phase, **row)
-    with open(f"{tmp}/blocks_b.json") as f:
-        part_b = _blocks_b_row(phase, json.load(f), tb, single_s, device)
-    emit(f"{phase}_world1", **part_b)
-    return dict(row, part_b=part_b)
+def await_reference(rank: int, world: int, tmp: str, tb: dict, device: str) -> None:
+    """A part that waits until the (b) reference of ``tmp``'s phase has
+    finished: that reference and the phase's ranks do not fit the card
+    together."""
+    await_part(tmp, "single_part_b", tb["timeout_s"])
 
 
 TRAIN_MESH_PHASES = ("train_mesh", "train_moe_mesh", "train_gemma_mesh", "train_vlm_mesh")
 
 
-def train_meshes(torch, tmp: dict, ref: dict, device: str = "cuda") -> tuple:
-    """The sharded train phases in turn (train_mesh, train_tp,
-    train_moe_mesh, train_gemma_mesh, train_vlm_mesh), each timed as its
-    own phase, in ``tmp``'s directory of each of TRAIN_MESH_PHASES
-    (train_mesh (b)'s reference is train_tp (b)'s too). Each (b) reference
-    runs in its own process (``ref``: the ones the caller started,
-    internvl2-26b's beside the light phases before this one), the others
-    beside an earlier phase's ranks where the card holds both: gemma-2b's
-    beside train_mesh's, qwen2-moe's beside train_tp's. The card holds no
-    two of the largest (internvl2-26b's 38 GB, qwen2-moe's, a phase's
-    ranks) at once. Returns the phases' rows in that order."""
-    ref["train_mesh"] = start_reference("train_mesh", TRAIN_MESH_B, tmp["train_mesh"], device)
-    for held in ("train_mesh", "train_vlm_mesh"):
-        timed("train_mesh", wait_children, *ref[held])
-    ref["train_gemma_mesh"] = start_reference("train_gemma_mesh", TRAIN_GEMMA_B,
-                                              tmp["train_gemma_mesh"], device)
-    train_mesh = timed("train_mesh", phase_mesh, torch, "train_mesh", TRAIN_MESH, TRAIN_MESH_B,
-                       tmp["train_mesh"], mesh_part_a,
-                       lambda recs, a_s: _train_mesh_row(recs, TRAIN_MESH, a_s, device),
-                       device, ref["train_mesh"])
-    timed("train_tp", wait_children, *ref["train_gemma_mesh"])
-    ref["train_moe_mesh"] = start_reference("train_moe_mesh", TRAIN_MOE_B,
-                                            tmp["train_moe_mesh"], device)
-    rows = [train_mesh, timed(
-        "train_tp", phase_mesh, torch, "train_tp", TRAIN_TP, TRAIN_TP_B, tmp["train_mesh"],
-        tp_part_a, lambda recs, a_s: _train_tp_row("train_tp", recs, TRAIN_TP, a_s, device,
-                                                   train_mesh), device)]
-    for phase, t, tb in (("train_moe_mesh", TRAIN_MOE, TRAIN_MOE_B),
-                         ("train_gemma_mesh", TRAIN_GEMMA, TRAIN_GEMMA_B),
-                         ("train_vlm_mesh", TRAIN_VLM, TRAIN_VLM_B)):
-        rows.append(timed(phase, phase_mesh, torch, phase, t, tb, tmp[phase], tp_part_a,
-                          lambda recs, a_s, phase=phase, t=t: _train_tp_row(
-                              phase, recs, t, a_s, device), device, ref[phase]))
+def phase_train_group(torch, tmp: dict, vlm_ref: tuple, device: str = "cuda") -> tuple:
+    """The sharded train phases (train_mesh, train_tp, train_moe_mesh,
+    train_gemma_mesh, train_vlm_mesh) in one set of four spawned gloo ranks,
+    each phase's (a) then (b) in turn in ``tmp``'s directory of its phase,
+    beside one single-rank NCCL process that runs the (b) references of
+    train_mesh (which train_tp's (b) reads too), train_gemma_mesh and
+    train_moe_mesh meanwhile, in that order: one start-up of each, and the
+    references off the ranks' path. internvl2-26b's reference (``vlm_ref``,
+    38 GB, started beside the light phases before) is waited for before the
+    ranks start, and train_moe_mesh's (a) waits for its reference
+    (``await_reference``): the card holds no two of the largest (internvl2's
+    reference, qwen2-moe's, a heavy phase's ranks) at once. Prints each
+    phase's lines (a phase's seconds are its rank 0's (a) and (b), start-up
+    excluded) and a train_group line with every part's seconds; returns the
+    phases' rows in that order, each with its (b) under "part_b"."""
+    import os
+    import tempfile
+    phases = (("train_mesh", TRAIN_MESH, TRAIN_MESH_B, mesh_part_a),
+              ("train_tp", TRAIN_TP, TRAIN_TP_B, tp_part_a),
+              ("train_moe_mesh", TRAIN_MOE, TRAIN_MOE_B, tp_part_a),
+              ("train_gemma_mesh", TRAIN_GEMMA, TRAIN_GEMMA_B, tp_part_a),
+              ("train_vlm_mesh", TRAIN_VLM, TRAIN_VLM_B, tp_part_a))
+    dirs = dict(tmp, train_tp=os.path.join(tmp["train_mesh"], "tp"))
+    # train_tp's (b) reads train_mesh's reference: the one-rank step has no
+    # "model" axis, so TRAIN_TP_B's is TRAIN_MESH_B's
+    os.makedirs(dirs["train_tp"])
+    for name in ["single_part_b.done"] + [f"single_step{i}.pt"
+                                          for i in range(TRAIN_TP_B["steps"])]:
+        os.symlink(os.path.join(dirs["train_mesh"], name), os.path.join(dirs["train_tp"], name))
+    refs = [(single_part_b, tb, dirs[phase]) for phase, tb in (
+        ("train_mesh", TRAIN_MESH_B), ("train_gemma_mesh", TRAIN_GEMMA_B),
+        ("train_moe_mesh", TRAIN_MOE_B))]
+    parts = []
+    for phase, t, tb, part_a in phases:
+        if phase == "train_moe_mesh":
+            parts.append((await_reference, tb, dirs[phase]))
+        parts += [(part_a, t, dirs[phase]), (blocks_part_b, tb, dirs[phase])]
+    wait_children(*vlm_ref)
+    parent = dict(parent_host_rss_gb=host_rss_gb(), parent_device_reserved_gb=None)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        parent["parent_device_reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+    world = TRAIN_MESH["world"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_group_") as root:
+        t0 = time.perf_counter()
+        run_children("train_group",
+                     [(mesh_rank, (0, 1, root, f"{root}/rdv_single", refs, device,
+                                   "nccl" if device == "cuda" else "gloo"))]
+                     + [(mesh_rank, (r, world, root, f"{root}/rdv", parts, device))
+                        for r in range(world)],
+                     sum(cfg["timeout_s"] for _, cfg, _ in parts))
+        seconds = time.perf_counter() - t0
+
+    def secs(where: str, part) -> float:
+        with open(os.path.join(where, f"{part.__name__}.done")) as f:
+            return json.load(f)["seconds"]
+
+    def load(phase: str, name: str):
+        with open(os.path.join(dirs[phase], name)) as f:
+            return json.load(f)
+
+    rows, mesh_row = [], None
+    for phase, t, tb, part_a in phases:
+        recs = [load(phase, f"a_{r}.json") for r in range(world)]
+        a_s = secs(dirs[phase], part_a) + secs(dirs[phase], blocks_part_b)
+        if phase == "train_mesh":
+            row = mesh_row = _train_mesh_row(recs, t, a_s, device)
+        else:
+            row = _train_tp_row(phase, recs, t, a_s, device,
+                                mesh_row if phase == "train_tp" else None)
+        row = dict(row, **parent)
+        emit(phase, **row)
+        part_b = _blocks_b_row(phase, load(phase, "blocks_b.json"), tb,
+                               secs(dirs[phase], single_part_b), device)
+        emit(f"{phase}_world1", **part_b)
+        rows.append(dict(row, part_b=part_b))
+    emit("train_group", seconds=seconds,
+         rank0_part_s=[[os.path.relpath(d, os.path.dirname(dirs["train_mesh"])), part.__name__,
+                        secs(d, part)] for part, _, d in parts],
+         reference_part_s=[[os.path.basename(d), secs(d, single_part_b)] for _, _, d in refs],
+         note="one set of four gloo ranks runs every part in turn; one NCCL process runs "
+              "the references meanwhile (each (b) part waits for its own, train_moe_mesh's "
+              "(a) too); a part's seconds are its rank 0's or the reference process's, "
+              "start-up excluded")
     return tuple(rows)
 
 
@@ -3768,9 +3912,10 @@ def phase_scenarios(torch):
              f"{analytic} s, allowed one heartbeat ({rel.heartbeat_period} s)")
     if len(losses) != sc.steps or not all(math.isfinite(x) for x in losses):
         fail(f"scenarios: full-width losses {losses}")
-    expected = {"flash_attention": cfg.num_layers * sc.steps, "decode_attention": 0,
+    flash = passes(cfg) * cfg.num_layers * sc.steps     # the forward and the recompute
+    expected = {"flash_attention": flash, "decode_attention": 0,
                 "ssd": 0, "ssd_routes": {"wgmma": 0, "fp32": 0}}
-    if launches != expected or routes.get("wgmma") != cfg.num_layers * sc.steps:
+    if launches != expected or routes.get("wgmma") != flash:
         fail(f"scenarios: full-width kernel launches {launches}, flash routes {routes}, "
              f"expected {expected} all on wgmma")
 
@@ -4098,7 +4243,11 @@ def phase_slice_moe(torch, m: dict = MOE_SLICE):
             if m["loss"]:
                 model.requires_grad_(True)
                 loss, aux = model.loss({"tokens": tokens.to(dev)})
-                loss.backward()
+        if m["loss"]:
+            # outside the log: the backward's recompute of each layer body
+            # (remat_policy "full") routes the forward's tokens again, in
+            # this thread on the CPU and in the autograd engine's on the card
+            loss.backward()
         runs[name] = outs
         runs[name + "_caches"] = caches
         logs[name] = log
@@ -4110,12 +4259,12 @@ def phase_slice_moe(torch, m: dict = MOE_SLICE):
     launches = read_launches()
     routing = routing_compare(logs["cuda"], logs["cpu"], cfg.top_k, phase)
     del logs
-    expected = {"flash_attention": (2 if m["loss"] else 1) * cfg.num_layers,
+    expected = {"flash_attention": (1 + passes(cfg) * m["loss"]) * cfg.num_layers,
                 "decode_attention": cfg.num_layers * m["steps"], "ssd": 0,
                 "ssd_routes": {"wgmma": 0, "fp32": 0}}
     if launches != expected:
-        fail(f"{phase}: kernel launches {launches}, expected {expected} (prefill and "
-             f"the loss's forward each run flash once a layer)")
+        fail(f"{phase}: kernel launches {launches}, expected {expected} (prefill, the "
+             f"loss's forward and its recompute each run flash once a layer)")
     errs = []
     for ref, out in zip(runs["cpu"], runs["cuda"]):
         if out.shape != (m["batch"], cfg.padded_vocab) or not torch.isfinite(out).all():
@@ -4481,6 +4630,270 @@ def phase_serve_vlm(torch):
     return row
 
 
+def phase_slice_nemotron(torch):
+    """nemotron-4-15b at full width (48 q heads on 8 kv heads of 128: both
+    attention kernels at group 6; the squared-ReLU MLP of 24,576; the untied
+    head of 256,000), cut to 2 layers, fp32: the same weights on the CPU
+    (plain versions) and on the card (kernels), drawn on the card and copied
+    to the CPU. Prefill of 2 x 256 tokens, then 8 decode steps (both sides
+    take the CPU's greedy token): the logits of each, the caches after the
+    prefill and after the steps, and the index, at 2e-4; the tokens the
+    card's logits would have chosen otherwise are counted (flips)."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.train.serve import build_decode_step, build_prefill_step
+
+    m = NEMOTRON_SLICE
+    cfg = dataclasses.replace(get_arch("nemotron-4-15b"), num_layers=m["layers"],
+                              dtype="float32")
+    t0 = time.perf_counter()
+    # drawn on the card (3.9 B numbers drawn on the host are slow), then
+    # copied to the CPU
+    card = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    init_s = time.perf_counter() - t0
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (m["batch"], m["prompt"])))
+    max_len = m["prompt"] + m["steps"]
+    reset_launches()
+    runs = {}
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        dev = model.device
+        prefill, decode = build_prefill_step(model), build_decode_step(model)
+        logits, cache = prefill(tokens.to(dev), max_len)
+        # copies: decode writes the cache in place (.cpu() of a CPU tensor is itself)
+        run = dict(logits=[logits.cpu()], index=cache["index"], k=cache["k"].cpu().clone(),
+                   v=cache["v"].cpu().clone())
+        for step in range(m["steps"]):
+            tok = (runs["cpu"] if name == "cuda" else run)["logits"][step].argmax(-1)
+            logits, cache = decode(cache, tok.to(dev))
+            run["logits"].append(logits.cpu())
+        run.update(final_k=cache["k"].cpu(), final_v=cache["v"].cpu(),
+                   index_after=cache["index"])
+        runs[name] = run
+        del cache
+    launches = read_launches()
+    expected = {"flash_attention": cfg.num_layers,
+                "decode_attention": cfg.num_layers * m["steps"], "ssd": 0,
+                "ssd_routes": {"wgmma": 0, "fp32": 0}}
+    if launches != expected:
+        fail(f"slice_nemotron: kernel launches {launches}, expected {expected}")
+    want_index = (m["prompt"], m["prompt"] + m["steps"])
+    for name, run in runs.items():
+        if (run["index"], run["index_after"]) != want_index:
+            fail(f"slice_nemotron: {name} cache index {run['index']} then "
+                 f"{run['index_after']}, expected {want_index}")
+    errs = []
+    for ref, out in zip(runs["cpu"]["logits"], runs["cuda"]["logits"]):
+        if out.shape != (m["batch"], cfg.padded_vocab) or not torch.isfinite(out).all():
+            fail(f"slice_nemotron: logits of shape {tuple(out.shape)} or not finite")
+        errs.append(check_close("slice_nemotron logits card vs cpu", out, ref, m["tol"]))
+    flips = sum(int((out.argmax(-1) != ref.argmax(-1)).sum())
+                for ref, out in zip(runs["cpu"]["logits"], runs["cuda"]["logits"]))
+    cache_err = {key: check_close(f"slice_nemotron cache {key} card vs cpu", runs["cuda"][key],
+                                  runs["cpu"][key], m["tol"])
+                 for key in ("k", "v", "final_k", "final_v")}
+    row = dict(config=f"nemotron-4-15b full width, {cfg.num_layers} layers, fp32, 48 q / 8 kv "
+                      "heads of 128 (group 6), squared-ReLU d_ff 24,576, untied head",
+               batch=m["batch"], prompt=m["prompt"], decode_steps=m["steps"], init_s=init_s,
+               logits_max_abs_err_per_step=errs, greedy_flips=flips,
+               greedy_tokens=(1 + m["steps"]) * m["batch"], cache_max_abs_err=cache_err,
+               index=list(want_index), tol=m["tol"], launches=launches)
+    emit("slice_nemotron", **row)
+    del cpu, card, runs
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_serve_nemotron(torch):
+    """Full nemotron-4-15b (32 layers, d_model 6144, 48 q heads on 8 kv
+    heads of 128, squared-ReLU 24,576, untied head of 256,000, bf16,
+    15,628,376,064 parameters drawn on the card from a seed): 8 prompts of
+    1,000 tokens, 32 greedy tokens (a cache of 1,032), served twice (the
+    first a warm-up, the repeat identical): 32 flash launches on wgmma at q
+    (8, 1000, 48, 128), k/v (8, 1000, 8, 128), 32 x 31 = 992 decode launches
+    at group 6 against caches of (8, 1032, 8, 128), no SSD launch; prefill
+    and decode times beside their bounds, and the serve's own peak device
+    memory (above what the card held before the model was built), which the
+    dryrun phase predicts. Freed after."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model, param_count
+    from repro_torch.train.serve import build_decode_step, build_prefill_step
+
+    cfg = get_arch("nemotron-4-15b")
+    b, prompt, gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    L, max_len = cfg.num_layers, prompt + gen
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    # 15.6 B numbers drawn by a CUDA generator on the card
+    model = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prefill, decode = build_prefill_step(model), build_decode_step(model)
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (b, prompt))).cuda()
+    warm, *_ = serve_once(torch, prefill, decode, tokens, max_len, gen)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with record_kernel_calls() as calls:
+        seqs, finite, t_prefill, t_decode, shape = serve_once(
+            torch, prefill, decode, tokens, max_len, gen)
+    launches = read_launches()
+    peak_own = torch.cuda.max_memory_allocated() - base
+    flash_routes = dict(fa.flash_attention.routes)
+    expected = {"flash_attention": L, "decode_attention": L * (gen - 1), "ssd": 0,
+                "ssd_routes": {"wgmma": 0, "fp32": 0}}
+    want_shapes = {"flash": [((b, prompt, 48, 128), (b, prompt, 8, 128))],
+                   "decode": [((b, 1, 48, 128), (b, max_len, 8, 128))]}
+    got_shapes = qk_shapes(calls)
+    if launches != expected or flash_routes != {"wgmma": L, "fp32": 0}:
+        fail(f"serve_nemotron: kernel launches {launches}, flash routes {flash_routes}; "
+             f"expected {expected}, flash all on wgmma")
+    if got_shapes != want_shapes:
+        fail(f"serve_nemotron: kernel calls at (q, k) {got_shapes}, expected {want_shapes}")
+    if not finite or tuple(shape) != (b, cfg.padded_vocab):
+        fail(f"serve_nemotron: logits not finite or of shape {tuple(shape)}")
+    if seqs.shape != (b, gen) or not ((seqs >= 0) & (seqs < cfg.padded_vocab)).all():
+        fail("serve_nemotron: generated tokens out of range")
+    repeat = bool((warm == seqs).all())
+    if not repeat:
+        fail("serve_nemotron: the repeat generated other tokens than the warm-up")
+    params = param_count(cfg)
+    prefill_bound, decode_bound = serve_bounds(cfg, params, b, prompt, gen)
+    row = dict(config=f"nemotron-4-15b full ({L} layers, d_model {cfg.d_model}, "
+                      f"{cfg.num_heads} q / {cfg.num_kv_heads} kv heads of "
+                      f"{cfg.resolved_head_dim}, squared-ReLU d_ff {cfg.d_ff}, untied head "
+                      f"of {cfg.padded_vocab}, bf16)",
+               params=params, batch=b, prompt=prompt, gen=gen, max_len=max_len,
+               init_s=init_s, prefill_ms=t_prefill * 1e3,
+               prefill_bound_ms=prefill_bound[0] * 1e3, prefill_bound_by=prefill_bound[1],
+               prefill_bound_tflop=serve_prefill_flops(cfg, params, b, prompt) / 1e12,
+               decode_steps=gen - 1, decode_ms_per_step=t_decode * 1e3 / (gen - 1),
+               decode_step_bound_ms=decode_bound[0] * 1e3, decode_step_bound_by=decode_bound[1],
+               decode_tok_s=b * (gen - 1) / t_decode,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               serve_peak_mem_gb=peak_own / 1e9, serve_peak_mem_bytes=peak_own,
+               launches=launches, flash_routes=flash_routes, kernel_shapes=got_shapes,
+               logits_finite=finite, repeat_identical=repeat,
+               profiler_sessions_before=PROFILER_SESSIONS[0],
+               first_sequence=seqs[0].tolist())
+    emit("serve_nemotron", **row)
+    del model, prefill, decode
+    torch.cuda.empty_cache()
+    return row
+
+
+def dryrun_child(path: str) -> None:
+    """The dry-run (``repro_torch.launch.dryrun``) of serve_nemotron's
+    cells, in a process of its own beside the card's phases (its fake
+    tensors never touch the card): nemotron-4-15b's prefill of SERVE's
+    prompts into a cache of prompt + gen positions and its decode step at
+    that cache, each the production step and the analysis probes, and
+    deepseek-67b's decode at the same shape, the production step alone, all
+    on a (1, 1) mesh, which needs no process group. The cells' JSON go to
+    ``path``."""
+    import os
+    if os.environ.get("PYTHONPYCACHEPREFIX"):    # bytecode_cache(): spawned with -B
+        sys.dont_write_bytecode = False
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import Mesh
+
+    torch.set_num_threads(1)
+    b, prompt, gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    mesh = Mesh(("data", "model"), (1, 1))
+    decode = ShapeConfig("serve_decode", prompt + gen, b, "decode")
+    cells = {}
+    t0 = time.perf_counter()
+    for name, arch, shape, kw in (
+            ("prefill", DRYRUN["arch"], ShapeConfig("serve_prefill", prompt, b, "prefill"),
+             dict(max_len=prompt + gen)),
+            ("decode", DRYRUN["arch"], decode, {}),
+            ("over", DRYRUN["over"], decode, dict(production_only=True))):
+        cells[name] = run_cell(get_arch(arch), shape, mesh, "one_card", verbose=False, **kw)
+    cells["seconds"] = time.perf_counter() - t0
+    with open(path + ".tmp", "w") as f:
+        json.dump(cells, f)
+    os.replace(path + ".tmp", path)
+
+
+def phase_dryrun(torch, child, path: str, served: dict) -> dict:
+    """The dry-run's verdicts held against the card: ``dryrun_child``'s
+    cells (started after the build, waited for here) beside
+    serve_nemotron's measured run. Fails unless nemotron-4-15b's cells fit
+    one card (it ran) and deepseek-67b's decode does not (134.9 GB of bf16
+    parameters), by the report's rule (peak <= hw.HBM_BYTES), and unless
+    the predicted peak (the larger of the prefill's and the decode's, of
+    the plain forms) over the measured serve's own peak lies in
+    DRYRUN["peak_band"]. Prints the analysis FLOPs of the prefill
+    against ``serve_prefill_flops``'s count: dense attention computes every
+    (q, k) pair where the causal count takes s(s+1)/2, and the bound counts
+    the norms' weights as weights of products."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import peak_bytes
+    from repro_torch.models import param_count
+    from repro_torch.roofline import hw
+
+    wait_children(*child)
+    with open(path) as f:
+        cells = json.load(f)
+    pre, dec, over = cells["prefill"], cells["decode"], cells["over"]
+    predicted = max(pre["peak_memory_per_device"], dec["peak_memory_per_device"])
+    measured = served["serve_peak_mem_bytes"]
+    over_peak = peak_bytes(over["memory_analysis"])
+    fits = {DRYRUN["arch"]: bool(pre["fits_hbm"] and dec["fits_hbm"]),
+            DRYRUN["over"]: over_peak <= hw.HBM_BYTES}
+    if fits != {DRYRUN["arch"]: True, DRYRUN["over"]: False}:
+        fail(f"dryrun: fit verdicts {fits}; {DRYRUN['arch']} ran on the card, "
+             f"{DRYRUN['over']}'s parameters alone exceed it")
+    lo, hi = DRYRUN["peak_band"]
+    if not lo <= predicted / measured <= hi:
+        fail(f"dryrun: predicted peak {predicted / 1e9:.3f} GB, measured "
+             f"{measured / 1e9:.3f} GB: predicted / measured outside [{lo}, {hi}]")
+    cfg = get_arch(DRYRUN["arch"])
+    b, prompt = SERVE["batch"], SERVE["prompt"]
+    L, h, hd, d = cfg.num_layers, cfg.num_heads, cfg.resolved_head_dim, cfg.d_model
+    bound_flops = serve_prefill_flops(cfg, param_count(cfg), b, prompt)
+    upper = L * 2 * b * h * hd * prompt * (prompt - 1)       # pairs above the diagonal
+    norms = 2 * (2 * L * d + d) * b * prompt                  # ln1, ln2, final_norm
+    want = bound_flops + upper - norms
+    flops_rel_err = abs(pre["flops_per_device"] - want) / want
+    if flops_rel_err > 1e-6:
+        fail(f"dryrun: analysis FLOPs {pre['flops_per_device']:.6e}, the bound's count "
+             f"with dense attention and without the norms {want:.6e}")
+    row = dict(config=f"{DRYRUN['arch']} serve cells on a (1, 1) mesh, fake tensors "
+                      "(repro_torch.launch.dryrun.run_cell)",
+               predicted_peak_gb=dict(prefill=pre["peak_memory_per_device"] / 1e9,
+                                      decode=dec["peak_memory_per_device"] / 1e9),
+               measured_serve_peak_gb=measured / 1e9,
+               predicted_over_measured=predicted / measured, peak_band=DRYRUN["peak_band"],
+               memory_analysis=dict(prefill=pre["memory_analysis"],
+                                    decode=dec["memory_analysis"]),
+               fits_hbm=fits, over_peak_gb=over_peak / 1e9, hbm_gb=hw.HBM_BYTES / 1e9,
+               analysis_prefill_flops=pre["flops_per_device"],
+               bound_prefill_flops=bound_flops, dense_upper_triangle_flops=upper,
+               norm_weight_flops=norms, flops_rel_err=flops_rel_err,
+               roofline=dict(prefill={k: pre[k] for k in ("compute_s", "memory_s",
+                                                         "bottleneck")},
+                             decode={k: dec[k] for k in ("compute_s", "memory_s",
+                                                        "bottleneck")}),
+               recompute=pre["recompute"], child_s=cells["seconds"],
+               production_step_s=dict(prefill=pre["compile_s"], decode=dec["compile_s"],
+                                      over=over["compile_s"]))
+    emit("dryrun", **row)
+    return row
+
+
 def phase_slice_encdec(torch):
     """whisper-small at full width (d_model 768, 12 heads of 64, gelu 3,072,
     the tied head of 51,968), cut to 2 encoder and 2 decoder layers, fp32:
@@ -4544,11 +4957,12 @@ def phase_slice_encdec(torch):
             "ssd_routes": {"wgmma": 0, "fp32": 0}}
     # serve: flash once a layer in the encoder, twice a decoder layer (causal
     # self, cross) in the prefill; decode twice a decoder layer a step (self,
-    # cross); the loss's forward flash as the prefill's
+    # cross); the loss's forward flash as the prefill's, and its recompute
     expected = {"cpu_serve": none, "cpu_loss": none,
                 "cuda_serve": dict(none, flash_attention=cfg.encoder_layers + 2 * L,
                                    decode_attention=2 * L * m["steps"]),
-                "cuda_loss": dict(none, flash_attention=cfg.encoder_layers + 2 * L)}
+                "cuda_loss": dict(none, flash_attention=passes(cfg) * (cfg.encoder_layers
+                                                                       + 2 * L))}
     if launches != expected:
         fail(f"slice_encdec: kernel launches {launches}, expected {expected}")
     want_index = (m["prompt"], m["prompt"] + m["steps"])
@@ -4800,8 +5214,9 @@ def phase_train_ssm(torch):
     cfg = dataclasses.replace(get_arch("mamba2-2.7b"), num_layers=t["layers"])
     run = train_through_a_failure(torch, "train_ssm", cfg, t, "chip_smoke_ssm_ckpt")
     steps, losses = run["steps"], run["losses"]
-    expected = {"flash_attention": 0, "decode_attention": 0, "ssd": cfg.num_layers * steps,
-                "ssd_routes": {"wgmma": cfg.num_layers * steps, "fp32": 0}}
+    ssd = passes(cfg) * cfg.num_layers * steps          # the forward and the recompute
+    expected = {"flash_attention": 0, "decode_attention": 0, "ssd": ssd,
+                "ssd_routes": {"wgmma": ssd, "fp32": 0}}
     if run["launches"] != expected:
         fail(f"train_ssm: kernel launches {run['launches']}, expected {expected}")
     # the loss falls: the first step's batch (the same tokens, from the
@@ -4872,6 +5287,11 @@ def main() -> int:
     emit("build", seconds=build_s, library=str(path.relative_to(ROOT)),
          sources=[str(s.relative_to(ROOT)) for s in _build._sources()],
          ptxas=ptxas_summary(log), sass_hgmma=sass_hgmma(path))
+    # the dry-run of serve_nemotron's cells runs on the host beside the
+    # card's phases, in its own process (fake tensors, no card)
+    dry_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_")
+    dry_path = f"{dry_dir.name}/cells.json"
+    dry_child = ("dryrun", start_children([(dryrun_child, (dry_path,))]), 900)
 
     # the slices and both serve runs come before any torch.profiler session
     timed("slice", phase_slice, torch)
@@ -4888,6 +5308,12 @@ def main() -> int:
     # and before internvl2-26b's (b) reference takes 38 GB of the card
     timed("slice_moe_30b", phase_slice_moe, torch, MOE_SLICE_30B)
     serve_moe_30b = timed("serve_moe_30b", phase_serve_moe, torch, "serve_moe_30b")
+    # nemotron-4-15b (31.3 GB of bf16) once qwen3-moe-30b-a3b is freed, before
+    # internvl2-26b's (b) reference takes 38 GB of the card
+    timed("slice_nemotron", phase_slice_nemotron, torch)
+    serve_nemotron = timed("serve_nemotron", phase_serve_nemotron, torch)
+    timed("dryrun", phase_dryrun, torch, dry_child, dry_path, serve_nemotron)
+    dry_dir.cleanup()
     with contextlib.ExitStack() as stack:
         tmp = {phase: stack.enter_context(tempfile.TemporaryDirectory(
             prefix=f"chip_smoke_{phase}_")) for phase in TRAIN_MESH_PHASES}
@@ -4898,8 +5324,8 @@ def main() -> int:
         timed("slice_encdec", phase_slice_encdec, torch)
         serve_encdec = timed("serve_encdec", phase_serve_encdec, torch)
         timed("train_grad", phase_train_grad, torch)
-        train_mesh, train_tp, train_moe_mesh, train_gemma_mesh, train_vlm_mesh = (
-            train_meshes(torch, tmp, ref))
+        train_mesh, train_tp, train_moe_mesh, train_gemma_mesh, train_vlm_mesh = timed(
+            "train_group", phase_train_group, torch, tmp, ref["train_vlm_mesh"])
     group = timed("mesh_group", phase_mesh_group, torch)
     serve_mesh, serve_vlm_mesh = group["serve_mesh"], group["serve_vlm_mesh"]
     encdec_mesh = group["encdec_mesh"]
@@ -5008,6 +5434,9 @@ def main() -> int:
              moe_30b_launches=serve_moe_30b["launches"]["flash_attention"],
              moe_30b_shape={d: moe_shape(kernels["flash_attention"][f"{d}_moe30"])
                             for d in ("bfloat16", "float32")},
+             nemotron_launches=serve_nemotron["launches"]["flash_attention"],
+             nemotron_shape={d: moe_shape(kernels["flash_attention"][f"{d}_nemotron"])
+                             for d in ("bfloat16", "float32")},
              backward="plain blockwise_attention recompute (FlashAttention), no kernel"),
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attn.cu",
@@ -5074,6 +5503,10 @@ def main() -> int:
              moe_30b_launches=serve_moe_30b["launches"]["decode_attention"],
              moe_30b_shape={d: moe_shape(kernels["decode_attention"][f"{d}_moe30"][-1])
                             for d in ("bfloat16", "float32")},
+             nemotron_launches=serve_nemotron["launches"]["decode_attention"],
+             nemotron_shape={f"{d}_{row['cur_len']}": moe_shape(row)
+                             for d in ("bfloat16", "float32")
+                             for row in kernels["decode_attention"][f"{d}_nemotron"]},
              head_dims="16, 32, 64, 112 (on 128's lanes), 128, 256 (two loads a lane in fp32)",
              groups="1, 2, 4, 6, 8 q heads per kv head"),
         dict(name="ssd", route="cuda", dispatch=ssd_main["route"],
@@ -5112,6 +5545,7 @@ def main() -> int:
                  train_a=encdec_mesh["ssd_launches"],
                  serve_a=[x["ssd"] for x in serve_encdec_mesh["launches_by_rank"]]),
              moe_30b_launches=serve_moe_30b["launches"]["ssd"],
+             nemotron_launches=serve_nemotron["launches"]["ssd"],
              tp_shapes={model: {k_: ssd_rows[(f"{model}/tp2", 1024, "bfloat16")][k_]
                                 for k_ in keys}
                         for model in ("mamba2-2.7b", "zamba2-7b")},

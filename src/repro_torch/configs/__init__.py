@@ -56,9 +56,8 @@ class ArchConfig:
     num_patch_tokens: int = 0
     # --- numerics / memory ---
     dtype: str = "bfloat16"
-    # none | full | dots: the recompute the reference's layers run, which
-    # roofline.memory_model counts; the port's layers recompute under FSDP
-    # only (models.modes.run_layer) and do not read it
+    # none | full | dots: the recompute of a layer body in the backward
+    # (models.modes.run_layer), which roofline.memory_model counts
     remat_policy: str = "full"
     # --- capability flags ---
     sub_quadratic: bool = False  # can run long_500k

@@ -8,9 +8,9 @@ recovery resumes from partial chunks.
     PYTHONPATH=src python -m repro_torch.examples.train_with_failover --device cpu --steps 8
 
 The port of the reference's ``examples/train_with_failover.py``, with the
-same ``demo-100m`` config but its ``remat_policy`` (which the port's layers
-do not read). The MTTR it prints is simulated fabric time; the s/it is the
-host's wall clock. Below about 20 steps (the learning rate's warm-up)
+same ``demo-100m`` config (no recompute: ``remat_policy`` "none"). The
+MTTR it prints is simulated fabric time; the s/it is the host's wall
+clock. Below about 20 steps (the learning rate's warm-up)
 the closing "did not learn" check compares two noisy losses: it fails at
 ``--steps 4``.
 """
@@ -42,7 +42,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     cfg = ArchConfig(
         name="demo-100m", family="dense", num_layers=8, d_model=512,
         num_heads=8, num_kv_heads=4, head_dim=64, d_ff=2048, vocab_size=32000,
-        mlp_type="swiglu", dtype="float32")
+        mlp_type="swiglu", dtype="float32", remat_policy="none")
     fail_at = args.fail_at if args.fail_at is not None else args.steps // 2
 
     cluster = SimCluster(

@@ -12,12 +12,14 @@ Runs the full stack: controller-indexed data loading, the training step on
 the device with the instant checkpoint, the ckpt engine (instant + periodic
 full), failure injection and recovery. Unlike the reference CLI, whose
 ``--smoke`` is always on, this one runs the full config unless ``--smoke``
-is given, and runs on CUDA unless ``--device cpu`` is given. Fabric times
-it prints are simulated.
+is given, and runs on CUDA unless ``--device cpu`` is given. As the
+reference's, it runs the config with ``remat_policy="none"``: the layers
+keep their activations. Fabric times it prints are simulated.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import tempfile
 import time
 from pathlib import Path
@@ -83,6 +85,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = reduce_for_smoke(cfg)
+    cfg = dataclasses.replace(cfg, remat_policy="none")
 
     edge_bw = None
     if args.hotspot_edge is not None:

@@ -26,6 +26,12 @@ by its own axes (``split_cache``'s ``cross``): the prefill writes the
 rank's block of the encoder positions (every kv head, gathered over
 "model"), and a decode step attends to it by the same steps, every position
 of the block valid.
+
+Under analysis mode (``models.modes.analysis_mode``) every kernel call site
+takes its plain form instead, on CPU tensors (``modes.analysis_form``; a
+CUDA tensor raises): ``dense_attention`` where the flash kernel stands, the
+plain ``decode_attention`` (and its block form) where the decode kernel
+does.
 """
 from __future__ import annotations
 
@@ -37,7 +43,7 @@ import torch.nn as nn
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, head_rms_norm
-from repro_torch.models.modes import current_split_cache, current_tp
+from repro_torch.models.modes import analysis_form, current_split_cache, current_tp
 
 _NEG_INF = -1e30
 
@@ -159,6 +165,30 @@ def merge_partials(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 # Full attention sub-block (projections + rope + attention + out-proj)
 # --------------------------------------------------------------------------- #
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
+            ) -> torch.Tensor:
+    """The call site of the flash kernel (``ops.flash_attention``): under
+    analysis mode the dense form over head-repeated k/v instead, as the
+    reference's ``blockwise_attention`` takes it there."""
+    if analysis_form(q):
+        h = q.shape[2]
+        return dense_attention(q, repeat_kv(k, h), repeat_kv(v, h), causal=causal)
+    return ops.flash_attention(q, k, v, causal=causal)
+
+
+def _attend_cached(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                   cur_len: int, partial: bool = False):
+    """The call site of the decode kernel (``ops.decode_attention``, its
+    block form where ``partial``): under analysis mode the plain
+    ``decode_attention`` (``decode_attention_partial``) instead. A block
+    with no position (``cur_len`` 0) computes nothing either way."""
+    if not analysis_form(q) or (partial and cur_len == 0):
+        fn = ops.decode_attention_partial if partial else ops.decode_attention
+        return fn(q, k_cache, v_cache, cur_len)
+    fn = decode_attention_partial if partial else decode_attention
+    return fn(q, k_cache, v_cache, cur_len, q.shape[2])
+
+
 def attn_init(cfg, dtype, device) -> nn.ParameterDict:
     """Uninitialised attention parameters in the reference's layout
     (``x @ w``); ``init_attn`` fills them."""
@@ -254,7 +284,7 @@ def self_attention(p: Mapping, cfg, x: torch.Tensor, *, causal: bool = True,
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, cfg, x, positions, rope=rope)
-    out = ops.flash_attention(q, k, v, causal=causal)
+    out = _attend(q, k, v, causal=causal)
     return out.reshape(b, s, -1) @ p["wo"]
 
 
@@ -311,11 +341,11 @@ def _decode_cached(cfg, q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.T
         q = current_tp().all_gather(q, 2)
     split = current_split_cache(cross)
     if split is None:
-        out = ops.decode_attention(q, k_cache, v_cache, length)
+        out = _attend_cached(q, k_cache, v_cache, length)
     else:
         block = k_cache.shape[1]
         cur = min(max(length - split.index * block, 0), block)
-        o, lse = ops.decode_attention_partial(q, k_cache, v_cache, cur)
+        o, lse = _attend_cached(q, k_cache, v_cache, cur, partial=True)
         parts = split.all_gather(torch.cat([o[:, 0], lse[..., None]], -1)[None])
         out = merge_partials(parts[..., :-1], parts[..., -1])[:, None].to(k_cache.dtype)
     if heads != cfg.num_heads:
@@ -333,7 +363,7 @@ def self_attention_prefill(p: Mapping, cfg, x: torch.Tensor,
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, cfg, x, positions)
-    out = ops.flash_attention(q, k, v, causal=True)
+    out = _attend(q, k, v, causal=True)
     _write_block(k_cache, v_cache, *_cache_kv(
         p, cfg, k, v, lambda: _project_kv(p, cfg, x, positions, p["wk"], p["wv"])))
     return out.reshape(b, s, -1) @ p["wo"]
@@ -406,9 +436,9 @@ def cross_attention(p: Mapping, cfg, x: torch.Tensor,
     k, v = enc_kv
     needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     if s == 1 and not needs_grad:
-        out = ops.decode_attention(q, k, v, k.shape[1])
+        out = _attend_cached(q, k, v, k.shape[1])
     else:
-        out = ops.flash_attention(q, k, v, causal=False)
+        out = _attend(q, k, v, causal=False)
     return out.reshape(b, s, -1) @ p["wo"]
 
 

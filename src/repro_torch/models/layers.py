@@ -15,7 +15,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from repro_torch.models.modes import current_tp, seq_scatter, sequence_split, tp_reduce
+from repro_torch.models.modes import (analysis_form, current_tp, seq_scatter,
+                                      sequence_split, tp_copy, tp_reduce)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -252,10 +253,36 @@ def chunked_xent(w: torch.Tensor, x: torch.Tensor, labels: torch.Tensor, *,
     vocab-parallel head (under ``modes.tensor_parallel``), and the live
     logits are (B, chunk, V / tp). Under sequence parallelism ``x`` holds
     every position, gathered by the caller (``modes.seq_gather``), whose
-    backward sums ``dx`` over the ranks. Port of the reference's
+    backward sums ``dx`` over the ranks. Under analysis mode the logits are
+    held whole instead (``_dense_xent``). Port of the reference's
     ``chunked_xent``."""
     b, s, _ = x.shape
     x = bf16_grad_barrier(x)
     tp = None if vocab is None or w.shape[0] == vocab else current_tp()
+    if analysis_form(x):
+        return _dense_xent(w, x, labels, tp, not sequence_split()) / (b * s)
     total = _ChunkedXent.apply(x, w, labels, min(chunk, s), tp, not sequence_split())
     return total / (b * s)
+
+
+def _dense_xent(w: torch.Tensor, x: torch.Tensor, labels: torch.Tensor, tp,
+                reduce_dx: bool) -> torch.Tensor:
+    """The summed cross-entropy with the (B, S, V) logits held at once and
+    differentiated by autograd: analysis mode's cost-exact form (the
+    reference's unchunked branch), which recomputes nothing. Vocab-parallel
+    where ``tp`` is given, with ``_ChunkedXent``'s collectives: x enters
+    through f where ``reduce_dx`` (its gradient summed over "model"), the
+    log-sum-exps' MAX and the SUM of their exponentials with the label
+    logits (g, whose gradient each rank takes whole: every rank computes
+    the same loss from the sums)."""
+    lo = tp.index * w.shape[0] if tp is not None else 0
+    if tp is not None and reduce_dx:
+        x = tp_copy(x)
+    logits = unembed(w, x)
+    lse = torch.logsumexp(logits, dim=-1)
+    lab = _label_logits(logits, labels - lo)
+    if tp is not None:
+        top = tp.all_reduce(lse.detach(), dist.ReduceOp.MAX)
+        sums = tp_reduce(torch.stack([torch.exp(lse - top), lab]))
+        lse, lab = top + torch.log(sums[0]), sums[1]
+    return (lse - lab).sum()

@@ -7,8 +7,12 @@ plain version of the SSD kernel (``kernels/ssd.py``): the blocks call
 ``kernels.ops.ssd``, which runs it on CPU tensors and the kernel on CUDA
 tensors.
 
-Head layout: d_inner = H * P is head-major. The reference's
-``_ssd_parallel`` (a form for XLA cost analysis only) is not ported.
+Head layout: d_inner = H * P is head-major.
+
+Under analysis mode (``models.modes.analysis_mode``) the SSD call sites
+take ``_ssd_parallel``, the reference's form for cost analysis: every
+chunk's intra-chunk term at once, which a FLOP counter sees whole. They do
+so on CPU tensors only (``modes.analysis_form``; a CUDA tensor raises).
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rms_norm
-from repro_torch.models.modes import tp_sum
+from repro_torch.models.modes import analysis_form, tp_sum
 
 
 # --------------------------------------------------------------------------- #
@@ -100,6 +104,68 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         ys.append(y)
     y = torch.stack(ys, dim=1).reshape(bsz, nc * chunk, h, p)
     return y[:, :s].to(x.dtype), state
+
+
+def _ssd_parallel(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                  b_mat: torch.Tensor, c_mat: torch.Tensor, *, chunk: int,
+                  initial_state: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The parallel SSD (port of the reference's ``_ssd_parallel``), with
+    ``ssd_chunked``'s arguments and results: the intra-chunk quadratic term
+    of every chunk at once, each chunk's end state and decay, then the state
+    entering each chunk from those. The exponent is masked before ``exp``,
+    as in ``ssd_chunked`` (the reference's order gives NaN gradients at a
+    chunk of 256), and the states entering the chunks come from a loop over
+    the chunks where the reference runs an associative scan: the same
+    products in another order."""
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        b_mat = F.pad(b_mat, (0, 0, 0, pad))
+        c_mat = F.pad(c_mat, (0, 0, 0, pad))
+    nc = (s + pad) // chunk
+    xc = x.reshape(bsz, nc, chunk, h, p).float()                # (B,Nc,Lc,H,P)
+    dtc = dt.float().reshape(bsz, nc, chunk, h)
+    bc = b_mat.float().reshape(bsz, nc, chunk, n)
+    cc = c_mat.float().reshape(bsz, nc, chunk, n)
+    cs = torch.cumsum(dtc * a.float(), dim=2)                   # (B,Nc,Lc,H)
+    # intra-chunk, every chunk at once
+    idx = torch.arange(chunk, device=x.device)
+    causal = (idx[:, None] >= idx[None, :])[None, None, :, :, None]
+    cb = torch.einsum("bcin,bcjn->bcij", cc, bc)
+    seg = torch.where(causal, cs[:, :, :, None, :] - cs[:, :, None, :, :], -torch.inf)
+    att = cb[..., None] * torch.exp(seg) * dtc[:, :, None, :, :]    # (B,Nc,i,j,H)
+    y = torch.einsum("bcijh,bcjhp->bcihp", att, xc)
+    # each chunk's end state and decay
+    last = cs[:, :, -1:, :]                                     # (B,Nc,1,H)
+    w = dtc * torch.exp(last - cs)
+    # one product (the reference's three-operand einsum, whose order a
+    # contraction planner would pick): a FLOP count that the shapes fix
+    chunk_states = torch.einsum("bcjn,bcjhp->bchnp", bc, w[..., None] * xc)
+    chunk_decay = torch.exp(last[:, :, 0, :])                   # (B,Nc,H)
+    # the state entering each chunk
+    state = (torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+             if initial_state is None else initial_state)
+    entering = []
+    for ci in range(nc):
+        entering.append(state)
+        state = chunk_decay[:, ci, :, None, None] * state + chunk_states[:, ci]
+    prev = torch.stack(entering, dim=1)                         # (B,Nc,H,N,P)
+    y = y + torch.einsum("bcin,bchnp->bcihp", cc, prev) * torch.exp(cs)[..., None]
+    y = y.reshape(bsz, nc * chunk, h, p)
+    return y[:, :s].to(x.dtype), state
+
+
+def _ssd(x, dt, a, b_mat, c_mat, *, chunk: int):
+    """The SSD kernel's call site (``ops.ssd``), or ``_ssd_parallel`` under
+    analysis mode."""
+    if analysis_form(x):
+        return _ssd_parallel(x, dt, a, b_mat, c_mat, chunk=chunk)
+    return ops.ssd(x, dt, a, b_mat, c_mat, chunk=chunk)
 
 
 def ssd_step(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -208,7 +274,7 @@ def mamba_apply(p: Dict, cfg, x: torch.Tensor) -> torch.Tensor:
     br = causal_conv(br, p["conv_b"])
     cr = causal_conv(cr, p["conv_c"])
     xh, dt, a = _ssd_inputs(p, cfg, xr, dt_raw)
-    y, _ = ops.ssd(xh, dt, a, br, cr, chunk=cfg.ssm_chunk)
+    y, _ = _ssd(xh, dt, a, br, cr, chunk=cfg.ssm_chunk)
     return _gate_out(p, cfg, y, xh, z)
 
 
@@ -258,7 +324,7 @@ def mamba_prefill(p: Dict, cfg, x: torch.Tensor
     br = causal_conv(br_raw, p["conv_b"])
     cr = causal_conv(cr_raw, p["conv_c"])
     xh, dt, a = _ssd_inputs(p, cfg, xr, dt_raw)
-    y, final_state = ops.ssd(xh, dt, a, br, cr, chunk=cfg.ssm_chunk)
+    y, final_state = _ssd(xh, dt, a, br, cr, chunk=cfg.ssm_chunk)
     state = {"conv_x": window(xr_raw), "conv_b": window(br_raw),
              "conv_c": window(cr_raw), "ssm": final_state}
     return _gate_out(p, cfg, y, xh, z), state

@@ -23,13 +23,34 @@ owner and its backward a reduce onto the owner. A leaf sharded on a weight
 dim (a stack whose L does not divide, or an unstacked leaf) is all-gathered
 along that dim and reduce-scattered back.
 
-``run_layer`` calls one layer body from a model's layer loop. Under
-``fsdp_unshard`` with autograd recording, the body (its gather included) is
-recomputed in the backward (``torch.utils.checkpoint``), so a layer's full
-tensors exist only while its body runs, forward or backward; the reference's
-full remat around its scan body does the same. Elsewhere it is a plain call.
-The recompute stops at the last tensor the backward saves (the checkpoint's
-early stop), so a body's final row-parallel all-reduce is not run again.
+``run_layer`` calls one layer body from a model's layer loop and honours
+the config's ``remat_policy`` as the reference's ``_remat`` does around its
+scan body, whenever autograd records: "none" keeps the body's activations,
+"full" recomputes the body in the backward (``torch.utils.checkpoint``,
+saving its inputs alone), "dots" recomputes it but for the outputs of its
+2-D matmuls (``aten.mm`` / ``aten.addmm``: the projections), which a
+selective-checkpoint policy saves (JAX's ``dots_with_no_batch_dims_saveable``:
+a projection has no batch dim in ``dot_general``'s sense, the attention
+``bmm``s have one and are recomputed). Under ``fsdp_unshard`` the body (its
+gather included) is recomputed whatever the policy, so a layer's full
+tensors exist only while its body runs, forward or backward: a deliberate
+departure for "none" and "dots", whose saved tensors would hold the
+gathered weights of every layer at once. The recompute stops at the last
+tensor the backward saves (the checkpoint's early stop), so a body's final
+row-parallel all-reduce is not run again.
+
+Analysis mode (``analysis_mode``, the reference's): the layers take their
+cost-exact plain forms, which every counter can see (the CUDA kernels are
+``ctypes`` calls that no FLOP counter, meta or fake tensor sees into): dense
+attention where a sub-block would call the flash kernel
+(``models.attention``), the plain decode attention where it would call the
+decode kernel, the unchunked cross-entropy (``models.layers``) and the
+parallel SSD (``models.mamba2._ssd_parallel``). They do so on CPU tensors
+only, real or fake (``analysis_form``): a call site that meets a CUDA
+tensor under it raises, since a kernel's wrapper on the card launches its
+kernel or fails. The port's layer loops are Python loops already, so there
+is nothing to unroll. Only the roofline's cost count (``roofline.probes``,
+on fake CPU tensors) enters it; no serve or train path does.
 
 Tensor parallelism (the Megatron layout): the sharded step binds each
 rank's blocks of the leaves that its specs split over "model", and the
@@ -80,7 +101,8 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.tree import tree_flatten, tree_unflatten
 
@@ -90,6 +112,8 @@ _ROUTING = contextvars.ContextVar("repro_torch_global_routing", default=None)
 _CACHE = contextvars.ContextVar("repro_torch_split_cache", default=None)
 _CROSS_CACHE = contextvars.ContextVar("repro_torch_split_cross_cache", default=None)
 _SP = contextvars.ContextVar("repro_torch_sequence_parallel", default=False)
+_ANALYSIS = contextvars.ContextVar("repro_torch_analysis_mode", default=False)
+REMAT_POLICIES = ("none", "full", "dots")
 TP_AXIS = "model"        # the axis that ``parallel.sharding``'s specs split the bodies over
 
 
@@ -241,21 +265,71 @@ def bound_shape(t: torch.Tensor) -> torch.Size:
     return t.shape
 
 
-def run_layer(body: Callable, *args):
-    """``body(*args)``; under ``fsdp_unshard`` with autograd recording,
-    recomputed in the backward (the module docstring says why). The
+@contextlib.contextmanager
+def analysis_mode(on: bool = True):
+    """Within it the layers take their cost-exact plain forms (the module
+    docstring lists them)."""
+    tok = _ANALYSIS.set(on)
+    try:
+        yield
+    finally:
+        _ANALYSIS.reset(tok)
+
+
+def in_analysis_mode() -> bool:
+    return _ANALYSIS.get()
+
+
+def analysis_form(t: torch.Tensor) -> bool:
+    """Whether a kernel's call site takes its plain form for ``t``: under
+    analysis mode, where ``t`` lies on the CPU (real or fake). Under it a
+    CUDA tensor raises: on the card a call site launches its kernel."""
+    if not _ANALYSIS.get():
+        return False
+    if t.is_cuda:
+        raise RuntimeError("analysis mode on a CUDA tensor: the plain forms of the kernels "
+                           "are taken on the CPU only (the cost count runs on fake CPU "
+                           "tensors, roofline.analyze.no_data)")
+    return True
+
+
+_SAVED_BY_DOTS = (torch.ops.aten.mm, torch.ops.aten.addmm)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The "dots" policy: save a 2-D matmul's output, recompute the rest."""
+    if op.overloadpacket in _SAVED_BY_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def run_layer(body: Callable, *args, remat: str = "none"):
+    """``body(*args)`` under the recompute policy ``remat`` (the config's
+    ``remat_policy``; the module docstring says what each does), whenever
+    autograd records; under ``fsdp_unshard`` recomputed whatever ``remat``
+    says. An unknown policy raises, as the reference's ``_remat``. The
     recomputation runs in the autograd engine's thread, which does not see
     this thread's context, so the layout, the tensor-parallel axis, the
-    sequence parallelism and the MoE's global routing go with it."""
+    sequence parallelism, the MoE's global routing and the analysis mode go
+    with it."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat}")
     layout, tp, sp, routing = _FSDP.get(), _TP.get(), _SP.get(), _ROUTING.get()
-    if layout is None or not torch.is_grad_enabled():
+    analysis = _ANALYSIS.get()
+    if not torch.is_grad_enabled() or (layout is None and remat == "none"):
         return body(*args)
 
     def again(*a):
         with fsdp_unshard(layout), tensor_parallel(tp), sequence_parallel(sp), \
-                global_routing(routing):
+                global_routing(routing), analysis_mode(analysis):
             return body(*a)
 
+    if layout is None and remat == "dots":
+        return checkpoint(again, *args, use_reentrant=False, context_fn=_dots_contexts)
     return checkpoint(again, *args, use_reentrant=False)
 
 

@@ -226,7 +226,7 @@ class Block(nn.Module):
         return self.body(unshard_layer_params(p, self.cfg), x)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        return run_layer(self.apply_layer, self.layer_params(), x)
+        return run_layer(self.apply_layer, self.layer_params(), x, remat=self.cfg.remat_policy)
 
     def prefill(self, x, k_cache, v_cache) -> torch.Tensor:
         p = self.layer_params()
@@ -420,7 +420,8 @@ class MambaBlock(nn.Module):
         return x + self._mixer_region(p, lambda m, h: mamba2.mamba_apply(m, self.cfg, h), x)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return run_layer(self.apply_layer, self.layer_params(), x)
+        return run_layer(self.apply_layer, self.layer_params(), x,
+                         remat=self.cfg.remat_policy)
 
     def _mixer_region(self, p: Dict, fn, x: torch.Tensor):
         """``fn(mamba leaves, normed x)`` on the layer's parameters ``p``, a
@@ -603,7 +604,7 @@ class HybridLM(MambaLM):
         for i, blk in enumerate(self.blocks):
             if i in self.attn_layers:
                 x = run_layer(functools.partial(self._mamba_attn_layer, blk, shared),
-                              blk.layer_params(), x)
+                              blk.layer_params(), x, remat=self.cfg.remat_policy)
             else:
                 x = blk(x)
         return x
@@ -825,7 +826,7 @@ class EncDecLM(nn.Module):
                 device=frames.device, dtype=self.dtype)
         x = frames.to(self.dtype) + pos[None, :frames.shape[1]]
         for blk in self.encoder:
-            x = run_layer(blk.encode, blk.layer_params(), x)
+            x = run_layer(blk.encode, blk.layer_params(), x, remat=cfg.remat_policy)
         return rms_norm(x, unshard_layer_params(self.enc_norm))
 
     def _hidden(self, tokens: torch.Tensor, frames: Optional[torch.Tensor],
@@ -842,7 +843,8 @@ class EncDecLM(nn.Module):
                 self.cfg.num_heads * self.cfg.resolved_head_dim:
             enc_out = tp_copy(enc_out)
         for blk in self.decoder:
-            x = run_layer(blk.decode_train, blk.layer_params(), x, enc_out)
+            x = run_layer(blk.decode_train, blk.layer_params(), x, enc_out,
+                          remat=self.cfg.remat_policy)
         return rms_norm(x, unshard_layer_params(self.final_norm))
 
     def forward(self, tokens: torch.Tensor, frames: Optional[torch.Tensor] = None

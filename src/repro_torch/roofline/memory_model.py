@@ -11,6 +11,13 @@ workload itself:
     and block-local intermediates (weight-stationary execution, flash-style
     attention with no score materialization), with remat re-reads included.
 
+The recompute it charges is the config's ``remat_policy``, which the port's
+layers honour (``models.modes.run_layer``) as the reference's do, but for
+one deliberate departure: under FSDP a layer body is recomputed whatever
+the policy (its gathered weights must not stay saved for every layer), so
+a train cell with FSDP and "none" recomputes where this model counts no
+re-read.
+
 Everything here is arithmetic on shapes: ``mesh`` is any object with
 ``.shape`` (axis name -> size), ``.axis_names`` and ``.size``, as the port's
 process-less ``launch.mesh.Mesh(axes, sizes)`` is, and the models are built

@@ -39,7 +39,8 @@ The collectives over "model" of one step on a rank (``model_collectives``
 counts them), with microbatches of b rows of S positions, A = b·S·D
 activation bytes in the model dtype, a = A/tp, st = 4bS (one fp32 value a
 position), AG / RS / AR an all-gather / reduce-scatter / all-reduce of the
-bytes this rank hands it, and F = 1 under FSDP (else 0):
+bytes this rank hands it, and F = 1 where the layer bodies are recomputed
+in the backward (FSDP, or a ``remat_policy`` other than "none"; else 0):
 
   each microbatch              sequence split           replicated (Megatron)
     the vocab-parallel         RS A; backward AG a      AR A
@@ -53,7 +54,7 @@ bytes this rank hands it, and F = 1 under FSDP (else 0):
       norm, every position)
     a sub-layer with whole     AG a; backward AG a      nothing
       leaves
-    FSDP's recompute           F x the body's forward collectives, but a
+    the recompute              F x the body's forward collectives, but a
                                body's last RS / AR where it ends in a split
                                sub-layer
     the vocab-parallel head    AG a, AR st, AR 2st;     AR st, AR 2st;
@@ -63,7 +64,7 @@ bytes this rank hands it, and F = 1 under FSDP (else 0):
       gradients (``data_mean``)  partial leaves and      partial leaves
                                 the norms
 
-F counts the recompute of each layer body in FSDP's backward, which runs
+F counts the recompute of each layer body in the backward, which runs
 the body's forward collectives again up to the last tensor the body saves:
 a body that ends in a split sub-layer does not run that sub-layer's exit
 again. The AR st, AR 2st of the head are the MAX of the log-sum-exps and
@@ -86,7 +87,7 @@ of the encoder's A a microbatch.
 An MoE config routes the global batch (``models.moe``): the step sets
 ``models.modes.global_routing`` to the microbatch's global token count, and
 each MoE call sums its expert counts over the batch axes (one all-reduce of
-E fp32 values, again in FSDP's recompute). At model > 1 each rank holds E/tp
+E fp32 values, again in the recompute). At model > 1 each rank holds E/tp
 experts and the shared expert's blocks (expert parallelism without an
 all-to-all: the layer's input is replicated over "model", gathered from the
 ranks' blocks of positions under sequence parallelism), the MoE layer is
@@ -505,7 +506,8 @@ def model_collectives(model: nn.Module, mesh, rows: int, seq: int, *,
             f, bwd = region(kind, is_split, nbytes)
             fwd += f
             calls += f + bwd
-        if fsdp_params:      # the recompute stops at the last tensor the body saves
+        if fsdp_params or cfg.remat_policy != "none":   # the recompute stops at the
+            # last tensor the body saves
             calls += fwd[:-1] if body[-1][1] else fwd
     if cfg.encoder_layers and cross:   # f's backward on the encoder's output
         calls.append((ar, enc_act))

@@ -850,3 +850,66 @@ def test_decode_at_the_qwen3_moe_30b_serve_shape(cuda, cur_len, dtype):
     ref = decode_attention_ref(q, kc, vc, cur_len)
     np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
                                **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_at_the_nemotron_4_15b_serve_shape(cuda, dtype):
+    """nemotron-4-15b's prefill attention: q (8, 1000, 48, 128), k/v (8,
+    1000, 8, 128) (group 6), causal, on the wrapper's route for the dtype."""
+    g = torch.Generator(device=cuda).manual_seed(40)
+    q = _rand(g, (8, 1000, 48, 128), dtype, cuda)
+    k = _rand(g, (8, 1000, 8, 128), dtype, cuda)
+    v = _rand(g, (8, 1000, 8, 128), dtype, cuda)
+    route = "wgmma" if dtype == torch.bfloat16 else "fp32"
+    routed = flash_attention.flash_attention.routes[route]
+    out = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.routes[route] == routed + 1
+    ref = ops.flash_attention_plain(q, k, v, causal=True)
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cur_len", [1001, 1032])
+def test_decode_at_the_nemotron_4_15b_serve_shape(cuda, cur_len, dtype):
+    """nemotron-4-15b's decode step: q (8, 1, 48, 128) against caches (8,
+    1032, 8, 128) at the first and last step's length, split as the planner
+    says for group 6."""
+    g = torch.Generator(device=cuda).manual_seed(41)
+    q = _rand(g, (8, 1, 48, 128), dtype, cuda)
+    kc = _rand(g, (8, 1032, 8, 128), dtype, cuda)
+    vc = _rand(g, (8, 1032, 8, 128), dtype, cuda)
+    before = decode_attn.decode_attention.launches
+    out = ops.decode_attention(q, kc, vc, cur_len)
+    torch.cuda.synchronize()
+    assert decode_attn.decode_attention.launches == before + 1
+    sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    step = decode_attn.rows_per_step(128, q.element_size(), 6)
+    assert decode_attn.decode_attention.last_split == decode_attn.plan_splits(
+        cur_len, 8, 8, sm, step)
+    ref = decode_attention_ref(q, kc, vc, cur_len)
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               **_tol(dtype))
+
+
+def test_analysis_mode_on_the_card_raises(cuda):
+    """A smoke model on the card under analysis mode raises at its first
+    kernel call site (the plain forms are taken on CPU tensors only), and
+    outside it runs through the kernels."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduce_for_smoke
+    from repro_torch.models import build_model, modes
+    cfg = dataclasses.replace(reduce_for_smoke(get_arch("qwen3-0.6b")), dtype="float32")
+    model = build_model(cfg, device=cuda)
+    model.load_state_dict(build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0)).state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 17)))
+    batch = {"tokens": tokens.to(cuda)}
+    with torch.no_grad():
+        with modes.analysis_mode(), pytest.raises(RuntimeError, match="CUDA tensor"):
+            model.loss(batch)
+        n = flash_attention.flash_attention.launches
+        assert torch.isfinite(model.loss(batch)[0])
+    assert flash_attention.flash_attention.launches > n

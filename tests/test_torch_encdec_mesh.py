@@ -556,7 +556,9 @@ def test_the_formula_at_whisper_small_full_width():
     the 12 encoder bodies 2 regions forward, 2 backward, 1 in the recompute
     (its last g not re-run), of Aenc; the f on the encoder's output, one AR
     Aenc; each of the 12 decoder bodies 3 + 3 + 2 of A; the head's two
-    statistics and its AR A. Without FSDP no recompute."""
+    statistics and its AR A. Without FSDP the config's ``remat_policy``
+    ("full") recomputes the bodies all the same; with "none" nothing is
+    recomputed."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import build_model
@@ -567,9 +569,12 @@ def test_the_formula_at_whisper_small_full_width():
     head = stat + 2 * stat + act
     assert model_collectives(model, mesh, 4, 448) == {("all_reduce", ("model",)): [
         1 + 12 * 5 + 1 + 12 * 8 + 3, act + 60 * enc + enc + 96 * act + head]}
-    assert model_collectives(model, mesh, 4, 448, fsdp_params=False) == {
+    kept = build_model(dataclasses.replace(get_arch(ARCH), remat_policy="none"), device="meta")
+    assert model_collectives(kept, mesh, 4, 448, fsdp_params=False) == {
         ("all_reduce", ("model",)): [1 + 12 * 4 + 1 + 12 * 6 + 3,
                                      act + 48 * enc + enc + 72 * act + head]}
+    assert model_collectives(model, mesh, 4, 448, fsdp_params=False) == \
+        model_collectives(model, mesh, 4, 448)
     assert model_collectives(model, mesh, 4, 448)[("all_reduce", ("model",))] == \
         [161, 831_943_680]
 

@@ -227,3 +227,27 @@ def test_train_cli_on_gemma_smoke():
                "--smoke", "--steps", "8", "--inject-failure", "4")
     assert "recovered from neighbor" in out and "rollback=0" in out
     assert "done: 8 iterations" in out
+
+
+@pytest.mark.parametrize("smoke", [True, False])
+def test_train_cli_runs_the_config_without_recompute(monkeypatch, tmp_path, smoke):
+    """As the reference's CLI does, the port's hands its ``SimCluster`` the
+    config with ``remat_policy="none"`` (the registered config says "full"),
+    smoke or not: the cluster is replaced by one that records its config."""
+    from repro_torch.launch import train
+    from repro_torch.runtime import cluster
+
+    class Built(Exception):
+        pass
+
+    def record(cfg, **kwargs):
+        raise Built(cfg)
+    monkeypatch.setattr(cluster, "SimCluster", record)
+    argv = ["--arch", "gemma-2b", "--device", "cpu", "--ckpt-dir", str(tmp_path)]
+    with pytest.raises(Built) as built:
+        train.main(argv + (["--smoke"] if smoke else []))
+    from repro_torch.configs import reduce_for_smoke
+    registered = get_arch("gemma-2b")
+    assert registered.remat_policy == "full"
+    want = reduce_for_smoke(registered) if smoke else registered
+    assert built.value.args[0] == dataclasses.replace(want, remat_policy="none")

@@ -156,9 +156,9 @@ def _rank_main(rank: int, world: int, data_dir: str):
         seen = {}
         run_layer = transformer.run_layer
 
-        def recording(*args):
+        def recording(*args, **kw):
             seen.setdefault("residual", tuple(args[-1].shape))
-            return run_layer(*args)
+            return run_layer(*args, **kw)
         transformer.run_layer = recording
         for name, (arch, kw, (pod, data, mdl)) in RUNS.items():
             inp = np.load(f"{data_dir}/{name}_in.npz", allow_pickle=True)
