@@ -93,23 +93,46 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 card, weights drawn on the card and copied: prefill of 2 x 256
                 tokens, 8 decode steps; the logits of each, the caches after the
                 prefill and after the steps and the index at 2e-4, the greedy
-                flips counted; 2 flash and 16 decode launches.
+                flips counted; 2 flash and 16 decode launches (``phase_slice_dense``).
 6f5. serve_nemotron -- full nemotron-4-15b (32 layers, 15,628,376,064
                 parameters, 31.3 GB of bf16 drawn on the card from a seed): the
                 same requests served twice, the repeat identical; 32 flash
                 launches on wgmma at q (8, 1000, 48, 128), k/v (8, 1000, 8, 128),
                 32 x 31 = 992 decode launches at q (8, 1, 48, 128), caches (8,
                 1032, 8, 128), no SSD launch; prefill and decode times beside
-                their bounds and the serve's own peak device memory. Freed after.
-6f6. dryrun -- the port's dry-run (repro_torch.launch.dryrun.run_cell, fake
+                their bounds and the serve's own peak device memory. Freed after
+                (``phase_serve_dense``, as the two serves below).
+6f6. serve_deepseek -- deepseek-67b at full width (d_model 8192, 64 q heads on 8
+                kv heads of 128: both attention kernels at group 8; SwiGLU
+                22,016; the untied head of 102,400) cut to 16 of 95 layers
+                (12,750,954,496 parameters, 25.5 GB of bf16 drawn on the card; the
+                95 layers' 134.9 GB do not fit it), as serve_nemotron: 16 flash
+                launches on wgmma at q (8, 1000, 64, 128), k/v (8, 1000, 8, 128),
+                16 x 31 = 496 decode launches at q (8, 1, 64, 128), caches (8,
+                1032, 8, 128), no SSD launch. Freed after.
+6f7. slice_gpt2 -- gpt2-2.7b (the paper's Table 4 GPT-2 2.7B: MHA 32/32 at
+                head_dim 80, gelu 10,240, the untied head of 50,432) at full
+                width cut to 2 layers, fp32, CPU against card, as slice_nemotron
+                (the caches after the prefill and after every step); then the loss
+                of 2 x 257 tokens and every gradient at 2e-4, the attention under
+                FlashAttention on the fp32 route at hd 80 (4 launches: the forward
+                and the recompute).
+6f8. serve_gpt2 -- full gpt2-2.7b (32 layers, 2,774,960,640 parameters, 5.55
+                GB of bf16 drawn on the card), as serve_nemotron: 32 flash
+                launches on wgmma at q/k/v (8, 1000, 32, 80), 32 x 31 = 992 decode
+                launches at q (8, 1, 32, 80), caches (8, 1032, 32, 80), no SSD
+                launch. Freed after.
+6f9. dryrun -- the port's dry-run (repro_torch.launch.dryrun.run_cell, fake
                 tensors on a (1, 1) mesh, in a process started after the build
                 and running beside the card's phases): nemotron-4-15b's prefill
                 and decode cells at serve_nemotron's shape, deepseek-67b's decode
-                at the same shape. Fails unless the fit verdicts agree with the
-                card (nemotron fits: it ran; deepseek-67b's 134.9 GB do not) and
+                at the same shape, deepseek-67b cut to serve_deepseek's 16
+                layers, its prefill and decode. Fails unless the fit verdicts
+                agree with the card (nemotron and the cut deepseek fit: they
+                ran; deepseek-67b's 134.9 GB do not) and, for both that ran,
                 predicted / measured peak lies in DRYRUN["peak_band"]
                 ([0.95, 1.25]); prints the predicted against the measured
-                peak and the analysis FLOPs of the prefill against the bound
+                peaks and the analysis FLOPs of the prefill against the bound
                 helper's count.
 6g. slice_encdec -- whisper-small at full width (d_model 768, 12 heads of 64,
                 gelu 3,072, the tied head of 51,968), cut to 2 encoder and 2
@@ -139,7 +162,8 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 plain blockwise_attention under autograd: output, dq, dk, dv at
                 the training shape (bf16, B=8, S=1024, H=16, K=8, hd=128), at
                 a small fp32 shape and at the scenario corpus's fp32 shapes
-                (B=8 and 16, S=16, H=4, K=2, hd=16). Then DecoderLM.loss of qwen3-0.6b at full
+                (B=8 and 16, S=16, H=4, K=2, hd=16) and at gpt2-2.7b's
+                training shape (bf16, 8 x 1024, 32 heads of 80). Then DecoderLM.loss of qwen3-0.6b at full
                 width, 2 layers, fp32: loss, every gradient and one AdamW step
                 on the card against the same port on the CPU from the same
                 weights; every attention projection's gradient finite and not 0.
@@ -387,6 +411,13 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 device ms by CUDA events, peak device memory above the model), and
                 one more device step under torch.profiler (the script's first
                 profiler session): busy share and the largest kernels.
+9b. train_gpt2 -- gpt2-2.7b at full width cut to 2 of 32 layers, bf16, trained
+                as train (dp=4, 8 x 1024 tokens, 2 steps, a failure of worker 2,
+                recover(), 1 step): a neighbour recovery with no rollback, the opt
+                vector bitwise equal across recover(), finite losses, 2 x 2 x 3
+                flash launches all on wgmma at q/k/v (8, 1024, 32, 80) (recorded
+                by wrapping ``ops``), none of decode or SSD; the step split,
+                tokens/s and bound as train.
 10. kernels  -- each kernel against its plain PyTorch version on the card at the
                 serve shapes, zamba2-7b's at head_dim 112 too (prefill B=8,
                 S=1000, H=K=32; decode T=1032, cur_len 1032; its SSD, 112 heads,
@@ -432,7 +463,15 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 32, 128), caches (8, 1032, 4, 128), cur_len 1,032, each in both
                 dtypes; flash at nemotron-4-15b's q (8, 1000, 48, 128), k/v (8,
                 1000, 8, 128) and decode at its q (8, 1, 48, 128), caches (8,
-                1032, 8, 128), cur_len 1,001 and 1,032, each in both dtypes; the SSD
+                1032, 8, 128), cur_len 1,001 and 1,032, each in both dtypes;
+                gpt2-2.7b's at head_dim 80: flash at q/k/v (8, 1000, 32, 80) in both
+                dtypes and (8, 1024, 32, 80) in bf16, decode at q (8, 1, 32, 80),
+                caches (8, 1032, 32, 80), cur_len 1, 129 and 1,032, both forms in
+                both dtypes, and the block form on the cache's two halves merged
+                against the whole cache; deepseek-67b's flash at q (8, 1000, 64,
+                128), k/v (8, 1000, 8, 128) and decode at q (8, 1, 64, 128),
+                caches (8, 1032, 8, 128), cur_len 1,001 and 1,032, each in both
+                dtypes; the SSD
                 at a rank's 40 (mamba2) and 56 (zamba2) heads, 4 x 1024, bf16),
                 with the
                 kernel's, the plain version's and (for attention) the library
@@ -456,11 +495,13 @@ one {"kernels": [...]} line (each kernel's launches in every serve and training
 phase, ``moe_launches``, ``train_tp_launches``, ``train_moe_mesh_launches``,
 ``train_gemma_mesh_launches``, ``serve_mesh_launches``, ``pipeline_launches``,
 ``vlm_launches``, ``encdec_launches``, ``vlm_mesh_launches``,
-``encdec_mesh_launches``, ``moe_30b_launches`` and ``nemotron_launches``
-among them, and its rows at the other shapes, ``tp_shape`` / ``tp_shapes``,
-``moe_mesh_shape``, ``pipeline_shape``, ``gemma_tp_shape``, ``hd256``,
-``vlm_shape``, ``encdec_shape``, ``vlm_mesh_shape``, ``encdec_mesh_shape``,
-``moe_30b_shape`` and ``nemotron_shape`` among them), the
+``encdec_mesh_launches``, ``moe_30b_launches``, ``nemotron_launches``,
+``gpt2_launches`` and ``deepseek_launches`` among them, and its rows at the
+other shapes, ``tp_shape`` / ``tp_shapes``, ``moe_mesh_shape``,
+``pipeline_shape``, ``gemma_tp_shape``, ``hd256``, ``vlm_shape``,
+``encdec_shape``, ``vlm_mesh_shape``, ``encdec_mesh_shape``,
+``moe_30b_shape``, ``nemotron_shape``, ``hd80`` and ``deepseek_shape``
+among them), the
 card's name
 and power
 limit, and last
@@ -560,6 +601,20 @@ DECODE_MOE30 = dict(b=8, t=1032, h=32, kh=4, hd=128, cur_lens=(1032,))
 # step's length and at the full cache)
 PREFILL_NEMOTRON = dict(b=8, s=1000, h=48, kh=8, hd=128)
 DECODE_NEMOTRON = dict(b=8, t=1032, h=48, kh=8, hd=128, cur_lens=(1001, 1032))
+# gpt2-2.7b's shapes: MHA of 32 heads at head_dim 80 (the hd-128 tiles and
+# lane mapping, columns 80-127 zero): the serve's prefill, the training
+# step's, and decode against its 1,032-position cache at the first position,
+# a split boundary and the full cache, in both forms (the block form's two
+# halves also merged against the whole cache)
+PREFILL_GPT2 = dict(b=8, s=1000, h=32, kh=32, hd=80)
+PREFILL_GPT2_TRAIN = dict(PREFILL_GPT2, s=1024)
+DECODE_GPT2 = dict(b=8, t=1032, h=32, kh=32, hd=80, cur_lens=(1, 129, 1032))
+DECODE_GPT2_BLOCK = dict(DECODE_GPT2, partial=True)
+# deepseek-67b's serve shapes: 64 q heads on 8 kv heads of 128 (group 8), 8
+# prompts of 1,000 tokens, a cache of 1,032 (decode at the first step's
+# length and the full cache)
+PREFILL_DEEPSEEK = dict(b=8, s=1000, h=64, kh=8, hd=128)
+DECODE_DEEPSEEK = dict(b=8, t=1032, h=64, kh=8, hd=128, cur_lens=(1001, 1032))
 SSD_TP = dict(SSD, b=4, h=40, seqs=(1024,))
 SSD_HYBRID_TP = dict(SSD_HYBRID, b=4, h=56, seqs=(1024,))
 SERVE = dict(batch=8, prompt=1000, gen=32)
@@ -582,13 +637,18 @@ SLICE_TOL = 2e-4
 # the 2 steps after the first
 TRAIN = dict(layers=4, dp=4, global_batch=8, seq_len=1024, steps_before=2, steps_after=1,
              failed=2)
+# gpt2-2.7b trained as TRAIN, cut to 2 of its 32 layers (its fp32 optimizer
+# state 4.99 GB, 1.9x that of qwen3's 4 layers)
+GPT2_TRAIN = dict(TRAIN, layers=2)
 # flash gradients, kernel under autograd against the plain version: bf16 at
 # the training shape, fp32 (TF32 off) at a small one and at the scenario
-# corpus's two shapes (the reduced qwen3-0.6b, global batch 8 and 16)
+# corpus's two shapes (the reduced qwen3-0.6b, global batch 8 and 16), bf16
+# at gpt2-2.7b's training shape (head_dim 80)
 GRAD = dict(bf16=dict(b=8, s=1024, h=16, kh=8, hd=128, tol=2e-2),
             fp32=dict(b=2, s=200, h=4, kh=2, hd=64, tol=1e-4),
             fp32_corpus_b8=dict(b=8, s=16, h=4, kh=2, hd=16, tol=1e-4),
-            fp32_corpus_b16=dict(b=16, s=16, h=4, kh=2, hd=16, tol=1e-4))
+            fp32_corpus_b16=dict(b=16, s=16, h=4, kh=2, hd=16, tol=1e-4),
+            bf16_gpt2=dict(b=8, s=1024, h=32, kh=32, hd=80, tol=2e-2))
 # DecoderLM.loss at full width, 2 layers, fp32, card against CPU: 1 x 576
 # tokens (a 512-position xent chunk and a ragged one of 64)
 LOSS = dict(batch=1, seq=576, tol=2e-4)
@@ -617,17 +677,29 @@ MOE_SLICE_30B = dict(MOE_SLICE, arch="qwen3-moe-30b-a3b", phase="slice_moe_30b",
 # on the CPU), fp32, one prompt of 16 tokens behind its 1,024 patch
 # embeddings, 8 decode steps
 VLM_SLICE = dict(layers=2, batch=1, prompt=16, steps=8, tol=SLICE_TOL)
-# the nemotron-4-15b slice, card against CPU: full width cut to 2 layers
-# (3,925,899,264 parameters, 15.7 GB of fp32 a side), fp32, prefill of 2 x
-# 256 tokens, 8 decode steps
-NEMOTRON_SLICE = dict(layers=2, batch=2, prompt=256, steps=8, tol=SLICE_TOL)
+# the dense slices, card against CPU, fp32, full width cut to 2 layers:
+# prefill of 2 x 256 tokens, 8 decode steps. nemotron-4-15b (3,925,899,264
+# parameters, 15.7 GB of fp32 a side: group 6); gpt2-2.7b (415,511,040, 1.66
+# GB: head_dim 80 on both attention kernels), then its loss of 2 x 257 tokens
+# and every gradient (FlashAttention on the fp32 route at hd 80)
+NEMOTRON_SLICE = dict(arch="nemotron-4-15b", phase="slice_nemotron", layers=2, batch=2,
+                      prompt=256, steps=8, loss=False, tol=SLICE_TOL)
+GPT2_SLICE = dict(NEMOTRON_SLICE, arch="gpt2-2.7b", phase="slice_gpt2", loss=True)
+# the dense serves (SERVE's requests, bf16, weights drawn on the card): each
+# phase's config and the layers it keeps (None: all). deepseek-67b's 95
+# layers are 134.9 GB of bf16, more than the card holds: 16 of them are
+# 12,750,954,496 parameters, 25.5 GB, full width
+DENSE_SERVES = {"serve_nemotron": ("nemotron-4-15b", None), "serve_gpt2": ("gpt2-2.7b", None),
+                "serve_deepseek": ("deepseek-67b", 16)}
 # the dry-run's prediction of one card's peak against serve_nemotron's
 # measured one, as predicted / measured in [0.95, 1.25]: below by at most 5 %
 # (the caching allocator rounds every block up to 512 bytes, and cuBLAS takes
 # a workspace that the dry-run's plain forms do not), above by at most 25 %
 # (the plain unembedding's fp32 copy of the head, 6.29 GB, reads 1.159; a
-# count of every storage twice would read 2.32)
-DRYRUN = dict(arch="nemotron-4-15b", over="deepseek-67b", peak_band=(0.95, 1.25))
+# count of every storage twice would read 2.32). deepseek-67b cut to
+# serve_deepseek's depth is held to the same band; its 95 layers must not fit
+DRYRUN = dict(arch="nemotron-4-15b", over="deepseek-67b", cut="serve_deepseek",
+              peak_band=(0.95, 1.25))
 # the enc-dec slice, card against CPU: whisper-small at full width cut to 2
 # encoder and 2 decoder layers, fp32, 2 clips of 1,500 frames: prefill of a
 # 16-token prompt, 8 decode steps, then the loss of 2 x 33 tokens and every
@@ -684,11 +756,6 @@ def device_events(torch, prof) -> list:
             if ev.device_type == cuda]
 
 
-def timing_since(before: dict) -> list:
-    """The methods that timed calls since the ``TIMING`` snapshot ``before``."""
-    return [m for m in TIMING if TIMING[m] > before[m]]
-
-
 def profiled(torch, fn, tries: int = 2):
     """Run ``fn`` under torch.profiler and return the trace's device
     activities; a session that saw none (CUPTI now and then delivers no
@@ -743,26 +810,42 @@ def event_ms(torch, fn, args_list, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_ms(torch, fn, args_list, iters: int) -> float:
-    """Mean device time of one call: the summed durations of the device
-    activities it launches, over ``iters`` calls that cycle through
-    ``args_list`` (copies of the inputs, together larger than L2, so that
-    each call reads its inputs from device memory). Host time between
-    launches is not counted. Where the profiler sees no device activity,
-    CUDA events time the calls instead (``event_ms``); ``TIMING`` counts
-    the timings taken each way."""
+def whole_calls(events: list, iters: int) -> bool:
+    """Whether a trace of ``iters`` identical calls holds every call's
+    activities: each activity name ``iters`` times, or a multiple of it. A
+    session late in this script has been seen on an H100 to miss about 6
+    activities of a window (every kernel row then read 0.70x its
+    CUDA-event time over 20 calls)."""
+    counts = collections.Counter(name for name, _ in events)
+    return bool(counts) and all(n % iters == 0 for n in counts.values())
+
+
+def time_ms(torch, fn, args_list, iters: int, events_ms: float | None = None) -> tuple:
+    """Mean device time of one call and the method that took it: the summed
+    durations of the device activities it launches, over ``iters`` calls
+    that cycle through ``args_list`` (copies of the inputs, together larger
+    than L2, so that each call reads its inputs from device memory), in one
+    profiler session ("cupti"). Host time between launches is not counted.
+    Where the session misses activities (``whole_calls``), CUDA events time
+    the calls instead ("cuda_events"): ``events_ms`` where the caller took
+    them already, else ``event_ms``. ``TIMING`` counts the timings taken
+    each way."""
     fn(*args_list[0])
 
     def run():
         for i in range(iters):
             fn(*args_list[i % len(args_list)])
 
-    total_us = sum(us for _, us in profiled(torch, run))
-    if total_us > 0:
+    events = profiled(torch, run, tries=1)
+    if whole_calls(events, iters):
         TIMING["cupti"] += 1
-        return total_us / 1e3 / iters
+        return sum(us for _, us in events) / 1e3 / iters, "cupti"
+    print(f"chip_smoke: a profiler session of {iters} calls saw {len(events)} device "
+          "activities, not a whole number of calls", file=sys.stderr, flush=True)
     TIMING["cuda_events"] += 1
-    return event_ms(torch, fn, args_list, iters)
+    if events_ms is None:
+        events_ms = event_ms(torch, fn, args_list, iters)
+    return events_ms, "cuda_events"
 
 
 def host_us(torch, fn, args, iters: int = 200) -> float:
@@ -837,7 +920,9 @@ def cuobjdump() -> str:
 
 
 # tensor-core kernels and their instantiations in the library
-WGMMA_KERNELS = {"flash_wgmma_kernel": 6, "ssd_wgmma_kernel": 7}
+# instantiations of each: flash's head_dims 16, 32, 64, 80 and 112 (on the
+# 128 tiles), 128, 256
+WGMMA_KERNELS = {"flash_wgmma_kernel": 7, "ssd_wgmma_kernel": 7}
 
 
 def sass_hgmma(library: Path) -> dict:
@@ -880,7 +965,9 @@ def phase_kernels(torch, F):
     # causal over the prompt, the cross-attention's non-causal at Sq 16
     # against 1,500 frames; a rank's of train_encdec_mesh: the encoder's and
     # the cross-attention's of 448 tokens) in both, qwen3-moe-30b-a3b's at
-    # group 8 in both, and nemotron-4-15b's at group 6 in both
+    # group 8 in both, nemotron-4-15b's at group 6 in both, gpt2-2.7b's at
+    # head_dim 80 (the serve's in both, the training step's in bf16) and
+    # deepseek-67b's at group 8 in both
     for key, dtype, p in (("bfloat16", torch.bfloat16, PREFILL),
                           ("float32", torch.float32, PREFILL),
                           ("bfloat16_train", torch.bfloat16,
@@ -915,7 +1002,12 @@ def phase_kernels(torch, F):
                           ("bfloat16_moe30", torch.bfloat16, PREFILL_MOE30),
                           ("float32_moe30", torch.float32, PREFILL_MOE30),
                           ("bfloat16_nemotron", torch.bfloat16, PREFILL_NEMOTRON),
-                          ("float32_nemotron", torch.float32, PREFILL_NEMOTRON)):
+                          ("float32_nemotron", torch.float32, PREFILL_NEMOTRON),
+                          ("bfloat16_gpt2", torch.bfloat16, PREFILL_GPT2),
+                          ("float32_gpt2", torch.float32, PREFILL_GPT2),
+                          ("bfloat16_gpt2_train", torch.bfloat16, PREFILL_GPT2_TRAIN),
+                          ("bfloat16_deepseek", torch.bfloat16, PREFILL_DEEPSEEK),
+                          ("float32_deepseek", torch.float32, PREFILL_DEEPSEEK)):
         dname = str(dtype).split(".")[-1]
         causal, skv = p.get("causal", True), p.get("skv", p["s"])
         q = rand((p["b"], p["s"], p["h"], p["hd"]), dtype)
@@ -933,14 +1025,13 @@ def phase_kernels(torch, F):
         err = check_close(f"flash_attention {dname} {key}", out, ref, TOL[dname])
         per_call = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         args = input_copies((q, k, v))
-        before = dict(TIMING)
         kernel = lambda a, b_, c: flash_attention.flash_attention(a, b_, c, causal=causal)  # noqa: E731
-        ms = time_ms(torch, kernel, args, 20)
         ev_ms = event_ms(torch, kernel, args, 20)
+        ms, ms_by = time_ms(torch, kernel, args, 20, ev_ms)
         launch_us = host_us(torch, kernel, args[0], 20)
-        plain_ms = time_ms(torch, lambda a, b_, c: ops.flash_attention_plain(
+        plain_ms, plain_by = time_ms(torch, lambda a, b_, c: ops.flash_attention_plain(
             a, b_, c, causal=causal), args, 3)
-        library_ms = time_ms(torch, lambda a, b_, c: F.scaled_dot_product_attention(
+        library_ms, library_by = time_ms(torch, lambda a, b_, c: F.scaled_dot_product_attention(
             a.transpose(1, 2), b_.transpose(1, 2), c.transpose(1, 2), is_causal=causal,
             enable_gqa=True), args, 20)
         # the (q, k) pairs attended: causal (Sq = Skv), or every pair
@@ -952,7 +1043,7 @@ def phase_kernels(torch, F):
                    plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_s * 1e3, bound_by=bound_by,
                    host_us_per_launch=launch_us, gflop=flops / 1e9, mbytes=per_call / 1e6,
-                   timing=timing_since(before))
+                   timing=dict(ms=ms_by, plain_ms=plain_by, library_ms=library_by))
         results["flash_attention"][key] = row
         emit("kernels", **row)
         del q, k, v, out, ref, args
@@ -980,7 +1071,13 @@ def phase_kernels(torch, F):
                              ("_moe30", DECODE_MOE30, torch.bfloat16),
                              ("_moe30", DECODE_MOE30, torch.float32),
                              ("_nemotron", DECODE_NEMOTRON, torch.bfloat16),
-                             ("_nemotron", DECODE_NEMOTRON, torch.float32)):
+                             ("_nemotron", DECODE_NEMOTRON, torch.float32),
+                             ("_gpt2", DECODE_GPT2, torch.bfloat16),
+                             ("_gpt2", DECODE_GPT2, torch.float32),
+                             ("_gpt2_block", DECODE_GPT2_BLOCK, torch.bfloat16),
+                             ("_gpt2_block", DECODE_GPT2_BLOCK, torch.float32),
+                             ("_deepseek", DECODE_DEEPSEEK, torch.bfloat16),
+                             ("_deepseek", DECODE_DEEPSEEK, torch.float32)):
         dname = str(dtype).split(".")[-1]
         partial = d.get("partial", False)
         q = rand((d["b"], 1, d["h"], d["hd"]), dtype)
@@ -1003,15 +1100,14 @@ def phase_kernels(torch, F):
                          else q.numel() * q.element_size())
             per_call = ((q.numel() + 2 * d["b"] * cur_len * d["kh"] * d["hd"])
                         * q.element_size() + out_bytes)
-            before = dict(TIMING)
             kernel = lambda a, b_, c: decode_attn.decode_attention(  # noqa: E731
                 a, b_, c, cur_len, partial=partial)
-            ms = time_ms(torch, kernel, args, 50)
             ev_ms = event_ms(torch, kernel, args, 50)
+            ms, ms_by = time_ms(torch, kernel, args, 50, ev_ms)
             launch_us = host_us(torch, kernel, args[0])
-            plain_ms = time_ms(torch, lambda a, b_, c: decode_attention_ref(
+            plain_ms, plain_by = time_ms(torch, lambda a, b_, c: decode_attention_ref(
                 a, b_, c, cur_len, partial=partial), args, 10)
-            library_ms = time_ms(torch, lambda a, b_, c: F.scaled_dot_product_attention(
+            library_ms, library_by = time_ms(torch, lambda a, b_, c: F.scaled_dot_product_attention(
                 a.transpose(1, 2), b_[:, :cur_len].transpose(1, 2),
                 c[:, :cur_len].transpose(1, 2), enable_gqa=True), args, 50)
             flops = 4 * d["b"] * d["h"] * d["hd"] * cur_len
@@ -1024,13 +1120,46 @@ def phase_kernels(torch, F):
                        plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=bound_s * 1e3, bound_by=bound_by,
                        host_us_per_launch=launch_us, mflop=flops / 1e6,
-                       mbytes=per_call / 1e6, timing=timing_since(before))
+                       mbytes=per_call / 1e6,
+                       timing=dict(ms=ms_by, plain_ms=plain_by, library_ms=library_by))
             rows.append(row)
             emit("kernels", **row)
         results["decode_attention"][dname + suffix] = rows
         del q, kc, vc, args
+    results["decode_attention"]["gpt2_merge"] = {
+        dname: decode_block_merge(torch, gen, dtype, DECODE_GPT2)
+        for dname, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32))}
     torch.cuda.empty_cache()
     return results
+
+
+def decode_block_merge(torch, gen, dtype, d: dict) -> dict:
+    """Decode's block form on the two halves of a (B, T, K, hd) cache, both
+    full, merged (``models.attention.merge_partials``) against the whole
+    cache: against the kernel's normalised form and against the plain
+    version at cur_len T, at the dtype's tolerance."""
+    from repro_torch.kernels import decode_attn
+    from repro_torch.kernels.ref import decode_attention_ref
+    from repro_torch.models.attention import merge_partials
+
+    dname = str(dtype).split(".")[-1]
+    b, t, h, kh, hd = d["b"], d["t"], d["h"], d["kh"], d["hd"]
+    q, kc, vc = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                 for shape in ((b, 1, h, hd), (b, t, kh, hd), (b, t, kh, hd)))
+    half = t // 2
+    parts = [decode_attn.decode_attention(q, kc[:, i:i + half].contiguous(),
+                                          vc[:, i:i + half].contiguous(), half, partial=True)
+             for i in (0, half)]
+    merged = merge_partials(torch.stack([o[:, 0] for o, _ in parts]),
+                            torch.stack([lse for _, lse in parts]))
+    whole = decode_attn.decode_attention(q, kc, vc, t)[:, 0]
+    plain = decode_attention_ref(q, kc, vc, t)[:, 0]
+    what = f"decode_attention {dname} hd={hd} two blocks of {half} merged"
+    return dict(shape={k_: v_ for k_, v_ in d.items() if k_ != "cur_lens"}, blocks=[half, half],
+                vs_kernel=check_close(what + " vs the whole cache (kernel)", merged.to(dtype),
+                                      whole, TOL[dname]),
+                vs_plain=check_close(what + " vs the whole cache (plain)", merged, plain,
+                                     TOL[dname]), tol=TOL[dname])
 
 
 def phase_slice(torch):
@@ -1425,15 +1554,14 @@ def phase_ssd_kernel(torch) -> dict:
             del init
         del y, final, y_ref, final_ref
         copies = input_copies(args)
-        before = dict(TIMING)
         kernel = lambda *t: ops.ssd(*t, chunk=lc)  # noqa: E731
-        ms = time_ms(torch, kernel, copies, 20)
         ev_ms = event_ms(torch, kernel, copies, 20)
+        ms, ms_by = time_ms(torch, kernel, copies, 20, ev_ms)
         launch_us = host_us(torch, kernel, copies[0], 50)
-        plain_ms = time_ms(torch, lambda *t: ssd_ref(*t, chunk=lc), copies, 3)
+        plain_ms, plain_by = time_ms(torch, lambda *t: ssd_ref(*t, chunk=lc), copies, 3)
         if dtype == torch.float32:
             extra["intra_kernel_ms"] = time_ms(
-                torch, lambda *t: ssd.ssd_intra_chunk(*t, chunk=lc), copies, 10)
+                torch, lambda *t: ssd.ssd_intra_chunk(*t, chunk=lc), copies, 10)[0]
         flops, nbytes = ssd_full_work(b, s, h, p, n, lc, x.element_size())
         bound_s, bound_by = bound_seconds(flops, nbytes, dname)
         tpu_flops, tpu_bytes = ssd_work(b, s, h, p, n, lc, x.element_size())
@@ -1452,7 +1580,7 @@ def phase_ssd_kernel(torch) -> dict:
                    bound_ms=bound_s * 1e3, bound_by=bound_by,
                    tpu_kernel_bound_ms=tpu_bound_s * 1e3, tpu_kernel_bound_by=tpu_bound_by,
                    host_us_per_launch=launch_us, gflop=flops / 1e9,
-                   mbytes=nbytes / 1e6, timing=timing_since(before))
+                   mbytes=nbytes / 1e6, timing=dict(ms=ms_by, plain_ms=plain_by))
         rows[(model, s, dname)] = row
         emit("kernels", **row)
         del x, dt, a, bm, cm, args, copies
@@ -1526,7 +1654,7 @@ def phase_train_grad(torch):
     gen = torch.Generator(device="cuda").manual_seed(3)
     flash = {}
     for dname, g in GRAD.items():
-        dtype = torch.bfloat16 if dname == "bf16" else torch.float32
+        dtype = torch.bfloat16 if dname.startswith("bf16") else torch.float32
         shapes = ((g["b"], g["s"], g["h"], g["hd"]), (g["b"], g["s"], g["kh"], g["hd"]),
                   (g["b"], g["s"], g["kh"], g["hd"]))
         q, k, v = (torch.randn(sh, generator=gen, device="cuda").to(dtype) for sh in shapes)
@@ -1694,15 +1822,17 @@ def _host_tree(tree):
 def train_bound(cfg, params: int, tokens: int, b: int, s: int):
     """The card's least time for one training step, bf16: 6 operations per
     parameter and token (forward 2, backward 4; the tied head's product
-    counts once, through the embedding's parameters), and causal attention's
+    counts once, through the embedding's parameters; an untied embedding
+    table is gathered by row and does no products), and causal attention's
     products, forward (Q.K^T and P.V) and backward (4 products, twice the
     forward's operations). Recomputation in the backward is the
     implementation's, not the step's, and is not counted. Bytes (weights,
     optimizer state read and written once) bound it far less."""
     from repro_torch.roofline.hw import bound_seconds
+    n_embed = 0 if cfg.tie_embeddings else cfg.padded_vocab * cfg.d_model
     pairs = s * (s + 1) // 2
     attn_fwd = 4 * b * cfg.num_heads * cfg.resolved_head_dim * pairs
-    flops = 6 * params * tokens + 3 * cfg.num_layers * attn_fwd
+    flops = 6 * (params - n_embed) * tokens + 3 * cfg.num_layers * attn_fwd
     nbytes = params * (2 + 2 + 2 + 3 * 4 * 2)     # params, grads read, params written, opt r/w
     return bound_seconds(flops, nbytes, "bfloat16"), flops, attn_fwd
 
@@ -1931,6 +2061,47 @@ def phase_train(torch):
                remat_policy=cfg.remat_policy, fwd_bwd_by_remat=remat)
     row["host_rss_after_free_gb"] = close_cluster(torch, run)
     emit("train", **row)
+    return row
+
+
+def phase_train_gpt2(torch):
+    """The paper's GPT-2 2.7B at full width, cut to GPT2_TRAIN's 2 of its 32
+    layers (415,511,040 parameters, head_dim 80; its fp32 optimizer state
+    4.99 GB), trained through the port's SimCluster with a failure and a
+    stream recovery in the middle, as ``train``: every flash launch on
+    wgmma at q/k/v (8, 1024, 32, 80), the forward and the recompute of
+    every layer a step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import param_count
+
+    t = GPT2_TRAIN
+    cfg = dataclasses.replace(get_arch("gpt2-2.7b"), num_layers=t["layers"])
+    with record_kernel_calls() as calls:
+        run = train_through_a_failure(torch, "train_gpt2", cfg, t, "chip_smoke_gpt2_ckpt")
+    flash = passes(cfg) * cfg.num_layers * run["steps"]     # the forward and the recompute
+    expected = {"flash_attention": flash, "decode_attention": 0, "ssd": 0,
+                "ssd_routes": {"wgmma": 0, "fp32": 0}}
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    qk = (t["global_batch"], t["seq_len"], h, hd)
+    want_calls = {(qk, qk, True): flash}
+    if run["launches"] != expected or run["flash_routes"] != {"wgmma": flash, "fp32": 0}:
+        fail(f"train_gpt2: kernel launches {run['launches']}, flash routes "
+             f"{run['flash_routes']}, expected {expected} all on wgmma")
+    if dict(calls["flash"]) != want_calls or calls["decode"]:
+        fail(f"train_gpt2: flash calls {dict(calls['flash'])}, decode calls "
+             f"{dict(calls['decode'])}; expected {want_calls} and no decode")
+    params = param_count(cfg)
+    bound, flops, attn_fwd = train_bound(cfg, params, t["global_batch"] * t["seq_len"],
+                                         t["global_batch"], t["seq_len"])
+    row = dict(config=f"gpt2-2.7b full width, {cfg.num_layers} of 32 layers (bf16, MHA "
+                      f"{h}/{cfg.num_kv_heads} at head_dim {hd}, gelu d_ff {cfg.d_ff}, untied "
+                      f"head of {cfg.padded_vocab})",
+               **train_row(torch, run, t, params, bound, flops),
+               attention_fwd_gflop_per_layer=attn_fwd / 1e9, remat_policy=cfg.remat_policy,
+               flash_calls=[[list(q), list(k), causal, n]
+                            for (q, k, causal), n in calls["flash"].items()])
+    row["host_rss_after_free_gb"] = close_cluster(torch, run)
+    emit("train_gpt2", **row)
     return row
 
 
@@ -4630,27 +4801,32 @@ def phase_serve_vlm(torch):
     return row
 
 
-def phase_slice_nemotron(torch):
-    """nemotron-4-15b at full width (48 q heads on 8 kv heads of 128: both
-    attention kernels at group 6; the squared-ReLU MLP of 24,576; the untied
-    head of 256,000), cut to 2 layers, fp32: the same weights on the CPU
-    (plain versions) and on the card (kernels), drawn on the card and copied
-    to the CPU. Prefill of 2 x 256 tokens, then 8 decode steps (both sides
-    take the CPU's greedy token): the logits of each, the caches after the
-    prefill and after the steps, and the index, at 2e-4; the tokens the
-    card's logits would have chosen otherwise are counted (flips)."""
+def phase_slice_dense(torch, m: dict):
+    """A dense config of ``m`` at full width, cut to ``m["layers"]``, fp32:
+    the same weights on the CPU (plain versions) and on the card (kernels),
+    drawn on the card and copied to the CPU. Prefill of ``batch`` x
+    ``prompt`` tokens, then ``steps`` decode steps (both sides take the
+    CPU's greedy token): the logits of each, the caches after the prefill
+    and after every step, and the index, at ``tol``; the tokens the card's
+    logits would have chosen otherwise are counted (flips). Where
+    ``m["loss"]``, then the loss of ``batch`` x (prompt + 1) tokens and
+    every gradient at ``tol``, the attention under ``FlashAttention`` on
+    the fp32 route (its forward and, under remat_policy "full", the
+    recompute)."""
     import numpy as np
 
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import build_model
     from repro_torch.train.serve import build_decode_step, build_prefill_step
+    from repro_torch.train.state import grad_tree
+    from repro_torch.tree import keystr, tree_flatten_with_path
 
-    m = NEMOTRON_SLICE
-    cfg = dataclasses.replace(get_arch("nemotron-4-15b"), num_layers=m["layers"],
-                              dtype="float32")
+    phase = m["phase"]
+    cfg = dataclasses.replace(get_arch(m["arch"]), num_layers=m["layers"], dtype="float32")
     t0 = time.perf_counter()
-    # drawn on the card (3.9 B numbers drawn on the host are slow), then
-    # copied to the CPU
+    # drawn on the card (billions of numbers drawn on the host are slow),
+    # then copied to the CPU
     card = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
     cpu = build_model(cfg, device="cpu")
     cpu.load_state_dict(card.state_dict())
@@ -4665,14 +4841,14 @@ def phase_slice_nemotron(torch):
         prefill, decode = build_prefill_step(model), build_decode_step(model)
         logits, cache = prefill(tokens.to(dev), max_len)
         # copies: decode writes the cache in place (.cpu() of a CPU tensor is itself)
-        run = dict(logits=[logits.cpu()], index=cache["index"], k=cache["k"].cpu().clone(),
-                   v=cache["v"].cpu().clone())
+        run = dict(logits=[logits.cpu()], index=cache["index"],
+                   caches=[(cache["k"].cpu().clone(), cache["v"].cpu().clone())])
         for step in range(m["steps"]):
             tok = (runs["cpu"] if name == "cuda" else run)["logits"][step].argmax(-1)
             logits, cache = decode(cache, tok.to(dev))
             run["logits"].append(logits.cpu())
-        run.update(final_k=cache["k"].cpu(), final_v=cache["v"].cpu(),
-                   index_after=cache["index"])
+            run["caches"].append((cache["k"].cpu().clone(), cache["v"].cpu().clone()))
+        run["index_after"] = cache["index"]
         runs[name] = run
         del cache
     launches = read_launches()
@@ -4680,45 +4856,82 @@ def phase_slice_nemotron(torch):
                 "decode_attention": cfg.num_layers * m["steps"], "ssd": 0,
                 "ssd_routes": {"wgmma": 0, "fp32": 0}}
     if launches != expected:
-        fail(f"slice_nemotron: kernel launches {launches}, expected {expected}")
+        fail(f"{phase}: kernel launches {launches}, expected {expected}")
     want_index = (m["prompt"], m["prompt"] + m["steps"])
     for name, run in runs.items():
         if (run["index"], run["index_after"]) != want_index:
-            fail(f"slice_nemotron: {name} cache index {run['index']} then "
+            fail(f"{phase}: {name} cache index {run['index']} then "
                  f"{run['index_after']}, expected {want_index}")
     errs = []
     for ref, out in zip(runs["cpu"]["logits"], runs["cuda"]["logits"]):
         if out.shape != (m["batch"], cfg.padded_vocab) or not torch.isfinite(out).all():
-            fail(f"slice_nemotron: logits of shape {tuple(out.shape)} or not finite")
-        errs.append(check_close("slice_nemotron logits card vs cpu", out, ref, m["tol"]))
+            fail(f"{phase}: logits of shape {tuple(out.shape)} or not finite")
+        errs.append(check_close(f"{phase} logits card vs cpu", out, ref, m["tol"]))
     flips = sum(int((out.argmax(-1) != ref.argmax(-1)).sum())
                 for ref, out in zip(runs["cpu"]["logits"], runs["cuda"]["logits"]))
-    cache_err = {key: check_close(f"slice_nemotron cache {key} card vs cpu", runs["cuda"][key],
-                                  runs["cpu"][key], m["tol"])
-                 for key in ("k", "v", "final_k", "final_v")}
-    row = dict(config=f"nemotron-4-15b full width, {cfg.num_layers} layers, fp32, 48 q / 8 kv "
-                      "heads of 128 (group 6), squared-ReLU d_ff 24,576, untied head",
+    cache_err = [max(check_close(f"{phase} cache {key} after step {i} card vs cpu", got, want,
+                                 m["tol"])
+                     for key, got, want in zip("kv", card_kv, cpu_kv))
+                 for i, (card_kv, cpu_kv) in enumerate(zip(runs["cuda"]["caches"],
+                                                           runs["cpu"]["caches"]))]
+    hd = cfg.resolved_head_dim
+    row = dict(config=f"{m['arch']} full width, {cfg.num_layers} layers, fp32, "
+                      f"{cfg.num_heads} q / {cfg.num_kv_heads} kv heads of {hd}, "
+                      f"{cfg.mlp_type} d_ff {cfg.d_ff}, "
+                      f"{'tied' if cfg.tie_embeddings else 'untied'} head of {cfg.padded_vocab}",
                batch=m["batch"], prompt=m["prompt"], decode_steps=m["steps"], init_s=init_s,
                logits_max_abs_err_per_step=errs, greedy_flips=flips,
-               greedy_tokens=(1 + m["steps"]) * m["batch"], cache_max_abs_err=cache_err,
+               greedy_tokens=(1 + m["steps"]) * m["batch"],
+               cache_max_abs_err_after_prefill_and_each_step=cache_err,
                index=list(want_index), tol=m["tol"], launches=launches)
-    emit("slice_nemotron", **row)
-    del cpu, card, runs
+    del runs
+    if m["loss"]:
+        loss_tokens = torch.from_numpy(np.random.default_rng(9).integers(
+            0, cfg.vocab_size, (m["batch"], m["prompt"] + 1)))
+        reset_launches()
+        results = {}
+        for name, model in (("cpu", cpu), ("cuda", card)):
+            model.requires_grad_(True)
+            loss, _ = model.loss({"tokens": loss_tokens.to(model.device)})
+            loss.backward()
+            results[name] = (loss.detach().cpu(), {
+                keystr(p): t for p, t in tree_flatten_with_path(_host_tree(grad_tree(model)))})
+        loss_launches, routes = read_launches(), dict(fa.flash_attention.routes)
+        flash = passes(cfg) * cfg.num_layers       # the forward and the recompute
+        if loss_launches["flash_attention"] != flash or routes != {"wgmma": 0, "fp32": flash} \
+                or loss_launches["decode_attention"] or loss_launches["ssd"]:
+            fail(f"{phase}: the loss's launches {loss_launches}, routes {routes}; expected "
+                 f"{flash} flash on fp32 and nothing else")
+        loss_err = check_close(f"{phase} loss card vs cpu", results["cuda"][0],
+                               results["cpu"][0], m["tol"])
+        grad_err = {k: check_close(f"{phase} grad {k} card vs cpu", results["cuda"][1][k], ref,
+                                   m["tol"]) for k, ref in results["cpu"][1].items()}
+        for k, g in results["cuda"][1].items():
+            if not torch.isfinite(g).all() or not (g != 0).any():
+                fail(f"{phase}: gradient {k} is not finite or is all 0")
+        row.update(loss_tokens=list(loss_tokens.shape), loss=float(results["cuda"][0]),
+                   loss_err=loss_err, grad_leaves=len(grad_err),
+                   grad_max_abs_err=max(grad_err.values()),
+                   attn_grad_err={k: v for k, v in grad_err.items() if "|attn|" in k},
+                   loss_launches=loss_launches, loss_flash_routes=routes)
+        del results
+    emit(phase, **row)
+    del cpu, card
     torch.cuda.empty_cache()
     return row
 
 
-def phase_serve_nemotron(torch):
-    """Full nemotron-4-15b (32 layers, d_model 6144, 48 q heads on 8 kv
-    heads of 128, squared-ReLU 24,576, untied head of 256,000, bf16,
-    15,628,376,064 parameters drawn on the card from a seed): 8 prompts of
-    1,000 tokens, 32 greedy tokens (a cache of 1,032), served twice (the
-    first a warm-up, the repeat identical): 32 flash launches on wgmma at q
-    (8, 1000, 48, 128), k/v (8, 1000, 8, 128), 32 x 31 = 992 decode launches
-    at group 6 against caches of (8, 1032, 8, 128), no SSD launch; prefill
-    and decode times beside their bounds, and the serve's own peak device
-    memory (above what the card held before the model was built), which the
-    dryrun phase predicts. Freed after."""
+def phase_serve_dense(torch, phase: str):
+    """A dense config of ``DENSE_SERVES[phase]`` at full width (and full
+    depth, or cut to the given layers), bf16, its weights drawn on the card
+    from a seed: 8 prompts of 1,000 tokens, 32 greedy tokens (a cache of
+    1,032), served twice (the first a warm-up, the repeat identical): one
+    flash launch a layer on wgmma at q (8, 1000, H, hd), k/v (8, 1000, K,
+    hd), 31 decode launches a layer at q (8, 1, H, hd) against caches of
+    (8, 1032, K, hd), no SSD launch; prefill and decode times beside their
+    bounds, and the serve's own peak device memory (above what the card
+    held before the model was built), which the dryrun phase predicts.
+    Freed after."""
     import numpy as np
 
     from repro_torch.configs import get_arch
@@ -4726,13 +4939,16 @@ def phase_serve_nemotron(torch):
     from repro_torch.models import build_model, param_count
     from repro_torch.train.serve import build_decode_step, build_prefill_step
 
-    cfg = get_arch("nemotron-4-15b")
+    arch, layers = DENSE_SERVES[phase]
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, num_layers=layers or full.num_layers)
     b, prompt, gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
     L, max_len = cfg.num_layers, prompt + gen
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    # 15.6 B numbers drawn by a CUDA generator on the card
+    # billions of numbers drawn by a CUDA generator on the card
     model = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -4751,27 +4967,28 @@ def phase_serve_nemotron(torch):
     flash_routes = dict(fa.flash_attention.routes)
     expected = {"flash_attention": L, "decode_attention": L * (gen - 1), "ssd": 0,
                 "ssd_routes": {"wgmma": 0, "fp32": 0}}
-    want_shapes = {"flash": [((b, prompt, 48, 128), (b, prompt, 8, 128))],
-                   "decode": [((b, 1, 48, 128), (b, max_len, 8, 128))]}
+    want_shapes = {"flash": [((b, prompt, h, hd), (b, prompt, kh, hd))],
+                   "decode": [((b, 1, h, hd), (b, max_len, kh, hd))]}
     got_shapes = qk_shapes(calls)
     if launches != expected or flash_routes != {"wgmma": L, "fp32": 0}:
-        fail(f"serve_nemotron: kernel launches {launches}, flash routes {flash_routes}; "
+        fail(f"{phase}: kernel launches {launches}, flash routes {flash_routes}; "
              f"expected {expected}, flash all on wgmma")
     if got_shapes != want_shapes:
-        fail(f"serve_nemotron: kernel calls at (q, k) {got_shapes}, expected {want_shapes}")
+        fail(f"{phase}: kernel calls at (q, k) {got_shapes}, expected {want_shapes}")
     if not finite or tuple(shape) != (b, cfg.padded_vocab):
-        fail(f"serve_nemotron: logits not finite or of shape {tuple(shape)}")
+        fail(f"{phase}: logits not finite or of shape {tuple(shape)}")
     if seqs.shape != (b, gen) or not ((seqs >= 0) & (seqs < cfg.padded_vocab)).all():
-        fail("serve_nemotron: generated tokens out of range")
+        fail(f"{phase}: generated tokens out of range")
     repeat = bool((warm == seqs).all())
     if not repeat:
-        fail("serve_nemotron: the repeat generated other tokens than the warm-up")
+        fail(f"{phase}: the repeat generated other tokens than the warm-up")
     params = param_count(cfg)
     prefill_bound, decode_bound = serve_bounds(cfg, params, b, prompt, gen)
-    row = dict(config=f"nemotron-4-15b full ({L} layers, d_model {cfg.d_model}, "
-                      f"{cfg.num_heads} q / {cfg.num_kv_heads} kv heads of "
-                      f"{cfg.resolved_head_dim}, squared-ReLU d_ff {cfg.d_ff}, untied head "
-                      f"of {cfg.padded_vocab}, bf16)",
+    depth = f"{L} layers" if L == full.num_layers else f"{L} of {full.num_layers} layers"
+    row = dict(config=f"{arch} full width, {depth} (d_model {cfg.d_model}, {h} q / {kh} kv "
+                      f"heads of {hd}, {cfg.mlp_type} d_ff {cfg.d_ff}, "
+                      f"{'tied' if cfg.tie_embeddings else 'untied'} head of "
+                      f"{cfg.padded_vocab}, bf16)",
                params=params, batch=b, prompt=prompt, gen=gen, max_len=max_len,
                init_s=init_s, prefill_ms=t_prefill * 1e3,
                prefill_bound_ms=prefill_bound[0] * 1e3, prefill_bound_by=prefill_bound[1],
@@ -4785,7 +5002,7 @@ def phase_serve_nemotron(torch):
                logits_finite=finite, repeat_identical=repeat,
                profiler_sessions_before=PROFILER_SESSIONS[0],
                first_sequence=seqs[0].tolist())
-    emit("serve_nemotron", **row)
+    emit(phase, **row)
     del model, prefill, decode
     torch.cuda.empty_cache()
     return row
@@ -4797,9 +5014,10 @@ def dryrun_child(path: str) -> None:
     tensors never touch the card): nemotron-4-15b's prefill of SERVE's
     prompts into a cache of prompt + gen positions and its decode step at
     that cache, each the production step and the analysis probes, and
-    deepseek-67b's decode at the same shape, the production step alone, all
-    on a (1, 1) mesh, which needs no process group. The cells' JSON go to
-    ``path``."""
+    deepseek-67b's decode at the same shape, the production step alone, and
+    deepseek-67b cut to serve_deepseek's layers, its prefill and decode
+    cells, the production steps alone, all on a (1, 1) mesh, which needs no
+    process group. The cells' JSON go to ``path``."""
     import os
     if os.environ.get("PYTHONPYCACHEPREFIX"):    # bytecode_cache(): spawned with -B
         sys.dont_write_bytecode = False
@@ -4812,30 +5030,35 @@ def dryrun_child(path: str) -> None:
     torch.set_num_threads(1)
     b, prompt, gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
     mesh = Mesh(("data", "model"), (1, 1))
+    prefill = ShapeConfig("serve_prefill", prompt, b, "prefill")
     decode = ShapeConfig("serve_decode", prompt + gen, b, "decode")
+    arch, over = get_arch(DRYRUN["arch"]), get_arch(DRYRUN["over"])
+    cut = dataclasses.replace(over, num_layers=DENSE_SERVES[DRYRUN["cut"]][1])
     cells = {}
     t0 = time.perf_counter()
-    for name, arch, shape, kw in (
-            ("prefill", DRYRUN["arch"], ShapeConfig("serve_prefill", prompt, b, "prefill"),
-             dict(max_len=prompt + gen)),
-            ("decode", DRYRUN["arch"], decode, {}),
-            ("over", DRYRUN["over"], decode, dict(production_only=True))):
-        cells[name] = run_cell(get_arch(arch), shape, mesh, "one_card", verbose=False, **kw)
+    for name, cfg, shape, kw in (
+            ("prefill", arch, prefill, dict(max_len=prompt + gen)),
+            ("decode", arch, decode, {}),
+            ("over", over, decode, dict(production_only=True)),
+            ("cut_prefill", cut, prefill, dict(max_len=prompt + gen, production_only=True)),
+            ("cut_decode", cut, decode, dict(production_only=True))):
+        cells[name] = run_cell(cfg, shape, mesh, "one_card", verbose=False, **kw)
     cells["seconds"] = time.perf_counter() - t0
     with open(path + ".tmp", "w") as f:
         json.dump(cells, f)
     os.replace(path + ".tmp", path)
 
 
-def phase_dryrun(torch, child, path: str, served: dict) -> dict:
+def phase_dryrun(torch, child, path: str, served: dict, served_cut: dict) -> dict:
     """The dry-run's verdicts held against the card: ``dryrun_child``'s
     cells (started after the build, waited for here) beside
-    serve_nemotron's measured run. Fails unless nemotron-4-15b's cells fit
-    one card (it ran) and deepseek-67b's decode does not (134.9 GB of bf16
-    parameters), by the report's rule (peak <= hw.HBM_BYTES), and unless
-    the predicted peak (the larger of the prefill's and the decode's, of
-    the plain forms) over the measured serve's own peak lies in
-    DRYRUN["peak_band"]. Prints the analysis FLOPs of the prefill
+    serve_nemotron's and serve_deepseek's measured runs. Fails unless
+    nemotron-4-15b's cells fit one card (it ran), deepseek-67b's decode
+    does not (134.9 GB of bf16 parameters) and deepseek-67b cut to
+    serve_deepseek's layers does (it ran), by the report's rule (peak <=
+    hw.HBM_BYTES), and unless for both configs that ran the predicted peak
+    (the larger of the prefill's and the decode's, of the plain forms) over
+    the measured serve's own peak lies in DRYRUN["peak_band"]. Prints the analysis FLOPs of the prefill
     against ``serve_prefill_flops``'s count: dense attention computes every
     (q, k) pair where the causal count takes s(s+1)/2, and the bound counts
     the norms' weights as weights of products."""
@@ -4851,15 +5074,21 @@ def phase_dryrun(torch, child, path: str, served: dict) -> dict:
     predicted = max(pre["peak_memory_per_device"], dec["peak_memory_per_device"])
     measured = served["serve_peak_mem_bytes"]
     over_peak = peak_bytes(over["memory_analysis"])
+    cut_peaks = {kind: peak_bytes(cells[f"cut_{kind}"]["memory_analysis"])
+                 for kind in ("prefill", "decode")}
+    cut_predicted, cut_measured = max(cut_peaks.values()), served_cut["serve_peak_mem_bytes"]
+    cut = f"{DRYRUN['over']} ({DENSE_SERVES[DRYRUN['cut']][1]} layers)"
     fits = {DRYRUN["arch"]: bool(pre["fits_hbm"] and dec["fits_hbm"]),
-            DRYRUN["over"]: over_peak <= hw.HBM_BYTES}
-    if fits != {DRYRUN["arch"]: True, DRYRUN["over"]: False}:
-        fail(f"dryrun: fit verdicts {fits}; {DRYRUN['arch']} ran on the card, "
+            DRYRUN["over"]: over_peak <= hw.HBM_BYTES, cut: cut_predicted <= hw.HBM_BYTES}
+    if fits != {DRYRUN["arch"]: True, DRYRUN["over"]: False, cut: True}:
+        fail(f"dryrun: fit verdicts {fits}; {DRYRUN['arch']} and {cut} ran on the card, "
              f"{DRYRUN['over']}'s parameters alone exceed it")
     lo, hi = DRYRUN["peak_band"]
-    if not lo <= predicted / measured <= hi:
-        fail(f"dryrun: predicted peak {predicted / 1e9:.3f} GB, measured "
-             f"{measured / 1e9:.3f} GB: predicted / measured outside [{lo}, {hi}]")
+    for name, p_, m_ in ((DRYRUN["arch"], predicted, measured),
+                         (cut, cut_predicted, cut_measured)):
+        if not lo <= p_ / m_ <= hi:
+            fail(f"dryrun: {name}'s predicted peak {p_ / 1e9:.3f} GB, measured "
+                 f"{m_ / 1e9:.3f} GB: predicted / measured outside [{lo}, {hi}]")
     cfg = get_arch(DRYRUN["arch"])
     b, prompt = SERVE["batch"], SERVE["prompt"]
     L, h, hd, d = cfg.num_layers, cfg.num_heads, cfg.resolved_head_dim, cfg.d_model
@@ -4877,6 +5106,12 @@ def phase_dryrun(torch, child, path: str, served: dict) -> dict:
                                       decode=dec["peak_memory_per_device"] / 1e9),
                measured_serve_peak_gb=measured / 1e9,
                predicted_over_measured=predicted / measured, peak_band=DRYRUN["peak_band"],
+               cut=dict(config=f"{cut} at serve_deepseek's shape, production steps",
+                        predicted_peak_gb={k: v / 1e9 for k, v in cut_peaks.items()},
+                        predicted_peak_bytes=cut_peaks, measured_serve_peak_gb=cut_measured / 1e9,
+                        predicted_over_measured=cut_predicted / cut_measured,
+                        memory_analysis={k: cells[f"cut_{k}"]["memory_analysis"]
+                                         for k in cut_peaks}),
                memory_analysis=dict(prefill=pre["memory_analysis"],
                                     decode=dec["memory_analysis"]),
                fits_hbm=fits, over_peak_gb=over_peak / 1e9, hbm_gb=hw.HBM_BYTES / 1e9,
@@ -4889,7 +5124,9 @@ def phase_dryrun(torch, child, path: str, served: dict) -> dict:
                                                         "bottleneck")}),
                recompute=pre["recompute"], child_s=cells["seconds"],
                production_step_s=dict(prefill=pre["compile_s"], decode=dec["compile_s"],
-                                      over=over["compile_s"]))
+                                      over=over["compile_s"],
+                                      cut_prefill=cells["cut_prefill"]["compile_s"],
+                                      cut_decode=cells["cut_decode"]["compile_s"]))
     emit("dryrun", **row)
     return row
 
@@ -5310,9 +5547,14 @@ def main() -> int:
     serve_moe_30b = timed("serve_moe_30b", phase_serve_moe, torch, "serve_moe_30b")
     # nemotron-4-15b (31.3 GB of bf16) once qwen3-moe-30b-a3b is freed, before
     # internvl2-26b's (b) reference takes 38 GB of the card
-    timed("slice_nemotron", phase_slice_nemotron, torch)
-    serve_nemotron = timed("serve_nemotron", phase_serve_nemotron, torch)
-    timed("dryrun", phase_dryrun, torch, dry_child, dry_path, serve_nemotron)
+    timed("slice_nemotron", phase_slice_dense, torch, NEMOTRON_SLICE)
+    serve_nemotron = timed("serve_nemotron", phase_serve_dense, torch, "serve_nemotron")
+    # deepseek-67b cut to 16 layers (25.5 GB of bf16) once nemotron is freed
+    serve_deepseek = timed("serve_deepseek", phase_serve_dense, torch, "serve_deepseek")
+    # the paper's GPT-2 2.7B: head_dim 80 on both attention kernels
+    timed("slice_gpt2", phase_slice_dense, torch, GPT2_SLICE)
+    serve_gpt2 = timed("serve_gpt2", phase_serve_dense, torch, "serve_gpt2")
+    timed("dryrun", phase_dryrun, torch, dry_child, dry_path, serve_nemotron, serve_deepseek)
     dry_dir.cleanup()
     with contextlib.ExitStack() as stack:
         tmp = {phase: stack.enter_context(tempfile.TemporaryDirectory(
@@ -5334,6 +5576,7 @@ def main() -> int:
     scenarios = timed("scenarios", phase_scenarios, torch)
     train_ssm = timed("train_ssm", phase_train_ssm, torch)
     train = timed("train", phase_train, torch)
+    train_gpt2 = timed("train_gpt2", phase_train_gpt2, torch)
     kernels = timed("kernels", phase_kernels, torch, F)
     ssd_rows = timed("kernels", phase_ssd_kernel, torch)
     _, prefill, decode, tokens, _ = served
@@ -5437,6 +5680,14 @@ def main() -> int:
              nemotron_launches=serve_nemotron["launches"]["flash_attention"],
              nemotron_shape={d: moe_shape(kernels["flash_attention"][f"{d}_nemotron"])
                              for d in ("bfloat16", "float32")},
+             gpt2_launches=dict(serve=serve_gpt2["launches"]["flash_attention"],
+                                train=train_gpt2["launches"]["flash_attention"],
+                                train_routes=train_gpt2["flash_routes"]),
+             hd80={key: moe_shape(kernels["flash_attention"][key])
+                   for key in ("bfloat16_gpt2", "float32_gpt2", "bfloat16_gpt2_train")},
+             deepseek_launches=serve_deepseek["launches"]["flash_attention"],
+             deepseek_shape={d: moe_shape(kernels["flash_attention"][f"{d}_deepseek"])
+                             for d in ("bfloat16", "float32")},
              backward="plain blockwise_attention recompute (FlashAttention), no kernel"),
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attn.cu",
@@ -5507,7 +5758,19 @@ def main() -> int:
              nemotron_shape={f"{d}_{row['cur_len']}": moe_shape(row)
                              for d in ("bfloat16", "float32")
                              for row in kernels["decode_attention"][f"{d}_nemotron"]},
-             head_dims="16, 32, 64, 112 (on 128's lanes), 128, 256 (two loads a lane in fp32)",
+             gpt2_launches=dict(serve=serve_gpt2["launches"]["decode_attention"],
+                                train=train_gpt2["launches"]["decode_attention"]),
+             hd80={f"{d}_{form}_{row['cur_len']}": moe_shape(row)
+                   for d in ("bfloat16", "float32")
+                   for form, key in (("serve", "gpt2"), ("block", "gpt2_block"))
+                   for row in kernels["decode_attention"][f"{d}_{key}"]},
+             hd80_two_blocks_merged=kernels["decode_attention"]["gpt2_merge"],
+             deepseek_launches=serve_deepseek["launches"]["decode_attention"],
+             deepseek_shape={f"{d}_{row['cur_len']}": moe_shape(row)
+                             for d in ("bfloat16", "float32")
+                             for row in kernels["decode_attention"][f"{d}_deepseek"]},
+             head_dims="16, 32, 64, 80 and 112 (on 128's lanes), 128, 256 (two loads a lane "
+                       "in fp32)",
              groups="1, 2, 4, 6, 8 q heads per kv head"),
         dict(name="ssd", route="cuda", dispatch=ssd_main["route"],
              source="src/repro_torch/csrc/ssd_wgmma.cu",
@@ -5546,6 +5809,9 @@ def main() -> int:
                  serve_a=[x["ssd"] for x in serve_encdec_mesh["launches_by_rank"]]),
              moe_30b_launches=serve_moe_30b["launches"]["ssd"],
              nemotron_launches=serve_nemotron["launches"]["ssd"],
+             gpt2_launches=dict(serve=serve_gpt2["launches"]["ssd"],
+                                train=train_gpt2["launches"]["ssd"]),
+             deepseek_launches=serve_deepseek["launches"]["ssd"],
              tp_shapes={model: {k_: ssd_rows[(f"{model}/tp2", 1024, "bfloat16")][k_]
                                 for k_ in keys}
                         for model in ("mamba2-2.7b", "zamba2-7b")},

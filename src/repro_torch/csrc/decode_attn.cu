@@ -35,7 +35,9 @@
 // head_dim 112 (zamba2-7b's) runs the lane mapping of hd 128: 16 lanes a
 // bf16 row (32 in fp32), of which the last 2 (4) load nothing and hold
 // zeros, so the lane groups still tile the warp; only the first 112
-// columns of the partials and of o are written.
+// columns of the partials and of o are written. head_dim 80 (gpt2-2.7b's)
+// runs the same mapping with 10 of the 16 bf16 lanes live (20 of 32 in
+// fp32): 3/8 of the lanes idle, and the merge grid one thread a column.
 //
 // head_dim 256 (gemma-2b's): a bf16 row is one 16-byte vector a lane over
 // the whole warp; an fp32 row would need 64 lanes, so each lane loads two
@@ -99,7 +101,7 @@ __device__ __forceinline__ void store_out(void* o, float* lse, long long bh, int
 }
 
 // HD: the lane-mapping instantiation; HDV: the tensors' head_dim (HD, or
-// 112 on the 128 mapping)
+// 80 or 112 on the 128 mapping)
 template <typename T, int HD, int G, int HDV>
 __global__ void __launch_bounds__(DT)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
@@ -354,6 +356,7 @@ cudaError_t dispatch_hd(int hd, int G, const void* q, const void* k,
     case 16: return dispatch_g<T, 16>(G, q, k, v, o, lse, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
     case 32: return dispatch_g<T, 32>(G, q, k, v, o, lse, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
     case 64: return dispatch_g<T, 64>(G, q, k, v, o, lse, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
+    case 80: return dispatch_g<T, 128, 80>(G, q, k, v, o, lse, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
     case 112: return dispatch_g<T, 128, 112>(G, q, k, v, o, lse, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
     case 128: return dispatch_g<T, 128>(G, q, k, v, o, lse, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);
     case 256: return dispatch_g<T, 256>(G, q, k, v, o, lse, part, B, H, K, cur_len, n_split, rows, qs, ks, vs, scale, st);

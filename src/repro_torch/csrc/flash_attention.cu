@@ -25,7 +25,8 @@
 // are register-tiled (4x8 scores and 4x(hd/8) outputs per thread, 16-byte
 // shared-memory loads). head_dim 112 runs the hd-128 layout with the loads
 // of columns 112-127 predicated off (zero in shared memory), the scores'
-// sum stopped at column 112 and those columns of the output not stored.
+// sum stopped at column 112 and those columns of the output not stored;
+// head_dim 80 (gpt2-2.7b's) the same way, with columns 80-127 off.
 // head_dim 256 keeps the same tiles: 128 output accumulators a thread, and
 // 211 KB of shared memory (q, k, v and P tiles), one block an SM.
 
@@ -76,8 +77,8 @@ __device__ __forceinline__ void load_tile(float* dst, int dst_stride,
   }
 }
 
-// HD: the layout instantiation; HDV: the tensors' head_dim (HD, or 112 in
-// the 128 layout)
+// HD: the layout instantiation; HDV: the tensors' head_dim (HD, or 80 or
+// 112 in the 128 layout)
 template <int HD, int HDV>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -293,6 +294,7 @@ extern "C" int repro_flash_attention_fp32(
     case 16: return (int)repro::launch_flash<16>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
     case 32: return (int)repro::launch_flash<32>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
     case 64: return (int)repro::launch_flash<64>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
+    case 80: return (int)repro::launch_flash<128, 80>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
     case 112: return (int)repro::launch_flash<128, 112>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
     case 128: return (int)repro::launch_flash<128>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
     case 256: return (int)repro::launch_flash<256>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);

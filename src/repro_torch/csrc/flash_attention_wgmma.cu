@@ -65,6 +65,16 @@
 //    swizzle atom. Q.K^T stops at column 112 (7 k-steps of 16), P.V's
 //    columns 112-127 come out zero and are never stored. A third set of
 //    tile constants would buy at most the 1/8 of P.V spent on those zeros.
+//  * head_dim 80 (gpt2-2.7b's) runs the same hd-128 instantiation: the
+//    tensor maps are built with head_dim 80, so the second 64-column box
+//    reads 16 real columns and TMA zero-fills columns 80-127. Q.K^T stops
+//    at column 80 (5 k-steps of 16: four in the first 128-byte swizzle
+//    atom, one in the second); the 5 k-steps, the TMA extent and the 10
+//    stored 8-column groups all come from HDV. P.V runs m64n128k16, so
+//    3/8 of its work on these tiles is spent on zero columns (1/8 at hd
+//    112), and the Q and K tiles in shared memory are 3/8 zeros: a native
+//    80- or 96-wide tile with a narrower second swizzle atom is left for
+//    the work that makes the kernel fast.
 //  * head_dim 256 (gemma-2b's) has its own instantiation: four 64-column
 //    swizzle atoms along head_dim, 64-row kv tiles, P.V on m64n256k16. Two
 //    kv stages instead of three (Q 64 KB + 4 x 32 KB of K and V), and no
@@ -171,8 +181,8 @@ __device__ __forceinline__ void online_softmax(float (&s)[BK / 2], uint32_t (&p)
   l1 = l1 * c1 + rs1;
 }
 
-// HD: the tile instantiation; HDV: the tensors' head_dim (HD, or 112 on the
-// 128 tiles, whose columns from 112 on are zero in shared memory)
+// HD: the tile instantiation; HDV: the tensors' head_dim (HD, or 80 or 112
+// on the 128 tiles, whose columns from HDV on are zero in shared memory)
 template <int HD, int HDV>
 __global__ void __launch_bounds__(NT, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -475,6 +485,7 @@ extern "C" int repro_flash_attention_wgmma(
     case 16: return (int)repro::launch_flash_wgmma<16>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
     case 32: return (int)repro::launch_flash_wgmma<32>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
     case 64: return (int)repro::launch_flash_wgmma<64>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
+    case 80: return (int)repro::launch_flash_wgmma<128, 80>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
     case 112: return (int)repro::launch_flash_wgmma<128, 112>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
     case 128: return (int)repro::launch_flash_wgmma<128>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);
     case 256: return (int)repro::launch_flash_wgmma<256>(q, k, v, o, B, Sq, Skv, H, K, qs, ks, vs, causal, scale, st);

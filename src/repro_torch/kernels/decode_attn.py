@@ -23,7 +23,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import DTYPES, check_operands
 
-HEAD_DIMS = (16, 32, 64, 112, 128, 256)   # the kernel's lane mappings; 112 on hd 128's
+HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256)   # the lane mappings; 80, 112 on hd 128's
+PADDED = {80: 128, 112: 128}    # a head_dim run on a wider one's lane mapping
 GROUPS = (1, 2, 4, 6, 8)   # q heads per kv head the kernel is built for
 BLOCKS_PER_SM = 2       # what the split planner aims at
 MAX_GRID_YZ = 65535
@@ -33,10 +34,10 @@ def rows_per_step(hd: int, itemsize: int, group: int) -> int:
     """Cache positions one block reads per step of its loop: 8 warps, each
     lane group of hd*itemsize/16 lanes (at most the warp's 32: an fp32 row
     of hd 256 is two loads a lane) one row, U rows in flight per lane
-    (``DecodeShape::STEP`` in ``csrc/decode_attn.cu``). hd 112 runs with
-    the lane mapping of hd 128 (its last lanes' loads masked), so it reads
-    the rows per step of hd 128."""
-    lanes_per_row = min(32, (128 if hd == 112 else hd) * itemsize // 16)
+    (``DecodeShape::STEP`` in ``csrc/decode_attn.cu``). hd 80 and 112 run
+    with the lane mapping of hd 128 (their last lanes' loads masked), so
+    they read the rows per step of hd 128."""
+    lanes_per_row = min(32, PADDED.get(hd, hd) * itemsize // 16)
     in_flight = 4 if group <= 4 else 2
     return 8 * (32 // lanes_per_row) * in_flight
 

@@ -6,9 +6,10 @@ fp32 to the CUDA-core kernel in ``csrc/flash_attention.cu`` (route
 
 Both kernels read q (B, Sq, H, hd) and k, v (B, Skv, K, hd) through their
 strides, map q head h to kv head h // (H/K) without repeating kv heads, and
-mask ragged lengths. They take the head_dims in ``HEAD_DIMS``; 112 (the
-hybrid's) runs the 128 instantiation with columns 112-127 read as zero and
-never stored, and 256 (gemma-2b's) has its own. ``FlashAttention`` puts the kernel under autograd for
+mask ragged lengths. They take the head_dims in ``HEAD_DIMS``; 80
+(gpt2-2.7b's) and 112 (the hybrid's) run the 128 instantiation with the
+columns from 80 or 112 on read as zero and never stored, and 256
+(gemma-2b's) has its own. ``FlashAttention`` puts the kernel under autograd for
 training: its backward recomputes through the plain
 ``blockwise_attention`` on head-repeated k and v, as the reference's
 custom VJP (``_bwd``, repro/kernels/flash_attention.py:108) does; the TPU
@@ -23,7 +24,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 112, 128, 256)   # 112 on the 128 tiles, zero-padded
+HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256)   # 80, 112 on the 128 tiles, zero-padded
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {torch.bfloat16: ("wgmma", "repro_flash_attention_wgmma"),
           torch.float32: ("fp32", "repro_flash_attention_fp32")}

@@ -77,13 +77,28 @@ def test_plan_splits_at_the_vlm_serve_shape():
     assert tdec.plan_splits(2056, 8, 8, 132, step) == (5, 416)
 
 
-def test_head_dims_flash_takes_256_and_decode_does_not():
+def test_head_dims_both_kernels_take_80_and_refuse_96():
     """Flash has an hd-256 instantiation on both routes, and so has decode
-    now (gemma-2b serves): the two kernels take the same head_dims, 80
-    (gpt2-2.7b's) in neither."""
+    (gemma-2b serves); both take 80 (gpt2-2.7b's, on the hd-128 tiles and
+    lane mapping): the two kernels take the same head_dims, 96 (a width no
+    registered config uses) in neither."""
     from repro_torch.kernels import flash_attention as tflash
     assert 256 in tflash.HEAD_DIMS and 256 in tdec.HEAD_DIMS
-    assert set(tdec.HEAD_DIMS) == set(tflash.HEAD_DIMS) and 80 not in tdec.HEAD_DIMS
+    assert 80 in tflash.HEAD_DIMS and 80 in tdec.HEAD_DIMS
+    assert set(tdec.HEAD_DIMS) == set(tflash.HEAD_DIMS) and 96 not in tdec.HEAD_DIMS
+
+
+def test_plan_splits_at_the_gpt2_serve_shape():
+    """gpt2-2.7b decode, B=8, 32 kv heads of 80 (MHA: group 1), bf16 on the
+    hd-128 lane mapping (64 rows a step): 8 x 32 = 256 blocks already
+    near 2 a SM, so 2 splits of 576 at the full cache of 1,032, one split
+    up to a step."""
+    step = tdec.rows_per_step(80, 2, 1)
+    assert step == tdec.rows_per_step(128, 2, 1) == 64
+    assert tdec.plan_splits(1, 8, 32, 132, step) == (1, 64)
+    assert tdec.plan_splits(129, 8, 32, 132, step) == (2, 128)
+    assert tdec.plan_splits(1001, 8, 32, 132, step) == (2, 512)
+    assert tdec.plan_splits(1032, 8, 32, 132, step) == (2, 576)
 
 
 def test_plan_splits_refuses_nonsense():
@@ -96,9 +111,12 @@ def test_plan_splits_refuses_nonsense():
 @pytest.mark.parametrize("hd,itemsize,group,rows", [
     (128, 2, 2, 64), (128, 2, 8, 32), (128, 4, 1, 32), (16, 2, 4, 512), (64, 4, 4, 64),
     (112, 2, 1, 64), (112, 4, 1, 32), (256, 2, 8, 16), (256, 2, 1, 32), (256, 4, 8, 16),
-    (256, 4, 4, 32), (128, 2, 6, 32), (128, 4, 6, 16), (64, 2, 6, 64), (256, 4, 6, 16)])
+    (256, 4, 4, 32), (128, 2, 6, 32), (128, 4, 6, 16), (64, 2, 6, 64), (256, 4, 6, 16),
+    (80, 2, 1, 64), (80, 4, 1, 32), (80, 2, 8, 32), (80, 4, 8, 16)])
 def test_rows_per_step_is_the_kernel_geometry(hd, itemsize, group, rows):
     assert tdec.rows_per_step(hd, itemsize, group) == rows
+    if hd in (80, 112):          # on hd 128's lane mapping
+        assert rows == tdec.rows_per_step(128, itemsize, group)
 
 
 # --------------------------------------------------------------------------- #

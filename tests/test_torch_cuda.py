@@ -33,6 +33,7 @@ def _rand(gen, shape, dtype, device):
 @pytest.mark.parametrize("b,s,h,kh,hd", [(2, 100, 4, 2, 16), (1, 129, 4, 4, 32),
                                          (2, 64, 8, 1, 64), (1, 200, 16, 8, 128),
                                          (2, 130, 4, 4, 112), (1, 70, 8, 2, 112),
+                                         (2, 130, 4, 4, 80), (1, 70, 8, 1, 80),
                                          (2, 100, 8, 1, 256), (1, 129, 4, 1, 256)])
 def test_flash_kernel_matches_plain(cuda, b, s, h, kh, hd, causal, dtype):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -67,7 +68,7 @@ def _wgmma_case(cuda, q, k, v, causal):
 @pytest.mark.parametrize("group", [1, 2, 8])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("s", [1, 63, 100, 129, 1000])
-@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128, 256])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 112, 128, 256])
 def test_flash_wgmma_matches_plain(cuda, hd, s, causal, group):
     """Every head_dim and swizzle width, lengths below, at and across the
     64-row warpgroup, 128-row block and kv-tile edges, G q heads per kv
@@ -424,11 +425,11 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         decode_attn.decode_attention(q, kc, kc, 9)       # cur_len > T
     with pytest.raises(ValueError):
         decode_attn.decode_attention(q.half(), kc.half(), kc.half(), 4)
-    q, kc = torch.zeros(1, 1, 8, 80, device=cuda), torch.zeros(1, 8, 1, 80, device=cuda)
+    q, kc = torch.zeros(1, 1, 8, 96, device=cuda), torch.zeros(1, 8, 1, 96, device=cuda)
     launches = decode_attn.decode_attention.launches
-    with pytest.raises(ValueError, match="hd=80"):                  # neither kernel takes 80
+    with pytest.raises(ValueError, match="hd=96"):                  # neither kernel takes 96
         decode_attn.decode_attention(q, kc, kc, 4)
-    with pytest.raises(ValueError, match="hd=80"):
+    with pytest.raises(ValueError, match="hd=96"):
         decode_attn.decode_attention(q, kc, kc, 4, partial=True)
     # 3 q heads per kv head: a group the kernel is not built for
     q, kc = torch.zeros(1, 1, 6, 16, device=cuda), torch.zeros(1, 8, 2, 16, device=cuda)
@@ -886,6 +887,153 @@ def test_decode_at_the_nemotron_4_15b_serve_shape(cuda, cur_len, dtype):
     assert decode_attn.decode_attention.launches == before + 1
     sm = torch.cuda.get_device_properties(cuda).multi_processor_count
     step = decode_attn.rows_per_step(128, q.element_size(), 6)
+    assert decode_attn.decode_attention.last_split == decode_attn.plan_splits(
+        cur_len, 8, 8, sm, step)
+    ref = decode_attention_ref(q, kc, vc, cur_len)
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               **_tol(dtype))
+
+
+# gpt2-2.7b's attention: 32 heads of 80 (MHA), the serve shape (8 prompts of
+# 1,000 tokens, a cache of 1,032) and the training step's (8 x 1,024)
+GPT2_FLASH = {"serve": (8, 1000, 32, 80), "train": (8, 1024, 32, 80)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", sorted(GPT2_FLASH))
+def test_flash_hd80_at_the_gpt2_shapes(cuda, shape, causal, dtype):
+    """head_dim 80 on the hd-128 tiles (columns 80-127 zero, never
+    stored): the forward on the wrapper's route for the dtype and the
+    gradients into q, k and v under ``FlashAttention`` against autograd
+    through the plain version. Each head's values carry their own offset,
+    so that a misread head or column shows."""
+    g = torch.Generator(device=cuda).manual_seed(50)
+    b, s, h, hd = GPT2_FLASH[shape]
+    q = _rand(g, (b, s, h, hd), dtype, cuda).requires_grad_()
+    k = _rand(g, (b, s, h, hd), dtype, cuda).requires_grad_()
+    v = (_rand(g, (b, s, h, hd), torch.float32, cuda)
+         + torch.arange(h, device=cuda, dtype=torch.float32)[:, None]).to(dtype).requires_grad_()
+    dout = _rand(g, (b, s, h, hd), dtype, cuda)
+    route = "wgmma" if dtype == torch.bfloat16 else "fp32"
+    routed = flash_attention.flash_attention.routes[route]
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.routes[route] == routed + 1
+    assert out.shape == q.shape and out.dtype == dtype and out.is_contiguous()
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    ref = ops.flash_attention_plain(q, k, v, causal=causal)
+    ref_grads = torch.autograd.grad(ref, (q, k, v), dout)
+    for got, want in zip((out,) + grads, (ref,) + ref_grads):
+        np.testing.assert_allclose(got.detach().float().cpu().numpy(),
+                                   want.detach().float().cpu().numpy(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("partial", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,kh,group,t,cur_len", [
+    (8, 32, 1, 1032, 1), (8, 32, 1, 1032, 129), (8, 32, 1, 1032, 1001), (8, 32, 1, 1032, 1032),
+    (2, 2, 8, 128, 77), (1, 4, 4, 300, 129), (2, 2, 6, 200, 200)])
+def test_decode_hd80_matches_plain(cuda, b, kh, group, t, cur_len, dtype, partial):
+    """head_dim 80 on the hd-128 lane mapping (10 of 16 bf16 lanes live, 20
+    of 32 in fp32), both forms against their plain versions, split as the
+    planner says for the step of hd 128: gpt2-2.7b's serve shape (8, 1032,
+    32, 80) at group 1, and small shapes at groups 4, 6 and 8."""
+    g = torch.Generator(device=cuda).manual_seed(51)
+    hd = 80
+    q = _rand(g, (b, 1, kh * group, hd), dtype, cuda)
+    kc = _rand(g, (b, t, kh, hd), dtype, cuda)
+    vc = (_rand(g, (b, t, kh, hd), torch.float32, cuda)
+          + torch.arange(kh, device=cuda, dtype=torch.float32)[:, None]).to(dtype)
+    before = decode_attn.decode_attention.launches
+    out = decode_attn.decode_attention(q, kc, vc, cur_len, partial=partial)
+    torch.cuda.synchronize()
+    assert decode_attn.decode_attention.launches == before + 1
+    sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    step = decode_attn.rows_per_step(hd, q.element_size(), group)
+    assert step == decode_attn.rows_per_step(128, q.element_size(), group)
+    assert decode_attn.decode_attention.last_split == decode_attn.plan_splits(
+        cur_len, b, kh, sm, step)
+    ref = decode_attention_ref(q, kc, vc, cur_len, partial=partial)
+    if partial:
+        assert out[0].dtype == torch.float32 and out[1].shape == (b, kh * group)
+        for got, want in zip(out, ref):
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **_tol(dtype))
+    else:
+        assert out.dtype == dtype and out.shape == q.shape
+        np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                                   **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_hd80_gpt2_blocks_merged_against_the_whole_cache(cuda, dtype):
+    """Decode's block form at head_dim 80 on two blocks (8, 516, 32, 80) of
+    gpt2-2.7b's 1,032-position cache, the second part-filled (cur_len 400):
+    each block's o and lse against its plain version, the two merged
+    (``merge_partials``) against the whole cache's normalised attention at
+    cur_len 916 on the kernel."""
+    from repro_torch.models.attention import merge_partials
+    g = torch.Generator(device=cuda).manual_seed(52)
+    b, t, h, hd = 8, 516, 32, 80
+    q = _rand(g, (b, 1, h, hd), dtype, cuda)
+    kc = _rand(g, (b, 2 * t, h, hd), dtype, cuda)
+    vc = (_rand(g, (b, 2 * t, h, hd), torch.float32, cuda)
+          + torch.arange(h, device=cuda, dtype=torch.float32)[:, None]).to(dtype)
+    parts = []
+    for i, cur_len in enumerate((t, 400)):
+        block = slice(i * t, (i + 1) * t)
+        kb, vb = kc[:, block].contiguous(), vc[:, block].contiguous()
+        before = decode_attn.decode_attention.launches
+        out = ops.decode_attention_partial(q, kb, vb, cur_len)
+        torch.cuda.synchronize()
+        assert decode_attn.decode_attention.launches == before + 1
+        ref = decode_attention_ref(q, kb, vb, cur_len, partial=True)
+        for got, want in zip(out, ref):
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **_tol(dtype))
+        parts.append(out)
+    merged = merge_partials(torch.stack([o[:, 0] for o, _ in parts]),
+                            torch.stack([lse for _, lse in parts]))
+    whole = ops.decode_attention(q, kc, vc, t + 400)
+    np.testing.assert_allclose(merged.to(dtype).float().cpu().numpy(),
+                               whole[:, 0].float().cpu().numpy(), **_tol(dtype))
+    np.testing.assert_allclose(merged.cpu().numpy(), decode_attention_ref(
+        q, kc, vc, t + 400)[:, 0].float().cpu().numpy(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_at_the_deepseek_67b_serve_shape(cuda, dtype):
+    """deepseek-67b's prefill attention: q (8, 1000, 64, 128), k/v (8,
+    1000, 8, 128) (group 8), causal, on the wrapper's route for the dtype."""
+    g = torch.Generator(device=cuda).manual_seed(53)
+    q = _rand(g, (8, 1000, 64, 128), dtype, cuda)
+    k = _rand(g, (8, 1000, 8, 128), dtype, cuda)
+    v = _rand(g, (8, 1000, 8, 128), dtype, cuda)
+    route = "wgmma" if dtype == torch.bfloat16 else "fp32"
+    routed = flash_attention.flash_attention.routes[route]
+    out = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.routes[route] == routed + 1
+    ref = ops.flash_attention_plain(q, k, v, causal=True)
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cur_len", [1001, 1032])
+def test_decode_at_the_deepseek_67b_serve_shape(cuda, cur_len, dtype):
+    """deepseek-67b's decode step: q (8, 1, 64, 128) against caches (8,
+    1032, 8, 128) at the first and last step's length, split as the
+    planner says for group 8."""
+    g = torch.Generator(device=cuda).manual_seed(54)
+    q = _rand(g, (8, 1, 64, 128), dtype, cuda)
+    kc = _rand(g, (8, 1032, 8, 128), dtype, cuda)
+    vc = _rand(g, (8, 1032, 8, 128), dtype, cuda)
+    before = decode_attn.decode_attention.launches
+    out = ops.decode_attention(q, kc, vc, cur_len)
+    torch.cuda.synchronize()
+    assert decode_attn.decode_attention.launches == before + 1
+    sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    step = decode_attn.rows_per_step(128, q.element_size(), 8)
     assert decode_attn.decode_attention.last_split == decode_attn.plan_splits(
         cur_len, 8, 8, sm, step)
     ref = decode_attention_ref(q, kc, vc, cur_len)

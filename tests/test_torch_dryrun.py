@@ -432,3 +432,30 @@ def test_run_cell_on_a_one_card_mesh_fits_and_refuses():
         fits[arch] = d["fits_hbm"]
         assert d["production_collectives"]["total_count"] == 0
     assert fits == {"nemotron-4-15b": True, "deepseek-67b": False}
+
+
+def test_deepseek_67b_cut_to_16_layers_fits_one_card():
+    """deepseek-67b at full width cut to 16 of 95 layers (12,750,954,496
+    parameters, 25.5 GB of bf16), the cell ``serve_deepseek`` runs on the
+    card and the ``dryrun`` phase holds against its measured peak: the
+    prefill of 8 x 1,000 tokens into a cache of 1,032 and the decode step
+    at that cache, production steps on a (1, 1) mesh. The predicted peaks
+    are pinned (the prefill's the larger: its plain attention's scores and
+    the plain unembedding's fp32 copy of the head); both fit one card, as
+    the whole 95 layers do not."""
+    from repro_torch.models import param_count
+    cfg = dataclasses.replace(get_arch("deepseek-67b"), num_layers=16)
+    assert param_count(cfg) == 12_750_954_496
+    mesh = Mesh(("data", "model"), (1, 1))
+    peaks = {}
+    for kind, shape, kw in (("prefill", ShapeConfig("serve_prefill", 1000, 8, "prefill"),
+                             dict(max_len=1032)),
+                            ("decode", ShapeConfig("serve_decode", 1032, 8, "decode"), {})):
+        d = dryrun.run_cell(cfg, shape, mesh, "one", verbose=False, production_only=True,
+                            **kw)
+        mem = d["memory_analysis"]
+        assert mem["argument_size_in_bytes"] >= 2 * param_count(cfg)
+        assert d["production_collectives"]["total_count"] == 0
+        peaks[kind] = dryrun.peak_bytes(mem)
+    assert peaks == {"prefill": 33_408_638_464, "decode": 29_402_218_784}
+    assert max(peaks.values()) <= hw.HBM_BYTES
