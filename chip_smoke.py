@@ -122,18 +122,34 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 launches on wgmma at q/k/v (8, 1000, 32, 80), 32 x 31 = 992 decode
                 launches at q (8, 1, 32, 80), caches (8, 1032, 32, 80), no SSD
                 launch. Freed after.
-6f9. dryrun -- the port's dry-run (repro_torch.launch.dryrun.run_cell, fake
+6f9. serve_llama3_8b, serve_llama2_13b, serve_llama3_70b -- the paper's LLaMA
+                workloads, as serve_nemotron, each freed before the next:
+                llama3-8b whole (8,030,261,248 parameters, 16.1 GB; 32 q on 8 kv
+                heads of 128, rope_theta 500,000, the 128,256-row head): 32
+                flash launches at q (8, 1000, 32, 128), k/v (8, 1000, 8, 128), 992
+                decode at q (8, 1, 32, 128), caches (8, 1032, 8, 128); llama2-13b
+                whole (13,015,864,320, 26.0 GB; MHA of 40 heads of 128): 40 flash
+                at q/k/v (8, 1000, 40, 128), 1,240 decode at caches (8, 1032, 40,
+                128); llama3-70b at full width cut to 16 of 80 layers
+                (15,791,824,896, 31.6 GB; the 80 layers' 141.1 GB do not fit):
+                16 flash and 496 decode at deepseek-67b's shapes. No SSD launch.
+6f10. slice_llama3 -- llama3-8b at full width cut to 2 layers, fp32, CPU
+                against card, as slice_gpt2 (group 4 on the fp32 routes, rope_theta
+                500,000), with its loss and every gradient.
+6f11. dryrun -- the port's dry-run (repro_torch.launch.dryrun.run_cell, fake
                 tensors on a (1, 1) mesh, in a process started after the build
                 and running beside the card's phases): nemotron-4-15b's prefill
-                and decode cells at serve_nemotron's shape, deepseek-67b's decode
-                at the same shape, deepseek-67b cut to serve_deepseek's 16
-                layers, its prefill and decode. Fails unless the fit verdicts
-                agree with the card (nemotron and the cut deepseek fit: they
-                ran; deepseek-67b's 134.9 GB do not) and, for both that ran,
-                predicted / measured peak lies in DRYRUN["peak_band"]
+                and decode cells at serve_nemotron's shape; the prefill and
+                decode of every other dense serve above as it ran (DRYRUN["held"]:
+                deepseek-67b and llama3-70b cut to 16 layers, llama3-8b,
+                llama2-13b); deepseek-67b's and llama3-70b's decode at full depth
+                (DRYRUN["over"]). Fails unless the fit verdicts agree with the
+                card (every config that ran fits; the full deepseek-67b, 134.9
+                GB, and llama3-70b, 141.1 GB, do not) and, for every serve that
+                ran, predicted / measured peak lies in DRYRUN["peak_band"]
                 ([0.95, 1.25]); prints the predicted against the measured
-                peaks and the analysis FLOPs of the prefill against the bound
-                helper's count.
+                peaks and the analysis FLOPs of nemotron's prefill against the
+                bound helper's count.
 6g. slice_encdec -- whisper-small at full width (d_model 768, 12 heads of 64,
                 gelu 3,072, the tied head of 51,968), cut to 2 encoder and 2
                 decoder layers, fp32, CPU against card, weights drawn on the card
@@ -348,6 +364,20 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 1), the collectives of the prefill and every step equal to
                 serve_collectives, times beside encdec_serve_bounds. (b) 2 + 2
                 layers fp32, a self cache of 24, against one unsharded rank.
+7k. train_gpt2_mesh, serve_gpt2_mesh -- the paper's GPT-2 2.7B on (data 2,
+                model 2), weights drawn on the card: its 32 heads of 80 split 16
+                a rank, the gelu MLP by d_ff, the padded vocabulary of 50,432 by
+                rows (rank 1's half holding the 175 pad rows). Train (a): 2 of 32
+                layers, bf16, FSDP and the instant backup, 8 x 1,024 tokens a
+                step split by sequence over "model", 2 steps, held as
+                train_gemma_mesh (a): 8 flash launches a rank on wgmma at q/k/v
+                (4, 1024, 16, 80). (b) 2 layers fp32 against one NCCL rank.
+                Serve (a): full depth, bf16, SERVE's requests, a rank's 4 rows
+                and 516 of the 1,032 positions: 32 flash launches at (4, 1000,
+                16, 80) and 992 of decode's block form at q (4, 1, 32, 80),
+                block (4, 516, 32, 80), the collectives of the prefill and every
+                step equal to serve_collectives. (b) 2 layers fp32 against one
+                unsharded rank.
                 serve_mesh, serve_vlm_mesh and these run as one set of four
                 ranks (``phase_mesh_group``, the mesh_group line) beside one NCCL
                 process that runs their (b) references meanwhile.
@@ -471,7 +501,14 @@ slices and the serve runs come before any phase that opens torch.profiler:
                 against the whole cache; deepseek-67b's flash at q (8, 1000, 64,
                 128), k/v (8, 1000, 8, 128) and decode at q (8, 1, 64, 128),
                 caches (8, 1032, 8, 128), cur_len 1,001 and 1,032, each in both
-                dtypes; the SSD
+                dtypes; llama3-8b's flash at q (8, 1000, 32, 128), k/v (8, 1000,
+                8, 128) and decode at q (8, 1, 32, 128), caches (8, 1032, 8,
+                128), and llama2-13b's at (8, 1000, 40, 128) and caches (8, 1032,
+                40, 128), cur_len 1,001 and 1,032, each in both dtypes; a rank's
+                of gpt2-2.7b on (2, 2): flash at q/k/v (4, 1024, 16, 80) and (4,
+                1000, 16, 80), decode's block form at q (4, 1, 32, 80), block (4,
+                516, 32, 80), cur_len 486 and 516, each in both dtypes, and two
+                such blocks merged against the whole cache; the SSD
                 at a rank's 40 (mamba2) and 56 (zamba2) heads, 4 x 1024, bf16),
                 with the
                 kernel's, the plain version's and (for attention) the library
@@ -496,12 +533,13 @@ phase, ``moe_launches``, ``train_tp_launches``, ``train_moe_mesh_launches``,
 ``train_gemma_mesh_launches``, ``serve_mesh_launches``, ``pipeline_launches``,
 ``vlm_launches``, ``encdec_launches``, ``vlm_mesh_launches``,
 ``encdec_mesh_launches``, ``moe_30b_launches``, ``nemotron_launches``,
-``gpt2_launches`` and ``deepseek_launches`` among them, and its rows at the
+``gpt2_launches``, ``deepseek_launches``, ``llama_launches`` and
+``gpt2_mesh_launches`` among them, and its rows at the
 other shapes, ``tp_shape`` / ``tp_shapes``, ``moe_mesh_shape``,
 ``pipeline_shape``, ``gemma_tp_shape``, ``hd256``, ``vlm_shape``,
 ``encdec_shape``, ``vlm_mesh_shape``, ``encdec_mesh_shape``,
-``moe_30b_shape``, ``nemotron_shape``, ``hd80`` and ``deepseek_shape``
-among them), the
+``moe_30b_shape``, ``nemotron_shape``, ``hd80``, ``deepseek_shape``,
+``llama_shape`` and ``gpt2_mesh_shape`` among them), the
 card's name
 and power
 limit, and last
@@ -615,6 +653,20 @@ DECODE_GPT2_BLOCK = dict(DECODE_GPT2, partial=True)
 # length and the full cache)
 PREFILL_DEEPSEEK = dict(b=8, s=1000, h=64, kh=8, hd=128)
 DECODE_DEEPSEEK = dict(b=8, t=1032, h=64, kh=8, hd=128, cur_lens=(1001, 1032))
+# the paper's LLaMA serves (llama3-70b's are deepseek-67b's shapes): 8
+# prompts of 1,000 tokens, a cache of 1,032; llama3-8b 32 q on 8 kv heads of
+# 128 (group 4), llama2-13b MHA of 40 heads of 128
+PREFILL_LLAMA3_8B = dict(b=8, s=1000, h=32, kh=8, hd=128)
+DECODE_LLAMA3_8B = dict(b=8, t=1032, h=32, kh=8, hd=128, cur_lens=(1001, 1032))
+PREFILL_LLAMA2_13B = dict(b=8, s=1000, h=40, kh=40, hd=128)
+DECODE_LLAMA2_13B = dict(b=8, t=1032, h=40, kh=40, hd=128, cur_lens=(1001, 1032))
+# a rank of gpt2-2.7b on (data 2, model 2): 16 of the 32 heads of 80 over 4
+# rows, the training step's 1,024 positions and the serve's 1,000; decode's
+# block form on its half of the 1,032-position cache (q gathered over
+# "model"): rank 0's block full (516), rank 1's at the first step (486)
+PREFILL_GPT2_MESH_TRAIN = dict(b=4, s=1024, h=16, kh=16, hd=80)
+PREFILL_GPT2_MESH_SERVE = dict(PREFILL_GPT2_MESH_TRAIN, s=1000)
+DECODE_GPT2_MESH_BLOCK = dict(b=4, t=516, h=32, kh=32, hd=80, cur_lens=(486, 516), partial=True)
 SSD_TP = dict(SSD, b=4, h=40, seqs=(1024,))
 SSD_HYBRID_TP = dict(SSD_HYBRID, b=4, h=56, seqs=(1024,))
 SERVE = dict(batch=8, prompt=1000, gen=32)
@@ -685,21 +737,32 @@ VLM_SLICE = dict(layers=2, batch=1, prompt=16, steps=8, tol=SLICE_TOL)
 NEMOTRON_SLICE = dict(arch="nemotron-4-15b", phase="slice_nemotron", layers=2, batch=2,
                       prompt=256, steps=8, loss=False, tol=SLICE_TOL)
 GPT2_SLICE = dict(NEMOTRON_SLICE, arch="gpt2-2.7b", phase="slice_gpt2", loss=True)
+# llama3-8b (1,486,901,248 parameters at 2 layers, 5.9 GB of fp32 a side:
+# group 4 on the fp32 routes, rope_theta 500,000, the 128,256-row head), then
+# its loss and every gradient. llama2-13b's MHA at hd 128 is slice_moe's and
+# llama3-70b's attention is deepseek-67b's shape: no slice of their own
+LLAMA3_SLICE = dict(NEMOTRON_SLICE, arch="llama3-8b", phase="slice_llama3", loss=True)
 # the dense serves (SERVE's requests, bf16, weights drawn on the card): each
 # phase's config and the layers it keeps (None: all). deepseek-67b's 95
 # layers are 134.9 GB of bf16, more than the card holds: 16 of them are
-# 12,750,954,496 parameters, 25.5 GB, full width
+# 12,750,954,496 parameters, 25.5 GB, full width. The paper's LLaMA
+# workloads: llama3-8b (8,030,261,248, 16.1 GB) and llama2-13b
+# (13,015,864,320, 26.0 GB) whole; llama3-70b's 80 layers are 141.1 GB, 16 of
+# them 15,791,824,896 parameters, 31.6 GB
 DENSE_SERVES = {"serve_nemotron": ("nemotron-4-15b", None), "serve_gpt2": ("gpt2-2.7b", None),
-                "serve_deepseek": ("deepseek-67b", 16)}
+                "serve_deepseek": ("deepseek-67b", 16), "serve_llama3_8b": ("llama3-8b", None),
+                "serve_llama2_13b": ("llama2-13b", None), "serve_llama3_70b": ("llama3-70b", 16)}
 # the dry-run's prediction of one card's peak against serve_nemotron's
 # measured one, as predicted / measured in [0.95, 1.25]: below by at most 5 %
 # (the caching allocator rounds every block up to 512 bytes, and cuBLAS takes
 # a workspace that the dry-run's plain forms do not), above by at most 25 %
 # (the plain unembedding's fp32 copy of the head, 6.29 GB, reads 1.159; a
-# count of every storage twice would read 2.32). deepseek-67b cut to
-# serve_deepseek's depth is held to the same band; its 95 layers must not fit
-DRYRUN = dict(arch="nemotron-4-15b", over="deepseek-67b", cut="serve_deepseek",
-              peak_band=(0.95, 1.25))
+# count of every storage twice would read 2.32). The serves of ``held``
+# (their production steps) are held to the same band; the full depth of the
+# configs of ``over`` must not fit
+DRYRUN = dict(arch="nemotron-4-15b",
+              held=("serve_deepseek", "serve_llama3_8b", "serve_llama2_13b", "serve_llama3_70b"),
+              over=("deepseek-67b", "llama3-70b"), peak_band=(0.95, 1.25))
 # the enc-dec slice, card against CPU: whisper-small at full width cut to 2
 # encoder and 2 decoder layers, fp32, 2 clips of 1,500 frames: prefill of a
 # 16-token prompt, 8 decode steps, then the loss of 2 x 33 tokens and every
@@ -966,8 +1029,10 @@ def phase_kernels(torch, F):
     # against 1,500 frames; a rank's of train_encdec_mesh: the encoder's and
     # the cross-attention's of 448 tokens) in both, qwen3-moe-30b-a3b's at
     # group 8 in both, nemotron-4-15b's at group 6 in both, gpt2-2.7b's at
-    # head_dim 80 (the serve's in both, the training step's in bf16) and
-    # deepseek-67b's at group 8 in both
+    # head_dim 80 (the serve's in both, the training step's in bf16),
+    # deepseek-67b's at group 8 (llama3-70b's too), llama3-8b's at group 4 and
+    # llama2-13b's MHA of 40 heads in both, and a rank's of gpt2-2.7b on (2,
+    # 2) (train_gpt2_mesh's, serve_gpt2_mesh's prefill) in both
     for key, dtype, p in (("bfloat16", torch.bfloat16, PREFILL),
                           ("float32", torch.float32, PREFILL),
                           ("bfloat16_train", torch.bfloat16,
@@ -1007,7 +1072,15 @@ def phase_kernels(torch, F):
                           ("float32_gpt2", torch.float32, PREFILL_GPT2),
                           ("bfloat16_gpt2_train", torch.bfloat16, PREFILL_GPT2_TRAIN),
                           ("bfloat16_deepseek", torch.bfloat16, PREFILL_DEEPSEEK),
-                          ("float32_deepseek", torch.float32, PREFILL_DEEPSEEK)):
+                          ("float32_deepseek", torch.float32, PREFILL_DEEPSEEK),
+                          ("bfloat16_llama3_8b", torch.bfloat16, PREFILL_LLAMA3_8B),
+                          ("float32_llama3_8b", torch.float32, PREFILL_LLAMA3_8B),
+                          ("bfloat16_llama2_13b", torch.bfloat16, PREFILL_LLAMA2_13B),
+                          ("float32_llama2_13b", torch.float32, PREFILL_LLAMA2_13B),
+                          ("bfloat16_gpt2_mesh_train", torch.bfloat16, PREFILL_GPT2_MESH_TRAIN),
+                          ("float32_gpt2_mesh_train", torch.float32, PREFILL_GPT2_MESH_TRAIN),
+                          ("bfloat16_gpt2_mesh_serve", torch.bfloat16, PREFILL_GPT2_MESH_SERVE),
+                          ("float32_gpt2_mesh_serve", torch.float32, PREFILL_GPT2_MESH_SERVE)):
         dname = str(dtype).split(".")[-1]
         causal, skv = p.get("causal", True), p.get("skv", p["s"])
         q = rand((p["b"], p["s"], p["h"], p["hd"]), dtype)
@@ -1077,7 +1150,13 @@ def phase_kernels(torch, F):
                              ("_gpt2_block", DECODE_GPT2_BLOCK, torch.bfloat16),
                              ("_gpt2_block", DECODE_GPT2_BLOCK, torch.float32),
                              ("_deepseek", DECODE_DEEPSEEK, torch.bfloat16),
-                             ("_deepseek", DECODE_DEEPSEEK, torch.float32)):
+                             ("_deepseek", DECODE_DEEPSEEK, torch.float32),
+                             ("_llama3_8b", DECODE_LLAMA3_8B, torch.bfloat16),
+                             ("_llama3_8b", DECODE_LLAMA3_8B, torch.float32),
+                             ("_llama2_13b", DECODE_LLAMA2_13B, torch.bfloat16),
+                             ("_llama2_13b", DECODE_LLAMA2_13B, torch.float32),
+                             ("_gpt2_mesh_block", DECODE_GPT2_MESH_BLOCK, torch.bfloat16),
+                             ("_gpt2_mesh_block", DECODE_GPT2_MESH_BLOCK, torch.float32)):
         dname = str(dtype).split(".")[-1]
         partial = d.get("partial", False)
         q = rand((d["b"], 1, d["h"], d["hd"]), dtype)
@@ -1126,9 +1205,13 @@ def phase_kernels(torch, F):
             emit("kernels", **row)
         results["decode_attention"][dname + suffix] = rows
         del q, kc, vc, args
-    results["decode_attention"]["gpt2_merge"] = {
-        dname: decode_block_merge(torch, gen, dtype, DECODE_GPT2)
-        for dname, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32))}
+    # the two halves of a cache merged against the whole: gpt2-2.7b's on one
+    # card, and a model group's of serve_gpt2_mesh (its 4 rows)
+    for key, d in (("gpt2_merge", DECODE_GPT2),
+                   ("gpt2_mesh_merge", dict(DECODE_GPT2, b=DECODE_GPT2_MESH_BLOCK["b"]))):
+        results["decode_attention"][key] = {
+            dname: decode_block_merge(torch, gen, dtype, d)
+            for dname, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32))}
     torch.cuda.empty_cache()
     return results
 
@@ -1155,7 +1238,7 @@ def decode_block_merge(torch, gen, dtype, d: dict) -> dict:
     whole = decode_attn.decode_attention(q, kc, vc, t)[:, 0]
     plain = decode_attention_ref(q, kc, vc, t)[:, 0]
     what = f"decode_attention {dname} hd={hd} two blocks of {half} merged"
-    return dict(shape={k_: v_ for k_, v_ in d.items() if k_ != "cur_lens"}, blocks=[half, half],
+    return dict(shape={k_: d[k_] for k_ in ("b", "t", "h", "kh", "hd")}, blocks=[half, half],
                 vs_kernel=check_close(what + " vs the whole cache (kernel)", merged.to(dtype),
                                       whole, TOL[dname]),
                 vs_plain=check_close(what + " vs the whole cache (plain)", merged, plain,
@@ -2235,6 +2318,18 @@ TRAIN_ENCDEC = dict(arch="whisper-small", smoke=False, layers=None, dtype="bfloa
 TRAIN_ENCDEC_B = dict(TRAIN_ENCDEC, layers=2, dtype="float32", tol=1e-5, grad_tol=2e-4,
                       held=("m",), grad_tol_why="the fp32 gradient tolerance of the training "
                       "slice", timeout_s=300)
+# the paper's GPT-2 2.7B in the sharded step on four gloo ranks sharing the
+# card, weights drawn on the card from a seed: full width (d 2,560, 32 heads
+# of 80, 16 a rank; the gelu MLP split by d_ff; 50,257 words padded to 50,432,
+# the embedding and head split by rows, rank 1's half holding the 175 pad
+# rows), 8 x 1,024 tokens a step split by sequence over "model". (a) (data 2,
+# model 2), bf16, FSDP and the instant backup, 2 steps, cut to 2 of 32 layers
+# (415,511,040 parameters), as train_gemma_mesh (a). (b) fp32, 2 layers, 2
+# steps, against one NCCL rank of the same step
+TRAIN_GPT2 = dict(TRAIN_GEMMA, arch="gpt2-2.7b")
+TRAIN_GPT2_B = dict(TRAIN_GPT2, dtype="float32", tol=1e-5, grad_tol=2e-4, held=("m",),
+                    grad_tol_why="the fp32 gradient tolerance of the training slice",
+                    timeout_s=300)
 
 
 def start_children(jobs: list) -> list:
@@ -3361,6 +3456,15 @@ SERVE_ENCDEC_MESH = dict(SERVE_MESH, arch="whisper-small", layers=None,
                          max_len=ENCDEC_SERVE["prompt"] + ENCDEC_SERVE["gen"])
 SERVE_ENCDEC_MESH_B = dict(SERVE_ENCDEC_MESH, layers=2, dtype="float32", gen=9,
                            max_len=ENCDEC_SERVE["prompt"] + 8, tol=SLICE_TOL, timeout_s=300)
+# the paper's GPT-2 2.7B served on (data 2, model 2): full width and depth,
+# bf16, SERVE's requests; a rank's 4 rows, 16 of the 32 heads and 516 of the
+# 1,032 cache positions (every kv head, the cache split by sequence), so
+# decode's block form at head_dim 80. Each rank draws the whole 5.55 GB model
+# before it keeps its blocks, in turn. (b) 2 layers, fp32, against one
+# unsharded NCCL rank, as serve_mesh (b)
+SERVE_GPT2_MESH = dict(SERVE_MESH, arch="gpt2-2.7b")
+SERVE_GPT2_MESH_B = dict(SERVE_GPT2_MESH, layers=2, dtype="float32", gen=9, tol=SLICE_TOL,
+                         timeout_s=300)
 
 
 def _serve_mesh_model(t: dict, device: str):
@@ -3720,30 +3824,39 @@ def _serve_mesh_b_row(phase: str, recs: list, tb: dict, single_s: float, device:
                 launches_by_rank=[r["launches"] for r in recs])
 
 
+# the train-and-serve pairs of phase_mesh_group: subdirectory -> (the train
+# phase's name, (a), (b), the serve phase's name, (a), (b))
+MESH_PAIRS = {
+    "encdec_mesh": ("train_encdec_mesh", TRAIN_ENCDEC, TRAIN_ENCDEC_B,
+                    "serve_encdec_mesh", SERVE_ENCDEC_MESH, SERVE_ENCDEC_MESH_B),
+    "gpt2_mesh": ("train_gpt2_mesh", TRAIN_GPT2, TRAIN_GPT2_B,
+                  "serve_gpt2_mesh", SERVE_GPT2_MESH, SERVE_GPT2_MESH_B)}
+
+
 def phase_mesh_group(torch, device: str = "cuda") -> dict:
-    """serve_mesh, serve_vlm_mesh and the enc-dec's train and serve on a
-    mesh in one set of four spawned gloo ranks, beside one single-rank NCCL
-    process that runs every (b) reference meanwhile, each phase in its own
-    subdirectory (a rank's (b) part waits for its reference, ``await_part``):
-    one start-up of each, and the references off the ranks' path. Prints
-    each phase's lines (serve_mesh, serve_vlm_mesh, train_encdec_mesh,
-    serve_encdec_mesh and each one's _world1) and a mesh_group line with
-    every part's seconds; returns {phase: row}, the enc-dec's train row with
-    its (b) under "part_b" and its serve's under "serve"."""
+    """serve_mesh, serve_vlm_mesh, and the enc-dec's and gpt2-2.7b's train
+    and serve on a mesh (``MESH_PAIRS``) in one set of four spawned gloo
+    ranks, beside one single-rank NCCL process that runs every (b) reference
+    meanwhile, each phase (a pair: its two) in its own subdirectory (a
+    rank's (b) part waits for its reference, ``await_part``): one start-up
+    of each, and the references off the ranks' path. Prints each phase's
+    lines (serve_mesh, serve_vlm_mesh, train_encdec_mesh, serve_encdec_mesh,
+    train_gpt2_mesh, serve_gpt2_mesh and each one's _world1) and a
+    mesh_group line with every part's seconds; returns {phase: row}, a
+    pair's under its subdirectory: the train row with its (b) under
+    "part_b" and its serve's under "serve"."""
     import os
     import tempfile
     refs = [(serve_single_b, SERVE_MESH_B, "serve_mesh"),
-            (serve_single_b, SERVE_VLM_MESH_B, "serve_vlm_mesh"),
-            (single_part_b, TRAIN_ENCDEC_B, "encdec_mesh"),
-            (serve_single_b, SERVE_ENCDEC_MESH_B, "encdec_mesh")]
+            (serve_single_b, SERVE_VLM_MESH_B, "serve_vlm_mesh")]
     parts = [(serve_mesh_part_a, SERVE_MESH, "serve_mesh"),
              (serve_mesh_part_b, SERVE_MESH_B, "serve_mesh"),
              (serve_mesh_part_a, SERVE_VLM_MESH, "serve_vlm_mesh"),
-             (serve_mesh_part_b, SERVE_VLM_MESH_B, "serve_vlm_mesh"),
-             (tp_part_a, TRAIN_ENCDEC, "encdec_mesh"),
-             (blocks_part_b, TRAIN_ENCDEC_B, "encdec_mesh"),
-             (serve_mesh_part_a, SERVE_ENCDEC_MESH, "encdec_mesh"),
-             (serve_mesh_part_b, SERVE_ENCDEC_MESH_B, "encdec_mesh")]
+             (serve_mesh_part_b, SERVE_VLM_MESH_B, "serve_vlm_mesh")]
+    for sub, (_, ta, tb, _, sa, sb) in MESH_PAIRS.items():
+        refs += [(single_part_b, tb, sub), (serve_single_b, sb, sub)]
+        parts += [(tp_part_a, ta, sub), (blocks_part_b, tb, sub),
+                  (serve_mesh_part_a, sa, sub), (serve_mesh_part_b, sb, sub)]
     world = TRAIN_ENCDEC["world"]
     parent = dict(parent_host_rss_gb=host_rss_gb(), parent_device_reserved_gb=None)
     if device == "cuda":
@@ -3780,21 +3893,23 @@ def phase_mesh_group(torch, device: str = "cuda") -> dict:
                                        secs(phase, serve_single_b), device)
             emit(f"{phase}_world1", **part_b)
             rows[phase] = dict(row, part_b=part_b)
-        sub = "encdec_mesh"
-        train = dict(_train_tp_row("train_encdec_mesh", ranks(sub, "a"), TRAIN_ENCDEC,
-                                   secs(sub, tp_part_a), device), **parent)
-        emit("train_encdec_mesh", **train)
-        train_b = _blocks_b_row("train_encdec_mesh", load(sub, "blocks_b.json"), TRAIN_ENCDEC_B,
-                                secs(sub, single_part_b), device)
-        emit("train_encdec_mesh_world1", **train_b)
-        serve = _serve_mesh_row("serve_encdec_mesh", ranks(sub, "serve_a"), SERVE_ENCDEC_MESH,
-                                secs(sub, serve_mesh_part_a), device)
-        emit("serve_encdec_mesh", **serve)
-        serve_b = _serve_mesh_b_row("serve_encdec_mesh", ranks(sub, "serve_b"),
-                                    SERVE_ENCDEC_MESH_B, secs(sub, serve_single_b), device)
-        emit("serve_encdec_mesh_world1", **serve_b)
-        rows["encdec_mesh"] = dict(train, part_b=train_b, serve=dict(serve, part_b=serve_b))
+        for sub, (train_phase, ta, tb, serve_phase, sa, sb) in MESH_PAIRS.items():
+            train = dict(_train_tp_row(train_phase, ranks(sub, "a"), ta, secs(sub, tp_part_a),
+                                       device), **parent)
+            emit(train_phase, **train)
+            train_b = _blocks_b_row(train_phase, load(sub, "blocks_b.json"), tb,
+                                    secs(sub, single_part_b), device)
+            emit(f"{train_phase}_world1", **train_b)
+            serve = _serve_mesh_row(serve_phase, ranks(sub, "serve_a"), sa,
+                                    secs(sub, serve_mesh_part_a), device)
+            emit(serve_phase, **serve)
+            serve_b = _serve_mesh_b_row(serve_phase, ranks(sub, "serve_b"), sb,
+                                        secs(sub, serve_single_b), device)
+            emit(f"{serve_phase}_world1", **serve_b)
+            rows[sub] = dict(train, part_b=train_b, serve=dict(serve, part_b=serve_b))
         emit("mesh_group", seconds=seconds,
+             phases=["serve_mesh", "serve_vlm_mesh"] + [
+                 name for pair in MESH_PAIRS.values() for name in (pair[0], pair[3])],
              rank0_part_s=[[sub, part.__name__, secs(sub, part)] for part, _, sub in parts],
              reference_part_s=[[sub, part.__name__, secs(sub, part)] for part, _, sub in refs],
              note="one set of four gloo ranks runs every part in turn; one NCCL process runs "
@@ -4921,6 +5036,15 @@ def phase_slice_dense(torch, m: dict):
     return row
 
 
+def dense_serve_cfg(phase: str):
+    """The config a dense serve phase runs: ``DENSE_SERVES[phase]``'s at
+    full width, cut to its layers where it gives them."""
+    from repro_torch.configs import get_arch
+    arch, layers = DENSE_SERVES[phase]
+    full = get_arch(arch)
+    return dataclasses.replace(full, num_layers=layers or full.num_layers)
+
+
 def phase_serve_dense(torch, phase: str):
     """A dense config of ``DENSE_SERVES[phase]`` at full width (and full
     depth, or cut to the given layers), bf16, its weights drawn on the card
@@ -4939,9 +5063,8 @@ def phase_serve_dense(torch, phase: str):
     from repro_torch.models import build_model, param_count
     from repro_torch.train.serve import build_decode_step, build_prefill_step
 
-    arch, layers = DENSE_SERVES[phase]
-    full = get_arch(arch)
-    cfg = dataclasses.replace(full, num_layers=layers or full.num_layers)
+    arch = DENSE_SERVES[phase][0]
+    full, cfg = get_arch(arch), dense_serve_cfg(phase)
     b, prompt, gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
     L, max_len = cfg.num_layers, prompt + gen
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -5009,15 +5132,16 @@ def phase_serve_dense(torch, phase: str):
 
 
 def dryrun_child(path: str) -> None:
-    """The dry-run (``repro_torch.launch.dryrun``) of serve_nemotron's
+    """The dry-run (``repro_torch.launch.dryrun``) of the dense serves'
     cells, in a process of its own beside the card's phases (its fake
     tensors never touch the card): nemotron-4-15b's prefill of SERVE's
     prompts into a cache of prompt + gen positions and its decode step at
-    that cache, each the production step and the analysis probes, and
-    deepseek-67b's decode at the same shape, the production step alone, and
-    deepseek-67b cut to serve_deepseek's layers, its prefill and decode
-    cells, the production steps alone, all on a (1, 1) mesh, which needs no
-    process group. The cells' JSON go to ``path``."""
+    that cache, each the production step and the analysis probes; the
+    prefill and decode of each serve of DRYRUN["held"] (its config as the
+    phase cuts it), the production steps alone; and the decode of each
+    config of DRYRUN["over"] at full depth, the production step alone; all
+    on a (1, 1) mesh, which needs no process group. The cells' JSON go to
+    ``path``."""
     import os
     if os.environ.get("PYTHONPYCACHEPREFIX"):    # bytecode_cache(): spawned with -B
         sys.dont_write_bytecode = False
@@ -5032,16 +5156,17 @@ def dryrun_child(path: str) -> None:
     mesh = Mesh(("data", "model"), (1, 1))
     prefill = ShapeConfig("serve_prefill", prompt, b, "prefill")
     decode = ShapeConfig("serve_decode", prompt + gen, b, "decode")
-    arch, over = get_arch(DRYRUN["arch"]), get_arch(DRYRUN["over"])
-    cut = dataclasses.replace(over, num_layers=DENSE_SERVES[DRYRUN["cut"]][1])
+    arch = get_arch(DRYRUN["arch"])
     cells = {}
     t0 = time.perf_counter()
-    for name, cfg, shape, kw in (
-            ("prefill", arch, prefill, dict(max_len=prompt + gen)),
-            ("decode", arch, decode, {}),
-            ("over", over, decode, dict(production_only=True)),
-            ("cut_prefill", cut, prefill, dict(max_len=prompt + gen, production_only=True)),
-            ("cut_decode", cut, decode, dict(production_only=True))):
+    jobs = [("prefill", arch, prefill, dict(max_len=prompt + gen)), ("decode", arch, decode, {})]
+    jobs += [(f"{phase}_{kind}", dense_serve_cfg(phase), shape, dict(kw, production_only=True))
+             for phase in DRYRUN["held"]
+             for kind, shape, kw in (("prefill", prefill, dict(max_len=prompt + gen)),
+                                     ("decode", decode, {}))]
+    jobs += [(f"over_{name}", get_arch(name), decode, dict(production_only=True))
+             for name in DRYRUN["over"]]
+    for name, cfg, shape, kw in jobs:
         cells[name] = run_cell(cfg, shape, mesh, "one_card", verbose=False, **kw)
     cells["seconds"] = time.perf_counter() - t0
     with open(path + ".tmp", "w") as f:
@@ -5049,19 +5174,20 @@ def dryrun_child(path: str) -> None:
     os.replace(path + ".tmp", path)
 
 
-def phase_dryrun(torch, child, path: str, served: dict, served_cut: dict) -> dict:
+def phase_dryrun(torch, child, path: str, served: dict) -> dict:
     """The dry-run's verdicts held against the card: ``dryrun_child``'s
-    cells (started after the build, waited for here) beside
-    serve_nemotron's and serve_deepseek's measured runs. Fails unless
-    nemotron-4-15b's cells fit one card (it ran), deepseek-67b's decode
-    does not (134.9 GB of bf16 parameters) and deepseek-67b cut to
-    serve_deepseek's layers does (it ran), by the report's rule (peak <=
-    hw.HBM_BYTES), and unless for both configs that ran the predicted peak
+    cells (started after the build, waited for here) beside the measured
+    runs of serve_nemotron and of each serve of DRYRUN["held"] (``served``:
+    {phase: row}). Fails unless every config that ran on the card fits one
+    card and no config of DRYRUN["over"] does at full depth (its
+    parameters alone exceed it), by the report's rule (peak <=
+    hw.HBM_BYTES), and unless for every serve that ran the predicted peak
     (the larger of the prefill's and the decode's, of the plain forms) over
-    the measured serve's own peak lies in DRYRUN["peak_band"]. Prints the analysis FLOPs of the prefill
-    against ``serve_prefill_flops``'s count: dense attention computes every
-    (q, k) pair where the causal count takes s(s+1)/2, and the bound counts
-    the norms' weights as weights of products."""
+    the measured serve's own peak lies in DRYRUN["peak_band"]. Prints the
+    analysis FLOPs of nemotron's prefill against ``serve_prefill_flops``'s
+    count: dense attention computes every (q, k) pair where the causal
+    count takes s(s+1)/2, and the bound counts the norms' weights as
+    weights of products."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.dryrun import peak_bytes
     from repro_torch.models import param_count
@@ -5070,51 +5196,57 @@ def phase_dryrun(torch, child, path: str, served: dict, served_cut: dict) -> dic
     wait_children(*child)
     with open(path) as f:
         cells = json.load(f)
-    pre, dec, over = cells["prefill"], cells["decode"], cells["over"]
-    predicted = max(pre["peak_memory_per_device"], dec["peak_memory_per_device"])
-    measured = served["serve_peak_mem_bytes"]
-    over_peak = peak_bytes(over["memory_analysis"])
-    cut_peaks = {kind: peak_bytes(cells[f"cut_{kind}"]["memory_analysis"])
-                 for kind in ("prefill", "decode")}
-    cut_predicted, cut_measured = max(cut_peaks.values()), served_cut["serve_peak_mem_bytes"]
-    cut = f"{DRYRUN['over']} ({DENSE_SERVES[DRYRUN['cut']][1]} layers)"
-    fits = {DRYRUN["arch"]: bool(pre["fits_hbm"] and dec["fits_hbm"]),
-            DRYRUN["over"]: over_peak <= hw.HBM_BYTES, cut: cut_predicted <= hw.HBM_BYTES}
-    if fits != {DRYRUN["arch"]: True, DRYRUN["over"]: False, cut: True}:
-        fail(f"dryrun: fit verdicts {fits}; {DRYRUN['arch']} and {cut} ran on the card, "
-             f"{DRYRUN['over']}'s parameters alone exceed it")
+    pre, dec = cells["prefill"], cells["decode"]
+    peaks = {"serve_nemotron": {"prefill": pre["peak_memory_per_device"],
+                                "decode": dec["peak_memory_per_device"]}}
+    peaks.update({phase: {kind: peak_bytes(cells[f"{phase}_{kind}"]["memory_analysis"])
+                          for kind in ("prefill", "decode")} for phase in DRYRUN["held"]})
+    over_peaks = {name: peak_bytes(cells[f"over_{name}"]["memory_analysis"])
+                  for name in DRYRUN["over"]}
     lo, hi = DRYRUN["peak_band"]
-    for name, p_, m_ in ((DRYRUN["arch"], predicted, measured),
-                         (cut, cut_predicted, cut_measured)):
-        if not lo <= p_ / m_ <= hi:
-            fail(f"dryrun: {name}'s predicted peak {p_ / 1e9:.3f} GB, measured "
-                 f"{m_ / 1e9:.3f} GB: predicted / measured outside [{lo}, {hi}]")
+    fits, bad, held = {}, [], {}
+    for phase, by_kind in peaks.items():
+        cfg = dense_serve_cfg(phase)
+        depth = get_arch(cfg.name).num_layers
+        name = cfg.name if cfg.num_layers == depth else f"{cfg.name} ({cfg.num_layers} layers)"
+        predicted, measured = max(by_kind.values()), served[phase]["serve_peak_mem_bytes"]
+        fits[name] = predicted <= hw.HBM_BYTES       # the report's rule (fits_hbm)
+        if not lo <= predicted / measured <= hi:
+            bad.append(f"{name}'s predicted peak {predicted / 1e9:.3f} GB, measured "
+                       f"{measured / 1e9:.3f} GB: predicted / measured outside [{lo}, {hi}]")
+        held[phase] = dict(config=f"{name} at {phase}'s shape"
+                                  + ("" if phase == "serve_nemotron" else ", production steps"),
+                           predicted_peak_gb={k: v / 1e9 for k, v in by_kind.items()},
+                           predicted_peak_bytes=by_kind, measured_serve_peak_gb=measured / 1e9,
+                           predicted_over_measured=predicted / measured)
+    fits.update({name: peak <= hw.HBM_BYTES for name, peak in over_peaks.items()})
+    want = dict.fromkeys(fits, True) | dict.fromkeys(DRYRUN["over"], False)
+    if fits != want:
+        bad.append(f"fit verdicts {fits}; expected {want}: the first ran on the card, "
+                   f"{', '.join(DRYRUN['over'])}'s parameters alone exceed it")
+    if bad:
+        fail("dryrun: " + "; ".join(bad))
     cfg = get_arch(DRYRUN["arch"])
     b, prompt = SERVE["batch"], SERVE["prompt"]
     L, h, hd, d = cfg.num_layers, cfg.num_heads, cfg.resolved_head_dim, cfg.d_model
     bound_flops = serve_prefill_flops(cfg, param_count(cfg), b, prompt)
     upper = L * 2 * b * h * hd * prompt * (prompt - 1)       # pairs above the diagonal
     norms = 2 * (2 * L * d + d) * b * prompt                  # ln1, ln2, final_norm
-    want = bound_flops + upper - norms
-    flops_rel_err = abs(pre["flops_per_device"] - want) / want
+    want_flops = bound_flops + upper - norms
+    flops_rel_err = abs(pre["flops_per_device"] - want_flops) / want_flops
     if flops_rel_err > 1e-6:
         fail(f"dryrun: analysis FLOPs {pre['flops_per_device']:.6e}, the bound's count "
-             f"with dense attention and without the norms {want:.6e}")
-    row = dict(config=f"{DRYRUN['arch']} serve cells on a (1, 1) mesh, fake tensors "
+             f"with dense attention and without the norms {want_flops:.6e}")
+    row = dict(config="the dense serves' cells on a (1, 1) mesh, fake tensors "
                       "(repro_torch.launch.dryrun.run_cell)",
-               predicted_peak_gb=dict(prefill=pre["peak_memory_per_device"] / 1e9,
-                                      decode=dec["peak_memory_per_device"] / 1e9),
-               measured_serve_peak_gb=measured / 1e9,
-               predicted_over_measured=predicted / measured, peak_band=DRYRUN["peak_band"],
-               cut=dict(config=f"{cut} at serve_deepseek's shape, production steps",
-                        predicted_peak_gb={k: v / 1e9 for k, v in cut_peaks.items()},
-                        predicted_peak_bytes=cut_peaks, measured_serve_peak_gb=cut_measured / 1e9,
-                        predicted_over_measured=cut_predicted / cut_measured,
-                        memory_analysis={k: cells[f"cut_{k}"]["memory_analysis"]
-                                         for k in cut_peaks}),
+               held=held, peak_band=DRYRUN["peak_band"],
                memory_analysis=dict(prefill=pre["memory_analysis"],
                                     decode=dec["memory_analysis"]),
-               fits_hbm=fits, over_peak_gb=over_peak / 1e9, hbm_gb=hw.HBM_BYTES / 1e9,
+               held_memory_analysis={
+                   f"{phase}_{kind}": cells[f"{phase}_{kind}"]["memory_analysis"]
+                   for phase in DRYRUN["held"] for kind in ("prefill", "decode")},
+               fits_hbm=fits, over_peak_gb={k: v / 1e9 for k, v in over_peaks.items()},
+               hbm_gb=hw.HBM_BYTES / 1e9,
                analysis_prefill_flops=pre["flops_per_device"],
                bound_prefill_flops=bound_flops, dense_upper_triangle_flops=upper,
                norm_weight_flops=norms, flops_rel_err=flops_rel_err,
@@ -5123,10 +5255,8 @@ def phase_dryrun(torch, child, path: str, served: dict, served_cut: dict) -> dic
                              decode={k: dec[k] for k in ("compute_s", "memory_s",
                                                         "bottleneck")}),
                recompute=pre["recompute"], child_s=cells["seconds"],
-               production_step_s=dict(prefill=pre["compile_s"], decode=dec["compile_s"],
-                                      over=over["compile_s"],
-                                      cut_prefill=cells["cut_prefill"]["compile_s"],
-                                      cut_decode=cells["cut_decode"]["compile_s"]))
+               production_step_s={k: c["compile_s"] for k, c in cells.items()
+                                  if k != "seconds"})
     emit("dryrun", **row)
     return row
 
@@ -5554,7 +5684,14 @@ def main() -> int:
     # the paper's GPT-2 2.7B: head_dim 80 on both attention kernels
     timed("slice_gpt2", phase_slice_dense, torch, GPT2_SLICE)
     serve_gpt2 = timed("serve_gpt2", phase_serve_dense, torch, "serve_gpt2")
-    timed("dryrun", phase_dryrun, torch, dry_child, dry_path, serve_nemotron, serve_deepseek)
+    # the paper's LLaMA workloads, each freed before the next: llama3-8b (16.1
+    # GB of bf16), llama2-13b (26.0 GB and a 6.76 GB cache), llama3-70b cut to
+    # 16 of 80 layers (31.6 GB); then llama3-8b's 2-layer fp32 slice
+    serve_llama = {phase: timed(phase, phase_serve_dense, torch, phase)
+                   for phase in ("serve_llama3_8b", "serve_llama2_13b", "serve_llama3_70b")}
+    timed("slice_llama3", phase_slice_dense, torch, LLAMA3_SLICE)
+    timed("dryrun", phase_dryrun, torch, dry_child, dry_path,
+          dict(serve_llama, serve_nemotron=serve_nemotron, serve_deepseek=serve_deepseek))
     dry_dir.cleanup()
     with contextlib.ExitStack() as stack:
         tmp = {phase: stack.enter_context(tempfile.TemporaryDirectory(
@@ -5572,6 +5709,8 @@ def main() -> int:
     serve_mesh, serve_vlm_mesh = group["serve_mesh"], group["serve_vlm_mesh"]
     encdec_mesh = group["encdec_mesh"]
     serve_encdec_mesh = encdec_mesh["serve"]
+    gpt2_mesh = group["gpt2_mesh"]
+    serve_gpt2_mesh = gpt2_mesh["serve"]
     pipeline = timed("pipeline", phase_pipeline, torch)
     scenarios = timed("scenarios", phase_scenarios, torch)
     train_ssm = timed("train_ssm", phase_train_ssm, torch)
@@ -5688,6 +5827,19 @@ def main() -> int:
              deepseek_launches=serve_deepseek["launches"]["flash_attention"],
              deepseek_shape={d: moe_shape(kernels["flash_attention"][f"{d}_deepseek"])
                              for d in ("bfloat16", "float32")},
+             llama_launches={phase: row["launches"]["flash_attention"]
+                             for phase, row in serve_llama.items()},
+             llama_shape={f"{d}_{m}": moe_shape(kernels["flash_attention"][f"{d}_{m}"])
+                          for d in ("bfloat16", "float32") for m in ("llama3_8b", "llama2_13b")},
+             llama3_70b_shape="deepseek_shape's",
+             gpt2_mesh_launches=dict(
+                 train_a=gpt2_mesh["flash_launches"],
+                 train_b_rank0=gpt2_mesh["part_b"]["launches"]["flash_routes"],
+                 serve_a=serve_gpt2_mesh["launches_per_rank"]["flash_attention"],
+                 serve_b=serve_gpt2_mesh["part_b"]["launches_per_rank"]["flash_attention"]),
+             gpt2_mesh_shape={f"{d}_{part}": moe_shape(kernels["flash_attention"][
+                                  f"{d}_gpt2_mesh_{part}"])
+                              for d in ("bfloat16", "float32") for part in ("train", "serve")},
              backward="plain blockwise_attention recompute (FlashAttention), no kernel"),
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attn.cu",
@@ -5769,6 +5921,22 @@ def main() -> int:
              deepseek_shape={f"{d}_{row['cur_len']}": moe_shape(row)
                              for d in ("bfloat16", "float32")
                              for row in kernels["decode_attention"][f"{d}_deepseek"]},
+             llama_launches={phase: row["launches"]["decode_attention"]
+                             for phase, row in serve_llama.items()},
+             llama_shape={f"{d}_{m}_{row['cur_len']}": moe_shape(row)
+                          for d in ("bfloat16", "float32") for m in ("llama3_8b", "llama2_13b")
+                          for row in kernels["decode_attention"][f"{d}_{m}"]},
+             llama3_70b_shape="deepseek_shape's",
+             gpt2_mesh_launches=dict(
+                 a=serve_gpt2_mesh["launches_per_rank"]["decode_attention"],
+                 b=serve_gpt2_mesh["part_b"]["launches_per_rank"]["decode_attention"],
+                 train_a=gpt2_mesh["decode_launches"],
+                 note="a rank's, block form on its 516 of 1,032 positions at head_dim 80, "
+                      "every layer and decode step"),
+             gpt2_mesh_shape={f"{d}_block_{row['cur_len']}": moe_shape(row)
+                              for d in ("bfloat16", "float32")
+                              for row in kernels["decode_attention"][f"{d}_gpt2_mesh_block"]},
+             gpt2_mesh_two_blocks_merged=kernels["decode_attention"]["gpt2_mesh_merge"],
              head_dims="16, 32, 64, 80 and 112 (on 128's lanes), 128, 256 (two loads a lane "
                        "in fp32)",
              groups="1, 2, 4, 6, 8 q heads per kv head"),
@@ -5812,6 +5980,10 @@ def main() -> int:
              gpt2_launches=dict(serve=serve_gpt2["launches"]["ssd"],
                                 train=train_gpt2["launches"]["ssd"]),
              deepseek_launches=serve_deepseek["launches"]["ssd"],
+             llama_launches={phase: row["launches"]["ssd"] for phase, row in serve_llama.items()},
+             gpt2_mesh_launches=dict(
+                 train_a=gpt2_mesh["ssd_launches"],
+                 serve_a=[x["ssd"] for x in serve_gpt2_mesh["launches_by_rank"]]),
              tp_shapes={model: {k_: ssd_rows[(f"{model}/tp2", 1024, "bfloat16")][k_]
                                 for k_ in keys}
                         for model in ("mamba2-2.7b", "zamba2-7b")},

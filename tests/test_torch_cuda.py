@@ -1041,6 +1041,137 @@ def test_decode_at_the_deepseek_67b_serve_shape(cuda, cur_len, dtype):
                                **_tol(dtype))
 
 
+# the paper's LLaMA serves (8 prompts of 1,000 tokens, a cache of 1,032):
+# llama3-8b's 32 q heads on 8 kv heads of 128 (group 4), llama2-13b's MHA of
+# 40 heads of 128; llama3-70b's are deepseek-67b's shapes
+LLAMA_HEADS = {"llama3_8b": (32, 8), "llama2_13b": (40, 40)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", sorted(LLAMA_HEADS))
+def test_flash_at_the_llama_serve_shapes(cuda, arch, dtype):
+    """The prefill's attention, q (8, 1000, H, 128) against k/v (8, 1000,
+    K, 128), causal, on the wrapper's route for the dtype. Each kv head's
+    values carry their own offset, so that a q head reading another group's
+    kv head shows."""
+    h, kh = LLAMA_HEADS[arch]
+    g = torch.Generator(device=cuda).manual_seed(60)
+    q = _rand(g, (8, 1000, h, 128), dtype, cuda)
+    k = _rand(g, (8, 1000, kh, 128), dtype, cuda)
+    v = (_rand(g, (8, 1000, kh, 128), torch.float32, cuda)
+         + torch.arange(kh, device=cuda, dtype=torch.float32)[:, None]).to(dtype)
+    route = "wgmma" if dtype == torch.bfloat16 else "fp32"
+    routed = flash_attention.flash_attention.routes[route]
+    out = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.routes[route] == routed + 1
+    ref = ops.flash_attention_plain(q, k, v, causal=True)
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               **_tol(dtype))
+
+
+@pytest.mark.parametrize("partial", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cur_len", [1001, 1032])
+@pytest.mark.parametrize("arch", sorted(LLAMA_HEADS))
+def test_decode_at_the_llama_serve_shapes(cuda, arch, cur_len, dtype, partial):
+    """A decode step's attention, q (8, 1, H, 128) against caches (8, 1032,
+    K, 128) at the first and last step's length, in both forms, split as
+    the planner says for the group."""
+    h, kh = LLAMA_HEADS[arch]
+    g = torch.Generator(device=cuda).manual_seed(61)
+    q = _rand(g, (8, 1, h, 128), dtype, cuda)
+    kc = _rand(g, (8, 1032, kh, 128), dtype, cuda)
+    vc = (_rand(g, (8, 1032, kh, 128), torch.float32, cuda)
+          + torch.arange(kh, device=cuda, dtype=torch.float32)[:, None]).to(dtype)
+    before = decode_attn.decode_attention.launches
+    out = decode_attn.decode_attention(q, kc, vc, cur_len, partial=partial)
+    torch.cuda.synchronize()
+    assert decode_attn.decode_attention.launches == before + 1
+    sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    step = decode_attn.rows_per_step(128, q.element_size(), h // kh)
+    assert decode_attn.decode_attention.last_split == decode_attn.plan_splits(
+        cur_len, 8, kh, sm, step)
+    ref = decode_attention_ref(q, kc, vc, cur_len, partial=partial)
+    if partial:
+        assert out[0].dtype == torch.float32 and out[1].shape == (8, h)
+        for got, want in zip(out, ref):
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **_tol(dtype))
+    else:
+        np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                                   **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_hd80_at_a_gpt2_mesh_rank(cuda, dtype):
+    """A rank's attention in gpt2-2.7b's sharded step on (data 2, model 2):
+    its 16 of the 32 heads of 80 over 4 rows of 1,024 positions (gathered
+    over "model"), causal; the forward on the kernel and the gradient into
+    q, k and v under ``FlashAttention`` against autograd through the plain
+    version. Each head's values carry their own offset."""
+    g = torch.Generator(device=cuda).manual_seed(62)
+    b, s, h, hd = 4, 1024, 16, 80
+    q = _rand(g, (b, s, h, hd), dtype, cuda).requires_grad_()
+    k = _rand(g, (b, s, h, hd), dtype, cuda).requires_grad_()
+    v = (_rand(g, (b, s, h, hd), torch.float32, cuda)
+         + torch.arange(h, device=cuda, dtype=torch.float32)[:, None]).to(dtype).requires_grad_()
+    dout = _rand(g, (b, s, h, hd), dtype, cuda)
+    route = "wgmma" if dtype == torch.bfloat16 else "fp32"
+    routed = flash_attention.flash_attention.routes[route]
+    out = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.routes[route] == routed + 1
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    ref = ops.flash_attention_plain(q, k, v, causal=True)
+    ref_grads = torch.autograd.grad(ref, (q, k, v), dout)
+    assert out.shape == q.shape and out.dtype == dtype
+    for got, want in zip((out,) + grads, (ref,) + ref_grads):
+        np.testing.assert_allclose(got.detach().float().cpu().numpy(),
+                                   want.detach().float().cpu().numpy(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_hd80_blocks_of_a_gpt2_mesh_rank(cuda, dtype):
+    """Decode's block form at head_dim 80 on a rank's block of gpt2-2.7b's
+    cache on (data 2, model 2): q (4, 1, 32, 80) gathered over "model",
+    blocks (4, 516, 32, 80) of the 1,032 positions, rank 0's full (516)
+    and rank 1's at the first decode step (486). Each block's o and lse
+    against its plain version, split as the planner says; the two merged
+    (``merge_partials``) against the whole cache at 1,002 positions, on the
+    kernel and on the plain version."""
+    from repro_torch.models.attention import merge_partials
+    g = torch.Generator(device=cuda).manual_seed(63)
+    b, t, h, hd = 4, 516, 32, 80
+    q = _rand(g, (b, 1, h, hd), dtype, cuda)
+    kc = _rand(g, (b, 2 * t, h, hd), dtype, cuda)
+    vc = (_rand(g, (b, 2 * t, h, hd), torch.float32, cuda)
+          + torch.arange(h, device=cuda, dtype=torch.float32)[:, None]).to(dtype)
+    sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    step = decode_attn.rows_per_step(hd, q.element_size(), 1)
+    parts = []
+    for i, cur_len in enumerate((t, 486)):
+        block = slice(i * t, (i + 1) * t)
+        kb, vb = kc[:, block].contiguous(), vc[:, block].contiguous()
+        before = decode_attn.decode_attention.launches
+        out = ops.decode_attention_partial(q, kb, vb, cur_len)
+        torch.cuda.synchronize()
+        assert decode_attn.decode_attention.launches == before + 1
+        assert decode_attn.decode_attention.last_split == decode_attn.plan_splits(
+            cur_len, b, h, sm, step)
+        ref = decode_attention_ref(q, kb, vb, cur_len, partial=True)
+        assert out[0].dtype == torch.float32 and out[1].shape == (b, h)
+        for got, want in zip(out, ref):
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **_tol(dtype))
+        parts.append(out)
+    merged = merge_partials(torch.stack([o[:, 0] for o, _ in parts]),
+                            torch.stack([lse for _, lse in parts]))
+    whole = ops.decode_attention(q, kc, vc, t + 486)
+    np.testing.assert_allclose(merged.to(dtype).float().cpu().numpy(),
+                               whole[:, 0].float().cpu().numpy(), **_tol(dtype))
+    np.testing.assert_allclose(merged.cpu().numpy(), decode_attention_ref(
+        q, kc, vc, t + 486)[:, 0].float().cpu().numpy(), **_tol(dtype))
+
+
 def test_analysis_mode_on_the_card_raises(cuda):
     """A smoke model on the card under analysis mode raises at its first
     kernel call site (the plain forms are taken on CPU tensors only), and

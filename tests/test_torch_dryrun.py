@@ -459,3 +459,41 @@ def test_deepseek_67b_cut_to_16_layers_fits_one_card():
         peaks[kind] = dryrun.peak_bytes(mem)
     assert peaks == {"prefill": 33_408_638_464, "decode": 29_402_218_784}
     assert max(peaks.values()) <= hw.HBM_BYTES
+
+
+@pytest.mark.parametrize("arch, layers, params, want", [
+    ("llama3-8b", None, 8_030_261_248, {"prefill": 20_842_397_184, "decode": 19_248_365_856}),
+    ("llama2-13b", None, 13_015_864_320,
+     {"prefill": 37_378_500_096, "decode": 33_451_755_808}),
+    ("llama3-70b", 16, 15_791_824_896, {"prefill": 39_490_379_264, "decode": 36_332_036_384})])
+def test_the_paper_llama_serves_fit_one_card(arch, layers, params, want):
+    """The paper's LLaMA serves as the card runs them (``serve_llama3_8b``,
+    ``serve_llama2_13b``, ``serve_llama3_70b``: llama3-70b at full width cut
+    to 16 of 80 layers), the cells the ``dryrun`` phase holds against their
+    measured peaks: the prefill of 8 x 1,000 tokens into a cache of 1,032
+    and the decode step at that cache, production steps on a (1, 1) mesh.
+    The predicted peaks are pinned; each fits one card."""
+    from repro_torch.models import param_count
+    cfg = get_arch(arch)
+    cfg = dataclasses.replace(cfg, num_layers=layers or cfg.num_layers)
+    assert param_count(cfg) == params
+    mesh = Mesh(("data", "model"), (1, 1))
+    peaks = {}
+    for kind, shape, kw in (("prefill", ShapeConfig("serve_prefill", 1000, 8, "prefill"),
+                             dict(max_len=1032)),
+                            ("decode", ShapeConfig("serve_decode", 1032, 8, "decode"), {})):
+        d = dryrun.run_cell(cfg, shape, mesh, "one", verbose=False, production_only=True,
+                            **kw)
+        assert dryrun.peak_bytes(d["memory_analysis"]) >= 2 * params
+        peaks[kind] = dryrun.peak_bytes(d["memory_analysis"])
+    assert peaks == want
+    assert max(peaks.values()) <= hw.HBM_BYTES
+
+
+def test_llama3_70b_at_full_depth_does_not_fit_one_card():
+    """llama3-70b's 80 layers (141.1 GB of bf16 parameters) at the serves'
+    decode shape: the predicted peak, pinned, is above the card's 80 GB."""
+    d = dryrun.run_cell(get_arch("llama3-70b"), ShapeConfig("serve_decode", 1032, 8, "decode"),
+                        Mesh(("data", "model"), (1, 1)), "one", verbose=False,
+                        production_only=True)
+    assert dryrun.peak_bytes(d["memory_analysis"]) == 148_020_060_448 > hw.HBM_BYTES
